@@ -1,0 +1,390 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one card and hold every
+kernel against its plain PyTorch version.
+
+    python3 chip_smoke.py [--rows 10000000] [--index-rows 1000000] [--seed 0]
+
+Run from the repository root on a machine with an sm_90 (Hopper) card and
+the CUDA toolkit; the kernels are built from ``kart_tpu_torch/csrc`` on
+first use. Phases:
+
+0. card name and power limit; refuse anything but compute capability 9.0
+1. build the kernels (one nvcc per source, in parallel)
+2. generate a base and an edited int-pk version from ``--seed`` (1%
+   updates rotating the flipped oid word, 0.1% deletes, 0.1% inserts
+   interleaved and past the max pk; point envelopes, small boxes,
+   anti-meridian boxes, NaN rows, moved envelopes), write both as KCOL1
+   sidecars and mmap them back; write a feature_envelopes.db
+3-5. the main path, with the launch counters zeroed before and read after:
+   classify_changed and feature_count (K1), feature_count under a
+   non-wrapping and a wrapping rect (K2), bbox_intersects twice through the
+   resident cache and envelope_prepass on the index (K3)
+   ... then every kernel's output against its plain version on the card
+   (bit-identical) and the counts against the generated truth
+6. timings (CUDA events, after warm-up) beside each kernel's bound
+7. the ``kernels`` JSON line, the card line, and the result line
+
+Any failed check exits non-zero without the result line.
+"""
+
+import argparse
+import json
+import os
+import sqlite3
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from kart_tpu_torch import runtime
+from kart_tpu_torch.diff.backend import envelope_scan, envelope_scan_plain
+from kart_tpu_torch.diff.engine import classify_changed, feature_count, prefilter_rect
+from kart_tpu_torch.diff.sidecar import load_block_file, save_sidecar_file
+from kart_tpu_torch.ops import _build
+from kart_tpu_torch.ops import bbox as bbox_ops
+from kart_tpu_torch.ops.blocks import block_tensors, to_device
+from kart_tpu_torch.ops.diff_kernel import classify, classify_plain
+from kart_tpu_torch.ops.envelope_codec import EnvelopeCodec
+from kart_tpu_torch.spatial_filter import PREPASS_PAD, envelope_prepass
+from kart_tpu_torch.spatial_filter.index import DB_NAME, EnvelopeIndexReader
+
+#: H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
+#: non-tensor-core f32 rate, used for every bound below
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+#: filter rects (f64 bounds that are not f32-representable), and the
+#: anti-meridian-wrapping one
+RECT_PLAIN = (-73.123456789, -33.3333333333, 151.2222222222, 61.7777777777)
+RECT_WRAP = (170.0, -60.0, -170.0, 60.0)
+BBOX_QUERY = (-30.3, -20.7, 60.1, 40.9)
+PREPASS_WSEN = "-30.3,-20.7,60.1,40.9"
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout
+    return out.strip().splitlines()[0]
+
+
+# --- data -------------------------------------------------------------------
+
+def make_envelopes(rng, n, n_nan=0):
+    """Point envelopes over the world, 1% small boxes, 0.01% boxes wrapping
+    the anti-meridian, ``n_nan`` NaN rows."""
+    lon = rng.uniform(-180, 180, n)
+    lat = rng.uniform(-90, 90, n)
+    env = np.stack([lon, lat, lon, lat], axis=1)
+    box = rng.random(n) < 0.01
+    env[box, 2] += rng.uniform(0, 0.5, box.sum())
+    env[box, 3] += rng.uniform(0, 0.5, box.sum())
+    wrap = rng.random(n) < 0.0001
+    env[wrap, 0] = rng.uniform(179, 180, wrap.sum())
+    env[wrap, 2] = rng.uniform(-180, -179, wrap.sum())
+    if n_nan:
+        env[rng.choice(n, n_nan, replace=False)] = np.nan
+    return env.astype(np.float32)
+
+
+def make_versions(rng, n):
+    """Base and edited (keys, oids, envelopes), plus the changed keys."""
+    pks = np.cumsum(rng.integers(1, 4, n)).astype(np.int64) + 1000
+    oids = rng.integers(0, 2**32, size=(n, 5), dtype=np.uint32)
+    env = make_envelopes(rng, n, n_nan=7)
+    n_upd, n_del, n_ins = n // 100, n // 1000, n // 1000
+    rows = rng.permutation(n)
+    upd = np.sort(rows[:n_upd])
+    dele = np.sort(rows[n_upd : n_upd + n_del])
+    oids2 = oids.copy()
+    oids2[upd, np.arange(n_upd) % 5] ^= rng.integers(1, 2**32, n_upd, dtype=np.uint32)
+    env2 = env.copy()
+    moved = upd[: n_upd // 2]
+    env2[moved] = make_envelopes(rng, len(moved))
+    keep = np.ones(n, dtype=bool)
+    keep[dele] = False
+    free = np.flatnonzero(np.diff(pks) > 1)
+    inter = pks[rng.choice(free, n_ins // 2, replace=False)] + 1
+    beyond = pks[-1] + 1 + 7 * np.arange(n_ins - n_ins // 2, dtype=np.int64)
+    ins = np.concatenate([inter, beyond])
+    keys2 = np.concatenate([pks[keep], ins])
+    oids2 = np.concatenate([oids2[keep], rng.integers(0, 2**32, size=(n_ins, 5), dtype=np.uint32)])
+    env2 = np.concatenate([env2[keep], make_envelopes(rng, n_ins)])
+    truth = {"upd": pks[upd], "del": pks[dele], "ins": np.sort(ins)}
+    return (pks, oids, env), (keys2, oids2, env2), truth
+
+
+def write_index(rng, gitdir, n):
+    """A feature_envelopes.db of ``n`` random blob oids -> packed envelopes."""
+    w = rng.uniform(-180, 180, n)
+    s = rng.uniform(-90, 90, n)
+    env = np.stack([w, s, np.minimum(w + rng.uniform(0, 2, n), 180),
+                    np.minimum(s + rng.uniform(0, 2, n), 90)], axis=1)
+    wrap = rng.random(n) < 0.001
+    env[wrap, 0] = rng.uniform(179, 180, wrap.sum())
+    env[wrap, 2] = rng.uniform(-180, -179, wrap.sum())
+    packed = EnvelopeCodec().encode_batch(env)
+    oids = rng.integers(0, 256, size=(n, 20), dtype=np.uint8)
+    con = sqlite3.connect(os.path.join(gitdir, DB_NAME))
+    try:
+        con.execute("CREATE TABLE feature_envelopes (blob_id BLOB PRIMARY KEY, "
+                    "envelope BLOB NOT NULL) WITHOUT ROWID")
+        con.executemany("INSERT OR REPLACE INTO feature_envelopes VALUES (?, ?)",
+                        zip(map(bytes, oids), map(bytes, packed)))
+        con.commit()
+    finally:
+        con.close()
+
+
+# --- timing -----------------------------------------------------------------
+
+def time_ms(fn, batches=5, per_batch=10, warmup=3):
+    """Median over ``batches`` of the mean per-call time of ``per_batch``
+    back-to-back calls, by CUDA events on the current stream."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(per_batch):
+            fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / per_batch)
+    return statistics.median(out)
+
+
+def bound(bytes_moved, ops):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mismatches(a, b):
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item()) if a.numel() else 0
+
+
+# --- main -------------------------------------------------------------------
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rows", type=int, default=10_000_000)
+    ap.add_argument("--index-rows", type=int, default=1_000_000)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("FAIL: CUDA is not available", file=sys.stderr)
+        return 1
+    dev = runtime.resolve_device(None)
+    card = card_line()
+    name = torch.cuda.get_device_name(0)
+    print(f"[0] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    cap = torch.cuda.get_device_capability(0)
+    check(tuple(cap) == runtime.SUPPORTED_CAPABILITY, f"compute capability {cap}, need (9, 0)")
+
+    t0 = time.perf_counter()
+    build_dir, logs = _build.build_all()
+    print(f"[1] built {sorted(logs)} in {time.perf_counter() - t0:.2f} s into {build_dir}")
+    for k, log in sorted(logs.items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    {k}: {line.strip()}")
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed)
+    (k1, o1, e1), (k2, o2, e2), truth = make_versions(rng, args.rows)
+    tmp = tempfile.TemporaryDirectory(prefix="kart_smoke_")
+    f_old = save_sidecar_file(os.path.join(tmp.name, "old.kcol"), k1, o1.view(np.uint8), e1)
+    f_new = save_sidecar_file(os.path.join(tmp.name, "new.kcol"), k2, o2.view(np.uint8), e2)
+    del k1, o1, e1, k2, o2, e2
+    old, new = load_block_file(f_old), load_block_file(f_new)
+    write_index(rng, tmp.name, args.index_rows)
+    want = {"inserts": len(truth["ins"]), "updates": len(truth["upd"]),
+            "deletes": len(truth["del"])}
+    print(f"[2] data: {old.count} / {new.count} rows, truth {want}, "
+          f"{args.index_rows} index rows, {time.perf_counter() - t0:.2f} s")
+
+    # ---- the main path, counted ----
+    wall = {}
+
+    def timed(label, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall[label] = time.perf_counter() - t
+        return out
+
+    runtime.reset_stats()
+    res = timed("classify_changed", lambda: classify_changed(old, new))
+    count_all = timed("feature_count", lambda: feature_count(old, new))
+    count_rect = {
+        r: timed(f"feature_count_rect_{i}", lambda r=r: feature_count(old, new, prefilter_rect(r)))
+        for i, r in enumerate((RECT_PLAIN, RECT_WRAP))
+    }
+    bbox_env = np.asarray(new.envelopes[: new.count])
+    cache_key = ("chip_smoke", f_new)
+    mask1 = timed("bbox_intersects_upload", lambda: bbox_ops.bbox_intersects(
+        bbox_env, BBOX_QUERY, cache_key=cache_key))
+    uploads_first = runtime.stats_snapshot()["bbox_uploads"]
+    mask2 = timed("bbox_intersects_cached", lambda: bbox_ops.bbox_intersects(
+        bbox_env, BBOX_QUERY, cache_key=cache_key))
+    uploads_second = runtime.stats_snapshot()["bbox_uploads"]
+    matched, rejected = timed("envelope_prepass", lambda: envelope_prepass(tmp.name, PREPASS_WSEN))
+    launches = runtime.stats_snapshot()
+    print(f"[3-5] main path launches {launches}; host wall seconds "
+          + ", ".join(f"{k} {v:.4f}" for k, v in wall.items()))
+    check(launches["classify_launches"] > 0, "K1 was not launched on the main path")
+    check(launches["envelope_scan_launches"] > 0, "K2 was not launched on the main path")
+    check(launches["bbox_launches"] > 0, "K3 was not launched on the main path")
+    check(uploads_second == uploads_first, "second bbox_intersects re-uploaded its columns")
+
+    # ---- K1 against its plain version and the truth ----
+    ok, oo = block_tensors(old, dev)
+    nk, no = block_tensors(new, dev)
+    p_old, p_new, p_counts = classify_plain(ok, oo, nk, no)
+    err_k1 = max(mismatches(res.old_class, p_old), mismatches(res.new_class, p_new))
+    check(err_k1 == 0, "K1 classes differ from the plain version")
+    check(res.counts == want, f"K1 counts {res.counts} != truth {want}")
+    check(p_counts.tolist() == [want["inserts"], want["updates"], want["deletes"]],
+          "plain classify counts differ from the truth")
+    check(count_all == sum(want.values()), f"feature_count {count_all} != truth")
+    check(len(res.old_idx) == want["updates"] + want["deletes"]
+          and len(res.new_idx) == want["updates"] + want["inserts"], "changed rows miscounted")
+    keys_old, keys_new = np.asarray(old.keys[: old.count]), np.asarray(new.keys[: new.count])
+    oc, nc = res.old_class.cpu().numpy(), res.new_class.cpu().numpy()
+    check(np.array_equal(keys_old[oc == 3], truth["del"])
+          and np.array_equal(keys_old[oc == 2], truth["upd"])
+          and np.array_equal(keys_new[nc == 2], truth["upd"])
+          and np.array_equal(keys_new[nc == 1], truth["ins"]),
+          "changed keys differ from the truth")
+    _, _, c_only = classify(ok, oo, nk, no, counts_only=True)
+    check(torch.equal(c_only, p_counts), "K1 counts-only differs from the plain version")
+    print(f"[3] K1 ok: counts {res.counts}, feature_count {count_all}")
+
+    # ---- K2 against its plain version; filtered counts against the truth ----
+    env_old = to_device(np.asarray(old.envelopes[: old.count]), dev)
+    env_new = to_device(np.asarray(new.envelopes[: new.count]), dev)
+    err_k2 = 0
+    for rect_raw in (RECT_PLAIN, RECT_WRAP):
+        rect = prefilter_rect(rect_raw)
+        hits = []
+        for env in (env_old, env_new):
+            k = envelope_scan(env, rect)
+            p = envelope_scan_plain(env, rect)
+            err_k2 = max(err_k2, mismatches(k, p))
+            hits.append(p.cpu().numpy())
+        check(0 < hits[0].sum() < len(hits[0]), f"rect {rect_raw} hits nothing or everything")
+        oh = lambda ks: hits[0][np.searchsorted(keys_old, ks)]
+        nh = lambda ks: hits[1][np.searchsorted(keys_new, ks)]
+        expect = int((oh(truth["upd"]) | nh(truth["upd"])).sum()
+                     + oh(truth["del"]).sum() + nh(truth["ins"]).sum())
+        check(count_rect[rect_raw] == expect,
+              f"filtered count {count_rect[rect_raw]} != {expect} under {rect_raw}")
+        print(f"[4] K2 ok under {rect_raw}: feature_count {count_rect[rect_raw]}")
+    check(err_k2 == 0, "K2 masks differ from the plain version")
+
+    # ---- K3 against its plain version ----
+    w, s, e, n, cnt = bbox_ops._resident_columns(cache_key, bbox_env, dev)
+    p3 = bbox_ops.bbox_cyclic_plain(w, s, e, n, BBOX_QUERY)[:cnt]
+    err_k3 = max(mismatches(mask1, p3), mismatches(mask2, p3))
+    check(0 < int(p3.sum()) < cnt, "bbox query hits nothing or everything")
+    with EnvelopeIndexReader(os.path.join(tmp.name, DB_NAME)) as reader:
+        oids, wsen = reader.all_envelopes()
+    pc = [torch.from_numpy(c).to(dev) for c in bbox_ops.pad_envelopes(wsen)[:4]]
+    q = [float(v) for v in PREPASS_WSEN.split(",")]
+    q = (q[0] - PREPASS_PAD, q[1] - PREPASS_PAD, q[2] + PREPASS_PAD, q[3] + PREPASS_PAD)
+    ph = bbox_ops.bbox_cyclic_plain(*pc, q)[: len(oids)].cpu().numpy()
+    check(matched == {o for o, h in zip(oids, ph) if h}
+          and rejected == {o for o, h in zip(oids, ph) if not h},
+          "envelope_prepass sets differ from the plain version")
+    check(len(matched) > 0 and len(rejected) > 0, "prepass matched nothing or everything")
+    check(err_k3 == 0, "K3 masks differ from the plain version")
+    print(f"[5] K3 ok: {int(p3.sum())} of {cnt} hit; prepass {len(matched)} matched, "
+          f"{len(rejected)} rejected")
+
+    # ---- 6. timings ----
+    n_old, n_new = old.count, new.count
+    rows = n_old + n_new
+    search_steps = n_old * np.log2(max(n_new, 2)) + n_new * np.log2(max(n_old, 2))
+    k1_bound = bound(rows * 28 + rows, search_steps + rows * 5)
+    k1c_bound = bound(rows * 28 + 24, search_steps + rows * 5)
+    kernels = []
+    k1 = {
+        "name": "classify", "route": "cuda", "source": "kart_tpu_torch/csrc/classify.cu",
+        "replaces": "kart_tpu/ops/diff_kernel.py:55",
+        "launches": launches["classify_launches"], "max_abs_err": err_k1,
+        "ms": time_ms(lambda: classify(ok, oo, nk, no)),
+        "plain_ms": time_ms(lambda: classify_plain(ok, oo, nk, no), batches=3, per_batch=3),
+        "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+        "library_ms": time_ms(lambda: torch.searchsorted(nk, ok)),
+        "library_call": "torch.searchsorted(new_keys, old_keys): the join's lookup only",
+        "checked": True,
+    }
+    k1_counts_ms = time_ms(lambda: classify(ok, oo, nk, no, counts_only=True))
+    kernels.append(k1)
+    rect = prefilter_rect(RECT_PLAIN)
+    rect_w = prefilter_rect(RECT_WRAP)
+    k2_bound = bound(n_old * 17, n_old * 12)
+    kernels.append({
+        "name": "envelope_scan", "route": "cuda",
+        "source": "kart_tpu_torch/csrc/envelope_scan.cu",
+        "replaces": "kart_tpu/diff/backend.py:322",
+        "launches": launches["envelope_scan_launches"], "max_abs_err": err_k2,
+        "ms": time_ms(lambda: envelope_scan(env_old, rect)),
+        "plain_ms": time_ms(lambda: envelope_scan_plain(env_old, rect), batches=3, per_batch=3),
+        "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None,
+        "checked": True,
+    })
+    k2_wrap_ms = time_ms(lambda: envelope_scan(env_old, rect_w))
+    k3_bound = bound(cnt * 16 + w.numel(), cnt * 16)
+    kernels.append({
+        "name": "bbox_cyclic", "route": "cuda", "source": "kart_tpu_torch/csrc/bbox.cu",
+        "replaces": "kart_tpu/ops/bbox.py:126",
+        "launches": launches["bbox_launches"], "max_abs_err": err_k3,
+        "ms": time_ms(lambda: bbox_ops.bbox_cyclic(w, s, e, n, BBOX_QUERY, cnt)),
+        "plain_ms": time_ms(lambda: bbox_ops.bbox_cyclic_plain(w, s, e, n, BBOX_QUERY),
+                            batches=3, per_batch=3),
+        "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None,
+        "checked": True,
+    })
+    for k in kernels:
+        print(f"[6] {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, "
+              f"bound {k['bound_ms']:.4f} ms by {k['bound_by']}, launches {k['launches']}"
+              + (f", {k['library_call']} {k['library_ms']:.4f} ms" if k["library_ms"] is not None else "")
+              + f") on {card}")
+    print(f"[6] classify counts-only: {k1_counts_ms:.4f} ms "
+          f"(bound {k1c_bound[0]:.4f} ms by {k1c_bound[1]}) on {card}")
+    print(f"[6] envelope_scan, wrapping rect: {k2_wrap_ms:.4f} ms on {card}")
+    tmp.cleanup()
+
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        sys.exit(1)

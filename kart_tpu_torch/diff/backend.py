@@ -1,0 +1,140 @@
+"""The diff backend registry and kernel K2, the envelope prefilter scan
+(``csrc/envelope_scan.cu``), with its plain PyTorch version.
+
+Two backends, chosen by device only:
+
+* ``device_torch`` -- a CUDA device: uploads through pinned buffers and
+  runs the kernels.
+* ``cpu_torch`` -- the CPU: the plain PyTorch versions.
+
+There are no row-count gates: a caller that asks for the card gets the
+card, whatever the size, and a failure raises instead of degrading to the
+host.
+"""
+
+import numpy as np
+import torch
+
+from kart_tpu_torch import runtime
+from kart_tpu_torch.ops import _build
+from kart_tpu_torch.ops.blocks import to_device
+from kart_tpu_torch.ops.diff_kernel import classify_blocks
+
+_SIGNATURES = {
+    "kart_envelope_scan": [
+        _build.P, _build.I64, _build.F32, _build.F32, _build.F32, _build.F32,
+        _build.I32, _build.F64, _build.F64, _build.F64, _build.F64,
+        _build.P, _build.I32, _build.I32, _build.P,
+    ]
+}
+
+
+def query_f32_thresholds(query_f64):
+    """Exact f64-equivalent f32 thresholds, as the native scan's
+    make_query_f32 computes them: (double)x <= b <=> x <= largest_float_le(b),
+    and symmetrically for >=. -> (qw_ge, qs_ge, qe_le, qn_le) float32."""
+    q = np.asarray(query_f64, dtype=np.float64)
+    f = q.astype(np.float32)
+    back = f.astype(np.float64)
+    ge = np.where(back < q, np.nextafter(f, np.float32(np.inf)), f)
+    le = np.where(back > q, np.nextafter(f, np.float32(-np.inf)), f)
+    return np.asarray([ge[0], ge[1], le[2], le[3]], dtype=np.float32)
+
+
+def envelope_scan(envelopes, query):
+    """(n, 4) f32 wsen rows + f64 query rect (w, s, e, n) -> bool (n,) hits,
+    on the rows' device: bit-identical to the native
+    ``sf_bbox_intersects_f32``. CUDA tensors run K2; CPU tensors run
+    :func:`envelope_scan_plain`."""
+    if (envelopes.dtype != torch.float32 or envelopes.dim() != 2
+            or envelopes.shape[1] != 4 or not envelopes.is_contiguous()):
+        raise ValueError("envelope_scan: envelopes must be contiguous f32 (n, 4)")
+    q = np.asarray(query, dtype=np.float64)
+    device = envelopes.device
+    if device.type == "cpu":
+        return envelope_scan_plain(envelopes, q)
+    if device.type != "cuda":
+        raise runtime.DeviceUnavailable(f"envelope_scan: unsupported device {device}")
+    n = envelopes.shape[0]
+    out = torch.empty(n, dtype=torch.bool, device=device)
+    if n == 0:
+        return out
+    if envelopes.data_ptr() % 16:
+        raise ValueError("envelope_scan: envelope rows must be 16-byte aligned")
+    qf = query_f32_thresholds(q)
+    lib = _build.load_library("envelope_scan", device, _SIGNATURES)
+    rc = lib.kart_envelope_scan(
+        envelopes.data_ptr(), n, *(float(v) for v in qf), int(q[2] < q[0]),
+        *(float(v) for v in q), out.data_ptr(),
+        _build.grid_blocks(device, n), device.index, _build.stream_ptr(device),
+    )
+    _build.check(lib, rc, "envelope_scan")
+    runtime.count("envelope_scan_launches")
+    return out
+
+
+def envelope_scan_plain(envelopes, query):
+    """Plain PyTorch version of K2 (any device)."""
+    q = np.asarray(query, dtype=np.float64)
+    w, s, e, n = envelopes.unbind(dim=1)
+    if not q[2] < q[0]:
+        qw, qs, qe, qn = (float(v) for v in query_f32_thresholds(q))
+        lat = (s <= qn) & (qs <= n)
+        a = w <= qe
+        b = qw <= e
+        wrap = e < w
+        return lat & ((a & b) | (wrap & (a | b)))
+    w, s, e, n = (c.double() for c in (w, s, e, n))
+    qw, qs, qe, qn = torch.tensor(q, dtype=torch.float64, device=envelopes.device).unbind()
+    lat = ~((s > qn) | (qs > n))
+    len1 = torch.where(e >= w, e - w, _mod360(e - w))
+    len2 = torch.where(qe >= qw, qe - qw, _mod360(qe - qw))
+    return lat & ((_mod360(qw - w) <= len1) | (_mod360(w - qw) <= len2))
+
+
+def _mod360(x):
+    """The native mod360: truncating division through int64, then one
+    +360 for negative remainders."""
+    d = x - 360.0 * torch.trunc(x / 360.0)
+    return torch.where(d < 0, d + 360.0, d)
+
+
+class DiffBackend:
+    """One execution layer on one device."""
+
+    name = None
+
+    def __init__(self, device):
+        self.device = device
+
+    def classify(self, old_block, new_block):
+        """-> (old_class int8, new_class int8, counts int64 (3,)) tensors."""
+        return classify_blocks(old_block, new_block, self.device)
+
+    def counts(self, old_block, new_block):
+        """Counts-only classify (`-o feature-count`): no class arrays."""
+        return classify_blocks(old_block, new_block, self.device, counts_only=True)[2]
+
+    def envelope_hits(self, block, query):
+        """bool (count,) envelope-vs-query hits of one sidecar block."""
+        env = to_device(np.asarray(block.envelopes[: block.count], dtype=np.float32),
+                        self.device)
+        return envelope_scan(env, query)
+
+
+class DeviceTorchBackend(DiffBackend):
+    name = "device_torch"
+
+
+class CpuTorchBackend(DiffBackend):
+    name = "cpu_torch"
+
+
+BACKENDS = {cls.name: cls for cls in (DeviceTorchBackend, CpuTorchBackend)}
+
+
+def select_backend(device=None):
+    """The backend for ``device`` (``None`` = the card; raises
+    DeviceUnavailable without one)."""
+    dev = runtime.resolve_device(device)
+    return BACKENDS["device_torch" if dev.type == "cuda" else "cpu_torch"](dev)

@@ -1,0 +1,171 @@
+"""Columnar sidecar files (KCOL1): read by mmap, and written byte for byte
+as kart_tpu writes them for int-pk datasets.
+
+Layout (one file per feature tree, ``.kart/columnar/<tree-oid>.kcol``):
+
+    magic   b"KCOL1\\n"
+    header  one json line: {"count": N, "keys_are_pks": bool,
+                            "paths_bytes": M, "envelope_bytes": E,
+                            "agg_block_rows": B}   (B only with aggregates)
+    arrays  keys   int64[N]    little-endian, sorted
+            oids   uint8[N,20]
+            offs   uint32[N+1], paths utf8   (hash-keyed files only)
+            envs   float32[N,4]              (when envelope_bytes > 0)
+            agg    float32[ceil(N/B),4]      (when agg_block_rows is set:
+                                              per-block union wsen)
+            flags  uint8[ceil(N/B)]          (non-zero: aggregate not tight)
+            geom   bytes                     (when geom_bytes is set)
+
+This port reads int-pk files only (``keys_are_pks``); hash-keyed files and
+the ``geom`` section (the vertex column) are not read yet.
+"""
+
+import json
+import os
+
+import numpy as np
+
+from kart_tpu_torch.ops.blocks import PAD_KEY, FeatureBlock, bucket_size
+
+MAGIC = b"KCOL1\n"
+
+#: rows per envelope-aggregate block, as kart_tpu writes them
+AGG_BLOCK_ROWS = 4096
+
+
+class SidecarError(ValueError):
+    """A sidecar file is truncated or malformed."""
+
+
+class UnsupportedSidecar(SidecarError):
+    """A well-formed sidecar this port does not read (hash-keyed)."""
+
+
+def block_aggregates(env_arr, block_rows, chunk_rows=4_194_304):
+    """(N,4) f32 envelopes -> ((nb,4) f32 union bboxes, (nb,) u8 flags).
+    Wrapping members widen their block's union to full longitude and flag
+    it; degenerate (n < s) and non-finite members flag it; NaN members
+    widen it to the whole world. Same bytes as kart_tpu's writer."""
+    n = len(env_arr)
+    nb = -(-n // block_rows)
+    agg = np.empty((nb, 4), dtype=np.float32)
+    flags = np.zeros(nb, dtype=np.uint8)
+    chunk_blocks = max(1, chunk_rows // block_rows)
+    for b0 in range(0, nb, chunk_blocks):
+        b1 = min(b0 + chunk_blocks, nb)
+        lo, hi = b0 * block_rows, min(b1 * block_rows, n)
+        m = hi - lo
+        pad = np.empty(((b1 - b0) * block_rows, 4), dtype=np.float32)
+        pad[:m] = env_arr[lo:hi]
+        pad[m:] = (np.inf, np.inf, -np.inf, -np.inf)  # neutral for min/max
+        wraps = pad[:m, 2] < pad[:m, 0]
+        degen = pad[:m, 3] < pad[:m, 1]
+        nonfin = ~np.isfinite(pad[:m]).all(axis=1)
+        if wraps.any():
+            pad[:m, 0] = np.where(wraps, np.float32(-180.0), pad[:m, 0])
+            pad[:m, 2] = np.where(wraps, np.float32(180.0), pad[:m, 2])
+        nans = np.isnan(pad[:m]).any(axis=1)
+        if nans.any():
+            pad[:m][nans] = (-180.0, -90.0, 180.0, 90.0)
+        bad = wraps | degen | nonfin
+        if bad.any():
+            flags[b0 + np.unique(np.nonzero(bad)[0] // block_rows)] = 1
+        r = pad.reshape(b1 - b0, block_rows, 4)
+        agg[b0:b1, 0] = r[:, :, 0].min(axis=1)
+        agg[b0:b1, 1] = r[:, :, 1].min(axis=1)
+        agg[b0:b1, 2] = r[:, :, 2].max(axis=1)
+        agg[b0:b1, 3] = r[:, :, 3].max(axis=1)
+    return agg, flags
+
+
+def save_sidecar_file(path, keys, oids_u8, envelopes=None):
+    """Write an int-pk sidecar. ``keys`` int64 (N,), ``oids_u8`` uint8
+    (N, 20), ``envelopes`` (N, 4) wsen or None -- not necessarily sorted.
+    Atomic (tmp + rename). -> path."""
+    order = np.argsort(keys, kind="stable")
+    keys = np.ascontiguousarray(np.asarray(keys)[order], dtype="<i8")
+    oids_u8 = np.ascontiguousarray(np.asarray(oids_u8)[order], dtype=np.uint8)
+    env_arr = agg = flags = None
+    if envelopes is not None:
+        env_arr = np.ascontiguousarray(np.asarray(envelopes)[order], dtype="<f4")
+        if len(env_arr):
+            agg, flags = block_aggregates(env_arr, AGG_BLOCK_ROWS)
+    header_fields = {
+        "count": int(len(keys)),
+        "keys_are_pks": True,
+        "paths_bytes": 0,
+        "envelope_bytes": int(env_arr.nbytes) if env_arr is not None else 0,
+    }
+    if agg is not None:
+        header_fields["agg_block_rows"] = AGG_BLOCK_ROWS
+    header = json.dumps(header_fields).encode() + b"\n"
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(MAGIC)
+        f.write(header)
+        f.write(keys.tobytes())
+        f.write(oids_u8.tobytes())
+        if env_arr is not None:
+            f.write(env_arr.tobytes())
+        if agg is not None:
+            f.write(np.ascontiguousarray(agg, dtype="<f4").tobytes())
+            f.write(flags.tobytes())
+    os.replace(tmp, path)
+    return path
+
+
+def load_block_file(path, pad=False):
+    """KCOL1 file -> FeatureBlock of mmap views (keys, oids, envelopes and
+    block aggregates); ``pad=True`` copies keys/oids into bucket-padded
+    arrays. Raises SidecarError on a malformed file and UnsupportedSidecar
+    on a hash-keyed one."""
+    mm = np.memmap(path, dtype=np.uint8, mode="r")
+    try:
+        if bytes(mm[: len(MAGIC)]) != MAGIC:
+            raise SidecarError(f"{path}: not a KCOL1 sidecar")
+        nl = int(np.flatnonzero(mm[len(MAGIC) : len(MAGIC) + 256] == 0x0A)[0])
+        header = json.loads(bytes(mm[len(MAGIC) : len(MAGIC) + nl]))
+        n = int(header["count"])
+        if not header["keys_are_pks"]:
+            raise UnsupportedSidecar(
+                f"{path}: hash-keyed sidecar; only int-pk sidecars are read"
+            )
+        pos = len(MAGIC) + nl + 1
+        end = pos + 28 * n + int(header.get("envelope_bytes", 0))
+        block_rows = int(header.get("agg_block_rows", 0))
+        if header.get("envelope_bytes") and block_rows:
+            end += 17 * -(-n // block_rows)
+        if end > len(mm):
+            raise SidecarError(f"{path}: truncated ({len(mm)} of {end} bytes)")
+        keys = np.frombuffer(mm, dtype="<i8", count=n, offset=pos)
+        pos += 8 * n
+        oids_u8 = np.frombuffer(mm, dtype=np.uint8, count=20 * n, offset=pos)
+        pos += 20 * n
+        envelopes = env_blocks = None
+        if header.get("envelope_bytes"):
+            envelopes = np.frombuffer(mm, dtype="<f4", count=4 * n, offset=pos).reshape(n, 4)
+            pos += int(header["envelope_bytes"])
+            if block_rows:
+                nb = -(-n // block_rows)
+                agg = np.frombuffer(mm, dtype="<f4", count=4 * nb, offset=pos).reshape(nb, 4)
+                pos += 16 * nb
+                flags = np.frombuffer(mm, dtype=np.uint8, count=nb, offset=pos)
+                env_blocks = (agg, flags, block_rows)
+    except (IndexError, KeyError, TypeError, ValueError) as e:
+        if isinstance(e, SidecarError):
+            raise
+        raise SidecarError(f"{path}: malformed sidecar ({e})") from e
+
+    oid_rows = (
+        oids_u8.reshape(n, 5, 4).view(np.uint32).reshape(n, 5)
+        if n else np.zeros((0, 5), dtype=np.uint32)
+    )
+    if pad:
+        size = bucket_size(max(n, 1))
+        keys_p = np.full(size, PAD_KEY, dtype=np.int64)
+        keys_p[:n] = keys
+        oids_p = np.zeros((size, 5), dtype=np.uint32)
+        oids_p[:n] = oid_rows
+        keys, oid_rows = keys_p, oids_p
+    return FeatureBlock(keys, oid_rows, n, envelopes=envelopes,
+                        env_blocks=env_blocks)

@@ -1,0 +1,111 @@
+"""Columnar feature blocks and their upload to the device.
+
+A FeatureBlock is one dataset version's feature identity as sorted arrays:
+
+    keys : int64 (N,)   -- the int primary key
+    oids : uint32 (N,5) -- the feature blob's 20-byte content id, packed
+
+Only the first ``count`` rows are real; rows beyond it (bucket padding, or
+the tail of a compacted prefilter subset) carry ``PAD_KEY``. Blocks stay
+numpy on the host (they are mmap views of the sidecar); :func:`to_device`
+and :func:`block_tensors` make the count-sliced tensors the kernels take.
+"""
+
+import numpy as np
+import torch
+
+PAD_KEY = np.int64(2**63 - 1)
+
+
+def bucket_size(n, minimum=1024):
+    """Next 1/8-step pseudo-power-of-two >= n (>= minimum): sizes of the form
+    (8..15) * 2^k, capping padding waste at 12.5%."""
+    if n <= minimum:
+        return minimum
+    k = max((n - 1).bit_length() - 4, 0)
+    step = 1 << k
+    return ((n + step - 1) // step) * step
+
+
+def pack_oid_hex(oids_hex):
+    """list of 40-hex oids -> (N, 5) uint32 array."""
+    if not len(oids_hex):
+        return np.zeros((0, 5), dtype=np.uint32)
+    raw = np.frombuffer(bytes.fromhex("".join(oids_hex)), dtype=np.uint8)
+    return raw.reshape(-1, 5, 4).view(np.uint32).reshape(-1, 5).copy()
+
+
+def unpack_oid_hex(oid_rows):
+    """(N, 5) uint32 -> list of 40-hex oids."""
+    if not len(oid_rows):
+        return []
+    h = np.ascontiguousarray(oid_rows).astype("<u4").view(np.uint8).tobytes().hex()
+    return [h[i : i + 40] for i in range(0, len(h), 40)]
+
+
+class FeatureBlock:
+    """One int-pk dataset version (the key is the pk, so no paths are
+    kept) as key-sorted (key, oid) arrays, with the
+    optional (count, 4) f32 wsen envelope column and its block aggregates
+    ``(agg (nb,4) f32, flags (nb,) u8, block_rows)`` from the sidecar."""
+
+    __slots__ = ("keys", "oids", "count", "envelopes", "env_blocks")
+
+    def __init__(self, keys, oids, count, envelopes=None, env_blocks=None):
+        self.keys = keys
+        self.oids = oids
+        self.count = count
+        self.envelopes = envelopes
+        self.env_blocks = env_blocks
+
+    @classmethod
+    def from_arrays(cls, keys, oid_rows, pad=True):
+        n = len(keys)
+        order = np.argsort(keys, kind="stable")
+        keys = np.asarray(keys, dtype=np.int64)[order]
+        oid_rows = np.asarray(oid_rows, dtype=np.uint32)[order]
+        if pad:
+            size = bucket_size(max(n, 1))
+            if size > n:
+                keys = np.concatenate([keys, np.full(size - n, PAD_KEY, dtype=np.int64)])
+                oid_rows = np.concatenate(
+                    [oid_rows, np.zeros((size - n, 5), dtype=np.uint32)]
+                )
+        return cls(keys, oid_rows, n)
+
+    def __len__(self):
+        return self.count
+
+    def __repr__(self):
+        return f"FeatureBlock(count={self.count}, padded={len(self.keys)})"
+
+
+def to_device(array, device, dtype=None):
+    """numpy array (possibly a read-only, unaligned mmap view) -> a
+    contiguous tensor on ``device``. For CUDA the bytes go through a pinned
+    staging buffer, so the host-to-device copy is one DMA on the current
+    stream; ``dtype`` reinterprets the bytes (same item size)."""
+    arr = np.asarray(array)
+    if dtype is not None:
+        arr = arr.view(dtype)
+    if device.type == "cpu":
+        return torch.from_numpy(np.array(arr, copy=True, order="C"))
+    if arr.size == 0:
+        return torch.empty(arr.shape, dtype=_torch_dtype(arr.dtype), device=device)
+    host = torch.empty(arr.shape, dtype=_torch_dtype(arr.dtype), pin_memory=True)
+    host.numpy()[...] = arr
+    return host.to(device, non_blocking=True)
+
+
+def _torch_dtype(np_dtype):
+    return torch.from_numpy(np.zeros(0, dtype=np_dtype)).dtype
+
+
+def block_tensors(block, device):
+    """-> (keys int64 (count,), oids int32 (count, 5)) on ``device``. The oid
+    words are reinterpreted as int32: the kernels only test equality,
+    which is bit-exact whatever the sign."""
+    n = block.count
+    keys = to_device(np.asarray(block.keys[:n], dtype=np.int64), device)
+    oids = to_device(np.asarray(block.oids[:n]).reshape(n, 5), device, dtype=np.int32)
+    return keys, oids
