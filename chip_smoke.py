@@ -20,8 +20,10 @@ first use. Phases:
    non-wrapping and a wrapping rect (K2), bbox_intersects twice through the
    resident cache and envelope_prepass on the index (K3)
    ... then every kernel's output against its plain version on the card
-   (bit-identical) and the counts against the generated truth
-6. timings (CUDA events, after warm-up) beside each kernel's bound
+   (bit-identical), K1's tile co-ranks against its plain partition, and the
+   counts against the generated truth
+6. timings beside each kernel's bound: the wrapper's time (CUDA events,
+   after warm-up) and the kernels' own device time (torch.profiler)
 7. the ``kernels`` JSON line, the card line, and the result line
 
 Any failed check exits non-zero without the result line.
@@ -47,7 +49,13 @@ from kart_tpu_torch.diff.sidecar import load_block_file, save_sidecar_file
 from kart_tpu_torch.ops import _build
 from kart_tpu_torch.ops import bbox as bbox_ops
 from kart_tpu_torch.ops.blocks import block_tensors, to_device
-from kart_tpu_torch.ops.diff_kernel import classify, classify_plain
+from kart_tpu_torch.ops.diff_kernel import (
+    TILE_ROWS,
+    classify,
+    classify_plain,
+    tile_coranks,
+    tile_coranks_plain,
+)
 from kart_tpu_torch.ops.envelope_codec import EnvelopeCodec
 from kart_tpu_torch.spatial_filter import PREPASS_PAD, envelope_prepass
 from kart_tpu_torch.spatial_filter.index import DB_NAME, EnvelopeIndexReader
@@ -171,6 +179,36 @@ def time_ms(fn, batches=5, per_batch=10, warmup=3):
     return statistics.median(out)
 
 
+def device_ms(fn, kernels, calls=20):
+    """Device time per call of each CUDA kernel whose name contains one of
+    ``kernels``, from a torch.profiler window of ``calls`` calls after
+    warm-up. -> {name fragment: ms} for the kernels the profiler saw."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.key_averages():
+        for k in kernels:
+            if k in e.key:
+                t = getattr(e, "device_time_total", None)
+                us = e.cuda_time_total if t is None else t
+                per[k] = per.get(k, 0.0) + us / calls / 1e3
+    return per
+
+
+def total_ms(per):
+    """The sum of a :func:`device_ms` split, None if it saw no kernel."""
+    return sum(per.values()) if per else None
+
+
+def fmt_ms(t):
+    return "not seen by the profiler" if t is None else f"{t:.4f} ms"
+
+
 def bound(bytes_moved, ops):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -277,7 +315,11 @@ def main():
           "changed keys differ from the truth")
     _, _, c_only = classify(ok, oo, nk, no, counts_only=True)
     check(torch.equal(c_only, p_counts), "K1 counts-only differs from the plain version")
-    print(f"[3] K1 ok: counts {res.counts}, feature_count {count_all}")
+    coranks = tile_coranks(ok, nk)
+    check(torch.equal(coranks, tile_coranks_plain(ok, nk)),
+          "K1 tile co-ranks differ from the plain partition")
+    print(f"[3] K1 ok: counts {res.counts}, feature_count {count_all}; "
+          f"{len(coranks) - 1} tiles of {TILE_ROWS} merged rows")
 
     # ---- K2 against its plain version; filtered counts against the truth ----
     env_old = to_device(np.asarray(old.envelopes[: old.count]), dev)
@@ -327,18 +369,23 @@ def main():
     k1_bound = bound(rows * 28 + rows, search_steps + rows * 5)
     k1c_bound = bound(rows * 28 + 24, search_steps + rows * 5)
     kernels = []
+    k1_names = ("corank_kernel", "classify_tiles")
+    k1_split = device_ms(lambda: classify(ok, oo, nk, no), k1_names)
     k1 = {
         "name": "classify", "route": "cuda", "source": "kart_tpu_torch/csrc/classify.cu",
         "replaces": "kart_tpu/ops/diff_kernel.py:55",
         "launches": launches["classify_launches"], "max_abs_err": err_k1,
         "ms": time_ms(lambda: classify(ok, oo, nk, no)),
+        "device_ms": total_ms(k1_split),
         "plain_ms": time_ms(lambda: classify_plain(ok, oo, nk, no), batches=3, per_batch=3),
         "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
         "library_ms": time_ms(lambda: torch.searchsorted(nk, ok)),
         "library_call": "torch.searchsorted(new_keys, old_keys): the join's lookup only",
+        "tile_rows": TILE_ROWS,
         "checked": True,
     }
     k1_counts_ms = time_ms(lambda: classify(ok, oo, nk, no, counts_only=True))
+    k1_counts_dev = total_ms(device_ms(lambda: classify(ok, oo, nk, no, counts_only=True), k1_names))
     kernels.append(k1)
     rect = prefilter_rect(RECT_PLAIN)
     rect_w = prefilter_rect(RECT_WRAP)
@@ -349,30 +396,40 @@ def main():
         "replaces": "kart_tpu/diff/backend.py:322",
         "launches": launches["envelope_scan_launches"], "max_abs_err": err_k2,
         "ms": time_ms(lambda: envelope_scan(env_old, rect)),
+        "device_ms": total_ms(device_ms(lambda: envelope_scan(env_old, rect),
+                                        ("envelope_scan_kernel",))),
         "plain_ms": time_ms(lambda: envelope_scan_plain(env_old, rect), batches=3, per_batch=3),
         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None,
         "checked": True,
     })
     k2_wrap_ms = time_ms(lambda: envelope_scan(env_old, rect_w))
+    k2_wrap_dev = total_ms(device_ms(lambda: envelope_scan(env_old, rect_w),
+                                     ("envelope_scan_kernel",)))
     k3_bound = bound(cnt * 16 + w.numel(), cnt * 16)
     kernels.append({
         "name": "bbox_cyclic", "route": "cuda", "source": "kart_tpu_torch/csrc/bbox.cu",
         "replaces": "kart_tpu/ops/bbox.py:126",
         "launches": launches["bbox_launches"], "max_abs_err": err_k3,
         "ms": time_ms(lambda: bbox_ops.bbox_cyclic(w, s, e, n, BBOX_QUERY, cnt)),
+        "device_ms": total_ms(device_ms(lambda: bbox_ops.bbox_cyclic(w, s, e, n, BBOX_QUERY, cnt),
+                                        ("bbox_kernel",))),
         "plain_ms": time_ms(lambda: bbox_ops.bbox_cyclic_plain(w, s, e, n, BBOX_QUERY),
                             batches=3, per_batch=3),
         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None,
         "checked": True,
     })
     for k in kernels:
-        print(f"[6] {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, "
+        print(f"[6] {k['name']}: {k['ms']:.4f} ms, device {fmt_ms(k['device_ms'])} "
+              f"(plain {k['plain_ms']:.4f} ms, "
               f"bound {k['bound_ms']:.4f} ms by {k['bound_by']}, launches {k['launches']}"
               + (f", {k['library_call']} {k['library_ms']:.4f} ms" if k["library_ms"] is not None else "")
               + f") on {card}")
-    print(f"[6] classify counts-only: {k1_counts_ms:.4f} ms "
+    print(f"[6] classify counts-only: {k1_counts_ms:.4f} ms, device {fmt_ms(k1_counts_dev)} "
           f"(bound {k1c_bound[0]:.4f} ms by {k1c_bound[1]}) on {card}")
-    print(f"[6] envelope_scan, wrapping rect: {k2_wrap_ms:.4f} ms on {card}")
+    print("[6] classify device split: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in k1_split.items()) + f" on {card}")
+    print(f"[6] envelope_scan, wrapping rect: {k2_wrap_ms:.4f} ms, device "
+          f"{fmt_ms(k2_wrap_dev)} on {card}")
     tmp.cleanup()
 
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,12 @@
 """The port's classify (K1's plain version, device="cpu") against kart_tpu's
-TPU sort join on XLA-CPU and its numpy reference: zero tolerance."""
+TPU sort join on XLA-CPU and its numpy reference: zero tolerance. K1's
+partition (the tile co-ranks) against the merged order of the reference's
+stable sort."""
 
 import zlib
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -17,10 +21,13 @@ from kart_tpu.ops.diff_kernel import (
 from kart_tpu_torch.diff.engine import classify_changed
 from kart_tpu_torch.ops.blocks import FeatureBlock, PAD_KEY, pack_oid_hex, unpack_oid_hex
 from kart_tpu_torch.ops.diff_kernel import (
+    TILE_ROWS,
     UNCHANGED,
     changed_indices,
     classify,
     classify_plain,
+    tile_coranks,
+    tile_coranks_plain,
 )
 
 I64 = np.iinfo(np.int64)
@@ -174,3 +181,86 @@ def test_classify_rejects_bad_inputs():
         classify(k, o.to(torch.int64), k, o)
     with pytest.raises(ValueError):
         classify(k, o, k, o, old_count=4)
+    with pytest.raises(ValueError):
+        tile_coranks(k, k.to(torch.int32))
+    with pytest.raises(ValueError):
+        tile_coranks(k, k, new_count=4)
+
+
+def _corank_case(name):
+    """Sorted unique (old, new) int64 keys from a seed."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    base = np.unique(rng.integers(-(2**40), 2**40, size=3000))
+    empty = np.zeros(0, np.int64)
+    if name == "both_empty":
+        return empty, empty
+    if name == "old_empty":
+        return empty, base
+    if name == "new_empty":
+        return base, empty
+    if name == "equal":
+        return base, base.copy()
+    if name == "lead_insert":
+        return base[1:], base
+    if name == "disjoint_below":
+        return base, base + 2**41
+    if name == "disjoint_above":
+        return base + 2**41, base
+    if name == "interleaved":
+        return base[::2].copy(), base[1::2].copy()
+    if name == "extremes":
+        ext = np.array([I64.min, I64.min + 1, -1, 0, 2**62, I64.max - 1], np.int64)
+        return np.union1d(ext, base[::3]), np.union1d(ext[[0, 2, 5]], base[1::3])
+    if name == "mixed":
+        pick = rng.random((2, len(base))) < 0.8
+        return base[pick[0]], base[pick[1]]
+    raise KeyError(name)
+
+
+CORANK_CASES = [
+    "both_empty", "old_empty", "new_empty", "equal", "lead_insert",
+    "disjoint_below", "disjoint_above", "interleaved", "extremes", "mixed",
+]
+
+
+@pytest.mark.parametrize("tile", [1, 2, 7, 64, TILE_ROWS])
+@pytest.mark.parametrize("name", CORANK_CASES)
+def test_tile_coranks_match_reference_sort_and_hold_halos(name, tile):
+    old, new = _corank_case(name)
+    n_old, n_new = len(old), len(new)
+    total = n_old + n_new
+    # the reference's merge order: lax.sort by (key, concat position)
+    keys = jnp.asarray(np.concatenate([old, new]))
+    _, order = jax.lax.sort((keys, jnp.arange(total, dtype=jnp.int32)), num_keys=2)
+    old_before = np.concatenate([[0], np.cumsum(np.asarray(order) < n_old)])
+    d = np.minimum(np.arange(-(-total // tile) + 1) * tile, total)
+
+    got = tile_coranks_plain(torch.from_numpy(old), torch.from_numpy(new), tile)
+    np.testing.assert_array_equal(got.numpy(), old_before[d])
+    if tile == TILE_ROWS:
+        np.testing.assert_array_equal(
+            tile_coranks(torch.from_numpy(old), torch.from_numpy(new)).numpy(), got.numpy()
+        )
+
+    # halo rule: every partner of a tile's rows lies in the rows it loads
+    i = got.numpy()
+    j = d - i
+    lb = np.searchsorted(new, old, side="left")
+    match_in_old = np.searchsorted(old, new, side="right") - 1
+    for t in range(len(d) - 1):
+        assert i[t] <= i[t + 1] and j[t] <= j[t + 1]
+        assert np.all((j[t] <= lb[i[t] : i[t + 1]]) & (lb[i[t] : i[t + 1]] <= j[t + 1]))
+        m = match_in_old[j[t] : j[t + 1]]
+        assert np.all((i[t] - 1 <= m) & (m <= i[t + 1] - 1))
+
+
+def test_tile_coranks_count_slice_padding():
+    """Rows past count (PAD_KEY padding) never move a co-rank."""
+    old, new = _corank_case("extremes")
+    tk, _, tn = _padded_tensors(old, np.zeros((len(old), 5), np.uint32))
+    uk, _, un = _padded_tensors(new, np.zeros((len(new), 5), np.uint32))
+    assert len(tk) > tn and len(uk) > un
+    np.testing.assert_array_equal(
+        tile_coranks(tk, uk, tn, un).numpy(),
+        tile_coranks_plain(torch.from_numpy(old), torch.from_numpy(new)).numpy(),
+    )

@@ -13,7 +13,13 @@ import torch
 from kart_tpu_torch import runtime
 from kart_tpu_torch.diff.backend import envelope_scan, envelope_scan_plain
 from kart_tpu_torch.ops.bbox import bbox_cyclic, bbox_cyclic_plain, pad_envelopes
-from kart_tpu_torch.ops.diff_kernel import classify, classify_plain
+from kart_tpu_torch.ops.diff_kernel import (
+    TILE_ROWS,
+    classify,
+    classify_plain,
+    tile_coranks,
+    tile_coranks_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -25,17 +31,40 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _sides(seed, n_old, n_new, overlap=0.8):
-    rng = np.random.default_rng(seed)
+D = TILE_ROWS
+
+
+def _keys(kind, rng, n_old, n_new):
+    """Sorted unique (old, new) keys of one shape."""
     universe = np.unique(rng.integers(-(2**62), 2**62, size=2 * (n_old + n_new) + 16))
+    if kind == "lead_insert":
+        # identical key sets but one leading insert: pairs straddle the seams
+        return universe[1:n_new], universe[:n_new]
+    if kind == "below":
+        # old entirely below new: tiles of deletes only, then inserts only
+        return universe[:n_old], universe[n_old : n_old + n_new]
+    if kind == "insert_run":
+        # a run of n_new - n_old inserts, longer than a tile, inside old's range
+        half, run = n_old // 2, n_new - n_old
+        return np.concatenate([universe[:half], universe[half + run : n_old + run]]), universe[: n_old + run]
+    if kind == "extremes":
+        old, new = _keys("random", rng, n_old - 2, n_new - 2)
+        lo, hi = np.int64(-(2**63)), np.int64(2**63 - 2)
+        return np.concatenate([[lo], old, [hi]]), np.concatenate([[lo], new, [hi]])
     old = np.sort(rng.choice(universe, n_old, replace=False))
-    shared = old[rng.random(n_old) < overlap][:n_new]
+    shared = old[rng.random(n_old) < 0.8][:n_new]
     rest = np.setdiff1d(universe, old)
     new = np.sort(np.concatenate([shared, rng.choice(rest, n_new - len(shared), replace=False)]))
-    oo = rng.integers(0, 2**32, size=(n_old, 5), dtype=np.uint32)
-    no = rng.integers(0, 2**32, size=(n_new, 5), dtype=np.uint32)
+    return old, new
+
+
+def _sides(kind, n_old, n_new):
+    rng = np.random.default_rng(n_old + n_new)
+    old, new = _keys(kind, rng, n_old, n_new)
+    oo = rng.integers(0, 2**32, size=(len(old), 5), dtype=np.uint32)
+    no = rng.integers(0, 2**32, size=(len(new), 5), dtype=np.uint32)
     pos = np.searchsorted(old, new)
-    hit = (pos < n_old) & (old[np.minimum(pos, n_old - 1)] == new) if n_old else np.zeros(n_new, bool)
+    hit = (pos < len(old)) & (old[np.minimum(pos, len(old) - 1)] == new) if len(old) else np.zeros(len(new), bool)
     no[hit] = oo[pos[hit]]
     flip = np.flatnonzero(hit)[::7]
     no[flip, np.arange(len(flip)) % 5] ^= np.uint32(1)
@@ -43,11 +72,18 @@ def _sides(seed, n_old, n_new, overlap=0.8):
 
 
 @pytest.mark.parametrize(
-    "n_old,n_new", [(0, 0), (0, 300), (300, 0), (1, 1), (5000, 4800), (70_000, 71_000)]
+    "kind,n_old,n_new",
+    [("random", 0, 0), ("random", 0, 300), ("random", 300, 0), ("random", 1, 1),
+     ("random", 5000, 4800), ("random", 70_000, 71_000),
+     # merged sizes k*D - 1, k*D, k*D + 1
+     ("random", 1600, 3 * D - 1601), ("random", 1600, 3 * D - 1600), ("random", 1600, 3 * D - 1599),
+     ("lead_insert", 5000, 5001), ("below", 3000, 2500), ("insert_run", 4000, 4000 + 3 * D),
+     ("extremes", 2000, 2100)],
 )
 @pytest.mark.parametrize("pad", [0, 37])
-def test_classify_kernel_matches_plain(cuda, n_old, n_new, pad):
-    ok, oo, nk, no = _sides(n_old + n_new, n_old, n_new)
+def test_classify_kernel_matches_plain(cuda, kind, n_old, n_new, pad):
+    ok, oo, nk, no = _sides(kind, n_old, n_new)
+    n_old, n_new = len(ok), len(nk)
 
     def tensors(k, o):
         kt = torch.full((len(k) + pad,), 2**63 - 1, dtype=torch.int64)
@@ -66,6 +102,8 @@ def test_classify_kernel_matches_plain(cuda, n_old, n_new, pad):
     po, pn, pc = classify_plain(a[0][:n_old], a[1][:n_old], b[0][:n_new], b[1][:n_new])
     assert torch.equal(oc, po) and torch.equal(nc, pn)
     assert torch.equal(counts, pc) and torch.equal(only, pc)
+    assert torch.equal(tile_coranks(a[0], b[0], n_old, n_new),
+                       tile_coranks_plain(a[0][:n_old], b[0][:n_new]))
 
 
 QUERIES = [
