@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's main path on one card and hold every
 kernel against its plain PyTorch version.
 
-    python3 chip_smoke.py [--rows 10000000] [--index-rows 1000000] [--seed 0]
+    python3 chip_smoke.py [--rows 10000000] [--index-rows 1000000]
+                          [--repo-rows 10000000] [--seed 0]
 
 Run from the repository root on a machine with an sm_90 (Hopper) card and
 the CUDA toolkit; the kernels are built from ``kart_tpu_torch/csrc`` on
@@ -24,14 +25,26 @@ first use. Phases:
    counts against the generated truth
 6. timings beside each kernel's bound: the wrapper's time (CUDA events,
    after warm-up) and the kernels' own device time (torch.profiler)
-7. the ``kernels`` JSON line, the card line, and the result line
+7. build a repository with the port's ``synth.synth_repo``: ``--repo-rows``
+   int-pk features, real blobs for the 1% edited rows only, from ``--seed``
+8-10. ``kart diff`` through the port's CLI entry point (``kart_tpu_torch.cli
+   .main``, what ``python -m kart_tpu_torch`` calls), each phase with the
+   launch counters zeroed before and read after: ``-o feature-count`` on
+   the card (counts-only K1); ``-o json-lines`` on the card and again with
+   ``--device cpu`` (byte-identical files), then once more under cProfile;
+   ``-o json`` on the card
+11. the ``kernels`` JSON line, the card line, and the result line
 
 Any failed check exits non-zero without the result line.
 """
 
 import argparse
+import cProfile
+import hashlib
+import io
 import json
 import os
+import pstats
 import sqlite3
 import statistics
 import subprocess
@@ -43,6 +56,7 @@ import numpy as np
 import torch
 
 from kart_tpu_torch import runtime
+from kart_tpu_torch.cli import main as kart_main
 from kart_tpu_torch.diff.backend import envelope_scan, envelope_scan_plain
 from kart_tpu_torch.diff.engine import classify_changed, feature_count, prefilter_rect
 from kart_tpu_torch.diff.sidecar import load_block_file, save_sidecar_file
@@ -59,6 +73,7 @@ from kart_tpu_torch.ops.diff_kernel import (
 from kart_tpu_torch.ops.envelope_codec import EnvelopeCodec
 from kart_tpu_torch.spatial_filter import PREPASS_PAD, envelope_prepass
 from kart_tpu_torch.spatial_filter.index import DB_NAME, EnvelopeIndexReader
+from kart_tpu_torch.synth import synth_repo
 
 #: H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
 #: non-tensor-core f32 rate, used for every bound below
@@ -219,12 +234,123 @@ def mismatches(a, b):
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item()) if a.numel() else 0
 
 
+# --- the kart diff CLI on a repository ---------------------------------------
+
+def kart_cli(*argv):
+    """One in-process ``python -m kart_tpu_torch`` call; -> (exit code,
+    host wall seconds). Raises unless it exits 0."""
+    t = time.perf_counter()
+    rc = kart_main(list(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    check(rc == 0, f"kart {' '.join(argv)} exited {rc}")
+    return wall
+
+
+def counted(label, fn):
+    """Run ``fn`` with the launch counters zeroed before and read after;
+    fail unless K1 launched. -> (fn's result, K1 launches)."""
+    runtime.reset_stats()
+    out = fn()
+    n = runtime.stats_snapshot()["classify_launches"]
+    check(n > 0, f"K1 was not launched in phase {label}")
+    return out, n
+
+
+def sha256_of(path):
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 22), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def profile_split(fn, top=12):
+    """cProfile of one call -> (text of the top functions by own time,
+    {step: cumulative seconds}) for the json-lines path's host steps."""
+    prof = cProfile.Profile()
+    prof.runcall(fn)
+    st = pstats.Stats(prof)
+    steps = {
+        "classify (sidecar mmap, upload, K1, changed rows)": "get_feature_diff_rows",
+        "blob reads (pack index, zlib)": "read_blobs_data_ordered",
+        "JSON serialisation (msgpack decode, compiled serialiser)":
+            "feature_json_str_from_data",
+        "tree walk": "tree_diff_entries",
+    }
+    split = {}
+    for step, fn_name in steps.items():
+        split[step] = max((v[3] for k, v in st.stats.items() if k[2] == fn_name), default=0.0)
+    out = io.StringIO()
+    pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(top)
+    return out.getvalue(), split
+
+
+def cli_phases(args, card):
+    """Phases 7-10: build the repository, then drive ``kart diff`` through
+    the CLI. -> {phase: K1 launches}."""
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="kart_smoke_repo_") as tmp:
+        t = time.perf_counter()
+        repo, info = synth_repo(os.path.join(tmp, "repo"), args.repo_rows, edit_frac=0.01,
+                                seed=args.seed, blobs="changed")
+        build_s = time.perf_counter() - t
+        packs = repo.odb.packs.packs
+        n_objects = sum(p.count for p in packs)
+        pack_bytes = sum(os.path.getsize(p.pack_path) for p in packs)
+        n_edits = info["n_edits"]
+        path = repo.workdir
+        print(f"[7] repo: {args.repo_rows} features, {n_edits} edited, built in "
+              f"{build_s:.2f} s host wall; {n_objects} objects in {len(packs)} packs, "
+              f"{pack_bytes} pack bytes")
+
+        out = os.path.join(tmp, "count.txt")
+        wall, launches["8"] = counted("8", lambda: kart_cli(
+            "-C", path, "diff", "-o", "feature-count", "--output", out, "HEAD^...HEAD"))
+        with open(out) as f:
+            text = f.read()
+        check(text == f"synth:\n\t{n_edits} features changed\n", f"feature-count said {text!r}")
+        print(f"[8] feature-count on the card: {n_edits} features changed, K1 launches "
+              f"{launches['8']}, {wall:.4f} s host wall on {card}")
+
+        card_out, cpu_out = os.path.join(tmp, "card.jsonl"), os.path.join(tmp, "cpu.jsonl")
+        jsonl = ["-C", path, "diff", "-o", "json-lines", "HEAD^...HEAD", "--output"]
+        wall_card, launches["9"] = counted("9", lambda: kart_cli(*jsonl, card_out))
+        wall_cpu = kart_cli("--device", "cpu", *jsonl, cpu_out)
+        digest = sha256_of(card_out)
+        check(digest == sha256_of(cpu_out), "json-lines on the card differs from --device cpu")
+        with open(card_out) as f:
+            first = f.readline()
+            n_lines = sum(1 for _ in f)
+        check('"type":"version"' in first and n_lines == n_edits,
+              f"json-lines has {n_lines} feature lines, expected {n_edits}")
+        print(f"[9] json-lines: card {wall_card:.4f} s, cpu {wall_cpu:.4f} s host wall, "
+              f"{os.path.getsize(card_out)} bytes, sha256 {digest} on both; "
+              f"K1 launches {launches['9']} on {card}")
+        profile, split = profile_split(lambda: kart_cli(*jsonl, card_out))
+        print("[9] host profile of the card run (cProfile, cumulative s): "
+              + "; ".join(f"{k} {v:.4f}" for k, v in split.items()))
+        print(profile)
+
+        out = os.path.join(tmp, "diff.json")
+        wall, launches["10"] = counted("10", lambda: kart_cli(
+            "-C", path, "diff", "-o", "json", "--output", out, "HEAD^...HEAD"))
+        with open(out) as f:
+            doc = json.load(f)
+        n_json = len(doc["kart.diff/v1+hexwkb"]["synth"]["feature"])
+        check(n_json == n_edits, f"json diff has {n_json} features, expected {n_edits}")
+        print(f"[10] json on the card: {n_json} features, K1 launches {launches['10']}, "
+              f"{wall:.4f} s host wall, {os.path.getsize(out)} bytes on {card}")
+    return launches
+
+
 # --- main -------------------------------------------------------------------
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=10_000_000)
     ap.add_argument("--index-rows", type=int, default=1_000_000)
+    ap.add_argument("--repo-rows", type=int, default=10_000_000)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -431,6 +557,10 @@ def main():
     print(f"[6] envelope_scan, wrapping rect: {k2_wrap_ms:.4f} ms, device "
           f"{fmt_ms(k2_wrap_dev)} on {card}")
     tmp.cleanup()
+
+    cli_launches = cli_phases(args, card)
+    k1["launches_by_phase"] = {"3-5": k1["launches"], **cli_launches}
+    k1["launches"] += sum(cli_launches.values())
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,0 +1,164 @@
+"""Vectorized Merkle feature-tree construction for int-pk datasets: the
+Datasets V3 feature tree built from (pk, blob-oid) columns with numpy
+matrix operations, bit-identical to building it path by path.
+
+Counterpart of kart_tpu's ``core/feature_tree.py`` (``TreePlan``,
+``plan_int_feature_tree``, ``emit_feature_tree``, ``build_upper_levels``);
+tree objects are written one by one through the object database (or its
+bulk pack writer) where kart_tpu batches them through its C++ library.
+"""
+
+import numpy as np
+
+from kart_tpu_torch.models.paths import PathEncoder, b64_batch, msgpack_single_int_batch
+
+
+class TreePlan:
+    """A feature set's tree layout, independent of its blob oids: the
+    sorted order, the entry matrix with the names filled in, the oid cell
+    positions and the leaf grouping. :func:`emit_feature_tree` stamps an
+    oid column into it and writes the trees."""
+
+    __slots__ = ("encoder", "n", "order", "entry_matrix", "oid_cols", "hole_mask",
+                 "fixed_width", "leaf_ids", "uniq_leaves", "first_idx", "counts",
+                 "byte_offsets", "row_of_leaf")
+
+
+def plan_int_feature_tree(pks, encoder=None):
+    """Sorted, name-resolved tree layout of unique int64 pks (any order)."""
+    HOLE = 0xFF
+    encoder = encoder or PathEncoder.INT_PK_ENCODER
+    if encoder.group_length != 1:
+        raise ValueError("the feature tree builder needs 1-character tree names")
+    plan = TreePlan()
+    plan.encoder = encoder
+    pks = np.asarray(pks, dtype=np.int64)
+    if pks.size > 1 and (pks[1:] > pks[:-1]).all():
+        srt = np.arange(pks.size)
+    else:
+        srt = np.argsort(pks, kind="stable")
+    pks = np.ascontiguousarray(pks[srt])
+    n = plan.n = len(pks)
+
+    fn_bytes, fn_len = msgpack_single_int_batch(pks)
+    b64_mat, b64_len = b64_batch(fn_bytes, fn_len)
+    b64w = b64_mat.shape[1]
+    leaf_ids = (pks // encoder.branches) % encoder.max_trees
+
+    # sort by (leaf, name bytes), git's tree order: zero-padding the key
+    # puts a name before every longer name it prefixes
+    name_key = b64_mat.copy()
+    name_key[np.arange(b64w)[None, :] >= b64_len[:, None]] = 0
+    pad_to = (-b64w) % 8
+    if pad_to:
+        name_key = np.concatenate([name_key, np.zeros((n, pad_to), dtype=np.uint8)], axis=1)
+    words = np.ascontiguousarray(name_key).view(">u8")
+    order = np.lexsort(tuple(words[:, i] for i in range(words.shape[1] - 1, -1, -1))
+                       + (leaf_ids,))
+    plan.order = srt[order]  # original row -> sorted row
+    b64_mat = b64_mat[order]
+    b64_len = b64_len[order]
+    plan.leaf_ids = leaf_ids = leaf_ids[order]
+
+    uniform = bool((b64_len == b64_len[0]).all()) if n else True
+    rows = np.arange(n)
+    if uniform:  # dense int ranges: fixed-width entries, no holes
+        L = int(b64_len[0]) if n else 0
+        width = 7 + L + 1 + 20
+        out = np.zeros((n, width), dtype=np.uint8)
+        out[:, :7] = np.frombuffer(b"100644 ", np.uint8)
+        out[:, 7 : 7 + L] = b64_mat[:, :L]
+        plan.oid_cols = (7 + L + 1) + np.arange(20)[None, :]
+        plan.hole_mask = None
+        entry_lens = np.full(n, width, dtype=np.int64)
+    else:
+        width = 7 + b64w + 1 + 20
+        out = np.full((n, width), HOLE, dtype=np.uint8)
+        out[:, :7] = np.frombuffer(b"100644 ", np.uint8)
+        region = out[:, 7 : 7 + b64w]
+        region[:] = b64_mat
+        region[np.arange(b64w)[None, :] >= b64_len[:, None]] = HOLE
+        out[rows, 7 + b64_len] = 0  # the NUL after the name
+        plan.oid_cols = (7 + b64_len + 1)[:, None] + np.arange(20)[None, :]
+        hole_mask = out == HOLE
+        hole_mask[rows[:, None], plan.oid_cols] = False
+        plan.hole_mask = hole_mask
+        entry_lens = (7 + b64_len + 1 + 20).astype(np.int64)
+    plan.entry_matrix = out
+    plan.fixed_width = uniform
+    plan.uniq_leaves, plan.first_idx, plan.counts = np.unique(
+        leaf_ids, return_index=True, return_counts=True)
+    plan.byte_offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(entry_lens, out=plan.byte_offsets[1:])
+    plan.row_of_leaf = np.searchsorted(plan.first_idx, rows, side="right") - 1
+    return plan
+
+
+def _stamp_oids(plan, oids_u8):
+    oids_sorted = np.asarray(oids_u8, dtype=np.uint8)[plan.order]
+    if plan.fixed_width:
+        plan.entry_matrix[:, plan.oid_cols[0]] = oids_sorted
+    else:
+        plan.entry_matrix[np.arange(plan.n)[:, None], plan.oid_cols] = oids_sorted
+
+
+def _leaf_payloads(plan, touched):
+    first_idx, counts = plan.first_idx, plan.counts
+    if plan.fixed_width:
+        buf = plan.entry_matrix
+        return [buf[first_idx[t] : first_idx[t] + counts[t]].tobytes() for t in touched.tolist()]
+    full = plan.entry_matrix[~plan.hole_mask].tobytes()
+    starts = plan.byte_offsets[first_idx]
+    ends = plan.byte_offsets[first_idx + counts]
+    return [full[starts[t] : ends[t]] for t in touched.tolist()]
+
+
+def _write_level(odb, payloads):
+    return [odb.write_raw("tree", p) for p in payloads]
+
+
+def emit_feature_tree(odb, plan, oids_u8, *, prev=None):
+    """Stamp the blob-oid column into ``plan`` and write the tree objects;
+    -> (feature tree hex oid, leaf_oids list). ``prev`` = (leaf_oids,
+    changed original rows) of an earlier emit over the same plan: only the
+    leaves holding a changed row are rewritten."""
+    n = plan.n
+    if n == 0:
+        return odb.write_raw("tree", b""), []
+    _stamp_oids(plan, oids_u8)
+    if prev is not None:
+        prev_leaf_oids, changed_rows = prev
+        sorted_pos = np.empty(n, dtype=np.int64)
+        sorted_pos[plan.order] = np.arange(n)
+        touched = np.unique(plan.row_of_leaf[sorted_pos[changed_rows]])
+        leaf_oids = list(prev_leaf_oids)
+    else:
+        touched = np.arange(len(plan.uniq_leaves))
+        leaf_oids = [None] * len(plan.uniq_leaves)
+    for t, oid in zip(touched.tolist(), _write_level(odb, _leaf_payloads(plan, touched))):
+        leaf_oids[t] = oid
+    return build_upper_levels(odb, plan.uniq_leaves, leaf_oids, plan.encoder), leaf_oids
+
+
+def build_upper_levels(odb, child_ids, child_oids, encoder):
+    """Write the spine of upper-level trees over written leaf trees;
+    -> feature-tree root hex oid. ``child_ids``: ascending leaf slots
+    (``pk // branches``); ``child_oids``: their hex oids."""
+    alpha = encoder.alphabet
+    child_ids = np.asarray(child_ids, dtype=np.int64)
+    for _level in range(encoder.levels - 1, -1, -1):
+        parents = {}
+        for cid, coid in zip(child_ids.tolist(), child_oids):
+            parents.setdefault(cid // encoder.branches, []).append(
+                (alpha[cid % encoder.branches], coid))
+        parent_ids = np.sort(np.fromiter(parents.keys(), dtype=np.int64, count=len(parents)))
+        payloads = [
+            b"".join(b"40000 %s\x00" % ch.encode() + bytes.fromhex(oid)
+                     for ch, oid in sorted(parents[pid], key=lambda t: t[0].encode()))
+            for pid in parent_ids.tolist()
+        ]
+        child_oids = _write_level(odb, payloads)
+        child_ids = parent_ids
+    if len(child_oids) != 1:
+        raise ValueError("feature tree spine did not reduce to one root")
+    return child_oids[0]

@@ -1,0 +1,143 @@
+"""Git's object model: blob / tree / commit / tag, in git's exact wire
+format (sha1 of ``b"<type> <len>\\0" + content``, canonical tree order).
+
+Counterpart of kart_tpu's ``core/objects.py``.
+"""
+
+import hashlib
+import re
+import time
+from dataclasses import dataclass
+
+MODE_BLOB = 0o100644
+MODE_TREE = 0o040000
+
+EMPTY_TREE_OID = "4b825dc642cb6eb9a060e54bf8d69288fbee4904"
+
+
+class ObjectFormatError(ValueError):
+    pass
+
+
+def hash_object(obj_type: str, data: bytes) -> str:
+    """-> 40-hex sha1 oid, exactly as git computes it."""
+    h = hashlib.sha1(b"%s %d\x00" % (obj_type.encode(), len(data)))
+    h.update(data)
+    return h.hexdigest()
+
+
+@dataclass(frozen=True)
+class TreeEntry:
+    name: str
+    mode: int
+    oid: str
+
+    @property
+    def is_tree(self):
+        return self.mode == MODE_TREE
+
+
+def tree_sort_key(entry: TreeEntry):
+    """git's canonical tree ordering: names compare as if trees end in '/'."""
+    return entry.name + ("/" if entry.is_tree else "")
+
+
+def serialise_tree(entries) -> bytes:
+    """Iterable of TreeEntry -> canonical tree object content."""
+    out = bytearray()
+    for e in sorted(entries, key=tree_sort_key):
+        out += b"%o %s\x00" % (e.mode, e.name.encode("utf8"))
+        out += bytes.fromhex(e.oid)
+    return bytes(out)
+
+
+def parse_tree(data) -> list:
+    """Tree object content -> list of TreeEntry (in stored order)."""
+    entries = []
+    i, n = 0, len(data)
+    while i < n:
+        sp = data.index(b" ", i)
+        nul = data.index(b"\x00", sp)
+        entries.append(TreeEntry(
+            data[sp + 1 : nul].decode("utf8"), int(data[i:sp], 8),
+            data[nul + 1 : nul + 21].hex(),
+        ))
+        i = nul + 21
+    return entries
+
+
+@dataclass(frozen=True)
+class Signature:
+    name: str
+    email: str
+    time: int  # unix seconds
+    offset: int  # minutes east of UTC
+
+    @classmethod
+    def now(cls, name, email, offset=0):
+        return cls(name, email, int(time.time()), offset)
+
+    def format(self):
+        sign = "+" if self.offset >= 0 else "-"
+        off = abs(self.offset)
+        return f"{self.name} <{self.email}> {self.time} {sign}{off // 60:02d}{off % 60:02d}"
+
+    _RE = re.compile(r"^(.*) <(.*)> (\d+) ([+-])(\d{2})(\d{2})$")
+
+    @classmethod
+    def parse(cls, text):
+        m = cls._RE.match(text)
+        if not m:
+            raise ObjectFormatError(f"Bad signature: {text!r}")
+        name, email, ts, sign, hh, mm = m.groups()
+        off = int(hh) * 60 + int(mm)
+        return cls(name, email, int(ts), -off if sign == "-" else off)
+
+
+@dataclass(frozen=True)
+class Commit:
+    tree: str
+    parents: tuple
+    author: Signature
+    committer: Signature
+    message: str
+
+    def serialise(self) -> bytes:
+        lines = [f"tree {self.tree}"]
+        lines += [f"parent {p}" for p in self.parents]
+        lines.append(f"author {self.author.format()}")
+        lines.append(f"committer {self.committer.format()}")
+        return ("\n".join(lines) + "\n\n" + self.message).encode("utf8")
+
+    @classmethod
+    def parse(cls, data: bytes):
+        header, _, message = data.decode("utf8").partition("\n\n")
+        tree = author = committer = None
+        parents = []
+        for line in header.split("\n"):
+            key, _, value = line.partition(" ")
+            if key == "tree":
+                tree = value
+            elif key == "parent":
+                parents.append(value)
+            elif key == "author":
+                author = Signature.parse(value)
+            elif key == "committer":
+                committer = Signature.parse(value)
+        if tree is None or author is None or committer is None:
+            raise ObjectFormatError("Malformed commit object")
+        return cls(tree, tuple(parents), author, committer, message)
+
+    @property
+    def message_summary(self):
+        return self.message.split("\n", 1)[0]
+
+
+def tag_target(data: bytes) -> str:
+    """Annotated tag object content -> the oid it points at (the only part
+    of a tag that ref resolution reads)."""
+    for line in data.decode("utf8").partition("\n\n")[0].split("\n"):
+        key, _, value = line.partition(" ")
+        if key == "object":
+            return value
+    raise ObjectFormatError("Malformed tag object")

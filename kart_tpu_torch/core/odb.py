@@ -1,0 +1,269 @@
+"""The content-addressed object database: git-format loose objects
+(``objects/aa/bb...``, zlib of ``"<type> <len>\\0" + content``) and packs.
+
+Reads are tri-state: an object is present, absent (:class:`ObjectMissing`)
+or promised by a partial clone's promisor remote (:class:`ObjectPromised`).
+A read never yields an empty value for an object that is not there.
+
+Counterpart of kart_tpu's ``core/odb.py`` (``ObjectDb`` loose and packed
+reads, ``write_raw``, ``write_blob``, ``write_blobs_raw``,
+``bulk_pack``, ``read_blobs_data_ordered``; ``TreeView``). Alternates and
+the native batch reads are not ported.
+"""
+
+import os
+import threading
+import zlib
+from contextlib import contextmanager
+
+import numpy as np
+
+from kart_tpu_torch.core.objects import (
+    Commit,
+    ObjectFormatError,
+    TreeEntry,
+    hash_object,
+    parse_tree,
+    tag_target,
+)
+from kart_tpu_torch.core.packs import PackCollection, PackWriter
+
+
+class ObjectMissing(KeyError):
+    """Object not in the store and not promised by any remote."""
+
+    def __init__(self, oid, message=None):
+        super().__init__(message or f"Object not found: {oid}")
+        self.oid = oid
+
+
+class ObjectPromised(ObjectMissing):
+    """Object not present locally, but a promisor remote has it."""
+
+    def __init__(self, oid):
+        super().__init__(oid, f"Object is promised but not present: {oid}")
+
+
+class ObjectDb:
+    def __init__(self, objects_dir, promisor_check=None):
+        self.objects_dir = objects_dir
+        self._promisor_check = promisor_check or (lambda: False)
+        self.packs = PackCollection([os.path.join(objects_dir, "pack")])
+        self._bulk_writer = None
+        self._bulk_lock = threading.Lock()
+        self._tree_cache = {}
+
+    @contextmanager
+    def bulk_pack(self, level=1):
+        """Redirect every object write into one new pack for the duration;
+        the objects become readable when the context exits."""
+        with self._bulk_lock:
+            w = PackWriter(os.path.join(self.objects_dir, "pack"), level=level)
+            self._bulk_writer = w
+            try:
+                yield w
+            except BaseException:
+                self._bulk_writer = None
+                w.abort()
+                raise
+            self._bulk_writer = None
+            if w.finish() is not None:
+                self.packs.refresh()
+
+    def _path(self, oid):
+        return os.path.join(self.objects_dir, oid[:2], oid[2:])
+
+    def _missing(self, oid):
+        return ObjectPromised(oid) if self._promisor_check() else ObjectMissing(oid)
+
+    def contains(self, oid):
+        if os.path.exists(self._path(oid)):
+            return True
+        sha = bytes.fromhex(oid)
+        if sha in self.packs:
+            return True
+        self.packs.refresh()  # a pack written since the scan
+        return sha in self.packs
+
+    def read_raw(self, oid):
+        """-> (type_str, content bytes). Raises ObjectMissing/ObjectPromised."""
+        path = self._path(oid)
+        if not os.path.exists(path):
+            sha = bytes.fromhex(oid)
+            packed = self.packs.read(sha)
+            if packed is None:
+                self.packs.refresh()
+                packed = self.packs.read(sha)
+            if packed is None:
+                raise self._missing(oid)
+            return packed
+        with open(path, "rb") as f:
+            raw = zlib.decompress(f.read())
+        nul = raw.index(b"\x00")
+        obj_type, _, size = raw[:nul].decode("ascii").partition(" ")
+        content = raw[nul + 1 :]
+        if len(content) != int(size):
+            raise ObjectFormatError(f"Corrupt object {oid}: size mismatch")
+        return obj_type, content
+
+    def read_blobs_data_ordered(self, shas):
+        """[20-byte sha] -> [blob bytes] in request order: packed blobs in
+        pack order, the rest (loose objects) one by one. Raises
+        ObjectMissing/ObjectPromised naming the first absent oid."""
+        out = self.packs.read_blob_data_ordered(shas)
+        for i, data in enumerate(out):
+            if data is None:
+                out[i] = self.read_blob(shas[i].hex())
+        return out
+
+    def read_blobs_batch(self, oids):
+        """[hex oid] -> {oid: blob bytes} for the packed blobs among them
+        (the diff's chunk prefetch); anything else is left to the caller's
+        per-object read, which raises the right error."""
+        datas = self.packs.read_blob_data_ordered([bytes.fromhex(o) for o in oids])
+        return {o: d for o, d in zip(oids, datas) if d is not None}
+
+    def write_raw(self, obj_type, content) -> str:
+        if self._bulk_writer is not None:
+            return self._bulk_writer.add(obj_type, content)
+        oid = hash_object(obj_type, content)
+        path = self._path(oid)
+        if os.path.exists(path):
+            return oid
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = path + f".tmp{os.getpid()}"
+        with open(tmp, "wb") as f:
+            f.write(zlib.compress(b"%s %d\x00" % (obj_type.encode(), len(content)) + content, 1))
+        os.replace(tmp, path)
+        return oid
+
+    def write_blob(self, content) -> str:
+        return self.write_raw("blob", content)
+
+    def write_blobs_raw(self, contents):
+        """list[bytes] -> (n, 20) uint8 oid array."""
+        if self._bulk_writer is not None:
+            return self._bulk_writer.add_batch_raw("blob", contents)
+        hexes = "".join(self.write_raw("blob", c) for c in contents)
+        return np.frombuffer(bytes.fromhex(hexes), dtype=np.uint8).reshape(-1, 20)
+
+    def read_blob(self, oid) -> bytes:
+        obj_type, content = self.read_raw(oid)
+        if obj_type != "blob":
+            raise ObjectFormatError(f"{oid} is a {obj_type}, expected blob")
+        return content
+
+    def object_type(self, oid) -> str:
+        return self.read_raw(oid)[0]
+
+    def read_commit(self, oid) -> Commit:
+        obj_type, content = self.read_raw(oid)
+        if obj_type == "tag":  # peel annotated tags
+            return self.read_commit(tag_target(content))
+        if obj_type != "commit":
+            raise ObjectFormatError(f"{oid} is a {obj_type}, expected commit")
+        return Commit.parse(content)
+
+    def write_commit(self, commit: Commit) -> str:
+        return self.write_raw("commit", commit.serialise())
+
+    def read_tree_entries(self, oid):
+        cached = self._tree_cache.get(oid)
+        if cached is not None:
+            return cached
+        obj_type, content = self.read_raw(oid)
+        if obj_type != "tree":
+            raise ObjectFormatError(f"{oid} is a {obj_type}, expected tree")
+        entries = parse_tree(content)
+        if len(self._tree_cache) >= 4096:
+            self._tree_cache.clear()
+        self._tree_cache[oid] = entries
+        return entries
+
+    def tree(self, oid) -> "TreeView":
+        return TreeView(self, oid)
+
+    def find_oids_with_prefix(self, hex_prefix):
+        """Oids starting with ``hex_prefix`` (>= 2 chars), loose and packed."""
+        fan, rest = hex_prefix[:2], hex_prefix[2:]
+        seen = set()
+        d = os.path.join(self.objects_dir, fan)
+        if os.path.isdir(d):
+            for name in sorted(os.listdir(d)):
+                if len(name) == 38 and name.startswith(rest):
+                    seen.add(fan + name)
+        seen.update(self.packs.shas_with_prefix(hex_prefix))
+        return sorted(seen)
+
+
+class TreeView:
+    """A tree bound to its object db; subtrees come back as TreeViews and
+    blobs as BlobHandles."""
+
+    __slots__ = ("odb", "oid", "name")
+
+    def __init__(self, odb, oid, name=""):
+        self.odb = odb
+        self.oid = oid
+        self.name = name
+
+    def entries(self):
+        return self.odb.read_tree_entries(self.oid)
+
+    def __iter__(self):
+        for e in self.entries():
+            yield self._wrap(e)
+
+    def _wrap(self, entry: TreeEntry):
+        if entry.is_tree:
+            return TreeView(self.odb, entry.oid, entry.name)
+        return BlobHandle(self.odb, entry.oid, entry.name)
+
+    def entry(self, name) -> TreeEntry:
+        for e in self.entries():
+            if e.name == name:
+                return e
+        raise KeyError(name)
+
+    def get(self, path):
+        """'a/b/c' -> TreeView or BlobHandle. KeyError if absent."""
+        node = self
+        for part in path.split("/"):
+            if not part:
+                continue
+            if not isinstance(node, TreeView):
+                raise KeyError(path)
+            node = node._wrap(node.entry(part))
+        return node
+
+    def get_or_none(self, path):
+        try:
+            return self.get(path)
+        except ObjectMissing:
+            raise
+        except KeyError:
+            return None
+
+    def walk_blobs(self, prefix=""):
+        """Depth-first (path, TreeEntry) for every blob under this tree."""
+        for e in self.entries():
+            path = f"{prefix}{e.name}"
+            if e.is_tree:
+                yield from TreeView(self.odb, e.oid).walk_blobs(path + "/")
+            else:
+                yield path, e
+
+
+class BlobHandle:
+    """Lazy blob reference; ``.data`` reads through the odb."""
+
+    __slots__ = ("odb", "oid", "name")
+
+    def __init__(self, odb, oid, name=""):
+        self.odb = odb
+        self.oid = oid
+        self.name = name
+
+    @property
+    def data(self) -> bytes:
+        return self.odb.read_blob(self.oid)

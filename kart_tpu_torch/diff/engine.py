@@ -1,22 +1,35 @@
-"""The columnar diff engine's device half: the envelope prefilter, the
-classify with its changed rows, and the changed-feature count behind
-``kart diff -o feature-count``.
+"""The diff engine: the host tree walk, the columnar classify (kernel K1)
+with its changed rows, the envelope prefilter, and the dataset/repo diffs
+the writers consume.
 
-Counterpart of kart_tpu's ``diff/engine.py`` (``_envelope_hits``,
-``spatial_prefilter_blocks``, ``_prefilter_rect``, the classify half of
-``get_feature_diff_columnar`` and the tail of
-``get_dataset_feature_count_fast``), on FeatureBlocks read from sidecar
-files. Materialising values from the changed rows needs the repo layer,
-which this package does not have yet.
+Counterpart of kart_tpu's ``diff/engine.py``: ``tree_diff_entries`` (its
+pure-Python route), ``get_feature_diff``, ``get_feature_diff_columnar``,
+``_feature_diff_routed``, ``get_dataset_feature_count_fast``,
+``get_feature_diff_rows``, ``get_meta_diff``, ``get_dataset_diff``,
+``get_repo_diff``, ``_envelope_hits``, ``spatial_prefilter_blocks`` and
+``_prefilter_rect``. The repo-level entry points take ``device`` (``None``
+= the card) and route a dataset to the columnar classify when both of its
+revisions have a sidecar, else to the tree walk. Spatially filtered diffs
+are not ported: their entry points take no filter.
 """
 
 from typing import NamedTuple
 
 import numpy as np
 
+from kart_tpu_torch.diff import sidecar
 from kart_tpu_torch.diff.backend import select_backend
+from kart_tpu_torch.diff.key_filters import RepoKeyFilter
+from kart_tpu_torch.diff.structs import DatasetDiff, Delta, DeltaDiff, KeyValue, RepoDiff
 from kart_tpu_torch.ops.blocks import PAD_KEY, FeatureBlock, bucket_size
-from kart_tpu_torch.ops.diff_kernel import changed_indices, changed_oid_hex, counts_dict
+from kart_tpu_torch.ops.diff_kernel import (
+    DELETE,
+    INSERT,
+    UPDATE,
+    changed_indices,
+    changed_oid_hex,
+    counts_dict,
+)
 
 #: query-rect pad for the envelope prefilter: sidecar envelopes are f32 and
 #: the filter rect f64, so a borderline feature must pass (fail open)
@@ -115,3 +128,245 @@ def feature_count(old_block, new_block, rect=None, device=None):
             return None
         old_block, new_block = filtered
     return int(backend.counts(old_block, new_block).sum())
+
+
+# --- the repository diff -----------------------------------------------------
+
+def tree_diff_entries(odb, tree_oid_a, tree_oid_b, prefix=""):
+    """Yield (path, old_oid, new_oid) for each blob that differs between two
+    trees (either side may be None); subtrees with equal oids are skipped
+    wholesale."""
+    if tree_oid_a == tree_oid_b:
+        return
+    entries_a = {e.name: e for e in odb.read_tree_entries(tree_oid_a)} if tree_oid_a else {}
+    entries_b = {e.name: e for e in odb.read_tree_entries(tree_oid_b)} if tree_oid_b else {}
+    for name in sorted(entries_a.keys() | entries_b.keys()):
+        ea, eb = entries_a.get(name), entries_b.get(name)
+        oid_a = ea.oid if ea else None
+        oid_b = eb.oid if eb else None
+        if oid_a == oid_b:
+            continue
+        a_is_tree = ea.is_tree if ea else False
+        b_is_tree = eb.is_tree if eb else False
+        path = f"{prefix}{name}"
+        if a_is_tree or b_is_tree:
+            yield from tree_diff_entries(
+                odb, oid_a if a_is_tree else None, oid_b if b_is_tree else None, path + "/"
+            )
+            # a blob replaced by a tree (or the reverse) also yields the blob
+            if ea and not a_is_tree:
+                yield path, oid_a, None
+            if eb and not b_is_tree:
+                yield path, None, oid_b
+        else:
+            yield path, oid_a, oid_b
+
+
+def _tree_oid(ds):
+    tree = ds.feature_tree if ds is not None else None
+    return tree.oid if tree is not None else None
+
+
+def get_feature_diff(base_ds, target_ds, ds_filter=None):
+    """DeltaDiff of features between two versions of a dataset by the tree
+    walk, with lazy values resolved by the walked oids."""
+    feature_filter = ds_filter["feature"] if ds_filter is not None else None
+    result = DeltaDiff()
+    base_oid, target_oid = _tree_oid(base_ds), _tree_oid(target_ds)
+    if base_oid == target_oid:
+        return result
+    odb = (base_ds or target_ds).feature_tree.odb
+    for path, old_oid, new_oid in tree_diff_entries(odb, base_oid, target_oid):
+        ds = base_ds if old_oid is not None else target_ds
+        pks = ds.decode_path_to_pks(path)
+        key = pks[0] if len(pks) == 1 else pks
+        if feature_filter is not None and key not in feature_filter:
+            continue
+        old = (KeyValue((key, base_ds.get_feature_promise_from_oid(pks, old_oid)))
+               if old_oid is not None else None)
+        new = (KeyValue((key, target_ds.get_feature_promise_from_oid(pks, new_oid)))
+               if new_oid is not None else None)
+        result.add_delta(Delta(old, new))
+    return result
+
+
+def get_feature_diff_columnar(base_ds, target_ds, ds_filter=None, *, blocks, device=None):
+    """The columnar variant of :func:`get_feature_diff` for an int-pk block
+    pair: one K1 classify (:func:`classify_changed`), then lazy deltas for
+    the changed rows only, their values resolved by oid straight from the
+    sidecar columns."""
+    feature_filter = ds_filter["feature"] if ds_filter is not None else None
+    old_block, new_block = blocks
+    res = classify_changed(old_block, new_block, device)
+    old_cls = res.old_class.cpu().numpy()[res.old_idx].tolist()
+    new_cls = res.new_class.cpu().numpy()[res.new_idx].tolist()
+    old_keys = np.asarray(old_block.keys[res.old_idx]).tolist()
+    new_keys = np.asarray(new_block.keys[res.new_idx]).tolist()
+    new_hex_by_key = dict(zip(new_keys, res.new_hex))
+    result = DeltaDiff()
+    for key, cls, oid in zip(old_keys, old_cls, res.old_hex):
+        if feature_filter is not None and key not in feature_filter:
+            continue
+        old_kv = KeyValue((key, base_ds.get_feature_promise_from_oid((key,), oid)))
+        if cls == DELETE:
+            result.add_delta(Delta.delete(old_kv))
+        elif cls == UPDATE:
+            new_oid = new_hex_by_key[key]
+            new_kv = KeyValue((key, target_ds.get_feature_promise_from_oid((key,), new_oid)))
+            result.add_delta(Delta.update(old_kv, new_kv))
+    for key, cls, oid in zip(new_keys, new_cls, res.new_hex):
+        if cls != INSERT or (feature_filter is not None and key not in feature_filter):
+            continue
+        result.add_delta(Delta.insert(
+            KeyValue((key, target_ds.get_feature_promise_from_oid((key,), oid)))))
+    return result
+
+
+def _require_int_paths(*datasets):
+    """Datasets' path encoders are read here so that a hash-keyed dataset
+    raises NotYetImplemented (from ``path_encoder``) before any routing."""
+    for ds in datasets:
+        ds.path_encoder  # noqa: B018
+
+
+def _sidecar_blocks(base_ds, target_ds):
+    """Both revisions' sidecar blocks (count-sliced mmap views, never a
+    padded copy), or None when either is missing: the columnar route's
+    precondition."""
+    repo = base_ds.repo or target_ds.repo
+    if repo is None or not (sidecar.has_sidecar(repo, base_ds)
+                            and sidecar.has_sidecar(repo, target_ds)):
+        return None
+    old_block = sidecar.load_block(repo, base_ds, pad=False)
+    new_block = sidecar.load_block(repo, target_ds, pad=False)
+    if old_block is None or new_block is None:
+        return None
+    return old_block, new_block
+
+
+def _feature_diff_routed(base_ds, target_ds, ds_filter=None, device=None):
+    """Engine selection: the columnar classify when both revisions have a
+    sidecar, else the tree walk."""
+    if _tree_oid(base_ds) == _tree_oid(target_ds):
+        return DeltaDiff()
+    if base_ds is not None and target_ds is not None:
+        _require_int_paths(base_ds, target_ds)
+        blocks = _sidecar_blocks(base_ds, target_ds)
+        if blocks is not None:
+            return get_feature_diff_columnar(base_ds, target_ds, ds_filter, blocks=blocks,
+                                             device=device)
+    return get_feature_diff(base_ds, target_ds, ds_filter)
+
+
+def _both_revisions(base_rs, target_rs, ds_path):
+    base_ds = base_rs.datasets.get(ds_path) if base_rs is not None else None
+    target_ds = target_rs.datasets.get(ds_path) if target_rs is not None else None
+    if base_ds is None or target_ds is None:
+        return None  # whole-dataset add/delete: the delta path handles it
+    _require_int_paths(base_ds, target_ds)
+    return base_ds, target_ds
+
+
+def get_dataset_feature_count_fast(base_rs, target_rs, ds_path, device=None):
+    """Exact changed-feature count of one dataset from a counts-only K1
+    launch, with no delta objects (``-o feature-count``). -> int, or None
+    when the columnar route cannot serve it (dataset added or removed,
+    missing sidecars)."""
+    pair = _both_revisions(base_rs, target_rs, ds_path)
+    if pair is None:
+        return None
+    if _tree_oid(pair[0]) == _tree_oid(pair[1]):
+        return 0
+    blocks = _sidecar_blocks(*pair)
+    if blocks is None:
+        return None
+    return int(select_backend(device).counts(*blocks).sum())
+
+
+def get_feature_diff_rows(base_rs, target_rs, ds_path, device=None):
+    """Columnar row plan of one dataset's full diff: K1's changed set as
+    (pk, old row, new row) index arrays over the sidecar blocks, sorted by
+    pk like the delta route's ``sorted_items``. -> {"count": m, "pks",
+    "old_rows"/"new_rows" (-1 for an absent side), "old_block"/
+    "new_block", "base_ds"/"target_ds"}, or None when the columnar route
+    cannot serve it."""
+    pair = _both_revisions(base_rs, target_rs, ds_path)
+    if pair is None:
+        return None
+    base_ds, target_ds = pair
+    if _tree_oid(base_ds) == _tree_oid(target_ds):
+        return {"count": 0}
+    blocks = _sidecar_blocks(base_ds, target_ds)
+    if blocks is None:
+        return None
+    old_block, new_block = blocks
+    old_class, new_class, _ = select_backend(device).classify(old_block, new_block)
+    old_idx, new_idx = changed_indices(old_class, new_class)
+    okeys = np.asarray(old_block.keys[old_idx])
+    nkeys = np.asarray(new_block.keys[new_idx])
+    pks = np.union1d(okeys, nkeys)
+    m = len(pks)
+
+    def side_rows(side_keys, side_idx):
+        rows = np.full(m, -1, dtype=np.int64)
+        if len(side_keys):
+            pos = np.searchsorted(side_keys, pks)
+            posc = np.minimum(pos, len(side_keys) - 1)
+            has = (pos < len(side_keys)) & (side_keys[posc] == pks)
+            rows[has] = side_idx[posc[has]]
+        return rows
+
+    return {
+        "count": m, "pks": pks,
+        "old_rows": side_rows(okeys, old_idx), "new_rows": side_rows(nkeys, new_idx),
+        "old_block": old_block, "new_block": new_block,
+        "base_ds": base_ds, "target_ds": target_ds,
+    }
+
+
+def get_meta_diff(base_ds, target_ds, ds_filter=None):
+    """DeltaDiff of the meta items between two versions of a dataset."""
+    meta_filter = ds_filter["meta"] if ds_filter is not None else None
+    old_items = base_ds.meta_items() if base_ds else {}
+    new_items = target_ds.meta_items() if target_ds else {}
+    result = DeltaDiff()
+    for name in sorted(old_items.keys() | new_items.keys()):
+        if meta_filter is not None and name not in meta_filter:
+            continue
+        old_value, new_value = old_items.get(name), new_items.get(name)
+        if old_value == new_value:
+            continue
+        old = KeyValue((name, old_value)) if old_value is not None else None
+        new = KeyValue((name, new_value)) if new_value is not None else None
+        result.add_delta(Delta(old, new))
+    return result
+
+
+def get_dataset_diff(base_rs, target_rs, ds_path, *, ds_filter=None, device=None):
+    """DatasetDiff for one dataset between two revisions."""
+    base_ds = base_rs.datasets.get(ds_path) if base_rs is not None else None
+    target_ds = target_rs.datasets.get(ds_path) if target_rs is not None else None
+    diff = DatasetDiff()
+    if base_ds is None and target_ds is None:
+        return diff
+    diff["meta"] = get_meta_diff(base_ds, target_ds, ds_filter)
+    diff["feature"] = _feature_diff_routed(base_ds, target_ds, ds_filter, device)
+    diff.prune()
+    return diff
+
+
+def get_repo_diff(base_rs, target_rs, *, repo_key_filter=None, device=None):
+    """RepoDiff between two revisions."""
+    repo_key_filter = repo_key_filter or RepoKeyFilter.MATCH_ALL_FILTER()
+    base_paths = set(base_rs.datasets.paths()) if base_rs is not None else set()
+    target_paths = set(target_rs.datasets.paths()) if target_rs is not None else set()
+    repo_diff = RepoDiff()
+    for ds_path in sorted(base_paths | target_paths):
+        if ds_path not in repo_key_filter:
+            continue
+        ds_diff = get_dataset_diff(base_rs, target_rs, ds_path,
+                                   ds_filter=repo_key_filter[ds_path], device=device)
+        if ds_diff:
+            repo_diff[ds_path] = ds_diff
+    repo_diff.prune(recurse=False)
+    return repo_diff

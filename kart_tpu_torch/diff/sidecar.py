@@ -17,7 +17,10 @@ Layout (one file per feature tree, ``.kart/columnar/<tree-oid>.kcol``):
             geom   bytes                     (when geom_bytes is set)
 
 This port reads int-pk files only (``keys_are_pks``); hash-keyed files and
-the ``geom`` section (the vertex column) are not read yet.
+the ``geom`` section (the vertex column) are not read yet. The repo-level
+helpers (:func:`sidecar_file`, :func:`has_sidecar`, :func:`load_block`,
+:func:`save_sidecar`) mirror kart_tpu's ``diff/sidecar.py``; building a
+sidecar from a tree walk or deriving one from a commit is not ported.
 """
 
 import json
@@ -169,3 +172,35 @@ def load_block_file(path, pad=False):
         keys, oid_rows = keys_p, oids_p
     return FeatureBlock(keys, oid_rows, n, envelopes=envelopes,
                         env_blocks=env_blocks)
+
+
+def sidecar_file(repo, feature_tree_oid):
+    """The sidecar path of a feature tree: ``.kart/columnar/<oid>.kcol``."""
+    return os.path.join(repo.gitdir, "columnar", feature_tree_oid + ".kcol")
+
+
+def has_sidecar(repo, dataset):
+    feature_tree = dataset.feature_tree
+    return feature_tree is not None and os.path.exists(
+        sidecar_file(repo, feature_tree.oid)
+    )
+
+
+def load_block(repo, dataset, pad=False):
+    """A dataset version's FeatureBlock from its sidecar (mmap views unless
+    ``pad``), or None when the file is absent or malformed (it is a cache:
+    the caller takes the tree walk)."""
+    feature_tree = dataset.feature_tree
+    if feature_tree is None:
+        return None
+    try:
+        return load_block_file(sidecar_file(repo, feature_tree.oid), pad=pad)
+    except (OSError, SidecarError):
+        return None
+
+
+def save_sidecar(repo, feature_tree_oid, keys, oids_u8, envelopes=None):
+    """Persist an int-pk sidecar for a feature tree (keys and oids need not
+    be sorted). -> path."""
+    os.makedirs(os.path.join(repo.gitdir, "columnar"), exist_ok=True)
+    return save_sidecar_file(sidecar_file(repo, feature_tree_oid), keys, oids_u8, envelopes)

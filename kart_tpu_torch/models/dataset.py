@@ -1,0 +1,356 @@
+"""Datasets V3, read side: an immutable view of a dataset's git tree.
+
+    <ds-path>/.table-dataset/
+        meta/schema.json, meta/legend/<hash>, meta/title, meta/description,
+        meta/crs/<id>.wkt, meta/path-structure.json, meta/capabilities.json
+        feature/<encoded-path>      msgpack [legend-hash, [non-pk values]]
+    <ds-path>/metadata.xml          "attachment" meta item
+
+Counterpart of the read side of kart_tpu's ``models/dataset.py``
+(``Dataset3``: meta items, ``feature_tree``, ``path_encoder``,
+``decode_path_to_pks``, ``get_feature*``, ``get_feature_promise_from_oid``,
+the fused JSON serialisers ``_json_value_str``, ``_jsonl_serializer`` and
+``feature_json_str_from_data``; ``FeatureOidPromise``) plus
+``new_dataset_meta_blobs`` for the synthetic-repo builder. Applying
+diffs, import iterators and spatially filtered feature streams are not
+ported.
+"""
+
+import json
+from json.encoder import encode_basestring_ascii
+
+from kart_tpu_torch.core.odb import TreeView
+from kart_tpu_torch.core.repo import NotYetImplemented
+from kart_tpu_torch.core.serialise import (
+    ensure_bytes,
+    ensure_text,
+    json_pack,
+    json_unpack,
+    msg_unpack,
+    msg_unpack_ext_raw,
+)
+from kart_tpu_torch.geometry import gpkg_hex_wkb
+from kart_tpu_torch.models.paths import PathEncoder, encoder_for_schema
+from kart_tpu_torch.models.schema import Legend, Schema
+
+ATTACHMENT_META_ITEMS = ("metadata.xml",)
+
+
+class DatasetCapabilityError(RuntimeError):
+    """The dataset requires capabilities this port does not support."""
+
+
+class FeatureOidPromise:
+    """Zero-arg callable resolving a feature dict from its blob oid, with
+    the oid and dataset open so writers can prefetch blob data in bulk
+    into ``data``."""
+
+    __slots__ = ("ds", "pk_values", "oid_hex", "data")
+
+    def __init__(self, ds, pk_values, oid_hex):
+        self.ds = ds
+        self.pk_values = pk_values
+        self.oid_hex = oid_hex
+        self.data = None
+
+    def __call__(self):
+        data = self.data
+        if data is None:
+            data = self.ds._feature_odb().read_blob(self.oid_hex)
+        else:
+            self.data = None  # one-shot: free the bytes after decode
+        return self.ds.get_feature(self.pk_values, data=data)
+
+
+def _json_value_str(v, _float_repr=float.__repr__):
+    """One scalar -> its JSON text, byte-identical to the stdlib encoder
+    with ``separators=(",", ":"), ensure_ascii=True`` (exact-type checks:
+    bool must not take the int branch)."""
+    t = v.__class__
+    if t is int:
+        return str(v)
+    if t is str:
+        return encode_basestring_ascii(v)
+    if t is float:
+        if v == v and v not in (float("inf"), float("-inf")):
+            return _float_repr(v)
+        return "NaN" if v != v else ("Infinity" if v > 0 else "-Infinity")
+    if t is bool:
+        return "true" if v else "false"
+    if t is bytes:
+        return '"' + v.hex() + '"'
+    return json.dumps(v, separators=(",", ":"), ensure_ascii=True)
+
+
+class Dataset3:
+    """A V3 dataset bound to its outer tree (the one at ``path``)."""
+
+    VERSION = 3
+    DATASET_DIRNAME = ".table-dataset"
+
+    FEATURE_PATH = "feature/"
+    META_PATH = "meta/"
+    LEGEND_PATH = "meta/legend/"
+    SCHEMA_PATH = "meta/schema.json"
+    TITLE_PATH = "meta/title"
+    DESCRIPTION_PATH = "meta/description"
+    CRS_PATH = "meta/crs/"
+    PATH_STRUCTURE_PATH = "meta/path-structure.json"
+
+    def __init__(self, tree, path, repo=None):
+        self.tree = tree
+        self.path = path.strip("/")
+        self.repo = repo
+        self._meta_cache = {}
+        self._json_plans = {}
+        self._jsonl_fns = {}
+        self._odb = None
+        if self.inner_tree is not None:
+            caps = self.get_meta_item("capabilities.json")
+            if caps:
+                raise DatasetCapabilityError(
+                    f"Dataset {self.path} requires unsupported capabilities: {caps}"
+                )
+
+    @classmethod
+    def is_dataset_tree(cls, tree):
+        try:
+            return tree.entry(cls.DATASET_DIRNAME).is_tree
+        except KeyError:
+            return False
+
+    @property
+    def inner_tree(self):
+        if self.tree is None:
+            return None
+        node = self.tree.get_or_none(self.DATASET_DIRNAME)
+        return node if isinstance(node, TreeView) else None
+
+    @property
+    def feature_tree(self):
+        inner = self.inner_tree
+        return inner.get_or_none("feature") if inner is not None else None
+
+    # -- meta items ----------------------------------------------------------
+
+    def get_data_at(self, rel_path, missing_ok=False):
+        """Raw bytes at a path relative to the inner tree."""
+        inner = self.inner_tree
+        node = inner.get_or_none(rel_path) if inner is not None else None
+        if node is None or isinstance(node, TreeView):
+            if missing_ok:
+                return None
+            raise KeyError(f"{self.path}/{self.DATASET_DIRNAME}/{rel_path}")
+        return node.data
+
+    def get_meta_item(self, name, missing_ok=True):
+        """Decoded meta item: .json -> parsed, .wkt/text -> str, others raw."""
+        if name in self._meta_cache:
+            return self._meta_cache[name]
+        if name in ATTACHMENT_META_ITEMS:
+            data = None
+            if self.tree is not None:
+                node = self.tree.get_or_none(name)
+                data = node.data if node is not None and not isinstance(node, TreeView) else None
+        else:
+            data = self.get_data_at(self.META_PATH + name, missing_ok=True)
+            if data is None and not name.startswith("crs/"):
+                data = self.get_data_at(name, missing_ok=True)
+        if data is None:
+            if not missing_ok:
+                raise KeyError(f"No meta item: {name}")
+            result = None
+        elif name.endswith(".json"):
+            result = json_unpack(data)
+        elif name.endswith(".wkt") or name in ("title", "description", "metadata.xml"):
+            result = ensure_text(data)
+        else:
+            result = data
+        self._meta_cache[name] = result
+        return result
+
+    def meta_items(self):
+        """dict of the standard meta items present."""
+        out = {}
+        for name in ("title", "description", "schema.json"):
+            value = self.get_meta_item(name)
+            if value is not None:
+                out[name] = value
+        for name in self.crs_identifiers():
+            out[f"crs/{name}.wkt"] = self.get_meta_item(f"crs/{name}.wkt")
+        value = self.get_meta_item("metadata.xml")
+        if value is not None:
+            out["metadata.xml"] = value
+        return out
+
+    def crs_identifiers(self):
+        inner = self.inner_tree
+        crs_tree = inner.get_or_none("meta/crs") if inner is not None else None
+        if crs_tree is None:
+            return []
+        return [e.name[: -len(".wkt")] for e in crs_tree.entries() if e.name.endswith(".wkt")]
+
+    @property
+    def schema(self) -> Schema:
+        if "__schema__" not in self._meta_cache:
+            cols = self.get_meta_item("schema.json", missing_ok=False)
+            self._meta_cache["__schema__"] = Schema.from_column_dicts(cols)
+        return self._meta_cache["__schema__"]
+
+    def get_legend(self, legend_hash) -> Legend:
+        key = f"__legend__{legend_hash}"
+        if key not in self._meta_cache:
+            self._meta_cache[key] = Legend.loads(self.get_data_at(self.LEGEND_PATH + legend_hash))
+        return self._meta_cache[key]
+
+    @property
+    def path_encoder(self) -> PathEncoder:
+        """The dataset's feature path encoder; NotYetImplemented for
+        hash-keyed datasets (no path-structure.json means the legacy hashed
+        layout)."""
+        if "__encoder__" not in self._meta_cache:
+            spec = self.get_meta_item("path-structure.json")
+            if spec is None:
+                raise NotYetImplemented(
+                    f"Dataset {self.path} uses the legacy hash-keyed feature "
+                    "paths, which are not ported yet"
+                )
+            self._meta_cache["__encoder__"] = PathEncoder.get(**spec)
+        return self._meta_cache["__encoder__"]
+
+    # -- feature reads -------------------------------------------------------
+
+    def decode_path_to_pks(self, path):
+        """feature blob path (or bare filename) -> pk value tuple."""
+        return PathEncoder.decode_filename(path.rsplit("/", 1)[-1])
+
+    def get_feature(self, pk_values=None, *, data=None):
+        """-> feature dict keyed by column name, from raw blob data or by
+        pk through the feature tree."""
+        if data is None:
+            rel = self.path_encoder.encode_pks_to_path(tuple(pk_values))
+            data = self.get_data_at(self.FEATURE_PATH + rel)
+        legend_hash, non_pk_values = msg_unpack(data)
+        raw = self.get_legend(legend_hash).to_raw_dict(tuple(pk_values), tuple(non_pk_values))
+        return self.schema.feature_from_raw_dict(raw)
+
+    def get_feature_promise_from_oid(self, pk_values, oid_hex):
+        return FeatureOidPromise(self, pk_values, oid_hex)
+
+    def _feature_odb(self):
+        if self._odb is None:
+            tree = self.feature_tree
+            self._odb = tree.odb if tree is not None else self.repo.odb
+        return self._odb
+
+    def _json_plan(self, legend_hash):
+        """[(column name, (is_pk, value index) | None, is_geometry)] in
+        schema order for one legend."""
+        plan = self._json_plans.get(legend_hash)
+        if plan is None:
+            legend = self.get_legend(legend_hash)
+            pk_pos = {cid: i for i, cid in enumerate(legend.pk_columns)}
+            nonpk_pos = {cid: i for i, cid in enumerate(legend.non_pk_columns)}
+            plan = []
+            for c in self.schema.columns:
+                if c.id in pk_pos:
+                    src = (True, pk_pos[c.id])
+                elif c.id in nonpk_pos:
+                    src = (False, nonpk_pos[c.id])
+                else:
+                    src = None  # column added since this legend
+                plan.append((c.name, src, c.data_type == "geometry"))
+            self._json_plans[legend_hash] = plan
+        return plan
+
+    def feature_json_from_data(self, pk_values, data):
+        """Feature blob bytes -> JSON-ready dict (geometry as upper-hex WKB,
+        bytes as hex), equal to converting :meth:`get_feature`'s dict."""
+        legend_hash, non_pk_values = msg_unpack_ext_raw(data)
+        out = {}
+        for name, src, is_geom in self._json_plan(legend_hash):
+            v = None
+            if src is not None:
+                is_pk, i = src
+                seq = pk_values if is_pk else non_pk_values
+                if i < len(seq):
+                    v = seq[i]
+            if v is not None:
+                if is_geom:
+                    v = gpkg_hex_wkb(v)
+                elif isinstance(v, bytes):
+                    v = v.hex()
+            out[name] = v
+        return out
+
+    def _jsonl_serializer(self, legend_hash):
+        """Per-legend compiled serialiser ``fn(pk_values, non_pk_values) ->
+        json object text``: the column plan unrolled into straight-line
+        code. Every embedded literal goes through repr()."""
+        fn = self._jsonl_fns.get(legend_hash)
+        if fn is not None:
+            return fn
+        lines = [
+            "def _ser(pk, vals, _str=str, _esc=_esc, _fr=_fr, _hex=_hex, _jvs=_jvs):",
+            " np_ = len(pk)",
+            " nv_ = len(vals)",
+        ]
+        parts = []
+        for k, (name, src, is_geom) in enumerate(self._json_plan(legend_hash)):
+            prefix = ("" if k == 0 else ",") + encode_basestring_ascii(name) + ":"
+            if src is None:
+                parts.append(repr(prefix + "null"))
+                continue
+            is_pk, i = src
+            seq, bound = ("pk", "np_") if is_pk else ("vals", "nv_")
+            lines.append(f" v{k} = {seq}[{i}] if {i} < {bound} else None")
+            if is_geom:
+                parts.append(
+                    f"({prefix!r} + ('null' if v{k} is None else '\"' + _hex(v{k}) + '\"'))"
+                )
+            else:
+                parts.append(
+                    f"({prefix!r} + ('null' if v{k} is None else"
+                    f" _str(v{k}) if v{k}.__class__ is int else"
+                    f" _esc(v{k}) if v{k}.__class__ is str else"
+                    f" _fr(v{k}) if v{k}.__class__ is float"
+                    f" and v{k} == v{k} and -1e400 < v{k} < 1e400 else"
+                    f" _jvs(v{k})))"
+                )
+        body = " + ".join(parts) if parts else "''"
+        lines.append(f" return '{{' + {body} + '}}'")
+        namespace = {"_esc": encode_basestring_ascii, "_fr": float.__repr__,
+                     "_hex": gpkg_hex_wkb, "_jvs": _json_value_str}
+        exec("\n".join(lines), namespace)
+        fn = self._jsonl_fns[legend_hash] = namespace["_ser"]
+        return fn
+
+    def feature_json_str_from_data(self, pk_values, data):
+        """Feature blob bytes -> the feature's compact JSON object text,
+        byte-identical to encoding :meth:`feature_json_from_data` with
+        ``separators=(",", ":"), ensure_ascii=True``."""
+        legend_hash, non_pk_values = msg_unpack_ext_raw(data)
+        fn = self._jsonl_fns.get(legend_hash) or self._jsonl_serializer(legend_hash)
+        return fn(pk_values, non_pk_values)
+
+    @classmethod
+    def new_dataset_meta_blobs(cls, path, schema, *, title=None, description=None,
+                               crs_defs=None, path_encoder=None):
+        """-> [(full_path, blob_bytes)] for a brand-new dataset's meta tree."""
+        inner = f"{path.strip('/')}/{cls.DATASET_DIRNAME}"
+        enc = path_encoder or encoder_for_schema(schema)
+        blobs = [
+            (f"{inner}/{cls.SCHEMA_PATH}", schema.dumps()),
+            (f"{inner}/{cls.LEGEND_PATH}{schema.legend_hash}", schema.legend.dumps()),
+            (f"{inner}/{cls.PATH_STRUCTURE_PATH}", json_pack(enc.to_dict())),
+        ]
+        if title:
+            blobs.append((f"{inner}/{cls.TITLE_PATH}", ensure_bytes(title)))
+        if description:
+            blobs.append((f"{inner}/{cls.DESCRIPTION_PATH}", ensure_bytes(description)))
+        for ident, wkt in (crs_defs or {}).items():
+            blobs.append((f"{inner}/{cls.CRS_PATH}{ident}.wkt", ensure_bytes(wkt)))
+        return blobs
+
+    def __repr__(self):
+        return f"{type(self).__name__}({self.path!r})"

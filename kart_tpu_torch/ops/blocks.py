@@ -43,6 +43,14 @@ def unpack_oid_hex(oid_rows):
     return [h[i : i + 40] for i in range(0, len(h), 40)]
 
 
+def unpack_oid_bytes(oid_rows):
+    """(N, 5) uint32 -> list of 20-byte shas."""
+    if not len(oid_rows):
+        return []
+    b = np.ascontiguousarray(oid_rows).astype("<u4").view(np.uint8).tobytes()
+    return [b[i : i + 20] for i in range(0, len(b), 20)]
+
+
 class FeatureBlock:
     """One int-pk dataset version (the key is the pk, so no paths are
     kept) as key-sorted (key, oid) arrays, with the

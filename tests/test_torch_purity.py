@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX and no kart_tpu import, the card by
-default, a named error instead of a fallback."""
+"""The port stands alone: no JAX, kart_tpu, msgpack or click import (the
+card's machine has neither of the last two), the card by default, a named
+error instead of a fallback."""
 
 import ast
 import os
@@ -12,6 +13,7 @@ import torch
 
 import kart_tpu_torch
 from kart_tpu_torch import runtime
+from kart_tpu_torch.cli import main as cli_main
 from kart_tpu_torch.diff import backend, engine
 from kart_tpu_torch.ops import _build, bbox
 from kart_tpu_torch.ops.blocks import FeatureBlock
@@ -37,9 +39,11 @@ def _modules():
     return mods
 
 
+FORBIDDEN = ("jax", "jaxlib", "kart_tpu", "msgpack", "click")
+
+
 def _forbidden(name):
-    top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "kart_tpu")
+    return name.split(".")[0] in FORBIDDEN
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -56,15 +60,22 @@ def test_no_jax_or_kart_tpu_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_walk_reaches_every_package():
+    dirs = {os.path.relpath(os.path.dirname(f), PKG) for f in _port_files()[1:]}
+    assert {".", "core", "models", "cli", "diff", "ops", "spatial_filter"} <= dirs
+    assert {"kart_tpu_torch.cli.diff_cmds", "kart_tpu_torch.core.msgpack",
+            "kart_tpu_torch.__main__"} <= set(_modules())
+
+
 def test_imports_with_jax_and_kart_tpu_blocked():
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'kart_tpu'):\n"
+        f"for m in {FORBIDDEN!r}:\n"
         "    sys.modules[m] = None\n"
         "import importlib\n"
         f"for m in {_modules()!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
-        "assert not any(k == 'jax' or k.startswith(('jax.', 'kart_tpu.'))"
+        f"assert not any(k.split('.')[0] in {FORBIDDEN!r}"
         " for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
     )
@@ -90,6 +101,7 @@ ENTRY_POINTS = {
     "bbox_intersects": lambda: bbox.bbox_intersects(np.zeros((3, 4)), (0, 0, 1, 1)),
     "envelope_prepass": lambda: envelope_prepass(ROOT, "0,0,1,1"),
     "resolve_device": lambda: runtime.resolve_device(),
+    "cli_main": lambda: cli_main(["-C", ROOT, "diff", "-o", "feature-count", "HEAD^...HEAD"]),
 }
 
 
