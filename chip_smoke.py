@@ -29,10 +29,11 @@ first use. Phases:
    int-pk features, real blobs for the 1% edited rows only, from ``--seed``
 8-10. ``kart diff`` through the port's CLI entry point (``kart_tpu_torch.cli
    .main``, what ``python -m kart_tpu_torch`` calls), each phase with the
-   launch counters zeroed before and read after: ``-o feature-count`` on
-   the card (counts-only K1); ``-o json-lines`` on the card and again with
-   ``--device cpu`` (byte-identical files), then once more under cProfile;
-   ``-o json`` on the card
+   launch counters zeroed before and read after and K1 launched exactly
+   once (one dataset): ``-o feature-count`` on the card (counts-only K1);
+   ``-o json-lines`` on the card and again with ``--device cpu``
+   (byte-identical files), then each once more under cProfile; ``-o json``
+   on the card and with ``--device cpu`` (byte-identical files)
 11. the ``kernels`` JSON line, the card line, and the result line
 
 Any failed check exits non-zero without the result line.
@@ -247,13 +248,14 @@ def kart_cli(*argv):
     return wall
 
 
-def counted(label, fn):
+def counted(label, fn, want=1):
     """Run ``fn`` with the launch counters zeroed before and read after;
-    fail unless K1 launched. -> (fn's result, K1 launches)."""
+    fail unless K1 launched exactly ``want`` times (once for each dataset
+    the columnar route classifies). -> (fn's result, K1 launches)."""
     runtime.reset_stats()
     out = fn()
     n = runtime.stats_snapshot()["classify_launches"]
-    check(n > 0, f"K1 was not launched in phase {label}")
+    check(n == want, f"K1 launched {n} times in phase {label}, expected {want}")
     return out, n
 
 
@@ -327,20 +329,25 @@ def cli_phases(args, card):
         print(f"[9] json-lines: card {wall_card:.4f} s, cpu {wall_cpu:.4f} s host wall, "
               f"{os.path.getsize(card_out)} bytes, sha256 {digest} on both; "
               f"K1 launches {launches['9']} on {card}")
-        profile, split = profile_split(lambda: kart_cli(*jsonl, card_out))
-        print("[9] host profile of the card run (cProfile, cumulative s): "
-              + "; ".join(f"{k} {v:.4f}" for k, v in split.items()))
-        print(profile)
+        for where, pre in (("card", []), ("cpu", ["--device", "cpu"])):
+            profile, split = profile_split(lambda: kart_cli(*pre, *jsonl, card_out))
+            print(f"[9] host profile of the {where} run (cProfile, cumulative s): "
+                  + "; ".join(f"{k} {v:.4f}" for k, v in split.items()))
+            print(profile)
 
-        out = os.path.join(tmp, "diff.json")
-        wall, launches["10"] = counted("10", lambda: kart_cli(
-            "-C", path, "diff", "-o", "json", "--output", out, "HEAD^...HEAD"))
-        with open(out) as f:
+        json_args = ["-C", path, "diff", "-o", "json", "HEAD^...HEAD", "--output"]
+        card_out, cpu_out = os.path.join(tmp, "card.json"), os.path.join(tmp, "cpu.json")
+        wall_card, launches["10"] = counted("10", lambda: kart_cli(*json_args, card_out))
+        wall_cpu = kart_cli("--device", "cpu", *json_args, cpu_out)
+        digest = sha256_of(card_out)
+        check(digest == sha256_of(cpu_out), "json on the card differs from --device cpu")
+        with open(card_out) as f:
             doc = json.load(f)
         n_json = len(doc["kart.diff/v1+hexwkb"]["synth"]["feature"])
         check(n_json == n_edits, f"json diff has {n_json} features, expected {n_edits}")
-        print(f"[10] json on the card: {n_json} features, K1 launches {launches['10']}, "
-              f"{wall:.4f} s host wall, {os.path.getsize(out)} bytes on {card}")
+        print(f"[10] json: card {wall_card:.4f} s, cpu {wall_cpu:.4f} s host wall, "
+              f"{n_json} features, {os.path.getsize(card_out)} bytes, sha256 {digest} on "
+              f"both; K1 launches {launches['10']} on {card}")
     return launches
 
 

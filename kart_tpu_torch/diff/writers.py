@@ -203,9 +203,6 @@ class JsonLinesDiffWriter(BaseDiffWriter):
     sidecars stream through the fused columnar row route; everything else
     through deltas. Both routes write identical bytes."""
 
-    #: the fused row route; off, every dataset takes the delta route
-    fused_rows = True
-
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.fp = resolve_output_path(self.output_path)
@@ -232,7 +229,7 @@ class JsonLinesDiffWriter(BaseDiffWriter):
 
     def _write_ds_fast(self, ds_path):
         """The fused row route for one dataset; True when it handled it."""
-        if not self.fused_rows or not self.repo_key_filter.match_all:
+        if not self.repo_key_filter.match_all:
             return False
         rows = get_feature_diff_rows(self.base_rs, self.target_rs, ds_path, self.device)
         if rows is None:

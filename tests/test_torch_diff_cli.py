@@ -125,16 +125,17 @@ def test_bad_commit_spec_like_kart_tpu(repos, spec, monkeypatch, capsys):
     assert got.err == ref.err and got.out == ref.out == ""
 
 
-def _jsonl(path, fused):
-    JsonLinesDiffWriter.fused_rows = fused
-    try:
+def _jsonl(path, monkeypatch, fused):
+    """json-lines through the fused row route, or with it refused so that
+    every dataset takes the delta route."""
+    with monkeypatch.context() as m:
+        if not fused:
+            m.setattr(JsonLinesDiffWriter, "_write_ds_fast", lambda self, ds_path: False)
         return _run_port(["--device", "cpu", "-C", path, "diff", "-o", "json-lines",
                           "HEAD^...HEAD"])
-    finally:
-        JsonLinesDiffWriter.fused_rows = True
 
 
-def test_fused_rows_match_delta_route_mixed_edits(tmp_path):
+def test_fused_rows_match_delta_route_mixed_edits(tmp_path, monkeypatch):
     """Inserts, updates and deletes with geometry, escapes, NaN/Infinity and
     NULLs: the fused row route writes the delta route's bytes (and both
     write kart_tpu's)."""
@@ -163,16 +164,16 @@ def test_fused_rows_match_delta_route_mixed_edits(tmp_path):
     rows = engine.get_feature_diff_rows(trepo.structure("HEAD^"), trepo.structure("HEAD"),
                                         ds_path, device="cpu")
     assert rows is not None and rows["count"] == 7  # the fused route is live
-    fused, plain = _jsonl(path, True), _jsonl(path, False)
+    fused, plain = _jsonl(path, monkeypatch, True), _jsonl(path, monkeypatch, False)
     assert fused == plain and fused[0] == 0
     ref = CliRunner().invoke(kart_cli, ["-C", path, "diff", "-o", "json-lines", "HEAD^...HEAD"])
     assert fused[1] == ref.stdout
     assert '"rating":Infinity' in fused[1] and '"rating":NaN' in fused[1]
 
 
-def test_fused_rows_match_delta_route_synth(repos):
+def test_fused_rows_match_delta_route_synth(repos, monkeypatch):
     path = repos[("synth", "columnar")][0]
-    fused, plain = _jsonl(path, True), _jsonl(path, False)
+    fused, plain = _jsonl(path, monkeypatch, True), _jsonl(path, monkeypatch, False)
     assert fused == plain
     assert fused[1].count('"type":"feature"') == SYNTH_N // 100
 
