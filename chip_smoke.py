@@ -34,7 +34,23 @@ first use. Phases:
    ``-o json-lines`` on the card and again with ``--device cpu``
    (byte-identical files), then each once more under cProfile; ``-o json``
    on the card and with ``--device cpu`` (byte-identical files)
-11. the ``kernels`` JSON line, the card line, and the result line
+11. build a spatial repository with ``synth.synth_repo(spatial=True)``:
+   ``--repo-rows`` point features whose sidecars carry envelope and
+   vertex columns, real blobs for the 1% edited rows only
+12. write a rectangular spatial filter into its config, then run ``-o
+   feature-count`` and ``-o json-lines`` on the card and with ``--device
+   cpu``: equal counts and sha256, and on the card exactly two K2 launches
+   (one a side) and one K1 launch a command, counts-only for
+   feature-count, with the rows the prefilter kept read from the same
+   run's counters; then the json-lines run on the card under cProfile
+13. the same under a polygon filter with a hole (``-o json`` and ``quiet
+   --exit-code``: equal sha256 and exit codes), and under a rect around one
+   unedited feature (``quiet --exit-code`` exits 0, json-lines has no
+   feature line)
+14. the ``kernels`` JSON line (each kernel's ``launches`` is the sum of
+   ``launches_by_phase``: every launch of the main path's runs, the
+   cProfile runs included, and none of the comparisons with the plain
+   versions), the card line, and the result line
 
 Any failed check exits non-zero without the result line.
 """
@@ -59,8 +75,12 @@ import torch
 from kart_tpu_torch import runtime
 from kart_tpu_torch.cli import main as kart_main
 from kart_tpu_torch.diff.backend import envelope_scan, envelope_scan_plain
-from kart_tpu_torch.diff.engine import classify_changed, feature_count, prefilter_rect
-from kart_tpu_torch.diff.sidecar import load_block_file, save_sidecar_file
+from kart_tpu_torch.diff.engine import (
+    classify_changed,
+    feature_count,
+    prefilter_rect,
+)
+from kart_tpu_torch.diff.sidecar import load_block, load_block_file, save_sidecar_file
 from kart_tpu_torch.ops import _build
 from kart_tpu_torch.ops import bbox as bbox_ops
 from kart_tpu_torch.ops.blocks import block_tensors, to_device
@@ -72,7 +92,11 @@ from kart_tpu_torch.ops.diff_kernel import (
     tile_coranks_plain,
 )
 from kart_tpu_torch.ops.envelope_codec import EnvelopeCodec
-from kart_tpu_torch.spatial_filter import PREPASS_PAD, envelope_prepass
+from kart_tpu_torch.spatial_filter import (
+    PREPASS_PAD,
+    ResolvedSpatialFilterSpec,
+    envelope_prepass,
+)
 from kart_tpu_torch.spatial_filter.index import DB_NAME, EnvelopeIndexReader
 from kart_tpu_torch.synth import synth_repo
 
@@ -87,6 +111,12 @@ RECT_PLAIN = (-73.123456789, -33.3333333333, 151.2222222222, 61.7777777777)
 RECT_WRAP = (170.0, -60.0, -170.0, 60.0)
 BBOX_QUERY = (-30.3, -20.7, 60.1, 40.9)
 PREPASS_WSEN = "-30.3,-20.7,60.1,40.9"
+
+#: the spatial repository's filters: a rectangle (about 12% of the synthetic
+#: globe) and a polygon with a hole, whose edges cut some envelopes
+FILTER_RECT = "EPSG:4326;POLYGON((-60 -30,60 -30,60 30,-60 30,-60 -30))"
+FILTER_POLY = ("EPSG:4326;POLYGON((-60 -40,0 -50,60 -40,40 40,-40 40,-60 -40),"
+               "(-10 -10,10 -10,10 10,-10 10,-10 -10))")
 
 
 class SmokeFailure(RuntimeError):
@@ -104,6 +134,16 @@ def card_line():
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout
     return out.strip().splitlines()[0]
+
+
+def ecc_line():
+    """The card's volatile ECC error totals, corrected and uncorrected, as
+    nvidia-smi reports them (a card that faults is read here first)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=ecc.errors.corrected.volatile.total,"
+         "ecc.errors.uncorrected.volatile.total", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
 
 
 # --- data -------------------------------------------------------------------
@@ -237,26 +277,34 @@ def mismatches(a, b):
 
 # --- the kart diff CLI on a repository ---------------------------------------
 
-def kart_cli(*argv):
-    """One in-process ``python -m kart_tpu_torch`` call; -> (exit code,
-    host wall seconds). Raises unless it exits 0."""
+def kart_cli(*argv, rc_want=0):
+    """One in-process ``python -m kart_tpu_torch`` call; -> host wall
+    seconds. Raises unless it exits ``rc_want``."""
     t = time.perf_counter()
     rc = kart_main(list(argv))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    check(rc == 0, f"kart {' '.join(argv)} exited {rc}")
+    check(rc == rc_want, f"kart {' '.join(argv)} exited {rc}, expected {rc_want}")
     return wall
 
 
-def counted(label, fn, want=1):
+def counted(label, fn, launches, want=1, want_k2=0):
     """Run ``fn`` with the launch counters zeroed before and read after;
     fail unless K1 launched exactly ``want`` times (once for each dataset
-    the columnar route classifies). -> (fn's result, K1 launches)."""
+    the columnar route classifies) and K2 ``want_k2`` times, and add the
+    launches read to ``launches[label]`` ([K1, K2]). -> (fn's result, the
+    counters read)."""
     runtime.reset_stats()
     out = fn()
-    n = runtime.stats_snapshot()["classify_launches"]
+    stats = runtime.stats_snapshot()
+    n = stats["classify_launches"]
     check(n == want, f"K1 launched {n} times in phase {label}, expected {want}")
-    return out, n
+    k2 = stats["envelope_scan_launches"]
+    check(k2 == want_k2, f"K2 launched {k2} times in phase {label}, expected {want_k2}")
+    total = launches.setdefault(label, [0, 0])
+    total[0] += n
+    total[1] += k2
+    return out, stats
 
 
 def sha256_of(path):
@@ -267,19 +315,32 @@ def sha256_of(path):
     return h.hexdigest()
 
 
-def profile_split(fn, top=12):
+#: the host steps of the fused json-lines route: {step: function name}
+JSONL_STEPS = {
+    "classify (sidecar mmap, upload, K1, changed rows)": "get_feature_diff_rows",
+    "blob reads (pack index, zlib)": "read_blobs_data_ordered",
+    "JSON serialisation (msgpack decode, compiled serialiser)": "feature_json_str_from_data",
+    "tree walk": "tree_diff_entries",
+}
+
+#: the host steps of a spatially filtered json-lines run (the delta route)
+FILTERED_JSONL_STEPS = {
+    "K2 and the prefilter's host work (envelope upload, masks, hit keys)":
+        "spatial_prefilter_blocks",
+    "compaction of the survivors": "_compact",
+    "K1 (upload of the survivors, classify, changed rows)": "classify_changed",
+    "blob reads (pack index, zlib)": "read_blobs_batch",
+    "residue (blob decode, exact match)": "_delta_matches_filter",
+    "serialisation": "_feature_json_str",
+}
+
+
+def profile_split(fn, steps=JSONL_STEPS, top=12):
     """cProfile of one call -> (text of the top functions by own time,
-    {step: cumulative seconds}) for the json-lines path's host steps."""
+    {step: cumulative seconds}) for ``steps``."""
     prof = cProfile.Profile()
     prof.runcall(fn)
     st = pstats.Stats(prof)
-    steps = {
-        "classify (sidecar mmap, upload, K1, changed rows)": "get_feature_diff_rows",
-        "blob reads (pack index, zlib)": "read_blobs_data_ordered",
-        "JSON serialisation (msgpack decode, compiled serialiser)":
-            "feature_json_str_from_data",
-        "tree walk": "tree_diff_entries",
-    }
     split = {}
     for step, fn_name in steps.items():
         split[step] = max((v[3] for k, v in st.stats.items() if k[2] == fn_name), default=0.0)
@@ -288,10 +349,9 @@ def profile_split(fn, top=12):
     return out.getvalue(), split
 
 
-def cli_phases(args, card):
+def cli_phases(args, card, launches):
     """Phases 7-10: build the repository, then drive ``kart diff`` through
-    the CLI. -> {phase: K1 launches}."""
-    launches = {}
+    the CLI, adding every card command's launches to ``launches``."""
     with tempfile.TemporaryDirectory(prefix="kart_smoke_repo_") as tmp:
         t = time.perf_counter()
         repo, info = synth_repo(os.path.join(tmp, "repo"), args.repo_rows, edit_frac=0.01,
@@ -307,17 +367,18 @@ def cli_phases(args, card):
               f"{pack_bytes} pack bytes")
 
         out = os.path.join(tmp, "count.txt")
-        wall, launches["8"] = counted("8", lambda: kart_cli(
-            "-C", path, "diff", "-o", "feature-count", "--output", out, "HEAD^...HEAD"))
+        wall, _ = counted("8", lambda: kart_cli(
+            "-C", path, "diff", "-o", "feature-count", "--output", out, "HEAD^...HEAD"),
+            launches)
         with open(out) as f:
             text = f.read()
         check(text == f"synth:\n\t{n_edits} features changed\n", f"feature-count said {text!r}")
-        print(f"[8] feature-count on the card: {n_edits} features changed, K1 launches "
-              f"{launches['8']}, {wall:.4f} s host wall on {card}")
+        print(f"[8] feature-count on the card: {n_edits} features changed, K1 launches 1, "
+              f"{wall:.4f} s host wall on {card}")
 
         card_out, cpu_out = os.path.join(tmp, "card.jsonl"), os.path.join(tmp, "cpu.jsonl")
         jsonl = ["-C", path, "diff", "-o", "json-lines", "HEAD^...HEAD", "--output"]
-        wall_card, launches["9"] = counted("9", lambda: kart_cli(*jsonl, card_out))
+        wall_card, _ = counted("9", lambda: kart_cli(*jsonl, card_out), launches)
         wall_cpu = kart_cli("--device", "cpu", *jsonl, cpu_out)
         digest = sha256_of(card_out)
         check(digest == sha256_of(cpu_out), "json-lines on the card differs from --device cpu")
@@ -328,16 +389,18 @@ def cli_phases(args, card):
               f"json-lines has {n_lines} feature lines, expected {n_edits}")
         print(f"[9] json-lines: card {wall_card:.4f} s, cpu {wall_cpu:.4f} s host wall, "
               f"{os.path.getsize(card_out)} bytes, sha256 {digest} on both; "
-              f"K1 launches {launches['9']} on {card}")
+              f"K1 launches 1 on {card}")
         for where, pre in (("card", []), ("cpu", ["--device", "cpu"])):
-            profile, split = profile_split(lambda: kart_cli(*pre, *jsonl, card_out))
+            profile, split = counted(
+                "9", lambda: profile_split(lambda: kart_cli(*pre, *jsonl, card_out)),
+                launches, want=int(where == "card"))[0]
             print(f"[9] host profile of the {where} run (cProfile, cumulative s): "
                   + "; ".join(f"{k} {v:.4f}" for k, v in split.items()))
             print(profile)
 
         json_args = ["-C", path, "diff", "-o", "json", "HEAD^...HEAD", "--output"]
         card_out, cpu_out = os.path.join(tmp, "card.json"), os.path.join(tmp, "cpu.json")
-        wall_card, launches["10"] = counted("10", lambda: kart_cli(*json_args, card_out))
+        wall_card, _ = counted("10", lambda: kart_cli(*json_args, card_out), launches)
         wall_cpu = kart_cli("--device", "cpu", *json_args, cpu_out)
         digest = sha256_of(card_out)
         check(digest == sha256_of(cpu_out), "json on the card differs from --device cpu")
@@ -347,8 +410,129 @@ def cli_phases(args, card):
         check(n_json == n_edits, f"json diff has {n_json} features, expected {n_edits}")
         print(f"[10] json: card {wall_card:.4f} s, cpu {wall_cpu:.4f} s host wall, "
               f"{n_json} features, {os.path.getsize(card_out)} bytes, sha256 {digest} on "
-              f"both; K1 launches {launches['10']} on {card}")
-    return launches
+              f"both; K1 launches 1 on {card}")
+
+
+def set_filter(repo, spec_text):
+    repo.config.set_many(ResolvedSpatialFilterSpec.from_spec_string(spec_text).config_items())
+
+
+def card_and_cpu(label, argv, out_path, launches, rc_want=0, counts_only=False):
+    """One filtered command on the card, counted: exactly one K1 launch (the
+    one dataset; counts-only for ``counts_only``) and two K2 launches (one a
+    side), added to ``launches``; then with ``--device cpu``. Fail unless
+    both exit ``rc_want`` and write the same bytes to ``out_path`` (when
+    given). -> (card wall s, cpu wall s, sha256 or None, (old, new) rows
+    the card's prefilter kept)."""
+    walls, outs = [], []
+    for where in ("card", "cpu"):
+        path = None if out_path is None else f"{out_path}.{where}"
+        cmd = [*argv, *([] if path is None else ["--output", path])]
+        if where == "cpu":
+            walls.append(kart_cli("--device", "cpu", *cmd, rc_want=rc_want))
+        else:
+            wall, stats = counted(label, lambda: kart_cli(*cmd, rc_want=rc_want), launches,
+                                  want=1, want_k2=2)
+            n = stats["classify_counts_only_launches"]
+            check(n == int(counts_only), f"K1 ran counts-only {n} times in phase {label}")
+            survivors = (stats["prefilter_old_survivors"], stats["prefilter_new_survivors"])
+            walls.append(wall)
+        outs.append(path)
+    digest = None
+    if out_path is not None:
+        digest = sha256_of(outs[0])
+        check(digest == sha256_of(outs[1]), f"phase {label}: card and --device cpu differ")
+    return walls[0], walls[1], digest, survivors
+
+
+def spatial_phases(args, card, launches):
+    """Phases 11-13: build the spatial repository, then drive spatially
+    filtered ``kart diff`` commands through the CLI on the card and with
+    ``--device cpu``, adding every card command's launches to
+    ``launches``."""
+    with tempfile.TemporaryDirectory(prefix="kart_smoke_spatial_") as tmp:
+        t = time.perf_counter()
+        repo, info = synth_repo(os.path.join(tmp, "repo"), args.repo_rows, edit_frac=0.01,
+                                seed=args.seed, blobs="changed", spatial=True)
+        build_s = time.perf_counter() - t
+        packs = repo.odb.packs.packs
+        n_objects = sum(p.count for p in packs)
+        pack_bytes = sum(os.path.getsize(p.pack_path) for p in packs)
+        sidecar_bytes = sum(os.path.getsize(os.path.join(repo.gitdir, "columnar", f))
+                            for f in os.listdir(os.path.join(repo.gitdir, "columnar")))
+        n_edits, path = info["n_edits"], repo.workdir
+        print(f"[11] spatial repo: {args.repo_rows} point features, {n_edits} edited, "
+              f"built in {build_s:.2f} s host wall; {n_objects} objects in {len(packs)} "
+              f"packs, {pack_bytes} pack bytes, {sidecar_bytes} sidecar bytes on {card}")
+
+        spec = ["-C", path, "diff"]
+        # [12] the rectangle
+        set_filter(repo, FILTER_RECT)
+        count_out = os.path.join(tmp, "count")
+        w_card, w_cpu, _, survivors = card_and_cpu(
+            "12", [*spec, "-o", "feature-count", "HEAD^...HEAD"], count_out, launches,
+            counts_only=True)
+        with open(f"{count_out}.card") as f:
+            text = f.read()
+        count = int(text.split("\t")[1].split()[0])
+        check(0 < count < n_edits, f"filtered feature-count said {text!r}")
+        print(f"[12] rect filter, survivors (old, new) {survivors}; "
+              f"feature-count {count} of {n_edits} edits: card {w_card:.4f} s, cpu "
+              f"{w_cpu:.4f} s host wall, equal output; K1 1 (counts-only), K2 2 on {card}")
+        jl_out = os.path.join(tmp, "rect.jsonl")
+        jsonl = [*spec, "-o", "json-lines", "HEAD^...HEAD"]
+        w_card, w_cpu, digest, _ = card_and_cpu("12", jsonl, jl_out, launches)
+        with open(f"{jl_out}.card") as f:
+            n_lines = sum('"type":"feature"' in line for line in f)
+        check(0 < n_lines <= count, f"filtered json-lines has {n_lines} feature lines")
+        print(f"[12] rect filter json-lines: {n_lines} feature lines, "
+              f"{os.path.getsize(jl_out + '.card')} bytes, sha256 {digest} on both; card "
+              f"{w_card:.4f} s, cpu {w_cpu:.4f} s host wall; K1 1, K2 2 on {card}")
+        profile, split = counted("12", lambda: profile_split(
+            lambda: kart_cli(*jsonl, "--output", jl_out + ".prof"), FILTERED_JSONL_STEPS),
+            launches, want_k2=2)[0]
+        print("[12] host profile of the card's filtered json-lines run (cProfile, cumulative "
+              "s): " + "; ".join(f"{k} {v:.4f}" for k, v in split.items()) + f" on {card}")
+        print(profile)
+
+        # [13] the polygon with a hole
+        set_filter(repo, FILTER_POLY)
+        js_out = os.path.join(tmp, "poly.json")
+        w_card, w_cpu, digest, survivors = card_and_cpu(
+            "13", [*spec, "-o", "json", "HEAD^...HEAD"], js_out, launches)
+        with open(f"{js_out}.card") as f:
+            n_json = len(json.load(f)["kart.diff/v1+hexwkb"]["synth"]["feature"])
+        check(n_json > 0, "polygon-filtered json has no feature")
+        print(f"[13] polygon filter, survivors (old, new) {survivors}; json "
+              f"{n_json} features, sha256 {digest} on both; card {w_card:.4f} s, cpu "
+              f"{w_cpu:.4f} s host wall; K1 1, K2 2 on {card}")
+        quiet = [*spec, "-o", "quiet", "--exit-code", "HEAD^...HEAD"]
+        w_card, w_cpu, _, _ = card_and_cpu("13", quiet, None, launches, rc_want=1)
+        print(f"[13] polygon filter quiet --exit-code: 1 on both; card {w_card:.4f} s, cpu "
+              f"{w_cpu:.4f} s host wall; K1 1, K2 2 on {card}")
+
+        # a rect around one unedited feature: survivors, but no change
+        old = load_block(repo, repo.structure("HEAD^").datasets["synth"])
+        new = load_block(repo, repo.structure("HEAD").datasets["synth"])
+        same = np.flatnonzero((np.asarray(old.oids[: old.count])
+                               == np.asarray(new.oids[: new.count])).all(axis=1))
+        w, s, e, n = (float(v) for v in old.envelopes[same[len(same) // 2]])
+        cx, cy = (w + e) / 2, (s + n) / 2
+        lone = (f"EPSG:4326;POLYGON(({cx - 2e-4} {cy - 2e-4},{cx + 2e-4} {cy - 2e-4},"
+                f"{cx + 2e-4} {cy + 2e-4},{cx - 2e-4} {cy + 2e-4},{cx - 2e-4} {cy - 2e-4}))")
+        set_filter(repo, lone)
+        w_card, w_cpu, _, survivors = card_and_cpu("13", quiet, None, launches, rc_want=0)
+        check(min(survivors) > 0, "the lone-feature rect has no survivor")
+        none_out = os.path.join(tmp, "none.jsonl")
+        w2_card, w2_cpu, digest, _ = card_and_cpu("13", jsonl, none_out, launches)
+        with open(f"{none_out}.card") as f:
+            lines = f.read().splitlines()
+        check(len(lines) == 1 and '"type":"version"' in lines[0],
+              f"json-lines under the lone-feature rect holds {len(lines) - 1} more lines")
+        print(f"[13] rect around one unedited feature, survivors (old, new) "
+              f"{survivors}: quiet --exit-code 0 on both (card {w_card:.4f} s, cpu "
+              f"{w_cpu:.4f} s host wall), json-lines the version line only (card "
+              f"{w2_card:.4f} s, cpu {w2_cpu:.4f} s); K1 1, K2 2 a command on {card}")
 
 
 # --- main -------------------------------------------------------------------
@@ -367,7 +551,8 @@ def main():
     dev = runtime.resolve_device(None)
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    print(f"[0] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"[0] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+          f"volatile ECC errors (corrected, uncorrected): {ecc_line()}")
     cap = torch.cuda.get_device_capability(0)
     check(tuple(cap) == runtime.SUPPORTED_CAPABILITY, f"compute capability {cap}, need (9, 0)")
 
@@ -565,9 +750,13 @@ def main():
           f"{fmt_ms(k2_wrap_dev)} on {card}")
     tmp.cleanup()
 
-    cli_launches = cli_phases(args, card)
-    k1["launches_by_phase"] = {"3-5": k1["launches"], **cli_launches}
-    k1["launches"] += sum(cli_launches.values())
+    # every card command of phases 8-13 is counted, its cProfile runs too
+    cli_launches = {"3-5": [k1["launches"], kernels[1]["launches"]]}
+    cli_phases(args, card, cli_launches)
+    spatial_phases(args, card, cli_launches)
+    for k, i in ((k1, 0), (kernels[1], 1)):
+        k["launches_by_phase"] = {p: n[i] for p, n in cli_launches.items() if n[i]}
+        k["launches"] = sum(k["launches_by_phase"].values())
 
     print(json.dumps({"kernels": kernels}))
     print(card)

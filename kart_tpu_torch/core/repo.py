@@ -4,7 +4,8 @@ gitdirs are recognised too) holding objects, refs and config.
 Counterpart of kart_tpu's ``core/repo.py``: ``KartRepo`` with ``_locate``,
 ``init_repository``, ``resolve_refish``, ``resolve_commit``,
 ``merge_base``, ``structure``, ``create_commit``, the ``head_*``
-properties and ``has_promisor_remote``. The working copy, the merge state
+properties, ``has_promisor_remote`` and the spatial filter's config keys
+(``KartConfigKeys``). The working copy, the merge state
 machine, tags' creation, remotes and gc are not ported.
 """
 
@@ -38,6 +39,14 @@ class InvalidOperation(RepoError):
 
 class NotYetImplemented(RepoError):
     """A repository feature this port does not handle yet."""
+
+
+class KartConfigKeys:
+    """The kart.* config keys the port reads."""
+
+    KART_REPOSTRUCTURE_VERSION = "kart.repostructure.version"
+    KART_SPATIALFILTER_GEOMETRY = "kart.spatialfilter.geometry"
+    KART_SPATIALFILTER_CRS = "kart.spatialfilter.crs"
 
 
 class KartRepo:
@@ -85,7 +94,7 @@ class KartRepo:
         Config(os.path.join(gitdir, "config")).set_many({
             "core.repositoryformatversion": "0",
             "core.bare": bare,
-            "kart.repostructure.version": str(DEFAULT_REPO_VERSION),
+            KartConfigKeys.KART_REPOSTRUCTURE_VERSION: str(DEFAULT_REPO_VERSION),
         })
         if not bare:
             # a git index with a required "kart" extension: stock git
@@ -108,7 +117,7 @@ class KartRepo:
 
     @property
     def version(self):
-        for key in ("kart.repostructure.version", "sno.repository.version"):
+        for key in (KartConfigKeys.KART_REPOSTRUCTURE_VERSION, "sno.repository.version"):
             value = self.config.get_int(key)
             if value is not None:
                 return value
@@ -120,9 +129,13 @@ class KartRepo:
         return any(self.config.get_bool(f"remote.{n}.promisor") for n in names)
 
     def spatial_filter_spec(self):
-        geometry = self.config.get("kart.spatialfilter.geometry")
-        crs = self.config.get("kart.spatialfilter.crs")
-        return {"geometry": geometry, "crs": crs} if geometry and crs else None
+        """The repo's spatial filter (set by a filtered clone) as a
+        :class:`~kart_tpu_torch.spatial_filter.ResolvedSpatialFilterSpec`,
+        or None when the filter matches everything."""
+        from kart_tpu_torch.spatial_filter import ResolvedSpatialFilterSpec
+
+        spec = ResolvedSpatialFilterSpec.from_repo_config(self)
+        return None if spec.match_all else spec
 
     def signature(self, role="committer"):
         prefix = "GIT_AUTHOR" if role == "author" else "GIT_COMMITTER"

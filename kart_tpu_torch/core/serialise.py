@@ -3,13 +3,15 @@ Datasets V3 format: msgpack with geometry values as ext type ``G``
 (``0x47``) wrapping GeoPackage binary, and truncated-sha256 hex hashes.
 
 Counterpart of kart_tpu's ``core/serialise.py`` (``msg_pack``,
-``msg_unpack``, ``msg_unpack_ext_raw``, ``json_pack``, ``hexhash``) over
+``msg_unpack``, ``msg_unpack_ext_raw``, ``json_pack``, ``hexhash``,
+``uint32hash``) over
 the port's own msgpack codec (:mod:`kart_tpu_torch.core.msgpack`).
 """
 
 import base64
 import hashlib
 import json
+import struct
 
 from kart_tpu_torch.core.msgpack import ExtType, packb, unpackb
 
@@ -72,12 +74,21 @@ def ensure_text(data) -> str:
     return data.decode("utf8") if isinstance(data, bytes) else data
 
 
-def hexhash(*parts) -> str:
-    """Truncated (160-bit) hex sha256, e.g. legend ids."""
+def _sha256_of(*parts):
     h = hashlib.sha256()
     for p in parts:
         h.update(ensure_bytes(p))
-    return h.hexdigest()[:40]
+    return h
+
+
+def hexhash(*parts) -> str:
+    """Truncated (160-bit) hex sha256, e.g. legend ids."""
+    return _sha256_of(*parts).hexdigest()[:40]
+
+
+def uint32hash(*parts) -> int:
+    """The first four bytes of the sha256, big-endian (custom CRS ids)."""
+    return struct.unpack(">I", _sha256_of(*parts).digest()[:4])[0]
 
 
 def b64encode_str(data: bytes) -> str:

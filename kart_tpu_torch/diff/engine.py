@@ -9,14 +9,17 @@ pure-Python route), ``get_feature_diff``, ``get_feature_diff_columnar``,
 ``get_repo_diff``, ``_envelope_hits``, ``spatial_prefilter_blocks`` and
 ``_prefilter_rect``. The repo-level entry points take ``device`` (``None``
 = the card) and route a dataset to the columnar classify when both of its
-revisions have a sidecar, else to the tree walk. Spatially filtered diffs
-are not ported: their entry points take no filter.
+revisions have a sidecar, else to the tree walk. Under a spatial filter
+spec, a sidecar pair with envelope columns is prefiltered first (K2 on
+each side, the survivors compacted, then K1 on them); a pair without
+envelopes is classified whole and left to the writers' per-value filter.
 """
 
 from typing import NamedTuple
 
 import numpy as np
 
+from kart_tpu_torch import runtime
 from kart_tpu_torch.diff import sidecar
 from kart_tpu_torch.diff.backend import select_backend
 from kart_tpu_torch.diff.key_filters import RepoKeyFilter
@@ -37,8 +40,10 @@ PREFILTER_PAD = 1e-4
 
 
 def prefilter_rect(wsen):
-    """Padded (w, s, e, n) EPSG:4326 rect of a spatial filter's envelope:
-    the arithmetic of kart_tpu's ``_prefilter_rect``."""
+    """Padded (w, s, e, n) EPSG:4326 rect of a spatial filter's envelope
+    (the arithmetic of kart_tpu's ``_prefilter_rect``): anything the
+    prefilter drops is outside the filter, and the writers' exact residue
+    decides what it lets through."""
     w, s, e, n = (float(v) for v in wsen)
     return (
         w - PREFILTER_PAD,
@@ -46,6 +51,14 @@ def prefilter_rect(wsen):
         e + PREFILTER_PAD,
         min(n + PREFILTER_PAD, 90.0),
     )
+
+
+def _prefilter_rect(spatial_filter_spec):
+    """The padded prefilter rect of an active spatial filter spec, or
+    None."""
+    if spatial_filter_spec is None or spatial_filter_spec.match_all:
+        return None
+    return prefilter_rect(spatial_filter_spec.envelope_wsen_4326)
 
 
 def spatial_prefilter_blocks(old_block, new_block, rect_wsen, device=None):
@@ -80,6 +93,8 @@ def spatial_prefilter_blocks(old_block, new_block, rect_wsen, device=None):
             n_surv = np.union1d(n_idx, pos2_c[shared2])
     else:
         o_surv, n_surv = o_idx, n_idx
+    runtime.count("prefilter_old_survivors", len(o_surv))
+    runtime.count("prefilter_new_survivors", len(n_surv))
     return _compact(old_block, o_surv), _compact(new_block, n_surv)
 
 
@@ -244,15 +259,20 @@ def _sidecar_blocks(base_ds, target_ds):
     return old_block, new_block
 
 
-def _feature_diff_routed(base_ds, target_ds, ds_filter=None, device=None):
+def _feature_diff_routed(base_ds, target_ds, ds_filter=None, device=None,
+                         spatial_filter_spec=None):
     """Engine selection: the columnar classify when both revisions have a
-    sidecar, else the tree walk."""
+    sidecar (prefiltered by envelope under a spatial filter, when both
+    carry envelopes), else the tree walk."""
     if _tree_oid(base_ds) == _tree_oid(target_ds):
         return DeltaDiff()
     if base_ds is not None and target_ds is not None:
         _require_int_paths(base_ds, target_ds)
         blocks = _sidecar_blocks(base_ds, target_ds)
         if blocks is not None:
+            rect = _prefilter_rect(spatial_filter_spec)
+            if rect is not None:
+                blocks = spatial_prefilter_blocks(*blocks, rect, device) or blocks
             return get_feature_diff_columnar(base_ds, target_ds, ds_filter, blocks=blocks,
                                              device=device)
     return get_feature_diff(base_ds, target_ds, ds_filter)
@@ -267,11 +287,15 @@ def _both_revisions(base_rs, target_rs, ds_path):
     return base_ds, target_ds
 
 
-def get_dataset_feature_count_fast(base_rs, target_rs, ds_path, device=None):
-    """Exact changed-feature count of one dataset from a counts-only K1
-    launch, with no delta objects (``-o feature-count``). -> int, or None
-    when the columnar route cannot serve it (dataset added or removed,
-    missing sidecars)."""
+def get_dataset_feature_count_fast(base_rs, target_rs, ds_path, device=None,
+                                   spatial_filter_spec=None):
+    """Changed-feature count of one dataset from a counts-only K1 launch,
+    with no delta objects (``-o feature-count``). Under a spatial filter
+    spec it counts the envelope prefilter's survivors: a changed feature
+    whose padded envelope meets the filter's rectangle counts, whatever its
+    exact geometry (kart_tpu's deliberate fail-open upper bound). -> int,
+    or None when the columnar route cannot serve it (dataset added or
+    removed, missing sidecars, or a filter with no envelope columns)."""
     pair = _both_revisions(base_rs, target_rs, ds_path)
     if pair is None:
         return None
@@ -280,6 +304,11 @@ def get_dataset_feature_count_fast(base_rs, target_rs, ds_path, device=None):
     blocks = _sidecar_blocks(*pair)
     if blocks is None:
         return None
+    rect = _prefilter_rect(spatial_filter_spec)
+    if rect is not None:
+        blocks = spatial_prefilter_blocks(*blocks, rect, device)
+        if blocks is None:
+            return None  # no envelope columns: the writer filters the deltas
     return int(select_backend(device).counts(*blocks).sum())
 
 
@@ -342,20 +371,25 @@ def get_meta_diff(base_ds, target_ds, ds_filter=None):
     return result
 
 
-def get_dataset_diff(base_rs, target_rs, ds_path, *, ds_filter=None, device=None):
-    """DatasetDiff for one dataset between two revisions."""
+def get_dataset_diff(base_rs, target_rs, ds_path, *, ds_filter=None, device=None,
+                     spatial_filter_spec=None):
+    """DatasetDiff for one dataset between two revisions; under a spatial
+    filter spec, the envelope prefilter's survivors only (the writers apply
+    the exact residue)."""
     base_ds = base_rs.datasets.get(ds_path) if base_rs is not None else None
     target_ds = target_rs.datasets.get(ds_path) if target_rs is not None else None
     diff = DatasetDiff()
     if base_ds is None and target_ds is None:
         return diff
     diff["meta"] = get_meta_diff(base_ds, target_ds, ds_filter)
-    diff["feature"] = _feature_diff_routed(base_ds, target_ds, ds_filter, device)
+    diff["feature"] = _feature_diff_routed(base_ds, target_ds, ds_filter, device,
+                                           spatial_filter_spec)
     diff.prune()
     return diff
 
 
-def get_repo_diff(base_rs, target_rs, *, repo_key_filter=None, device=None):
+def get_repo_diff(base_rs, target_rs, *, repo_key_filter=None, device=None,
+                  spatial_filter_spec=None):
     """RepoDiff between two revisions."""
     repo_key_filter = repo_key_filter or RepoKeyFilter.MATCH_ALL_FILTER()
     base_paths = set(base_rs.datasets.paths()) if base_rs is not None else set()
@@ -365,7 +399,8 @@ def get_repo_diff(base_rs, target_rs, *, repo_key_filter=None, device=None):
         if ds_path not in repo_key_filter:
             continue
         ds_diff = get_dataset_diff(base_rs, target_rs, ds_path,
-                                   ds_filter=repo_key_filter[ds_path], device=device)
+                                   ds_filter=repo_key_filter[ds_path], device=device,
+                                   spatial_filter_spec=spatial_filter_spec)
         if ds_diff:
             repo_diff[ds_path] = ds_diff
     repo_diff.prune(recurse=False)

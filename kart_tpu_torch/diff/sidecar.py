@@ -16,9 +16,11 @@ Layout (one file per feature tree, ``.kart/columnar/<tree-oid>.kcol``):
             flags  uint8[ceil(N/B)]          (non-zero: aggregate not tight)
             geom   bytes                     (when geom_bytes is set)
 
-This port reads int-pk files only (``keys_are_pks``); hash-keyed files and
-the ``geom`` section (the vertex column) are not read yet. The repo-level
-helpers (:func:`sidecar_file`, :func:`has_sidecar`, :func:`load_block`,
+This port reads int-pk files only (``keys_are_pks``); hash-keyed files are
+not read yet. The ``geom`` section (the vertex column of
+:mod:`kart_tpu_torch.geom`) is written as kart_tpu writes it, and skipped
+on read: nothing in the port decodes it yet. The repo-level helpers
+(:func:`sidecar_file`, :func:`has_sidecar`, :func:`load_block`,
 :func:`save_sidecar`) mirror kart_tpu's ``diff/sidecar.py``; building a
 sidecar from a tree walk or deriving one from a commit is not ported.
 """
@@ -28,6 +30,7 @@ import os
 
 import numpy as np
 
+from kart_tpu_torch.geom import encode_vertex_column
 from kart_tpu_torch.ops.blocks import PAD_KEY, FeatureBlock, bucket_size
 
 MAGIC = b"KCOL1\n"
@@ -81,10 +84,11 @@ def block_aggregates(env_arr, block_rows, chunk_rows=4_194_304):
     return agg, flags
 
 
-def save_sidecar_file(path, keys, oids_u8, envelopes=None):
+def save_sidecar_file(path, keys, oids_u8, envelopes=None, vertices=None):
     """Write an int-pk sidecar. ``keys`` int64 (N,), ``oids_u8`` uint8
-    (N, 20), ``envelopes`` (N, 4) wsen or None -- not necessarily sorted.
-    Atomic (tmp + rename). -> path."""
+    (N, 20), ``envelopes`` (N, 4) wsen or None, ``vertices`` a
+    :class:`~kart_tpu_torch.geom.VertexColumn` of N rows or None -- not
+    necessarily sorted. Atomic (tmp + rename). -> path."""
     order = np.argsort(keys, kind="stable")
     keys = np.ascontiguousarray(np.asarray(keys)[order], dtype="<i8")
     oids_u8 = np.ascontiguousarray(np.asarray(oids_u8)[order], dtype=np.uint8)
@@ -93,6 +97,9 @@ def save_sidecar_file(path, keys, oids_u8, envelopes=None):
         env_arr = np.ascontiguousarray(np.asarray(envelopes)[order], dtype="<f4")
         if len(env_arr):
             agg, flags = block_aggregates(env_arr, AGG_BLOCK_ROWS)
+    geom_blob = b""
+    if vertices is not None and len(vertices) == len(keys):
+        geom_blob = encode_vertex_column(vertices.take(order))
     header_fields = {
         "count": int(len(keys)),
         "keys_are_pks": True,
@@ -101,6 +108,8 @@ def save_sidecar_file(path, keys, oids_u8, envelopes=None):
     }
     if agg is not None:
         header_fields["agg_block_rows"] = AGG_BLOCK_ROWS
+    if geom_blob:
+        header_fields["geom_bytes"] = len(geom_blob)
     header = json.dumps(header_fields).encode() + b"\n"
     tmp = f"{path}.tmp{os.getpid()}"
     with open(tmp, "wb") as f:
@@ -113,6 +122,8 @@ def save_sidecar_file(path, keys, oids_u8, envelopes=None):
         if agg is not None:
             f.write(np.ascontiguousarray(agg, dtype="<f4").tobytes())
             f.write(flags.tobytes())
+        if geom_blob:
+            f.write(geom_blob)
     os.replace(tmp, path)
     return path
 
@@ -199,8 +210,9 @@ def load_block(repo, dataset, pad=False):
         return None
 
 
-def save_sidecar(repo, feature_tree_oid, keys, oids_u8, envelopes=None):
+def save_sidecar(repo, feature_tree_oid, keys, oids_u8, envelopes=None, vertices=None):
     """Persist an int-pk sidecar for a feature tree (keys and oids need not
     be sorted). -> path."""
     os.makedirs(os.path.join(repo.gitdir, "columnar"), exist_ok=True)
-    return save_sidecar_file(sidecar_file(repo, feature_tree_oid), keys, oids_u8, envelopes)
+    return save_sidecar_file(sidecar_file(repo, feature_tree_oid), keys, oids_u8, envelopes,
+                             vertices)

@@ -9,15 +9,21 @@ the engine, whose columnar route runs kernel K1 there.
 Counterpart of kart_tpu's ``diff/writers.py``: ``BaseDiffWriter``
 (``parse_diff_commit_spec``, ``iter_deltas``), ``JsonDiffWriter``,
 ``JsonLinesDiffWriter`` (the delta route and the fused columnar row route,
-single process), ``QuietDiffWriter`` and ``FeatureCountDiffWriter``. Not
-ported: the text, GeoJSON and HTML writers, ``--crs``, working-copy diffs,
-repo spatial filters, the ``kart show`` commit header, the forked
-materialisers and the promised-blob backfill of partial clones.
+single process), ``QuietDiffWriter`` and ``FeatureCountDiffWriter``, with
+the repo's spatial filter: the engine prefilters sidecar block pairs by
+envelope (kernel K2), and ``iter_deltas`` streams only the deltas one of
+whose sides matches the filter (the exact per-value residue); the exit
+code follows what is written, not the unfiltered diff. Not ported: the
+text, GeoJSON and HTML writers, ``--crs``, working-copy diffs, the ``kart
+show`` commit header, the forked materialisers and the promised-blob
+backfill of partial clones (a filtered repo with a promisor remote raises
+``NotYetImplemented``).
 """
 
 import json
 import re
 
+from kart_tpu_torch.core.odb import ObjectMissing
 from kart_tpu_torch.core.repo import InvalidOperation, NotYetImplemented
 from kart_tpu_torch.diff.engine import (
     get_dataset_diff,
@@ -30,6 +36,7 @@ from kart_tpu_torch.diff.key_filters import RepoKeyFilter
 from kart_tpu_torch.diff.output import dump_json_output, feature_as_json, resolve_output_path
 from kart_tpu_torch.models.dataset import FeatureOidPromise
 from kart_tpu_torch.ops.blocks import unpack_oid_bytes
+from kart_tpu_torch.spatial_filter import MatchResult, SpatialFilter
 
 #: every output format of ``kart diff``; the writers below are the ported ones
 OUTPUT_FORMATS = ["text", "json", "geojson", "json-lines", "quiet", "feature-count", "html"]
@@ -73,9 +80,20 @@ class BaseDiffWriter:
         self.device = device
         self.repo_key_filter = RepoKeyFilter.build_from_user_patterns(user_key_filters)
         self.base_rs, self.target_rs = self.parse_diff_commit_spec(repo, commit_spec)
-        if repo.spatial_filter_spec() is not None:
-            raise NotYetImplemented("diffs of a spatially filtered repo are not ported yet")
         self.has_changes = False
+        # the repo's spatial filter: diffs show only the deltas that match it
+        self.spatial_filter_spec = repo.spatial_filter_spec()
+        self._ds_sf_cache = {}
+        if self.spatial_filter_spec is not None:
+            if repo.has_promisor_remote():
+                raise NotYetImplemented(
+                    "diffs of a spatially filtered partial clone (promised blobs) are not "
+                    "ported yet"
+                )
+            # resolve every dataset's filter before any output: a CRS that
+            # the port cannot transform yet raises here
+            for ds_path in self.all_ds_paths:
+                self._ds_spatial_filter(ds_path)
 
     @classmethod
     def parse_diff_commit_spec(cls, repo, commit_spec):
@@ -104,18 +122,62 @@ class BaseDiffWriter:
 
     def get_repo_diff(self):
         return get_repo_diff(self.base_rs, self.target_rs,
-                             repo_key_filter=self.repo_key_filter, device=self.device)
+                             repo_key_filter=self.repo_key_filter, device=self.device,
+                             spatial_filter_spec=self.spatial_filter_spec)
 
     def get_ds_diff(self, ds_path):
         return get_dataset_diff(self.base_rs, self.target_rs, ds_path,
-                                ds_filter=self.repo_key_filter[ds_path], device=self.device)
+                                ds_filter=self.repo_key_filter[ds_path], device=self.device,
+                                spatial_filter_spec=self.spatial_filter_spec)
 
-    def iter_deltas(self, ds_diff):
+    def _ds_spatial_filter(self, ds_path):
+        """The dataset's SpatialFilter (the filter in the dataset's CRS), or
+        None when no filter is active or the dataset has no geometry."""
+        if self.spatial_filter_spec is None or ds_path is None:
+            return None
+        if ds_path not in self._ds_sf_cache:
+            ds = None
+            for rs in (self.target_rs, self.base_rs):
+                ds = rs.datasets.get(ds_path)
+                if ds is not None:
+                    break
+            sf = self.spatial_filter_spec.resolve_for_dataset(ds) if ds is not None else None
+            self._ds_sf_cache[ds_path] = None if sf is SpatialFilter.MATCH_ALL else sf
+        return self._ds_sf_cache[ds_path]
+
+    @staticmethod
+    def _delta_matches_filter(delta, sf):
+        """True when either side of the delta matches the spatial filter. A
+        side whose blob is absent cannot be tested: it fails open."""
+        for kv in (delta.old, delta.new):
+            if kv is None:
+                continue
+            try:
+                feature = kv.get_lazy_value()
+            except ObjectMissing:
+                return True
+            if sf.match_result(feature) is MatchResult.MATCHED:
+                return True
+        return False
+
+    def _mark_ds_changes(self, ds_diff):
+        """``has_changes`` for one dataset. Under a spatial filter feature
+        changes count only when a delta streams (``iter_deltas`` marks
+        that); meta changes always count."""
+        if self.spatial_filter_spec is None:
+            if ds_diff:
+                self.has_changes = True
+        elif ds_diff.get("meta"):
+            self.has_changes = True
+
+    def iter_deltas(self, ds_diff, ds_path=None):
         """Stream (key, delta) in key order, the blob data of each chunk's
-        lazy values read in one batch."""
+        lazy values read in one batch; under a spatial filter (pass
+        ``ds_path``), only the deltas that match it."""
         feature_diff = ds_diff.get("feature")
         if not feature_diff:
             return
+        sf = self._ds_spatial_filter(ds_path)
         for chunk in _chunked(feature_diff.sorted_items(), self.PREFETCH_CHUNK):
             promises = [
                 kv[1] for _, delta in chunk for kv in (delta.old, delta.new)
@@ -128,8 +190,9 @@ class BaseDiffWriter:
                 for p in promises:
                     p.data = got.get(p.oid_hex)
             for key, delta in chunk:
-                self.has_changes = True
-                yield key, delta
+                if sf is None or self._delta_matches_filter(delta, sf):
+                    self.has_changes = True
+                    yield key, delta
 
     @staticmethod
     def _feature_json_fast(kv):
@@ -146,7 +209,7 @@ class BaseDiffWriter:
         for ds_path in self.all_ds_paths:
             ds_diff = self.get_ds_diff(ds_path)
             if ds_diff:
-                self.has_changes = True
+                self._mark_ds_changes(ds_diff)
                 self.write_ds_diff(ds_path, ds_diff)
         return self.has_changes
 
@@ -168,14 +231,16 @@ class JsonDiffWriter(BaseDiffWriter):
 
     def write_diff(self):
         repo_diff = self.get_repo_diff()
-        self.has_changes = bool(repo_diff)
+        for ds_diff in repo_diff.values():
+            self._mark_ds_changes(ds_diff)
         output = {"kart.diff/v1+hexwkb": {
-            ds_path: self.ds_diff_as_json(ds_diff) for ds_path, ds_diff in repo_diff.items()
+            ds_path: self.ds_diff_as_json(ds_path, ds_diff)
+            for ds_path, ds_diff in repo_diff.items()
         }}
         self.fp = dump_json_output(output, self.output_path, json_style=self.json_style)
         return self.has_changes
 
-    def ds_diff_as_json(self, ds_diff):
+    def ds_diff_as_json(self, ds_path, ds_diff):
         result = {}
         if "meta" in ds_diff:
             result["meta"] = {}
@@ -187,7 +252,7 @@ class JsonDiffWriter(BaseDiffWriter):
                     item["+"] = delta.new_value
         if "feature" in ds_diff:
             features = []
-            for _key, delta in self.iter_deltas(ds_diff):
+            for _key, delta in self.iter_deltas(ds_diff, ds_path):
                 item = {}
                 if delta.old:
                     item["-"] = self._feature_json_fast(delta.old)
@@ -223,13 +288,15 @@ class JsonLinesDiffWriter(BaseDiffWriter):
                 continue
             ds_diff = self.get_ds_diff(ds_path)
             if ds_diff:
-                self.has_changes = True
+                self._mark_ds_changes(ds_diff)
                 self.write_ds_diff(ds_path, ds_diff)
         return self.has_changes
 
     def _write_ds_fast(self, ds_path):
-        """The fused row route for one dataset; True when it handled it."""
-        if not self.repo_key_filter.match_all:
+        """The fused row route for one dataset; True when it handled it. It
+        has no per-value residue, so a spatial filter takes the delta
+        route."""
+        if self.spatial_filter_spec is not None or not self.repo_key_filter.match_all:
             return False
         rows = get_feature_diff_rows(self.base_rs, self.target_rs, ds_path, self.device)
         if rows is None:
@@ -297,7 +364,7 @@ class JsonLinesDiffWriter(BaseDiffWriter):
         if "meta" in ds_diff:
             self._write_meta_infos(ds_path, ds_diff["meta"])
         head = self._feature_head(ds_path)
-        for _key, delta in self.iter_deltas(ds_diff):
+        for _key, delta in self.iter_deltas(ds_diff, ds_path):
             old, new = delta.old, delta.new
             if old is not None:
                 body = '"-":' + self._feature_json_str(old)
@@ -322,12 +389,17 @@ class QuietDiffWriter(BaseDiffWriter):
     """No output; ``has_changes`` drives the exit code."""
 
     def write_ds_diff(self, ds_path, ds_diff):
-        pass
+        if self._ds_spatial_filter(ds_path) is not None and not self.has_changes:
+            # the filtered exit code needs an answer: stream until the
+            # first matching delta sets has_changes
+            next(self.iter_deltas(ds_diff, ds_path), None)
 
 
 class FeatureCountDiffWriter(BaseDiffWriter):
     """Changed-feature count per dataset: from a counts-only K1 launch when
-    both revisions have sidecars, else from the delta diff."""
+    both revisions have sidecars (under a spatial filter, on the envelope
+    prefilter's survivors: an envelope-precision count), else from the
+    delta diff (under a filter, the deltas that match it)."""
 
     def write_diff(self):
         self.fp = resolve_output_path(self.output_path)
@@ -335,9 +407,14 @@ class FeatureCountDiffWriter(BaseDiffWriter):
             count = None
             if self.repo_key_filter.match_all:
                 count = get_dataset_feature_count_fast(
-                    self.base_rs, self.target_rs, ds_path, self.device)
+                    self.base_rs, self.target_rs, ds_path, self.device,
+                    spatial_filter_spec=self.spatial_filter_spec)
             if count is None:
-                count = len(self.get_ds_diff(ds_path).get("feature", ()))
+                ds_diff = self.get_ds_diff(ds_path)
+                if self._ds_spatial_filter(ds_path) is not None:
+                    count = sum(1 for _ in self.iter_deltas(ds_diff, ds_path))
+                else:
+                    count = len(ds_diff.get("feature", ()))
             if count:
                 self.has_changes = True
                 self.fp.write(f"{ds_path}:\n\t{count} features changed\n")

@@ -7,7 +7,8 @@
     <ds-path>/metadata.xml          "attachment" meta item
 
 Counterpart of the read side of kart_tpu's ``models/dataset.py``
-(``Dataset3``: meta items, ``feature_tree``, ``path_encoder``,
+(``Dataset3``: meta items, ``get_crs_definition``, ``geom_column_name``,
+``feature_tree``, ``path_encoder``,
 ``decode_path_to_pks``, ``get_feature*``, ``get_feature_promise_from_oid``,
 the fused JSON serialisers ``_json_value_str``, ``_jsonl_serializer`` and
 ``feature_json_str_from_data``; ``FeatureOidPromise``) plus
@@ -189,6 +190,27 @@ class Dataset3:
         if crs_tree is None:
             return []
         return [e.name[: -len(".wkt")] for e in crs_tree.entries() if e.name.endswith(".wkt")]
+
+    def get_crs_definition(self, identifier=None):
+        """The WKT of one of the dataset's CRSes (``identifier`` may be
+        given as ``crs/<id>.wkt``); without one, the dataset must have
+        exactly one."""
+        ids = self.crs_identifiers()
+        if identifier is None:
+            if len(ids) != 1:
+                raise ValueError(
+                    f"Dataset {self.path} has {len(ids)} CRS definitions; specify one of {ids}"
+                )
+            identifier = ids[0]
+        if identifier.startswith("crs/"):
+            identifier = identifier[4:-4] if identifier.endswith(".wkt") else identifier[4:]
+        return self.get_meta_item(f"crs/{identifier}.wkt")
+
+    @property
+    def geom_column_name(self):
+        """The name of the first geometry column, or None."""
+        col = self.schema.first_geometry_column
+        return col.name if col else None
 
     @property
     def schema(self) -> Schema:

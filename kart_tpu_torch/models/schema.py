@@ -97,6 +97,10 @@ class Schema:
     def __iter__(self):
         return iter(self.columns)
 
+    @property
+    def first_geometry_column(self):
+        return next((c for c in self.columns if c.data_type == "geometry"), None)
+
     def __eq__(self, other):
         return isinstance(other, Schema) and self.columns == other.columns
 

@@ -126,6 +126,8 @@ def _classify_cuda(old_keys, old_oids, n_old, new_keys, new_oids, n_new,
     )
     _build.check(lib, rc, "classify")
     runtime.count("classify_launches")
+    if counts_only:
+        runtime.count("classify_counts_only_launches")
     return old_class, new_class, counts
 
 

@@ -50,19 +50,23 @@ def check_capability(device):
 
 
 #: one counter per kernel launch (plus the resident-column uploads of the
-#: bbox cache), so a run can show which kernels the main path went through
+#: bbox cache, and the rows the envelope prefilter keeps a side), so a run
+#: can show which kernels the main path went through
 STATS = {
     "classify_launches": 0,
+    "classify_counts_only_launches": 0,  # the subset of K1 launches in counts-only mode
     "envelope_scan_launches": 0,
     "bbox_launches": 0,
     "bbox_uploads": 0,
+    "prefilter_old_survivors": 0,
+    "prefilter_new_survivors": 0,
 }
 _stats_lock = threading.Lock()
 
 
-def count(name):
+def count(name, n=1):
     with _stats_lock:
-        STATS[name] += 1
+        STATS[name] += n
 
 
 def reset_stats():

@@ -5,11 +5,16 @@ from generated (pk, oid) columns.
 Counterpart of kart_tpu's ``synth.py`` ``synth_repo`` for ``blobs="real"``
 (every feature blob written) and ``blobs="changed"`` (real blobs for the
 edited rows only, in both revisions; every other blob oid is in the trees
-and sidecars but its object is absent), with ``spatial=False``. Given the
-same arguments, commit dates (``GIT_AUTHOR_DATE``/``GIT_COMMITTER_DATE``)
-and seed, it writes the same commits and byte-identical sidecars as
-kart_tpu. The spatial schema and the polygon repository are not ported.
+and sidecars but its object is absent), and of ``spatial=True`` with
+``blobs="changed"``: a point layer (``SYNTH_SPATIAL_SCHEMA``, EPSG:4326)
+whose sidecars carry the envelope column (:func:`synth_envelopes`) and the
+vertex column of each envelope's box. Given the same arguments, commit
+dates (``GIT_AUTHOR_DATE``/``GIT_COMMITTER_DATE``) and seed, it writes the
+same commits and byte-identical sidecars as kart_tpu. ``blobs="promised"``
+and the polygon repository are not ported.
 """
+
+import struct
 
 import numpy as np
 
@@ -18,45 +23,107 @@ from kart_tpu_torch.core.objects import MODE_TREE
 from kart_tpu_torch.core.repo import KartRepo
 from kart_tpu_torch.core.tree_builder import TreeBuilder
 from kart_tpu_torch.diff import sidecar
+from kart_tpu_torch.epsg import epsg_wkt
+from kart_tpu_torch.geom import boxes_vertex_column
+from kart_tpu_torch.geometry import Geometry
 from kart_tpu_torch.models.dataset import Dataset3
 from kart_tpu_torch.models.paths import PathEncoder
 from kart_tpu_torch.models.schema import ColumnSchema, Schema
 
-SYNTH_SCHEMA = Schema([
-    ColumnSchema(id="a1b2c3d4-0001-4000-8000-000000000001", name="fid",
-                 data_type="integer", pk_index=0, extra_type_info={"size": 64}),
-    ColumnSchema(id="a1b2c3d4-0002-4000-8000-000000000002", name="rating",
-                 data_type="float", pk_index=None, extra_type_info={"size": 64}),
+_FID = ColumnSchema(id="a1b2c3d4-0001-4000-8000-000000000001", name="fid",
+                    data_type="integer", pk_index=0, extra_type_info={"size": 64})
+_RATING = ColumnSchema(id="a1b2c3d4-0002-4000-8000-000000000002", name="rating",
+                       data_type="float", pk_index=None, extra_type_info={"size": 64})
+SYNTH_SCHEMA = Schema([_FID, _RATING])
+SYNTH_SPATIAL_SCHEMA = Schema([
+    _FID,
+    ColumnSchema(id="a1b2c3d4-0004-4000-8000-000000000004", name="geom",
+                 data_type="geometry", pk_index=None,
+                 extra_type_info={"geometryType": "POINT", "geometryCRS": "EPSG:4326"}),
+    _RATING,
 ])
 
 
-def _blob_oids(odb, pks, ratings, batch=200_000):
-    """Write the feature blobs {fid: pk, rating: r}; -> (n, 20) uint8 oids."""
-    out = np.empty((len(pks), 20), dtype=np.uint8)
-    encode = SYNTH_SCHEMA.encode_feature_blob
-    for i in range(0, len(pks), batch):
-        sl = slice(i, i + batch)
-        contents = [encode({"fid": pk, "rating": r})[1]
-                    for pk, r in zip(pks[sl].tolist(), ratings[sl].tolist())]
+def synth_envelopes(pks, span=None, base=None):
+    """Deterministic per-pk wsen EPSG:4326 envelopes (float32 (N, 4)):
+    consecutive pks sweep longitude inside a latitude band, bands stack
+    south to north, with a golden-ratio latitude jitter in each band, so a
+    rectangle selects about its share of the globe. ``span``/``base``
+    describe the whole pk range (default: inferred from ``pks``)."""
+    pks = np.asarray(pks, dtype=np.int64)
+    if not len(pks):
+        return np.empty((0, 4), dtype=np.float32)
+    if base is None:
+        base = int(pks.min())
+    idx = (pks - base).astype(np.float64)
+    if span is None:
+        span = float(idx.max()) + 1.0
+    span = max(float(span), 1.0)
+    n_bands = max(1, int(round((span / 4096.0) ** 0.5)))
+    rows_per_band = span / n_bands
+    band = np.minimum(np.floor(idx / rows_per_band), n_bands - 1)
+    lon = -180.0 + 360.0 * (idx - band * rows_per_band) / rows_per_band
+    band_h = 170.0 / n_bands
+    jitter = (np.mod(idx * 0.6180339887498949, 1.0) - 0.5) * (band_h * 0.9)
+    lat = -85.0 + band_h * (band + 0.5) + jitter
+    out = np.empty((len(pks), 4), dtype=np.float32)
+    out[:, 0] = lon
+    out[:, 1] = lat
+    out[:, 2] = lon + 0.001
+    out[:, 3] = lat + 0.001
+    return out
+
+
+def _changed_row_oids(odb, sel_pks, ratings, schema, geom_xy=None, batch=200_000):
+    """Write real feature blobs for a selection of rows; -> (n, 20) uint8
+    oids. ``geom_xy``: the (lon, lat) columns of a spatial schema's points."""
+    out = np.empty((len(sel_pks), 20), dtype=np.uint8)
+    encode = schema.encode_feature_blob
+    for i in range(0, len(sel_pks), batch):
+        sl = slice(i, min(i + batch, len(sel_pks)))
+        if geom_xy is None:
+            contents = [encode({"fid": pk, "rating": r})[1]
+                        for pk, r in zip(sel_pks[sl].tolist(), ratings[sl].tolist())]
+        else:
+            xs, ys = geom_xy
+            contents = [
+                encode({"fid": pk, "geom": Geometry.from_wkb(struct.pack("<BIdd", 1, 1, x, y)),
+                        "rating": r})[1]
+                for pk, r, x, y in zip(sel_pks[sl].tolist(), ratings[sl].tolist(),
+                                       xs[sl].tolist(), ys[sl].tolist())
+            ]
         out[sl] = odb.write_blobs_raw(contents)
     return out
 
 
-def synth_repo(path, n, *, edit_frac=0.01, seed=0, blobs="changed", ds_path="synth"):
+def synth_repo(path, n, *, edit_frac=0.01, seed=0, blobs="changed", ds_path="synth",
+               spatial=False):
     """Create a repo at ``path`` with one int-pk dataset of ``n`` features
     and two commits: the base import and an ``edit_frac`` rating rewrite.
+    ``spatial=True`` (with ``blobs="changed"``) makes it a point layer whose
+    sidecars carry envelope and vertex columns.
     -> (repo, {"base_commit", "edit_commit", "n", "n_edits"})."""
     if blobs not in ("real", "changed"):
         raise ValueError(f"blobs={blobs!r}: only 'real' and 'changed' are ported")
+    if spatial and blobs != "changed":
+        raise ValueError("spatial synth repos are ported for blobs='changed' only")
     repo = KartRepo.init_repository(path)
     repo.config.set_many({"user.name": "Synth", "user.email": "synth@example.com"})
     odb = repo.odb
     base = 1 << 24  # keeps every filename the same width (uint32 msgpack)
     pks = np.arange(base, base + n, dtype=np.int64)
 
+    schema, crs_defs, envelopes, vertices = SYNTH_SCHEMA, None, None, None
+    if spatial:
+        schema = SYNTH_SPATIAL_SCHEMA
+        crs_defs = {"EPSG:4326": epsg_wkt(4326)}
+        envelopes = synth_envelopes(pks)
+        # each synthetic feature's vertex geometry is its envelope's box
+        vertices = boxes_vertex_column(envelopes)
+
     if blobs == "real":
         with odb.bulk_pack(level=0):
-            oids1 = _blob_oids(odb, pks, pks / 2.0)
+            oids1 = _changed_row_oids(odb, pks, pks / 2.0, schema)
     else:
         oids1 = np.random.default_rng(seed).integers(0, 256, size=(n, 20), dtype=np.uint8)
 
@@ -68,11 +135,16 @@ def synth_repo(path, n, *, edit_frac=0.01, seed=0, blobs="changed", ds_path="syn
         sel = pks[edit_rows]
         if blobs == "real":
             with odb.bulk_pack(level=0):
-                oids2[edit_rows] = _blob_oids(odb, sel, sel.astype(np.float64))
+                oids2[edit_rows] = _changed_row_oids(odb, sel, sel.astype(np.float64), schema)
         else:
+            geom_xy = None
+            if envelopes is not None:
+                geom_xy = (envelopes[edit_rows, 0].astype(np.float64),
+                           envelopes[edit_rows, 1].astype(np.float64))
             with odb.bulk_pack(level=0):
-                oids1[edit_rows] = _blob_oids(odb, sel, sel / 2.0)
-                oids2[edit_rows] = _blob_oids(odb, sel, sel.astype(np.float64))
+                oids1[edit_rows] = _changed_row_oids(odb, sel, sel / 2.0, schema, geom_xy)
+                oids2[edit_rows] = _changed_row_oids(odb, sel, sel.astype(np.float64),
+                                                     schema, geom_xy)
 
     plan = plan_int_feature_tree(pks)
     commits = []
@@ -83,13 +155,13 @@ def synth_repo(path, n, *, edit_frac=0.01, seed=0, blobs="changed", ds_path="syn
             prev = (leaf_oids, edit_rows)
             tb = TreeBuilder(odb, repo.head_tree_oid if commits else None)
             for blob_path, data in Dataset3.new_dataset_meta_blobs(
-                ds_path, SYNTH_SCHEMA, title="synthetic benchmark layer",
+                ds_path, schema, title="synthetic benchmark layer", crs_defs=crs_defs,
                 path_encoder=PathEncoder.INT_PK_ENCODER,
             ):
                 tb.insert(blob_path, odb.write_blob(data))
             tb.insert(f"{ds_path}/{Dataset3.DATASET_DIRNAME}/feature", ftree, mode=MODE_TREE)
             root = tb.flush()
         commits.append(repo.create_commit("HEAD", root, message, commits[-1:]))
-        sidecar.save_sidecar(repo, ftree, pks, oids_u8)
+        sidecar.save_sidecar(repo, ftree, pks, oids_u8, envelopes=envelopes, vertices=vertices)
     return repo, {"base_commit": commits[0], "edit_commit": commits[1], "n": n,
                   "n_edits": n_edits}

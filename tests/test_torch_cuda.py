@@ -1,7 +1,8 @@
 """The port's kernels against their plain versions on the card, at small
 shapes and edge cases (empty sides, count < length, NaN/inf rows,
-wrapping queries). Needs an sm_90 card and nvcc; skipped elsewhere. On the
-card:
+wrapping queries), and K1 fenced by sentinel bytes and repeated for
+writes outside its outputs and races. Needs an sm_90 card and nvcc;
+skipped elsewhere. On the card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 """
@@ -12,10 +13,14 @@ import torch
 
 from kart_tpu_torch import runtime
 from kart_tpu_torch.diff.backend import envelope_scan, envelope_scan_plain
+from kart_tpu_torch.diff.engine import feature_count, prefilter_rect, spatial_prefilter_blocks
+from kart_tpu_torch.ops import _build, diff_kernel
+from kart_tpu_torch.ops.blocks import FeatureBlock
 from kart_tpu_torch.ops.bbox import bbox_cyclic, bbox_cyclic_plain, pad_envelopes
 from kart_tpu_torch.ops.diff_kernel import (
     TILE_ROWS,
     classify,
+    classify_blocks,
     classify_plain,
     tile_coranks,
     tile_coranks_plain,
@@ -71,15 +76,37 @@ def _sides(kind, n_old, n_new):
     return old, oo, new, no
 
 
-@pytest.mark.parametrize(
-    "kind,n_old,n_new",
-    [("random", 0, 0), ("random", 0, 300), ("random", 300, 0), ("random", 1, 1),
-     ("random", 5000, 4800), ("random", 70_000, 71_000),
-     # merged sizes k*D - 1, k*D, k*D + 1
-     ("random", 1600, 3 * D - 1601), ("random", 1600, 3 * D - 1600), ("random", 1600, 3 * D - 1599),
-     ("lead_insert", 5000, 5001), ("below", 3000, 2500), ("insert_run", 4000, 4000 + 3 * D),
-     ("extremes", 2000, 2100)],
-)
+def _edited_sides(n):
+    """Sides of chip_smoke.py phase [3]'s shape: ``n`` int pks with gaps,
+    then 1% updates, 0.1% deletes and 0.1% inserts."""
+    rng = np.random.default_rng(n)
+    old = np.cumsum(rng.integers(1, 4, n)).astype(np.int64) + 1000
+    oo = rng.integers(0, 2**32, size=(n, 5), dtype=np.uint32)
+    rows = rng.permutation(n)
+    upd, dele = rows[: n // 100], rows[n // 100 : n // 100 + n // 1000]
+    no = oo.copy()
+    no[upd, np.arange(len(upd)) % 5] ^= np.uint32(1)
+    keep = np.ones(n, dtype=bool)
+    keep[dele] = False
+    free = np.flatnonzero(np.diff(old) > 1)
+    ins = old[rng.choice(free, n // 1000, replace=False)] + 1
+    new = np.concatenate([old[keep], ins])
+    no = np.concatenate([no[keep], rng.integers(0, 2**32, size=(len(ins), 5), dtype=np.uint32)])
+    order = np.argsort(new)
+    return old, oo, new[order], no[order]
+
+
+SHAPES = [
+    ("random", 0, 0), ("random", 0, 300), ("random", 300, 0), ("random", 1, 1),
+    ("random", 5000, 4800), ("random", 70_000, 71_000),
+    # merged sizes k*D - 1, k*D, k*D + 1
+    ("random", 1600, 3 * D - 1601), ("random", 1600, 3 * D - 1600), ("random", 1600, 3 * D - 1599),
+    ("lead_insert", 5000, 5001), ("below", 3000, 2500), ("insert_run", 4000, 4000 + 3 * D),
+    ("extremes", 2000, 2100),
+]
+
+
+@pytest.mark.parametrize("kind,n_old,n_new", SHAPES)
 @pytest.mark.parametrize("pad", [0, 37])
 def test_classify_kernel_matches_plain(cuda, kind, n_old, n_new, pad):
     ok, oo, nk, no = _sides(kind, n_old, n_new)
@@ -104,6 +131,81 @@ def test_classify_kernel_matches_plain(cuda, kind, n_old, n_new, pad):
     assert torch.equal(counts, pc) and torch.equal(only, pc)
     assert torch.equal(tile_coranks(a[0], b[0], n_old, n_new),
                        tile_coranks_plain(a[0][:n_old], b[0][:n_new]))
+
+
+GUARD = 4096  # sentinel bytes on each side of every buffer handed to K1
+SENTINEL = 0xA5
+
+
+class _Guarded:
+    """A device buffer inside GUARD sentinel bytes a side."""
+
+    def __init__(self, cuda, data):
+        self.data = np.ascontiguousarray(data).view(np.uint8).ravel()
+        whole = np.full(2 * GUARD + len(self.data), SENTINEL, dtype=np.uint8)
+        whole[GUARD : GUARD + len(self.data)] = self.data
+        self.whole = torch.from_numpy(whole).to(cuda)
+        self.ptr = self.whole.data_ptr() + GUARD
+
+    def body(self, dtype):
+        return self.whole[GUARD : GUARD + len(self.data)].view(dtype)
+
+    def guards_intact(self):
+        w = self.whole.cpu().numpy()
+        return bool((w[:GUARD] == SENTINEL).all() and (w[GUARD + len(self.data) :] == SENTINEL).all())
+
+
+@pytest.mark.parametrize("kind,n_old,n_new", SHAPES[1:] + [("edited", 10_000_000, None)])
+@pytest.mark.parametrize("counts_only", [False, True])
+def test_classify_writes_only_its_outputs(cuda, kind, n_old, n_new, counts_only):
+    """K1 launched straight from its library on buffers fenced by sentinel
+    bytes, up to chip_smoke.py phase [3]'s 10M rows a side: no byte outside
+    the outputs changes (inputs, co-rank scratch, classes and counts, each
+    with its fences), and the outputs equal the plain version's."""
+    ok, oo, nk, no = _edited_sides(n_old) if kind == "edited" else _sides(kind, n_old, n_new)
+    n_old, n_new = len(ok), len(nk)
+    inputs = [_Guarded(cuda, a) for a in (ok, oo, nk, no)]
+    coranks = _Guarded(cuda, np.full(diff_kernel._n_tiles(n_old + n_new) + 1, -1, np.int64))
+    counts = _Guarded(cuda, np.zeros(3, np.int64))
+    classes = [_Guarded(cuda, np.full(n, 9, np.int8)) for n in (n_old, n_new)]
+    lib = diff_kernel._library(cuda)
+    rc = lib.kart_classify(
+        inputs[0].ptr, inputs[1].ptr, n_old, inputs[2].ptr, inputs[3].ptr, n_new,
+        coranks.ptr, None if counts_only else classes[0].ptr,
+        None if counts_only else classes[1].ptr, counts.ptr, cuda.index,
+        _build.stream_ptr(cuda),
+    )
+    _build.check(lib, rc, "classify")
+    torch.cuda.synchronize()
+    for g in (*inputs, coranks, counts, *classes):
+        assert g.guards_intact()
+    for g, a in zip(inputs, (ok, oo, nk, no)):
+        assert np.array_equal(g.body(torch.uint8).cpu().numpy(), g.data)
+    t = [torch.from_numpy(a).to(cuda) for a in (ok, oo.view(np.int32), nk, no.view(np.int32))]
+    po, pn, pc = classify_plain(*t)
+    assert torch.equal(counts.body(torch.int64), pc)
+    assert torch.equal(coranks.body(torch.int64), tile_coranks_plain(t[0], t[2]))
+    if counts_only:
+        assert all((c.body(torch.int8) == 9).all() for c in classes)
+    else:
+        assert torch.equal(classes[0].body(torch.int8), po)
+        assert torch.equal(classes[1].body(torch.int8), pn)
+
+
+@pytest.mark.parametrize("kind,n_old,n_new", [("random", 70_000, 71_000), ("edited", 1_000_000, None)])
+def test_classify_repeats_bit_for_bit(cuda, kind, n_old, n_new):
+    """Twenty K1 launches in each mode on one input give one answer: a race
+    on the tiles' shared memory would show as a launch that differs."""
+    ok, oo, nk, no = _edited_sides(n_old) if kind == "edited" else _sides(kind, n_old, n_new)
+    t = [torch.from_numpy(a).to(cuda) for a in (ok, oo.view(np.int32), nk, no.view(np.int32))]
+    first = classify(*t)
+    first_counts = classify(*t, counts_only=True)[2]
+    for _ in range(20):
+        oc, nc, counts = classify(*t)
+        assert torch.equal(oc, first[0]) and torch.equal(nc, first[1])
+        assert torch.equal(counts, first[2])
+        assert torch.equal(classify(*t, counts_only=True)[2], first_counts)
+    assert torch.equal(first_counts, first[2])
 
 
 QUERIES = [
@@ -148,3 +250,58 @@ def test_bbox_kernel_matches_plain(cuda, query, n):
     assert torch.equal(got, want)
     # the count mask holds even where padding would match
     assert not bbox_cyclic(*cols, query, 0).any()
+
+
+def _prefilter_pair(case):
+    """Two int-pk blocks with envelopes, and a rect under which ``case``
+    holds: no row survives, every row survives, or the two sides' hit-key
+    sets differ (moved envelopes, inserts and deletes: the branch that
+    propagates hits across sides)."""
+    old, oo, new, no = _sides("random", 20_000, 19_000)
+    rng = np.random.default_rng(7)
+    env_old = _envelopes(3, len(old))
+    env_new = _envelopes(4, len(new))
+    pos = np.searchsorted(old, new)
+    hit = (pos < len(old)) & (old[np.minimum(pos, len(old) - 1)] == new)
+    env_new[hit] = env_old[pos[hit]]
+    rect = (-60.5, -30.25, 60.75, 30.125)
+    if case == "unequal":
+        moved = np.flatnonzero(hit)[::11]
+        env_new[moved] = _envelopes(5, len(moved))
+    else:
+        lo, hi = (200.0, 200.5) if case == "empty" else (-10.0, 10.0)
+        for env in (env_old, env_new):
+            env[:] = rng.uniform(lo, hi, size=(len(env), 1)).astype(np.float32)
+            env[:, 2:] += np.float32(0.25)
+        rect = (-170.0, -80.0, 170.0, 80.0)
+    return (FeatureBlock(old, oo, len(old), envelopes=env_old),
+            FeatureBlock(new, no, len(new), envelopes=env_new), prefilter_rect(rect))
+
+
+@pytest.mark.parametrize("case", ["empty", "all", "unequal"])
+def test_prefilter_and_classify_on_card_match_cpu(cuda, case):
+    """spatial_prefilter_blocks and K1 on its compacted survivors, on the
+    card against device="cpu": equal survivors, classes and counts, two K2
+    launches and one K1 launch for the pair."""
+    old, new, rect = _prefilter_pair(case)
+    runtime.reset_stats()
+    got = spatial_prefilter_blocks(old, new, rect, cuda)
+    oc, nc, counts = classify_blocks(*got, cuda)
+    torch.cuda.synchronize()
+    launched = runtime.stats_snapshot()
+    want = spatial_prefilter_blocks(old, new, rect, "cpu")
+    for g, w in zip(got, want):
+        assert g.count == w.count
+        assert np.array_equal(g.keys, w.keys) and np.array_equal(g.oids, w.oids)
+    survivors = got[0].count + got[1].count
+    assert (survivors == 0) == (case == "empty")
+    if case == "all":
+        assert (got[0].count, got[1].count) == (old.count, new.count)
+    wc = classify_blocks(*want, torch.device("cpu"))
+    assert torch.equal(oc.cpu(), wc[0]) and torch.equal(nc.cpu(), wc[1])
+    assert torch.equal(counts.cpu(), wc[2])
+    assert launched["envelope_scan_launches"] == 2
+    assert launched["classify_launches"] == (1 if survivors else 0)
+    runtime.reset_stats()
+    assert feature_count(old, new, rect, cuda) == int(wc[2].sum())
+    assert runtime.stats_snapshot()["classify_counts_only_launches"] == (1 if survivors else 0)

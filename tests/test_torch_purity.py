@@ -62,9 +62,10 @@ def test_no_jax_or_kart_tpu_imports(path):
 
 def test_walk_reaches_every_package():
     dirs = {os.path.relpath(os.path.dirname(f), PKG) for f in _port_files()[1:]}
-    assert {".", "core", "models", "cli", "diff", "ops", "spatial_filter"} <= dirs
+    assert {".", "core", "models", "cli", "diff", "ops", "spatial_filter", "tiles"} <= dirs
     assert {"kart_tpu_torch.cli.diff_cmds", "kart_tpu_torch.core.msgpack",
-            "kart_tpu_torch.__main__"} <= set(_modules())
+            "kart_tpu_torch.__main__", "kart_tpu_torch.crs", "kart_tpu_torch.epsg",
+            "kart_tpu_torch.geom", "kart_tpu_torch.tiles.streams"} <= set(_modules())
 
 
 def test_imports_with_jax_and_kart_tpu_blocked():
