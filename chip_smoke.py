@@ -3,7 +3,7 @@
 kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--rows 10000000] [--index-rows 1000000]
-                          [--repo-rows 10000000] [--seed 0]
+                          [--repo-rows 10000000] [--merge-rows 2000000] [--seed 0]
 
 Run from the repository root on a machine with an sm_90 (Hopper) card and
 the CUDA toolkit; the kernels are built from ``kart_tpu_torch/csrc`` on
@@ -47,7 +47,29 @@ first use. Phases:
    --exit-code``: equal sha256 and exit codes), and under a rect around one
    unedited feature (``quiet --exit-code`` exits 0, json-lines has no
    feature line)
-14. the ``kernels`` JSON line (each kernel's ``launches`` is the sum of
+14. build a merge repository with the port's own code, oids only (no
+   blob): ``synth.synth_repo(--merge-rows, edit_frac=0.5)`` gives the
+   ancestor and ours (``main``, half the rows rewritten); branch
+   ``theirs`` off the ancestor rewrites 99% of ours' rows differently and
+   deletes the rest (the conflicts), rewrites a fifth of the rows ours
+   left alone, deletes 1% more and inserts 1% past the max pk (the
+   take-theirs rows); branch ``theirs-clean`` makes only the latter
+   changes. At 2,000,000 rows: 1,000,000 conflicts and 440,000
+   take-theirs, checked against a numpy truth computed by row from the
+   generated oids
+15. K4 on the three commits' blocks and on a 10M-row-a-side triple from
+   ``--seed``: bit-identical to its plain version on the card, counts
+   equal to the truth; wrapper time, device time, bound, plain time and
+   ``torch.searchsorted``'s time
+16. ``merge theirs --dry-run -o json`` and ``merge theirs -o json`` on the
+   card (exactly one K4 launch each) and with ``--device cpu``: equal
+   stdout and MERGE_INDEX (KMIX2) sha256, the two routes each after the
+   other's ``merge --abort``; ``conflicts -ss -o json``, ``conflicts -o
+   quiet`` (exit 1), ``merge --abort``; the card's merge under cProfile
+17. ``merge theirs-clean --no-ff -o json`` on the card (one K4 launch) and,
+   after ``main`` is reset with the port's refs, with ``--device cpu``:
+   the same commit and merged tree oids
+18. the ``kernels`` JSON line (each kernel's ``launches`` is the sum of
    ``launches_by_phase``: every launch of the main path's runs, the
    cProfile runs included, and none of the comparisons with the plain
    versions), the card line, and the result line
@@ -56,6 +78,7 @@ Any failed check exits non-zero without the result line.
 """
 
 import argparse
+import contextlib
 import cProfile
 import hashlib
 import io
@@ -74,6 +97,9 @@ import torch
 
 from kart_tpu_torch import runtime
 from kart_tpu_torch.cli import main as kart_main
+from kart_tpu_torch.core.feature_tree import emit_feature_tree, plan_int_feature_tree
+from kart_tpu_torch.core.objects import MODE_TREE
+from kart_tpu_torch.core.tree_builder import TreeBuilder
 from kart_tpu_torch.diff.backend import envelope_scan, envelope_scan_plain
 from kart_tpu_torch.diff.engine import (
     classify_changed,
@@ -83,7 +109,7 @@ from kart_tpu_torch.diff.engine import (
 from kart_tpu_torch.diff.sidecar import load_block, load_block_file, save_sidecar_file
 from kart_tpu_torch.ops import _build
 from kart_tpu_torch.ops import bbox as bbox_ops
-from kart_tpu_torch.ops.blocks import block_tensors, to_device
+from kart_tpu_torch.ops.blocks import FeatureBlock, block_tensors, to_device
 from kart_tpu_torch.ops.diff_kernel import (
     TILE_ROWS,
     classify,
@@ -92,6 +118,11 @@ from kart_tpu_torch.ops.diff_kernel import (
     tile_coranks_plain,
 )
 from kart_tpu_torch.ops.envelope_codec import EnvelopeCodec
+from kart_tpu_torch.ops.merge_kernel import (
+    merge_classify_padded,
+    merge_classify_plain,
+    merge_union,
+)
 from kart_tpu_torch.spatial_filter import (
     PREPASS_PAD,
     ResolvedSpatialFilterSpec,
@@ -288,22 +319,22 @@ def kart_cli(*argv, rc_want=0):
     return wall
 
 
-def counted(label, fn, launches, want=1, want_k2=0):
+def counted(label, fn, launches, want=1, want_k2=0, want_k4=0):
     """Run ``fn`` with the launch counters zeroed before and read after;
     fail unless K1 launched exactly ``want`` times (once for each dataset
-    the columnar route classifies) and K2 ``want_k2`` times, and add the
-    launches read to ``launches[label]`` ([K1, K2]). -> (fn's result, the
-    counters read)."""
+    the columnar route classifies), K2 ``want_k2`` times and K4
+    ``want_k4`` times, and add the launches read to ``launches[label]``
+    ([K1, K2, K4]). -> (fn's result, the counters read)."""
     runtime.reset_stats()
     out = fn()
     stats = runtime.stats_snapshot()
-    n = stats["classify_launches"]
-    check(n == want, f"K1 launched {n} times in phase {label}, expected {want}")
-    k2 = stats["envelope_scan_launches"]
-    check(k2 == want_k2, f"K2 launched {k2} times in phase {label}, expected {want_k2}")
-    total = launches.setdefault(label, [0, 0])
-    total[0] += n
-    total[1] += k2
+    got = [stats["classify_launches"], stats["envelope_scan_launches"],
+           stats["merge_classify_launches"]]
+    for name, n, w in zip(("K1", "K2", "K4"), got, (want, want_k2, want_k4)):
+        check(n == w, f"{name} launched {n} times in phase {label}, expected {w}")
+    total = launches.setdefault(label, [0, 0, 0])
+    for i, n in enumerate(got):
+        total[i] += n
     return out, stats
 
 
@@ -535,6 +566,284 @@ def spatial_phases(args, card, launches):
               f"{w2_card:.4f} s, cpu {w2_cpu:.4f} s); K1 1, K2 2 a command on {card}")
 
 
+# --- the merge CLI on a repository with 1M conflicts -------------------------
+
+#: the host steps of ``kart merge`` (cProfile function names)
+MERGE_STEPS = {
+    "tree walks (feature_index)": "feature_index",
+    "classify (union, upload, K4, download)": "merge_classify",
+    "of it the union (numpy)": "merge_union",
+    "of it K4's wrapper": "merge_classify_padded",
+    "tree inserts and removals": "_node_for_dir",
+    "tree build (flush)": "flush",
+    "materialise_conflicts": "materialise_conflicts",
+    "index write (KMIX2)": "write_to_repo",
+}
+
+MERGE_DATE = "1700000000 +0000"
+
+
+def commit_version(repo, parent, ref, pks, oids, message):
+    """Commit ``parent``'s tree with its feature tree replaced by the (pk,
+    oid) columns ``pks`` (sorted int64) and ``oids`` ((n, 5) uint32), as
+    ``synth_repo`` builds its edit commit; -> the commit oid."""
+    odb = repo.odb
+    with odb.bulk_pack(level=0):
+        ftree, _ = emit_feature_tree(odb, plan_int_feature_tree(pks),
+                                     np.ascontiguousarray(oids).view(np.uint8).reshape(-1, 20))
+        tb = TreeBuilder(odb, odb.read_commit(parent).tree)
+        tb.insert("synth/.table-dataset/feature", ftree, mode=MODE_TREE)
+        root = tb.flush()
+    return repo.create_commit(ref, root, message, [parent])
+
+
+def merge_truth(n_rows, versions):
+    """The 3-way decisions by row (rows 0..n_rows-1: the ancestor's rows,
+    then the inserts), from each version's (present rows, oids by row):
+    an implementation of the rule independent of the merge code.
+    -> (decision int8 (n_rows,), present rows of the union)."""
+    cols = []
+    for rows, oids in versions:
+        p = np.zeros(n_rows, bool)
+        w = np.zeros((n_rows, 5), np.uint32)
+        p[rows] = True
+        w[rows] = oids
+        cols.append((p, w))
+    (pa, wa), (po, wo), (pt, wt) = cols
+
+    def same(p1, w1, p2, w2):
+        return (~p1 & ~p2) | (p1 & p2 & (w1 == w2).all(axis=1))
+
+    d = np.where(same(po, wo, pt, wt), 0,
+                 np.where(same(po, wo, pa, wa), 1, np.where(same(pt, wt, pa, wa), 0, 2)))
+    return d.astype(np.int8), pa | po | pt
+
+
+def build_merge_repo(path, n, seed):
+    """Phase [14]: the merge repository (module docstring). -> (repo,
+    {name: FeatureBlock} of ancestor, ours, theirs and theirs-clean,
+    {name: decision by union row} of theirs and theirs-clean)."""
+    repo, info = synth_repo(path, n, edit_frac=0.5, seed=seed, blobs="promised")
+    ancestor = repo.odb.read_commit(info["edit_commit"]).parents[0]
+    a = load_block(repo, repo.structure(ancestor).datasets["synth"])
+    o = load_block(repo, repo.structure("HEAD").datasets["synth"])
+    pks = np.array(a.keys[: a.count])
+    a_oids, o_oids = np.array(a.oids[: a.count]), np.array(o.oids[: o.count])
+    check(np.array_equal(pks, np.asarray(o.keys[: o.count])), "ours' keys differ from the ancestor's")
+    rewritten = (a_oids != o_oids).any(axis=1)
+    rng = np.random.default_rng(seed + 14)
+    edited = rng.permutation(np.flatnonzero(rewritten))
+    untouched = rng.permutation(np.flatnonzero(~rewritten))
+    cut, n_take, n_del, n_ins = len(edited) * 99 // 100, n // 5, n // 100, n // 100
+    ins_pks = pks[-1] + 1 + np.arange(n_ins, dtype=np.int64)
+    ins_oids = rng.integers(0, 2**32, size=(n_ins, 5), dtype=np.uint32)
+    t_oids = a_oids.copy()
+    rewrite = np.concatenate([edited[:cut], untouched[:n_take]])
+    t_oids[rewrite] = rng.integers(0, 2**32, size=(len(rewrite), 5), dtype=np.uint32)
+    all_rows = np.arange(n)
+    versions, blocks = {}, {}
+    for name, gone, oids in (
+        ("theirs", np.concatenate([edited[cut:], untouched[n_take : n_take + n_del]]), t_oids),
+        ("theirs-clean", untouched[n_take : n_take + n_del],
+         np.where(rewritten[:, None], a_oids, t_oids)),
+    ):
+        keep = np.ones(n, bool)
+        keep[gone] = False
+        keys = np.concatenate([pks[keep], ins_pks])
+        woids = np.concatenate([oids[keep], ins_oids])
+        commit_version(repo, ancestor, f"refs/heads/{name}", keys, woids, f"{name} edits")
+        blocks[name] = FeatureBlock.from_arrays(keys, woids, pad=False)
+        versions[name] = (np.concatenate([all_rows[keep], n + np.arange(n_ins)]), woids)
+    truth = {}
+    for name in ("theirs", "theirs-clean"):
+        d, present = merge_truth(n + n_ins, [(all_rows, a_oids), (all_rows, o_oids),
+                                             versions[name]])
+        truth[name] = d[present]
+    blocks["ancestor"] = FeatureBlock.from_arrays(pks, a_oids, pad=False)
+    blocks["ours"] = FeatureBlock.from_arrays(pks, o_oids, pad=False)
+    return repo, blocks, truth
+
+
+def make_merge_triple(rng, n):
+    """A triple of ``n`` ancestor rows: keys with gaps; ours and theirs
+    each rewrite 10% of the rows (theirs a third of its rewrites as ours
+    would, so overlaps split between same and conflicting edits), delete
+    1% and insert 1% (half of theirs' inserts at ours' keys: add/add)."""
+    pks = np.cumsum(rng.integers(1, 4, n)).astype(np.int64) - 2**40
+    a = rng.integers(0, 2**32, size=(n, 5), dtype=np.uint32)
+    sides = []
+    ins_o = pks[-1] + 1 + 3 * np.arange(n // 100, dtype=np.int64)
+    for k in range(2):
+        oids = a.copy()
+        rw = np.flatnonzero(rng.random(n) < 0.1)
+        flip = np.ones(len(rw), np.uint32) if k == 0 else np.where(
+            rng.random(len(rw)) < 1 / 3, 1, 2).astype(np.uint32)
+        oids[rw, 0] ^= flip
+        keep = rng.random(n) >= 0.01
+        ins = ins_o if k == 0 else np.concatenate([ins_o[::2], ins_o[-1] + 1 + np.arange(n // 200)])
+        keys = np.concatenate([pks[keep], ins])
+        sides.append((keys, np.concatenate([oids[keep], rng.integers(0, 2**32, size=(len(ins), 5),
+                                                                         dtype=np.uint32)])))
+    return [(pks, a)] + sides
+
+
+def k4_inputs(blocks, dev):
+    """Three blocks -> (K4's side arguments on ``dev``, union tensor)."""
+    args = []
+    for b in blocks:
+        args += [*block_tensors(b, dev), b.count]
+    return args, to_device(merge_union(*blocks), dev)
+
+
+def k4_check_and_time(label, blocks, dev, card, truth=None):
+    """K4 against its plain version on the card (and ``truth``, decisions
+    by union row); -> its timings beside its bound."""
+    args, union = k4_inputs(blocks, dev)
+    u = len(union)
+    got = merge_classify_padded(*args, union, u)
+    want = merge_classify_plain(*args, union, u)
+    torch.cuda.synchronize()
+    err = max(mismatches(g, w) for g, w in zip(got, want))
+    check(err == 0, f"K4 differs from its plain version on {label}")
+    counts = got[2].tolist()
+    if truth is not None:
+        check(np.array_equal(got[0].cpu().numpy(), truth), f"K4 decisions differ from the truth on {label}")
+        want_counts = [int((truth == 2).sum()), int((truth == 1).sum())]
+        check(counts == want_counts, f"K4 counts {counts} != truth {want_counts} on {label}")
+    rows = sum(b.count for b in blocks)
+    b = bound(rows * 28 + u * 8 + u * 2, 0)
+    out = {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: merge_classify_padded(*args, union, u)),
+        "device_ms": total_ms(device_ms(lambda: merge_classify_padded(*args, union, u),
+                                        ("merge_classify_kernel",))),
+        "plain_ms": time_ms(lambda: merge_classify_plain(*args, union, u), batches=3, per_batch=3),
+        "bound_ms": b[0], "bound_by": b[1],
+        "library_ms": time_ms(lambda: torch.searchsorted(args[0], union)),
+    }
+    print(f"[15] K4 on {label} ({blocks[0].count} / {blocks[1].count} / {blocks[2].count} "
+          f"rows, union {u}): bit-identical to plain, counts [conflicts, take_theirs] {counts}; "
+          f"{out['ms']:.4f} ms, device {fmt_ms(out['device_ms'])} (plain {out['plain_ms']:.4f} "
+          f"ms, bound {b[0]:.4f} ms by {b[1]}, torch.searchsorted(ancestor_keys, union) "
+          f"{out['library_ms']:.4f} ms) on {card}")
+    return out
+
+
+def merge_phases(args, card, launches, dev):
+    """Phases 14-17: build the merge repository, check and time K4, then
+    drive ``kart merge`` and ``kart conflicts`` through the CLI on the
+    card and with ``--device cpu``, adding every card command's launches
+    to ``launches``. -> K4's entry of the kernels line (without
+    launches)."""
+    os.environ.update(GIT_AUTHOR_DATE=MERGE_DATE, GIT_COMMITTER_DATE=MERGE_DATE)
+    n = args.merge_rows
+    with tempfile.TemporaryDirectory(prefix="kart_smoke_merge_") as tmp:
+        t = time.perf_counter()
+        repo, blocks, truth = build_merge_repo(os.path.join(tmp, "repo"), n, args.seed)
+        build_s = time.perf_counter() - t
+        packs = repo.odb.packs.packs
+        n_conf, n_take = int((truth["theirs"] == 2).sum()), int((truth["theirs"] == 1).sum())
+        check((n_conf, n_take) == (n // 2, n // 5 + n // 50),
+              f"truth has {n_conf} conflicts and {n_take} take-theirs")
+        check(((truth["theirs-clean"] == 2).sum(), (truth["theirs-clean"] == 1).sum())
+              == (0, n_take), "theirs-clean's truth is not clean")
+        print(f"[14] merge repo: {n} features, ours rewrote {n // 2}; theirs: truth "
+              f"{n_conf} conflicts, {n_take} take-theirs; theirs-clean: 0 and {n_take}; built "
+              f"in {build_s:.2f} s host wall, {sum(p.count for p in packs)} objects, "
+              f"{sum(os.path.getsize(p.pack_path) for p in packs)} pack bytes on {card}")
+
+        # [15] K4 on the commits' blocks, then on a 10M-row triple
+        trio = [blocks["ancestor"], blocks["ours"], blocks["theirs"]]
+        k4 = k4_check_and_time("the merge repo's commits", trio, dev, card, truth["theirs"])
+        k4_check_and_time("ancestor, ours, theirs-clean",
+                          [blocks["ancestor"], blocks["ours"], blocks["theirs-clean"]], dev, card,
+                          truth["theirs-clean"])
+        rng = np.random.default_rng(args.seed + 15)
+        big = [FeatureBlock.from_arrays(k, o, pad=False) for k, o in make_merge_triple(rng, args.rows)]
+        k4_big = k4_check_and_time(f"a {args.rows}-row triple", big, dev, card)
+        del big
+        k4.update({f"{k}_10m": v for k, v in k4_big.items() if k.endswith("ms")})
+
+        # [16] merge on the card and with --device cpu
+        path = repo.workdir
+        mi_path = os.path.join(repo.gitdir, "MERGE_INDEX")
+
+        def cli_to(name, *argv, rc_want=0, where="card"):
+            pre = [] if where == "card" else ["--device", "cpu"]
+            with open(os.path.join(tmp, name), "w") as f, contextlib.redirect_stdout(f):
+                return kart_cli(*pre, "-C", path, *argv, rc_want=rc_want)
+
+        def out_sha(name):
+            return sha256_of(os.path.join(tmp, name))
+
+        dry = ["merge", "theirs", "--dry-run", "-o", "json"]
+        w_card, _ = counted("16", lambda: cli_to("dry.card", *dry), launches, want=0, want_k4=1)
+        w_cpu = cli_to("dry.cpu", *dry, where="cpu")
+        check(out_sha("dry.card") == out_sha("dry.cpu"), "dry-run json differs card / cpu")
+        with open(os.path.join(tmp, "dry.card")) as f:
+            doc = json.load(f)
+        check(doc == {"kart.merge/v1": {"conflicts": {"synth": {"feature": n_conf}},
+                                        "state": "merging", "dryRun": True}},
+              f"dry-run said {doc}")
+        check(not os.path.exists(mi_path), "a dry run wrote MERGE_INDEX")
+        print(f"[16] merge --dry-run -o json: {n_conf} conflicts; card {w_card:.4f} s, cpu "
+              f"{w_cpu:.4f} s host wall, sha256 {out_sha('dry.card')} on both; K4 1 on {card}")
+
+        merge = ["merge", "theirs", "-o", "json"]
+        walls = {}
+        walls["merge card"], _ = counted("16", lambda: cli_to("merge.card", *merge), launches,
+                                         want=0, want_k4=1)
+        mi_card = sha256_of(mi_path)
+        with open(mi_path, "rb") as f:
+            check(f.read(6) == b"KMIX2\n", "MERGE_INDEX of 1M conflicts is not KMIX2")
+        mi_bytes = os.path.getsize(mi_path)
+        walls["conflicts -ss"] = cli_to("conflicts.json", "conflicts", "-ss", "-o", "json")
+        with open(os.path.join(tmp, "conflicts.json")) as f:
+            doc = json.load(f)
+        check(doc == {"kart.conflicts/v1": {"synth": {"feature": n_conf}}}, f"conflicts said {doc}")
+        walls["conflicts quiet"] = cli_to("quiet", "conflicts", "-o", "quiet", rc_want=1)
+        walls["abort"] = cli_to("abort", "merge", "--abort")
+        check(not os.path.exists(mi_path), "merge --abort left MERGE_INDEX")
+        walls["merge cpu"] = cli_to("merge.cpu", *merge, where="cpu")
+        check(out_sha("merge.card") == out_sha("merge.cpu"), "merge json differs card / cpu")
+        check(sha256_of(mi_path) == mi_card, "MERGE_INDEX differs card / cpu")
+        cli_to("abort", "merge", "--abort", where="cpu")
+        print(f"[16] merge -o json: stdout sha256 {out_sha('merge.card')} and MERGE_INDEX (KMIX2, "
+              f"{mi_bytes} bytes) sha256 {mi_card} equal card / cpu; host wall s: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in walls.items()) + f"; K4 1 on {card}")
+        (profile, split), _ = counted(
+            "16", lambda: profile_split(lambda: cli_to("merge.prof", *merge), MERGE_STEPS),
+            launches, want=0, want_k4=1)
+        cli_to("abort", "merge", "--abort")
+        print("[16] host profile of the card's merge (cProfile, cumulative s): "
+              + "; ".join(f"{k} {v:.4f}" for k, v in split.items()) + f" on {card}")
+        print(profile)
+
+        # [17] the clean merge, committed, on both routes
+        head = repo.refs.get("refs/heads/main")
+        clean = ["merge", "theirs-clean", "--no-ff", "-o", "json"]
+        results = {}
+        for where in ("card", "cpu"):
+            repo.refs.set("refs/heads/main", head)
+            if where == "card":
+                wall, _ = counted("17", lambda: cli_to("clean.card", *clean), launches, want=0,
+                                  want_k4=1)
+            else:
+                wall = cli_to("clean.cpu", *clean, where="cpu")
+            with open(os.path.join(tmp, f"clean.{where}")) as f:
+                commit = json.load(f)["kart.merge/v1"]["commit"]
+            c = repo.odb.read_commit(commit)
+            check(list(c.parents) == [head, repo.refs.get("refs/heads/theirs-clean")],
+                  "the clean merge's parents")
+            check(repo.refs.get("refs/heads/main") == commit, "main is not at the merge commit")
+            results[where] = (commit, c.tree, wall)
+        check(results["card"][:2] == results["cpu"][:2], f"clean merge differs: {results}")
+        print(f"[17] merge theirs-clean --no-ff: commit {results['card'][0]}, tree "
+              f"{results['card'][1]} on both; card {results['card'][2]:.4f} s, cpu "
+              f"{results['cpu'][2]:.4f} s host wall; K4 1 on {card}")
+    return k4
+
+
 # --- main -------------------------------------------------------------------
 
 def main():
@@ -542,6 +851,7 @@ def main():
     ap.add_argument("--rows", type=int, default=10_000_000)
     ap.add_argument("--index-rows", type=int, default=1_000_000)
     ap.add_argument("--repo-rows", type=int, default=10_000_000)
+    ap.add_argument("--merge-rows", type=int, default=2_000_000)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -750,11 +1060,19 @@ def main():
           f"{fmt_ms(k2_wrap_dev)} on {card}")
     tmp.cleanup()
 
-    # every card command of phases 8-13 is counted, its cProfile runs too
-    cli_launches = {"3-5": [k1["launches"], kernels[1]["launches"]]}
+    # every card command of phases 8-17 is counted, its cProfile runs too
+    cli_launches = {"3-5": [k1["launches"], kernels[1]["launches"], 0]}
     cli_phases(args, card, cli_launches)
     spatial_phases(args, card, cli_launches)
-    for k, i in ((k1, 0), (kernels[1], 1)):
+    k4 = merge_phases(args, card, cli_launches, dev)
+    kernels.append({
+        "name": "merge_classify", "route": "cuda",
+        "source": "kart_tpu_torch/csrc/merge_classify.cu",
+        "replaces": "kart_tpu/ops/merge_kernel.py:43", **k4,
+        "library_call": "torch.searchsorted(ancestor_keys, union): one side's lookup only",
+        "checked": True,
+    })
+    for k, i in ((k1, 0), (kernels[1], 1), (kernels[3], 2)):
         k["launches_by_phase"] = {p: n[i] for p, n in cli_launches.items() if n[i]}
         k["launches"] = sum(k["launches_by_phase"].values())
 

@@ -1,18 +1,18 @@
 """The port's ``kart`` command line, on argparse:
 
-    python -m kart_tpu_torch [-C PATH] [--device DEVICE] diff [options] [ARGS...]
+    python -m kart_tpu_torch [-C PATH] [--device DEVICE] COMMAND [options] [ARGS...]
 
+with the commands ``diff``, ``merge``, ``conflicts`` and ``resolve``.
 Global options come before the command, as in kart_tpu's CLI: ``-C PATH``
-runs as if started in PATH, and ``--device`` picks where the diff's
-kernels run (default: the card, ``cuda:0``; ``cpu`` runs their plain
-PyTorch versions). Without a card and without ``--device cpu`` the command
+runs as if started in PATH, and ``--device`` picks where the kernels run
+(default: the card, ``cuda:0``; ``cpu`` runs their plain PyTorch
+versions). Without a card and without ``--device cpu`` the command
 raises :class:`~kart_tpu_torch.runtime.DeviceUnavailable`; nothing falls
 back.
 
 Counterpart of kart_tpu's ``cli/__init__.py`` (``-C`` and the entry point's
-exception-to-exit-code translation) for the one command ported,
-``diff``. Errors print ``Error: <message>`` on stderr and exit with
-kart_tpu's codes: 2 for a bad argument or a path that is not a repository,
+exception-to-exit-code translation) for the commands ported. Errors print
+``Error: <message>`` on stderr and exit with kart_tpu's codes: 2 for a bad argument or a path that is not a repository,
 20 for an invalid operation, 30 for what is not ported yet, 40 for an
 unresolvable revision.
 """
@@ -29,15 +29,16 @@ NOT_FOUND = 40
 
 
 def build_parser():
-    from kart_tpu_torch.cli import diff_cmds
+    from kart_tpu_torch.cli import diff_cmds, merge_cmds
 
-    parser = argparse.ArgumentParser(prog="kart", description="kart diff on PyTorch/CUDA")
+    parser = argparse.ArgumentParser(prog="kart", description="kart on PyTorch/CUDA")
     parser.add_argument("-C", dest="repo_dir", metavar="PATH", default=None,
                         help="Run as if started in PATH instead of the current directory")
     parser.add_argument("--device", default=None,
-                        help="Device of the diff kernels: cuda[:N] (default cuda:0) or cpu")
+                        help="Device of the kernels: cuda[:N] (default cuda:0) or cpu")
     commands = parser.add_subparsers(dest="command", metavar="COMMAND", required=True)
     diff_cmds.add_parser(commands)
+    merge_cmds.add_parsers(commands)
     return parser
 
 

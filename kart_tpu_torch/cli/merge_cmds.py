@@ -1,0 +1,408 @@
+"""``kart merge``, ``kart conflicts`` and ``kart resolve``.
+
+Counterpart of kart_tpu's ``cli/merge_cmds.py`` with its option names,
+defaults, messages and exit codes (a refused operation prints ``Error:
+<message>`` and exits 2). ``merge`` runs one classify a dataset on the
+card (``--device cpu``: the plain version). Not ported yet, each exiting
+30 with a named error and no output: ``conflicts`` listed as text (the
+summaries ``-s``/``-ss`` are), as geojson or with ``--crs``, and
+``resolve --with-file``.
+"""
+
+import json
+import sys
+
+from kart_tpu_torch.core.repo import (
+    InvalidOperation,
+    KartRepoState,
+    NotFound,
+    NotYetImplemented,
+)
+from kart_tpu_torch.diff.output import dump_json_output, feature_as_json
+
+INVALID_ARGUMENT = 2
+
+
+class _CliError(Exception):
+    """A refused command: ``Error: <message>`` on stderr, exit 2."""
+
+
+def add_parsers(commands):
+    p = commands.add_parser("merge", help="Merge a commit into the current branch")
+    p.add_argument("refish", nargs="?")
+    p.add_argument("-m", "--message", default=None, help="Commit message for the merge commit")
+    p.add_argument("--dry-run", action="store_true",
+                   help="Show what would be merged, don't do it")
+    p.add_argument("--ff", dest="ff", action="store_true", default=True,
+                   help="Allow fast-forward (default)")
+    p.add_argument("--no-ff", dest="ff", action="store_false", help="Forbid fast-forward")
+    p.add_argument("--ff-only", action="store_true", help="Refuse non-fast-forward merges")
+    p.add_argument("--continue", dest="continue_", action="store_true",
+                   help="Complete an in-progress merge")
+    p.add_argument("--abort", dest="abort_", action="store_true",
+                   help="Abort an in-progress merge")
+    p.add_argument("-o", "--output-format", choices=["text", "json"], default="text")
+    p.set_defaults(run=_refusable(run_merge))
+
+    p = commands.add_parser("conflicts", help="List the conflicts of an in-progress merge")
+    p.add_argument("-o", "--output-format", choices=["text", "json", "geojson", "quiet"],
+                   default="text")
+    p.add_argument("--exit-code", action="store_true",
+                   help="Exit with 1 if there are conflicts, 0 if there are none")
+    p.add_argument("--json-style", choices=["extracompact", "compact", "pretty"],
+                   default="pretty")
+    p.add_argument("-s", "--summarise", "--summarize", action="count", default=0,
+                   help="Summarise rather than list each conflict (-ss for even shorter)")
+    p.add_argument("--flat", action="store_true", help="All conflicts in a flat list")
+    p.add_argument("--crs", dest="target_crs", default=None,
+                   help="Reproject geometries into the given CRS")
+    p.add_argument("filters", nargs="*")
+    p.set_defaults(run=_refusable(run_conflicts))
+
+    p = commands.add_parser("resolve", help="Resolve one conflict of an in-progress merge")
+    p.add_argument("label")
+    p.add_argument("--with", dest="with_version",
+                   choices=["ancestor", "ours", "theirs", "delete"],
+                   help="Resolve the conflict with the named version (or delete the feature)")
+    p.add_argument("--with-file", dest="with_file", default=None,
+                   help="Resolve the conflict with feature(s) from a GeoJSON file")
+    p.set_defaults(run=_refusable(run_resolve))
+
+
+def _refusable(fn):
+    def run(args, repo, device):
+        try:
+            return fn(args, repo, device)
+        except _CliError as e:
+            print(f"Error: {e}", file=sys.stderr)
+            return INVALID_ARGUMENT
+    return run
+
+
+# --- merge -------------------------------------------------------------------
+
+def run_merge(args, repo, device):
+    from kart_tpu_torch.merge import (
+        _require_no_working_copy,
+        abort_merging_state,
+        complete_merging_state,
+        do_merge,
+    )
+
+    try:
+        if args.abort_:
+            if repo.state != KartRepoState.MERGING:
+                raise _CliError("Repository is not in 'merging' state")
+            _require_no_working_copy(repo)
+            abort_merging_state(repo)
+            print("Merge aborted")
+            return 0
+        if args.continue_:
+            commit_oid = complete_merging_state(repo, message=args.message)
+            if args.output_format == "json":
+                dump_json_output({"kart.merge/v1": {"commit": commit_oid}}, "-")
+            else:
+                print(f"Merge committed as {commit_oid}")
+            return 0
+        if not args.refish:
+            raise _CliError("Missing argument: COMMIT")
+        result = do_merge(repo, args.refish, message=args.message, dry_run=args.dry_run,
+                          ff=args.ff, ff_only=args.ff_only, device=device)
+    except (InvalidOperation, NotFound) as e:
+        raise _CliError(str(e))
+
+    if args.output_format == "json":
+        dump_json_output(_merge_json(result), "-")
+    elif result.already_merged:
+        print("Already up to date")
+    elif result.fast_forward:
+        print(f"Fast-forward to {result.commit_oid}")
+    elif result.has_conflicts:
+        n = len(result.merge_index.conflicts)
+        if result.dry_run:
+            print(f"Merge would result in {n} conflicts (dry run)")
+        else:
+            print(f"Merge resulted in {n} conflicts.")
+            print('Repository is now in "merging" state. View conflicts with '
+                  '"kart conflicts", resolve with "kart resolve", then '
+                  '"kart merge --continue" (or "kart merge --abort").')
+    elif result.dry_run:
+        print("Merge is possible with no conflicts (dry run)")
+    else:
+        print(f"Merged and committed as {result.commit_oid}")
+    return 0
+
+
+def _merge_json(result):
+    if result.has_conflicts and result.dry_run and not result.already_merged:
+        return merge_conflict_report(result.merge_index.conflicts)
+    body = {}
+    if result.already_merged:
+        body["noOp"] = True
+        body["message"] = "Already up to date"
+    elif result.fast_forward:
+        body["fastForward"] = True
+        body["commit"] = result.commit_oid
+    elif result.has_conflicts:
+        body["conflicts"] = _conflict_summary(result.merge_index.conflicts)
+        body["state"] = "merging"
+    else:
+        body["commit"] = result.commit_oid
+        body["merging"] = False
+    if result.dry_run:
+        body["dryRun"] = True
+    return {"kart.merge/v1": body}
+
+
+def merge_conflict_report(conflicts):
+    """The ``kart merge <theirs> --dry-run -o json`` document of a
+    conflicted merge."""
+    return {"kart.merge/v1": {"conflicts": _conflict_summary(conflicts), "state": "merging",
+                              "dryRun": True}}
+
+
+def _conflict_summary(conflicts):
+    """Conflicts -> {ds_path: {part: count}}; columnar conflict sets count
+    from their key columns without materialising a label."""
+    counts = getattr(conflicts, "summary_counts", None)
+    if counts is not None:
+        out = {}
+        for parts, n in sorted(counts().items()):
+            _set_value_at_path(out, parts, n)
+        return out
+    out = {}
+    for label in conflicts:
+        _set_value_at_path(out, tuple(label.split(":", 2)), _CONFLICT_PLACEHOLDER)
+    return _summarise_tree(out, 2)
+
+
+# --- conflicts ---------------------------------------------------------------
+
+_CONFLICT_PLACEHOLDER = object()
+
+
+class _ConflictDecoder:
+    """Decodes conflict entries to output values, resolving the merge's two
+    revisions and their datasets once per command."""
+
+    def __init__(self, repo):
+        from kart_tpu_torch.core.structure import RepoStructure
+
+        self.repo = repo
+        self.structures = []
+        merge_head = repo.read_gitdir_file("MERGE_HEAD")
+        for refish in ("HEAD", merge_head and merge_head.strip()):
+            if not refish:
+                continue
+            try:
+                self.structures.append(RepoStructure(repo, refish))
+            except (NotFound, KeyError):
+                continue  # labels use whichever revisions resolve
+        self._ds_cache = {}
+
+    def _datasets_for(self, ds_path):
+        if ds_path not in self._ds_cache:
+            self._ds_cache[ds_path] = [ds for ds in (s.datasets.get(ds_path)
+                                                     for s in self.structures) if ds is not None]
+        return self._ds_cache[ds_path]
+
+    def versions_json(self, aot):
+        return {name: self.entry_value_json(aot.get(name))
+                for name in ("ancestor", "ours", "theirs") if aot.get(name) is not None}
+
+    def entry_value_json(self, entry):
+        if not self.structures:
+            return {"$blob": entry.oid}
+        ds_path, part, item = self.structures[0].decode_path(entry.path)
+        data = self.repo.odb.read_blob(entry.oid)
+        if part == "feature":
+            for ds in self._datasets_for(ds_path):
+                try:
+                    return ds.get_feature(ds.decode_path_to_pks(item), data=data)
+                except Exception:  # kart_tpu shows an undecodable blob by its oid
+                    continue
+            return {"$blob": entry.oid}
+        # a meta item or attachment: *.json is JSON, anything else text
+        if item.endswith(".json"):
+            try:
+                return json.loads(data)
+            except ValueError:
+                return {"$blob": entry.oid}
+        try:
+            return data.decode("utf-8")
+        except UnicodeDecodeError:
+            return {"$blob": entry.oid}
+
+
+def _path_part_sort_key(part):
+    """Numbers numerically, meta before feature, compound keys last."""
+    if isinstance(part, str) and part.isdigit():
+        part = int(part)
+    if part == "meta":
+        return ("A", part)
+    if part == "feature":
+        return ("B", part)
+    if isinstance(part, str) and "," in part:
+        return ("Z", part)
+    if isinstance(part, int):
+        return ("N", "", part)
+    return ("N", part)
+
+
+def _path_sort_key(path):
+    if isinstance(path, str) and ":" in path:
+        return tuple(_path_part_sort_key(p) for p in path.split(":"))
+    return _path_part_sort_key(path)
+
+
+def _set_value_at_path(root, path, value):
+    cur = root
+    for p in path[:-1]:
+        cur = cur.setdefault(p, {})
+    cur[path[-1]] = value
+
+
+def _summarise_tree(node, summarise):
+    """Nested conflicts with placeholder leaves -> names (-s) or counts
+    (-ss) at the version level."""
+    first = next(iter(node.values())) if node else None
+    if first is _CONFLICT_PLACEHOLDER:
+        if summarise == 1:
+            return sorted(node.keys(), key=_path_sort_key)
+        return len(node)
+    for k, v in node.items():
+        node[k] = _summarise_tree(v, summarise)
+    return node
+
+
+def _filter_conflicts(unresolved, filters):
+    """Label-prefix filters: 'ds', 'ds:feature', 'ds:feature:3'."""
+    if not filters:
+        return unresolved
+    prefixes = [f.rstrip(":") for f in filters]
+    return {label: v for label, v in unresolved.items()
+            if any(label == p or label.startswith(p + ":") for p in prefixes)}
+
+
+def _build_conflicts_output(repo, conflicts, unresolved, *, summarise=0, flat=False):
+    """The filtered unresolved labels -> nested dicts (``flat``: keyed by
+    label) of their versions from ``conflicts``, features as JSON with hex
+    WKB, or their summaries."""
+    decoder = None if summarise else _ConflictDecoder(repo)
+    out = {}
+    for label in sorted(unresolved, key=_path_sort_key):
+        parts = tuple(label.split(":", 2))
+        if summarise:
+            if flat:
+                out[label] = _CONFLICT_PLACEHOLDER
+            else:
+                _set_value_at_path(out, parts, _CONFLICT_PLACEHOLDER)
+            continue
+        is_feature = len(parts) > 1 and parts[1] == "feature"
+        leaf = {name: (feature_as_json(value)
+                       if is_feature and isinstance(value, dict) and "$blob" not in value
+                       else value)
+                for name, value in decoder.versions_json(conflicts[label]).items()}
+        if flat:
+            for name, value in leaf.items():
+                out[f"{label}:{name}"] = value
+        else:
+            _set_value_at_path(out, parts, leaf)
+    if summarise:
+        out = _summarise_tree(out, summarise)
+    return out
+
+
+def _conflicts_json_as_text(json_obj):
+    """Hierarchical text of a conflicts summary: each level indents 4, keys
+    join with ':' (kart_tpu colours the version headers on a terminal
+    only, so this is its piped output)."""
+
+    def value_to_text(value, path, level):
+        if isinstance(value, str):
+            return f"{value}\n"
+        if isinstance(value, int):
+            return f"{value} conflicts\n"
+        if isinstance(value, dict):
+            separator = "\n" if level == 0 else ""
+            return separator.join(item_to_text(k, v, path, level)
+                                  for k, v in sorted(value.items(),
+                                                     key=lambda kv: _path_sort_key(kv[0])))
+        if isinstance(value, list):
+            indent = "    " * level
+            return "".join(f"{indent}{path}{item}\n" for item in value)
+        return f"{value}\n"
+
+    def item_to_text(key, value, path, level):
+        key_text = f"{path}{key}:"
+        value_text = value_to_text(value, key_text, level + 1)
+        if isinstance(value, int):
+            return f"{'    ' * level}{key_text} {value_text}"
+        return f"{'    ' * level}{key_text}\n{value_text}"
+
+    return value_to_text(json_obj, "", 0)
+
+
+def run_conflicts(args, repo, device):
+    from kart_tpu_torch.merge.index import MergeIndex
+
+    if repo.state != KartRepoState.MERGING:
+        raise _CliError("Repository is not in 'merging' state - there are no conflicts")
+    fmt = args.output_format
+    if fmt == "geojson" or args.target_crs is not None or (fmt == "text" and not args.summarise):
+        raise NotYetImplemented(
+            "kart conflicts as full text, as geojson or with --crs is not ported yet "
+            "(use -o json, or -s/-ss for text summaries)")
+    merge_index = MergeIndex.read_from_repo(repo)
+    # label -> None: a conflict's versions are read only where they are shown
+    unresolved = _filter_conflicts(
+        dict.fromkeys(label for label in merge_index.conflicts
+                      if label not in merge_index.resolves),
+        args.filters,
+    )
+    if fmt == "quiet":
+        return 1 if unresolved else 0
+    body = _build_conflicts_output(repo, merge_index.conflicts, unresolved,
+                                   summarise=args.summarise, flat=args.flat)
+    if fmt == "json":
+        dump_json_output({"kart.conflicts/v1": body}, "-", json_style=args.json_style)
+    else:
+        text = _conflicts_json_as_text(body)
+        if text:
+            print(text)
+    if args.exit_code:
+        return 1 if unresolved else 0
+    return 0
+
+
+# --- resolve -----------------------------------------------------------------
+
+def run_resolve(args, repo, device):
+    from kart_tpu_torch.merge.index import MergeIndex
+
+    if not args.with_version and not args.with_file:
+        raise _CliError("Must supply either --with or --with-file")
+    if args.with_version and args.with_file:
+        raise _CliError("--with and --with-file are mutually exclusive")
+    if repo.state != KartRepoState.MERGING:
+        raise _CliError("Repository is not in 'merging' state")
+    if args.with_file:
+        raise NotYetImplemented("kart resolve --with-file (GeoJSON) is not ported yet")
+    merge_index = MergeIndex.read_from_repo(repo)
+    label = args.label
+    if label not in merge_index.conflicts:
+        known = ", ".join(sorted(merge_index.conflicts)[:5])
+        raise _CliError(f"No such conflict {label!r}. Known conflicts: {known} ...")
+    if label in merge_index.resolves:
+        raise _CliError(f"Conflict {label!r} is already resolved")
+    if args.with_version == "delete":
+        entries = []
+    else:
+        entry = merge_index.conflicts[label].get(args.with_version)
+        entries = [entry] if entry is not None else []
+    merge_index.add_resolve(label, entries)
+    merge_index.write_to_repo(repo)
+    remaining = len(merge_index.unresolved_labels)
+    print(f"Resolved 1 conflict. {remaining} conflicts to go." if remaining
+          else 'Resolved 1 conflict. All conflicts resolved - run "kart merge --continue"')
+    return 0

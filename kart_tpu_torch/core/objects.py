@@ -8,6 +8,7 @@ import hashlib
 import re
 import time
 from dataclasses import dataclass
+from typing import NamedTuple
 
 MODE_BLOB = 0o100644
 MODE_TREE = 0o040000
@@ -26,8 +27,9 @@ def hash_object(obj_type: str, data: bytes) -> str:
     return h.hexdigest()
 
 
-@dataclass(frozen=True)
-class TreeEntry:
+class TreeEntry(NamedTuple):
+    """One entry of a tree object (a tuple: trees hold millions of them)."""
+
     name: str
     mode: int
     oid: str
@@ -37,31 +39,56 @@ class TreeEntry:
         return self.mode == MODE_TREE
 
 
-def tree_sort_key(entry: TreeEntry):
-    """git's canonical tree ordering: names compare as if trees end in '/'."""
-    return entry.name + ("/" if entry.is_tree else "")
+#: mode field bytes <-> mode, for the modes git writes
+_MODE_FIELD = {MODE_BLOB: b"100644", MODE_TREE: b"40000", 0o100755: b"100755",
+               0o120000: b"120000", 0o160000: b"160000"}
+_FIELD_MODE = {v: k for k, v in _MODE_FIELD.items()}
 
 
-def serialise_tree(entries) -> bytes:
-    """Iterable of TreeEntry -> canonical tree object content."""
-    out = bytearray()
-    for e in sorted(entries, key=tree_sort_key):
-        out += b"%o %s\x00" % (e.mode, e.name.encode("utf8"))
-        out += bytes.fromhex(e.oid)
-    return bytes(out)
+def tree_record(name, mode, oid) -> bytes:
+    """One tree entry's bytes: ``<mode> <name>\\0<20-byte sha>``."""
+    field = _MODE_FIELD.get(mode) or b"%o" % mode
+    return b"%s %s\x00%s" % (field, name.encode("utf8"), bytes.fromhex(oid))
+
+
+def tree_records(data) -> dict:
+    """Tree object content -> {name: (mode, entry bytes)}, each entry's bytes
+    as stored (rewritten only where the mode field is not git's own)."""
+    out = {}
+    index, modes = data.index, _FIELD_MODE
+    i, n = 0, len(data)
+    while i < n:
+        sp = index(b" ", i)
+        nul = index(b"\x00", sp)
+        end = nul + 21
+        field, name = data[i:sp], data[sp + 1 : nul].decode("utf8")
+        mode = modes.get(field)
+        if mode is None:
+            mode = int(field, 8)
+            out[name] = (mode, tree_record(name, mode, data[nul + 1 : end].hex()))
+        else:
+            out[name] = (mode, data[i:end])
+        i = end
+    return out
+
+
+def serialise_records(records) -> bytes:
+    """{name: (mode, entry bytes)} -> canonical tree object content."""
+    return b"".join(raw for _, raw in sorted(
+        (name + "/" if mode == MODE_TREE else name, raw) for name, (mode, raw) in records.items()))
 
 
 def parse_tree(data) -> list:
     """Tree object content -> list of TreeEntry (in stored order)."""
     entries = []
+    append, index, modes = entries.append, data.index, _FIELD_MODE
     i, n = 0, len(data)
     while i < n:
-        sp = data.index(b" ", i)
-        nul = data.index(b"\x00", sp)
-        entries.append(TreeEntry(
-            data[sp + 1 : nul].decode("utf8"), int(data[i:sp], 8),
-            data[nul + 1 : nul + 21].hex(),
-        ))
+        sp = index(b" ", i)
+        nul = index(b"\x00", sp)
+        field = data[i:sp]
+        append(TreeEntry(data[sp + 1 : nul].decode("utf8"), modes.get(field) or int(field, 8),
+                         data[nul + 1 : nul + 21].hex()))
         i = nul + 21
     return entries
 

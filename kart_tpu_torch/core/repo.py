@@ -4,15 +4,18 @@ gitdirs are recognised too) holding objects, refs and config.
 Counterpart of kart_tpu's ``core/repo.py``: ``KartRepo`` with ``_locate``,
 ``init_repository``, ``resolve_refish``, ``resolve_commit``,
 ``merge_base``, ``structure``, ``create_commit``, the ``head_*``
-properties, ``has_promisor_remote`` and the spatial filter's config keys
-(``KartConfigKeys``). The working copy, the merge state
-machine, tags' creation, remotes and gc are not ported.
+properties, ``has_promisor_remote``, the spatial filter's config keys
+(``KartConfigKeys``) and the merge state machine (``KartRepoState``, the
+``MERGE_*`` state files in the gitdir). The working copy is only located
+(:meth:`KartRepo.working_copy_location`), never opened; tags' creation,
+remotes and gc are not ported.
 """
 
 import hashlib
 import heapq
 import os
 import re
+import sqlite3
 import struct
 
 from kart_tpu_torch.core.objects import Commit, Signature, tag_target
@@ -41,12 +44,39 @@ class NotYetImplemented(RepoError):
     """A repository feature this port does not handle yet."""
 
 
+class KartRepoState:
+    """NORMAL, or MERGING while a ``MERGE_HEAD`` file exists."""
+
+    NORMAL = "normal"
+    MERGING = "merging"
+
+    @classmethod
+    def bad_state_message(cls, state, allowed_states):
+        if state == cls.MERGING:
+            return (
+                'A merge is ongoing - see "kart merge --continue" / '
+                '"kart merge --abort" / "kart conflicts" / "kart resolve"'
+            )
+        return f"Repo state {state} does not allow this command"
+
+
 class KartConfigKeys:
     """The kart.* config keys the port reads."""
 
     KART_REPOSTRUCTURE_VERSION = "kart.repostructure.version"
+    KART_WORKINGCOPY_LOCATION = "kart.workingcopy.location"
     KART_SPATIALFILTER_GEOMETRY = "kart.spatialfilter.geometry"
     KART_SPATIALFILTER_CRS = "kart.spatialfilter.crs"
+
+
+# state files of an ongoing merge, directly in the gitdir
+MERGE_HEAD = "MERGE_HEAD"
+MERGE_INDEX = "MERGE_INDEX"
+MERGE_BRANCH = "MERGE_BRANCH"
+MERGE_MSG = "MERGE_MSG"
+
+#: the table that marks a GPKG working copy as initialised
+_GPKG_STATE_TABLE = "gpkg_kart_state"
 
 
 class KartRepo:
@@ -107,6 +137,10 @@ class KartRepo:
         return cls(path)
 
     @property
+    def head_branch(self):
+        return self.refs.head_branch()
+
+    @property
     def head_commit_oid(self):
         return self.refs.head_resolved()
 
@@ -122,6 +156,59 @@ class KartRepo:
             if value is not None:
                 return value
         return DEFAULT_REPO_VERSION
+
+    @property
+    def state(self):
+        if os.path.exists(os.path.join(self.gitdir, MERGE_HEAD)):
+            return KartRepoState.MERGING
+        return KartRepoState.NORMAL
+
+    def gitdir_file(self, name):
+        return os.path.join(self.gitdir, name)
+
+    def read_gitdir_file(self, name):
+        """The stripped text of a state file, or None when it is absent."""
+        path = self.gitdir_file(name)
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            return f.read().strip()
+
+    def write_gitdir_file(self, name, content):
+        with open(self.gitdir_file(name), "w") as f:
+            f.write(content if content.endswith("\n") else content + "\n")
+
+    def remove_gitdir_file(self, name):
+        path = self.gitdir_file(name)
+        if os.path.exists(path):
+            os.remove(path)
+
+    def working_copy_location(self):
+        """Where kart_tpu's ``get_working_copy`` would find an initialised
+        working copy (the configured location, else ``<workdir
+        name>.gpkg`` in the workdir), or None. A database URL counts as
+        one: whether it is initialised cannot be told without a server."""
+        location = self.config.get(KartConfigKeys.KART_WORKINGCOPY_LOCATION)
+        if location is None and self.workdir is not None:
+            location = f"{os.path.basename(self.workdir) or 'data'}.gpkg"
+        if location is None:
+            return None
+        if not str(location).lower().endswith(".gpkg"):
+            return location
+        path = (location if os.path.isabs(location) or self.workdir is None
+                else os.path.join(self.workdir, location))
+        if not os.path.exists(path):
+            return None
+        try:
+            con = sqlite3.connect(f"file:{path}?mode=ro", uri=True)
+            try:
+                found = con.execute("SELECT count(*) FROM sqlite_master WHERE name = ?",
+                                    (_GPKG_STATE_TABLE,)).fetchone()[0]
+            finally:
+                con.close()
+        except sqlite3.DatabaseError:
+            return None
+        return location if found else None
 
     def has_promisor_remote(self):
         names = {".".join(k.split(".")[1:-1]) for k in self.config.keys("remote.")

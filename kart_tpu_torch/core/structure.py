@@ -1,7 +1,7 @@
 """A repository at one revision, and the datasets in its tree.
 
 Counterpart of the read side of kart_tpu's ``core/structure.py``
-(``Datasets``, ``RepoStructure``). Committing a diff
+(``Datasets``, ``RepoStructure`` with ``decode_path``). Committing a diff
 (``commit_diff``/``create_tree_from_diff``) is not ported.
 """
 
@@ -10,6 +10,8 @@ from kart_tpu_torch.core.repo import NotFound, NotYetImplemented
 from kart_tpu_torch.models.dataset import Dataset3
 
 _RESERVED_DIRS = {".kart", ".sno", ".git"}
+#: the inner directory names of V3 and of V2 datasets
+DATASET_DIRNAMES = (Dataset3.DATASET_DIRNAME, ".sno-dataset")
 MAX_DATASET_DEPTH = 5
 
 
@@ -99,3 +101,18 @@ class RepoStructure:
         if ds is None:
             ds = self.__dict__["_datasets"] = Datasets(self.repo, self.tree)
         return ds
+
+    def decode_path(self, full_path):
+        """Repo-root path -> (ds_path, part, item), part being 'feature',
+        'meta', 'inner' or 'attachment'."""
+        for dirname in DATASET_DIRNAMES:
+            marker = f"/{dirname}/"
+            if marker in full_path:
+                ds_path, _, inner = full_path.partition(marker)
+                if inner.startswith("feature/"):
+                    return ds_path, "feature", inner[len("feature/"):]
+                if inner.startswith("meta/"):
+                    return ds_path, "meta", inner[len("meta/"):]
+                return ds_path, "inner", inner
+        ds_path, _, name = full_path.rpartition("/")
+        return ds_path, "attachment", name

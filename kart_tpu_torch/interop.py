@@ -13,9 +13,8 @@ from kart_tpu_torch.ops.blocks import FeatureBlock
 
 def from_reference_block(obj):
     """A kart_tpu FeatureBlock (anything with ``keys``, ``oids``, ``count``
-    and optional ``envelopes``/``env_blocks``) -> this package's
-    FeatureBlock sharing the same numpy arrays. Paths are not carried: the
-    port's blocks are int-pk, where the key is the pk."""
+    and optional ``envelopes``/``env_blocks``/``paths``) -> this package's
+    FeatureBlock sharing the same numpy arrays and path list."""
     keys = np.asarray(obj.keys)
     oids = np.asarray(obj.oids)
     if keys.dtype != np.int64 or oids.dtype != np.uint32 or oids.shape[1:] != (5,):
@@ -29,4 +28,5 @@ def from_reference_block(obj):
         keys, oids, int(obj.count),
         envelopes=None if envelopes is None else np.asarray(envelopes),
         env_blocks=env_blocks,
+        paths=getattr(obj, "paths", None),
     )

@@ -8,7 +8,7 @@
 
 Counterpart of the read side of kart_tpu's ``models/dataset.py``
 (``Dataset3``: meta items, ``get_crs_definition``, ``geom_column_name``,
-``feature_tree``, ``path_encoder``,
+``feature_tree``, ``inner_path``, ``path_encoder``, ``feature_index``,
 ``decode_path_to_pks``, ``get_feature*``, ``get_feature_promise_from_oid``,
 the fused JSON serialisers ``_json_value_str``, ``_jsonl_serializer`` and
 ``feature_json_str_from_data``; ``FeatureOidPromise``) plus
@@ -19,6 +19,8 @@ ported.
 
 import json
 from json.encoder import encode_basestring_ascii
+
+import numpy as np
 
 from kart_tpu_torch.core.odb import TreeView
 from kart_tpu_torch.core.repo import NotYetImplemented
@@ -128,9 +130,25 @@ class Dataset3:
         return node if isinstance(node, TreeView) else None
 
     @property
+    def inner_path(self):
+        return f"{self.path}/{self.DATASET_DIRNAME}"
+
+    @property
     def feature_tree(self):
         inner = self.inner_tree
         return inner.get_or_none("feature") if inner is not None else None
+
+    def feature_index(self):
+        """One walk of the feature tree -> (paths list[str] relative to
+        ``feature/``, pk int64 array, oid bytes (N, 20) uint8), in tree
+        order. A hash-keyed dataset raises :class:`NotYetImplemented` in
+        :attr:`path_encoder` (its identity is not a pk)."""
+        enc = self.path_encoder
+        feature_tree = self.feature_tree
+        if feature_tree is None:
+            return [], np.zeros(0, dtype=np.int64), np.zeros((0, 20), dtype=np.uint8)
+        paths, oids = feature_tree.blob_columns()
+        return paths, enc.decode_paths_batch(paths), oids
 
     # -- meta items ----------------------------------------------------------
 

@@ -6,8 +6,9 @@ one urlsafe-base64 character per level, under the filename
 ``urlsafe_b64(msgpack([p]))``.
 
 Counterpart of kart_tpu's ``models/paths.py``: ``PathEncoder``,
-``IntPathEncoder`` (encode, decode and the vectorized msgpack/base64
-helpers the tree builder uses) and ``encoder_for_schema``. Hash-keyed
+``IntPathEncoder`` (encode, decode, the vectorized batch encoders and
+decoder, and the msgpack/base64 helpers the tree builder uses) and
+``encoder_for_schema``. Hash-keyed
 datasets (the ``msgpack/hash`` scheme) raise :class:`NotYetImplemented`.
 """
 
@@ -55,6 +56,7 @@ class PathEncoder:
         if base ** self.group_length != branches:
             raise PathEncoderError(f"{encoding} encoding and {branches} branches are incompatible")
         self.max_trees = branches ** levels
+        self._alpha_u8 = np.frombuffer(self.alphabet.encode("ascii"), dtype=np.uint8)
 
     def to_dict(self):
         return {"scheme": self.scheme, "branches": self.branches, "levels": self.levels,
@@ -100,6 +102,49 @@ class IntPathEncoder(PathEncoder):
 
     def decode_path_to_pks(self, path):
         return self.decode_filename(path.rsplit("/", 1)[-1])
+
+    _PATH_HOLE = 0xFF  # never a path byte; stripped after tobytes
+
+    def _path_matrix(self, pks, plen=0):
+        """The (N, plen + tree names + filename + 1) uint8 matrix of every
+        path, cells past a row's content set to ``_PATH_HOLE``. -> (matrix,
+        end column (N,)): the caller writes its separator there."""
+        n = pks.shape[0]
+        base = len(self.alphabet)
+        tree_idx = (pks // self.branches) % self.max_trees
+        fn_bytes, fn_len = msgpack_single_int_batch(pks)
+        b64_mat, b64_len = b64_batch(fn_bytes, fn_len)
+        b64w = b64_mat.shape[1]
+        width = plen + self.levels * (self.group_length + 1) + b64w + 1
+        out = np.full((n, width), self._PATH_HOLE, dtype=np.uint8)
+        col = plen
+        for level in range(self.levels):
+            digit = (tree_idx // self.branches ** (self.levels - 1 - level)) % self.branches
+            for g in range(self.group_length):
+                out[:, col] = self._alpha_u8[(digit // base ** (self.group_length - 1 - g)) % base]
+                col += 1
+            out[:, col] = ord("/")
+            col += 1
+        region = out[:, col : col + b64w]
+        region[:] = b64_mat
+        region[np.arange(b64w)[None, :] >= b64_len[:, None]] = self._PATH_HOLE
+        return out, col + b64_len
+
+    def encode_paths_batch(self, pks):
+        """int64 array (N,) -> list of N path strings, vectorized."""
+        pks = np.asarray(pks, dtype=np.int64)
+        n = pks.shape[0]
+        if n == 0:
+            return []
+        out, end = self._path_matrix(pks)
+        out[np.arange(n), end] = ord("\n")
+        return out.tobytes().replace(b"\xff", b"").decode("ascii").split("\n")[:-1]
+
+    def decode_paths_batch(self, filenames):
+        """Filenames (or full paths) -> int64 array of pks."""
+        if not isinstance(filenames, (list, tuple)):
+            filenames = list(filenames)
+        return decode_single_int_filenames([f.rsplit("/", 1)[-1] for f in filenames])
 
 
 _MAX_MSGPACK_INT_LEN = 11  # 0x91 + 0xcf + 8 bytes
@@ -169,6 +214,68 @@ def b64_batch(data, lengths):
     chars[(col >= (out_len - n_equals)[:, None]) & (col < out_len[:, None])] = ord("=")
     chars[col >= out_len[:, None]] = ord("\n")
     return chars, out_len
+
+
+_B64_INV = np.full(256, -1, dtype=np.int16)
+_B64_INV[_B64_CHARS] = np.arange(64, dtype=np.int16)
+_B64_INV[ord("=")] = 0
+
+
+def decode_single_int_filenames(names):
+    """b64(msgpack([int])) filenames -> int64 array, vectorized: one join,
+    one frombuffer, table-driven base64 and msgpack decode."""
+    n = len(names)
+    if n == 0:
+        return np.zeros(0, dtype=np.int64)
+    widths = np.fromiter((len(s) for s in names), count=n, dtype=np.int64)
+    w = int(widths.max())
+    if (widths == w).all():  # one width: the names are the rows of one matrix
+        mat = np.frombuffer("".join(names).encode("ascii"), dtype=np.uint8).reshape(n, w)
+    else:
+        flat = np.frombuffer("\n".join(names).encode("ascii"), dtype=np.uint8)
+        mat = np.full((n, w), ord("="), dtype=np.uint8)
+        starts = np.zeros(n, dtype=np.int64)
+        np.cumsum(widths[:-1] + 1, out=starts[1:])
+        for col in range(w):
+            take = col < widths
+            mat[take, col] = flat[starts[take] + col]
+    vals = _B64_INV[mat]
+    vals[vals < 0] = 0
+    groups = w // 4
+    q = vals[:, : groups * 4].reshape(n, groups, 4).astype(np.uint32)
+    triple = (q[..., 0] << 18) | (q[..., 1] << 12) | (q[..., 2] << 6) | q[..., 3]
+    raw = np.stack([(triple >> 16) & 0xFF, (triple >> 8) & 0xFF, triple & 0xFF],
+                   axis=-1).reshape(n, groups * 3)
+    if not np.all(raw[:, 0] == 0x91):
+        raise PathEncoderError("not a single-pk filename batch")
+    marker = raw[:, 1]
+    out = np.zeros(n, dtype=np.int64)
+
+    def be_read(rows, nbytes):
+        acc = np.zeros(int(rows.sum()), dtype=np.uint64)
+        for b in range(nbytes if len(acc) else 0):
+            acc = (acc << np.uint64(8)) | raw[rows, 2 + b].astype(np.uint64)
+        return acc
+
+    m = marker <= 0x7F
+    out[m] = marker[m]
+    m = marker >= 0xE0  # negative fixint
+    out[m] = marker[m].astype(np.int64) - 0x100
+    m = marker == 0xCC
+    if m.any():
+        out[m] = raw[m, 2]
+    m = marker == 0xD0
+    if m.any():
+        out[m] = raw[m, 2].astype(np.int8)
+    out[marker == 0xCD] = be_read(marker == 0xCD, 2).astype(np.int64)
+    out[marker == 0xCE] = be_read(marker == 0xCE, 4).astype(np.int64)
+    out[marker == 0xCF] = be_read(marker == 0xCF, 8).astype(np.int64)
+    out[marker == 0xD1] = be_read(marker == 0xD1, 2).astype(np.uint16).astype(np.int16)
+    out[marker == 0xD2] = be_read(marker == 0xD2, 4).astype(np.uint32).astype(np.int32)
+    m = marker == 0xD3
+    if m.any():
+        out[m] = be_read(m, 8).view(np.int64)
+    return out
 
 
 PathEncoder.INT_PK_ENCODER = PathEncoder.get(scheme="int", branches=64, levels=4,

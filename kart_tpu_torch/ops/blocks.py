@@ -4,6 +4,8 @@ A FeatureBlock is one dataset version's feature identity as sorted arrays:
 
     keys : int64 (N,)   -- the int primary key
     oids : uint32 (N,5) -- the feature blob's 20-byte content id, packed
+    paths: list of N str or None -- the blob paths under ``feature/``, for
+           blocks read from a dataset's tree (the merge writes by path)
 
 Only the first ``count`` rows are real; rows beyond it (bucket padding, or
 the tail of a compacted prefilter subset) carry ``PAD_KEY``. Blocks stay
@@ -52,26 +54,37 @@ def unpack_oid_bytes(oid_rows):
 
 
 class FeatureBlock:
-    """One int-pk dataset version (the key is the pk, so no paths are
-    kept) as key-sorted (key, oid) arrays, with the
+    """One int-pk dataset version as key-sorted (key, oid) arrays, with the
+    blob paths when it was read from a tree (``paths``, else None), the
     optional (count, 4) f32 wsen envelope column and its block aggregates
     ``(agg (nb,4) f32, flags (nb,) u8, block_rows)`` from the sidecar."""
 
-    __slots__ = ("keys", "oids", "count", "envelopes", "env_blocks")
+    __slots__ = ("keys", "oids", "count", "envelopes", "env_blocks", "paths")
 
-    def __init__(self, keys, oids, count, envelopes=None, env_blocks=None):
+    def __init__(self, keys, oids, count, envelopes=None, env_blocks=None, paths=None):
         self.keys = keys
         self.oids = oids
         self.count = count
         self.envelopes = envelopes
         self.env_blocks = env_blocks
+        self.paths = paths
 
     @classmethod
-    def from_arrays(cls, keys, oid_rows, pad=True):
+    def from_dataset(cls, dataset, pad=True):
+        """One walk of ``dataset``'s feature tree -> its block, with paths.
+        A hash-keyed dataset raises :class:`NotYetImplemented`."""
+        paths, pks, oid_u8 = dataset.feature_index()
+        oid_rows = oid_u8.reshape(-1, 5, 4).view(np.uint32).reshape(-1, 5)
+        return cls.from_arrays(pks, oid_rows, paths, pad=pad)
+
+    @classmethod
+    def from_arrays(cls, keys, oid_rows, paths=None, pad=True):
         n = len(keys)
         order = np.argsort(keys, kind="stable")
         keys = np.asarray(keys, dtype=np.int64)[order]
         oid_rows = np.asarray(oid_rows, dtype=np.uint32)[order]
+        if paths is not None:
+            paths = [paths[i] for i in order.tolist()]
         if pad:
             size = bucket_size(max(n, 1))
             if size > n:
@@ -79,7 +92,11 @@ class FeatureBlock:
                 oid_rows = np.concatenate(
                     [oid_rows, np.zeros((size - n, 5), dtype=np.uint32)]
                 )
-        return cls(keys, oid_rows, n)
+        return cls(keys, oid_rows, n, paths=paths)
+
+    def has_key_collisions(self):
+        real = self.keys[: self.count]
+        return bool(np.any(real[1:] == real[:-1])) if self.count > 1 else False
 
     def __len__(self):
         return self.count

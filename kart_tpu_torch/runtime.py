@@ -58,6 +58,7 @@ STATS = {
     "envelope_scan_launches": 0,
     "bbox_launches": 0,
     "bbox_uploads": 0,
+    "merge_classify_launches": 0,
     "prefilter_old_survivors": 0,
     "prefilter_new_survivors": 0,
 }

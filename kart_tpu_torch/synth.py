@@ -3,15 +3,17 @@ Merkle feature trees, commits, refs, columnar sidecars) built straight
 from generated (pk, oid) columns.
 
 Counterpart of kart_tpu's ``synth.py`` ``synth_repo`` for ``blobs="real"``
-(every feature blob written) and ``blobs="changed"`` (real blobs for the
+(every feature blob written), ``blobs="changed"`` (real blobs for the
 edited rows only, in both revisions; every other blob oid is in the trees
-and sidecars but its object is absent), and of ``spatial=True`` with
+and sidecars but its object is absent), ``blobs="promised"`` (no blob at
+all: random oids, for paths that read only oids, such as the merge's
+classify), and of ``spatial=True`` with
 ``blobs="changed"``: a point layer (``SYNTH_SPATIAL_SCHEMA``, EPSG:4326)
 whose sidecars carry the envelope column (:func:`synth_envelopes`) and the
 vertex column of each envelope's box. Given the same arguments, commit
 dates (``GIT_AUTHOR_DATE``/``GIT_COMMITTER_DATE``) and seed, it writes the
-same commits and byte-identical sidecars as kart_tpu. ``blobs="promised"``
-and the polygon repository are not ported.
+same commits and byte-identical sidecars as kart_tpu. The polygon
+repository is not ported.
 """
 
 import struct
@@ -74,6 +76,11 @@ def synth_envelopes(pks, span=None, base=None):
     return out
 
 
+def _random_oids(n, seed):
+    """``n`` deterministic pseudo-random blob oids, (n, 20) uint8."""
+    return np.random.default_rng(seed).integers(0, 256, size=(n, 20), dtype=np.uint8)
+
+
 def _changed_row_oids(odb, sel_pks, ratings, schema, geom_xy=None, batch=200_000):
     """Write real feature blobs for a selection of rows; -> (n, 20) uint8
     oids. ``geom_xy``: the (lon, lat) columns of a spatial schema's points."""
@@ -103,8 +110,8 @@ def synth_repo(path, n, *, edit_frac=0.01, seed=0, blobs="changed", ds_path="syn
     ``spatial=True`` (with ``blobs="changed"``) makes it a point layer whose
     sidecars carry envelope and vertex columns.
     -> (repo, {"base_commit", "edit_commit", "n", "n_edits"})."""
-    if blobs not in ("real", "changed"):
-        raise ValueError(f"blobs={blobs!r}: only 'real' and 'changed' are ported")
+    if blobs not in ("real", "changed", "promised"):
+        raise ValueError(f"blobs={blobs!r}: use 'real', 'changed' or 'promised'")
     if spatial and blobs != "changed":
         raise ValueError("spatial synth repos are ported for blobs='changed' only")
     repo = KartRepo.init_repository(path)
@@ -125,7 +132,7 @@ def synth_repo(path, n, *, edit_frac=0.01, seed=0, blobs="changed", ds_path="syn
         with odb.bulk_pack(level=0):
             oids1 = _changed_row_oids(odb, pks, pks / 2.0, schema)
     else:
-        oids1 = np.random.default_rng(seed).integers(0, 256, size=(n, 20), dtype=np.uint8)
+        oids1 = _random_oids(n, seed)
 
     n_edits = max(1, int(n * edit_frac)) if edit_frac else 0
     rng = np.random.default_rng(seed + 1)
@@ -136,6 +143,8 @@ def synth_repo(path, n, *, edit_frac=0.01, seed=0, blobs="changed", ds_path="syn
         if blobs == "real":
             with odb.bulk_pack(level=0):
                 oids2[edit_rows] = _changed_row_oids(odb, sel, sel.astype(np.float64), schema)
+        elif blobs == "promised":
+            oids2[edit_rows] = _random_oids(n_edits, seed + 2)
         else:
             geom_xy = None
             if envelopes is not None:

@@ -305,3 +305,120 @@ def test_prefilter_and_classify_on_card_match_cpu(cuda, case):
     runtime.reset_stats()
     assert feature_count(old, new, rect, cuda) == int(wc[2].sum())
     assert runtime.stats_snapshot()["classify_counts_only_launches"] == (1 if survivors else 0)
+
+
+# --- K4, the 3-way merge classify ---------------------------------------------
+
+def _merge_sides(n_union, seed, empty=""):
+    """Ancestor, ours and theirs (keys, oids) whose key union is exactly
+    ``n_union`` keys (``empty``: the sides to leave empty, e.g. "a" or
+    "aot"), each key in a random non-empty subset of the sides, with
+    edits on ours and theirs (some the same), so every decision occurs."""
+    rng = np.random.default_rng(seed)
+    keys = np.unique(rng.integers(-(2**63), 2**63 - 1, size=2 * n_union + 8, dtype=np.int64))
+    keys = np.sort(rng.choice(keys, n_union, replace=False)) if n_union else keys[:0]
+    if n_union >= 4:
+        keys[0], keys[-1] = -(2**63), 2**63 - 2  # beside PAD_KEY
+        keys = np.sort(keys)
+    live = [s for s in "aot" if s not in empty]
+    masks = {s: np.zeros(n_union, bool) for s in "aot"}
+    if live:
+        pick = rng.integers(1, 2 ** len(live), size=n_union)
+        for bit, s in enumerate(live):
+            masks[s] = ((pick >> bit) & 1) == 1
+    base = rng.integers(0, 2**32, size=(n_union, 5), dtype=np.uint32)
+    ours, theirs = base.copy(), base.copy()
+    ours[rng.random(n_union) < 0.3, rng.integers(0, 5)] ^= np.uint32(1)
+    edit_t = rng.random(n_union) < 0.3
+    theirs[edit_t] = np.where(rng.random((edit_t.sum(), 1)) < 0.3, ours[edit_t], base[edit_t] ^ 2)
+    return [(keys[masks[s]], o[masks[s]]) for s, o in zip("aot", (base, ours, theirs))]
+
+
+def _merge_tensors(cuda, sides, union, pad=0):
+    args = []
+    for k, o in sides:
+        kt = torch.full((len(k) + pad,), 2**63 - 1, dtype=torch.int64)
+        kt[: len(k)] = torch.from_numpy(k)
+        ot = torch.zeros((len(k) + pad, 5), dtype=torch.int32)
+        ot[: len(k)] = torch.from_numpy(np.ascontiguousarray(o).view(np.int32))
+        args += [kt.to(cuda), ot.to(cuda), len(k)]
+    ut = torch.full((len(union) + pad,), 2**63 - 1, dtype=torch.int64)
+    ut[: len(union)] = torch.from_numpy(union)
+    return args, ut.to(cuda)
+
+
+MERGE_SHAPES = [
+    (1, ""), (0, "aot"), (255, ""), (256, ""), (257, ""), (511, ""), (512, ""), (513, ""),
+    (1000, "a"), (1000, "o"), (1000, "t"), (1000, "ao"), (1000, "at"), (1000, "ot"),
+    (70_001, ""), (2_440_000, ""),
+]
+
+
+@pytest.mark.parametrize("n_union,empty", MERGE_SHAPES)
+@pytest.mark.parametrize("pad", [0, 37])
+def test_merge_classify_kernel_matches_plain(cuda, n_union, empty, pad):
+    """K4 against its plain version on the card: decision, presence and
+    counts bit for bit, padded union rows included, one launch a call."""
+    from kart_tpu_torch.ops.merge_kernel import merge_classify_padded, merge_classify_plain
+
+    sides = _merge_sides(n_union, n_union + len(empty), empty)
+    union = np.unique(np.concatenate([k for k, _ in sides]))
+    assert len(union) == n_union
+    args, ut = _merge_tensors(cuda, sides, union, pad)
+    runtime.reset_stats()
+    got = merge_classify_padded(*args, ut, n_union)
+    torch.cuda.synchronize()
+    assert runtime.stats_snapshot()["merge_classify_launches"] == 1
+    want = merge_classify_plain(*args, ut, n_union)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[0][n_union:] == 0).all()
+
+
+@pytest.mark.parametrize("n_union,empty", [(1, ""), (257, ""), (1000, "a"), (1000, "aot"),
+                                           (70_001, ""), (2_440_000, "")])
+def test_merge_classify_writes_only_its_outputs(cuda, n_union, empty):
+    """K4 launched straight from its library on buffers fenced by sentinel
+    bytes: no byte outside decision, presence and counts changes, and they
+    equal the plain version's."""
+    from kart_tpu_torch.ops import merge_kernel
+
+    sides = _merge_sides(n_union, 3 * n_union + 1, empty)
+    union = np.unique(np.concatenate([k for k, _ in sides]))
+    n_union = len(union)  # 0 when every side is empty
+    inputs = [[_Guarded(cuda, k), _Guarded(cuda, np.ascontiguousarray(o)), len(k)]
+              for k, o in sides]
+    uni = _Guarded(cuda, union)
+    decision = _Guarded(cuda, np.full(n_union, 9, np.int8))
+    presence = _Guarded(cuda, np.full(n_union, 9, np.int8))
+    counts = _Guarded(cuda, np.zeros(2, np.int64))
+    lib = merge_kernel._library(cuda)
+    args = []
+    for k, o, n in inputs:
+        args += [k.ptr if n else None, o.ptr if n else None, n]
+    rc = lib.kart_merge_classify(*args, uni.ptr if n_union else None, n_union, n_union,
+                                 decision.ptr, presence.ptr, counts.ptr, cuda.index,
+                                 _build.stream_ptr(cuda))
+    _build.check(lib, rc, "merge classify")
+    torch.cuda.synchronize()
+    for g in [*(x for k, o, _ in inputs for x in (k, o)), uni, decision, presence, counts]:
+        assert g.guards_intact()
+    args, ut = _merge_tensors(cuda, sides, union)
+    want = merge_kernel.merge_classify_plain(*args, ut, n_union)
+    assert torch.equal(decision.body(torch.int8), want[0])
+    assert torch.equal(presence.body(torch.int8), want[1])
+    assert torch.equal(counts.body(torch.int64), want[2])
+
+
+def test_merge_classify_repeats_bit_for_bit(cuda):
+    """Twenty K4 launches on one input give one answer (the counts go
+    through atomics, in no fixed order)."""
+    from kart_tpu_torch.ops.merge_kernel import merge_classify_padded
+
+    sides = _merge_sides(1_000_003, 5)
+    union = np.unique(np.concatenate([k for k, _ in sides]))
+    args, ut = _merge_tensors(cuda, sides, union)
+    first = merge_classify_padded(*args, ut, len(union))
+    for _ in range(20):
+        got = merge_classify_padded(*args, ut, len(union))
+        assert all(torch.equal(g, f) for g, f in zip(got, first))

@@ -15,7 +15,7 @@ N = 5000
 DATE = "1700000000 +0000"
 
 
-@pytest.mark.parametrize("blobs", ["real", "changed"])
+@pytest.mark.parametrize("blobs", ["real", "changed", "promised"])
 def test_same_commits_and_sidecars(tmp_path, monkeypatch, blobs):
     monkeypatch.setenv("GIT_AUTHOR_DATE", DATE)
     monkeypatch.setenv("GIT_COMMITTER_DATE", DATE)
