@@ -24,7 +24,8 @@ first use. Phases:
    (bit-identical), K1's tile co-ranks against its plain partition, and the
    counts against the generated truth
 6. timings beside each kernel's bound: the wrapper's time (CUDA events,
-   after warm-up) and the kernels' own device time (torch.profiler)
+   after warm-up) and the kernels' own device time (torch.profiler),
+   checked by CUDA events with the wrapper's host work fenced off
 7. build a repository with the port's ``synth.synth_repo``: ``--repo-rows``
    int-pk features, real blobs for the 1% edited rows only, from ``--seed``
 8-10. ``kart diff`` through the port's CLI entry point (``kart_tpu_torch.cli
@@ -34,6 +35,16 @@ first use. Phases:
    ``-o json-lines`` on the card and again with ``--device cpu``
    (byte-identical files), then each once more under cProfile; ``-o json``
    on the card and with ``--device cpu`` (byte-identical files)
+10a. on the same repository: ``diff HEAD^...HEAD`` (text), ``-o geojson``,
+   ``-o html``, ``show HEAD``, ``show -o json HEAD`` and ``create-patch
+   HEAD``, each on the card (exactly one K1 launch) and with ``--device
+   cpu`` (equal sha256); the card's text diff again under cProfile
+10b. ``diff --only-feature-count`` at veryfast, fast, medium and good, and
+   at medium with ``-o json``: the annotations cache deleted before each
+   route, one counts-only K1 launch on the card, the same bytes with
+   ``--device cpu``, then a second card run answered by the cache (no
+   launch, the same bytes); ``good`` and ``exact`` (no launch) print [8]'s
+   count; K1 counts-only timed on each accuracy's sampled rows
 11. build a spatial repository with ``synth.synth_repo(spatial=True)``:
    ``--repo-rows`` point features whose sidecars carry envelope and
    vertex columns, real blobs for the 1% edited rows only
@@ -43,6 +54,10 @@ first use. Phases:
    (one a side) and one K1 launch a command, counts-only for
    feature-count, with the rows the prefilter kept read from the same
    run's counters; then the json-lines run on the card under cProfile
+12a. under the same rectangle, ``-o text``, ``-o geojson --crs EPSG:4277``
+   and ``-o json-lines --crs EPSG:4277`` (OSGB 1936: a 7-parameter datum
+   shift): two K2 and one K1 launch a card command, equal sha256 with
+   ``--device cpu``, the features [12]'s json-lines wrote
 13. the same under a polygon filter with a hole (``-o json`` and ``quiet
    --exit-code``: equal sha256 and exit codes), and under a rect around one
    unedited feature (``quiet --exit-code`` exits 0, json-lines has no
@@ -73,6 +88,11 @@ first use. Phases:
    ``launches_by_phase``: every launch of the main path's runs, the
    cProfile runs included, and none of the comparisons with the plain
    versions), the card line, and the result line
+
+``kart conflicts`` as text or GeoJSON (and ``--crs``) and ``resolve
+--with-file`` run no kernel, and the merge repository has no blobs to show,
+so they are held to kart_tpu by the CPU tests only
+(``tests/test_torch_merge_cli.py``). Each phase prints its host wall.
 
 Any failed check exits non-zero without the result line.
 """
@@ -106,6 +126,7 @@ from kart_tpu_torch.diff.engine import (
     feature_count,
     prefilter_rect,
 )
+from kart_tpu_torch.diff.estimation import ACCURACY_SUBTREE_SAMPLES, sample_block
 from kart_tpu_torch.diff.sidecar import load_block, load_block_file, save_sidecar_file
 from kart_tpu_torch.ops import _build
 from kart_tpu_torch.ops import bbox as bbox_ops
@@ -135,6 +156,9 @@ from kart_tpu_torch.synth import synth_repo
 #: non-tensor-core f32 rate, used for every bound below
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+#: clock cycles of the sleep kernel that holds the stream while a timed call
+#: is enqueued (~1 ms at the H100's boost clock)
+FENCE_CYCLES = 2_000_000
 
 #: filter rects (f64 bounds that are not f32-representable), and the
 #: anti-meridian-wrapping one
@@ -267,9 +291,12 @@ def time_ms(fn, batches=5, per_batch=10, warmup=3):
 
 
 def device_ms(fn, kernels, calls=20):
-    """Device time per call of each CUDA kernel whose name contains one of
-    ``kernels``, from a torch.profiler window of ``calls`` calls after
-    warm-up. -> {name fragment: ms} for the kernels the profiler saw."""
+    """Device time per launch of each CUDA kernel whose name contains one of
+    ``kernels`` (each launched once a call), from a torch.profiler window of
+    ``calls`` calls after warm-up: the mean over the launches the profiler
+    recorded, which it reports beside the launches made when it saw fewer,
+    and beside :func:`fenced_ms` of the same call.
+    -> {name fragment: ms} for the kernels the profiler saw."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -277,14 +304,39 @@ def device_ms(fn, kernels, calls=20):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    per = {}
+    per, seen = {}, {}
     for e in prof.key_averages():
         for k in kernels:
-            if k in e.key:
+            if k in e.key and e.count:
                 t = getattr(e, "device_time_total", None)
                 us = e.cuda_time_total if t is None else t
-                per[k] = per.get(k, 0.0) + us / calls / 1e3
+                per[k] = per.get(k, 0.0) + us / e.count / 1e3
+                seen[k] = seen.get(k, 0) + e.count
+    short = {k: n for k, n in seen.items() if n != calls}
+    if short:
+        print(f"    the profiler recorded {short} launches of {calls} made")
+    print(f"    device check {'+'.join(kernels)}: profiler {fmt_ms(total_ms(per))} a call; "
+          f"CUDA events, host work fenced off, {fenced_ms(fn, calls):.4f} ms a call")
     return per
+
+
+def fenced_ms(fn, calls=20):
+    """Device time of one call of ``fn`` by CUDA events, with a sleep kernel
+    holding the stream while the host enqueues the call, so that the
+    wrapper's host work is not counted (its small fills are): the median
+    over ``calls`` calls. A check of :func:`device_ms` that needs no
+    profiler."""
+    out = []
+    for _ in range(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(FENCE_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return statistics.median(out)
 
 
 def total_ms(per):
@@ -442,28 +494,178 @@ def cli_phases(args, card, launches):
         print(f"[10] json: card {wall_card:.4f} s, cpu {wall_cpu:.4f} s host wall, "
               f"{n_json} features, {os.path.getsize(card_out)} bytes, sha256 {digest} on "
               f"both; K1 launches 1 on {card}")
+        t = time.perf_counter()
+        writer_phases(path, tmp, card, launches, n_edits, repo)
+        print(f"[10a] phase host wall {time.perf_counter() - t:.4f} s on {card}")
+        t = time.perf_counter()
+        k1_estimation = estimation_phases(path, tmp, card, launches, n_edits, repo)
+        print(f"[10b] phase host wall {time.perf_counter() - t:.4f} s on {card}")
+    return k1_estimation
+
+
+#: the host steps of the text diff (the delta route), by cProfile name
+TEXT_STEPS = {
+    "classify (sidecar mmap, upload, K1, changed rows)": "classify_changed",
+    "deltas from the changed rows": "get_feature_diff_columnar",
+    "blob reads (pack index, zlib)": "read_blobs_batch",
+    "feature decode (msgpack)": "get_feature",
+    "text of the deltas": "write_feature_delta",
+}
+
+
+def writer_phases(path, tmp, card, launches, n_edits, repo):
+    """Phase [10a] on [7]'s repository: the text, GeoJSON and HTML diffs,
+    ``show`` (text and json) and ``create-patch`` on the card (one K1
+    launch each) and with ``--device cpu``: equal sha256; then the card's
+    text diff under cProfile."""
+    head, parent = repo.refs.get("refs/heads/main"), repo.odb.read_commit(
+        repo.refs.get("refs/heads/main")).parents[0]
+    spec = "HEAD^...HEAD"
+    runs = {
+        "text": (["diff", spec], False),
+        "geojson": (["diff", "-o", "geojson", spec], False),
+        "html": (["diff", "-o", "html", spec], False),
+        "show": (["show", "HEAD"], True),
+        "show-json": (["show", "-o", "json", "HEAD"], True),
+        "create-patch": (["create-patch", "HEAD"], False),
+    }
+    for name, (argv, stdout) in runs.items():
+        out = os.path.join(tmp, name)
+        w_card, w_cpu, digest, _ = card_and_cpu("10a", ["-C", path, *argv], out, launches, k2=0,
+                                                stdout=stdout)
+        with open(f"{out}.card") as f:
+            body = f.read()
+        if name in ("text", "show"):
+            n = body.count("\n--- synth:feature:") + body.startswith("--- synth:feature:")
+            check(n == n_edits, f"{name} shows {n} features, expected {n_edits}")
+            check(name == "text" or body.startswith(f"commit {head}\n"), "show's header")
+        elif name == "geojson":
+            n = len(json.loads(body)["features"])
+            check(n == 2 * n_edits, f"geojson has {n} features, expected {2 * n_edits}")
+        elif name == "html":
+            check(body.startswith("<!DOCTYPE html>") and body.count('"U+::') == n_edits,
+                  "the html page lacks the features")
+        else:
+            doc = json.loads(body)
+            n = len(doc["kart.diff/v1+hexwkb"]["synth"]["feature"])
+            check(n == n_edits, f"{name} has {n} features, expected {n_edits}")
+            check(doc["kart.show/v1"]["commit"] == head, f"{name}'s header")
+            check(name == "show-json" or doc["kart.patch/v1"]["base"] == parent,
+                  "create-patch's base")
+        print(f"[10a] {' '.join(argv)}: {len(body)} chars, sha256 {digest} on both; card "
+              f"{w_card:.4f} s, cpu {w_cpu:.4f} s host wall; K1 launches 1 on {card}")
+    out = os.path.join(tmp, "text.prof")
+    profile, split = counted("10a", lambda: profile_split(
+        lambda: kart_cli("-C", path, "diff", spec, "--output", out), TEXT_STEPS), launches)[0]
+    print("[10a] host profile of the card's text diff (cProfile, cumulative s): "
+          + "; ".join(f"{k} {v:.4f}" for k, v in split.items()) + f" on {card}")
+    print(profile)
+
+
+def estimation_phases(path, tmp, card, launches, n_edits, repo):
+    """Phase [10b] on [7]'s repository: ``diff --only-feature-count`` at
+    each sampled accuracy and with ``-o json``: the annotations cache
+    deleted before each route, one counts-only K1 launch on the card, the
+    same bytes with ``--device cpu``; then a second card run answered by
+    the cache (no launch, the same bytes); ``good`` and ``exact`` (no
+    launch) print [8]'s count. Times K1 counts-only on each accuracy's
+    sampled rows. -> those timings, for the kernels line."""
+    db = os.path.join(repo.gitdir, "annotations.db")
+    dev = runtime.resolve_device(None)
+    old = load_block(repo, repo.structure("HEAD^").datasets["synth"])
+    new = load_block(repo, repo.structure("HEAD").datasets["synth"])
+    timings = []
+    cases = [(acc, []) for acc in ACCURACY_SUBTREE_SAMPLES] + [("medium", ["-o", "json"])]
+    for acc, extra in cases:
+        argv = ["-C", path, "diff", "--only-feature-count", acc, *extra, "HEAD^...HEAD"]
+        out = os.path.join(tmp, f"estimate-{acc}{'-json' if extra else ''}")
+        walls = {}
+        for where in ("card", "cpu"):
+            if os.path.exists(db):
+                os.remove(db)
+            pre = [] if where == "card" else ["--device", "cpu"]
+
+            def go(pre=pre, to=f"{out}.{where}"):
+                with open(to, "w") as f, contextlib.redirect_stdout(f):
+                    return kart_cli(*pre, *argv)
+
+            if where == "card":
+                walls[where], stats = counted("10b", go, launches)
+                check(stats["classify_counts_only_launches"] == 1,
+                      f"the {acc} estimate's K1 launch was not counts-only")
+            else:
+                walls[where] = go()
+        walls["cached"], _ = counted("10b", lambda: go([], f"{out}.cached"), launches, want=0)
+        digest = sha256_of(f"{out}.card")
+        check(digest == sha256_of(f"{out}.cpu") == sha256_of(f"{out}.cached"),
+              f"the {acc} estimate differs card / cpu / cached")
+        with open(f"{out}.card") as f:
+            text = f.read()
+        if acc == "good" and not extra:
+            check(text == f"synth:\n\t{n_edits} features changed\n",
+                  f"good estimate said {text!r}")
+        k = min(ACCURACY_SUBTREE_SAMPLES[acc], 64)
+        so, sn = sample_block(old, k), sample_block(new, k)
+        if not extra:
+            ok, oo = block_tensors(so, dev)
+            nk, no = block_tensors(sn, dev)
+            rows = so.count + sn.count
+            steps = so.count * np.log2(max(sn.count, 2)) + sn.count * np.log2(max(so.count, 2))
+            b = bound(rows * 28 + 24, steps + rows * 5)
+            t = {"accuracy": acc, "rows": [so.count, sn.count],
+                 "ms": time_ms(lambda: classify(ok, oo, nk, no, counts_only=True)),
+                 "device_ms": total_ms(device_ms(lambda: classify(ok, oo, nk, no, counts_only=True),
+                                                 ("corank_kernel", "classify_tiles"))),
+                 "bound_ms": b[0], "bound_by": b[1]}
+            timings.append(t)
+            del ok, oo, nk, no
+        print(f"[10b] --only-feature-count {acc} {' '.join(extra)}: {text.strip()!r}; sampled "
+              f"rows (old, new) ({so.count}, {sn.count}); sha256 {digest} card / cpu / cached; "
+              f"host wall s: " + ", ".join(f"{w} {v:.4f}" for w, v in walls.items())
+              + (f"; K1 counts-only {t['ms']:.4f} ms, device {fmt_ms(t['device_ms'])}, bound "
+                 f"{t['bound_ms']:.4f} ms by {t['bound_by']}" if not extra else "")
+              + f"; K1 launches 1 (cached: 0) on {card}")
+    out = os.path.join(tmp, "estimate-exact")
+    with open(out, "w") as f, contextlib.redirect_stdout(f):
+        wall, _ = counted("10b", lambda: kart_cli("-C", path, "diff", "--only-feature-count",
+                                                  "exact", "HEAD^...HEAD"), launches, want=0)
+    with open(out) as f:
+        text = f.read()
+    check(text == f"synth:\n\t{n_edits} features changed\n", f"exact estimate said {text!r}")
+    print(f"[10b] --only-feature-count exact: {text.strip()!r} (the tree walk, no launch); "
+          f"{wall:.4f} s host wall on {card}")
+    return timings
 
 
 def set_filter(repo, spec_text):
     repo.config.set_many(ResolvedSpatialFilterSpec.from_spec_string(spec_text).config_items())
 
 
-def card_and_cpu(label, argv, out_path, launches, rc_want=0, counts_only=False):
-    """One filtered command on the card, counted: exactly one K1 launch (the
-    one dataset; counts-only for ``counts_only``) and two K2 launches (one a
-    side), added to ``launches``; then with ``--device cpu``. Fail unless
-    both exit ``rc_want`` and write the same bytes to ``out_path`` (when
-    given). -> (card wall s, cpu wall s, sha256 or None, (old, new) rows
-    the card's prefilter kept)."""
+def card_and_cpu(label, argv, out_path, launches, rc_want=0, counts_only=False, k2=2,
+                 stdout=False):
+    """One command on the card, counted: exactly one K1 launch (one
+    dataset; counts-only for ``counts_only``) and ``k2`` K2 launches (two
+    under a spatial filter, one a side), added to ``launches``; then with
+    ``--device cpu``. Fail unless both exit ``rc_want`` and write the same
+    bytes to ``out_path`` (when given: ``--output``, or the standard output
+    for ``stdout``). -> (card wall s, cpu wall s, sha256 or None, (old,
+    new) rows the card's prefilter kept)."""
     walls, outs = [], []
     for where in ("card", "cpu"):
         path = None if out_path is None else f"{out_path}.{where}"
-        cmd = [*argv, *([] if path is None else ["--output", path])]
+        cmd = [*argv, *([] if path is None or stdout else ["--output", path])]
+        pre = [] if where == "card" else ["--device", "cpu"]
+
+        def go():
+            if not stdout:
+                return kart_cli(*pre, *cmd, rc_want=rc_want)
+            with open(path, "w") as f, contextlib.redirect_stdout(f):
+                return kart_cli(*pre, *cmd, rc_want=rc_want)
+
         if where == "cpu":
-            walls.append(kart_cli("--device", "cpu", *cmd, rc_want=rc_want))
+            walls.append(go())
         else:
-            wall, stats = counted(label, lambda: kart_cli(*cmd, rc_want=rc_want), launches,
-                                  want=1, want_k2=2)
+            wall, stats = counted(label, go, launches, want=1, want_k2=k2)
             n = stats["classify_counts_only_launches"]
             check(n == int(counts_only), f"K1 ran counts-only {n} times in phase {label}")
             survivors = (stats["prefilter_old_survivors"], stats["prefilter_new_survivors"])
@@ -525,6 +727,29 @@ def spatial_phases(args, card, launches):
         print("[12] host profile of the card's filtered json-lines run (cProfile, cumulative "
               "s): " + "; ".join(f"{k} {v:.4f}" for k, v in split.items()) + f" on {card}")
         print(profile)
+
+        # [12a] text, and GeoJSON and json-lines reprojected to OSGB 1936
+        t = time.perf_counter()
+        plain_jsonl = sha256_of(f"{jl_out}.card")
+        for name, argv in (("text", ["-o", "text"]),
+                           ("geojson-4277", ["-o", "geojson", "--crs", "EPSG:4277"]),
+                           ("jsonl-4277", ["-o", "json-lines", "--crs", "EPSG:4277"])):
+            out = os.path.join(tmp, f"rect-{name}")
+            w_card, w_cpu, digest, _ = card_and_cpu("12a", [*spec, *argv, "HEAD^...HEAD"], out,
+                                                    launches)
+            with open(f"{out}.card") as f:
+                body = f.read()
+            if name == "text":
+                n = body.count("--- synth:feature:")
+            elif name.startswith("geojson"):
+                n = len(json.loads(body)["features"]) // 2
+            else:
+                n = body.count('"type":"feature"')
+                check(digest != plain_jsonl, "--crs EPSG:4277 left the json-lines as they were")
+            check(n == n_lines, f"filtered {name} has {n} features, json-lines {n_lines}")
+            print(f"[12a] rect filter {' '.join(argv)}: {n} features, sha256 {digest} on both; "
+                  f"card {w_card:.4f} s, cpu {w_cpu:.4f} s host wall; K1 1, K2 2 on {card}")
+        print(f"[12a] phase host wall {time.perf_counter() - t:.4f} s on {card}")
 
         # [13] the polygon with a hole
         set_filter(repo, FILTER_POLY)
@@ -1062,7 +1287,7 @@ def main():
 
     # every card command of phases 8-17 is counted, its cProfile runs too
     cli_launches = {"3-5": [k1["launches"], kernels[1]["launches"], 0]}
-    cli_phases(args, card, cli_launches)
+    k1["estimation"] = cli_phases(args, card, cli_launches)
     spatial_phases(args, card, cli_launches)
     k4 = merge_phases(args, card, cli_launches, dev)
     kernels.append({

@@ -1,26 +1,28 @@
-"""The port's ``kart`` command line, on argparse:
+"""The port's ``kart`` command line:
 
     python -m kart_tpu_torch [-C PATH] [--device DEVICE] COMMAND [options] [ARGS...]
 
-with the commands ``diff``, ``merge``, ``conflicts`` and ``resolve``.
-Global options come before the command, as in kart_tpu's CLI: ``-C PATH``
-runs as if started in PATH, and ``--device`` picks where the kernels run
-(default: the card, ``cuda:0``; ``cpu`` runs their plain PyTorch
-versions). Without a card and without ``--device cpu`` the command
-raises :class:`~kart_tpu_torch.runtime.DeviceUnavailable`; nothing falls
-back.
+with the commands ``diff``, ``show``, ``create-patch``, ``merge``,
+``conflicts`` and ``resolve``. Global options come before the command, as
+in kart_tpu's CLI: ``-C PATH`` runs as if started in PATH, and ``--device``
+picks where the kernels run (default: the card, ``cuda:0``; ``cpu`` runs
+their plain PyTorch versions). Without a card and without ``--device cpu``
+the command raises :class:`~kart_tpu_torch.runtime.DeviceUnavailable`;
+nothing falls back.
 
 Counterpart of kart_tpu's ``cli/__init__.py`` (``-C`` and the entry point's
-exception-to-exit-code translation) for the commands ported. Errors print
-``Error: <message>`` on stderr and exit with kart_tpu's codes: 2 for a bad argument or a path that is not a repository,
-20 for an invalid operation, 30 for what is not ported yet, 40 for an
+exception-to-exit-code translation) for the commands ported. Arguments are
+parsed with click's rules and usage messages (:mod:`.parser`). Errors print
+``Error: <message>`` on stderr and exit with kart_tpu's codes: 2 for a bad
+argument, an unknown command or a path that is not a repository, 20 for
+an invalid operation, 30 for what is not ported yet, 40 for an
 unresolvable revision.
 """
 
-import argparse
 import sys
 
 from kart_tpu_torch import runtime
+from kart_tpu_torch.cli.parser import Group, HelpRequested, Option, UsageError
 
 INVALID_ARGUMENT = 2
 INVALID_OPERATION = 20
@@ -28,34 +30,49 @@ NOT_YET_IMPLEMENTED = 30
 NOT_FOUND = 40
 
 
-def build_parser():
+def build_cli():
+    """-> the top-level :class:`~.parser.Group` of the ported commands."""
     from kart_tpu_torch.cli import diff_cmds, merge_cmds
 
-    parser = argparse.ArgumentParser(prog="kart", description="kart on PyTorch/CUDA")
-    parser.add_argument("-C", dest="repo_dir", metavar="PATH", default=None,
-                        help="Run as if started in PATH instead of the current directory")
-    parser.add_argument("--device", default=None,
-                        help="Device of the kernels: cuda[:N] (default cuda:0) or cpu")
-    commands = parser.add_subparsers(dest="command", metavar="COMMAND", required=True)
-    diff_cmds.add_parser(commands)
-    merge_cmds.add_parsers(commands)
-    return parser
+    commands = {cmd.name: cmd for cmd in (*diff_cmds.commands(), *merge_cmds.commands())}
+    return Group(
+        "kart",
+        [
+            Option("-C", dest="repo_dir", metavar="PATH",
+                   help="Run as if started in PATH instead of the current directory"),
+            Option("--device", dest="device",
+                   help="Device of the kernels: cuda[:N] (default cuda:0) or cpu"),
+        ],
+        commands, help="kart on PyTorch/CUDA",
+    )
 
 
 def main(argv=None):
-    """Run one command; -> its exit code. ``argv`` defaults to
-    ``sys.argv[1:]``."""
+    """Run one command; -> its exit code (usage errors included: this
+    never raises SystemExit). ``argv`` defaults to ``sys.argv[1:]``."""
     from kart_tpu_torch.core.repo import KartRepo, NotFound, NotYetImplemented, RepoError
+    from kart_tpu_torch.diff.writers import DiffUsageError
 
-    args = build_parser().parse_args(argv)
-    device = runtime.resolve_device(args.device)
+    cli = build_cli()
+    try:
+        glob, cmd, args = cli.resolve(sys.argv[1:] if argv is None else list(argv))
+    except HelpRequested as e:
+        print(e.command.help_text())
+        return 0
+    except UsageError as e:
+        e.show()
+        return INVALID_ARGUMENT
+    device = runtime.resolve_device(glob.device)
     try:
         try:
-            repo = KartRepo(args.repo_dir or ".")
+            repo = KartRepo(glob.repo_dir or ".")
         except NotFound as e:
-            print(f"Error: {e}", file=sys.stderr)
+            UsageError(str(e), cmd).show()
             return INVALID_ARGUMENT
-        return args.run(args, repo, device)
+        return cmd.run(args, repo, device)
+    except DiffUsageError as e:
+        UsageError(str(e), cmd).show()
+        return INVALID_ARGUMENT
     except RepoError as e:
         code = (NOT_YET_IMPLEMENTED if isinstance(e, NotYetImplemented)
                 else NOT_FOUND if isinstance(e, NotFound) else INVALID_OPERATION)

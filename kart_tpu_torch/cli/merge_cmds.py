@@ -3,22 +3,25 @@
 Counterpart of kart_tpu's ``cli/merge_cmds.py`` with its option names,
 defaults, messages and exit codes (a refused operation prints ``Error:
 <message>`` and exits 2). ``merge`` runs one classify a dataset on the
-card (``--device cpu``: the plain version). Not ported yet, each exiting
-30 with a named error and no output: ``conflicts`` listed as text (the
-summaries ``-s``/``-ss`` are), as geojson or with ``--crs``, and
-``resolve --with-file``.
+card (``--device cpu``: the plain version). ``conflicts`` writes text
+(features as ``feature_as_text`` blocks, or the ``-s``/``-ss``
+summaries), json and geojson, reprojected by ``--crs``; ``resolve`` takes
+a version (``--with``) or the features of a GeoJSON file (``--with-file``).
+A projected ``--crs`` target exits 30 before anything is written.
 """
 
 import json
 import sys
 
-from kart_tpu_torch.core.repo import (
-    InvalidOperation,
-    KartRepoState,
-    NotFound,
-    NotYetImplemented,
+from kart_tpu_torch.cli.parser import Argument, Command, Option
+from kart_tpu_torch.core.repo import InvalidOperation, KartRepoState, NotFound
+from kart_tpu_torch.diff.output import (
+    dump_json_output,
+    feature_as_geojson,
+    feature_as_json,
+    feature_as_text,
+    geometry_transform_for_dataset,
 )
-from kart_tpu_torch.diff.output import dump_json_output, feature_as_json
 
 INVALID_ARGUMENT = 2
 
@@ -27,46 +30,46 @@ class _CliError(Exception):
     """A refused command: ``Error: <message>`` on stderr, exit 2."""
 
 
-def add_parsers(commands):
-    p = commands.add_parser("merge", help="Merge a commit into the current branch")
-    p.add_argument("refish", nargs="?")
-    p.add_argument("-m", "--message", default=None, help="Commit message for the merge commit")
-    p.add_argument("--dry-run", action="store_true",
-                   help="Show what would be merged, don't do it")
-    p.add_argument("--ff", dest="ff", action="store_true", default=True,
-                   help="Allow fast-forward (default)")
-    p.add_argument("--no-ff", dest="ff", action="store_false", help="Forbid fast-forward")
-    p.add_argument("--ff-only", action="store_true", help="Refuse non-fast-forward merges")
-    p.add_argument("--continue", dest="continue_", action="store_true",
-                   help="Complete an in-progress merge")
-    p.add_argument("--abort", dest="abort_", action="store_true",
-                   help="Abort an in-progress merge")
-    p.add_argument("-o", "--output-format", choices=["text", "json"], default="text")
-    p.set_defaults(run=_refusable(run_merge))
-
-    p = commands.add_parser("conflicts", help="List the conflicts of an in-progress merge")
-    p.add_argument("-o", "--output-format", choices=["text", "json", "geojson", "quiet"],
-                   default="text")
-    p.add_argument("--exit-code", action="store_true",
-                   help="Exit with 1 if there are conflicts, 0 if there are none")
-    p.add_argument("--json-style", choices=["extracompact", "compact", "pretty"],
-                   default="pretty")
-    p.add_argument("-s", "--summarise", "--summarize", action="count", default=0,
-                   help="Summarise rather than list each conflict (-ss for even shorter)")
-    p.add_argument("--flat", action="store_true", help="All conflicts in a flat list")
-    p.add_argument("--crs", dest="target_crs", default=None,
-                   help="Reproject geometries into the given CRS")
-    p.add_argument("filters", nargs="*")
-    p.set_defaults(run=_refusable(run_conflicts))
-
-    p = commands.add_parser("resolve", help="Resolve one conflict of an in-progress merge")
-    p.add_argument("label")
-    p.add_argument("--with", dest="with_version",
-                   choices=["ancestor", "ours", "theirs", "delete"],
-                   help="Resolve the conflict with the named version (or delete the feature)")
-    p.add_argument("--with-file", dest="with_file", default=None,
-                   help="Resolve the conflict with feature(s) from a GeoJSON file")
-    p.set_defaults(run=_refusable(run_resolve))
+def commands():
+    return [
+        Command("merge", [
+            Argument("refish", required=False),
+            Option("--message", "-m", dest="message",
+                   help="Commit message for the merge commit"),
+            Option("--dry-run", dest="dry_run", kind="flag",
+                   help="Show what would be merged, don't do it"),
+            Option("--ff", dest="ff", kind="flag", secondary=["--no-ff"], default=True,
+                   help="Allow/forbid fast-forward"),
+            Option("--ff-only", dest="ff_only", kind="flag", help="Refuse non-fast-forward merges"),
+            Option("--continue", dest="continue_", kind="flag",
+                   help="Complete an in-progress merge"),
+            Option("--abort", dest="abort_", kind="flag", help="Abort an in-progress merge"),
+            Option("-o", "--output-format", dest="output_format", choices=["text", "json"],
+                   default="text"),
+        ], _refusable(run_merge), help="Merge a commit into the current branch"),
+        Command("conflicts", [
+            Option("-o", "--output-format", dest="output_format",
+                   choices=["text", "json", "geojson", "quiet"], default="text"),
+            Option("--exit-code", dest="exit_code", kind="flag",
+                   help="Exit with 1 if there are conflicts, 0 if there are none"),
+            Option("--json-style", dest="json_style",
+                   choices=["extracompact", "compact", "pretty"], default="pretty"),
+            Option("-s", "--summarise", "--summarize", dest="summarise", kind="count",
+                   help="Summarise rather than list each conflict (-ss for even shorter)"),
+            Option("--flat", dest="flat", kind="flag",
+                   help="All conflicts in a flat list instead of a hierarchy"),
+            Option("--crs", dest="target_crs",
+                   help="Reproject geometries into the given CRS (EPSG:<code> or WKT)"),
+            Argument("filters", nargs=-1),
+        ], _refusable(run_conflicts), help="List the conflicts of an in-progress merge"),
+        Command("resolve", [
+            Argument("label"),
+            Option("--with", dest="with_version", choices=["ancestor", "ours", "theirs", "delete"],
+                   help="Resolve the conflict with the named version (or delete the feature)"),
+            Option("--with-file", dest="with_file", path_exists=True,
+                   help="Resolve the conflict with feature(s) from a GeoJSON file"),
+        ], _refusable(run_resolve), help="Resolve one conflict of an in-progress merge"),
+    ]
 
 
 def _refusable(fn):
@@ -284,11 +287,41 @@ def _filter_conflicts(unresolved, filters):
             if any(label == p or label.startswith(p + ":") for p in prefixes)}
 
 
-def _build_conflicts_output(repo, conflicts, unresolved, *, summarise=0, flat=False):
-    """The filtered unresolved labels -> nested dicts (``flat``: keyed by
-    label) of their versions from ``conflicts``, features as JSON with hex
-    WKB, or their summaries."""
+def _build_conflicts_output(repo, conflicts, unresolved, output_format, *, summarise=0,
+                            flat=False, target_crs=None):
+    """The filtered unresolved labels -> the output structure of
+    ``output_format``: nested dicts (``flat``: keyed by label) of their
+    versions from ``conflicts`` (features as text blocks, JSON with hex WKB,
+    or GeoJSON features, reprojected to ``target_crs``), or their
+    summaries; for geojson, one FeatureCollection."""
+    if output_format == "geojson":
+        flat, summarise = True, 0
     decoder = None if summarise else _ConflictDecoder(repo)
+    tx_cache = {}
+
+    def transform_for(ds_path):
+        if target_crs is None:
+            return None
+        if ds_path not in tx_cache:
+            datasets = decoder._datasets_for(ds_path)
+            tx_cache[ds_path] = (geometry_transform_for_dataset(datasets[0], target_crs)
+                                 if datasets else None)
+        return tx_cache[ds_path]
+
+    def render(value, parts):
+        if len(parts) > 1 and parts[1] == "feature" and isinstance(value, dict) \
+                and "$blob" not in value:
+            pk = parts[2] if len(parts) > 2 else None
+            if output_format == "text":
+                return feature_as_text(value)
+            if output_format == "geojson":
+                return feature_as_geojson(value, pk, None, transform_for(parts[0]))
+            return feature_as_json(value, pk, transform_for(parts[0]))
+        # a meta item or an undecodable blob
+        if output_format == "text":
+            return value if isinstance(value, str) else json.dumps(value)
+        return value
+
     out = {}
     for label in sorted(unresolved, key=_path_sort_key):
         parts = tuple(label.split(":", 2))
@@ -298,10 +331,7 @@ def _build_conflicts_output(repo, conflicts, unresolved, *, summarise=0, flat=Fa
             else:
                 _set_value_at_path(out, parts, _CONFLICT_PLACEHOLDER)
             continue
-        is_feature = len(parts) > 1 and parts[1] == "feature"
-        leaf = {name: (feature_as_json(value)
-                       if is_feature and isinstance(value, dict) and "$blob" not in value
-                       else value)
+        leaf = {name: render(value, parts)
                 for name, value in decoder.versions_json(conflicts[label]).items()}
         if flat:
             for name, value in leaf.items():
@@ -310,6 +340,13 @@ def _build_conflicts_output(repo, conflicts, unresolved, *, summarise=0, flat=Fa
             _set_value_at_path(out, parts, leaf)
     if summarise:
         out = _summarise_tree(out, summarise)
+    if output_format == "geojson":
+        features = []
+        for key, feature in out.items():
+            if isinstance(feature, dict) and feature.get("type") == "Feature":
+                feature["id"] = key
+                features.append(feature)
+        return {"type": "FeatureCollection", "features": features}
     return out
 
 
@@ -349,10 +386,6 @@ def run_conflicts(args, repo, device):
     if repo.state != KartRepoState.MERGING:
         raise _CliError("Repository is not in 'merging' state - there are no conflicts")
     fmt = args.output_format
-    if fmt == "geojson" or args.target_crs is not None or (fmt == "text" and not args.summarise):
-        raise NotYetImplemented(
-            "kart conflicts as full text, as geojson or with --crs is not ported yet "
-            "(use -o json, or -s/-ss for text summaries)")
     merge_index = MergeIndex.read_from_repo(repo)
     # label -> None: a conflict's versions are read only where they are shown
     unresolved = _filter_conflicts(
@@ -362,10 +395,13 @@ def run_conflicts(args, repo, device):
     )
     if fmt == "quiet":
         return 1 if unresolved else 0
-    body = _build_conflicts_output(repo, merge_index.conflicts, unresolved,
-                                   summarise=args.summarise, flat=args.flat)
+    body = _build_conflicts_output(repo, merge_index.conflicts, unresolved, fmt,
+                                   summarise=args.summarise, flat=args.flat,
+                                   target_crs=args.target_crs)
     if fmt == "json":
         dump_json_output({"kart.conflicts/v1": body}, "-", json_style=args.json_style)
+    elif fmt == "geojson":
+        dump_json_output(body, "-", json_style=args.json_style)
     else:
         text = _conflicts_json_as_text(body)
         if text:
@@ -386,8 +422,6 @@ def run_resolve(args, repo, device):
         raise _CliError("--with and --with-file are mutually exclusive")
     if repo.state != KartRepoState.MERGING:
         raise _CliError("Repository is not in 'merging' state")
-    if args.with_file:
-        raise NotYetImplemented("kart resolve --with-file (GeoJSON) is not ported yet")
     merge_index = MergeIndex.read_from_repo(repo)
     label = args.label
     if label not in merge_index.conflicts:
@@ -395,10 +429,13 @@ def run_resolve(args, repo, device):
         raise _CliError(f"No such conflict {label!r}. Known conflicts: {known} ...")
     if label in merge_index.resolves:
         raise _CliError(f"Conflict {label!r} is already resolved")
-    if args.with_version == "delete":
+    aot = merge_index.conflicts[label]
+    if args.with_file:
+        entries = _entries_from_file(repo, aot, args.with_file)
+    elif args.with_version == "delete":
         entries = []
     else:
-        entry = merge_index.conflicts[label].get(args.with_version)
+        entry = aot.get(args.with_version)
         entries = [entry] if entry is not None else []
     merge_index.add_resolve(label, entries)
     merge_index.write_to_repo(repo)
@@ -406,3 +443,47 @@ def run_resolve(args, repo, device):
     print(f"Resolved 1 conflict. {remaining} conflicts to go." if remaining
           else 'Resolved 1 conflict. All conflicts resolved - run "kart merge --continue"')
     return 0
+
+
+def _entries_from_file(repo, aot, path):
+    """A GeoJSON Feature or FeatureCollection -> the resolution's entries:
+    each feature encoded into the conflict's dataset (properties, the
+    geometry into its geometry column, the id as the pk when the
+    properties lack it) and written as a blob."""
+    from kart_tpu_torch.core.structure import RepoStructure
+    from kart_tpu_torch.geometry import geojson_to_geometry
+    from kart_tpu_torch.merge.index import ConflictEntry
+
+    with open(path) as f:
+        data = json.load(f)
+    if data.get("type") == "FeatureCollection":
+        geo_features = data["features"]
+    elif data.get("type") == "Feature":
+        geo_features = [data]
+    else:
+        raise _CliError(f"{path}: not a GeoJSON Feature or FeatureCollection")
+    sample = next((e for e in aot if e is not None), None)
+    ds_path, part, _item = RepoStructure(repo, "HEAD").decode_path(sample.path)
+    if part != "feature":
+        raise _CliError("--with-file can only resolve feature conflicts")
+    merge_head = repo.read_gitdir_file("MERGE_HEAD")
+    ds = None
+    for refish in ("HEAD", merge_head and merge_head.strip()):
+        if refish:
+            ds = RepoStructure(repo, refish).datasets.get(ds_path)
+            if ds is not None:
+                break
+    if ds is None:
+        raise _CliError(f"Cannot find dataset {ds_path!r}")
+    entries = []
+    for geo_feature in geo_features:
+        feature = dict(geo_feature.get("properties") or {})
+        geom_col = ds.geom_column_name
+        if geom_col and geo_feature.get("geometry") is not None:
+            feature[geom_col] = geojson_to_geometry(geo_feature["geometry"])
+        for pk_col in (c.name for c in ds.schema.pk_columns):
+            if pk_col not in feature and geo_feature.get("id") is not None:
+                feature[pk_col] = geo_feature["id"]
+        full_path, blob = ds.encode_feature(feature)
+        entries.append(ConflictEntry(full_path, repo.odb.write_blob(blob)))
+    return entries

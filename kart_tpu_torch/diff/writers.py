@@ -1,27 +1,38 @@
-"""Diff writers for ``-o json``, ``json-lines``, ``quiet`` and
+"""Diff writers for every ``kart diff`` format: ``-o text`` (the
+default), ``json``, ``json-lines``, ``geojson``, ``html``, ``quiet`` and
 ``feature-count``.
 
-A writer is built from a commit spec (``A..B`` or ``A...B``), streams the
-diff in its format and reports ``has_changes`` for the exit code. Values
-stay lazy until each delta is written; every writer passes ``device`` to
-the engine, whose columnar route runs kernel K1 there.
+A writer is built from a commit spec (``A..B`` or ``A...B``; ``A^?`` is A's
+first parent or the empty revision), streams the diff in its format and
+reports ``has_changes`` for the exit code. Values stay lazy until each
+delta is written; every writer passes ``device`` to the engine, whose
+columnar route runs kernel K1 there. ``target_crs`` (``--crs``) reprojects
+geometries; ``commit`` (``kart show``, ``kart create-patch``) adds the
+commit header, and ``patch_type``/``include_patch_header`` make the JSON
+writer write a patch.
 
 Counterpart of kart_tpu's ``diff/writers.py``: ``BaseDiffWriter``
-(``parse_diff_commit_spec``, ``iter_deltas``), ``JsonDiffWriter``,
+(``parse_diff_commit_spec``, ``iter_deltas``, ``get_geometry_transforms``,
+``commit_header_json``), ``TextDiffWriter``, ``JsonDiffWriter``,
 ``JsonLinesDiffWriter`` (the delta route and the fused columnar row route,
-single process), ``QuietDiffWriter`` and ``FeatureCountDiffWriter``, with
-the repo's spatial filter: the engine prefilters sidecar block pairs by
-envelope (kernel K2), and ``iter_deltas`` streams only the deltas one of
-whose sides matches the filter (the exact per-value residue); the exit
-code follows what is written, not the unfiltered diff. Not ported: the
-text, GeoJSON and HTML writers, ``--crs``, working-copy diffs, the ``kart
-show`` commit header, the forked materialisers and the promised-blob
-backfill of partial clones (a filtered repo with a promisor remote raises
-``NotYetImplemented``).
+single process), ``GeojsonDiffWriter``, ``QuietDiffWriter``,
+``FeatureCountDiffWriter`` and ``HtmlDiffWriter``, with the repo's spatial
+filter: the engine prefilters sidecar block pairs by envelope (kernel K2),
+and ``iter_deltas`` streams only the deltas one of whose sides matches the
+filter (the exact per-value residue); the exit code follows what is
+written, not the unfiltered diff. kart_tpu colours text on a terminal only;
+these writers print its plain form. Not ported: working-copy diffs, the
+forked materialisers and the promised-blob backfill of partial clones (a
+filtered repo with a promisor remote raises ``NotYetImplemented``). Every
+refusal comes before any output.
 """
 
+import itertools
 import json
+import os
 import re
+import sys
+from datetime import datetime, timedelta, timezone
 
 from kart_tpu_torch.core.odb import ObjectMissing
 from kart_tpu_torch.core.repo import InvalidOperation, NotYetImplemented
@@ -33,13 +44,29 @@ from kart_tpu_torch.diff.engine import (
     get_repo_diff,
 )
 from kart_tpu_torch.diff.key_filters import RepoKeyFilter
-from kart_tpu_torch.diff.output import dump_json_output, feature_as_json, resolve_output_path
+from kart_tpu_torch.diff.output import (
+    dump_json_output,
+    feature_as_geojson,
+    feature_as_json,
+    feature_as_text,
+    feature_field_as_text,
+    format_wkt_for_output,
+    geometry_transform_for_dataset,
+    resolve_output_path,
+)
 from kart_tpu_torch.models.dataset import FeatureOidPromise
+from kart_tpu_torch.models.schema import Schema
 from kart_tpu_torch.ops.blocks import unpack_oid_bytes
 from kart_tpu_torch.spatial_filter import MatchResult, SpatialFilter
 
-#: every output format of ``kart diff``; the writers below are the ported ones
+#: every output format of ``kart diff``
 OUTPUT_FORMATS = ["text", "json", "geojson", "json-lines", "quiet", "feature-count", "html"]
+
+_NULL = object()
+
+
+class DiffUsageError(ValueError):
+    """A writer refuses its arguments (kart_tpu's usage error, exit 2)."""
 
 
 def _chunked(items, size):
@@ -60,24 +87,31 @@ class BaseDiffWriter:
     @classmethod
     def get_diff_writer_class(cls, output_format):
         writers = {
+            "text": TextDiffWriter,
             "json": JsonDiffWriter,
             "json-lines": JsonLinesDiffWriter,
+            "geojson": GeojsonDiffWriter,
             "quiet": QuietDiffWriter,
             "feature-count": FeatureCountDiffWriter,
+            "html": HtmlDiffWriter,
         }
         if output_format not in writers:
-            raise NotYetImplemented(
-                f"-o {output_format} is not ported yet (ported: {', '.join(writers)})"
-            )
+            raise DiffUsageError(f"Unknown output format: {output_format!r} (expected one of "
+                                 f"{', '.join(writers)})")
         return writers[output_format]
 
     def __init__(self, repo, commit_spec="HEAD", user_key_filters=(), output_path="-", *,
-                 json_style="pretty", device=None):
+                 json_style="pretty", device=None, target_crs=None, commit=None,
+                 patch_type="full", include_patch_header=False):
         self.repo = repo
         self.commit_spec = commit_spec
         self.output_path = output_path
         self.json_style = json_style
         self.device = device
+        self.target_crs = target_crs
+        self.commit = commit
+        self.patch_type = patch_type
+        self.include_patch_header = include_patch_header
         self.repo_key_filter = RepoKeyFilter.build_from_user_patterns(user_key_filters)
         self.base_rs, self.target_rs = self.parse_diff_commit_spec(repo, commit_spec)
         self.has_changes = False
@@ -94,6 +128,12 @@ class BaseDiffWriter:
             # the port cannot transform yet raises here
             for ds_path in self.all_ds_paths:
                 self._ds_spatial_filter(ds_path)
+        # --crs: every dataset's transforms before any output (a target the
+        # port cannot transform yet raises here)
+        self._transforms = {}
+        if target_crs is not None:
+            for ds_path in self.all_ds_paths:
+                self.get_geometry_transforms(ds_path)
 
     @classmethod
     def parse_diff_commit_spec(cls, repo, commit_spec):
@@ -195,14 +235,61 @@ class BaseDiffWriter:
                     yield key, delta
 
     @staticmethod
-    def _feature_json_fast(kv):
+    def _feature_json_fast(kv, tx=None):
         """JSON-ready dict of one delta side, decoded straight from
-        prefetched blob data when there is some."""
+        prefetched blob data when there is some and no reprojection."""
         v = kv[1]
-        if isinstance(v, FeatureOidPromise) and v.data is not None and kv.value_is_lazy:
+        if (tx is None and isinstance(v, FeatureOidPromise) and v.data is not None
+                and kv.value_is_lazy):
             data, v.data = v.data, None
             return v.ds.feature_json_from_data(v.pk_values, data)
-        return feature_as_json(kv.get_lazy_value())
+        return feature_as_json(kv.get_lazy_value(), kv.key, tx)
+
+    def get_geometry_transforms(self, ds_path):
+        """-> (old transform, new transform) to the ``--crs`` target, or
+        (None, None)."""
+        if self.target_crs is None:
+            return None, None
+        if ds_path not in self._transforms:
+            self._transforms[ds_path] = tuple(
+                geometry_transform_for_dataset(
+                    rs.datasets.get(ds_path) if rs is not None else None, self.target_crs)
+                for rs in (self.base_rs, self.target_rs))
+        return self._transforms[ds_path]
+
+    def features_geojson(self, ds_path, ds_diff):
+        """GeoJSON features of one dataset's deltas (the GeoJSON and HTML
+        writers): ids ``I::pk``, ``D::pk``, ``U-::pk`` and ``U+::pk``."""
+        old_tx, new_tx = self.get_geometry_transforms(ds_path)
+        for _key, delta in self.iter_deltas(ds_diff, ds_path):
+            if delta.type == "insert":
+                yield feature_as_geojson(delta.new_value, delta.new_key, "I", new_tx)
+            elif delta.type == "delete":
+                yield feature_as_geojson(delta.old_value, delta.old_key, "D", old_tx)
+            else:
+                yield feature_as_geojson(delta.old_value, delta.old_key, "U-", old_tx)
+                yield feature_as_geojson(delta.new_value, delta.new_key, "U+", new_tx)
+
+    def commit_header_json(self):
+        """The ``kart show`` header of ``commit`` as JSON, or None."""
+        commit = self.commit
+        if commit is None:
+            return None
+        oid = getattr(commit, "oid", None)
+        author = commit.author
+        when = _author_time(author)
+        off = abs(author.offset)
+        return {
+            "commit": oid,
+            "abbrevCommit": oid[:7] if oid else None,
+            "message": commit.message,
+            "authorName": author.name,
+            "authorEmail": author.email,
+            "authorTime": when.strftime("%Y-%m-%dT%H:%M:%SZ") if author.offset == 0
+            else when.isoformat(),
+            "authorTimeOffset": f"{'+' if author.offset >= 0 else '-'}{off // 60:02d}:"
+                                f"{off % 60:02d}",
+        }
 
     def write_diff(self):
         self.write_header()
@@ -226,6 +313,114 @@ class BaseDiffWriter:
             fp.close()
 
 
+def _author_time(author):
+    """The author's time in the author's own UTC offset."""
+    tz = timezone(timedelta(minutes=author.offset))
+    return datetime.fromtimestamp(author.time, timezone.utc).astimezone(tz)
+
+
+def _prefixed(text, prefix):
+    return re.sub("^", prefix, text, flags=re.MULTILINE)
+
+
+class TextDiffWriter(BaseDiffWriter):
+    """Human-readable text (lossy for geometry): ``--- ds:feature:pk`` /
+    ``+++`` headers with one line a field."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.fp = resolve_output_path(self.output_path)
+
+    def _echo(self, text=""):
+        self.fp.write(f"{text}\n")
+
+    def write_header(self):
+        commit = self.commit
+        if commit is None:
+            return
+        author = commit.author
+        self._echo(f"commit {getattr(commit, 'oid', '')}")
+        self._echo(f"Author: {author.name} <{author.email}>")
+        self._echo(f"Date:   {_author_time(author).strftime('%c %z')}")
+        self._echo()
+        for line in commit.message.splitlines():
+            self._echo(f"    {line}")
+        self._echo()
+
+    def write_ds_diff(self, ds_path, ds_diff):
+        if "meta" in ds_diff:
+            for key, delta in ds_diff["meta"].sorted_items():
+                self.write_meta_delta(ds_path, key, delta)
+        for key, delta in self.iter_deltas(ds_diff, ds_path):
+            self.write_feature_delta(ds_path, key, delta)
+
+    def write_meta_delta(self, ds_path, key, delta):
+        if delta.old:
+            self._echo(f"--- {ds_path}:meta:{delta.old_key}")
+        if delta.new:
+            self._echo(f"+++ {ds_path}:meta:{delta.new_key}")
+        if key == "schema.json" and delta.old and delta.new:
+            self._echo(self._schema_diff_as_text(Schema.from_column_dicts(delta.old_value),
+                                                 Schema.from_column_dicts(delta.new_value)))
+            return
+        if delta.old:
+            self._echo(self._prefix_meta_item(delta.old_value, delta.old_key, "- "))
+        if delta.new:
+            self._echo(self._prefix_meta_item(delta.new_value, delta.new_key, "+ "))
+
+    @staticmethod
+    def _prefix_meta_item(value, name, prefix):
+        if name.endswith(".wkt"):
+            text = format_wkt_for_output(value)
+        elif name.endswith(".json"):
+            text = json.dumps(value, indent=2)
+        else:
+            text = str(value)
+        return _prefixed(text, prefix)
+
+    @staticmethod
+    def _schema_diff_as_text(old_schema, new_schema):
+        """The new schema's columns as JSON, with the removed, added and
+        changed ones marked ``-``/``+``."""
+        new_by_id = {c.id for c in new_schema}
+        old_by_id = {c.id: c for c in old_schema}
+        lines = ["["]
+        for col in old_schema:
+            if col.id not in new_by_id:
+                lines.append(_prefixed(json.dumps(col.to_dict(), indent=2), "-   ") + ",")
+        for col in new_schema:
+            old_col = old_by_id.get(col.id)
+            text = json.dumps(col.to_dict(), indent=2)
+            if old_col is None:
+                lines.append(_prefixed(text, "+   ") + ",")
+            elif old_col == col:
+                lines.append(_prefixed(text, "    ") + ",")
+            else:
+                lines.append(_prefixed(json.dumps(old_col.to_dict(), indent=2), "-   ") + ",")
+                lines.append(_prefixed(text, "+   ") + ",")
+        lines.append("]")
+        return "\n".join(lines)
+
+    def write_feature_delta(self, ds_path, key, delta):
+        if delta.type == "insert":
+            self._echo(f"+++ {ds_path}:feature:{delta.new_key}")
+            self._echo(feature_as_text(delta.new_value, prefix="+ "))
+            return
+        if delta.type == "delete":
+            self._echo(f"--- {ds_path}:feature:{delta.old_key}")
+            self._echo(feature_as_text(delta.old_value, prefix="- "))
+            return
+        self._echo(f"--- {ds_path}:feature:{delta.old_key}\n+++ {ds_path}:feature:{delta.new_key}")
+        old_f, new_f = delta.old_value, delta.new_value
+        for k in itertools.chain(old_f.keys(), (k for k in new_f.keys() if k not in old_f)):
+            if k.startswith("__") or old_f.get(k, _NULL) == new_f.get(k, _NULL):
+                continue
+            if k in old_f:
+                self._echo(feature_field_as_text(old_f, k, "- "))
+            if k in new_f:
+                self._echo(feature_field_as_text(new_f, k, "+ "))
+
+
 class JsonDiffWriter(BaseDiffWriter):
     """The whole diff as one JSON document, ``kart.diff/v1+hexwkb``."""
 
@@ -233,34 +428,60 @@ class JsonDiffWriter(BaseDiffWriter):
         repo_diff = self.get_repo_diff()
         for ds_diff in repo_diff.values():
             self._mark_ds_changes(ds_diff)
-        output = {"kart.diff/v1+hexwkb": {
+        output = {}
+        header = self.commit_header_json()
+        if header is not None:
+            output["kart.show/v1"] = header
+        output["kart.diff/v1+hexwkb"] = {
             ds_path: self.ds_diff_as_json(ds_path, ds_diff)
             for ds_path, ds_diff in repo_diff.items()
-        }}
+        }
+        if self.include_patch_header:
+            output["kart.patch/v1"] = self.patch_header()
         self.fp = dump_json_output(output, self.output_path, json_style=self.json_style)
         return self.has_changes
+
+    def patch_header(self):
+        header = self.commit_header_json() or {}
+        return {
+            "authorEmail": header.get("authorEmail"),
+            "authorName": header.get("authorName"),
+            "authorTime": header.get("authorTime"),
+            "authorTimeOffset": header.get("authorTimeOffset"),
+            "base": self.base_rs.commit_oid if self.base_rs else None,
+            "message": header.get("message"),
+        }
 
     def ds_diff_as_json(self, ds_path, ds_diff):
         result = {}
         if "meta" in ds_diff:
-            result["meta"] = {}
-            for key, delta in ds_diff["meta"].sorted_items():
-                item = result["meta"][key] = {}
-                if delta.old is not None:
-                    item["-"] = delta.old_value
-                if delta.new is not None:
-                    item["+"] = delta.new_value
+            result["meta"] = {key: self.meta_delta_as_json(delta)
+                              for key, delta in ds_diff["meta"].sorted_items()}
         if "feature" in ds_diff:
+            old_tx, new_tx = self.get_geometry_transforms(ds_path)
+            minimal = self.patch_type == "minimal"
             features = []
             for _key, delta in self.iter_deltas(ds_diff, ds_path):
                 item = {}
-                if delta.old:
-                    item["-"] = self._feature_json_fast(delta.old)
+                if delta.old and (not minimal or not delta.new):
+                    item["-"] = self._feature_json_fast(delta.old, old_tx)
                 if delta.new:
-                    item["+"] = self._feature_json_fast(delta.new)
+                    item["*" if delta.old and minimal else "+"] = self._feature_json_fast(
+                        delta.new, new_tx)
                 features.append(item)
             result["feature"] = features
         return result
+
+    def meta_delta_as_json(self, delta):
+        out = {}
+        if delta.old is not None:
+            out["-"] = delta.old_value
+        if delta.new is not None:
+            out["+"] = delta.new_value
+        if self.patch_type == "minimal" and "-" in out and "+" in out:
+            out.pop("-")
+            out["*"] = out.pop("+")
+        return out
 
 
 class JsonLinesDiffWriter(BaseDiffWriter):
@@ -280,6 +501,9 @@ class JsonLinesDiffWriter(BaseDiffWriter):
     def write_header(self):
         self._writeln({"type": "version", "version": "kart.diff/v2",
                        "outputFormat": "JSONL+hexwkb"})
+        header = self.commit_header_json()
+        if header:
+            self._writeln({"type": "commit", "value": header})
 
     def write_diff(self):
         self.write_header()
@@ -294,9 +518,10 @@ class JsonLinesDiffWriter(BaseDiffWriter):
 
     def _write_ds_fast(self, ds_path):
         """The fused row route for one dataset; True when it handled it. It
-        has no per-value residue, so a spatial filter takes the delta
-        route."""
-        if self.spatial_filter_spec is not None or not self.repo_key_filter.match_all:
+        has no per-value residue and no reprojection, so a spatial filter
+        or ``--crs`` takes the delta route."""
+        if (self.spatial_filter_spec is not None or not self.repo_key_filter.match_all
+                or self.target_crs is not None):
             return False
         rows = get_feature_diff_rows(self.base_rs, self.target_rs, ds_path, self.device)
         if rows is None:
@@ -364,25 +589,55 @@ class JsonLinesDiffWriter(BaseDiffWriter):
         if "meta" in ds_diff:
             self._write_meta_infos(ds_path, ds_diff["meta"])
         head = self._feature_head(ds_path)
+        old_tx, new_tx = self.get_geometry_transforms(ds_path)
         for _key, delta in self.iter_deltas(ds_diff, ds_path):
             old, new = delta.old, delta.new
             if old is not None:
-                body = '"-":' + self._feature_json_str(old)
+                body = '"-":' + self._feature_json_str(old, old_tx)
                 if new is not None:
-                    body += ',"+":' + self._feature_json_str(new)
+                    body += ',"+":' + self._feature_json_str(new, new_tx)
             else:
-                body = '"+":' + self._feature_json_str(new)
+                body = '"+":' + self._feature_json_str(new, new_tx)
             self.fp.write(head + body + "}}\n")
 
-    def _feature_json_str(self, kv):
+    def _feature_json_str(self, kv, tx=None):
         """Compact JSON text of one delta side: the fused blob->text decode
-        from prefetched data, else the generic convert-then-encode (the
-        same bytes either way)."""
+        from prefetched data when nothing is reprojected, else the generic
+        convert-then-encode (the same bytes either way)."""
         v = kv[1]
-        if isinstance(v, FeatureOidPromise) and v.data is not None and kv.value_is_lazy:
+        if (tx is None and isinstance(v, FeatureOidPromise) and v.data is not None
+                and kv.value_is_lazy):
             data, v.data = v.data, None
             return v.ds.feature_json_str_from_data(v.pk_values, data)
-        return self._encode(feature_as_json(kv.get_lazy_value()))
+        return self._encode(feature_as_json(kv.get_lazy_value(), kv.key, tx))
+
+
+class GeojsonDiffWriter(BaseDiffWriter):
+    """One FeatureCollection a dataset, each delta as features with ids
+    ``I::pk``, ``D::pk``, ``U-::pk`` and ``U+::pk``. A diff of several
+    datasets needs ``--output DIR`` and writes ``DIR/<ds path with / as
+    __>.geojson`` for each."""
+
+    def write_diff(self):
+        repo_diff = self.get_repo_diff()
+        for ds_diff in repo_diff.values():
+            self._mark_ds_changes(ds_diff)
+        ds_paths = [p for p, d in repo_diff.items() if "feature" in d]
+        out = self.output_path
+        multi = len(ds_paths) > 1
+        if multi and (out in (None, "-") or hasattr(out, "write")):
+            raise DiffUsageError("Need an --output directory for multi-dataset GeoJSON diffs")
+        for ds_path in ds_paths:
+            collection = {"type": "FeatureCollection",
+                          "features": list(self.features_geojson(ds_path, repo_diff[ds_path]))}
+            path = out
+            if multi:
+                os.makedirs(out, exist_ok=True)
+                path = os.path.join(out, ds_path.replace("/", "__") + ".geojson")
+            fp = dump_json_output(collection, path, json_style=self.json_style)
+            if fp is not sys.stdout and fp is not out:
+                fp.close()
+        return self.has_changes
 
 
 class QuietDiffWriter(BaseDiffWriter):
@@ -418,4 +673,78 @@ class FeatureCountDiffWriter(BaseDiffWriter):
             if count:
                 self.has_changes = True
                 self.fp.write(f"{ds_path}:\n\t{count} features changed\n")
+        return self.has_changes
+
+
+_HTML_TEMPLATE = """<!DOCTYPE html>
+<html><head><meta charset="utf-8"><title>kart diff</title>
+<style>
+ body {{ font-family: sans-serif; margin: 0; display: flex; height: 100vh; }}
+ #list {{ width: 40%; overflow: auto; padding: 8px; box-sizing: border-box; }}
+ #map {{ flex: 1; background: #eef; }}
+ .I {{ color: #070; }} .D {{ color: #a00; }} .U- {{ color: #850; }} .U\\+ {{ color: #085; }}
+ pre {{ margin: 2px 0; }}
+ svg path, svg circle {{ fill-opacity: .3; stroke-width: 1; }}
+</style></head><body>
+<div id="list"><h3>kart diff</h3></div><svg id="map"></svg>
+<script>
+const DATA = {data};
+const list = document.getElementById('list');
+const svg = document.getElementById('map');
+let minx=1e9,miny=1e9,maxx=-1e9,maxy=-1e9;
+const geoms = [];
+for (const [ds, fc] of Object.entries(DATA)) {{
+  const h = document.createElement('h4'); h.textContent = ds; list.appendChild(h);
+  for (const f of fc.features) {{
+    const change = f.id.split('::')[0];
+    const pre = document.createElement('pre');
+    pre.className = change;
+    pre.textContent = f.id + ' ' + JSON.stringify(f.properties);
+    list.appendChild(pre);
+    if (f.geometry) {{ geoms.push([change, f.geometry]); walk(f.geometry.coordinates); }}
+  }}
+}}
+function walk(c) {{
+  if (typeof c[0] === 'number') {{
+    minx=Math.min(minx,c[0]); maxx=Math.max(maxx,c[0]);
+    miny=Math.min(miny,c[1]); maxy=Math.max(maxy,c[1]);
+  }} else c.forEach(walk);
+}}
+const W=600,H=600, dx=maxx-minx||1, dy=maxy-miny||1;
+svg.setAttribute('viewBox', `0 0 ${{W}} ${{H}}`);
+const X=x=>(x-minx)/dx*(W-20)+10, Y=y=>H-((y-miny)/dy*(H-20)+10);
+const colors={{'I':'#070','D':'#a00','U-':'#850','U+':'#085'}};
+for (const [change, g] of geoms) draw(g, colors[change]||'#333');
+function draw(g, color) {{
+  const el = (name)=>document.createElementNS('http://www.w3.org/2000/svg', name);
+  const add=(node)=>{{node.setAttribute('stroke',color);node.setAttribute('fill',color);svg.appendChild(node);}};
+  const ring=(pts)=>pts.map((p,i)=>`${{i?'L':'M'}}${{X(p[0])}} ${{Y(p[1])}}`).join('');
+  if (g.type==='Point') {{ const c=el('circle'); c.setAttribute('cx',X(g.coordinates[0])); c.setAttribute('cy',Y(g.coordinates[1])); c.setAttribute('r',4); add(c); }}
+  else if (g.type==='LineString') {{ const p=el('path'); p.setAttribute('d',ring(g.coordinates)); p.setAttribute('fill','none'); add(p); }}
+  else if (g.type==='Polygon') {{ const p=el('path'); p.setAttribute('d',g.coordinates.map(ring).join('')+'Z'); add(p); }}
+  else if (g.type.startsWith('Multi')) g.coordinates.forEach(c=>draw({{type:g.type.slice(5),coordinates:c}}, color));
+}}
+</script></body></html>
+"""
+
+
+class HtmlDiffWriter(BaseDiffWriter):
+    """A self-contained HTML page: the diff's GeoJSON embedded, drawn as an
+    inline SVG map. Written to ``--output``, or to ``diff.html`` in the
+    current directory (``Wrote <path>`` on stderr)."""
+
+    def write_diff(self):
+        repo_diff = self.get_repo_diff()
+        for ds_diff in repo_diff.values():
+            self._mark_ds_changes(ds_diff)
+        all_data = {
+            ds_path: {"type": "FeatureCollection",
+                      "features": list(self.features_geojson(ds_path, ds_diff))}
+            for ds_path, ds_diff in repo_diff.items() if "feature" in ds_diff
+        }
+        self.output_path = self.output_path if self.output_path not in (None, "-") else "diff.html"
+        self.fp = resolve_output_path(self.output_path)
+        self.fp.write(_HTML_TEMPLATE.format(data=json.dumps(all_data)))
+        if hasattr(self.fp, "name"):
+            print(f"Wrote {self.fp.name}", file=sys.stderr)
         return self.has_changes

@@ -6,14 +6,17 @@ spatial filter need: :class:`Geometry` with its header readers, ``of``,
 ``from_wkb``, ``from_hex_wkb``, ``from_wkt``, ``from_string``,
 ``to_hex_wkb``, ``to_wkt`` and ``envelope``; the structured value
 :class:`GeomValue` with ``parse_wkb``/``write_wkb``, ``parse_wkt``/
-``write_wkt`` and ``wkb_envelope``; and :func:`gpkg_hex_wkb` (the fused
-blob->JSON path). EWKB, GeoJSON and normalisation are not ported.
+``write_wkt`` and ``wkb_envelope``; GeoJSON (``to_geojson``,
+:func:`geojson_to_geometry`) and ``to_coords``/``_build_gpkg`` for
+reprojection; and :func:`gpkg_hex_wkb` (the fused blob->JSON path). EWKB
+and normalisation are not ported.
 
 Canonical storage form: little-endian header and WKB, srs_id 0, an XY
 envelope for everything but points and empties (XYZ with Z).
 """
 
 import binascii
+import json
 import math
 import re
 import struct
@@ -210,6 +213,13 @@ class Geometry(bytes):
 
     def to_wkt(self):
         return write_wkt(parse_wkb(self.to_wkb()))
+
+    def to_geojson(self):
+        return _to_geojson(parse_wkb(self.to_wkb()))
+
+    def to_coords(self):
+        """-> the structured :class:`GeomValue` (see :func:`parse_wkb`)."""
+        return parse_wkb(self.to_wkb())
 
     # -- envelope ------------------------------------------------------------
 
@@ -602,3 +612,84 @@ def write_wkt(value):
         return f"{prefix} ({polys})"
     inner = ",".join(write_wkt(c) for c in payload)
     return f"{prefix} ({inner})"
+
+
+# ---------------------------------------------------------------------------
+# GeoJSON
+# ---------------------------------------------------------------------------
+
+
+def _strip_zm(pt, has_z):
+    """GeoJSON keeps x, y and z, never m."""
+    return list(pt[: 3 if has_z else 2])
+
+
+def _to_geojson(value):
+    name, has_z, has_m, payload = value
+    base = value.base_type
+    if base == POINT:
+        return {"type": "Point",
+                "coordinates": _strip_zm(payload, has_z) if payload is not None else []}
+    if base == LINESTRING:
+        return {"type": "LineString", "coordinates": [_strip_zm(p, has_z) for p in payload]}
+    if base == POLYGON:
+        return {"type": "Polygon",
+                "coordinates": [[_strip_zm(p, has_z) for p in ring] for ring in payload]}
+    if base == MULTIPOINT:
+        return {"type": "MultiPoint",
+                "coordinates": [_strip_zm(c.payload, c.has_z) for c in payload]}
+    if base == MULTILINESTRING:
+        return {"type": "MultiLineString",
+                "coordinates": [[_strip_zm(p, c.has_z) for p in c.payload] for c in payload]}
+    if base == MULTIPOLYGON:
+        return {"type": "MultiPolygon",
+                "coordinates": [[[_strip_zm(p, c.has_z) for p in ring] for ring in c.payload]
+                                for c in payload]}
+    return {"type": "GeometryCollection", "geometries": [_to_geojson(c) for c in payload]}
+
+
+def geojson_to_geometry(obj, crs_id=0):
+    """GeoJSON dict (or JSON text) -> Geometry in canonical form."""
+    if isinstance(obj, str):
+        obj = json.loads(obj)
+    return _build_gpkg(_from_geojson(obj), crs_id=crs_id)
+
+
+def _from_geojson(obj):
+    t = obj["type"]
+    base = _NAME_TO_TYPE.get(t.upper())
+    if base is None:
+        raise GeometryError(f"Unsupported GeoJSON geometry type {t!r}")
+    if base == GEOMETRYCOLLECTION:
+        children = [_from_geojson(g) for g in obj["geometries"]]
+        return _geom_value("GeometryCollection", any(c.has_z for c in children), False,
+                           children)
+    coords = obj["coordinates"]
+
+    def dims(c):
+        while c and isinstance(c[0], (list, tuple)):
+            c = c[0]
+        return len(c) if c else 2
+
+    has_z = dims(coords) >= 3
+
+    def pt(c):
+        return tuple(c[:2]) + ((c[2] if len(c) > 2 else 0.0,) if has_z else ())
+
+    if base == POINT:
+        return _geom_value("Point", has_z, False, pt(coords) if coords else None)
+    if base == LINESTRING:
+        return _geom_value("LineString", has_z, False, [pt(c) for c in coords])
+    if base == POLYGON:
+        return _geom_value("Polygon", has_z, False, [[pt(c) for c in ring] for ring in coords])
+    if base == MULTIPOINT:
+        return _geom_value("MultiPoint", has_z, False,
+                           [_geom_value("Point", has_z, False, pt(c)) for c in coords])
+    if base == MULTILINESTRING:
+        return _geom_value(
+            "MultiLineString", has_z, False,
+            [_geom_value("LineString", has_z, False, [pt(p) for p in c]) for c in coords])
+    return _geom_value(
+        "MultiPolygon", has_z, False,
+        [_geom_value("Polygon", has_z, False, [[pt(p) for p in ring] for ring in c])
+         for c in coords])

@@ -11,7 +11,8 @@ Counterpart of the read side of kart_tpu's ``models/dataset.py``
 ``feature_tree``, ``inner_path``, ``path_encoder``, ``feature_index``,
 ``decode_path_to_pks``, ``get_feature*``, ``get_feature_promise_from_oid``,
 the fused JSON serialisers ``_json_value_str``, ``_jsonl_serializer`` and
-``feature_json_str_from_data``; ``FeatureOidPromise``) plus
+``feature_json_str_from_data``; ``FeatureOidPromise``), ``encode_feature``
+(int-pk datasets) for ``kart resolve --with-file``, and
 ``new_dataset_meta_blobs`` for the synthetic-repo builder. Applying
 diffs, import iterators and spatially filtered feature streams are not
 ported.
@@ -372,6 +373,14 @@ class Dataset3:
         legend_hash, non_pk_values = msg_unpack_ext_raw(data)
         fn = self._jsonl_fns.get(legend_hash) or self._jsonl_serializer(legend_hash)
         return fn(pk_values, non_pk_values)
+
+    def encode_feature(self, feature, schema=None, *, relative=False):
+        """Name-keyed feature -> (its blob path, full or relative to the
+        dataset's inner tree, blob bytes)."""
+        schema = schema or self.schema
+        pk_values, blob = schema.encode_feature_blob(feature)
+        rel = self.FEATURE_PATH + self.path_encoder.encode_pks_to_path(pk_values)
+        return (rel if relative else f"{self.inner_path}/{rel}", blob)
 
     @classmethod
     def new_dataset_meta_blobs(cls, path, schema, *, title=None, description=None,

@@ -1,0 +1,127 @@
+"""Usage errors of the port's command line against kart_tpu's click CLI:
+for each bad invocation, the same exit code and the same first and last
+lines of stderr (``Usage: kart <cmd> [OPTIONS] ...`` and ``Error: ...``),
+and nothing on stdout; ``main()`` returns the code and never raises
+SystemExit. ``--help`` text is not held to kart_tpu's."""
+
+import contextlib
+import io
+
+import pytest
+from click.testing import CliRunner
+
+from helpers import make_repo_with_edits
+from kart_tpu.cli import cli as kart_cli
+from kart_tpu_torch.cli import main as port_main
+
+#: the four invocations found to differ before the parser was replaced
+RECORDED = [
+    ["resolve"],
+    ["diff", "-o", "nosuch", "HEAD^..HEAD"],
+    ["merge", "--nosuch"],
+    ["diff", "-o"],
+]
+
+COMMANDS = ["diff", "show", "create-patch", "merge", "conflicts", "resolve"]
+
+#: each command: a bad -o, --crs with no value, one argument too many
+PER_COMMAND = [
+    argv for cmd in COMMANDS for argv in (
+        [cmd, "-o", "nosuch"],
+        [cmd, "--crs"],
+        [cmd, "HEAD", "HEAD", "extra"] if cmd in ("create-patch", "merge")
+        else [cmd, "a", "b"] if cmd == "resolve"
+        else [cmd, "HEAD" if cmd == "show" else "HEAD^...HEAD", "nosuch", "extra"],
+    )
+]
+
+OTHERS = [
+    ["diff", "--outpt", "x"],
+    ["diff", "--output-format"],
+    ["diff", "--exit-code=1"],
+    ["diff", "-x"],
+    ["diff", "--o", "json"],
+    ["diff", "--only-feature-count", "nosuch", "HEAD^...HEAD"],
+    ["diff", "--json-style", "loose"],
+    ["diff", "-ojson", "HEAD^...HEAD", "--", "--not-an-option"],
+    ["show", "-o"],
+    ["show", "--patch-type", "full"],
+    ["create-patch"],
+    ["create-patch", "--patch-type", "tiny", "HEAD"],
+    ["create-patch", "--output"],
+    ["merge", "-m"],
+    ["merge", "--ff-onl"],
+    ["merge", "-o", "geojson", "theirs"],
+    ["conflicts", "-sx"],
+    ["conflicts", "--flat=1"],
+    ["conflicts", "-o"],
+    ["resolve", "a", "--with", "mine"],
+    ["resolve", "a", "--with-file", "no-such-file.geojson"],
+    ["resolve", "--with"],
+    ["--nosuch", "diff"],
+    ["nosuchcommand"],
+    ["-C"],
+    [],
+]
+
+
+def _port(argv):
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = port_main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _edges(text):
+    lines = text.splitlines()
+    return (lines[0], lines[-1]) if lines else ("", "")
+
+
+@pytest.fixture(scope="module")
+def repo(tmp_path_factory):
+    return make_repo_with_edits(tmp_path_factory.mktemp("usage"))[0]
+
+
+@pytest.mark.parametrize("argv", RECORDED + PER_COMMAND + OTHERS, ids=" ".join)
+def test_usage_errors_match_kart_tpu(repo, argv):
+    ref = CliRunner().invoke(kart_cli, ["-C", repo, *argv], prog_name="kart")
+    assert ref.exception is None or isinstance(ref.exception, SystemExit), ref.exception
+    rc, out, err = _port(["--device", "cpu", "-C", repo, *argv])
+    assert rc == ref.exit_code
+    assert out == ref.stdout
+    assert _edges(err) == _edges(ref.stderr)
+
+
+@pytest.mark.parametrize("argv", RECORDED)
+def test_recorded_cases_are_usage_errors(repo, argv):
+    """The recorded cases exit 2 with click's whole message."""
+    ref = CliRunner().invoke(kart_cli, ["-C", repo, *argv], prog_name="kart")
+    rc, out, err = _port(["--device", "cpu", "-C", repo, *argv])
+    assert (rc, out, err) == (ref.exit_code, "", ref.stderr)
+    assert rc == 2 and err.splitlines()[-1].startswith("Error: ")
+
+
+def test_main_returns_the_code(repo):
+    """No SystemExit escapes main(), for a usage error or for --help."""
+    for argv in (["diff", "--nosuch"], ["diff", "--help"], ["--help"], ["resolve"]):
+        try:
+            rc, _, _ = _port(["-C", repo, *argv])
+        except SystemExit as e:  # pragma: no cover - the fault this guards
+            pytest.fail(f"main({argv}) raised SystemExit({e.code})")
+        assert rc == (0 if "--help" in argv else 2)
+
+
+def test_not_a_repository_like_kart_tpu(tmp_path):
+    argv = ["diff", "HEAD^...HEAD"]
+    ref = CliRunner().invoke(kart_cli, ["-C", str(tmp_path), *argv], prog_name="kart")
+    rc, out, err = _port(["--device", "cpu", "-C", str(tmp_path), *argv])
+    assert (rc, out, err) == (ref.exit_code, ref.stdout, ref.stderr)
+
+
+@pytest.mark.parametrize("command", ["log", "apply", "status", "import"])
+def test_unported_kart_commands_are_unknown_commands(repo, command):
+    """A kart command the port lacks is a usage error, as any unknown one."""
+    rc, out, err = _port(["--device", "cpu", "-C", repo, command])
+    assert rc == 2 and out == ""
+    assert _edges(err) == ("Usage: kart [OPTIONS] COMMAND [ARGS]...",
+                           f"Error: No such command {command!r}.")

@@ -60,6 +60,10 @@ FORMATS = [
     ("-o", "feature-count"),
     ("-o", "quiet", "--exit-code"),
     ("-o", "json-lines", "--exit-code"),
+    ("-o", "text"),
+    ("-o", "geojson"),
+    ("-o", "geojson", "--crs", "EPSG:4277"),
+    ("-o", "json-lines", "--crs", "EPSG:4277"),
 ]
 
 
