@@ -4,6 +4,7 @@ kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--rows 10000000] [--index-rows 1000000]
                           [--repo-rows 10000000] [--merge-rows 2000000] [--seed 0]
+                          [--k4-only]
 
 Run from the repository root on a machine with an sm_90 (Hopper) card and
 the CUDA toolkit; the kernels are built from ``kart_tpu_torch/csrc`` on
@@ -73,9 +74,14 @@ first use. Phases:
    take-theirs, checked against a numpy truth computed by row from the
    generated oids
 15. K4 on the three commits' blocks and on a 10M-row-a-side triple from
-   ``--seed``: bit-identical to its plain version on the card, counts
-   equal to the truth; wrapper time, device time, bound, plain time and
-   ``torch.searchsorted``'s time
+   ``--seed``: ``merge_classify_sides`` bit-identical to its plain version
+   (``torch.unique``, then the plain join) on the card, its union equal to
+   ``np.unique``, its counts to the truth and its slice plan to the plain
+   plan; wrapper time, device time (profiler mean over K4's four kernels,
+   and ``fenced_ms`` of the launch alone), bound, plain time and two
+   partial yardsticks the port never calls: ``torch.searchsorted`` of the
+   union into one side, and ``torch.unique`` of the concatenated keys (the
+   union step K4 absorbs)
 16. ``merge theirs --dry-run -o json`` and ``merge theirs -o json`` on the
    card (exactly one K4 launch each) and with ``--device cpu``: equal
    stdout and MERGE_INDEX (KMIX2) sha256, the two routes each after the
@@ -94,7 +100,9 @@ first use. Phases:
 so they are held to kart_tpu by the CPU tests only
 (``tests/test_torch_merge_cli.py``). Each phase prints its host wall.
 
-Any failed check exits non-zero without the result line.
+Any failed check exits non-zero without the result line. ``--k4-only`` runs
+phases 0, 1, 14 and 15 alone and prints K4's timings as JSON, with no
+result line.
 """
 
 import argparse
@@ -140,9 +148,11 @@ from kart_tpu_torch.ops.diff_kernel import (
 )
 from kart_tpu_torch.ops.envelope_codec import EnvelopeCodec
 from kart_tpu_torch.ops.merge_kernel import (
-    merge_classify_padded,
-    merge_classify_plain,
-    merge_union,
+    launch_merge_classify,
+    merge_classify_sides,
+    merge_classify_sides_plain,
+    merge_tile_plan,
+    merge_tile_plan_plain,
 )
 from kart_tpu_torch.spatial_filter import (
     PREPASS_PAD,
@@ -796,9 +806,9 @@ def spatial_phases(args, card, launches):
 #: the host steps of ``kart merge`` (cProfile function names)
 MERGE_STEPS = {
     "tree walks (feature_index)": "feature_index",
-    "classify (union, upload, K4, download)": "merge_classify",
-    "of it the union (numpy)": "merge_union",
-    "of it K4's wrapper": "merge_classify_padded",
+    "classify (upload, K4 with the union, download)": "merge_classify",
+    "of it K4's wrapper (launch, union size read back)": "merge_classify_sides",
+    "of it K4's launch": "launch_merge_classify",
     "tree inserts and removals": "_node_for_dir",
     "tree build (flush)": "flush",
     "materialise_conflicts": "materialise_conflicts",
@@ -913,44 +923,68 @@ def make_merge_triple(rng, n):
 
 
 def k4_inputs(blocks, dev):
-    """Three blocks -> (K4's side arguments on ``dev``, union tensor)."""
+    """Three blocks -> K4's nine side arguments on ``dev``."""
     args = []
     for b in blocks:
         args += [*block_tensors(b, dev), b.count]
-    return args, to_device(merge_union(*blocks), dev)
+    return args
 
 
 def k4_check_and_time(label, blocks, dev, card, truth=None):
-    """K4 against its plain version on the card (and ``truth``, decisions
-    by union row); -> its timings beside its bound."""
-    args, union = k4_inputs(blocks, dev)
-    u = len(union)
-    got = merge_classify_padded(*args, union, u)
-    want = merge_classify_plain(*args, union, u)
+    """K4 against its plain version on the card, its union against
+    np.unique, its decisions and counts against ``truth`` (decisions by
+    union row) and its slice plan against the plain plan; -> its timings
+    beside its bound and the partial yardsticks."""
+    args = k4_inputs(blocks, dev)
+    got = merge_classify_sides(*args)
+    want = merge_classify_sides_plain(*args)
     torch.cuda.synchronize()
+    check(all(g.shape == w.shape for g, w in zip(got, want)),
+          f"K4's union size {len(got[0])} != plain {len(want[0])} on {label}")
     err = max(mismatches(g, w) for g, w in zip(got, want))
     check(err == 0, f"K4 differs from its plain version on {label}")
-    counts = got[2].tolist()
+    union = got[0]
+    u = len(union)
+    check(np.array_equal(union.cpu().numpy(),
+                         np.unique(np.concatenate([np.asarray(b.keys[: b.count]) for b in blocks]))),
+          f"K4's union differs from np.unique on {label}")
+    counts = got[3].tolist()
     if truth is not None:
-        check(np.array_equal(got[0].cpu().numpy(), truth), f"K4 decisions differ from the truth on {label}")
+        check(np.array_equal(got[1].cpu().numpy(), truth), f"K4 decisions differ from the truth on {label}")
         want_counts = [int((truth == 2).sum()), int((truth == 1).sum())]
         check(counts == want_counts, f"K4 counts {counts} != truth {want_counts} on {label}")
+    keys = [(args[i], args[i + 2]) for i in (0, 3, 6)]
+    check(torch.equal(merge_tile_plan(*(x for kc in keys for x in kc)),
+                      merge_tile_plan_plain(*(k[:c] for k, c in keys))),
+          f"K4's slice plan differs from the plain plan on {label}")
     rows = sum(b.count for b in blocks)
     b = bound(rows * 28 + u * 8 + u * 2, 0)
+    cat_keys = torch.cat([args[0], args[3], args[6]])
+
+    def launch():
+        return launch_merge_classify(*args)
+
     out = {
         "max_abs_err": err,
-        "ms": time_ms(lambda: merge_classify_padded(*args, union, u)),
-        "device_ms": total_ms(device_ms(lambda: merge_classify_padded(*args, union, u),
-                                        ("merge_classify_kernel",))),
-        "plain_ms": time_ms(lambda: merge_classify_plain(*args, union, u), batches=3, per_batch=3),
+        "ms": time_ms(lambda: merge_classify_sides(*args)),
+        "device_split": device_ms(launch, ("tile_plan_kernel", "tile_rows_kernel",
+                                           "merge_tiles_kernel", "compact_kernel")),
+        "fenced_ms": fenced_ms(launch),
+        "plain_ms": time_ms(lambda: merge_classify_sides_plain(*args), batches=3, per_batch=3),
         "bound_ms": b[0], "bound_by": b[1],
         "library_ms": time_ms(lambda: torch.searchsorted(args[0], union)),
+        "unique_ms": time_ms(lambda: torch.unique(cat_keys)),
     }
+    out["device_ms"] = total_ms(out["device_split"])
     print(f"[15] K4 on {label} ({blocks[0].count} / {blocks[1].count} / {blocks[2].count} "
-          f"rows, union {u}): bit-identical to plain, counts [conflicts, take_theirs] {counts}; "
-          f"{out['ms']:.4f} ms, device {fmt_ms(out['device_ms'])} (plain {out['plain_ms']:.4f} "
-          f"ms, bound {b[0]:.4f} ms by {b[1]}, torch.searchsorted(ancestor_keys, union) "
-          f"{out['library_ms']:.4f} ms) on {card}")
+          f"rows, union {u}): bit-identical to plain and np.unique, plan as planned, counts "
+          f"[conflicts, take_theirs] {counts}; wrapper {out['ms']:.4f} ms, device "
+          f"{fmt_ms(out['device_ms'])} ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in out["device_split"].items())
+          + f"), fenced {out['fenced_ms']:.4f} ms (plain "
+          f"{out['plain_ms']:.4f} ms, bound {b[0]:.4f} ms by {b[1]}; partial yardsticks: "
+          f"torch.searchsorted(ancestor_keys, union) {out['library_ms']:.4f} ms, torch.unique"
+          f"(concatenated keys) {out['unique_ms']:.4f} ms) on {card}")
     return out
 
 
@@ -988,6 +1022,8 @@ def merge_phases(args, card, launches, dev):
         k4_big = k4_check_and_time(f"a {args.rows}-row triple", big, dev, card)
         del big
         k4.update({f"{k}_10m": v for k, v in k4_big.items() if k.endswith("ms")})
+        if args.k4_only:
+            return k4
 
         # [16] merge on the card and with --device cpu
         path = repo.workdir
@@ -1078,6 +1114,8 @@ def main():
     ap.add_argument("--repo-rows", type=int, default=10_000_000)
     ap.add_argument("--merge-rows", type=int, default=2_000_000)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--k4-only", action="store_true",
+                    help="run phases 0, 1, 14 and 15 alone and print K4's timings (no result line)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1090,6 +1128,11 @@ def main():
           f"volatile ECC errors (corrected, uncorrected): {ecc_line()}")
     cap = torch.cuda.get_device_capability(0)
     check(tuple(cap) == runtime.SUPPORTED_CAPABILITY, f"compute capability {cap}, need (9, 0)")
+
+    if args.k4_only:
+        _build.build_all()
+        print(json.dumps(merge_phases(args, card, {}, dev)))
+        return 0
 
     t0 = time.perf_counter()
     build_dir, logs = _build.build_all()
@@ -1294,7 +1337,9 @@ def main():
         "name": "merge_classify", "route": "cuda",
         "source": "kart_tpu_torch/csrc/merge_classify.cu",
         "replaces": "kart_tpu/ops/merge_kernel.py:43", **k4,
-        "library_call": "torch.searchsorted(ancestor_keys, union): one side's lookup only",
+        "library_call": "torch.searchsorted(ancestor_keys, union): one side's lookup only "
+                        "(partial)",
+        "unique_call": "torch.unique(concatenated keys): the union step only (partial)",
         "checked": True,
     })
     for k, i in ((k1, 0), (kernels[1], 1), (kernels[3], 2)):

@@ -3,8 +3,7 @@ plain PyTorch version.
 
 Kart merges per feature because one feature is one blob at a pk-determined
 path. Over the sorted union of the ancestor (a), ours (o) and theirs (t)
-keys, three searchsorted joins give each key its (present, oid) triple and
-the 3-way rule decides it at once:
+keys, each key's (present, oid) in every side decides it by the 3-way rule:
 
     o == t  -> KEEP_OURS    (same change on both sides, both absent included)
     o == a  -> TAKE_THEIRS  (only theirs changed)
@@ -12,35 +11,50 @@ the 3-way rule decides it at once:
     else    -> CONFLICT
 
 The presence byte has bits a=1, o=2, t=4. K4 replaces kart_tpu's
-``ops/merge_kernel.py:_merge_classify_padded_core`` (with ``_join``):
-one thread per union key, three binary searches, the counts reduced on the
-card. :func:`merge_classify_plain` is the torch twin of that JAX function,
-padding semantics included. The union is built on the host with numpy, as
-kart_tpu builds it. Nothing here falls back: a CUDA device launches K4
-exactly once per call or raises, and only CPU tensors take the plain
-version.
+``ops/merge_kernel.py:_merge_classify_padded_core`` (with ``_join``) and
+the host union that feeds it: a key-range tiled merge join of the three
+sorted sides that emits the union on the card (:func:`merge_classify_sides`;
+:func:`merge_tile_plan` is its slice plan alone, held against
+:func:`merge_tile_plan_plain`). :func:`merge_classify_plain` is the torch
+twin of the JAX function over a given union, padding semantics included;
+:func:`merge_classify_sides_plain` adds ``torch.unique`` of the keys.
+Nothing here falls back: a CUDA tensor launches K4 exactly once per call or
+raises, and only CPU tensors take the plain versions.
 """
+
+import ctypes
 
 import numpy as np
 import torch
 
 from kart_tpu_torch import runtime
 from kart_tpu_torch.ops import _build
-from kart_tpu_torch.ops.blocks import block_tensors, to_device
+from kart_tpu_torch.ops.blocks import block_tensors
 
 KEEP_OURS = 0
 TAKE_THEIRS = 1
 CONFLICT = 2
+
+#: rows of each side per slice of K4's plan: ``kSliceRows`` in
+#: ``csrc/merge_classify.cu`` (checked against the built library when it is
+#: loaded); a block takes consecutive slices of at most 1536 rows in all
+SLICE_ROWS = 128
 
 _SIGNATURES = {
     "kart_merge_classify": [
         _build.P, _build.P, _build.I64,
         _build.P, _build.P, _build.I64,
         _build.P, _build.P, _build.I64,
-        _build.P, _build.I64, _build.I64,
-        _build.P, _build.P, _build.P, _build.I32, _build.P,
+        _build.P, _build.P, _build.P, _build.P, _build.P, _build.I32, _build.P,
     ],
+    "kart_merge_tile_plan": [
+        _build.P, _build.I64, _build.P, _build.I64, _build.P, _build.I64,
+        _build.P, _build.P, _build.I32, _build.P,
+    ],
+    "kart_merge_scratch_words": [_build.I64, _build.I64, _build.I64],
+    "kart_merge_slice_rows": [],
 }
+_SIDE_NAMES = ("ancestor", "ours", "theirs")
 
 
 def merge_classify(ancestor_block, ours_block, theirs_block, device=None):
@@ -48,87 +62,192 @@ def merge_classify(ancestor_block, ours_block, theirs_block, device=None):
     (U,) int8, {"conflicts", "take_theirs"}), numpy on the host. ``device``:
     None for the card (one K4 launch), ``"cpu"`` for the plain version."""
     device = runtime.resolve_device(device)
-    blocks = (ancestor_block, ours_block, theirs_block)
-    union = merge_union(*blocks)
     sides = []
-    for block in blocks:
+    for block in (ancestor_block, ours_block, theirs_block):
         sides.extend(block_tensors(block, device))
         sides.append(block.count)
-    union_t = to_device(union, device)
-    decision, presence, counts = merge_classify_padded(*sides, union_t, len(union))
+    union, decision, presence, counts = merge_classify_sides(*sides)
     c = counts.tolist()
-    return (union, decision.cpu().numpy(), presence.cpu().numpy(),
+    return (union.cpu().numpy(), decision.cpu().numpy(), presence.cpu().numpy(),
             {"conflicts": int(c[0]), "take_theirs": int(c[1])})
 
 
-def merge_union(*blocks):
-    """The sorted, deduplicated union of the blocks' real keys (int64)."""
-    return np.unique(np.concatenate(
-        [np.asarray(b.keys[: b.count], dtype=np.int64) for b in blocks]))
+def merge_classify_sides(a_keys, a_oids, a_count, o_keys, o_oids, o_count,
+                         t_keys, t_oids, t_count):
+    """The 3-way classify of three key-sorted sides, each real for its first
+    ``*_count`` rows; keys contiguous int64 (n,), oids contiguous int32 (n,
+    5), all on one device. -> (union int64 (U,), decision int8 (U,),
+    presence int8 (U,), counts int64 [conflicts, take_theirs]) on that
+    device. CUDA tensors launch K4 (its union size read back: one sync);
+    CPU tensors run :func:`merge_classify_sides_plain`."""
+    device, _, _, _ = _checked_sides(a_keys, a_oids, a_count, o_keys, o_oids, o_count,
+                                     t_keys, t_oids, t_count)
+    if device.type == "cpu":
+        return merge_classify_sides_plain(a_keys, a_oids, a_count, o_keys, o_oids, o_count,
+                                          t_keys, t_oids, t_count)
+    union, decision, presence, counts = launch_merge_classify(
+        a_keys, a_oids, a_count, o_keys, o_oids, o_count, t_keys, t_oids, t_count)
+    n = int(counts[2])
+    return union[:n], decision[:n], presence[:n], counts[:2]
+
+
+def launch_merge_classify(a_keys, a_oids, a_count, o_keys, o_oids, o_count,
+                          t_keys, t_oids, t_count):
+    """K4's launch alone, with no sync: -> (union, decision, presence),
+    each ``a_count + o_count + t_count`` rows of which the first U are
+    written, and counts int64 [conflicts, take_theirs, U], on the sides'
+    CUDA device. :func:`merge_classify_sides` reads U and cuts."""
+    device, keys, oids, counts = _checked_sides(a_keys, a_oids, a_count, o_keys, o_oids,
+                                                o_count, t_keys, t_oids, t_count)
+    if device.type != "cuda":
+        raise runtime.DeviceUnavailable(f"merge_classify: K4 needs a CUDA device, not {device}")
+    lib = _library(device)
+    total = sum(counts)
+    union = torch.empty(total, dtype=torch.int64, device=device)
+    decision = torch.empty(total, dtype=torch.int8, device=device)
+    presence = torch.empty(total, dtype=torch.int8, device=device)
+    out_counts = torch.empty(3, dtype=torch.int64, device=device)
+    scratch = torch.empty(lib.kart_merge_scratch_words(*counts), dtype=torch.int64,
+                          device=device)
+    args = []
+    for k, o, n in zip(keys, oids, counts):
+        args += [k.data_ptr() if n else None, o.data_ptr() if n else None, n]
+    rc = lib.kart_merge_classify(
+        *args, scratch.data_ptr(),
+        union.data_ptr() if total else None, decision.data_ptr() if total else None,
+        presence.data_ptr() if total else None, out_counts.data_ptr(),
+        device.index, _build.stream_ptr(device),
+    )
+    _build.check(lib, rc, "merge classify")
+    runtime.count("merge_classify_launches")
+    return union, decision, presence, out_counts
+
+
+def _slices(counts):
+    """The slices of K4's plan for sides of ``counts`` rows: one a
+    splitter, every ``SLICE_ROWS``-th row of each side (as
+    ``csrc/merge_classify.cu`` counts them)."""
+    return sum(-(-int(n) // SLICE_ROWS) for n in counts)
+
+
+def merge_classify_sides_plain(a_keys, a_oids, a_count, o_keys, o_oids, o_count,
+                               t_keys, t_oids, t_count):
+    """Plain version of :func:`merge_classify_sides` on any device: the
+    union by ``torch.unique`` of the real keys, then
+    :func:`merge_classify_plain`. -> (union, decision, presence, counts)."""
+    union = torch.unique(torch.cat([a_keys[: int(a_count)], o_keys[: int(o_count)],
+                                    t_keys[: int(t_count)]]))
+    decision, presence, counts = merge_classify_plain(
+        a_keys, a_oids, a_count, o_keys, o_oids, o_count, t_keys, t_oids, t_count,
+        union, len(union))
+    return union, decision, presence, counts
+
+
+def merge_tile_plan(a_keys, a_count, o_keys, o_count, t_keys, t_count):
+    """K4's slice plan alone, for checks: int64 (slices + 1, 3), row k the
+    first row of each side in slice k and the last row the counts. CUDA
+    tensors run K4's plan kernel; CPU tensors run
+    :func:`merge_tile_plan_plain`. The main path never calls this:
+    :func:`launch_merge_classify` plans inside its launch."""
+    keys = (a_keys, o_keys, t_keys)
+    counts = [int(c) for c in (a_count, o_count, t_count)]
+    for k, n, name in zip(keys, counts, _SIDE_NAMES):
+        _check_keys(k, n, name)
+    device = a_keys.device
+    if any(k.device != device for k in keys):
+        raise ValueError("merge_tile_plan: tensors on more than one device")
+    if device.type == "cpu":
+        return merge_tile_plan_plain(*(k[:n] for k, n in zip(keys, counts)))
+    if device.type != "cuda":
+        raise runtime.DeviceUnavailable(f"merge_tile_plan: unsupported device {device}")
+    lib = _library(device)
+    plan = torch.empty((_slices(counts) + 1, 3), dtype=torch.int64, device=device)
+    scratch = torch.empty(lib.kart_merge_scratch_words(*counts), dtype=torch.int64,
+                          device=device)
+    args = []
+    for k, n in zip(keys, counts):
+        args += [k.data_ptr() if n else None, n]
+    rc = lib.kart_merge_tile_plan(*args, scratch.data_ptr(), plan.data_ptr(),
+                                  device.index, _build.stream_ptr(device))
+    _build.check(lib, rc, "merge tile plan")
+    return plan
+
+
+def merge_tile_plan_plain(a_keys, o_keys, t_keys, tile=SLICE_ROWS):
+    """Plain K4 slice plan over count-sliced sorted keys: the splitters are
+    every ``tile``-th key of each side, in key order with equal keys ordered
+    a, o, t; slice k starts at each side's lower bound of splitter k and
+    ends where slice k + 1 starts (the last at the counts), so it holds at
+    most ``tile`` rows of each side. -> int64 (slices + 1, 3)."""
+    sides = (a_keys, o_keys, t_keys)
+    splitters, _ = torch.sort(torch.cat([k[::tile] for k in sides]), stable=True)
+    plan = torch.stack([torch.searchsorted(k, splitters) for k in sides], dim=1)
+    end = torch.tensor([[len(k) for k in sides]], dtype=torch.int64, device=a_keys.device)
+    return torch.cat([plan, end])
 
 
 def merge_classify_padded(a_keys, a_oids, a_count, o_keys, o_oids, o_count,
                           t_keys, t_oids, t_count, union_keys, union_count):
-    """Classify the first ``union_count`` of ``union_keys`` against three
-    key-sorted sides, each real for its first ``*_count`` rows. Keys are
-    contiguous int64 (n,), oids contiguous int32 (n, 5), all on one device.
-    -> (decision int8 (U,), presence int8 (U,), counts int64 [conflicts,
-    take_theirs]) on that device; rows past ``union_count`` get decision 0.
-    CUDA tensors launch K4; CPU tensors run :func:`merge_classify_plain`."""
-    sides = ((a_keys, a_oids, int(a_count), "ancestor"), (o_keys, o_oids, int(o_count), "ours"),
-             (t_keys, t_oids, int(t_count), "theirs"))
-    for keys, oids, count, name in sides:
-        _check_side(keys, oids, count, name)
+    """Classify the first ``union_count`` of a given ``union_keys`` against
+    three key-sorted sides, each real for its first ``*_count`` rows, on
+    the CPU: :func:`merge_classify_plain`, the twin of kart_tpu's
+    ``_merge_classify_padded``. -> (decision int8 (U,), presence int8 (U,),
+    counts int64 [conflicts, take_theirs]); rows past ``union_count`` get
+    decision 0. The card builds its own union: on a CUDA tensor this raises
+    (call :func:`merge_classify_sides`)."""
+    device, _, _, _ = _checked_sides(a_keys, a_oids, a_count, o_keys, o_oids, o_count,
+                                     t_keys, t_oids, t_count)
     union_count = int(union_count)
     if (union_keys.dtype != torch.int64 or union_keys.dim() != 1
             or not union_keys.is_contiguous()):
         raise ValueError("merge_classify: union keys must be contiguous int64 (n,)")
     if not 0 <= union_count <= len(union_keys):
         raise ValueError(f"merge_classify: union count {union_count} out of range")
-    device = union_keys.device
-    for keys, oids, _, _ in sides:
-        if keys.device != device or oids.device != device:
-            raise ValueError(f"merge_classify: tensors on {device} and {keys.device}")
-    if device.type == "cpu":
-        return merge_classify_plain(a_keys, a_oids, a_count, o_keys, o_oids, o_count,
-                                    t_keys, t_oids, t_count, union_keys, union_count)
-    if device.type != "cuda":
-        raise runtime.DeviceUnavailable(f"merge_classify: unsupported device {device}")
-    return _merge_classify_cuda(sides, union_keys, union_count)
+    if union_keys.device != device:
+        raise ValueError(f"merge_classify: tensors on {device} and {union_keys.device}")
+    if device.type != "cpu":
+        raise runtime.DeviceUnavailable(
+            f"merge_classify_padded runs on the CPU only, not {device}: the card's K4 builds "
+            "its own union (merge_classify_sides)")
+    return merge_classify_plain(a_keys, a_oids, a_count, o_keys, o_oids, o_count,
+                                t_keys, t_oids, t_count, union_keys, union_count)
 
 
-def _check_side(keys, oids, count, name):
+def _check_keys(keys, count, name):
     if keys.dtype != torch.int64 or keys.dim() != 1 or not keys.is_contiguous():
         raise ValueError(f"merge_classify: {name} keys must be contiguous int64 (n,)")
-    if (oids.dtype != torch.int32 or oids.dim() != 2 or oids.shape[1] != 5
-            or not oids.is_contiguous()):
-        raise ValueError(f"merge_classify: {name} oids must be contiguous int32 (n, 5)")
-    if not 0 <= count <= min(len(keys), len(oids)):
+    if not 0 <= count <= len(keys):
         raise ValueError(f"merge_classify: {name} count {count} out of range")
 
 
+def _checked_sides(a_keys, a_oids, a_count, o_keys, o_oids, o_count, t_keys, t_oids, t_count):
+    """Check three sides. -> (their device, keys, oids, counts as ints)."""
+    keys, oids = (a_keys, o_keys, t_keys), (a_oids, o_oids, t_oids)
+    counts = tuple(int(c) for c in (a_count, o_count, t_count))
+    device = a_keys.device
+    for k, o, n, name in zip(keys, oids, counts, _SIDE_NAMES):
+        _check_keys(k, n, name)
+        if (o.dtype != torch.int32 or o.dim() != 2 or o.shape[1] != 5
+                or not o.is_contiguous()):
+            raise ValueError(f"merge_classify: {name} oids must be contiguous int32 (n, 5)")
+        if n > len(o):
+            raise ValueError(f"merge_classify: {name} count {n} out of range")
+        if k.device != device or o.device != device:
+            raise ValueError(f"merge_classify: tensors on {device} and {k.device}")
+    if device.type not in ("cpu", "cuda"):
+        raise runtime.DeviceUnavailable(f"merge_classify: unsupported device {device}")
+    return device, keys, oids, counts
+
+
 def _library(device):
-    return _build.load_library("merge_classify", device, _SIGNATURES)
-
-
-def _merge_classify_cuda(sides, union_keys, union_count):
-    device = union_keys.device
-    n = len(union_keys)
-    decision = torch.empty(n, dtype=torch.int8, device=device)
-    presence = torch.empty(n, dtype=torch.int8, device=device)
-    counts = torch.zeros(2, dtype=torch.int64, device=device)
-    args = []
-    for keys, oids, count, _ in sides:
-        args += [keys.data_ptr() if count else None, oids.data_ptr() if count else None, count]
-    lib = _library(device)
-    rc = lib.kart_merge_classify(
-        *args, union_keys.data_ptr() if n else None, n, union_count,
-        decision.data_ptr() if n else None, presence.data_ptr() if n else None,
-        counts.data_ptr(), device.index, _build.stream_ptr(device),
-    )
-    _build.check(lib, rc, "merge classify")
-    runtime.count("merge_classify_launches")
-    return decision, presence, counts
+    lib = _build.load_library("merge_classify", device, _SIGNATURES)
+    lib.kart_merge_scratch_words.restype = ctypes.c_int64
+    if lib.kart_merge_slice_rows() != SLICE_ROWS:
+        raise _build.BuildError(
+            f"merge_classify.cu slices {lib.kart_merge_slice_rows()} rows, "
+            f"SLICE_ROWS is {SLICE_ROWS}"
+        )
+    return lib
 
 
 def _join(keys, oids, count, union_keys):

@@ -1,6 +1,6 @@
 """The port's kernels against their plain versions on the card, at small
 shapes and edge cases (empty sides, count < length, NaN/inf rows,
-wrapping queries), and K1 fenced by sentinel bytes and repeated for
+wrapping queries), and K1 and K4 fenced by sentinel bytes and repeated for
 writes outside its outputs and races. Needs an sm_90 card and nvcc;
 skipped elsewhere. On the card:
 
@@ -14,9 +14,16 @@ import torch
 from kart_tpu_torch import runtime
 from kart_tpu_torch.diff.backend import envelope_scan, envelope_scan_plain
 from kart_tpu_torch.diff.engine import feature_count, prefilter_rect, spatial_prefilter_blocks
-from kart_tpu_torch.ops import _build, diff_kernel
+from kart_tpu_torch.ops import _build, diff_kernel, merge_kernel
 from kart_tpu_torch.ops.blocks import FeatureBlock
 from kart_tpu_torch.ops.bbox import bbox_cyclic, bbox_cyclic_plain, pad_envelopes
+from kart_tpu_torch.ops.merge_kernel import (
+    SLICE_ROWS,
+    merge_classify_sides,
+    merge_classify_sides_plain,
+    merge_tile_plan,
+    merge_tile_plan_plain,
+)
 from kart_tpu_torch.ops.diff_kernel import (
     TILE_ROWS,
     classify,
@@ -326,15 +333,44 @@ def _merge_sides(n_union, seed, empty=""):
         pick = rng.integers(1, 2 ** len(live), size=n_union)
         for bit, s in enumerate(live):
             masks[s] = ((pick >> bit) & 1) == 1
-    base = rng.integers(0, 2**32, size=(n_union, 5), dtype=np.uint32)
+    return _edited(rng, keys, [masks[s] for s in "aot"])
+
+
+def _edited(rng, keys, masks):
+    """(keys, oids) of each side for the rows ``masks`` keep of ``keys``:
+    random ancestor oids, ours and theirs edit 30% of the rows (theirs a
+    third of its edits as ours did)."""
+    n = len(keys)
+    base = rng.integers(0, 2**32, size=(n, 5), dtype=np.uint32)
     ours, theirs = base.copy(), base.copy()
-    ours[rng.random(n_union) < 0.3, rng.integers(0, 5)] ^= np.uint32(1)
-    edit_t = rng.random(n_union) < 0.3
+    ours[rng.random(n) < 0.3, rng.integers(0, 5)] ^= np.uint32(1)
+    edit_t = rng.random(n) < 0.3
     theirs[edit_t] = np.where(rng.random((edit_t.sum(), 1)) < 0.3, ours[edit_t], base[edit_t] ^ 2)
-    return [(keys[masks[s]], o[masks[s]]) for s, o in zip("aot", (base, ours, theirs))]
+    return [(keys[m], o[m]) for m, o in zip(masks, (base, ours, theirs))]
 
 
-def _merge_tensors(cuda, sides, union, pad=0):
+def _merge_case(kind, n, seed):
+    """Sides of one K4 shape. "random<empty>": :func:`_merge_sides` with a
+    union of ``n`` keys; "rows": ``n`` rows a side, ours holding the
+    ancestor's keys and theirs one key on (its first deleted, one inserted
+    past the last), so equal keys on all sides straddle every tile seam;
+    "range": the ancestor holds every key of a range of ``n``, ours every
+    7th, theirs every 97th and 10 keys past it."""
+    rng = np.random.default_rng(seed)
+    if kind.startswith("random"):
+        return _merge_sides(n, seed, kind[len("random"):])
+    if kind == "rows":
+        keys = np.cumsum(rng.integers(1, 3, n + 1)).astype(np.int64) - 2**40
+        first, last = np.arange(n + 1) < n, np.arange(n + 1) > 0
+        return _edited(rng, keys, [first, first, last])
+    keys = np.arange(n + 10, dtype=np.int64) * 3 + 2**50
+    idx = np.arange(n + 10)
+    return _edited(rng, keys, [idx < n, (idx < n) & (idx % 7 == 0), (idx % 97 == 5) | (idx >= n)])
+
+
+def _merge_tensors(cuda, sides, pad=0):
+    """Each side's keys and oids on the card, ``pad`` PAD_KEY rows past its
+    count. -> K4's nine side arguments."""
     args = []
     for k, o in sides:
         kt = torch.full((len(k) + pad,), 2**63 - 1, dtype=torch.int64)
@@ -342,9 +378,7 @@ def _merge_tensors(cuda, sides, union, pad=0):
         ot = torch.zeros((len(k) + pad, 5), dtype=torch.int32)
         ot[: len(k)] = torch.from_numpy(np.ascontiguousarray(o).view(np.int32))
         args += [kt.to(cuda), ot.to(cuda), len(k)]
-    ut = torch.full((len(union) + pad,), 2**63 - 1, dtype=torch.int64)
-    ut[: len(union)] = torch.from_numpy(union)
-    return args, ut.to(cuda)
+    return args
 
 
 MERGE_SHAPES = [
@@ -352,73 +386,85 @@ MERGE_SHAPES = [
     (1000, "a"), (1000, "o"), (1000, "t"), (1000, "ao"), (1000, "at"), (1000, "ot"),
     (70_001, ""), (2_440_000, ""),
 ]
+#: K4's shapes: MERGE_SHAPES' unions, then S - 1, S, S + 1, 3S - 1, 3S, 3S + 1
+#: and 4S rows a side (a slice holds at most S = SLICE_ROWS rows of a side),
+#: one side holding every key of a range, and equal keys on every slice seam
+#: at 2M rows a side (many tiles)
+MERGE_CASES = (
+    [(f"random{e}", n) for n, e in MERGE_SHAPES]
+    + [("rows", n) for n in (SLICE_ROWS - 1, SLICE_ROWS, SLICE_ROWS + 1, 3 * SLICE_ROWS - 1,
+                             3 * SLICE_ROWS, 3 * SLICE_ROWS + 1, 4 * SLICE_ROWS)]
+    + [("range", 5000), ("range", 100_000), ("rows", 2_000_000)]
+)
 
 
-@pytest.mark.parametrize("n_union,empty", MERGE_SHAPES)
+@pytest.mark.parametrize("kind,n", MERGE_CASES)
 @pytest.mark.parametrize("pad", [0, 37])
-def test_merge_classify_kernel_matches_plain(cuda, n_union, empty, pad):
-    """K4 against its plain version on the card: decision, presence and
-    counts bit for bit, padded union rows included, one launch a call."""
-    from kart_tpu_torch.ops.merge_kernel import merge_classify_padded, merge_classify_plain
-
-    sides = _merge_sides(n_union, n_union + len(empty), empty)
-    union = np.unique(np.concatenate([k for k, _ in sides]))
-    assert len(union) == n_union
-    args, ut = _merge_tensors(cuda, sides, union, pad)
+def test_merge_classify_kernel_matches_plain(cuda, kind, n, pad):
+    """K4 against its plain version on the card: union (also against
+    np.unique), decision, presence and counts bit for bit, one launch a
+    call; its tile plan against the plain plan."""
+    sides = _merge_case(kind, n, n + 7 * pad)
+    args = _merge_tensors(cuda, sides, pad)
     runtime.reset_stats()
-    got = merge_classify_padded(*args, ut, n_union)
+    got = merge_classify_sides(*args)
     torch.cuda.synchronize()
     assert runtime.stats_snapshot()["merge_classify_launches"] == 1
-    want = merge_classify_plain(*args, ut, n_union)
+    want = merge_classify_sides_plain(*args)
     for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    assert (got[0][n_union:] == 0).all()
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert np.array_equal(got[0].cpu().numpy(), np.unique(np.concatenate([k for k, _ in sides])))
+    keys = [(args[i], args[i + 2]) for i in (0, 3, 6)]
+    plan = merge_tile_plan(*(x for kc in keys for x in kc))
+    assert torch.equal(plan, merge_tile_plan_plain(*(k[:c] for k, c in keys)))
 
 
-@pytest.mark.parametrize("n_union,empty", [(1, ""), (257, ""), (1000, "a"), (1000, "aot"),
-                                           (70_001, ""), (2_440_000, "")])
-def test_merge_classify_writes_only_its_outputs(cuda, n_union, empty):
+@pytest.mark.parametrize("kind,n", [("random", 1), ("random", 257), ("randoma", 1000),
+                                    ("randomaot", 0), ("rows", SLICE_ROWS), ("range", 5000),
+                                    ("random", 70_001), ("random", 2_440_000)])
+def test_merge_classify_writes_only_its_outputs(cuda, kind, n):
     """K4 launched straight from its library on buffers fenced by sentinel
-    bytes: no byte outside decision, presence and counts changes, and they
-    equal the plain version's."""
-    from kart_tpu_torch.ops import merge_kernel
-
-    sides = _merge_sides(n_union, 3 * n_union + 1, empty)
-    union = np.unique(np.concatenate([k for k, _ in sides]))
-    n_union = len(union)  # 0 when every side is empty
+    bytes: no byte outside the first U rows of union, decision and
+    presence, the counts and its scratch changes (the rows past U keep
+    their sentinels), and the outputs equal the plain version's."""
+    sides = _merge_case(kind, n, 3 * n + 1)
+    total = sum(len(k) for k, _ in sides)
     inputs = [[_Guarded(cuda, k), _Guarded(cuda, np.ascontiguousarray(o)), len(k)]
               for k, o in sides]
-    uni = _Guarded(cuda, union)
-    decision = _Guarded(cuda, np.full(n_union, 9, np.int8))
-    presence = _Guarded(cuda, np.full(n_union, 9, np.int8))
-    counts = _Guarded(cuda, np.zeros(2, np.int64))
     lib = merge_kernel._library(cuda)
+    words = lib.kart_merge_scratch_words(*(len(k) for k, _ in sides))
+    scratch = _Guarded(cuda, np.full(words, -1, np.int64))
+    uni = _Guarded(cuda, np.full(total, 9, np.int64))
+    decision = _Guarded(cuda, np.full(total, 9, np.int8))
+    presence = _Guarded(cuda, np.full(total, 9, np.int8))
+    counts = _Guarded(cuda, np.zeros(3, np.int64))
     args = []
-    for k, o, n in inputs:
-        args += [k.ptr if n else None, o.ptr if n else None, n]
-    rc = lib.kart_merge_classify(*args, uni.ptr if n_union else None, n_union, n_union,
-                                 decision.ptr, presence.ptr, counts.ptr, cuda.index,
-                                 _build.stream_ptr(cuda))
+    for k, o, c in inputs:
+        args += [k.ptr if c else None, o.ptr if c else None, c]
+    rc = lib.kart_merge_classify(*args, scratch.ptr, uni.ptr if total else None,
+                                 decision.ptr if total else None, presence.ptr if total else None,
+                                 counts.ptr, cuda.index, _build.stream_ptr(cuda))
     _build.check(lib, rc, "merge classify")
     torch.cuda.synchronize()
-    for g in [*(x for k, o, _ in inputs for x in (k, o)), uni, decision, presence, counts]:
+    for g in [*(x for k, o, _ in inputs for x in (k, o)), scratch, uni, decision, presence, counts]:
         assert g.guards_intact()
-    args, ut = _merge_tensors(cuda, sides, union)
-    want = merge_kernel.merge_classify_plain(*args, ut, n_union)
-    assert torch.equal(decision.body(torch.int8), want[0])
-    assert torch.equal(presence.body(torch.int8), want[1])
-    assert torch.equal(counts.body(torch.int64), want[2])
+    want = merge_classify_sides_plain(*_merge_tensors(cuda, sides))
+    u = len(want[0])
+    c = counts.body(torch.int64)
+    assert c[2].item() == u and torch.equal(c[:2], want[3])
+    for g, w, dtype in ((uni, want[0], torch.int64), (decision, want[1], torch.int8),
+                        (presence, want[2], torch.int8)):
+        body = g.body(dtype)
+        assert torch.equal(body[:u], w)
+        assert (body[u:] == 9).all()
 
 
 def test_merge_classify_repeats_bit_for_bit(cuda):
-    """Twenty K4 launches on one input give one answer (the counts go
-    through atomics, in no fixed order)."""
-    from kart_tpu_torch.ops.merge_kernel import merge_classify_padded
-
-    sides = _merge_sides(1_000_003, 5)
-    union = np.unique(np.concatenate([k for k, _ in sides]))
-    args, ut = _merge_tensors(cuda, sides, union)
-    first = merge_classify_padded(*args, ut, len(union))
+    """Twenty K4 launches on one input give one answer: the look-back's
+    offsets and the atomics' counts do not depend on the order the tiles
+    run in."""
+    args = _merge_tensors(cuda, _merge_sides(1_000_003, 5))
+    first = merge_classify_sides(*args)
     for _ in range(20):
-        got = merge_classify_padded(*args, ut, len(union))
+        got = merge_classify_sides(*args)
         assert all(torch.equal(g, f) for g, f in zip(got, first))

@@ -28,6 +28,7 @@ from kart_tpu.ops.merge_kernel import (
     _merge_classify_padded,
     merge_classify_reference,
 )
+from kart_tpu.ops.merge_kernel import merge_classify as j_merge_classify
 from kart_tpu.synth import synth_repo as j_synth_repo
 from kart_tpu_torch.core.repo import KartRepo as TRepo
 from kart_tpu_torch.core.tree_builder import TreeBuilder as TTreeBuilder
@@ -39,9 +40,13 @@ from kart_tpu_torch.ops.merge_kernel import (
     CONFLICT,
     KEEP_OURS,
     TAKE_THEIRS,
+    SLICE_ROWS,
     merge_classify,
     merge_classify_padded,
     merge_classify_plain,
+    merge_classify_sides,
+    merge_tile_plan,
+    merge_tile_plan_plain,
 )
 
 DATE = "1700000000 +0000"
@@ -112,6 +117,27 @@ def _case(name):
         return {1: 1, 2: 2, 3: 3}, {3: 3}, {3: 3}
     if name == "edit_delete":
         return {1: 1, 2: 2, 3: 3, 4: 4}, {1: 10, 2: 2, 4: 40}, {2: 20, 3: 30, 4: 40}
+    if name == "extremes_all":
+        # every side holds -2**63 and 2**63 - 2, beside PAD_KEY
+        lo, hi = -(2**63), 2**63 - 2
+        return ({lo: 1, 0: 3, hi: 2}, {lo: 1, hi: 5, 9: 4}, {lo: 7, 5: 9, hi: 2})
+    if name == "range_one_side":
+        # the ancestor holds every key of a range, ours and theirs a few
+        a = {k: k + 1 for k in range(3000)}
+        o = {k: (k + 1 if k % 1000 else k + 2) for k in range(0, 3000, 250)}
+        t = {k: (k + 1 if k % 1400 else k + 3) for k in range(70, 3000, 700)}
+        t.update({k: 1 for k in range(3000, 3010)})
+        return a, o, t
+    if name == "seam":
+        # equal keys on all sides at every multiple of the tile sizes, each
+        # side one row off the others so their splitters interleave
+        rng = np.random.default_rng(17)
+        keys = list(range(0, 2 * (3 * SLICE_ROWS + 1), 2))
+        base = {k: int(w) for k, w in zip(keys, rng.integers(1, 2**32, len(keys)))}
+        o = {k: (w ^ 1 if k % 6 == 0 else w) for k, w in base.items() if k != 0}
+        t = {k: (w ^ (1 if k % 10 == 0 else 2) if k % 4 == 0 else w)
+             for k, w in base.items() if k not in (0, 2)}
+        return base, o, t
     empties = {"empty_all": (0, 0, 0), "empty_a": (0, 1, 1), "empty_o": (1, 0, 1),
                "empty_t": (1, 1, 0), "only_a": (1, 0, 0), "only_o": (0, 1, 0),
                "only_t": (0, 0, 1)}
@@ -122,7 +148,8 @@ def _case(name):
 
 CASES = ([f"random{i}" for i in range(10)]
          + ["extremes", "classic", "add_add", "delete_delete", "edit_delete", "empty_all",
-            "empty_a", "empty_o", "empty_t", "only_a", "only_o", "only_t"])
+            "empty_a", "empty_o", "empty_t", "only_a", "only_o", "only_t", "extremes_all",
+            "range_one_side", "seam"])
 
 
 def _tensors(block, size=None):
@@ -232,6 +259,86 @@ def test_input_checks():
     bad[8] = len(bad[6]) + 1
     with pytest.raises(ValueError, match="theirs count"):
         merge_classify_padded(*bad, union, 10)
+
+
+@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("padded", [False, True])
+def test_sides_match_kart_tpu(name, padded):
+    """merge_classify_sides on CPU tensors (bucket-padded sides with count
+    below their length, or count-sliced ones) against kart_tpu's
+    merge_classify and its jitted _merge_classify_padded on XLA-CPU:
+    union, decision, presence and counts exactly."""
+    a, o, t = _case(name)
+    (ja, ta), (jo, to), (jt, tt) = _blocks(a), _blocks(o), _blocks(t)
+    j_union, j_decision, j_presence, j_stats = j_merge_classify(ja, jo, jt)
+    u = len(j_union)
+    union_pad = np.full(bucket_size(max(u, 1)), PAD_KEY, dtype=np.int64)
+    union_pad[:u] = j_union
+    jit = _merge_classify_padded(ja.keys, ja.oids, ja.count, jo.keys, jo.oids, jo.count,
+                                 jt.keys, jt.oids, jt.count, union_pad, u)
+    args = []
+    for b in (ta, to, tt):
+        keys, oids = _tensors(b)
+        if not padded:
+            keys, oids = keys[: b.count].contiguous(), oids[: b.count].contiguous()
+        args += [keys, oids, b.count]
+    union, decision, presence, counts = merge_classify_sides(*args)
+    assert union.dtype == torch.int64 and decision.dtype == torch.int8
+    assert presence.dtype == torch.int8 and counts.dtype == torch.int64
+    assert np.array_equal(union.numpy(), j_union)
+    assert np.array_equal(decision.numpy(), j_decision)
+    assert np.array_equal(decision.numpy(), np.asarray(jit[0])[:u])
+    assert np.array_equal(presence.numpy(), j_presence)
+    assert np.array_equal(presence.numpy(), np.asarray(jit[1])[:u])
+    assert counts.tolist() == [j_stats["conflicts"], j_stats["take_theirs"]]
+    assert counts.tolist() == [int(jit[2]), int(jit[3])]
+
+
+@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("tile", [1, 4, 16, SLICE_ROWS])
+def test_tile_plan_invariants(name, tile):
+    """K4's slice plan (its plain twin, which the card's plan is held to):
+    slices start at row 0 and end at the counts, hold at most ``tile`` rows
+    of each side, one slice a splitter, and are key ranges: every real row
+    is covered once, in key order, and a key in several sides falls in one
+    slice. merge_tile_plan on the CPU is the plain plan."""
+    a, o, t = _case(name)
+    keys = [torch.from_numpy(np.asarray(sorted(d), dtype=np.int64)) for d in (a, o, t)]
+    counts = [len(k) for k in keys]
+    plan = merge_tile_plan_plain(*keys, tile=tile)
+    if tile == SLICE_ROWS:
+        assert torch.equal(plan, merge_tile_plan(keys[0], counts[0], keys[1], counts[1],
+                                                 keys[2], counts[2]))
+    n_tiles = sum(-(-n // tile) for n in counts)
+    assert plan.shape == (n_tiles + 1, 3) and plan.dtype == torch.int64
+    assert plan[0].tolist() == [0, 0, 0] and plan[-1].tolist() == counts
+    step = plan[1:] - plan[:-1]
+    assert (step >= 0).all() and (step <= tile).all()
+    last = None
+    for k in range(n_tiles):
+        rows = [keys[s][plan[k, s]: plan[k + 1, s]] for s in range(3)]
+        tile_keys = torch.cat(rows)
+        if len(tile_keys):
+            if last is not None:
+                assert tile_keys.min() > last
+            last = tile_keys.max()
+
+
+def test_sides_input_checks():
+    a, o, t = _case("classic")
+    args = []
+    for b in (_blocks(a)[1], _blocks(o)[1], _blocks(t)[1]):
+        args += [*_tensors(b), b.count]
+    bad = list(args)
+    bad[3] = bad[3].to(torch.int32)
+    with pytest.raises(ValueError, match="ours keys"):
+        merge_classify_sides(*bad)
+    bad = list(args)
+    bad[2] = len(bad[0]) + 1
+    with pytest.raises(ValueError, match="ancestor count"):
+        merge_classify_sides(*bad)
+    with pytest.raises(ValueError, match="theirs count"):
+        merge_tile_plan(args[0], args[2], args[3], args[5], args[6], len(args[6]) + 1)
 
 
 # --- MergeIndex files ---------------------------------------------------------
