@@ -3,8 +3,10 @@
 kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--rows 10000000] [--index-rows 1000000]
-                          [--repo-rows 10000000] [--merge-rows 2000000] [--seed 0]
-                          [--k4-only]
+                          [--repo-rows 5000000] [--spatial-rows 2000000]
+                          [--merge-rows 2000000]
+                          [--text-rows 10000000] [--text-merge-rows 2000000] [--seed 0]
+                          [--k4-only | --hash-only]
 
 Run from the repository root on a machine with an sm_90 (Hopper) card and
 the CUDA toolkit; the kernels are built from ``kart_tpu_torch/csrc`` on
@@ -47,7 +49,7 @@ first use. Phases:
    launch, the same bytes); ``good`` and ``exact`` (no launch) print [8]'s
    count; K1 counts-only timed on each accuracy's sampled rows
 11. build a spatial repository with ``synth.synth_repo(spatial=True)``:
-   ``--repo-rows`` point features whose sidecars carry envelope and
+   ``--spatial-rows`` point features whose sidecars carry envelope and
    vertex columns, real blobs for the 1% edited rows only
 12. write a rectangular spatial filter into its config, then run ``-o
    feature-count`` and ``-o json-lines`` on the card and with ``--device
@@ -90,10 +92,32 @@ first use. Phases:
 17. ``merge theirs-clean --no-ff -o json`` on the card (one K4 launch) and,
    after ``main`` is reset with the port's refs, with ``--device cpu``:
    the same commit and merged tree oids
-18. the ``kernels`` JSON line (each kernel's ``launches`` is the sum of
-   ``launches_by_phase``: every launch of the main path's runs, the
-   cProfile runs included, and none of the comparisons with the plain
-   versions), the card line, and the result line
+18. build a hash-keyed repository with ``synth.synth_repo(pk="text")``:
+   ``--text-rows`` G-NAF-shaped text ids (one leaf tree a feature, under the
+   hashed path encoder), real blobs for the 1% edited rows only, sidecars
+   keyed by the filename hashes with their paths
+19. on it, ``diff -o feature-count``, ``-o json-lines``, ``-o json``, the
+   text diff and ``show HEAD`` on the card (exactly one K1 launch each, a
+   full classify: a hash-keyed dataset's count needs its changed rows) and
+   with ``--device cpu`` (equal sha256), ``--only-feature-count fast`` (the
+   tree sampler: no launch) on both, and the card's json-lines under cProfile
+20. K1 on [18]'s blocks (keys uniform over [0, 2^63)): bit-identical to its
+   plain version, counts against the truth, timed beside its bound
+21. a text-pk merge repository of [14]'s shape at ``--text-merge-rows``
+   (the inserts new ids): K4 on its commits' blocks against its plain
+   version, ``np.unique`` and the truth, timed; ``merge --dry-run -o
+   json``, then ``merge -o json`` (KMIX2), ``conflicts -ss -o json``,
+   ``resolve <a text-pk label> --with theirs`` and ``merge --abort`` on the
+   card (one K4 launch a merge) and with ``--device cpu`` (equal stdout and
+   MERGE_INDEX sha256, before and after the resolve); the card's merge
+   under cProfile; ``merge theirs-clean --no-ff`` committing the same
+   oids on both routes. Every counted phase fails if a dataset took the
+   host path for colliding hash keys (``hash_collision_fallbacks``)
+22. each group of phases' host wall, the ``kernels`` JSON line (each
+   kernel's ``launches`` is the sum of ``launches_by_phase``: every launch
+   of the main path's runs, the cProfile runs included, and none of the
+   comparisons with the plain versions), the card line, and the result
+   line
 
 ``kart conflicts`` as text or GeoJSON (and ``--crs``) and ``resolve
 --with-file`` run no kernel, and the merge repository has no blobs to show,
@@ -102,7 +126,8 @@ so they are held to kart_tpu by the CPU tests only
 
 Any failed check exits non-zero without the result line. ``--k4-only`` runs
 phases 0, 1, 14 and 15 alone and prints K4's timings as JSON, with no
-result line.
+result line; ``--hash-only`` runs phases 0, 1 and 18-21 alone the same
+way.
 """
 
 import argparse
@@ -125,7 +150,11 @@ import torch
 
 from kart_tpu_torch import runtime
 from kart_tpu_torch.cli import main as kart_main
-from kart_tpu_torch.core.feature_tree import emit_feature_tree, plan_int_feature_tree
+from kart_tpu_torch.core.feature_tree import (
+    emit_feature_tree,
+    plan_feature_tree,
+    plan_int_feature_tree,
+)
 from kart_tpu_torch.core.objects import MODE_TREE
 from kart_tpu_torch.core.tree_builder import TreeBuilder
 from kart_tpu_torch.diff.backend import envelope_scan, envelope_scan_plain
@@ -135,7 +164,13 @@ from kart_tpu_torch.diff.engine import (
     prefilter_rect,
 )
 from kart_tpu_torch.diff.estimation import ACCURACY_SUBTREE_SAMPLES, sample_block
-from kart_tpu_torch.diff.sidecar import load_block, load_block_file, save_sidecar_file
+from kart_tpu_torch.diff.sidecar import (
+    load_block,
+    load_block_file,
+    save_sidecar,
+    save_sidecar_file,
+)
+from kart_tpu_torch.models.paths import PathEncoder
 from kart_tpu_torch.ops import _build
 from kart_tpu_torch.ops import bbox as bbox_ops
 from kart_tpu_torch.ops.blocks import FeatureBlock, block_tensors, to_device
@@ -160,7 +195,7 @@ from kart_tpu_torch.spatial_filter import (
     envelope_prepass,
 )
 from kart_tpu_torch.spatial_filter.index import DB_NAME, EnvelopeIndexReader
-from kart_tpu_torch.synth import synth_repo
+from kart_tpu_torch.synth import HashedColumns, gnaf_ids, synth_repo
 
 #: H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
 #: non-tensor-core f32 rate, used for every bound below
@@ -385,8 +420,10 @@ def counted(label, fn, launches, want=1, want_k2=0, want_k4=0):
     """Run ``fn`` with the launch counters zeroed before and read after;
     fail unless K1 launched exactly ``want`` times (once for each dataset
     the columnar route classifies), K2 ``want_k2`` times and K4
-    ``want_k4`` times, and add the launches read to ``launches[label]``
-    ([K1, K2, K4]). -> (fn's result, the counters read)."""
+    ``want_k4`` times, and no hash-keyed dataset took the host path for
+    colliding keys (``hash_collision_fallbacks`` 0), and add the launches
+    read to ``launches[label]`` ([K1, K2, K4]). -> (fn's result, the
+    counters read)."""
     runtime.reset_stats()
     out = fn()
     stats = runtime.stats_snapshot()
@@ -394,6 +431,8 @@ def counted(label, fn, launches, want=1, want_k2=0, want_k4=0):
            stats["merge_classify_launches"]]
     for name, n, w in zip(("K1", "K2", "K4"), got, (want, want_k2, want_k4)):
         check(n == w, f"{name} launched {n} times in phase {label}, expected {w}")
+    check(stats["hash_collision_fallbacks"] == 0,
+          f"phase {label} took the host path for colliding hash keys")
     total = launches.setdefault(label, [0, 0, 0])
     for i, n in enumerate(got):
         total[i] += n
@@ -695,7 +734,7 @@ def spatial_phases(args, card, launches):
     ``launches``."""
     with tempfile.TemporaryDirectory(prefix="kart_smoke_spatial_") as tmp:
         t = time.perf_counter()
-        repo, info = synth_repo(os.path.join(tmp, "repo"), args.repo_rows, edit_frac=0.01,
+        repo, info = synth_repo(os.path.join(tmp, "repo"), args.spatial_rows, edit_frac=0.01,
                                 seed=args.seed, blobs="changed", spatial=True)
         build_s = time.perf_counter() - t
         packs = repo.odb.packs.packs
@@ -704,7 +743,7 @@ def spatial_phases(args, card, launches):
         sidecar_bytes = sum(os.path.getsize(os.path.join(repo.gitdir, "columnar", f))
                             for f in os.listdir(os.path.join(repo.gitdir, "columnar")))
         n_edits, path = info["n_edits"], repo.workdir
-        print(f"[11] spatial repo: {args.repo_rows} point features, {n_edits} edited, "
+        print(f"[11] spatial repo: {args.spatial_rows} point features, {n_edits} edited, "
               f"built in {build_s:.2f} s host wall; {n_objects} objects in {len(packs)} "
               f"packs, {pack_bytes} pack bytes, {sidecar_bytes} sidecar bytes on {card}")
 
@@ -930,7 +969,7 @@ def k4_inputs(blocks, dev):
     return args
 
 
-def k4_check_and_time(label, blocks, dev, card, truth=None):
+def k4_check_and_time(label, blocks, dev, card, truth=None, phase="15"):
     """K4 against its plain version on the card, its union against
     np.unique, its decisions and counts against ``truth`` (decisions by
     union row) and its slice plan against the plain plan; -> its timings
@@ -976,7 +1015,7 @@ def k4_check_and_time(label, blocks, dev, card, truth=None):
         "unique_ms": time_ms(lambda: torch.unique(cat_keys)),
     }
     out["device_ms"] = total_ms(out["device_split"])
-    print(f"[15] K4 on {label} ({blocks[0].count} / {blocks[1].count} / {blocks[2].count} "
+    print(f"[{phase}] K4 on {label} ({blocks[0].count} / {blocks[1].count} / {blocks[2].count} "
           f"rows, union {u}): bit-identical to plain and np.unique, plan as planned, counts "
           f"[conflicts, take_theirs] {counts}; wrapper {out['ms']:.4f} ms, device "
           f"{fmt_ms(out['device_ms'])} ("
@@ -1105,17 +1144,322 @@ def merge_phases(args, card, launches, dev):
     return k4
 
 
+# --- hash-keyed datasets: text pks on K1 and K4 -------------------------------
+
+#: the host steps of the hash-keyed json-lines run (the delta route)
+HASH_JSONL_STEPS = {
+    "classify (sidecar mmap, upload, K1, changed rows)": "classify_changed",
+    "deltas from the changed rows (filename decode of the changed paths)":
+        "get_feature_diff_columnar",
+    "of it the collision guard's filenames": "_filenames",
+    "blob reads (pack index, zlib)": "read_blobs_batch",
+    "serialisation": "_feature_json_str",
+}
+
+
+def hash_diff_phases(args, card, launches, dev):
+    """Phases 18-20: build a text-pk repository (hash-keyed sidecars), drive
+    ``kart diff``, ``show`` and ``--only-feature-count fast`` on the card and
+    with ``--device cpu``, then check and time K1 on its blocks. -> K1's
+    hash-key timings, for the kernels line."""
+    n = args.text_rows
+    with tempfile.TemporaryDirectory(prefix="kart_smoke_text_") as tmp:
+        t = time.perf_counter()
+        repo, info = synth_repo(os.path.join(tmp, "repo"), n, edit_frac=0.01, seed=args.seed,
+                                blobs="changed", pk="text")
+        build_s = time.perf_counter() - t
+        packs = repo.odb.packs.packs
+        col_dir = os.path.join(repo.gitdir, "columnar")
+        sidecar_bytes = sum(os.path.getsize(os.path.join(col_dir, f)) for f in os.listdir(col_dir))
+        n_edits, path = info["n_edits"], repo.workdir
+        print(f"[18] text-pk repo: {n} G-NAF-shaped ids, {n_edits} edited, built in "
+              f"{build_s:.2f} s host wall; {sum(p.count for p in packs)} objects in {len(packs)} "
+              f"packs, {sum(os.path.getsize(p.pack_path) for p in packs)} pack bytes, "
+              f"{sidecar_bytes} sidecar bytes (hash-keyed, with paths) on {card}")
+
+        spec = "HEAD^...HEAD"
+        runs = {
+            "feature-count": (["diff", "-o", "feature-count", spec], False),
+            "json-lines": (["diff", "-o", "json-lines", spec], False),
+            "json": (["diff", "-o", "json", spec], False),
+            "text": (["diff", spec], False),
+            "show": (["show", "HEAD"], True),
+        }
+        for name, (argv, stdout) in runs.items():
+            out = os.path.join(tmp, name)
+            w_card, w_cpu, digest, _ = card_and_cpu("19", ["-C", path, *argv], out, launches,
+                                                    k2=0, stdout=stdout)
+            with open(f"{out}.card") as f:
+                body = f.read()
+            if name == "feature-count":
+                check(body == f"synth:\n\t{n_edits} features changed\n",
+                      f"feature-count said {body!r}")
+            elif name == "json-lines":
+                check(body.count('"type":"feature"') == n_edits, "json-lines feature lines")
+            elif name == "json":
+                got = len(json.loads(body)["kart.diff/v1+hexwkb"]["synth"]["feature"])
+                check(got == n_edits, f"json has {got} features, expected {n_edits}")
+            else:
+                got = body.count("\n--- synth:feature:GA") + body.startswith("--- synth:feature:")
+                check(got == n_edits, f"{name} shows {got} features, expected {n_edits}")
+            print(f"[19] {' '.join(argv)}: {len(body)} chars, sha256 {digest} on both; card "
+                  f"{w_card:.4f} s, cpu {w_cpu:.4f} s host wall; K1 1 (full classify, not "
+                  f"counts-only), hash_collision_fallbacks 0 on {card}")
+        db = os.path.join(repo.gitdir, "annotations.db")
+        argv = ["-C", path, "diff", "--only-feature-count", "fast", spec]
+        outs, walls = {}, {}
+        for where in ("card", "cpu"):
+            if os.path.exists(db):
+                os.remove(db)
+            pre = [] if where == "card" else ["--device", "cpu"]
+            outs[where] = os.path.join(tmp, f"fast.{where}")
+
+            def go(pre=pre, to=outs[where]):
+                with open(to, "w") as f, contextlib.redirect_stdout(f):
+                    return kart_cli(*pre, *argv)
+
+            if where == "card":
+                walls[where], _ = counted("19", go, launches, want=0)
+            else:
+                walls[where] = go()
+        digest = sha256_of(outs["card"])
+        check(digest == sha256_of(outs["cpu"]), "the fast estimate differs card / cpu")
+        with open(outs["card"]) as f:
+            text = f.read()
+        est = int(text.split("\t")[1].split()[0])
+        check(0.5 * n_edits < est < 1.5 * n_edits, f"fast estimate said {text!r}")
+        print(f"[19] --only-feature-count fast: {text.strip()!r} (the tree sampler, no launch); "
+              f"sha256 {digest} on both; card {walls['card']:.4f} s, cpu {walls['cpu']:.4f} s "
+              f"host wall on {card}")
+        jl = ["-C", path, "diff", "-o", "json-lines", spec, "--output",
+              os.path.join(tmp, "prof.jsonl")]
+        profile, split = counted("19", lambda: profile_split(lambda: kart_cli(*jl),
+                                                            HASH_JSONL_STEPS), launches)[0]
+        print("[19] host profile of the card's json-lines run (cProfile, cumulative s): "
+              + "; ".join(f"{k} {v:.4f}" for k, v in split.items()) + f" on {card}")
+        print(profile)
+
+        # [20] K1 on the hash-keyed blocks
+        old = load_block(repo, repo.structure("HEAD^").datasets["synth"])
+        new = load_block(repo, repo.structure("HEAD").datasets["synth"])
+        ok, oo = block_tensors(old, dev)
+        nk, no = block_tensors(new, dev)
+        got = classify(ok, oo, nk, no)
+        want = classify_plain(ok, oo, nk, no)
+        torch.cuda.synchronize()
+        err = max(mismatches(g, w) for g, w in zip(got, want))
+        check(err == 0, "K1 differs from its plain version on hash keys")
+        check(got[2].tolist() == [0, n_edits, 0], f"K1 counts {got[2].tolist()} on hash keys")
+        keys = np.asarray(new.keys[: new.count])
+        rows = old.count + new.count
+        steps = old.count * np.log2(max(new.count, 2)) + new.count * np.log2(max(old.count, 2))
+        b = bound(rows * 28 + rows, steps + rows * 5)
+        split = device_ms(lambda: classify(ok, oo, nk, no), ("corank_kernel", "classify_tiles"))
+        k1 = {"rows": [old.count, new.count], "max_abs_err": err,
+              "key_range": [int(keys.min()), int(keys.max())],
+              "ms": time_ms(lambda: classify(ok, oo, nk, no)), "device_ms": total_ms(split),
+              "device_split": split, "fenced_ms": fenced_ms(lambda: classify(ok, oo, nk, no)),
+              "plain_ms": time_ms(lambda: classify_plain(ok, oo, nk, no), batches=3, per_batch=3),
+              "bound_ms": b[0], "bound_by": b[1],
+              "library_ms": time_ms(lambda: torch.searchsorted(nk, ok))}
+        print(f"[20] K1 on the hash-keyed blocks ({old.count} / {new.count} rows, keys in "
+              f"[{k1['key_range'][0]}, {k1['key_range'][1]}]): bit-identical to plain, counts "
+              f"{got[2].tolist()}; wrapper {k1['ms']:.4f} ms, device {fmt_ms(k1['device_ms'])} ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f"), fenced {k1['fenced_ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, bound "
+              f"{b[0]:.4f} ms by {b[1]}, torch.searchsorted {k1['library_ms']:.4f} ms on {card}")
+        del ok, oo, nk, no, got, want
+    return k1
+
+
+def commit_text_version(repo, parent, ref, cols, rows, oids, message):
+    """Commit ``parent``'s tree with its feature tree replaced by the text-pk
+    rows ``rows`` of ``cols`` (:class:`~kart_tpu_torch.synth.HashedColumns`)
+    with blob oids ``oids`` ((n, 5) uint32), and its sidecar; -> the commit
+    oid."""
+    odb = repo.odb
+    oids_u8 = np.ascontiguousarray(oids).view(np.uint8).reshape(-1, 20)
+    with odb.bulk_pack(level=0):
+        plan = plan_feature_tree(cols.leaf_ids[rows], cols.b64[rows], cols.b64_len[rows],
+                                 PathEncoder.GENERAL_ENCODER)
+        ftree, _ = emit_feature_tree(odb, plan, oids_u8)
+        tb = TreeBuilder(odb, odb.read_commit(parent).tree)
+        tb.insert("synth/.table-dataset/feature", ftree, mode=MODE_TREE)
+        root = tb.flush()
+    save_sidecar(repo, ftree, cols.keys[rows], oids_u8, paths=cols.paths[rows])
+    return repo.create_commit(ref, root, message, [parent])
+
+
+def build_text_merge_repo(path, n, seed):
+    """Phase [21]'s repository: [14]'s shape (module docstring) on a text-pk
+    layer of ``n`` G-NAF-shaped ids, the inserts new ids. -> (repo,
+    {name: FeatureBlock}, {name: decision by union row}) as
+    :func:`build_merge_repo`, and the id of a conflicted feature."""
+    repo, info = synth_repo(path, n, edit_frac=0.5, seed=seed, blobs="promised", pk="text")
+    n_ins = n // 100
+    cols = HashedColumns(gnaf_ids(np.arange(n + n_ins)))
+    ancestor = repo.odb.read_commit(info["edit_commit"]).parents[0]
+    by_row = []
+    for rev in (ancestor, "HEAD"):
+        block = load_block(repo, repo.structure(rev).datasets["synth"])
+        pos = np.searchsorted(np.asarray(block.keys[: block.count]), cols.keys[:n])
+        by_row.append(np.array(block.oids[: block.count])[pos])
+    a_oids, o_oids = by_row
+    rewritten = (a_oids != o_oids).any(axis=1)
+    rng = np.random.default_rng(seed + 21)
+    edited = rng.permutation(np.flatnonzero(rewritten))
+    untouched = rng.permutation(np.flatnonzero(~rewritten))
+    cut, n_take, n_del = len(edited) * 99 // 100, n // 5, n // 100
+    ins_oids = rng.integers(0, 2**32, size=(n_ins, 5), dtype=np.uint32)
+    t_oids = a_oids.copy()
+    rewrite = np.concatenate([edited[:cut], untouched[:n_take]])
+    t_oids[rewrite] = rng.integers(0, 2**32, size=(len(rewrite), 5), dtype=np.uint32)
+    all_rows = np.arange(n)
+    versions, blocks = {}, {}
+    for name, gone, oids in (
+        ("theirs", np.concatenate([edited[cut:], untouched[n_take : n_take + n_del]]), t_oids),
+        ("theirs-clean", untouched[n_take : n_take + n_del],
+         np.where(rewritten[:, None], a_oids, t_oids)),
+    ):
+        keep = np.ones(n, bool)
+        keep[gone] = False
+        rows = np.concatenate([all_rows[keep], n + np.arange(n_ins)])
+        woids = np.concatenate([oids[keep], ins_oids])
+        commit_text_version(repo, ancestor, f"refs/heads/{name}", cols, rows, woids,
+                            f"{name} edits")
+        blocks[name] = FeatureBlock.from_arrays(cols.keys[rows], woids, pad=False)
+        versions[name] = (rows, woids)
+    order = np.argsort(cols.keys)  # union rows in key order
+    conflict_id = gnaf_ids(edited[:1])[0]  # ours and theirs rewrote it
+    truth = {}
+    for name in ("theirs", "theirs-clean"):
+        d, present = merge_truth(n + n_ins, [(all_rows, a_oids), (all_rows, o_oids),
+                                             versions[name]])
+        truth[name] = d[order][present[order]]
+    blocks["ancestor"] = FeatureBlock.from_arrays(cols.keys[:n], a_oids, pad=False)
+    blocks["ours"] = FeatureBlock.from_arrays(cols.keys[:n], o_oids, pad=False)
+    return repo, blocks, truth, conflict_id
+
+
+def hash_merge_phases(args, card, launches, dev):
+    """Phase 21: the text-pk merge repository, K4 on its commits' blocks,
+    then ``kart merge``, ``conflicts``, ``resolve`` and ``merge --abort``
+    through the CLI on the card and with ``--device cpu``. -> K4's
+    hash-key timings, for the kernels line."""
+    os.environ.update(GIT_AUTHOR_DATE=MERGE_DATE, GIT_COMMITTER_DATE=MERGE_DATE)
+    n = args.text_merge_rows
+    with tempfile.TemporaryDirectory(prefix="kart_smoke_text_merge_") as tmp:
+        t = time.perf_counter()
+        repo, blocks, truth, conflict_id = build_text_merge_repo(os.path.join(tmp, "repo"), n,
+                                                                 args.seed)
+        build_s = time.perf_counter() - t
+        packs = repo.odb.packs.packs
+        n_conf, n_take = int((truth["theirs"] == 2).sum()), int((truth["theirs"] == 1).sum())
+        check((n_conf, n_take) == (n // 2, n // 5 + n // 50),
+              f"truth has {n_conf} conflicts and {n_take} take-theirs")
+        print(f"[21] text-pk merge repo: {n} features, ours rewrote {n // 2}; theirs: truth "
+              f"{n_conf} conflicts, {n_take} take-theirs; built in {build_s:.2f} s host wall, "
+              f"{sum(p.count for p in packs)} objects, "
+              f"{sum(os.path.getsize(p.pack_path) for p in packs)} pack bytes on {card}")
+        trio = [blocks["ancestor"], blocks["ours"], blocks["theirs"]]
+        k4 = k4_check_and_time("the text-pk merge repo's commits (hash keys)", trio, dev, card,
+                               truth["theirs"], phase="21")
+
+        path, mi_path = repo.workdir, os.path.join(repo.gitdir, "MERGE_INDEX")
+
+        def cli_to(name, *argv, rc_want=0, where="card"):
+            pre = [] if where == "card" else ["--device", "cpu"]
+            with open(os.path.join(tmp, name), "w") as f, contextlib.redirect_stdout(f):
+                return kart_cli(*pre, "-C", path, *argv, rc_want=rc_want)
+
+        def card_counted(name, *argv):
+            return counted("21", lambda: cli_to(name, *argv), launches, want=0, want_k4=1)[0]
+
+        def out_sha(name):
+            return sha256_of(os.path.join(tmp, name))
+
+        walls = {}
+        dry = ["merge", "theirs", "--dry-run", "-o", "json"]
+        walls["dry-run card"] = card_counted("dry.card", *dry)
+        walls["dry-run cpu"] = cli_to("dry.cpu", *dry, where="cpu")
+        check(out_sha("dry.card") == out_sha("dry.cpu"), "dry-run json differs card / cpu")
+        with open(os.path.join(tmp, "dry.card")) as f:
+            check(json.load(f) == {"kart.merge/v1": {"conflicts": {"synth": {"feature": n_conf}},
+                                                     "state": "merging", "dryRun": True}},
+                  "the text-pk dry run's conflicts")
+        label = f"synth:feature:{conflict_id}"
+        merge = ["merge", "theirs", "-o", "json"]
+        results = {}
+        for where in ("card", "cpu"):
+            if where == "card":
+                walls["merge card"] = card_counted("merge.card", *merge)
+            else:
+                walls["merge cpu"] = cli_to("merge.cpu", *merge, where="cpu")
+            with open(mi_path, "rb") as f:
+                check(f.read(6) == b"KMIX2\n", "the text-pk MERGE_INDEX is not KMIX2")
+            mi_sha = sha256_of(mi_path)
+            walls[f"conflicts -ss {where}"] = cli_to(f"ss.{where}", "conflicts", "-ss", "-o",
+                                                     "json", where=where)
+            walls[f"resolve {where}"] = cli_to(f"resolve.{where}", "resolve", label, "--with",
+                                               "theirs", where=where)
+            resolved_sha = sha256_of(mi_path)
+            walls[f"abort {where}"] = cli_to(f"abort.{where}", "merge", "--abort", where=where)
+            check(not os.path.exists(mi_path), "merge --abort left MERGE_INDEX")
+            results[where] = [out_sha(f"merge.{where}"), mi_sha, out_sha(f"ss.{where}"),
+                              out_sha(f"resolve.{where}"), resolved_sha]
+        check(results["card"] == results["cpu"], f"text-pk merge outputs differ: {results}")
+        with open(os.path.join(tmp, "ss.card")) as f:
+            check(json.load(f) == {"kart.conflicts/v1": {"synth": {"feature": n_conf}}},
+                  "the text-pk conflicts -ss")
+        print(f"[21] merge -o json, conflicts -ss -o json, resolve {label} --with theirs, merge "
+              f"--abort: stdout, MERGE_INDEX (KMIX2) and resolved MERGE_INDEX sha256 "
+              f"{results['card'][0]}, {results['card'][1]}, {results['card'][4]} equal card / "
+              f"cpu; host wall s: " + ", ".join(f"{k} {v:.4f}" for k, v in walls.items())
+              + f"; K4 1 a card merge, hash_collision_fallbacks 0 on {card}")
+        (profile, split), _ = counted(
+            "21", lambda: profile_split(lambda: cli_to("merge.prof", *merge), MERGE_STEPS),
+            launches, want=0, want_k4=1)
+        cli_to("abort", "merge", "--abort")
+        print("[21] host profile of the card's text-pk merge (cProfile, cumulative s): "
+              + "; ".join(f"{k} {v:.4f}" for k, v in split.items()) + f" on {card}")
+        print(profile)
+
+        head = repo.refs.get("refs/heads/main")
+        clean = ["merge", "theirs-clean", "--no-ff", "-o", "json"]
+        commits = {}
+        for where in ("card", "cpu"):
+            repo.refs.set("refs/heads/main", head)
+            wall = (card_counted("clean.card", *clean) if where == "card"
+                    else cli_to("clean.cpu", *clean, where="cpu"))
+            with open(os.path.join(tmp, f"clean.{where}")) as f:
+                commit = json.load(f)["kart.merge/v1"]["commit"]
+            commits[where] = (commit, repo.odb.read_commit(commit).tree, wall)
+        check(commits["card"][:2] == commits["cpu"][:2], f"clean text-pk merge differs: {commits}")
+        print(f"[21] merge theirs-clean --no-ff: commit {commits['card'][0]}, tree "
+              f"{commits['card'][1]} on both; card {commits['card'][2]:.4f} s, cpu "
+              f"{commits['cpu'][2]:.4f} s host wall; K4 1 on {card}")
+    return k4
+
+
 # --- main -------------------------------------------------------------------
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=10_000_000)
     ap.add_argument("--index-rows", type=int, default=1_000_000)
-    ap.add_argument("--repo-rows", type=int, default=10_000_000)
+    # the int CLI repo and the point layer below 10M rows: the hash-keyed
+    # phases need the time within the script's limit
+    ap.add_argument("--repo-rows", type=int, default=5_000_000)
+    ap.add_argument("--spatial-rows", type=int, default=2_000_000)
     ap.add_argument("--merge-rows", type=int, default=2_000_000)
+    ap.add_argument("--text-rows", type=int, default=10_000_000)
+    ap.add_argument("--text-merge-rows", type=int, default=2_000_000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--k4-only", action="store_true",
                     help="run phases 0, 1, 14 and 15 alone and print K4's timings (no result line)")
+    ap.add_argument("--hash-only", action="store_true",
+                    help="run phases 0, 1 and 18-21 alone and print K1's and K4's timings on "
+                         "hash keys (no result line)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1132,6 +1476,17 @@ def main():
     if args.k4_only:
         _build.build_all()
         print(json.dumps(merge_phases(args, card, {}, dev)))
+        return 0
+    if args.hash_only:
+        _build.build_all()
+        launches = {}
+        t = time.perf_counter()
+        k1 = hash_diff_phases(args, card, launches, dev)
+        t_diff = time.perf_counter() - t
+        k4 = hash_merge_phases(args, card, launches, dev)
+        print(f"[22] phase walls s: [18-20] {t_diff:.2f}, [21] "
+              f"{time.perf_counter() - t - t_diff:.2f} on {card}")
+        print(json.dumps({"k1_hash_keys": k1, "k4_hash_keys": k4, "launches": launches}))
         return 0
 
     t0 = time.perf_counter()
@@ -1328,11 +1683,26 @@ def main():
           f"{fmt_ms(k2_wrap_dev)} on {card}")
     tmp.cleanup()
 
-    # every card command of phases 8-17 is counted, its cProfile runs too
+    # every card command of phases 8-21 is counted, its cProfile runs too
     cli_launches = {"3-5": [k1["launches"], kernels[1]["launches"], 0]}
+    walls = {}
+    t = time.perf_counter()
     k1["estimation"] = cli_phases(args, card, cli_launches)
+    walls["7-10b"] = time.perf_counter() - t
+    t = time.perf_counter()
     spatial_phases(args, card, cli_launches)
+    walls["11-13"] = time.perf_counter() - t
+    t = time.perf_counter()
     k4 = merge_phases(args, card, cli_launches, dev)
+    walls["14-17"] = time.perf_counter() - t
+    t = time.perf_counter()
+    k1["hash_keys"] = hash_diff_phases(args, card, cli_launches, dev)
+    walls["18-20"] = time.perf_counter() - t
+    t = time.perf_counter()
+    k4["hash_keys"] = hash_merge_phases(args, card, cli_launches, dev)
+    walls["21"] = time.perf_counter() - t
+    print("[22] phase walls s: " + ", ".join(f"[{k}] {v:.2f}" for k, v in walls.items())
+          + f" on {card}")
     kernels.append({
         "name": "merge_classify", "route": "cuda",
         "source": "kart_tpu_torch/csrc/merge_classify.cu",

@@ -265,6 +265,28 @@ def _set_value_at_path(root, path, value):
     cur[path[-1]] = value
 
 
+def _prefix_counts(labels):
+    """The ``-ss`` tree of ``labels`` ({ds: {part: count}}) without sorting
+    them: each (dataset, part) prefix counted, the prefixes nested in the
+    order the sorted labels would first show them. None when a label does
+    not split into exactly three parts or two prefixes have equal sort keys:
+    then only the sort of every label decides the order."""
+    counts = {}
+    for label in labels:
+        parts = label.split(":")
+        if len(parts) != 3:
+            return None
+        prefix = (parts[0], parts[1])
+        counts[prefix] = counts.get(prefix, 0) + 1
+    keys = {p: (_path_part_sort_key(p[0]), _path_part_sort_key(p[1])) for p in counts}
+    if len(set(keys.values())) != len(keys):
+        return None
+    out = {}
+    for ds_path, part in sorted(counts, key=keys.__getitem__):
+        out.setdefault(ds_path, {})[part] = counts[ds_path, part]
+    return out
+
+
 def _summarise_tree(node, summarise):
     """Nested conflicts with placeholder leaves -> names (-s) or counts
     (-ss) at the version level."""
@@ -296,6 +318,10 @@ def _build_conflicts_output(repo, conflicts, unresolved, output_format, *, summa
     summaries; for geojson, one FeatureCollection."""
     if output_format == "geojson":
         flat, summarise = True, 0
+    if summarise >= 2 and not flat:
+        counts = _prefix_counts(unresolved)
+        if counts is not None:
+            return counts
     decoder = None if summarise else _ConflictDecoder(repo)
     tx_cache = {}
 

@@ -1,6 +1,9 @@
-"""Vectorized Merkle feature-tree construction for int-pk datasets: the
-Datasets V3 feature tree built from (pk, blob-oid) columns with numpy
-matrix operations, bit-identical to building it path by path.
+"""Vectorized Merkle feature-tree construction: the Datasets V3 feature
+tree built from (leaf tree, filename, blob-oid) columns with numpy matrix
+operations, bit-identical to building it path by path. An int-pk dataset's
+columns follow from its pks (:func:`plan_int_feature_tree`); a hash-keyed
+one's from its filenames and their hashed tree indices
+(:func:`plan_feature_tree`).
 
 Counterpart of kart_tpu's ``core/feature_tree.py`` (``TreePlan``,
 ``plan_int_feature_tree``, ``emit_feature_tree``, ``build_upper_levels``);
@@ -26,24 +29,35 @@ class TreePlan:
 
 def plan_int_feature_tree(pks, encoder=None):
     """Sorted, name-resolved tree layout of unique int64 pks (any order)."""
-    HOLE = 0xFF
     encoder = encoder or PathEncoder.INT_PK_ENCODER
-    if encoder.group_length != 1:
-        raise ValueError("the feature tree builder needs 1-character tree names")
-    plan = TreePlan()
-    plan.encoder = encoder
     pks = np.asarray(pks, dtype=np.int64)
     if pks.size > 1 and (pks[1:] > pks[:-1]).all():
         srt = np.arange(pks.size)
     else:
         srt = np.argsort(pks, kind="stable")
     pks = np.ascontiguousarray(pks[srt])
-    n = plan.n = len(pks)
-
     fn_bytes, fn_len = msgpack_single_int_batch(pks)
     b64_mat, b64_len = b64_batch(fn_bytes, fn_len)
+    plan = plan_feature_tree((pks // encoder.branches) % encoder.max_trees, b64_mat, b64_len,
+                             encoder)
+    plan.order = srt[plan.order]
+    return plan
+
+
+def plan_feature_tree(leaf_ids, b64_mat, b64_len, encoder):
+    """Sorted, name-resolved tree layout of rows given by their leaf tree
+    index (``leaf_ids`` (N,) in ``[0, branches**levels)``, its base-
+    ``branches`` digits the tree names from the root down) and their
+    filenames (``b64_mat`` (N, W) uint8, row i valid up to ``b64_len[i]``);
+    the filenames unique."""
+    HOLE = 0xFF
+    if encoder.group_length != 1:
+        raise ValueError("the feature tree builder needs 1-character tree names")
+    plan = TreePlan()
+    plan.encoder = encoder
+    n = plan.n = len(leaf_ids)
     b64w = b64_mat.shape[1]
-    leaf_ids = (pks // encoder.branches) % encoder.max_trees
+    leaf_ids = np.asarray(leaf_ids, dtype=np.int64)
 
     # sort by (leaf, name bytes), git's tree order: zero-padding the key
     # puts a name before every longer name it prefixes
@@ -55,14 +69,14 @@ def plan_int_feature_tree(pks, encoder=None):
     words = np.ascontiguousarray(name_key).view(">u8")
     order = np.lexsort(tuple(words[:, i] for i in range(words.shape[1] - 1, -1, -1))
                        + (leaf_ids,))
-    plan.order = srt[order]  # original row -> sorted row
+    plan.order = order  # sorted row -> original row
     b64_mat = b64_mat[order]
     b64_len = b64_len[order]
     plan.leaf_ids = leaf_ids = leaf_ids[order]
 
     uniform = bool((b64_len == b64_len[0]).all()) if n else True
     rows = np.arange(n)
-    if uniform:  # dense int ranges: fixed-width entries, no holes
+    if uniform:  # names of one width (dense int pks, text pks of one length): no holes
         L = int(b64_len[0]) if n else 0
         width = 7 + L + 1 + 20
         out = np.zeros((n, width), dtype=np.uint8)
@@ -103,62 +117,57 @@ def _stamp_oids(plan, oids_u8):
 
 
 def _leaf_payloads(plan, touched):
-    first_idx, counts = plan.first_idx, plan.counts
-    if plan.fixed_width:
-        buf = plan.entry_matrix
-        return [buf[first_idx[t] : first_idx[t] + counts[t]].tobytes() for t in touched.tolist()]
-    full = plan.entry_matrix[~plan.hole_mask].tobytes()
-    starts = plan.byte_offsets[first_idx]
-    ends = plan.byte_offsets[first_idx + counts]
-    return [full[starts[t] : ends[t]] for t in touched.tolist()]
-
-
-def _write_level(odb, payloads):
-    return [odb.write_raw("tree", p) for p in payloads]
+    full = (plan.entry_matrix if plan.fixed_width else plan.entry_matrix[~plan.hole_mask]).tobytes()
+    starts = plan.byte_offsets[plan.first_idx[touched]].tolist()
+    ends = plan.byte_offsets[plan.first_idx[touched] + plan.counts[touched]].tolist()
+    return [full[a:b] for a, b in zip(starts, ends)]
 
 
 def emit_feature_tree(odb, plan, oids_u8, *, prev=None):
     """Stamp the blob-oid column into ``plan`` and write the tree objects;
-    -> (feature tree hex oid, leaf_oids list). ``prev`` = (leaf_oids,
-    changed original rows) of an earlier emit over the same plan: only the
-    leaves holding a changed row are rewritten."""
+    -> (feature tree hex oid, leaf oids (leaves, 20) uint8). ``prev`` =
+    (leaf oids, changed original rows) of an earlier emit over the same
+    plan: only the leaves holding a changed row are rewritten."""
     n = plan.n
     if n == 0:
-        return odb.write_raw("tree", b""), []
+        return odb.write_raw("tree", b""), np.zeros((0, 20), dtype=np.uint8)
     _stamp_oids(plan, oids_u8)
     if prev is not None:
         prev_leaf_oids, changed_rows = prev
         sorted_pos = np.empty(n, dtype=np.int64)
         sorted_pos[plan.order] = np.arange(n)
         touched = np.unique(plan.row_of_leaf[sorted_pos[changed_rows]])
-        leaf_oids = list(prev_leaf_oids)
+        leaf_oids = prev_leaf_oids.copy()
     else:
         touched = np.arange(len(plan.uniq_leaves))
-        leaf_oids = [None] * len(plan.uniq_leaves)
-    for t, oid in zip(touched.tolist(), _write_level(odb, _leaf_payloads(plan, touched))):
-        leaf_oids[t] = oid
+        leaf_oids = np.zeros((len(plan.uniq_leaves), 20), dtype=np.uint8)
+    leaf_oids[touched] = odb.write_raw_many("tree", _leaf_payloads(plan, touched))
     return build_upper_levels(odb, plan.uniq_leaves, leaf_oids, plan.encoder), leaf_oids
 
 
 def build_upper_levels(odb, child_ids, child_oids, encoder):
     """Write the spine of upper-level trees over written leaf trees;
     -> feature-tree root hex oid. ``child_ids``: ascending leaf slots
-    (``pk // branches``); ``child_oids``: their hex oids."""
-    alpha = encoder.alphabet
+    (``pk // branches``); ``child_oids``: their (n, 20) uint8 oids. Each
+    level is one matrix of fixed-width entries (``40000 <name>\\0<sha>``)
+    sorted by (parent, name bytes)."""
+    alpha = np.frombuffer(encoder.alphabet.encode("ascii"), dtype=np.uint8)
     child_ids = np.asarray(child_ids, dtype=np.int64)
+    child_oids = np.asarray(child_oids, dtype=np.uint8).reshape(-1, 20)
     for _level in range(encoder.levels - 1, -1, -1):
-        parents = {}
-        for cid, coid in zip(child_ids.tolist(), child_oids):
-            parents.setdefault(cid // encoder.branches, []).append(
-                (alpha[cid % encoder.branches], coid))
-        parent_ids = np.sort(np.fromiter(parents.keys(), dtype=np.int64, count=len(parents)))
-        payloads = [
-            b"".join(b"40000 %s\x00" % ch.encode() + bytes.fromhex(oid)
-                     for ch, oid in sorted(parents[pid], key=lambda t: t[0].encode()))
-            for pid in parent_ids.tolist()
-        ]
-        child_oids = _write_level(odb, payloads)
-        child_ids = parent_ids
+        parents = child_ids // encoder.branches
+        names = alpha[child_ids % encoder.branches]
+        order = np.lexsort((names, parents))
+        parents, names = parents[order], names[order]
+        entries = np.empty((len(order), 28), dtype=np.uint8)
+        entries[:, :6] = np.frombuffer(b"40000 ", dtype=np.uint8)
+        entries[:, 6] = names
+        entries[:, 7] = 0
+        entries[:, 8:] = child_oids[order]
+        child_ids, first = np.unique(parents, return_index=True)
+        full = entries.tobytes()
+        bounds = (np.append(first, len(order)) * 28).tolist()
+        child_oids = odb.write_raw_many("tree", [full[a:b] for a, b in zip(bounds, bounds[1:])])
     if len(child_oids) != 1:
         raise ValueError("feature tree spine did not reduce to one root")
-    return child_oids[0]
+    return bytes(child_oids[0]).hex()

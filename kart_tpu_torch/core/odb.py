@@ -120,6 +120,19 @@ class ObjectDb:
                 out[i] = self.read_blob(shas[i].hex())
         return out
 
+    def read_trees_ordered(self, shas):
+        """[20-byte sha] -> [tree bytes] in request order: packed trees in
+        pack order, the rest one by one. Raises ObjectMissing/ObjectPromised
+        for an absent one and ObjectFormatError for one that is not a
+        tree."""
+        out = self.packs.read_blob_data_ordered(shas, "tree")
+        for i, data in enumerate(out):
+            if data is None:
+                obj_type, out[i] = self.read_raw(shas[i].hex())
+                if obj_type != "tree":
+                    raise ObjectFormatError(f"{shas[i].hex()} is a {obj_type}, expected tree")
+        return out
+
     def read_blobs_batch(self, oids):
         """[hex oid] -> {oid: blob bytes} for the packed blobs among them
         (the diff's chunk prefetch); anything else is left to the caller's
@@ -144,12 +157,16 @@ class ObjectDb:
     def write_blob(self, content) -> str:
         return self.write_raw("blob", content)
 
+    def write_raw_many(self, obj_type, contents):
+        """list[bytes] of one object type -> (n, 20) uint8 oid array."""
+        if self._bulk_writer is not None:
+            return self._bulk_writer.add_batch_raw(obj_type, contents)
+        hexes = "".join(self.write_raw(obj_type, c) for c in contents)
+        return np.frombuffer(bytes.fromhex(hexes), dtype=np.uint8).reshape(-1, 20)
+
     def write_blobs_raw(self, contents):
         """list[bytes] -> (n, 20) uint8 oid array."""
-        if self._bulk_writer is not None:
-            return self._bulk_writer.add_batch_raw("blob", contents)
-        hexes = "".join(self.write_raw("blob", c) for c in contents)
-        return np.frombuffer(bytes.fromhex(hexes), dtype=np.uint8).reshape(-1, 20)
+        return self.write_raw_many("blob", contents)
 
     def read_blob(self, oid) -> bytes:
         obj_type, content = self.read_raw(oid)
@@ -289,8 +306,27 @@ class TreeView:
     def blob_columns(self):
         """(paths, oids (N, 20) uint8) of every blob under this tree, in
         :meth:`walk_blobs` order, parsed straight from the raw tree objects
-        (no entry objects, no hex strings: a feature tree of millions of
-        blobs is read in one pass)."""
+        (no entry objects, no hex strings). The tree is read a level at a
+        time, each level's trees in pack order, and a level whose entries
+        share one layout (every level of a feature tree) is parsed as one
+        matrix: a feature tree of millions of blobs is read in one pass. A
+        tree that holds blobs above its deepest level takes the depth-first
+        walk."""
+        paths, shas = [], []
+        level = [("", bytes.fromhex(self.oid))]
+        while level:
+            datas = self.odb.read_trees_ordered([sha for _, sha in level])
+            subtrees = []
+            if not _fixed_width_level(datas, [prefix for prefix, _ in level], subtrees, paths,
+                                      shas):
+                for (prefix, _), data in zip(level, datas):
+                    _parse_tree(data, prefix, subtrees, paths, shas)
+            if subtrees and paths:
+                return self._blob_columns_depth_first()
+            level = subtrees
+        return paths, np.frombuffer(b"".join(shas), dtype=np.uint8).reshape(-1, 20)
+
+    def _blob_columns_depth_first(self):
         paths, shas = [], []
         odb = self.odb
 
@@ -298,23 +334,67 @@ class TreeView:
             obj_type, data = odb.read_raw(oid)
             if obj_type != "tree":
                 raise ObjectFormatError(f"{oid} is a {obj_type}, expected tree")
-            if _fixed_width_blobs(data, prefix, paths, shas):
-                return
-            i, n = 0, len(data)
-            while i < n:
-                sp = data.index(b" ", i)
-                nul = data.index(b"\x00", sp)
-                name = data[sp + 1 : nul].decode("utf8")
-                sha = data[nul + 1 : nul + 21]
-                if data[i:sp] in _TREE_MODES:
-                    walk(sha.hex(), f"{prefix}{name}/")
-                else:
-                    paths.append(prefix + name)
-                    shas.append(sha)
-                i = nul + 21
+            subtrees = []
+            _parse_tree(data, prefix, subtrees, paths, shas, nested=walk)
 
         walk(self.oid, "")
         return paths, np.frombuffer(b"".join(shas), dtype=np.uint8).reshape(-1, 20)
+
+
+def _parse_tree(data, prefix, subtrees, paths, shas, nested=None):
+    """One tree object's entries: blobs appended to ``paths``/``shas``,
+    subtrees to ``subtrees`` as (prefix, 20-byte sha), or, given
+    ``nested(hex oid, prefix)``, walked in place (depth-first order)."""
+    if _fixed_width_blobs(data, prefix, paths, shas):
+        return
+    i, n = 0, len(data)
+    while i < n:
+        sp = data.index(b" ", i)
+        nul = data.index(b"\x00", sp)
+        name = data[sp + 1 : nul].decode("utf8")
+        sha = data[nul + 1 : nul + 21]
+        if data[i:sp] in _TREE_MODES:
+            if nested is not None:
+                nested(sha.hex(), f"{prefix}{name}/")
+            else:
+                subtrees.append((f"{prefix}{name}/", sha))
+        else:
+            paths.append(prefix + name)
+            shas.append(sha)
+        i = nul + 21
+
+
+def _fixed_width_level(datas, prefixes, subtrees, paths, shas):
+    """Every tree of one level parsed as one (entries, width) matrix when
+    all their entries share one mode and one name length (the levels of a
+    feature tree): blobs appended to ``paths``/``shas``, subtrees to
+    ``subtrees``. -> False, with nothing appended, for any other level."""
+    first = next((d for d in datas if d), None)
+    if first is None:
+        return False
+    sp = first.find(b" ")
+    nul = first.find(b"\x00", sp + 1)
+    width = nul + 21
+    if sp <= 0 or nul < 0 or any(len(d) % width for d in datas):
+        return False
+    rows = np.frombuffer(b"".join(datas), dtype=np.uint8).reshape(-1, width)
+    if not ((rows[:, : sp + 1] == rows[0, : sp + 1]).all() and (rows[:, nul] == 0).all()
+            and (rows[:, sp + 1 : nul] != 0).all()):
+        return False
+    name_len = nul - sp - 1
+    names = rows[:, sp + 1 : nul].tobytes().decode("utf8")
+    if len(names) != name_len * len(rows):
+        return False  # multi-byte characters: the sequential parse slices them
+    names = [names[k : k + name_len] for k in range(0, len(names), name_len)]
+    owners = [p for p, d in zip(prefixes, datas) for _ in range(len(d) // width)]
+    if first[:sp] in _TREE_MODES:
+        child = rows[:, nul + 1 :].tobytes()
+        subtrees.extend((f"{p}{name}/", child[20 * k : 20 * k + 20])
+                        for k, (p, name) in enumerate(zip(owners, names)))
+    else:
+        paths.extend([p + name for p, name in zip(owners, names)])
+        shas.append(rows[:, nul + 1 :].tobytes())
+    return True
 
 
 class BlobHandle:

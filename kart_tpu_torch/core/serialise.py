@@ -4,7 +4,7 @@ Datasets V3 format: msgpack with geometry values as ext type ``G``
 
 Counterpart of kart_tpu's ``core/serialise.py`` (``msg_pack``,
 ``msg_unpack``, ``msg_unpack_ext_raw``, ``json_pack``, ``hexhash``,
-``uint32hash``) over
+``b64hash``, ``uint32hash``) over
 the port's own msgpack codec (:mod:`kart_tpu_torch.core.msgpack`).
 """
 
@@ -84,6 +84,12 @@ def _sha256_of(*parts):
 def hexhash(*parts) -> str:
     """Truncated (160-bit) hex sha256, e.g. legend ids."""
     return _sha256_of(*parts).hexdigest()[:40]
+
+
+def b64hash(*parts) -> str:
+    """Truncated (160-bit) urlsafe-base64 sha256: the tree names of
+    hash-keyed feature paths."""
+    return base64.urlsafe_b64encode(_sha256_of(*parts).digest()[:20]).decode("ascii")
 
 
 def uint32hash(*parts) -> int:

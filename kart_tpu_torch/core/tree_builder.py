@@ -1,8 +1,10 @@
 """Batched multi-path tree writer: collects blob inserts and removals at
 any depth, then :meth:`TreeBuilder.flush` rewrites only the changed spine
-of the base tree, bottom-up, writing each new tree object once. A tree
-left with no entries is dropped from its parent; an all-deleted root
-flushes to the empty tree.
+of the base tree, bottom-up, writing each new tree object once. It reads
+the base trees it rewrites a level at a time in pack order, and writes a
+level's new trees in one batch (a merge of a hash-keyed dataset may
+rewrite hundreds of thousands of leaves). A tree left with no entries is dropped from its parent; an
+all-deleted root flushes to the empty tree.
 
 Counterpart of kart_tpu's ``core/tree_builder.py``.
 """
@@ -10,7 +12,6 @@ Counterpart of kart_tpu's ``core/tree_builder.py``.
 from kart_tpu_torch.core.objects import (
     MODE_BLOB,
     MODE_TREE,
-    ObjectFormatError,
     serialise_records,
     tree_record,
     tree_records,
@@ -71,7 +72,7 @@ class TreeBuilder:
 
     def flush(self):
         """Apply the pending changes to the base tree; -> new root tree oid."""
-        result = self._build(self.base_tree_oid, self._changes)
+        result = self._build_levels()
         self._changes = {}
         self._count = 0
         if result is None:
@@ -79,36 +80,65 @@ class TreeBuilder:
         self.base_tree_oid = result
         return result
 
-    def _build(self, base_oid, changes):
-        """-> new tree oid, or None when the tree ends up empty. Entries are
-        kept as their bytes, so an unchanged one is copied, not re-encoded."""
-        if changes.pop(_CLEARED, False):
-            base_oid = None
-        records = {}
-        if base_oid is not None:
-            obj_type, data = self.odb.read_raw(base_oid)
-            if obj_type != "tree":
-                raise ObjectFormatError(f"{base_oid} is a {obj_type}, expected tree")
-            records = tree_records(data)
+    def _build_levels(self):
+        """The changed spine, a level at a time: top-down, each level's base
+        trees read in one batch (pack order) and parsed; then bottom-up,
+        each node's entries patched (its subtrees' results from the level
+        below) and the level's new trees written in one batch. Entries are
+        kept as their bytes, so an unchanged one is copied, not re-encoded.
+        -> the new root oid, or None when the tree ends up empty."""
+        levels = []  # per depth: [base oid or None, changes, base records]
+        level = [[self.base_tree_oid, self._changes]]
+        while level:
+            for node in level:
+                if node[1].pop(_CLEARED, False):
+                    node[0] = None
+            based = [node for node in level if node[0] is not None]
+            datas = self.odb.read_trees_ordered([bytes.fromhex(node[0]) for node in based])
+            records = {id(node): tree_records(data) for node, data in zip(based, datas)}
+            below = []
+            for node in level:
+                recs = records.get(id(node), {})
+                node.append(recs)
+                for name, change in node[1].items():
+                    if isinstance(change, dict):
+                        child = recs.get(name)
+                        below.append([child[1][-20:].hex()
+                                      if child is not None and child[0] == MODE_TREE else None,
+                                      change])
+            levels.append(level)
+            level = below
+        results = {}  # id(changes) -> new oid or None
+        for level in reversed(levels):
+            for node, oid in zip(level, _level_results(level, results, self.odb)):
+                results[id(node[1])] = oid
+        return results[id(self._changes)]
+
+
+def _level_results(level, results, odb):
+    """-> each node's new tree oid (or its base oid when unchanged, None
+    when empty), its subtrees' results read from ``results``; the new trees
+    written in one batch."""
+    out, payloads = [], []
+    for base_oid, changes, recs in level:
         for name, change in changes.items():
             if change is _DELETED:
-                records.pop(name, None)
+                recs.pop(name, None)
             elif isinstance(change, dict):
-                base_child = records.get(name)
-                child_oid = self._build(
-                    base_child[1][-20:].hex()
-                    if base_child is not None and base_child[0] == MODE_TREE else None,
-                    change,
-                )
+                child_oid = results[id(change)]
                 if child_oid is None:
-                    records.pop(name, None)
+                    recs.pop(name, None)
                 else:
-                    records[name] = (MODE_TREE, tree_record(name, MODE_TREE, child_oid))
+                    recs[name] = (MODE_TREE, tree_record(name, MODE_TREE, child_oid))
             else:
                 mode, oid = change
-                records[name] = (mode, tree_record(name, mode, oid))
-        if not records:
-            return None
-        if base_oid is not None and not changes:
-            return base_oid
-        return self.odb.write_raw("tree", serialise_records(records))
+                recs[name] = (mode, tree_record(name, mode, oid))
+        if not recs:
+            out.append(None)
+        elif base_oid is not None and not changes:
+            out.append(base_oid)
+        else:
+            out.append(len(payloads))
+            payloads.append(serialise_records(recs))
+    oids = odb.write_raw_many("tree", payloads)
+    return [bytes(oids[x]).hex() if isinstance(x, int) else x for x in out]

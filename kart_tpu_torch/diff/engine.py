@@ -10,9 +10,13 @@ pure-Python route), ``get_feature_diff``, ``get_feature_diff_columnar``,
 ``_prefilter_rect``. The repo-level entry points take ``device`` (``None``
 = the card) and route a dataset to the columnar classify when both of its
 revisions have a sidecar, else to the tree walk. Under a spatial filter
-spec, a sidecar pair with envelope columns is prefiltered first (K2 on
-each side, the survivors compacted, then K1 on them); a pair without
-envelopes is classified whole and left to the writers' per-value filter.
+spec, an int-pk sidecar pair with envelope columns is prefiltered first
+(K2 on each side, the survivors compacted, then K1 on them); any other
+pair is classified whole and left to the writers' per-value filter. A
+hash-keyed dataset's keys are hashes of its filenames: its pks come from
+the changed rows' paths, the fast count and the fused row plan decline it
+(its collision guard needs the changed rows), and colliding keys send it
+to the tree walk, as in kart_tpu.
 """
 
 from typing import NamedTuple
@@ -24,6 +28,7 @@ from kart_tpu_torch.diff import sidecar
 from kart_tpu_torch.diff.backend import select_backend
 from kart_tpu_torch.diff.key_filters import RepoKeyFilter
 from kart_tpu_torch.diff.structs import DatasetDiff, Delta, DeltaDiff, KeyValue, RepoDiff
+from kart_tpu_torch.models.paths import PathEncoder, decode_filenames
 from kart_tpu_torch.ops.blocks import PAD_KEY, FeatureBlock, bucket_size
 from kart_tpu_torch.ops.diff_kernel import (
     DELETE,
@@ -205,43 +210,79 @@ def get_feature_diff(base_ds, target_ds, ds_filter=None):
     return result
 
 
+def _pks_for_rows(block, idx, keys):
+    """The pk tuples of ``block``'s rows ``idx`` (``keys`` their keys as a
+    list): the key itself in an int-pk block (no paths: they follow from
+    the pks), else the decoded filename of each row's path."""
+    if block.paths is None:
+        return [(k,) for k in keys]
+    return decode_filenames(_filenames(block, idx))
+
+
+def _filenames(block, idx):
+    """The filenames of ``block``'s rows ``idx``, read in one batch from a
+    sidecar's paths section (an int-pk block's from its keys)."""
+    if block.paths is None:
+        return [PathEncoder.encode_filename([k]) for k in np.asarray(block.keys[idx]).tolist()]
+    take = getattr(block.paths, "take", None)
+    paths = take(idx) if take is not None else [block.path_for_index(i) for i in idx.tolist()]
+    return [p.rsplit("/", 1)[-1] for p in paths]
+
+
+def _hash_keyed(ds):
+    return ds.path_encoder.scheme != "int"
+
+
 def get_feature_diff_columnar(base_ds, target_ds, ds_filter=None, *, blocks, device=None):
-    """The columnar variant of :func:`get_feature_diff` for an int-pk block
-    pair: one K1 classify (:func:`classify_changed`), then lazy deltas for
-    the changed rows only, their values resolved by oid straight from the
-    sidecar columns."""
+    """The columnar variant of :func:`get_feature_diff` for a block pair:
+    one K1 classify (:func:`classify_changed`), then lazy deltas for the
+    changed rows only, their values resolved by oid straight from the
+    sidecar columns. Hash-keyed blocks take kart_tpu's tree walk when two
+    rows of one side share a key (before the classify), and when an
+    updated key names another filename on each side (a deleted and an
+    inserted pk whose hashes collide); each counts
+    ``hash_collision_fallbacks``."""
     feature_filter = ds_filter["feature"] if ds_filter is not None else None
     old_block, new_block = blocks
+    if old_block.has_key_collisions() or new_block.has_key_collisions():
+        runtime.count("hash_collision_fallbacks")
+        return get_feature_diff(base_ds, target_ds, ds_filter)
     res = classify_changed(old_block, new_block, device)
     old_cls = res.old_class.cpu().numpy()[res.old_idx].tolist()
     new_cls = res.new_class.cpu().numpy()[res.new_idx].tolist()
+    if _hash_keyed(base_ds):
+        new_names = set(_filenames(new_block, res.new_idx))
+        updated = res.old_idx[np.asarray(old_cls, dtype=np.int64) == UPDATE]
+        if any(name not in new_names for name in _filenames(old_block, updated)):
+            runtime.count("hash_collision_fallbacks")
+            return get_feature_diff(base_ds, target_ds, ds_filter)
     old_keys = np.asarray(old_block.keys[res.old_idx]).tolist()
     new_keys = np.asarray(new_block.keys[res.new_idx]).tolist()
+    old_pks = _pks_for_rows(old_block, res.old_idx, old_keys)
     new_hex_by_key = dict(zip(new_keys, res.new_hex))
     result = DeltaDiff()
-    for key, cls, oid in zip(old_keys, old_cls, res.old_hex):
+    for k, pks, cls, oid in zip(old_keys, old_pks, old_cls, res.old_hex):
+        key = pks[0] if len(pks) == 1 else pks
         if feature_filter is not None and key not in feature_filter:
             continue
-        old_kv = KeyValue((key, base_ds.get_feature_promise_from_oid((key,), oid)))
+        old_kv = KeyValue((key, base_ds.get_feature_promise_from_oid(pks, oid)))
         if cls == DELETE:
             result.add_delta(Delta.delete(old_kv))
         elif cls == UPDATE:
-            new_oid = new_hex_by_key[key]
-            new_kv = KeyValue((key, target_ds.get_feature_promise_from_oid((key,), new_oid)))
+            new_kv = KeyValue((key, target_ds.get_feature_promise_from_oid(
+                pks, new_hex_by_key[k])))
             result.add_delta(Delta.update(old_kv, new_kv))
-    for key, cls, oid in zip(new_keys, new_cls, res.new_hex):
-        if cls != INSERT or (feature_filter is not None and key not in feature_filter):
+    inserted = np.asarray(new_cls, dtype=np.int64) == INSERT
+    ins_idx = res.new_idx[inserted]
+    ins_keys = [k for k, ins in zip(new_keys, inserted.tolist()) if ins]
+    ins_hex = [h for h, ins in zip(res.new_hex, inserted.tolist()) if ins]
+    for pks, oid in zip(_pks_for_rows(new_block, ins_idx, ins_keys), ins_hex):
+        key = pks[0] if len(pks) == 1 else pks
+        if feature_filter is not None and key not in feature_filter:
             continue
         result.add_delta(Delta.insert(
-            KeyValue((key, target_ds.get_feature_promise_from_oid((key,), oid)))))
+            KeyValue((key, target_ds.get_feature_promise_from_oid(pks, oid)))))
     return result
-
-
-def _require_int_paths(*datasets):
-    """Datasets' path encoders are read here so that a hash-keyed dataset
-    raises NotYetImplemented (from ``path_encoder``) before any routing."""
-    for ds in datasets:
-        ds.path_encoder  # noqa: B018
 
 
 def _sidecar_blocks(base_ds, target_ds):
@@ -267,11 +308,10 @@ def _feature_diff_routed(base_ds, target_ds, ds_filter=None, device=None,
     if _tree_oid(base_ds) == _tree_oid(target_ds):
         return DeltaDiff()
     if base_ds is not None and target_ds is not None:
-        _require_int_paths(base_ds, target_ds)
         blocks = _sidecar_blocks(base_ds, target_ds)
         if blocks is not None:
             rect = _prefilter_rect(spatial_filter_spec)
-            if rect is not None:
+            if rect is not None and not _hash_keyed(base_ds):
                 blocks = spatial_prefilter_blocks(*blocks, rect, device) or blocks
             return get_feature_diff_columnar(base_ds, target_ds, ds_filter, blocks=blocks,
                                              device=device)
@@ -283,7 +323,6 @@ def _both_revisions(base_rs, target_rs, ds_path):
     target_ds = target_rs.datasets.get(ds_path) if target_rs is not None else None
     if base_ds is None or target_ds is None:
         return None  # whole-dataset add/delete: the delta path handles it
-    _require_int_paths(base_ds, target_ds)
     return base_ds, target_ds
 
 
@@ -295,12 +334,15 @@ def get_dataset_feature_count_fast(base_rs, target_rs, ds_path, device=None,
     whose padded envelope meets the filter's rectangle counts, whatever its
     exact geometry (kart_tpu's deliberate fail-open upper bound). -> int,
     or None when the columnar route cannot serve it (dataset added or
-    removed, missing sidecars, or a filter with no envelope columns)."""
+    removed, a hash-keyed version, whose collision guard needs the changed
+    rows, missing sidecars, or a filter with no envelope columns)."""
     pair = _both_revisions(base_rs, target_rs, ds_path)
     if pair is None:
         return None
     if _tree_oid(pair[0]) == _tree_oid(pair[1]):
         return 0
+    if _hash_keyed(pair[0]) or _hash_keyed(pair[1]):
+        return None
     blocks = _sidecar_blocks(*pair)
     if blocks is None:
         return None
@@ -318,13 +360,15 @@ def get_feature_diff_rows(base_rs, target_rs, ds_path, device=None):
     pk like the delta route's ``sorted_items``. -> {"count": m, "pks",
     "old_rows"/"new_rows" (-1 for an absent side), "old_block"/
     "new_block", "base_ds"/"target_ds"}, or None when the columnar route
-    cannot serve it."""
+    cannot serve it (as for the fast count)."""
     pair = _both_revisions(base_rs, target_rs, ds_path)
     if pair is None:
         return None
     base_ds, target_ds = pair
     if _tree_oid(base_ds) == _tree_oid(target_ds):
         return {"count": 0}
+    if _hash_keyed(base_ds) or _hash_keyed(target_ds):
+        return None
     blocks = _sidecar_blocks(base_ds, target_ds)
     if blocks is None:
         return None

@@ -27,7 +27,6 @@ import numpy as np
 
 from kart_tpu_torch.annotations import DiffAnnotations
 from kart_tpu_torch.core.objects import MODE_TREE, ObjectFormatError, tree_records
-from kart_tpu_torch.core.repo import NotYetImplemented
 from kart_tpu_torch.diff import sidecar
 from kart_tpu_torch.diff.backend import select_backend
 from kart_tpu_torch.ops.blocks import FeatureBlock
@@ -101,12 +100,8 @@ def _estimate_columnar(repo, old_ds, new_ds, accuracy, device=None):
             new_tree.oid if new_tree is not None else None):
         return 0  # an unchanged dataset: the sidecars are never read
     for ds in (old_ds, new_ds):
-        try:
-            scheme = ds.path_encoder.scheme
-        except NotYetImplemented:
+        if ds.path_encoder.scheme != "int":
             return None  # hash keys: their residues are not pk classes
-        if scheme != "int":
-            return None
     if not (sidecar.has_sidecar(repo, old_ds) and sidecar.has_sidecar(repo, new_ds)):
         return None
     old_block = sidecar.load_block(repo, old_ds)

@@ -1,5 +1,5 @@
 """Columnar sidecar files (KCOL1): read by mmap, and written byte for byte
-as kart_tpu writes them for int-pk datasets.
+as kart_tpu writes them.
 
 Layout (one file per feature tree, ``.kart/columnar/<tree-oid>.kcol``):
 
@@ -7,22 +7,26 @@ Layout (one file per feature tree, ``.kart/columnar/<tree-oid>.kcol``):
     header  one json line: {"count": N, "keys_are_pks": bool,
                             "paths_bytes": M, "envelope_bytes": E,
                             "agg_block_rows": B}   (B only with aggregates)
-    arrays  keys   int64[N]    little-endian, sorted
+    arrays  keys   int64[N]    little-endian, sorted: the pk, or the
+                               filename hash of a hash-keyed dataset
             oids   uint8[N,20]
-            offs   uint32[N+1], paths utf8   (hash-keyed files only)
+            offs   uint32[N+1], paths utf8   (hash-keyed files only: the
+                                              blob paths under feature/)
             envs   float32[N,4]              (when envelope_bytes > 0)
             agg    float32[ceil(N/B),4]      (when agg_block_rows is set:
                                               per-block union wsen)
             flags  uint8[ceil(N/B)]          (non-zero: aggregate not tight)
             geom   bytes                     (when geom_bytes is set)
 
-This port reads int-pk files only (``keys_are_pks``); hash-keyed files are
-not read yet. The ``geom`` section (the vertex column of
+A hash-keyed file's paths are read through :class:`LazyPaths`, a view
+that decodes one path when it is asked for, so a diff decodes only its
+changed rows' filenames. The ``geom`` section (the vertex column of
 :mod:`kart_tpu_torch.geom`) is written as kart_tpu writes it, and skipped
 on read: nothing in the port decodes it yet. The repo-level helpers
 (:func:`sidecar_file`, :func:`has_sidecar`, :func:`load_block`,
-:func:`save_sidecar`) mirror kart_tpu's ``diff/sidecar.py``; building a
-sidecar from a tree walk or deriving one from a commit is not ported.
+:func:`save_sidecar`, :func:`build_sidecar`) mirror kart_tpu's
+``diff/sidecar.py``; deriving a sidecar from a commit and the importer's
+capture are not ported (the port does not import).
 """
 
 import json
@@ -31,7 +35,7 @@ import os
 import numpy as np
 
 from kart_tpu_torch.geom import encode_vertex_column
-from kart_tpu_torch.ops.blocks import PAD_KEY, FeatureBlock, bucket_size
+from kart_tpu_torch.ops.blocks import PAD_KEY, FeatureBlock, bucket_size, hash_keys_for_paths
 
 MAGIC = b"KCOL1\n"
 
@@ -43,8 +47,49 @@ class SidecarError(ValueError):
     """A sidecar file is truncated or malformed."""
 
 
-class UnsupportedSidecar(SidecarError):
-    """A well-formed sidecar this port does not read (hash-keyed)."""
+class LazyPaths:
+    """List-like view of a hash-keyed sidecar's paths section (offsets and
+    utf8 bytes): a path is decoded only when it is looked up, alone or as
+    one of the rows :meth:`take` decodes in a batch."""
+
+    __slots__ = ("offs", "data")
+
+    def __init__(self, offs, data):
+        self.offs = offs
+        self.data = memoryview(data)
+
+    def __len__(self):
+        return len(self.offs) - 1
+
+    def __getitem__(self, i):
+        return str(self.data[self.offs[i] : self.offs[i + 1]], "utf8")
+
+    def take(self, rows):
+        """The paths of ``rows`` (int array), as a list of str."""
+        rows = np.asarray(rows, dtype=np.int64)
+        data = self.data
+        return [str(data[a:b], "utf8")
+                for a, b in zip(self.offs[rows].tolist(), self.offs[rows + 1].tolist())]
+
+
+def _paths_section(paths, order):
+    """Paths in ``order`` -> (uint32 offsets (N+1,), utf8 bytes). ``paths``
+    is a list of str, or an (N, W) uint8 matrix of ascii paths all W
+    bytes long."""
+    if isinstance(paths, np.ndarray):
+        n, width = paths.shape
+        return (np.arange(n + 1, dtype=np.int64) * width).astype("<u4"), paths[order].tobytes()
+    ordered = [paths[i] for i in order.tolist()]
+    text = "".join(ordered)
+    data = text.encode("utf8")
+    if len(data) == len(text):  # ascii: a path's byte length is its length
+        lengths = np.fromiter(map(len, ordered), dtype=np.int64, count=len(ordered))
+    else:
+        lengths = np.fromiter((len(p.encode("utf8")) for p in ordered), dtype=np.int64,
+                              count=len(ordered))
+    offs = np.zeros(len(ordered) + 1, dtype="<u4")
+    offs[1:] = np.cumsum(lengths)
+    return offs, data
 
 
 def block_aggregates(env_arr, block_rows, chunk_rows=4_194_304):
@@ -84,14 +129,18 @@ def block_aggregates(env_arr, block_rows, chunk_rows=4_194_304):
     return agg, flags
 
 
-def save_sidecar_file(path, keys, oids_u8, envelopes=None, vertices=None):
-    """Write an int-pk sidecar. ``keys`` int64 (N,), ``oids_u8`` uint8
-    (N, 20), ``envelopes`` (N, 4) wsen or None, ``vertices`` a
-    :class:`~kart_tpu_torch.geom.VertexColumn` of N rows or None -- not
-    necessarily sorted. Atomic (tmp + rename). -> path."""
+def save_sidecar_file(path, keys, oids_u8, envelopes=None, vertices=None, *, paths=None):
+    """Write a sidecar. ``keys`` int64 (N,), ``oids_u8`` uint8 (N, 20),
+    ``envelopes`` (N, 4) wsen or None, ``vertices`` a
+    :class:`~kart_tpu_torch.geom.VertexColumn` of N rows or None, ``paths``
+    the N blob paths of a hash-keyed dataset, whose keys are their hashes
+    (a list, or a fixed-width matrix: :func:`_paths_section`), or None for
+    an int-pk one -- not necessarily sorted. Atomic (tmp +
+    rename). -> path."""
     order = np.argsort(keys, kind="stable")
     keys = np.ascontiguousarray(np.asarray(keys)[order], dtype="<i8")
     oids_u8 = np.ascontiguousarray(np.asarray(oids_u8)[order], dtype=np.uint8)
+    offs, path_blob = (None, b"") if paths is None else _paths_section(paths, order)
     env_arr = agg = flags = None
     if envelopes is not None:
         env_arr = np.ascontiguousarray(np.asarray(envelopes)[order], dtype="<f4")
@@ -102,8 +151,8 @@ def save_sidecar_file(path, keys, oids_u8, envelopes=None, vertices=None):
         geom_blob = encode_vertex_column(vertices.take(order))
     header_fields = {
         "count": int(len(keys)),
-        "keys_are_pks": True,
-        "paths_bytes": 0,
+        "keys_are_pks": paths is None,
+        "paths_bytes": len(path_blob),
         "envelope_bytes": int(env_arr.nbytes) if env_arr is not None else 0,
     }
     if agg is not None:
@@ -117,6 +166,9 @@ def save_sidecar_file(path, keys, oids_u8, envelopes=None, vertices=None):
         f.write(header)
         f.write(keys.tobytes())
         f.write(oids_u8.tobytes())
+        if offs is not None:
+            f.write(offs.tobytes())
+            f.write(path_blob)
         if env_arr is not None:
             f.write(env_arr.tobytes())
         if agg is not None:
@@ -130,9 +182,9 @@ def save_sidecar_file(path, keys, oids_u8, envelopes=None, vertices=None):
 
 def load_block_file(path, pad=False):
     """KCOL1 file -> FeatureBlock of mmap views (keys, oids, envelopes and
-    block aggregates); ``pad=True`` copies keys/oids into bucket-padded
-    arrays. Raises SidecarError on a malformed file and UnsupportedSidecar
-    on a hash-keyed one."""
+    block aggregates; a hash-keyed file's paths as :class:`LazyPaths`);
+    ``pad=True`` copies keys/oids into bucket-padded arrays. Raises
+    SidecarError on a malformed file."""
     mm = np.memmap(path, dtype=np.uint8, mode="r")
     try:
         if bytes(mm[: len(MAGIC)]) != MAGIC:
@@ -140,12 +192,12 @@ def load_block_file(path, pad=False):
         nl = int(np.flatnonzero(mm[len(MAGIC) : len(MAGIC) + 256] == 0x0A)[0])
         header = json.loads(bytes(mm[len(MAGIC) : len(MAGIC) + nl]))
         n = int(header["count"])
-        if not header["keys_are_pks"]:
-            raise UnsupportedSidecar(
-                f"{path}: hash-keyed sidecar; only int-pk sidecars are read"
-            )
+        hashed = not header["keys_are_pks"]
+        paths_bytes = int(header.get("paths_bytes", 0)) if hashed else 0
         pos = len(MAGIC) + nl + 1
         end = pos + 28 * n + int(header.get("envelope_bytes", 0))
+        if hashed:
+            end += 4 * (n + 1) + paths_bytes
         block_rows = int(header.get("agg_block_rows", 0))
         if header.get("envelope_bytes") and block_rows:
             end += 17 * -(-n // block_rows)
@@ -155,6 +207,12 @@ def load_block_file(path, pad=False):
         pos += 8 * n
         oids_u8 = np.frombuffer(mm, dtype=np.uint8, count=20 * n, offset=pos)
         pos += 20 * n
+        paths = None
+        if hashed:
+            offs = np.frombuffer(mm, dtype="<u4", count=n + 1, offset=pos)
+            pos += 4 * (n + 1)
+            paths = LazyPaths(offs, mm[pos : pos + paths_bytes])
+            pos += paths_bytes
         envelopes = env_blocks = None
         if header.get("envelope_bytes"):
             envelopes = np.frombuffer(mm, dtype="<f4", count=4 * n, offset=pos).reshape(n, 4)
@@ -182,7 +240,7 @@ def load_block_file(path, pad=False):
         oids_p[:n] = oid_rows
         keys, oid_rows = keys_p, oids_p
     return FeatureBlock(keys, oid_rows, n, envelopes=envelopes,
-                        env_blocks=env_blocks)
+                        env_blocks=env_blocks, paths=paths)
 
 
 def sidecar_file(repo, feature_tree_oid):
@@ -210,9 +268,25 @@ def load_block(repo, dataset, pad=False):
         return None
 
 
-def save_sidecar(repo, feature_tree_oid, keys, oids_u8, envelopes=None, vertices=None):
-    """Persist an int-pk sidecar for a feature tree (keys and oids need not
-    be sorted). -> path."""
+def save_sidecar(repo, feature_tree_oid, keys, oids_u8, envelopes=None, vertices=None, *,
+                 paths=None):
+    """Persist a sidecar for a feature tree (keys, oids and a hash-keyed
+    dataset's ``paths`` need not be sorted). -> path."""
     os.makedirs(os.path.join(repo.gitdir, "columnar"), exist_ok=True)
     return save_sidecar_file(sidecar_file(repo, feature_tree_oid), keys, oids_u8, envelopes,
-                             vertices)
+                             vertices, paths=paths)
+
+
+def build_sidecar(repo, dataset, pad=False):
+    """Walk the dataset's feature tree once and persist its sidecar: pks as
+    keys, or for a hash-keyed dataset the filename hashes with the paths.
+    -> the FeatureBlock read back, or None when it has no feature tree."""
+    feature_tree = dataset.feature_tree
+    if feature_tree is None:
+        return None
+    paths, pk_arr, oids_u8 = dataset.feature_index()
+    if pk_arr is not None:
+        save_sidecar(repo, feature_tree.oid, pk_arr.astype(np.int64), oids_u8)
+    else:
+        save_sidecar(repo, feature_tree.oid, hash_keys_for_paths(paths), oids_u8, paths=paths)
+    return load_block(repo, dataset, pad=pad)

@@ -7,16 +7,23 @@ through the same rule on the host. Clean changes are written to a merged
 tree at once; conflicts become a :class:`~kart_tpu_torch.merge.index
 .MergeIndex` and move the repository into the MERGING state.
 
+A hash-keyed dataset's keys are hashes of its filenames. When two rows of
+one version share a key, the dataset is merged by path on the host with
+kart_tpu's dict semantics (:func:`_merge_dataset_features_host`, counted
+as ``hash_collision_fallbacks``): a second semantic path, not a fallback
+from the kernel. Its conflict labels are decoded from the paths when they
+are first read (:class:`_DeferredLabels`).
+
 Counterpart of kart_tpu's ``merge/__init__.py``, with two differences of
-policy: nothing falls back (kart_tpu's host path for colliding hash keys,
-its sharded, streamed and host routes of the classify), and the working
-copy is never touched. Where kart_tpu would reset a working copy, the port
-raises :class:`NotYetImplemented` before it writes anything. Hash-keyed
-datasets raise :class:`NotYetImplemented` when their blocks are read.
+policy: the classify never falls back (kart_tpu's sharded, streamed and
+host routes of it), and the working copy is never touched. Where kart_tpu
+would reset a working copy, the port raises :class:`NotYetImplemented`
+before it writes anything.
 """
 
 import numpy as np
 
+from kart_tpu_torch import runtime
 from kart_tpu_torch.core.repo import (
     MERGE_BRANCH,
     MERGE_HEAD,
@@ -28,6 +35,7 @@ from kart_tpu_torch.core.repo import (
 )
 from kart_tpu_torch.core.structure import DATASET_DIRNAMES, RepoStructure
 from kart_tpu_torch.core.tree_builder import TreeBuilder
+from kart_tpu_torch.diff import sidecar
 from kart_tpu_torch.merge.index import (
     AncestorOursTheirs,
     ColumnarConflicts,
@@ -38,6 +46,7 @@ from kart_tpu_torch.merge.index import (
     PkLabels,
     RowPaths,
 )
+from kart_tpu_torch.models.paths import decode_filenames
 from kart_tpu_torch.ops.blocks import FeatureBlock, unpack_oid_hex
 from kart_tpu_torch.ops.merge_kernel import CONFLICT, TAKE_THEIRS, merge_classify
 
@@ -64,17 +73,29 @@ class MergeResult:
 
 def _dataset_blocks(structures, ds_path):
     """Per-version FeatureBlock of ``ds_path`` (an absent dataset gives an
-    empty block) and the versions' datasets."""
+    empty block) and the versions' datasets. A hash-keyed version with a
+    sidecar is read from it (keys, oids and its paths section, the same
+    columns a walk of its tree gives, as mmap views); any other version
+    walks its feature tree."""
     blocks, datasets = [], []
     for structure in structures:
         ds = structure.datasets.get(ds_path) if structure.tree is not None else None
         datasets.append(ds)
+        block = None
         if ds is None:
-            blocks.append(FeatureBlock.from_arrays(
-                np.zeros(0, dtype=np.int64), np.zeros((0, 5), np.uint32), []))
-        else:
-            blocks.append(FeatureBlock.from_dataset(ds))
+            block = FeatureBlock.from_arrays(
+                np.zeros(0, dtype=np.int64), np.zeros((0, 5), np.uint32), [])
+        elif ds.path_encoder.scheme != "int" and ds.repo is not None:
+            block = sidecar.load_block(ds.repo, ds)
+        blocks.append(block if block is not None else FeatureBlock.from_dataset(ds))
     return blocks, datasets
+
+
+def _paths_of(block, rows):
+    """The paths of ``block``'s rows ``rows``, a sidecar's read in one
+    batch."""
+    take = getattr(block.paths, "take", None)
+    return take(rows) if take is not None else [block.paths[r] for r in rows.tolist()]
 
 
 def _keys_to_block_rows(block, keys):
@@ -87,10 +108,28 @@ def _keys_to_block_rows(block, keys):
     return np.where((real[idxc] == keys) & (idx < block.count), idxc, -1)
 
 
+def _feature_label(ds_path, datasets, rel_paths):
+    """The conflict label ``<ds>:feature:<pk>`` (a composite pk's values
+    joined by commas) from the first version that can decode its path,
+    else ``<ds>:feature:<path>``."""
+    for ds, rel in zip(datasets, rel_paths):
+        if ds is not None and rel is not None:
+            try:
+                pks = ds.decode_path_to_pks(rel)
+            except Exception:  # noqa: BLE001 - kart_tpu labels an undecodable name by its path
+                continue
+            return f"{ds_path}:feature:{','.join(str(pk) for pk in pks)}"
+    rel = next((r for r in rel_paths if r), "?")
+    return f"{ds_path}:feature:{rel}"
+
+
 def _merge_dataset_features(ds_path, structures, tree_builder, device):
     """The per-feature 3-way of one dataset, one classify launch. Applies
     the clean theirs-changes to ``tree_builder``; -> (conflicts, stats)."""
     blocks, datasets = _dataset_blocks(structures, ds_path)
+    if any(b.has_key_collisions() for b in blocks):
+        runtime.count("hash_collision_fallbacks")
+        return _merge_dataset_features_host(ds_path, blocks, datasets, tree_builder)
     a_block, o_block, t_block = blocks
     union, decision, _presence, stats = merge_classify(a_block, o_block, t_block, device)
 
@@ -104,11 +143,11 @@ def _merge_dataset_features(ds_path, structures, tree_builder, device):
     o_rows = _keys_to_block_rows(o_block, take_keys)
     present = t_rows >= 0
     rows = t_rows[present]
-    for row, oid in zip(rows.tolist(), unpack_oid_hex(t_block.oids[rows])):
-        tree_builder.insert(f"{inner}/feature/{t_block.paths[row]}", oid)
-    for row in o_rows[~present].tolist():
-        if row >= 0:
-            tree_builder.remove(f"{inner}/feature/{o_block.paths[row]}")
+    for path, oid in zip(_paths_of(t_block, rows), unpack_oid_hex(t_block.oids[rows])):
+        tree_builder.insert(f"{inner}/feature/{path}", oid)
+    gone = o_rows[~present]
+    for path in _paths_of(o_block, gone[gone >= 0]):
+        tree_builder.remove(f"{inner}/feature/{path}")
 
     conflict_idx = np.nonzero(decision == CONFLICT)[0]
     return materialise_conflicts(ds_path, blocks, datasets, inner, union, conflict_idx), stats
@@ -124,16 +163,18 @@ def materialise_conflicts(ds_path, blocks, datasets, inner, union, conflict_idx)
     n = len(conflict_keys)
     prefix = f"{inner}/feature/"
     versions = []
+    rows_per_block = []
     pk_path_cols = {}  # encoder id -> one shared EncodedPkPaths
     for block, ds in zip(blocks, datasets):
         rows = _keys_to_block_rows(block, conflict_keys)
+        rows_per_block.append(rows)
         present = rows >= 0
         oids_u8 = np.zeros((n, 20), dtype=np.uint8)
         if np.any(present):
             sel = np.ascontiguousarray(block.oids[rows[present]])
             oids_u8[present] = sel.view(np.uint8).reshape(-1, 20)
         encoder = ds.path_encoder if ds is not None else None
-        if encoder is not None:
+        if encoder is not None and encoder.scheme == "int":
             # the path is a function of the pk: versions with one encoder
             # share one lazy column
             paths = pk_path_cols.get(id(encoder))
@@ -142,9 +183,109 @@ def materialise_conflicts(ds_path, blocks, datasets, inner, union, conflict_idx)
         else:
             paths = RowPaths(prefix, block.paths, rows)
         versions.append((present, oids_u8, paths))
-    # every version is int-pk (a hash-keyed one raised when its block was
-    # read), so the labels derive from the key column
-    return ColumnarConflicts(PkLabels(ds_path, conflict_keys), versions)
+    schemes = {ds.path_encoder.scheme for ds in datasets if ds is not None}
+    if schemes == {"int"}:
+        # the keys are the pks: the labels derive from the key column
+        labels = PkLabels(ds_path, conflict_keys)
+    else:
+        # hash keys, or versions whose encoders differ (a pk type change):
+        # each conflict's label comes from a version that holds it
+        labels = _DeferredLabels(ds_path, datasets, blocks, rows_per_block)
+    return ColumnarConflicts(labels, versions)
+
+
+class _DeferredLabels:
+    """The label column of a dataset with hash keys: the paths are decoded
+    when the labels are first read (serialisation, conflict listing), once."""
+
+    __slots__ = ("ds_path", "datasets", "blocks", "rows_per_block", "_batch")
+
+    def __init__(self, ds_path, datasets, blocks, rows_per_block):
+        self.ds_path = ds_path
+        self.datasets = datasets
+        self.blocks = blocks
+        self.rows_per_block = rows_per_block
+        self._batch = None
+
+    def __len__(self):
+        return len(self.rows_per_block[0])
+
+    def __getitem__(self, i):
+        return self.batch()[i]
+
+    def batch(self):
+        if self._batch is None:
+            self._batch = _conflict_labels_batch(self.ds_path, self.datasets, self.blocks,
+                                                 self.rows_per_block)
+        return self._batch
+
+
+def _conflict_labels_batch(ds_path, datasets, blocks, rows_per_block):
+    """Labels ``<ds>:feature:<pk>`` of every conflict, each decoded from
+    the path of the first version (ancestor, ours, theirs) that holds it,
+    with that version's encoder, all of a version's paths in one batch (an
+    undecodable batch is labelled one path at a time)."""
+    n = len(rows_per_block[0])
+    labels = [None] * n
+    for v, (rows, block) in enumerate(zip(rows_per_block, blocks)):
+        row_list, found = rows.tolist(), (rows >= 0).tolist()
+        pending = [i for i in range(n) if labels[i] is None and found[i]]
+        if not pending:
+            continue
+        take = getattr(block.paths, "take", None)
+        rels = (take(rows[np.asarray(pending, dtype=np.int64)]) if take is not None
+                else [block.paths[row_list[i]] for i in pending])
+        ds = datasets[v]
+        encoder = ds.path_encoder if ds is not None else None
+        if encoder is not None:
+            try:
+                if encoder.scheme == "int":
+                    pk_parts = encoder.decode_paths_batch(rels).tolist()
+                else:
+                    pk_parts = [",".join(str(pk) for pk in pks)
+                                for pks in decode_filenames([r.rsplit("/", 1)[-1] for r in rels])]
+            except Exception:  # noqa: BLE001 - kart_tpu re-derives each label below
+                pk_parts = None
+            if pk_parts is not None:
+                for i, part in zip(pending, pk_parts):
+                    labels[i] = f"{ds_path}:feature:{part}"
+                continue
+        version_datasets = [None] * len(blocks)
+        version_datasets[v] = ds
+        for i, rel in zip(pending, rels):
+            rel_row = [None] * len(blocks)
+            rel_row[v] = rel
+            labels[i] = _feature_label(ds_path, version_datasets, rel_row)
+    return [f"{ds_path}:feature:?" if label is None else label for label in labels]
+
+
+def _merge_dataset_features_host(ds_path, blocks, datasets, tree_builder):
+    """kart_tpu's merge by path, for a dataset whose hash keys collide:
+    dict semantics over each version's (path, oid), the conflicts labelled
+    and keyed in path order. -> (conflicts, stats)."""
+    def index(block):
+        return dict(zip(block.paths, unpack_oid_hex(block.oids[: block.count])))
+
+    a, o, t = (index(b) for b in blocks)
+    inner = next((ds.inner_path for ds in datasets if ds is not None), None)
+    conflicts = {}
+    stats = {"conflicts": 0, "take_theirs": 0}
+    for rel in sorted(set(a) | set(o) | set(t)):
+        av, ov, tv = a.get(rel), o.get(rel), t.get(rel)
+        if ov == tv or tv == av:
+            continue
+        if ov == av:
+            stats["take_theirs"] += 1
+            if tv is not None:
+                tree_builder.insert(f"{inner}/feature/{rel}", tv)
+            else:
+                tree_builder.remove(f"{inner}/feature/{rel}")
+        else:
+            stats["conflicts"] += 1
+            conflicts[_feature_label(ds_path, datasets, [rel] * 3)] = AncestorOursTheirs(
+                *(ConflictEntry(f"{inner}/feature/{rel}", v) if v is not None else None
+                  for v in (av, ov, tv)))
+    return conflicts, stats
 
 
 def _non_feature_items(structure):
@@ -227,7 +368,7 @@ def merge_trees_vectorized(repo, ancestor_struct, ours_struct, theirs_struct, de
         return ours_struct.tree_oid, all_conflicts, total_stats
     # the rewritten trees (every leaf a clean change touches) go into one
     # pack, not one loose file each
-    with repo.odb.bulk_pack():
+    with repo.odb.bulk_pack(level=0):
         merged_tree = tb.flush()
     return merged_tree, all_conflicts, total_stats
 

@@ -133,9 +133,13 @@ class RowPaths:
         return self.prefix + self.paths[self.rows[i]]
 
     def batch(self):
-        paths = self.paths
-        prefix = self.prefix
-        return [prefix + paths[r] if r >= 0 else "" for r in self.rows.tolist()]
+        prefix, rows = self.prefix, self.rows
+        take = getattr(self.paths, "take", None)
+        if take is None:
+            paths = self.paths
+            return [prefix + paths[r] if r >= 0 else "" for r in rows.tolist()]
+        found = take(rows[rows >= 0])[::-1]  # a sidecar's paths, read in one batch
+        return [prefix + found.pop() if r >= 0 else "" for r in rows.tolist()]
 
 
 class PkLabels:

@@ -8,11 +8,12 @@
 
 Counterpart of the read side of kart_tpu's ``models/dataset.py``
 (``Dataset3``: meta items, ``get_crs_definition``, ``geom_column_name``,
-``feature_tree``, ``inner_path``, ``path_encoder``, ``feature_index``,
+``feature_tree``, ``inner_path``, ``path_encoder`` (the legacy hashed
+layout when there is no ``path-structure.json``), ``feature_index``,
 ``decode_path_to_pks``, ``get_feature*``, ``get_feature_promise_from_oid``,
 the fused JSON serialisers ``_json_value_str``, ``_jsonl_serializer`` and
 ``feature_json_str_from_data``; ``FeatureOidPromise``), ``encode_feature``
-(int-pk datasets) for ``kart resolve --with-file``, and
+for ``kart resolve --with-file``, and
 ``new_dataset_meta_blobs`` for the synthetic-repo builder. Applying
 diffs, import iterators and spatially filtered feature streams are not
 ported.
@@ -24,7 +25,6 @@ from json.encoder import encode_basestring_ascii
 import numpy as np
 
 from kart_tpu_torch.core.odb import TreeView
-from kart_tpu_torch.core.repo import NotYetImplemented
 from kart_tpu_torch.core.serialise import (
     ensure_bytes,
     ensure_text,
@@ -141,15 +141,16 @@ class Dataset3:
 
     def feature_index(self):
         """One walk of the feature tree -> (paths list[str] relative to
-        ``feature/``, pk int64 array, oid bytes (N, 20) uint8), in tree
-        order. A hash-keyed dataset raises :class:`NotYetImplemented` in
-        :attr:`path_encoder` (its identity is not a pk)."""
+        ``feature/``, pk int64 array or None, oid bytes (N, 20) uint8), in
+        tree order. The pk array is None for a hash-keyed dataset: its
+        identity is the hash of the filename, not a pk."""
         enc = self.path_encoder
         feature_tree = self.feature_tree
         if feature_tree is None:
-            return [], np.zeros(0, dtype=np.int64), np.zeros((0, 20), dtype=np.uint8)
+            return [], None, np.zeros((0, 20), dtype=np.uint8)
         paths, oids = feature_tree.blob_columns()
-        return paths, enc.decode_paths_batch(paths), oids
+        pk_arr = enc.decode_paths_batch(paths) if enc.scheme == "int" else None
+        return paths, pk_arr, oids
 
     # -- meta items ----------------------------------------------------------
 
@@ -246,17 +247,13 @@ class Dataset3:
 
     @property
     def path_encoder(self) -> PathEncoder:
-        """The dataset's feature path encoder; NotYetImplemented for
-        hash-keyed datasets (no path-structure.json means the legacy hashed
-        layout)."""
+        """The dataset's feature path encoder: the one its
+        ``path-structure.json`` names, or the legacy hashed layout when it
+        has none."""
         if "__encoder__" not in self._meta_cache:
             spec = self.get_meta_item("path-structure.json")
-            if spec is None:
-                raise NotYetImplemented(
-                    f"Dataset {self.path} uses the legacy hash-keyed feature "
-                    "paths, which are not ported yet"
-                )
-            self._meta_cache["__encoder__"] = PathEncoder.get(**spec)
+            self._meta_cache["__encoder__"] = (
+                PathEncoder.get(**spec) if spec is not None else PathEncoder.LEGACY_ENCODER)
         return self._meta_cache["__encoder__"]
 
     # -- feature reads -------------------------------------------------------
@@ -391,8 +388,9 @@ class Dataset3:
         blobs = [
             (f"{inner}/{cls.SCHEMA_PATH}", schema.dumps()),
             (f"{inner}/{cls.LEGEND_PATH}{schema.legend_hash}", schema.legend.dumps()),
-            (f"{inner}/{cls.PATH_STRUCTURE_PATH}", json_pack(enc.to_dict())),
         ]
+        if enc is not PathEncoder.LEGACY_ENCODER:
+            blobs.append((f"{inner}/{cls.PATH_STRUCTURE_PATH}", json_pack(enc.to_dict())))
         if title:
             blobs.append((f"{inner}/{cls.TITLE_PATH}", ensure_bytes(title)))
         if description:

@@ -1,23 +1,34 @@
 """Feature paths: primary key <-> blob path in a dataset's feature tree.
 
-Datasets V3 spreads features over a fixed-fanout tree; the int scheme
-(4 levels x 64 branches) puts pk ``p`` in the tree ``(p // 64) % 64**4``,
-one urlsafe-base64 character per level, under the filename
-``urlsafe_b64(msgpack([p]))``.
+Datasets V3 spreads features over a fixed-fanout tree, under the
+filename ``urlsafe_b64(msgpack(pk values))``:
+
+    int scheme    single integer pk ``p``: the tree ``(p // 64) % 64**4``,
+                  one urlsafe-base64 character per level (4 levels)
+    msgpack/hash  any other pk: the first 4 characters of
+                  ``b64hash(msgpack(pk values))``, one per level
+    legacy        a dataset with no ``path-structure.json``: the first two
+                  hex pairs of ``hexhash(msgpack(pk values))``
 
 Counterpart of kart_tpu's ``models/paths.py``: ``PathEncoder``,
 ``IntPathEncoder`` (encode, decode, the vectorized batch encoders and
-decoder, and the msgpack/base64 helpers the tree builder uses) and
-``encoder_for_schema``. Hash-keyed
-datasets (the ``msgpack/hash`` scheme) raise :class:`NotYetImplemented`.
+decoder, and the msgpack/base64 helpers the tree builder uses),
+``MsgpackHashPathEncoder``, the canonical encoders and
+``encoder_for_schema``.
 """
 
 import math
 
 import numpy as np
 
-from kart_tpu_torch.core.repo import NotYetImplemented
-from kart_tpu_torch.core.serialise import b64decode_str, b64encode_str, msg_pack, msg_unpack
+from kart_tpu_torch.core.serialise import (
+    b64decode_str,
+    b64encode_str,
+    b64hash,
+    hexhash,
+    msg_pack,
+    msg_unpack,
+)
 
 HEX_ALPHABET = "0123456789abcdef"
 B64_ALPHABET = "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz0123456789-_"
@@ -35,9 +46,7 @@ class PathEncoder:
         if scheme == "int":
             return IntPathEncoder(scheme=scheme, **kwargs)
         if scheme == "msgpack/hash":
-            raise NotYetImplemented(
-                "hash-keyed datasets (path scheme 'msgpack/hash') are not ported yet"
-            )
+            return MsgpackHashPathEncoder(scheme=scheme, **kwargs)
         raise PathEncoderError(f"Unsupported feature path scheme: {scheme!r}")
 
     def __init__(self, *, scheme, levels, branches, encoding):
@@ -47,8 +56,10 @@ class PathEncoder:
         self.encoding = encoding
         if encoding == "hex":
             self.alphabet = HEX_ALPHABET
+            self._hash = hexhash
         elif encoding == "base64":
             self.alphabet = B64_ALPHABET
+            self._hash = b64hash
         else:
             raise PathEncoderError(f"Unsupported path encoding: {encoding!r}")
         base = len(self.alphabet)
@@ -147,6 +158,28 @@ class IntPathEncoder(PathEncoder):
         return decode_single_int_filenames([f.rsplit("/", 1)[-1] for f in filenames])
 
 
+class MsgpackHashPathEncoder(PathEncoder):
+    """Hash-distributed encoder for every pk but a single integer: the tree
+    names are the leading characters of the hash of the packed pk values,
+    so features spread uniformly over the fanout."""
+
+    def encode_pks_to_path(self, pk_values):
+        packed = msg_pack(pk_values)
+        digest = self._hash(packed)
+        parts = [digest[i * self.group_length : (i + 1) * self.group_length]
+                 for i in range(self.levels)]
+        parts.append(b64encode_str(packed))
+        return "/".join(parts)
+
+    def decode_path_to_pks(self, path):
+        return self.decode_filename(path.rsplit("/", 1)[-1])
+
+    def expected_blobs_for_tree_samples(self, num_samples, branch_factor):
+        """Inverse birthday-problem correction: distinct children observed
+        -> the expected feature count of a uniformly hashed tree."""
+        return math.log(1 - num_samples / branch_factor) / math.log(1 - 1 / branch_factor)
+
+
 _MAX_MSGPACK_INT_LEN = 11  # 0x91 + 0xcf + 8 bytes
 
 
@@ -221,6 +254,44 @@ _B64_INV[_B64_CHARS] = np.arange(64, dtype=np.int16)
 _B64_INV[ord("=")] = 0
 
 
+def decode_filenames(names):
+    """Filenames -> their pk value tuples, as :meth:`PathEncoder
+    .decode_filename` gives them one at a time: the names of one width are
+    base64-decoded as one matrix, and a single text pk (msgpack ``[fixstr]``)
+    is read straight from its bytes; any other value goes through the
+    msgpack decoder, and a name the matrix cannot hold through
+    :meth:`PathEncoder.decode_filename`."""
+    out = [None] * len(names)
+    by_width = {}
+    for i, name in enumerate(names):
+        by_width.setdefault(len(name), []).append(i)
+    for width, idx in by_width.items():
+        try:
+            mat = np.frombuffer("".join([names[i] for i in idx]).encode("ascii"),
+                                dtype=np.uint8).reshape(len(idx), width)
+        except UnicodeEncodeError:
+            mat = None
+        vals = _B64_INV[mat] if mat is not None and width and width % 4 == 0 else None
+        if vals is None or (vals < 0).any() or (mat[:, : width - 2] == ord("=")).any() or (
+                (mat[:, -2] == ord("=")) & (mat[:, -1] != ord("="))).any():
+            for i in idx:
+                out[i] = PathEncoder.decode_filename(names[i])
+            continue
+        q = vals.reshape(len(idx), width // 4, 4).astype(np.uint32)
+        triple = (q[..., 0] << 18) | (q[..., 1] << 12) | (q[..., 2] << 6) | q[..., 3]
+        raw = np.stack([(triple >> 16) & 0xFF, (triple >> 8) & 0xFF, triple & 0xFF],
+                       axis=-1).astype(np.uint8).tobytes()
+        row_w = 3 * width // 4
+        lengths = (row_w - (mat[:, -1] == ord("=")) - (mat[:, -2] == ord("="))).tolist()
+        for j, (i, n) in enumerate(zip(idx, lengths)):
+            row = raw[j * row_w : j * row_w + n]
+            if n >= 2 and row[0] == 0x91 and 0xA0 <= row[1] <= 0xBF and n == 2 + (row[1] & 0x1F):
+                out[i] = (row[2:].decode("utf8"),)
+            else:
+                out[i] = tuple(msg_unpack(row))
+    return out
+
+
 def decode_single_int_filenames(names):
     """b64(msgpack([int])) filenames -> int64 array, vectorized: one join,
     one frombuffer, table-driven base64 and msgpack decode."""
@@ -278,14 +349,20 @@ def decode_single_int_filenames(names):
     return out
 
 
+#: the canonical encoders: a dataset with no ``path-structure.json`` (the
+#: legacy layout), a single integer pk, and every other pk
+PathEncoder.LEGACY_ENCODER = PathEncoder.get(scheme="msgpack/hash", branches=256, levels=2,
+                                             encoding="hex")
 PathEncoder.INT_PK_ENCODER = PathEncoder.get(scheme="int", branches=64, levels=4,
                                              encoding="base64")
+PathEncoder.GENERAL_ENCODER = PathEncoder.get(scheme="msgpack/hash", branches=64, levels=4,
+                                              encoding="base64")
 
 
 def encoder_for_schema(schema):
     """The encoder a new dataset with ``schema`` gets: the int scheme for a
-    single integer pk (the only scheme ported)."""
+    single integer pk, the hashed one for every other pk."""
     pk_cols = schema.pk_columns
     if len(pk_cols) == 1 and pk_cols[0].data_type == "integer":
         return PathEncoder.INT_PK_ENCODER
-    raise NotYetImplemented("hash-keyed datasets are not ported yet")
+    return PathEncoder.GENERAL_ENCODER

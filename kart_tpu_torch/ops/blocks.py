@@ -2,16 +2,21 @@
 
 A FeatureBlock is one dataset version's feature identity as sorted arrays:
 
-    keys : int64 (N,)   -- the int primary key
+    keys : int64 (N,)   -- the int primary key, or for a hash-keyed dataset
+                           the top 63 bits of the sha256 of the blob
+                           filename (:func:`hash_keys_for_paths`)
     oids : uint32 (N,5) -- the feature blob's 20-byte content id, packed
-    paths: list of N str or None -- the blob paths under ``feature/``, for
-           blocks read from a dataset's tree (the merge writes by path)
+    paths: the blob paths under ``feature/`` (a list of N str, or a lazy
+           view of a hash-keyed sidecar's paths section), or None for an
+           int-pk sidecar block, whose paths follow from its keys
 
 Only the first ``count`` rows are real; rows beyond it (bucket padding, or
 the tail of a compacted prefilter subset) carry ``PAD_KEY``. Blocks stay
 numpy on the host (they are mmap views of the sidecar); :func:`to_device`
 and :func:`block_tensors` make the count-sliced tensors the kernels take.
 """
+
+import hashlib
 
 import numpy as np
 import torch
@@ -53,11 +58,23 @@ def unpack_oid_bytes(oid_rows):
     return [b[i : i + 20] for i in range(0, len(b), 20)]
 
 
+def hash_keys_for_paths(paths):
+    """Feature paths of a hash-keyed dataset -> int64 identity keys: the
+    first 8 bytes (big-endian) of the sha256 of the blob filename, shifted
+    right by one, so uniform over [0, 2^63). Two filenames can share a key:
+    callers check :meth:`FeatureBlock.has_key_collisions`."""
+    if not len(paths):
+        return np.zeros(0, dtype=np.int64)
+    sha = hashlib.sha256
+    heads = b"".join([sha(p.rsplit("/", 1)[-1].encode()).digest()[:8] for p in paths])
+    return (np.frombuffer(heads, dtype=">u8") >> np.uint64(1)).astype(np.int64)
+
+
 class FeatureBlock:
-    """One int-pk dataset version as key-sorted (key, oid) arrays, with the
-    blob paths when it was read from a tree (``paths``, else None), the
-    optional (count, 4) f32 wsen envelope column and its block aggregates
-    ``(agg (nb,4) f32, flags (nb,) u8, block_rows)`` from the sidecar."""
+    """One dataset version as key-sorted (key, oid) arrays, with the blob
+    paths (``paths``: see the module docstring), the optional (count, 4)
+    f32 wsen envelope column and its block aggregates ``(agg (nb,4) f32,
+    flags (nb,) u8, block_rows)`` from the sidecar."""
 
     __slots__ = ("keys", "oids", "count", "envelopes", "env_blocks", "paths")
 
@@ -71,11 +88,12 @@ class FeatureBlock:
 
     @classmethod
     def from_dataset(cls, dataset, pad=True):
-        """One walk of ``dataset``'s feature tree -> its block, with paths.
-        A hash-keyed dataset raises :class:`NotYetImplemented`."""
+        """One walk of ``dataset``'s feature tree -> its block, with paths;
+        a hash-keyed dataset's keys are its filenames' hashes."""
         paths, pks, oid_u8 = dataset.feature_index()
         oid_rows = oid_u8.reshape(-1, 5, 4).view(np.uint32).reshape(-1, 5)
-        return cls.from_arrays(pks, oid_rows, paths, pad=pad)
+        keys = pks if pks is not None else hash_keys_for_paths(paths)
+        return cls.from_arrays(keys, oid_rows, paths, pad=pad)
 
     @classmethod
     def from_arrays(cls, keys, oid_rows, paths=None, pad=True):
@@ -95,8 +113,12 @@ class FeatureBlock:
         return cls(keys, oid_rows, n, paths=paths)
 
     def has_key_collisions(self):
+        """True when two real rows share a key (hash keys only can)."""
         real = self.keys[: self.count]
         return bool(np.any(real[1:] == real[:-1])) if self.count > 1 else False
+
+    def path_for_index(self, i):
+        return self.paths[i]
 
     def __len__(self):
         return self.count

@@ -50,8 +50,9 @@ def check_capability(device):
 
 
 #: one counter per kernel launch (plus the resident-column uploads of the
-#: bbox cache, and the rows the envelope prefilter keeps a side), so a run
-#: can show which kernels the main path went through
+#: bbox cache, the rows the envelope prefilter keeps a side, and the hash
+#: collisions that sent a dataset to the host path), so a run can show
+#: which kernels the main path went through
 STATS = {
     "classify_launches": 0,
     "classify_counts_only_launches": 0,  # the subset of K1 launches in counts-only mode
@@ -61,6 +62,10 @@ STATS = {
     "merge_classify_launches": 0,
     "prefilter_old_survivors": 0,
     "prefilter_new_survivors": 0,
+    # kart_tpu's own semantics where hash keys collide: a diff or a merge of
+    # a hash-keyed dataset that took the host path instead of the columnar
+    # one (a second semantic path, not a fallback from a kernel)
+    "hash_collision_fallbacks": 0,
 }
 _stats_lock = threading.Lock()
 

@@ -14,13 +14,23 @@ vertex column of each envelope's box. Given the same arguments, commit
 dates (``GIT_AUTHOR_DATE``/``GIT_COMMITTER_DATE``) and seed, it writes the
 same commits and byte-identical sidecars as kart_tpu. The polygon
 repository is not ported.
+
+``pk="text"`` has no kart_tpu counterpart: a hash-keyed layer whose pk is
+a G-NAF-shaped address id (:func:`gnaf_ids`), its feature tree laid out by
+the hashed path encoder and its sidecars keyed by the filename hashes with
+their paths, every object as kart_tpu's encoders would write it.
 """
 
+import hashlib
 import struct
 
 import numpy as np
 
-from kart_tpu_torch.core.feature_tree import emit_feature_tree, plan_int_feature_tree
+from kart_tpu_torch.core.feature_tree import (
+    emit_feature_tree,
+    plan_feature_tree,
+    plan_int_feature_tree,
+)
 from kart_tpu_torch.core.objects import MODE_TREE
 from kart_tpu_torch.core.repo import KartRepo
 from kart_tpu_torch.core.tree_builder import TreeBuilder
@@ -29,7 +39,7 @@ from kart_tpu_torch.epsg import epsg_wkt
 from kart_tpu_torch.geom import boxes_vertex_column
 from kart_tpu_torch.geometry import Geometry
 from kart_tpu_torch.models.dataset import Dataset3
-from kart_tpu_torch.models.paths import PathEncoder
+from kart_tpu_torch.models.paths import B64_ALPHABET, PathEncoder, b64_batch
 from kart_tpu_torch.models.schema import ColumnSchema, Schema
 
 _FID = ColumnSchema(id="a1b2c3d4-0001-4000-8000-000000000001", name="fid",
@@ -37,6 +47,11 @@ _FID = ColumnSchema(id="a1b2c3d4-0001-4000-8000-000000000001", name="fid",
 _RATING = ColumnSchema(id="a1b2c3d4-0002-4000-8000-000000000002", name="rating",
                        data_type="float", pk_index=None, extra_type_info={"size": 64})
 SYNTH_SCHEMA = Schema([_FID, _RATING])
+SYNTH_TEXT_SCHEMA = Schema([
+    ColumnSchema(id="a1b2c3d4-0005-4000-8000-000000000005", name="code", data_type="text",
+                 pk_index=0, extra_type_info={"length": 15}),
+    _RATING,
+])
 SYNTH_SPATIAL_SCHEMA = Schema([
     _FID,
     ColumnSchema(id="a1b2c3d4-0004-4000-8000-000000000004", name="geom",
@@ -76,6 +91,60 @@ def synth_envelopes(pks, span=None, base=None):
     return out
 
 
+#: the states of G-NAF's ``ADDRESS_DETAIL_PID`` prefixes (``GA`` + state)
+_GNAF_STATES = ("NSW", "VIC", "QLD", "SA", "WA", "TAS", "NT", "ACT")
+
+
+def gnaf_ids(rows):
+    """Row numbers -> G-NAF-shaped address ids: ``GA`` + a state + ten
+    digits, 14 or 15 characters (``GANSW0704100000``, ``GASA0704100003``),
+    one id a row, none repeated."""
+    return [f"GA{_GNAF_STATES[r % 8]}{704100000 + r:010d}" for r in np.asarray(rows).tolist()]
+
+
+class HashedColumns:
+    """A hash-keyed layer's columns for :data:`SYNTH_TEXT_SCHEMA` ids under
+    the general hashed encoder, computed in bulk: each row's filename
+    (``b64``, its ``b64_len``), leaf tree index (``leaf_ids``, the leading
+    24 bits of the sha256 of the packed pk), sidecar key (``keys``, from the
+    sha256 of the filename) and its path under ``feature/`` as a
+    fixed-width ascii matrix (``paths``)."""
+
+    def __init__(self, ids):
+        n = len(ids)
+        raw = np.array([c.encode() for c in ids], dtype="S15").view(np.uint8).reshape(n, 15)
+        lengths = np.fromiter(map(len, ids), dtype=np.int64, count=n)
+        packed = np.zeros((n, 17), dtype=np.uint8)
+        packed[:, 0] = 0x91  # fixarray(1)
+        packed[:, 1] = 0xA0 | lengths  # fixstr
+        packed[:, 2:] = raw
+        self.b64, self.b64_len = b64_batch(packed, lengths + 2)
+        width = int(self.b64_len.max()) if n else 0
+        if n and not (self.b64_len == width).all():
+            raise ValueError("synthetic ids must pack to filenames of one width")
+        sha = hashlib.sha256
+        rows, names = packed.tobytes(), self.b64[:, :width].tobytes()
+        heads = np.frombuffer(b"".join([sha(rows[i * 17 : i * 17 + 2 + int(k)]).digest()[:3]
+                                        for i, k in enumerate(lengths.tolist())]),
+                              dtype=np.uint8).reshape(n, 3)
+        tails = np.frombuffer(b"".join([sha(names[i * width : (i + 1) * width]).digest()[:8]
+                                        for i in range(n)]), dtype=np.uint8).reshape(n, 8)
+        h = heads.astype(np.int64)
+        self.leaf_ids = (h[:, 0] << 16) | (h[:, 1] << 8) | h[:, 2]
+        self.keys = (np.ascontiguousarray(tails).view(">u8").ravel()
+                     >> np.uint64(1)).astype(np.int64)
+        alpha = np.frombuffer(B64_ALPHABET.encode("ascii"), dtype=np.uint8)
+        self.paths = np.empty((n, 8 + width), dtype=np.uint8)
+        for level in range(4):
+            self.paths[:, 2 * level] = alpha[(self.leaf_ids >> (18 - 6 * level)) & 63]
+            self.paths[:, 2 * level + 1] = ord("/")
+        self.paths[:, 8:] = self.b64[:, :width]
+
+    def plan(self):
+        return plan_feature_tree(self.leaf_ids, self.b64, self.b64_len,
+                                 PathEncoder.GENERAL_ENCODER)
+
+
 def _random_oids(n, seed):
     """``n`` deterministic pseudo-random blob oids, (n, 20) uint8."""
     return np.random.default_rng(seed).integers(0, 256, size=(n, 20), dtype=np.uint8)
@@ -104,16 +173,19 @@ def _changed_row_oids(odb, sel_pks, ratings, schema, geom_xy=None, batch=200_000
 
 
 def synth_repo(path, n, *, edit_frac=0.01, seed=0, blobs="changed", ds_path="synth",
-               spatial=False):
-    """Create a repo at ``path`` with one int-pk dataset of ``n`` features
-    and two commits: the base import and an ``edit_frac`` rating rewrite.
+               spatial=False, pk="int"):
+    """Create a repo at ``path`` with one dataset of ``n`` features and two
+    commits: the base import and an ``edit_frac`` rating rewrite.
     ``spatial=True`` (with ``blobs="changed"``) makes it a point layer whose
-    sidecars carry envelope and vertex columns.
+    sidecars carry envelope and vertex columns; ``pk="text"`` a hash-keyed
+    layer of G-NAF-shaped ids (:data:`SYNTH_TEXT_SCHEMA`).
     -> (repo, {"base_commit", "edit_commit", "n", "n_edits"})."""
     if blobs not in ("real", "changed", "promised"):
         raise ValueError(f"blobs={blobs!r}: use 'real', 'changed' or 'promised'")
     if spatial and blobs != "changed":
         raise ValueError("spatial synth repos are ported for blobs='changed' only")
+    if pk not in ("int", "text") or (spatial and pk != "int"):
+        raise ValueError(f"pk={pk!r}: use 'int', or 'text' without spatial")
     repo = KartRepo.init_repository(path)
     repo.config.set_many({"user.name": "Synth", "user.email": "synth@example.com"})
     odb = repo.odb
@@ -121,16 +193,29 @@ def synth_repo(path, n, *, edit_frac=0.01, seed=0, blobs="changed", ds_path="syn
     pks = np.arange(base, base + n, dtype=np.int64)
 
     schema, crs_defs, envelopes, vertices = SYNTH_SCHEMA, None, None, None
+    encoder, hashed = PathEncoder.INT_PK_ENCODER, None
     if spatial:
         schema = SYNTH_SPATIAL_SCHEMA
         crs_defs = {"EPSG:4326": epsg_wkt(4326)}
         envelopes = synth_envelopes(pks)
         # each synthetic feature's vertex geometry is its envelope's box
         vertices = boxes_vertex_column(envelopes)
+    if pk == "text":
+        schema, encoder = SYNTH_TEXT_SCHEMA, PathEncoder.GENERAL_ENCODER
+        ids = gnaf_ids(np.arange(n))
+        hashed = HashedColumns(ids)
 
+    def blob_rows(sel, ratings, geom_xy=None):
+        if hashed is not None:
+            encode = schema.encode_feature_blob
+            return odb.write_blobs_raw([encode({"code": ids[r], "rating": v})[1]
+                                        for r, v in zip(sel.tolist(), ratings.tolist())])
+        return _changed_row_oids(odb, pks[sel], ratings, schema, geom_xy)
+
+    rows = np.arange(n)
     if blobs == "real":
         with odb.bulk_pack(level=0):
-            oids1 = _changed_row_oids(odb, pks, pks / 2.0, schema)
+            oids1 = blob_rows(rows, pks / 2.0)
     else:
         oids1 = _random_oids(n, seed)
 
@@ -142,7 +227,7 @@ def synth_repo(path, n, *, edit_frac=0.01, seed=0, blobs="changed", ds_path="syn
         sel = pks[edit_rows]
         if blobs == "real":
             with odb.bulk_pack(level=0):
-                oids2[edit_rows] = _changed_row_oids(odb, sel, sel.astype(np.float64), schema)
+                oids2[edit_rows] = blob_rows(edit_rows, sel.astype(np.float64))
         elif blobs == "promised":
             oids2[edit_rows] = _random_oids(n_edits, seed + 2)
         else:
@@ -151,11 +236,11 @@ def synth_repo(path, n, *, edit_frac=0.01, seed=0, blobs="changed", ds_path="syn
                 geom_xy = (envelopes[edit_rows, 0].astype(np.float64),
                            envelopes[edit_rows, 1].astype(np.float64))
             with odb.bulk_pack(level=0):
-                oids1[edit_rows] = _changed_row_oids(odb, sel, sel / 2.0, schema, geom_xy)
-                oids2[edit_rows] = _changed_row_oids(odb, sel, sel.astype(np.float64),
-                                                     schema, geom_xy)
+                oids1[edit_rows] = blob_rows(edit_rows, sel / 2.0, geom_xy)
+                oids2[edit_rows] = blob_rows(edit_rows, sel.astype(np.float64), geom_xy)
 
-    plan = plan_int_feature_tree(pks)
+    plan = plan_int_feature_tree(pks) if hashed is None else hashed.plan()
+    keys, paths = (pks, None) if hashed is None else (hashed.keys, hashed.paths)
     commits = []
     prev = None
     for oids_u8, message in ((oids1, "synth import"), (oids2, "synth edits")):
@@ -165,12 +250,13 @@ def synth_repo(path, n, *, edit_frac=0.01, seed=0, blobs="changed", ds_path="syn
             tb = TreeBuilder(odb, repo.head_tree_oid if commits else None)
             for blob_path, data in Dataset3.new_dataset_meta_blobs(
                 ds_path, schema, title="synthetic benchmark layer", crs_defs=crs_defs,
-                path_encoder=PathEncoder.INT_PK_ENCODER,
+                path_encoder=encoder,
             ):
                 tb.insert(blob_path, odb.write_blob(data))
             tb.insert(f"{ds_path}/{Dataset3.DATASET_DIRNAME}/feature", ftree, mode=MODE_TREE)
             root = tb.flush()
         commits.append(repo.create_commit("HEAD", root, message, commits[-1:]))
-        sidecar.save_sidecar(repo, ftree, pks, oids_u8, envelopes=envelopes, vertices=vertices)
+        sidecar.save_sidecar(repo, ftree, keys, oids_u8, envelopes=envelopes, vertices=vertices,
+                             paths=paths)
     return repo, {"base_commit": commits[0], "edit_commit": commits[1], "n": n,
                   "n_edits": n_edits}

@@ -468,3 +468,97 @@ def test_merge_classify_repeats_bit_for_bit(cuda):
     for _ in range(20):
         got = merge_classify_sides(*args)
         assert all(torch.equal(g, f) for g, f in zip(got, first))
+
+
+def _hash_keys(rng, n):
+    """``n`` sorted unique keys uniform over [0, 2^63), the way hash-keyed
+    datasets key their rows, with 0 and 2^63 - 1 (the pad key's value)
+    among them from 2 rows on."""
+    keys = np.unique(rng.integers(0, 2**63 - 1, size=n + 8, dtype=np.int64))[:n]
+    if n >= 2:
+        keys[0], keys[-1] = 0, 2**63 - 1
+        keys = np.unique(keys)
+        while len(keys) < n:
+            keys = np.unique(np.concatenate([keys, rng.integers(1, 2**63 - 1, size=n - len(keys),
+                                                                dtype=np.int64)]))
+    return keys
+
+
+def _hash_sides(kind, n, seed):
+    """Old and new (keys, oids) on hash keys: "edited" (1% of the rows
+    updated, deleted and inserted), "empty_old" / "empty_new", "superset"
+    (new holds every old key and as many more) and "disjoint"."""
+    rng = np.random.default_rng(seed)
+    keys = _hash_keys(rng, 2 * n)
+    old = np.sort(rng.choice(keys, n, replace=False)) if n else keys[:0]
+    if kind == "superset":
+        new = keys
+    elif kind == "disjoint":
+        new = np.setdiff1d(keys, old)
+    else:
+        drop = rng.random(n) < 0.01
+        new = np.union1d(old[~drop], rng.choice(np.setdiff1d(keys, old), n // 100, replace=False))
+    if kind == "empty_old":
+        old = old[:0]
+    elif kind == "empty_new":
+        new = new[:0]
+    oo = rng.integers(0, 2**32, size=(len(old), 5), dtype=np.uint32)
+    no = rng.integers(0, 2**32, size=(len(new), 5), dtype=np.uint32)
+    pos = np.searchsorted(old, new)
+    hit = (pos < len(old)) & (old[np.minimum(pos, max(len(old) - 1, 0))] == new) if len(old) \
+        else np.zeros(len(new), bool)
+    no[hit] = oo[pos[hit]]
+    flip = np.flatnonzero(hit)[::100]
+    no[flip, 0] ^= np.uint32(1)
+    return old, oo, new, no
+
+
+@pytest.mark.parametrize("kind,n", [("edited", 1), ("edited", 5000), ("edited", 1_000_000),
+                                    ("empty_old", 3000), ("empty_new", 3000),
+                                    ("superset", 70_000), ("disjoint", 70_000)])
+def test_classify_on_hash_keys_repeats_bit_for_bit(cuda, kind, n):
+    """K1 on keys uniform over [0, 2^63), 0 and 2^63 - 1 included: twenty
+    launches in each mode, each bit-identical to the plain version."""
+    ok, oo, nk, no = _hash_sides(kind, n, n + 1)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+         for a in (ok, oo.view(np.int32), nk, no.view(np.int32))]
+    po, pn, pc = classify_plain(*t)
+    for _ in range(20):
+        oc, nc, counts = classify(*t)
+        assert torch.equal(oc, po) and torch.equal(nc, pn) and torch.equal(counts, pc)
+        assert torch.equal(classify(*t, counts_only=True)[2], pc)
+
+
+def _hash_merge_sides(kind, n, seed):
+    """Ancestor, ours and theirs on hash keys: "random<empty>" as
+    :func:`_merge_sides` over uniform 63-bit keys (0 and 2^63 - 1 among
+    them), or "full": ours holding every key, the ancestor and theirs a
+    tenth of them each."""
+    rng = np.random.default_rng(seed)
+    keys = _hash_keys(rng, n)
+    if kind == "full":
+        masks = [rng.random(n) < 0.1, np.ones(n, bool), rng.random(n) < 0.1]
+        return _edited(rng, keys, masks)
+    live = [s for s in "aot" if s not in kind[len("random"):]]
+    masks = {s: np.zeros(n, bool) for s in "aot"}
+    if live:
+        pick = rng.integers(1, 2 ** len(live), size=n)
+        for bit, s in enumerate(live):
+            masks[s] = ((pick >> bit) & 1) == 1
+    return _edited(rng, keys, [masks[s] for s in "aot"])
+
+
+@pytest.mark.parametrize("kind,n", [("random", 2), ("random", 5000), ("random", 2_440_000),
+                                    ("randoma", 3000), ("randomot", 3000), ("randomaot", 0),
+                                    ("full", 100_000)])
+def test_merge_classify_on_hash_keys_repeats_bit_for_bit(cuda, kind, n):
+    """K4 on keys uniform over [0, 2^63), 0 and 2^63 - 1 included, empty
+    sides and one side holding every key: twenty launches, each
+    bit-identical to the plain version, its union equal to np.unique."""
+    sides = _hash_merge_sides(kind, n, n + 3)
+    args = _merge_tensors(cuda, sides)
+    want = merge_classify_sides_plain(*args)
+    assert np.array_equal(want[0].cpu().numpy(), np.unique(np.concatenate([k for k, _ in sides])))
+    for _ in range(20):
+        got = merge_classify_sides(*args)
+        assert all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))

@@ -8,9 +8,10 @@ with a branch ``theirs`` set at the base commit and edited with
 layer (a geometry column in EPSG:4326) with diverging edits on both
 branches: conflicts as text, json and geojson, reprojected by ``--crs``,
 resolved with ``--with`` and ``--with-file`` (a GeoJSON the port's own
-``conflicts -o geojson`` wrote). What the port does not do yet (a working
-copy to update, a hash-keyed dataset, a projected ``--crs`` target) exits
-30 and writes nothing."""
+``conflicts -o geojson`` wrote); and from an imported table whose pk is
+text (a hash-keyed dataset), its MERGE_INDEX in JSON and in KMIX2. What
+the port does not do yet (a working copy to update, a projected ``--crs``
+target) exits 30 and writes nothing."""
 
 import contextlib
 import io
@@ -423,9 +424,10 @@ def test_working_copy_not_ported_yet(base_repo, tmp_path):
     _not_yet(ppath, ["merge", "theirs", "--no-ff", "-o", "json"])
 
 
-def _text_pk_repo(tmp_path):
-    """A hash-keyed dataset: a GPKG attributes table whose pk is text,
-    imported by kart_tpu, with diverging edits on main and theirs."""
+def _text_pk_repo(tmp_path, n=20):
+    """A hash-keyed dataset: a GPKG attributes table ``codes`` of ``n``
+    rows whose pk is text, imported by kart_tpu, with a branch ``theirs``
+    at the import and the same commit date everywhere. -> its path."""
     from kart_tpu.importer import ImportSource
     from kart_tpu.importer.importer import import_sources
 
@@ -438,27 +440,224 @@ def _text_pk_repo(tmp_path):
         "INSERT INTO gpkg_contents (table_name, data_type, identifier) "
         "VALUES ('codes', 'attributes', 'codes');"
         "CREATE TABLE codes (code TEXT PRIMARY KEY NOT NULL, amount INTEGER);")
-    con.executemany("INSERT INTO codes VALUES (?, ?)", [(f"C{i:03d}", i) for i in range(20)])
+    con.executemany("INSERT INTO codes VALUES (?, ?)", [(_code(i), i) for i in range(n)])
     con.commit()
     con.close()
-    repo = JRepo.init_repository(str(tmp_path / "hash"), bare=True)
-    repo.config.set_many({"user.name": "Tester", "user.email": "t@example.com"})
-    import_sources(repo, ImportSource.open(gpkg))
-    repo.refs.set("refs/heads/theirs", repo.head_commit_oid)
-    commit_feature_edits(repo, "codes", updates=[{"code": "C001", "amount": 100}])
-    commit_feature_edits(repo, "codes", updates=[{"code": "C002", "amount": 200}],
-                         ref="refs/heads/theirs")
-    return repo.gitdir
+    old = {k: os.environ.get(k) for k in ("GIT_AUTHOR_DATE", "GIT_COMMITTER_DATE")}
+    os.environ.update(GIT_AUTHOR_DATE=DATE, GIT_COMMITTER_DATE=DATE)
+    try:
+        repo = JRepo.init_repository(str(tmp_path / "hash"))
+        repo.config.set_many({"user.name": "Tester", "user.email": "t@example.com"})
+        import_sources(repo, ImportSource.open(gpkg))
+        repo.refs.set("refs/heads/theirs", repo.head_commit_oid)
+    finally:
+        for k, v in old.items():
+            os.environ.pop(k) if v is None else os.environ.__setitem__(k, v)
+    return str(repo.workdir)
 
 
-def test_hash_keyed_dataset_not_ported_yet(tmp_path):
-    path = _text_pk_repo(tmp_path)
-    ds = JRepo(path).structure("HEAD").datasets["codes"]
-    assert ds.path_encoder.scheme == "msgpack/hash"
-    ref = CliRunner().invoke(kart_cli, ["-C", str(path), "merge", "theirs", "--dry-run"])
-    assert ref.exit_code == 0  # kart_tpu merges it
-    _not_yet(str(path), ["merge", "theirs"])
-    _not_yet(str(path), ["merge", "theirs", "--dry-run", "-o", "json"])
+def _code(i):
+    """G-NAF-shaped text pks, one unicode and one with a space and a slash."""
+    return {3: "ünï☃-3", 7: "a b/7"}.get(i, f"GANSW7041{i:05d}")
+
+
+@pytest.fixture(scope="module")
+def text_pk_repo(tmp_path_factory):
+    return _text_pk_repo(tmp_path_factory.mktemp("textpk"))
+
+
+def _code_row(i, amount):
+    return {"code": _code(i), "amount": amount}
+
+
+def setup_text_conflict(repo):
+    """Edit/edit, edit/delete, delete/edit and add/add conflicts on text
+    pks (the unicode one among them), beside clean edits."""
+    commit_feature_edits(repo, "codes", updates=[_code_row(i, 100 + i) for i in (1, 2, 3, 7)]
+                         + [_code_row(9, 9)], deletes=[_code(4), _code(12)],
+                         inserts=[_code_row(40, 1), _code_row(41, 2)], message="ours")
+    commit_feature_edits(repo, "codes", updates=[_code_row(i, 200 + i) for i in (1, 2, 3, 4, 7)]
+                         + [_code_row(13, 13)], deletes=[_code(9), _code(14)],
+                         inserts=[_code_row(40, 1), _code_row(41, 3), _code_x()],
+                         message="theirs", ref="refs/heads/theirs")
+
+
+def _code_x():
+    return {"code": "GAVIC000000001", "amount": None}
+
+
+def setup_text_clean(repo):
+    commit_feature_edits(repo, "codes", updates=[_code_row(5, 55)], message="ours clean")
+    commit_feature_edits(repo, "codes", updates=[_code_row(6, 66)], deletes=[_code(8)],
+                         inserts=[_code_x()], message="theirs clean", ref="refs/heads/theirs")
+
+
+HASH_SCENARIOS = {
+    "text_conflict": (setup_text_conflict, [
+        ["merge", "theirs", "--dry-run"],
+        ["merge", "theirs", "--dry-run", "-o", "json"],
+        ["merge", "theirs", "-o", "json"],
+        ["conflicts"],
+        ["conflicts", "-o", "json"],
+        ["conflicts", "-o", "json", "--flat"],
+        ["conflicts", "-o", "geojson"],
+        ["conflicts", "-s"],
+        ["conflicts", "-ss", "-o", "json"],
+        ["conflicts", "-o", "json", f"codes:feature:{_code(3)}"],
+        ["conflicts", "-o", "json", f"codes:feature:{_code(7)}"],
+        ["resolve", f"codes:feature:{_code(1)}", "--with", "theirs"],
+        ["resolve", f"codes:feature:{_code(7)}", "--with", "ours"],
+        ["resolve", f"codes:feature:{_code(7)}", "--with", "ours"],
+        ["resolve", "codes:feature:nosuch", "--with", "ours"],
+        lambda k: [_resolve_with_file(k, 0, "theirs")],
+        resolve(0, "ancestor"),
+        ["merge", "--continue"],
+        resolve_rest("delete"),
+        ["conflicts", "-o", "quiet"],
+        ["merge", "--continue", "-o", "json"],
+    ]),
+    "text_abort": (setup_text_conflict, [
+        ["merge", "theirs"],
+        ["conflicts", "-ss"],
+        ["merge", "--abort"],
+        ["merge", "theirs", "-o", "json"],
+        resolve_rest("theirs"),
+        ["merge", "--continue"],
+    ]),
+    "text_clean": (setup_text_clean, [
+        ["merge", "theirs", "--dry-run", "-o", "json"],
+        ["merge", "theirs", "-o", "json"],
+        ["merge", "theirs"],
+    ]),
+}
+
+
+@pytest.mark.parametrize("scenario", list(HASH_SCENARIOS))
+def test_text_pk_merge_cli_matches_kart_tpu(text_pk_repo, tmp_path, scenario):
+    """A hash-keyed dataset (text pks) merges, lists and resolves its
+    conflicts as kart_tpu does: the same bytes, exit codes, JSON
+    MERGE_INDEX and commit oids."""
+    setup, steps = HASH_SCENARIOS[scenario]
+    _run_steps(*_copies(text_pk_repo, tmp_path, setup), steps)
+
+
+def _rewrite_all(repo, ref, amount, n, message):
+    """Commit on ``ref`` every row of ``codes`` rewritten to ``amount *
+    (row + 1)``, its blobs and trees in one pack."""
+    parent = repo.refs.get(ref)
+    ds = repo.structure(parent).datasets["codes"]
+    odb = repo.odb
+    with odb.bulk_pack():
+        tb = TreeBuilder(odb, odb.read_commit(parent).tree)
+        for i in range(n):
+            full_path, blob = ds.encode_feature(_code_row(i, amount * (i + 1)))
+            tb.insert(full_path, odb.write_blob(blob))
+        tree = tb.flush()
+    return repo.create_commit(ref, tree, message, [parent])
+
+
+def test_text_pk_merge_index_kmix2(tmp_path):
+    """10,000 text-pk conflicts: the KMIX2 MERGE_INDEX (its label and
+    path columns stored as strings) is byte-identical, and so are the
+    conflict listings and the resolved merge commit."""
+    n = 10_000
+    path = _text_pk_repo(tmp_path, n)
+
+    def setup(repo):
+        _rewrite_all(repo, "refs/heads/main", -1, n, "ours")
+        _rewrite_all(repo, "refs/heads/theirs", -2, n, "theirs")
+
+    kpath, ppath = _copies(path, tmp_path, setup)
+    _run_steps(kpath, ppath, [["merge", "theirs", "-o", "json"], ["conflicts", "-ss"],
+                              ["resolve", f"codes:feature:{_code(3)}", "--with", "theirs"],
+                              ["conflicts", "-s", f"codes:feature:{_code(7)}"]])
+    with open(os.path.join(ppath, ".kart", "MERGE_INDEX"), "rb") as f:
+        assert f.read(6) == b"KMIX2\n"
+    assert len(MergeIndex.read_from_repo(JRepo(ppath)).conflicts) == n
+
+
+def _retype_pk_to_text(repo, ds_path, message):
+    """Commit ``ds_path`` with its integer pk made text: the schema's pk
+    column (same id) typed text, every feature re-encoded under the hashed
+    path scheme (a pk type change). -> the commit oid."""
+    from kart_tpu.models.dataset import Dataset3
+    from kart_tpu.models.paths import PathEncoder
+    from kart_tpu.models.schema import ColumnSchema, Schema
+
+    ds = repo.structure("HEAD").datasets[ds_path]
+    pk_name = ds.schema.pk_columns[0].name
+    cols = [ColumnSchema(c.id, c.name, "text", c.pk_index, {}) if c.name == pk_name else c
+            for c in ds.schema.columns]
+    schema = Schema(cols)
+    odb = repo.odb
+    parent = repo.head_commit_oid
+    with odb.bulk_pack():
+        tb = TreeBuilder(odb, odb.read_commit(parent).tree)
+        tb.remove_tree(f"{ds_path}/.table-dataset")
+        for path, data in Dataset3.new_dataset_meta_blobs(
+                ds_path, schema, title=ds.get_meta_item("title"),
+                path_encoder=PathEncoder.GENERAL_ENCODER):
+            tb.insert(path, odb.write_blob(data))
+        enc = PathEncoder.GENERAL_ENCODER
+        for f in ds.features():
+            pk_values, blob = schema.encode_feature_blob({**f, pk_name: str(f[pk_name])})
+            tb.insert(f"{ds_path}/.table-dataset/feature/{enc.encode_pks_to_path(pk_values)}",
+                      odb.write_blob(blob))
+        tree = tb.flush()
+    return repo.create_commit("HEAD", tree, message, [parent])
+
+
+def setup_pk_change(repo):
+    """Ours retypes synth's pk to text; theirs edits, deletes and inserts
+    int-pk features: the conflicts' versions carry different encoders."""
+    _branch_theirs(repo)
+    _retype_pk_to_text(repo, "synth", "fid becomes text")
+    free = _untouched()
+    commit_feature_edits(repo, "synth", updates=[_feature(r, 0.5) for r in free[:4]],
+                         deletes=[BASE_PK + int(free[4])], inserts=[_feature(N + 3, 1.0)],
+                         message="theirs int edits", ref="refs/heads/theirs")
+
+
+def test_pk_type_change_merge_matches_kart_tpu(base_repo, tmp_path):
+    """A dataset whose pk type changed on one branch (int to text): the
+    conflict labels come from the ancestor's int encoder, the merged tree
+    and the resolved commit are kart_tpu's."""
+    kpath, ppath = _copies(base_repo, tmp_path, setup_pk_change)
+    _run_steps(kpath, ppath, [
+        ["merge", "theirs", "--dry-run", "-o", "json"],
+        ["merge", "theirs", "-o", "json"],
+        ["conflicts", "-o", "json"],
+        ["conflicts", "-s"],
+        resolve(0, "theirs"),
+        resolve_rest("ours"),
+        ["merge", "--continue", "-o", "json"],
+    ])
+
+
+def _coarse_keys(monkeypatch):
+    """Both packages' hash keys cut to their top 4 bits (``>> 59``): the
+    features of a version then share keys. The fixture restores both."""
+    from kart_tpu.ops import blocks as jblocks
+    from kart_tpu_torch.ops import blocks as tblocks
+
+    for mod, real in ((jblocks, jblocks.hash_keys_for_paths),
+                      (tblocks, tblocks.hash_keys_for_paths)):
+        monkeypatch.setattr(mod, "hash_keys_for_paths", lambda paths, real=real: real(paths) >> 59)
+
+
+def test_colliding_hash_keys_merge_on_the_host_path(text_pk_repo, tmp_path, monkeypatch):
+    """Hash keys that collide within a version: both packages merge the
+    dataset by path (kart_tpu's dict semantics), with the same outputs, and
+    the port counts the collision path once a merge."""
+    from kart_tpu_torch import runtime
+
+    _coarse_keys(monkeypatch)
+    kpath, ppath = _copies(text_pk_repo, tmp_path, setup_text_conflict)
+    runtime.reset_stats()
+    _run_steps(kpath, ppath, [["merge", "theirs", "--dry-run", "-o", "json"],
+                              ["merge", "theirs", "-o", "json"], ["conflicts", "-o", "json"],
+                              resolve_rest("theirs"), ["merge", "--continue"]])
+    assert runtime.stats_snapshot()["hash_collision_fallbacks"] == 2
 
 
 @pytest.mark.parametrize("argv", [["conflicts", "-o", "geojson", "-s", "--crs", "EPSG:2193"],
@@ -475,3 +674,28 @@ def test_not_ported_conflict_outputs(points_repo, tmp_path, argv):
     assert ref.exit_code == 0
     assert CliRunner().invoke(kart_cli, ["-C", kpath, *argv]).exit_code == 0
     _not_yet(ppath, argv)
+
+
+LABEL_SETS = {
+    "one_dataset": [f"synth:feature:{i}" for i in (5, 40, 3, 12)] + ["synth:meta:title"],
+    "datasets_and_parts": ["b:feature:x", "a:feature:2", "b:meta:title", "<root>:attachment:z",
+                           "a:meta:schema.json", "10:feature:1", "9:feature:1", "a,b:feature:q"],
+    "prefixes_sorting_alike": ["12:feature:1", "012:feature:2", "012:meta:title"],
+    "colons_in_pks": ["codes:feature:a:b:7", "codes:feature:GANSW1", "codes:feature:9"],
+}
+
+
+@pytest.mark.parametrize("summarise", [2, 3])
+@pytest.mark.parametrize("labels", list(LABEL_SETS))
+def test_conflict_count_summary_as_kart_tpu(tmp_path, labels, summarise):
+    """``conflicts -ss``'s counts nested as kart_tpu's sort of every label
+    nests them (several datasets, meta, attachments, numeric and compound
+    names, prefixes whose sort keys tie, pks holding ':')."""
+    from kart_tpu.cli.merge_cmds import _build_conflicts_output as j_build
+    from kart_tpu_torch.cli.merge_cmds import _build_conflicts_output as t_build
+
+    unresolved = dict.fromkeys(LABEL_SETS[labels])
+    want = j_build(JRepo.init_repository(str(tmp_path / "r")), unresolved, "json",
+                   summarise=summarise)
+    got = t_build(None, None, unresolved, "json", summarise=summarise)
+    assert json.dumps(got) == json.dumps(want)

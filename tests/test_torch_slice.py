@@ -16,7 +16,6 @@ from kart_tpu.spatial_filter.index import _SCHEMA
 from kart_tpu_torch.diff.engine import classify_changed, feature_count, prefilter_rect
 from kart_tpu_torch.diff.sidecar import (
     SidecarError,
-    UnsupportedSidecar,
     load_block_file,
     save_sidecar_file,
 )
@@ -127,8 +126,13 @@ def test_load_block_file_rejects(tmp_path, synth):
         np.zeros((2, 20), np.uint8), ["a/b", "c/d"], None,
     )
     os.replace(tmp_path / "columnar" / "hashed.kcol", hashed)
-    with pytest.raises(UnsupportedSidecar):
-        load_block_file(str(hashed))
+    block = load_block_file(str(hashed))  # hash-keyed: read, paths in key order
+    assert block.count == 2 and list(block.keys) == [1, 2]
+    assert [block.paths[i] for i in range(2)] == ["c/d", "a/b"]
+    cut = tmp_path / "hashed_short.kcol"
+    cut.write_bytes(hashed.read_bytes()[:-1])  # the paths section cut short
+    with pytest.raises(SidecarError):
+        load_block_file(str(cut))
     truncated = tmp_path / "short.kcol"
     with open(f_old, "rb") as fh:
         truncated.write_bytes(fh.read()[:5000])
