@@ -5,8 +5,8 @@ kernel against its plain PyTorch version.
     python3 chip_smoke.py [--rows 10000000] [--index-rows 1000000]
                           [--repo-rows 5000000] [--spatial-rows 2000000]
                           [--merge-rows 2000000]
-                          [--text-rows 10000000] [--text-merge-rows 2000000] [--seed 0]
-                          [--k4-only | --hash-only]
+                          [--text-rows 10000000] [--text-merge-rows 1000000] [--seed 0]
+                          [--k4-only | --hash-only | --query-only]
 
 Run from the repository root on a machine with an sm_90 (Hopper) card and
 the CUDA toolkit; the kernels are built from ``kart_tpu_torch/csrc`` on
@@ -51,6 +51,25 @@ first use. Phases:
 11. build a spatial repository with ``synth.synth_repo(spatial=True)``:
    ``--spatial-rows`` point features whose sidecars carry envelope and
    vertex columns, real blobs for the 1% edited rows only
+Q1. ``kart query`` scans on it, each on the card (counted) and with
+   ``--device cpu`` (equal sha256): ``--bbox`` ([12]'s rectangle) ``-o
+   count`` (one K2, K6 on the candidates), the same ``--approx`` (no K6),
+   ``-o bbox``, ``-o json --where ... --page 1 --page-size 1000`` (an empty
+   page, and a page of edited features picked by an IN list), a wrapping
+   ``--bbox`` (no K6)
+Q2. ``query HEAD synth --intersects HEAD^:synth -o count`` on the card at
+   full depth (K5 once a batch, and once more for a batch's pairs; K6 once
+   a refined batch), its document
+   equal to the same join through the plain versions on the card; the join
+   under an 18-degree ``--bbox`` strip (``-o count``, ``-o json --page 0``,
+   ``--approx``) on the card and with ``--device cpu`` (equal sha256); the
+   card's full join under cProfile
+Q3. K5 on the middle build tile of Q2's join x the probe batch the join
+   gives it, and on a 4096-row tile x a 65,536-row batch of dense envelopes
+   (at least half the probe rows matched, pairs with both and with one side
+   wrapping the anti-meridian, NaN and edge rows), K6 on 100,000 pairs of ``synth.synth_shapes`` (stars with holes, points,
+   polylines, vertices on the world's edge): bit-identical to their plain
+   versions on the card, timed beside their bounds (operations)
 12. write a rectangular spatial filter into its config, then run ``-o
    feature-count`` and ``-o json-lines`` on the card and with ``--device
    cpu``: equal counts and sha256, and on the card exactly two K2 launches
@@ -113,7 +132,7 @@ first use. Phases:
    under cProfile; ``merge theirs-clean --no-ff`` committing the same
    oids on both routes. Every counted phase fails if a dataset took the
    host path for colliding hash keys (``hash_collision_fallbacks``)
-22. each group of phases' host wall, the ``kernels`` JSON line (each
+22. each group of phases' host wall, the ``kernels`` JSON line (K1-K6, each
    kernel's ``launches`` is the sum of ``launches_by_phase``: every launch
    of the main path's runs, the cProfile runs included, and none of the
    comparisons with the plain versions), the card line, and the result
@@ -127,7 +146,7 @@ so they are held to kart_tpu by the CPU tests only
 Any failed check exits non-zero without the result line. ``--k4-only`` runs
 phases 0, 1, 14 and 15 alone and prints K4's timings as JSON, with no
 result line; ``--hash-only`` runs phases 0, 1 and 18-21 alone the same
-way.
+way, ``--query-only`` phases 0, 1, 11 and Q1-Q3.
 """
 
 import argparse
@@ -157,7 +176,7 @@ from kart_tpu_torch.core.feature_tree import (
 )
 from kart_tpu_torch.core.objects import MODE_TREE
 from kart_tpu_torch.core.tree_builder import TreeBuilder
-from kart_tpu_torch.diff.backend import envelope_scan, envelope_scan_plain
+from kart_tpu_torch.diff.backend import PlainTorchBackend, envelope_scan, envelope_scan_plain
 from kart_tpu_torch.diff.engine import (
     classify_changed,
     feature_count,
@@ -165,6 +184,7 @@ from kart_tpu_torch.diff.engine import (
 )
 from kart_tpu_torch.diff.estimation import ACCURACY_SUBTREE_SAMPLES, sample_block
 from kart_tpu_torch.diff.sidecar import (
+    block_aggregates,
     load_block,
     load_block_file,
     save_sidecar,
@@ -182,6 +202,8 @@ from kart_tpu_torch.ops.diff_kernel import (
     tile_coranks_plain,
 )
 from kart_tpu_torch.ops.envelope_codec import EnvelopeCodec
+from kart_tpu_torch.ops.envelope_join import envelope_join, envelope_join_plain
+from kart_tpu_torch.ops.geom_refine import geom_refine, geom_refine_plain, resident_segments
 from kart_tpu_torch.ops.merge_kernel import (
     launch_merge_classify,
     merge_classify_sides,
@@ -195,7 +217,9 @@ from kart_tpu_torch.spatial_filter import (
     envelope_prepass,
 )
 from kart_tpu_torch.spatial_filter.index import DB_NAME, EnvelopeIndexReader
-from kart_tpu_torch.synth import HashedColumns, gnaf_ids, synth_repo
+from kart_tpu_torch.query.join import TILE_ROWS, _alive_ranges, _probe_aggregates, run_join
+from kart_tpu_torch.query.scan import batch_rows
+from kart_tpu_torch.synth import HashedColumns, gnaf_ids, synth_repo, synth_shapes
 
 #: H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
 #: non-tensor-core f32 rate, used for every bound below
@@ -221,6 +245,10 @@ FILTER_POLY = ("EPSG:4326;POLYGON((-60 -40,0 -50,60 -40,40 40,-40 40,-60 -40),"
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+#: a launch count of :func:`counted` that must be at least 1
+SOME = object()
 
 
 def check(cond, msg):
@@ -263,6 +291,32 @@ def make_envelopes(rng, n, n_nan=0):
     if n_nan:
         env[rng.choice(n, n_nan, replace=False)] = np.nan
     return env.astype(np.float32)
+
+
+def make_dense_envelopes(rng, n):
+    """Envelopes packed so that a probe row meets tens of build rows:
+    points and boxes up to 3 degrees in two 20-degree squares, one at the
+    origin and a quarter of the rows in one across the anti-meridian (15% of
+    those wrap it), with NaN, -0.0, subnormal, infinite and corner-sharing
+    rows: every branch of the join's overlap test."""
+    w = rng.uniform(-10, 10, n)
+    s = rng.uniform(-10, 10, n)
+    far = rng.random(n) < 0.25
+    w[far] = np.where(w[far] < 0, w[far] + 180, w[far] - 180)
+    e = np.minimum(w + rng.uniform(0, 3, n) * (rng.random(n) < 0.7), 180)
+    north = s + rng.uniform(0, 3, n) * (rng.random(n) < 0.7)
+    wrap = far & (rng.random(n) < 0.15)
+    w[wrap] = rng.uniform(170, 180, wrap.sum())
+    e[wrap] = rng.uniform(-180, -170, wrap.sum())
+    env = np.stack([w, s, e, north], axis=1).astype(np.float32)
+    env[0] = np.nan
+    env[1] = (-0.0, -0.0, 0.0, 0.0)
+    env[2] = (0.0, 0.0, 1e-45, 1e-45)
+    env[3] = (-np.inf, -1.0, np.inf, 1.0)
+    env[4] = (1.0, 1.0, 2.0, 2.0)
+    env[5] = (2.0, 2.0, 3.0, 3.0)  # shares a corner with row 4
+    env[6, 1] = np.nan
+    return env
 
 
 def make_versions(rng, n):
@@ -416,24 +470,29 @@ def kart_cli(*argv, rc_want=0):
     return wall
 
 
-def counted(label, fn, launches, want=1, want_k2=0, want_k4=0):
+def counted(label, fn, launches, want=1, want_k2=0, want_k4=0, want_k5=0, want_k6=0):
     """Run ``fn`` with the launch counters zeroed before and read after;
     fail unless K1 launched exactly ``want`` times (once for each dataset
-    the columnar route classifies), K2 ``want_k2`` times and K4
-    ``want_k4`` times, and no hash-keyed dataset took the host path for
-    colliding keys (``hash_collision_fallbacks`` 0), and add the launches
-    read to ``launches[label]`` ([K1, K2, K4]). -> (fn's result, the
+    the columnar route classifies), K2 ``want_k2`` times, K4 ``want_k4``
+    times, K5 ``want_k5`` times and K6 ``want_k6`` times (``SOME``: at
+    least once), and no hash-keyed dataset took the host path for colliding
+    keys (``hash_collision_fallbacks`` 0), and add the launches read to
+    ``launches[label]`` ([K1, K2, K4, K5, K6]). -> (fn's result, the
     counters read)."""
     runtime.reset_stats()
     out = fn()
     stats = runtime.stats_snapshot()
     got = [stats["classify_launches"], stats["envelope_scan_launches"],
-           stats["merge_classify_launches"]]
-    for name, n, w in zip(("K1", "K2", "K4"), got, (want, want_k2, want_k4)):
-        check(n == w, f"{name} launched {n} times in phase {label}, expected {w}")
+           stats["merge_classify_launches"], stats["envelope_join_launches"],
+           stats["geom_refine_launches"]]
+    for name, n, w in zip(("K1", "K2", "K4", "K5", "K6"), got,
+                          (want, want_k2, want_k4, want_k5, want_k6)):
+        check(n >= 1 if w is SOME else n == w,
+              f"{name} launched {n} times in phase {label}, expected "
+              f"{'at least 1' if w is SOME else w}")
     check(stats["hash_collision_fallbacks"] == 0,
           f"phase {label} took the host path for colliding hash keys")
-    total = launches.setdefault(label, [0, 0, 0])
+    total = launches.setdefault(label, [0, 0, 0, 0, 0])
     for i, n in enumerate(got):
         total[i] += n
     return out, stats
@@ -727,11 +786,13 @@ def card_and_cpu(label, argv, out_path, launches, rc_want=0, counts_only=False, 
     return walls[0], walls[1], digest, survivors
 
 
-def spatial_phases(args, card, launches):
-    """Phases 11-13: build the spatial repository, then drive spatially
-    filtered ``kart diff`` commands through the CLI on the card and with
-    ``--device cpu``, adding every card command's launches to
-    ``launches``."""
+def spatial_phases(args, card, launches, dev, filters=True):
+    """Phases 11-13 and Q1-Q3: build the spatial repository, drive ``kart
+    query`` on it (before any spatial filter is set), then spatially
+    filtered ``kart diff`` commands (unless not ``filters``), through the
+    CLI on the card and with ``--device cpu``, adding every card command's
+    launches to ``launches``. -> K5's and K6's entries of the kernels line
+    (without launches)."""
     with tempfile.TemporaryDirectory(prefix="kart_smoke_spatial_") as tmp:
         t = time.perf_counter()
         repo, info = synth_repo(os.path.join(tmp, "repo"), args.spatial_rows, edit_frac=0.01,
@@ -746,6 +807,11 @@ def spatial_phases(args, card, launches):
         print(f"[11] spatial repo: {args.spatial_rows} point features, {n_edits} edited, "
               f"built in {build_s:.2f} s host wall; {n_objects} objects in {len(packs)} "
               f"packs, {pack_bytes} pack bytes, {sidecar_bytes} sidecar bytes on {card}")
+        t = time.perf_counter()
+        query_kernels = query_phases(repo, tmp, card, launches, dev)
+        print(f"[Q] phases Q1-Q3 host wall {time.perf_counter() - t:.2f} s on {card}")
+        if not filters:
+            return query_kernels
 
         spec = ["-C", path, "diff"]
         # [12] the rectangle
@@ -838,6 +904,363 @@ def spatial_phases(args, card, launches):
               f"{survivors}: quiet --exit-code 0 on both (card {w_card:.4f} s, cpu "
               f"{w_cpu:.4f} s host wall), json-lines the version line only (card "
               f"{w2_card:.4f} s, cpu {w2_cpu:.4f} s); K1 1, K2 2 a command on {card}")
+    return query_kernels
+
+
+# --- kart query on the point layer: scans, the time-travel join, K5 and K6 ----
+
+#: [Q1]'s rectangle, the bounding box of [12]'s filter, and a rectangle
+#: wrapping the anti-meridian
+QUERY_RECT = "-60,-30,60,30"
+QUERY_WRAP = "170,-30,-170,30"
+#: [Q2]'s restriction for the --device cpu comparison: an 18-degree meridian
+#: strip, ~5% of the point layer (~100,000 rows a side)
+JOIN_STRIP = "0,-90,18,90"
+#: the synthetic layer's first pk
+SYNTH_PK_BASE = 1 << 24
+
+#: K5's instructions a pair test: 6 f32 compares, 5 predicate ops, the count
+K5_OPS_PER_TEST = 12
+#: K6's integer instructions: a segment test (16 widening multiplies, 4
+#: int64 subtractions of 2, 8 int64 sign tests of 2, 24 int32 subtractions,
+#: ~2 of logic) and a ray crossing (4 int32 subtractions, 2 widening
+#: multiplies, 1 int64 subtraction of 2, 4 int32 and 2 int64 compares, ~2 of
+#: logic)
+K6_OPS_PER_SEGMENT_TEST = 58
+K6_OPS_PER_CROSSING = 14
+#: H100 SXM issue rates at the 1,980 MHz boost clock over 132 SMs: f32
+#: compares and predicate logic on the 128 FMA/ALU lanes of an SM, int32
+#: multiply-adds on its 64 integer lanes
+PRED_OPS_PER_S = 132 * 128 * 1.98e9
+INT_OPS_PER_S = 132 * 64 * 1.98e9
+
+#: the host steps of the card's full join (cProfile function names)
+JOIN_STEPS = {
+    "vertex column decode (none when the process memo holds it)": "decode_vertex_column",
+    "segment tables (build, upload)": "resident_segments",
+    "block classes (host)": "classify_env_blocks_np",
+    "K5's wrapper (launch, total read back, pairs)": "envelope_join",
+    "the refine's glue (pair masks, gathers, count updates)": "_refine_chunk",
+    "K6's wrapper": "geom_refine",
+    "the join loop": "join_counts_for_range",
+}
+
+
+def query_doc(path):
+    with open(path) as f:
+        return json.load(f)["kart.query/v2"]
+
+
+def query_card_and_cpu(label, argv, out_path, launches, k2=0, k5=0, k6=0, rc_want=0):
+    """``kart query`` on the card, counted (K2, K5 and K6 as asked, no K1
+    or K4), then with ``--device cpu``: both exit alike (``rc_want``, or
+    any code when it is None) and print the same bytes. -> (card wall s,
+    cpu wall s, sha256, card counters, exit code)."""
+    walls, rcs = [], []
+    for where in ("card", "cpu"):
+        pre = [] if where == "card" else ["--device", "cpu"]
+
+        def go(pre=pre, to=f"{out_path}.{where}"):
+            t = time.perf_counter()
+            with open(to, "w") as f, contextlib.redirect_stdout(f):
+                rcs.append(kart_main([*pre, *argv]))
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        if where == "card":
+            wall, stats = counted(label, go, launches, want=0, want_k2=k2, want_k5=k5,
+                                  want_k6=k6)
+        else:
+            wall = go()
+        walls.append(wall)
+    check(rcs[0] == rcs[1] and rc_want in (None, rcs[0]),
+          f"kart {' '.join(argv)} exited {rcs} (card, cpu), expected {rc_want}")
+    digest = sha256_of(f"{out_path}.card")
+    check(digest == sha256_of(f"{out_path}.cpu"), f"phase {label}: card and --device cpu differ "
+                                                  f"on {' '.join(argv)}")
+    return walls[0], walls[1], digest, stats, rcs[0]
+
+
+def query_phases(repo, tmp, card, launches, dev):
+    """Phases Q1-Q3 on [11]'s point layer. -> K5's and K6's entries of the
+    kernels line (without launches)."""
+    path = repo.workdir
+    spec = ["-C", path, "query", "HEAD", "synth"]
+    old = load_block(repo, repo.structure("HEAD^").datasets["synth"])
+    new = load_block(repo, repo.structure("HEAD").datasets["synth"])
+    n_rows = new.count
+
+    # [Q1] scans
+    rect = [*spec, "--bbox", QUERY_RECT]
+    out = os.path.join(tmp, "q1-count")
+    w_card, w_cpu, digest, st, _ = query_card_and_cpu("Q1", [*rect, "-o", "count"], out, launches,
+                                                   k2=1, k6=SOME)
+    exact = query_doc(f"{out}.card")
+    check(exact["exact"] and 0 < exact["count"] < n_rows
+          and exact["stats"]["pairs_refined"] >= exact["stats"]["rows_scanned"] > 0,
+          f"the exact --bbox scan said {exact}")
+    print(f"[Q1] query --bbox {QUERY_RECT} -o count: {exact['count']} of {n_rows} rows, "
+          f"pairs_refined {exact['stats']['pairs_refined']}, blocks pruned "
+          f"{exact['stats']['blocks_pruned']} of {exact['stats']['blocks']}; K2 1, K6 "
+          f"{st['geom_refine_launches']}; sha256 {digest} on both; card {w_card:.4f} s, cpu "
+          f"{w_cpu:.4f} s host wall on {card}")
+    out = os.path.join(tmp, "q1-approx")
+    w_card, w_cpu, digest, *_ = query_card_and_cpu(
+        "Q1", [*rect, "-o", "count", "--approx"], out, launches, k2=1, k6=0)
+    approx = query_doc(f"{out}.card")
+    # each feature's geometry is its envelope's box: every candidate is
+    # refined, and the refine only drops (a box the f32 envelope test keeps
+    # but whose quantized corners miss the rectangle)
+    check(not approx["exact"] and exact["count"] <= approx["count"]
+          == exact["stats"]["pairs_refined"],
+          f"--approx counted {approx['count']}, the exact scan {exact}")
+    print(f"[Q1] --approx: {approx['count']} rows, K2 1, K6 0; sha256 {digest} on both; card "
+          f"{w_card:.4f} s, cpu {w_cpu:.4f} s host wall on {card}")
+    out = os.path.join(tmp, "q1-bbox")
+    w_card, w_cpu, digest, *_ = query_card_and_cpu("Q1", [*rect, "-o", "bbox"], out, launches,
+                                                  k2=1, k6=SOME)
+    union = query_doc(f"{out}.card")["bbox_union"]
+    check(-60.01 < union[0] and union[2] < 60.01 and -30.01 < union[1] and union[3] < 30.01,
+          f"bbox union {union} outside the query")
+    print(f"[Q1] -o bbox: union {union}; sha256 {digest} on both; card {w_card:.4f} s, cpu "
+          f"{w_cpu:.4f} s host wall on {card}")
+    # at 2M rows the first 50,000 fids lie in the southernmost band, outside
+    # the rectangle: an empty page; where some lie inside, the page reads
+    # blobs that this layer does not hold and both routes refuse it alike
+    out = os.path.join(tmp, "q1-json-first")
+    where = f"fid < {SYNTH_PK_BASE + 50000}"
+    *_, rc = query_card_and_cpu(
+        "Q1", [*rect, "-o", "json", "--where", where, "--page", "1", "--page-size", "1000"], out,
+        launches, k2=1, k6=SOME, rc_want=None)
+    first = f"exit {rc}"
+    if rc == 0:
+        doc = query_doc(f"{out}.card")
+        first += f", {doc['count']} rows, page 1 holds {len(doc['features'])}"
+    # a page of real features: the edited rows (the only ones with blobs) in
+    # the rectangle's interior
+    keys = np.asarray(new.keys[:n_rows])
+    edited = np.flatnonzero((np.asarray(old.oids[: old.count]) != np.asarray(new.oids[:n_rows]))
+                            .any(axis=1))
+    env = np.asarray(new.envelopes[:n_rows])[edited]
+    inside = edited[(env[:, 0] > -59) & (env[:, 2] < 59) & (env[:, 1] > -29) & (env[:, 3] < 29)]
+    pks = keys[inside[:2500]]
+    where = f"fid >= {SYNTH_PK_BASE} AND fid IN ({','.join(str(int(k)) for k in pks)})"
+    out = os.path.join(tmp, "q1-json")
+    w_card, w_cpu, digest, *_ = query_card_and_cpu(
+        "Q1", [*rect, "-o", "json", "--where", where, "--page", "1", "--page-size", "1000"], out,
+        launches, k2=1, k6=SOME)
+    doc = query_doc(f"{out}.card")
+    got = [f["fid"] for f in doc["features"]]
+    check(doc["count"] == len(pks) and got == [int(k) for k in pks[1000:2000]]
+          and doc["stats"]["rows_decoded"] == len(got),
+          f"the json page holds {len(got)} features of {doc['count']}")
+    print(f"[Q1] -o json --where 'fid < base + 50000' --page 1: {first}, the same on both; "
+          f"--where 'fid IN ({len(pks)} edited pks)' --page 1: {len(got)} features of "
+          f"{doc['count']}; sha256 {digest} on both; card {w_card:.4f} s, cpu {w_cpu:.4f} s host "
+          f"wall on {card}")
+    out = os.path.join(tmp, "q1-wrap")
+    w_card, w_cpu, digest, *_ = query_card_and_cpu(
+        "Q1", [*spec, "--bbox", QUERY_WRAP, "-o", "count"], out, launches, k2=1, k6=0)
+    doc = query_doc(f"{out}.card")
+    check(doc["count"] > 0 and doc["stats"]["pairs_refined"] == 0,
+          f"the wrapping --bbox said {doc}")
+    print(f"[Q1] wrapping --bbox {QUERY_WRAP}: {doc['count']} rows, K2 1, K6 0; sha256 {digest} "
+          f"on both; card {w_card:.4f} s, cpu {w_cpu:.4f} s host wall on {card}")
+
+    # [Q2] the time-travel join
+    join = [*spec, "--intersects", "HEAD^:synth"]
+    out = os.path.join(tmp, "q2-full")
+
+    def full():
+        with open(out, "w") as f, contextlib.redirect_stdout(f):
+            return kart_cli(*join, "-o", "count")
+
+    wall, st = counted("Q2", full, launches, want=0, want_k5=SOME, want_k6=SOME)
+    doc = query_doc(out)
+    stats = doc["stats"]
+    check(doc["exact"] and doc["count"] == n_rows and doc["pairs"] >= n_rows
+          and stats["batches"] <= st["envelope_join_launches"] <= 2 * stats["batches"]
+          and stats["pairs_refined"] >= n_rows,
+          f"the full join said {doc}, launches {st}")
+    print(f"[Q2] query HEAD synth --intersects HEAD^:synth -o count at {n_rows} x {old.count}: "
+          f"pairs {doc['pairs']}, count {doc['count']}, stats {stats}; K5 "
+          f"{st['envelope_join_launches']}, K6 {st['geom_refine_launches']}; {wall:.4f} s host "
+          f"wall on {card}")
+    runtime.reset_stats()
+    t = time.perf_counter()
+    plain = run_join(repo, "HEAD", "synth", "HEAD^", "synth", output="count",
+                     backend=PlainTorchBackend(dev))
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t
+    st = runtime.stats_snapshot()
+    check(st["envelope_join_launches"] == st["geom_refine_launches"] == 0,
+          "the plain join launched a kernel")
+    check(plain == doc, f"the plain versions on the card said {plain}, the kernels {doc}")
+    print(f"[Q2] the same join through the plain versions on the card: equal document (pairs "
+          f"{plain['pairs']}, count {plain['count']}); {plain_wall:.4f} s host wall on {card}")
+    strip = [*join, "--bbox", JOIN_STRIP]
+    for name, argv, k6 in (("count", ["-o", "count"], SOME),
+                           ("json", ["-o", "json", "--page", "0"], SOME),
+                           ("approx", ["-o", "count", "--approx"], 0)):
+        out = os.path.join(tmp, f"q2-strip-{name}")
+        w_card, w_cpu, digest, st, _ = query_card_and_cpu("Q2", [*strip, *argv], out, launches, k2=2,
+                                                       k5=SOME, k6=k6)
+        doc = query_doc(f"{out}.card")
+        check(0 < doc["count"] < n_rows and doc["exact"] == (name != "approx"),
+              f"the strip join said {doc['count']}")
+        print(f"[Q2] --bbox {JOIN_STRIP} {' '.join(argv)}: {doc['stats']['tiles']} build "
+              f"tiles, pairs {doc['pairs']}, count {doc['count']}; K2 2, "
+              f"K5 {st['envelope_join_launches']}, K6 {st['geom_refine_launches']}; sha256 "
+              f"{digest} on both; card {w_card:.4f} s, cpu {w_cpu:.4f} s host wall on {card}")
+    profile, split = counted("Q2", lambda: profile_split(full, JOIN_STEPS), launches, want=0,
+                             want_k5=SOME, want_k6=SOME)[0]
+    print("[Q2] host profile of the card's full join (cProfile, cumulative s): "
+          + "; ".join(f"{k} {v:.4f}" for k, v in split.items()) + f" on {card}")
+    print(profile)
+
+    # [Q3] the kernels alone
+    return query_kernels_alone(card, dev, old, new)
+
+
+def main_path_join_batch(build_block, probe_block):
+    """What Q2's full join hands K5 for its middle build tile: that tile's
+    envelopes and the probe batch holding the tile's middle row (in the
+    time-travel join most of the tile's features meet themselves there),
+    as host f32 arrays."""
+    build_env = np.ascontiguousarray(build_block.envelopes, dtype=np.float32)
+    probe_env = np.asarray(probe_block.envelopes, dtype=np.float32)
+    tile_agg, _ = block_aggregates(build_env, TILE_ROWS)
+    probe_agg, probe_flags, block_rows = _probe_aggregates(probe_block)
+    t = len(tile_agg) // 2
+    cls = bbox_ops.classify_env_blocks_np(probe_agg, probe_flags, tile_agg[t].astype(np.float64))
+    mid = t * TILE_ROWS + TILE_ROWS // 2
+    for r_lo, r_hi in _alive_ranges(cls, block_rows, 0, probe_block.count):
+        for c_lo in range(r_lo, r_hi, batch_rows()):
+            c_hi = min(c_lo + batch_rows(), r_hi)
+            if c_lo <= mid < c_hi:
+                return (build_env[t * TILE_ROWS : (t + 1) * TILE_ROWS].copy(),
+                        probe_env[c_lo:c_hi].copy())
+    raise SystemExit(f"FAIL: [Q3] no probe batch of tile {t} holds row {mid}")
+
+
+def check_k5(build, probe):
+    """K5 with its pairs against the plain version on the same card tensors.
+    -> (largest difference, pair total, probe rows with a match, pairs whose
+    both sides wrap, pairs where one side wraps)."""
+    counts, total, pairs = envelope_join(build, probe, pairs=True)
+    p_counts, p_total, p_pairs = envelope_join_plain(build, probe, pairs=True)
+    err = max(mismatches(counts, p_counts), abs(total - p_total),
+              mismatches(pairs[0], p_pairs[0]), mismatches(pairs[1], p_pairs[1]))
+    check(len(pairs[0]) == total, f"K5 wrote {len(pairs[0])} pairs of {total}")
+    wraps = lambda env, rows: (env[:, 2] < env[:, 0])[rows.to(torch.int64)]  # noqa: E731
+    pw, bw = wraps(probe, p_pairs[0]), wraps(build, p_pairs[1])
+    return (err, total, int((p_counts > 0).sum()), int((pw & bw).sum()), int((pw ^ bw).sum()))
+
+
+def query_kernels_alone(card, dev, build_block, probe_block):
+    """Phase Q3: K5 on the (build tile, probe batch) that Q2's full join
+    gives it and on a 4096-row tile x a 65,536-row batch of dense envelopes
+    that reach every branch of the overlap test, K6 on 100,000 pairs of
+    seeded shapes, each bit for bit against its plain version on the card,
+    timed beside its bound. -> their entries of the kernels line (without
+    launches)."""
+    rng = np.random.default_rng(9)
+    build, probe = (torch.from_numpy(a).to(dev) for a in main_path_join_batch(build_block,
+                                                                           probe_block))
+    t, b = len(build), len(probe)
+    err_k5, total, matched, _, _ = check_k5(build, probe)
+    check(err_k5 == 0 and total >= t // 2,
+          f"K5 differs from its plain version ({err_k5}) or found {total} pairs for a {t}-row "
+          f"tile of the time-travel join")
+    d_build = torch.from_numpy(make_dense_envelopes(rng, 4096)).to(dev)
+    d_probe = torch.from_numpy(make_dense_envelopes(rng, 65536)).to(dev)
+    d_err, d_total, d_matched, both_wrap, one_wrap = check_k5(d_build, d_probe)
+    check(d_err == 0 and d_matched >= len(d_probe) // 2 and both_wrap > 0 and one_wrap > 0,
+          f"K5 differs from its plain version on dense envelopes ({d_err}), or they reach too "
+          f"few branches: {d_total} pairs, {d_matched} of {len(d_probe)} probe rows matched, "
+          f"{both_wrap} both wrapping, {one_wrap} one wrapping")
+    tests = t * b
+    b5 = bound((t + b) * 16 + b * 4 + 8 + total * 8, 0)
+    b5 = max(b5, (tests * K5_OPS_PER_TEST / PRED_OPS_PER_S * 1e3, "operations"))
+    dense = {
+        "shape": [4096, 65536], "pairs": d_total, "probe_rows_matched": d_matched,
+        "both_wrap_pairs": both_wrap, "one_wrap_pairs": one_wrap, "max_abs_err": d_err,
+        "ms": time_ms(lambda: envelope_join(d_build, d_probe)),
+        "ms_pairs": time_ms(lambda: envelope_join(d_build, d_probe, pairs=True)),
+        "device_ms": total_ms(device_ms(lambda: envelope_join(d_build, d_probe),
+                                        ("envelope_join_kernel",))),
+        "plain_ms": time_ms(lambda: envelope_join_plain(d_build, d_probe), batches=3,
+                            per_batch=3),
+        "bound_ms": 4096 * 65536 * K5_OPS_PER_TEST / PRED_OPS_PER_S * 1e3,
+    }
+    k5 = {
+        "name": "envelope_join", "route": "cuda",
+        "source": "kart_tpu_torch/csrc/envelope_join.cu",
+        "replaces": "kart_tpu/diff/backend.py:514",
+        "max_abs_err": max(err_k5, d_err), "shape": [t, b], "pairs": total,
+        "probe_rows_matched": matched,
+        "ms": time_ms(lambda: envelope_join(build, probe)),
+        "ms_pairs": time_ms(lambda: envelope_join(build, probe, pairs=True)),
+        "device_ms": total_ms(device_ms(lambda: envelope_join(build, probe),
+                                        ("envelope_join_kernel",))),
+        "plain_ms": time_ms(lambda: envelope_join_plain(build, probe), batches=3, per_batch=3),
+        "bound_ms": b5[0], "bound_by": b5[1],
+        "bound_count": f"{tests} pair tests x {K5_OPS_PER_TEST} instructions at "
+                       f"{PRED_OPS_PER_S:.4g} a second",
+        "library_ms": None, "checked": True, "dense": dense,
+    }
+    print(f"[Q3] K5 on Q2's middle build tile x its probe batch ({t} x {b} rows): bit-identical "
+          f"counts, total {total} ({matched} probe rows matched) and pairs to the plain version; "
+          f"{k5['ms']:.4f} ms ({k5['ms_pairs']:.4f} with the pairs), device "
+          f"{fmt_ms(k5['device_ms'])}, plain {k5['plain_ms']:.4f} ms, bound "
+          f"{k5['bound_ms']:.4f} ms by {k5['bound_by']} on {card}")
+    print(f"[Q3] K5 on dense envelopes, 4096 x 65,536 rows: bit-identical, total {d_total} "
+          f"({d_matched} probe rows matched, {both_wrap} pairs both wrapping, {one_wrap} one "
+          f"wrapping); {dense['ms']:.4f} ms ({dense['ms_pairs']:.4f} with the pairs), device "
+          f"{fmt_ms(dense['device_ms'])}, plain {dense['plain_ms']:.4f} ms, bound "
+          f"{dense['bound_ms']:.4f} ms by operations on {card}")
+
+    col_a, col_b = synth_shapes(20_000, seed=11), synth_shapes(20_000, seed=12)
+    ia = rng.integers(0, len(col_a), 100_000)
+    ib = rng.integers(0, len(col_b), 100_000)
+    seg_a, seg_b = resident_segments(col_a, dev), resident_segments(col_b, dev)
+    ia_t, ib_t = torch.from_numpy(ia).to(dev), torch.from_numpy(ib).to(dev)
+    verdict = geom_refine(seg_a, ia_t, seg_b, ib_t)
+    want = geom_refine_plain(seg_a, ia_t, seg_b, ib_t)
+    err_k6 = mismatches(verdict, want)
+    n_true = int(want.sum())
+    check(err_k6 == 0 and 0 < n_true < len(ia), f"K6 differs from its plain version ({err_k6}) "
+                                                f"or its verdicts are all alike ({n_true})")
+    offs_a, offs_b = col_a.segment_table()[4], col_b.segment_table()[4]
+    sa, sb = np.diff(offs_a)[ia], np.diff(offs_b)[ib]
+    poly_a, poly_b = col_a.kinds[ia] == 3, col_b.kinds[ib] == 3
+    # a false verdict needs every term over the whole matrix, a true one at
+    # least one segment test: what these pairs need, not what they could
+    false = ~want.cpu().numpy()
+    per_cell = K6_OPS_PER_SEGMENT_TEST + K6_OPS_PER_CROSSING * (poly_a.astype(int) + poly_b)
+    ops = float((sa * sb * per_cell)[false].sum()) + n_true * K6_OPS_PER_SEGMENT_TEST
+    b6 = max(bound(len(ia) * 17 + int(offs_a[-1] + offs_b[-1]) * 16, 0),
+             (ops / INT_OPS_PER_S * 1e3, "operations"))
+    k6 = {
+        "name": "geom_refine", "route": "cuda", "source": "kart_tpu_torch/csrc/geom_refine.cu",
+        "replaces": "kart_tpu/diff/backend.py:609",
+        "max_abs_err": err_k6, "pairs": len(ia), "true": n_true,
+        "segment_cells": int((sa * sb).sum()),
+        "ms": time_ms(lambda: geom_refine(seg_a, ia_t, seg_b, ib_t)),
+        "device_ms": total_ms(device_ms(lambda: geom_refine(seg_a, ia_t, seg_b, ib_t),
+                                        ("geom_refine_kernel",))),
+        "plain_ms": time_ms(lambda: geom_refine_plain(seg_a, ia_t, seg_b, ib_t), batches=2,
+                            per_batch=1, warmup=0),
+        "bound_ms": b6[0], "bound_by": b6[1],
+        "bound_count": f"{ops:.6g} integer instructions (false verdicts: every cell's terms; "
+                       f"true: one segment test) at {INT_OPS_PER_S:.4g} a second",
+        "library_ms": None, "checked": True,
+    }
+    print(f"[Q3] K6 on {len(ia)} pairs of seeded shapes ({k6['segment_cells']} segment cells, "
+          f"{n_true} true): bit-identical to the plain version; {k6['ms']:.4f} ms, device "
+          f"{fmt_ms(k6['device_ms'])}, plain {k6['plain_ms']:.4f} ms, bound {k6['bound_ms']:.4f} "
+          f"ms by {k6['bound_by']} on {card}")
+    return k5, k6
 
 
 # --- the merge CLI on a repository with 1M conflicts -------------------------
@@ -1453,13 +1876,17 @@ def main():
     ap.add_argument("--spatial-rows", type=int, default=2_000_000)
     ap.add_argument("--merge-rows", type=int, default=2_000_000)
     ap.add_argument("--text-rows", type=int, default=10_000_000)
-    ap.add_argument("--text-merge-rows", type=int, default=2_000_000)
+    # the text-pk merge below [14]'s 2M rows: the query phases need the time
+    ap.add_argument("--text-merge-rows", type=int, default=1_000_000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--k4-only", action="store_true",
                     help="run phases 0, 1, 14 and 15 alone and print K4's timings (no result line)")
     ap.add_argument("--hash-only", action="store_true",
                     help="run phases 0, 1 and 18-21 alone and print K1's and K4's timings on "
                          "hash keys (no result line)")
+    ap.add_argument("--query-only", action="store_true",
+                    help="run phases 0, 1, 11 and Q1-Q3 alone and print K5's and K6's timings "
+                         "and the launches (no result line)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1476,6 +1903,12 @@ def main():
     if args.k4_only:
         _build.build_all()
         print(json.dumps(merge_phases(args, card, {}, dev)))
+        return 0
+    if args.query_only:
+        _build.build_all()
+        launches = {}
+        k5, k6 = spatial_phases(args, card, launches, dev, filters=False)
+        print(json.dumps({"k5": k5, "k6": k6, "launches": launches}))
         return 0
     if args.hash_only:
         _build.build_all()
@@ -1684,14 +2117,14 @@ def main():
     tmp.cleanup()
 
     # every card command of phases 8-21 is counted, its cProfile runs too
-    cli_launches = {"3-5": [k1["launches"], kernels[1]["launches"], 0]}
+    cli_launches = {"3-5": [k1["launches"], kernels[1]["launches"], 0, 0, 0]}
     walls = {}
     t = time.perf_counter()
     k1["estimation"] = cli_phases(args, card, cli_launches)
     walls["7-10b"] = time.perf_counter() - t
     t = time.perf_counter()
-    spatial_phases(args, card, cli_launches)
-    walls["11-13"] = time.perf_counter() - t
+    k5, k6 = spatial_phases(args, card, cli_launches, dev)
+    walls["11-13, Q1-Q3"] = time.perf_counter() - t
     t = time.perf_counter()
     k4 = merge_phases(args, card, cli_launches, dev)
     walls["14-17"] = time.perf_counter() - t
@@ -1712,7 +2145,8 @@ def main():
         "unique_call": "torch.unique(concatenated keys): the union step only (partial)",
         "checked": True,
     })
-    for k, i in ((k1, 0), (kernels[1], 1), (kernels[3], 2)):
+    kernels += [k5, k6]
+    for k, i in ((k1, 0), (kernels[1], 1), (kernels[3], 2), (k5, 3), (k6, 4)):
         k["launches_by_phase"] = {p: n[i] for p, n in cli_launches.items() if n[i]}
         k["launches"] = sum(k["launches_by_phase"].values())
 

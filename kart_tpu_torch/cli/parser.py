@@ -15,6 +15,7 @@ module keeps the part of them that the ported commands use:
   ``Option '-o' requires an argument.``, ``Option '--flag' does not take a
   value.``, ``Invalid value for '--output-format' / '-o': 'x' is not one of
   ...``, ``Invalid value for '--with-file': Path 'x' does not exist.``,
+  ``Invalid value for '--page': 'x' is not a valid integer.``,
   ``Missing argument 'LABEL'.``, ``Got unexpected extra argument (x)``,
   ``No such command 'x'.`` and ``Missing command.``;
 * parameters are checked in click's order: those given, in the order first
@@ -58,8 +59,9 @@ class Option:
     its ``secondary`` names, such as ``--no-ff``, set False) or ``count``."""
 
     def __init__(self, *opts, dest, kind="value", choices=None, default=None,
-                 secondary=(), path_exists=False, metavar=None, help=""):
+                 secondary=(), path_exists=False, integer=False, metavar=None, help=""):
         self.opts = opts
+        self.integer = integer
         self.secondary = tuple(secondary)
         self.dest = dest
         self.kind = kind
@@ -85,6 +87,12 @@ class Option:
         if self.path_exists and not os.path.exists(value):
             raise UsageError(f"Invalid value for {self.hint()}: Path {value!r} does not exist.",
                              command)
+        if self.integer:
+            try:
+                return int(value)
+            except ValueError:
+                raise UsageError(f"Invalid value for {self.hint()}: {value!r} is not a valid "
+                                 "integer.", command) from None
         return value
 
 

@@ -7,9 +7,13 @@ Two backends, chosen by device only:
   runs the kernels.
 * ``cpu_torch`` -- the CPU: the plain PyTorch versions.
 
+A third, ``plain_torch``, runs the plain versions on any device; no command
+selects it: it is what the kernels are held against on the card.
+
 There are no row-count gates: a caller that asks for the card gets the
 card, whatever the size, and a failure raises instead of degrading to the
-host.
+host. Beside the diff's entry points, the query's: :meth:`join_counts`
+(K5) and :meth:`refine_pairs` (K6).
 """
 
 import numpy as np
@@ -19,6 +23,8 @@ from kart_tpu_torch import runtime
 from kart_tpu_torch.ops import _build
 from kart_tpu_torch.ops.blocks import to_device
 from kart_tpu_torch.ops.diff_kernel import classify_blocks
+from kart_tpu_torch.ops.envelope_join import envelope_join, envelope_join_plain
+from kart_tpu_torch.ops.geom_refine import geom_refine, geom_refine_plain, resident_segments
 
 _SIGNATURES = {
     "kart_envelope_scan": [
@@ -103,6 +109,7 @@ class DiffBackend:
     """One execution layer on one device."""
 
     name = None
+    plain = False
 
     def __init__(self, device):
         self.device = device
@@ -119,7 +126,24 @@ class DiffBackend:
         """bool (count,) envelope-vs-query hits of one sidecar block."""
         env = to_device(np.asarray(block.envelopes[: block.count], dtype=np.float32),
                         self.device)
-        return envelope_scan(env, query)
+        return (envelope_scan_plain if self.plain else envelope_scan)(env, query)
+
+    def join_counts(self, build_env, probe_env, pairs=False):
+        """The spatial join's batch step: (T, 4) build x (B, 4) probe f32
+        envelope tensors on this device -> (per-probe counts int32 (B,),
+        pair total, the pairs in row-major order when ``pairs``)."""
+        return (envelope_join_plain if self.plain else envelope_join)(build_env, probe_env, pairs)
+
+    def refine_pairs(self, col_a, ia, col_b, ib):
+        """The exact refine: candidate pairs over two vertex columns (int64
+        index tensors or arrays) -> bool (P,) verdicts on this device. The
+        columns' segment tables stay on the device between calls."""
+        ia = to_device(np.asarray(ia, dtype=np.int64), self.device) if isinstance(
+            ia, np.ndarray) else ia
+        ib = to_device(np.asarray(ib, dtype=np.int64), self.device) if isinstance(
+            ib, np.ndarray) else ib
+        return (geom_refine_plain if self.plain else geom_refine)(
+            resident_segments(col_a, self.device), ia, resident_segments(col_b, self.device), ib)
 
 
 class DeviceTorchBackend(DiffBackend):
@@ -128,6 +152,15 @@ class DeviceTorchBackend(DiffBackend):
 
 class CpuTorchBackend(DiffBackend):
     name = "cpu_torch"
+
+
+class PlainTorchBackend(DiffBackend):
+    """The plain versions of K2, K5 and K6 on any device, the card
+    included: what the query's kernels are checked against through the
+    query's own loop, never a route of a command."""
+
+    name = "plain_torch"
+    plain = True
 
 
 BACKENDS = {cls.name: cls for cls in (DeviceTorchBackend, CpuTorchBackend)}

@@ -21,12 +21,14 @@ Layout (one file per feature tree, ``.kart/columnar/<tree-oid>.kcol``):
 A hash-keyed file's paths are read through :class:`LazyPaths`, a view
 that decodes one path when it is asked for, so a diff decodes only its
 changed rows' filenames. The ``geom`` section (the vertex column of
-:mod:`kart_tpu_torch.geom`) is written as kart_tpu writes it, and skipped
-on read: nothing in the port decodes it yet. The repo-level helpers
-(:func:`sidecar_file`, :func:`has_sidecar`, :func:`load_block`,
-:func:`save_sidecar`, :func:`build_sidecar`) mirror kart_tpu's
-``diff/sidecar.py``; deriving a sidecar from a commit and the importer's
-capture are not ported (the port does not import).
+:mod:`kart_tpu_torch.geom`) is written as kart_tpu writes it, and read as
+an undecoded view that :meth:`FeatureBlock.vertex_column` decodes on first
+use. The repo-level helpers (:func:`sidecar_file`, :func:`has_sidecar`,
+:func:`load_block`, :func:`ensure_block`, :func:`save_sidecar`,
+:func:`build_sidecar`) mirror kart_tpu's ``diff/sidecar.py``, with
+:func:`_feature_envelope_wsen` for envelopes read from blobs; deriving a
+sidecar from a commit and the importer's capture are not ported (the port
+does not import).
 """
 
 import json
@@ -35,6 +37,7 @@ import os
 import numpy as np
 
 from kart_tpu_torch.geom import encode_vertex_column
+from kart_tpu_torch.geometry import Geometry
 from kart_tpu_torch.ops.blocks import PAD_KEY, FeatureBlock, bucket_size, hash_keys_for_paths
 
 MAGIC = b"KCOL1\n"
@@ -201,6 +204,8 @@ def load_block_file(path, pad=False):
         block_rows = int(header.get("agg_block_rows", 0))
         if header.get("envelope_bytes") and block_rows:
             end += 17 * -(-n // block_rows)
+        geom_bytes = int(header.get("geom_bytes", 0))
+        end += geom_bytes
         if end > len(mm):
             raise SidecarError(f"{path}: truncated ({len(mm)} of {end} bytes)")
         keys = np.frombuffer(mm, dtype="<i8", count=n, offset=pos)
@@ -223,6 +228,8 @@ def load_block_file(path, pad=False):
                 pos += 16 * nb
                 flags = np.frombuffer(mm, dtype=np.uint8, count=nb, offset=pos)
                 env_blocks = (agg, flags, block_rows)
+                pos += nb
+        geom_raw = mm[pos : pos + geom_bytes] if geom_bytes else None
     except (IndexError, KeyError, TypeError, ValueError) as e:
         if isinstance(e, SidecarError):
             raise
@@ -240,7 +247,7 @@ def load_block_file(path, pad=False):
         oids_p[:n] = oid_rows
         keys, oid_rows = keys_p, oids_p
     return FeatureBlock(keys, oid_rows, n, envelopes=envelopes,
-                        env_blocks=env_blocks, paths=paths)
+                        env_blocks=env_blocks, paths=paths, geom_raw=geom_raw)
 
 
 def sidecar_file(repo, feature_tree_oid):
@@ -266,6 +273,35 @@ def load_block(repo, dataset, pad=False):
         return load_block_file(sidecar_file(repo, feature_tree.oid), pad=pad)
     except (OSError, SidecarError):
         return None
+
+
+def ensure_block(repo, dataset, pad=False):
+    """A dataset version's FeatureBlock: its sidecar, built from one walk of
+    the feature tree when absent or malformed."""
+    block = load_block(repo, dataset, pad=pad)
+    if block is None:
+        block = build_sidecar(repo, dataset, pad=pad)
+    return block
+
+
+def _feature_envelope_wsen(feature, geom_col):
+    """(w, s, e, n) of one feature's geometry; the whole world for a NULL,
+    empty or unreadable geometry, or without a geometry column (such a row
+    matches every spatial predicate)."""
+    full = (-180.0, -90.0, 180.0, 90.0)
+    if geom_col is None:
+        return full
+    geom = feature.get(geom_col) if hasattr(feature, "get") else None
+    if geom is None:
+        return full
+    try:
+        env = Geometry.of(geom).envelope()  # (x0, x1, y0, y1)
+    except Exception:
+        return full
+    if env is None:
+        return full
+    x0, x1, y0, y1 = env
+    return (x0, y0, x1, y1)
 
 
 def save_sidecar(repo, feature_tree_oid, keys, oids_u8, envelopes=None, vertices=None, *,

@@ -7,6 +7,10 @@ Envelopes are (w, s, e, n) with longitudes cyclic over the anti-meridian:
 ``(w2 - w1) mod 360 <= len1`` or ``(w1 - w2) mod 360 <= len2``. Everything
 is f32, as on the TPU; unlike kart_tpu, small inputs are not routed to a
 host f64 scan, so callers pad the query (the pre-pass pads by 1e-4).
+
+Also the host classification of sidecar blocks against a query
+(:func:`classify_env_blocks_np`, kart_tpu's numpy twin of the native
+``classify_block``), which the query's scans and joins prune by.
 """
 
 import threading
@@ -24,6 +28,53 @@ _SIGNATURES = {
         _build.P, _build.I32, _build.I32, _build.P,
     ]
 }
+
+
+def _range_len_np(w, e):
+    return np.where(e >= w, e - w, np.mod(e - w, 360.0))
+
+
+def _cyclic_overlap_np(w1, e1, w2, e2):
+    len1 = _range_len_np(w1, e1)
+    len2 = _range_len_np(w2, e2)
+    return (np.mod(w2 - w1, 360.0) <= len1) | (np.mod(w1 - w2, 360.0) <= len2)
+
+
+#: block classes of the pruned scan
+BLOCK_ALL_OUT, BLOCK_ALL_IN, BLOCK_BOUNDARY = 0, 1, 2
+
+
+def classify_env_blocks_np(agg, flags, query):
+    """Sidecar block aggregates (nb,4) f32 union bboxes + (nb,) flag bytes +
+    query (4,) -> int8 (nb,) BLOCK_* classes: all-out when the union misses
+    the query, all-in when it lies inside it and is tight (flag 0),
+    boundary otherwise. A non-finite union is boundary unless its latitudes
+    rule it out."""
+    agg = np.asarray(agg, dtype=np.float64)
+    w, s, e, n = (agg[:, i] for i in range(4))
+    qw, qs, qe, qn = (float(query[i]) for i in range(4))
+    lon_finite = np.isfinite(w) & np.isfinite(e)
+    with np.errstate(invalid="ignore"):
+        lon_out = ~_cyclic_overlap_np(w, e, np.float64(qw), np.float64(qe))
+        if qe >= qw:
+            lon_in = (w >= qw) & (e <= qe)
+        else:  # a wrapping query: inside [qw, 180] or [-180, qe]
+            lon_in = (w >= qw) | (e <= qe)
+    out = (n < qs) | (s > qn) | (lon_finite & lon_out)
+    all_in = (
+        ~out
+        & (np.asarray(flags) == 0)
+        & lon_finite
+        & np.isfinite(s)
+        & np.isfinite(n)
+        & (s >= qs)
+        & (n <= qn)
+        & lon_in
+    )
+    cls = np.full(len(agg), BLOCK_BOUNDARY, dtype=np.int8)
+    cls[out] = BLOCK_ALL_OUT
+    cls[all_in] = BLOCK_ALL_IN
+    return cls
 
 
 def pad_envelopes(envelopes, multiple=None):

@@ -14,14 +14,27 @@ Only the first ``count`` rows are real; rows beyond it (bucket padding, or
 the tail of a compacted prefilter subset) carry ``PAD_KEY``. Blocks stay
 numpy on the host (they are mmap views of the sidecar); :func:`to_device`
 and :func:`block_tensors` make the count-sliced tensors the kernels take.
+A sidecar's vertex column is decoded on first use
+(:meth:`FeatureBlock.vertex_column`), and kept by content in a small
+process-wide memo, so repeated queries over one file decode it once.
 """
 
 import hashlib
+import threading
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
+from kart_tpu_torch.geom import decode_vertex_column
+
 PAD_KEY = np.int64(2**63 - 1)
+
+#: decoded vertex columns by (sha1 of the section bytes, row count); the
+#: sidecar is content-addressed, so a key never goes stale
+_VERTEX_MEMO = OrderedDict()
+_vertex_memo_lock = threading.Lock()
+_VERTEX_MEMO_ENTRIES = 8
 
 
 def bucket_size(n, minimum=1024):
@@ -74,17 +87,50 @@ class FeatureBlock:
     """One dataset version as key-sorted (key, oid) arrays, with the blob
     paths (``paths``: see the module docstring), the optional (count, 4)
     f32 wsen envelope column and its block aggregates ``(agg (nb,4) f32,
-    flags (nb,) u8, block_rows)`` from the sidecar."""
+    flags (nb,) u8, block_rows)`` from the sidecar, and the sidecar's
+    encoded vertex column ``geom_raw``."""
 
-    __slots__ = ("keys", "oids", "count", "envelopes", "env_blocks", "paths")
+    __slots__ = ("keys", "oids", "count", "envelopes", "env_blocks", "paths", "geom_raw",
+                 "_vertices")
 
-    def __init__(self, keys, oids, count, envelopes=None, env_blocks=None, paths=None):
+    def __init__(self, keys, oids, count, envelopes=None, env_blocks=None, paths=None,
+                 geom_raw=None):
         self.keys = keys
         self.oids = oids
         self.count = count
         self.envelopes = envelopes
         self.env_blocks = env_blocks
         self.paths = paths
+        self.geom_raw = geom_raw
+        self._vertices = None
+
+    def vertex_column(self):
+        """The :class:`~kart_tpu_torch.geom.VertexColumn` of the block's
+        ``count`` rows, decoded on first call, or None when the sidecar has
+        no geometry section. A corrupt section gives None once (the refine
+        stage then keeps envelope verdicts)."""
+        if self._vertices is None and self.geom_raw is not None:
+            raw, self.geom_raw = self.geom_raw, None
+            data = bytes(raw)
+            memo_key = (hashlib.sha1(data).digest(), self.count)
+            with _vertex_memo_lock:
+                hit = _VERTEX_MEMO.get(memo_key)
+                if hit is not None:
+                    _VERTEX_MEMO.move_to_end(memo_key)
+            if hit is not None:
+                self._vertices = hit
+                return hit
+            try:
+                self._vertices, _ = decode_vertex_column(data, self.count)
+            except Exception:
+                self._vertices = None
+            if self._vertices is not None:
+                with _vertex_memo_lock:
+                    _VERTEX_MEMO[memo_key] = self._vertices
+                    _VERTEX_MEMO.move_to_end(memo_key)
+                    while len(_VERTEX_MEMO) > _VERTEX_MEMO_ENTRIES:
+                        _VERTEX_MEMO.popitem(last=False)
+        return self._vertices
 
     @classmethod
     def from_dataset(cls, dataset, pad=True):

@@ -1,0 +1,117 @@
+"""The spatial join's envelope-overlap test: kernel K5
+(``csrc/envelope_join.cu``), the port of kart_tpu's
+``diff/backend.py:_make_sharded_join._step``, with its plain PyTorch
+version.
+
+A build tile of (T, 4) f32 wsen envelopes against a probe batch of (B, 4):
+per probe row the number of build rows its envelope overlaps (cyclic
+longitude, comparisons only: a NaN row never matches), the pair total, and
+on request the overlapping pairs themselves in row-major order, which the
+exact refine takes instead of rebuilding the matrix on the host.
+"""
+
+import torch
+
+from kart_tpu_torch import runtime
+from kart_tpu_torch.ops import _build
+
+_SIGNATURES = {
+    "kart_envelope_join": [
+        _build.P, _build.I32, _build.P, _build.I32, _build.P, _build.P,
+        _build.P, _build.P, _build.P, _build.I32, _build.P,
+    ]
+}
+
+#: probe rows a chunk of the plain version (bounds its (chunk, T) matrices)
+PLAIN_CHUNK_ROWS = 8192
+
+
+def _check(env, what):
+    if env.dtype != torch.float32 or env.dim() != 2 or env.shape[1] != 4 or not env.is_contiguous():
+        raise ValueError(f"envelope_join: {what} must be contiguous f32 (n, 4)")
+
+
+def envelope_join(build_env, probe_env, pairs=False):
+    """(T, 4) build x (B, 4) probe f32 envelopes on one device -> (counts
+    int32 (B,), total int, (probe row int32 (P,), build row int32 (P,)) in
+    row-major order when ``pairs``, else None). CUDA tensors run K5 (a
+    counts pass, then a pairs pass when pairs are asked for and found,
+    each counted as a launch); CPU tensors run :func:`envelope_join_plain`."""
+    _check(build_env, "build envelopes")
+    _check(probe_env, "probe envelopes")
+    device = probe_env.device
+    if build_env.device != device:
+        raise ValueError("envelope_join: both sides must be on one device")
+    if device.type == "cpu":
+        return envelope_join_plain(build_env, probe_env, pairs)
+    if device.type != "cuda":
+        raise runtime.DeviceUnavailable(f"envelope_join: unsupported device {device}")
+    t, b = build_env.shape[0], probe_env.shape[0]
+    if t >= 2**31 or b >= 2**31:
+        raise ValueError("envelope_join: a side holds 2^31 rows or more")
+    for env in (build_env, probe_env):
+        if env.numel() and env.data_ptr() % 16:
+            raise ValueError("envelope_join: envelope rows must be 16-byte aligned")
+    counts = torch.empty(b, dtype=torch.int32, device=device)
+    total = torch.empty(1, dtype=torch.int64, device=device)
+    lib = _build.load_library("envelope_join", device, _SIGNATURES)
+    stream = _build.stream_ptr(device)
+    rc = lib.kart_envelope_join(build_env.data_ptr(), t, probe_env.data_ptr(), b,
+                                counts.data_ptr(), total.data_ptr(), None, None, None,
+                                device.index, stream)
+    _build.check(lib, rc, "envelope_join")
+    runtime.count("envelope_join_launches")
+    n_pairs = int(total.item())
+    if not pairs:
+        return counts, n_pairs, None
+    pair_probe = torch.empty(n_pairs, dtype=torch.int32, device=device)
+    pair_build = torch.empty(n_pairs, dtype=torch.int32, device=device)
+    if n_pairs:
+        wide = counts.to(torch.int64)
+        offs = torch.cumsum(wide, 0) - wide
+        rc = lib.kart_envelope_join(build_env.data_ptr(), t, probe_env.data_ptr(), b,
+                                    None, None, offs.data_ptr(), pair_probe.data_ptr(),
+                                    pair_build.data_ptr(), device.index, stream)
+        _build.check(lib, rc, "envelope_join (pairs)")
+        runtime.count("envelope_join_launches")
+    return counts, n_pairs, (pair_probe, pair_build)
+
+
+def overlap_matrix(probe, build):
+    """(B, 4) x (T, 4) f32 -> bool (B, T): kart_tpu's ``_join_overlap_np``
+    term for term."""
+    pw, ps, pe, pn = (c[:, None] for c in probe.unbind(1))
+    bw, bs, be, bn = (c[None, :] for c in build.unbind(1))
+    lat = (bs <= pn) & (ps <= bn)
+    a = bw <= pe
+    b = pw <= be
+    bwrap = be < bw
+    pwrap = pe < pw
+    both = bwrap & pwrap
+    one = bwrap ^ pwrap
+    return lat & ((a & b) | both | (one & (a | b)))
+
+
+def envelope_join_plain(build_env, probe_env, pairs=False):
+    """Plain PyTorch version of K5 (any device): the overlap matrix a chunk
+    of probe rows at a time."""
+    b = probe_env.shape[0]
+    device = probe_env.device
+    counts = torch.zeros(b, dtype=torch.int32, device=device)
+    found = []
+    if build_env.shape[0] and b:
+        for lo in range(0, b, PLAIN_CHUNK_ROWS):
+            hit = overlap_matrix(probe_env[lo : lo + PLAIN_CHUNK_ROWS], build_env)
+            counts[lo : lo + hit.shape[0]] = hit.sum(dim=1, dtype=torch.int32)
+            if pairs:
+                rows, cols = torch.nonzero(hit, as_tuple=True)
+                found.append((rows + lo, cols))
+    total = int(counts.sum(dtype=torch.int64).item())
+    if not pairs:
+        return counts, total, None
+    if not found:
+        empty = torch.zeros(0, dtype=torch.int32, device=device)
+        return counts, total, (empty, empty.clone())
+    return counts, total, (torch.cat([r for r, _ in found]).to(torch.int32),
+                           torch.cat([c for _, c in found]).to(torch.int32))
+

@@ -15,7 +15,9 @@ dates (``GIT_AUTHOR_DATE``/``GIT_COMMITTER_DATE``) and seed, it writes the
 same commits and byte-identical sidecars as kart_tpu. The polygon
 repository is not ported.
 
-``pk="text"`` has no kart_tpu counterpart: a hash-keyed layer whose pk is
+:func:`synth_shapes` (seeded stars with holes, points and polylines as a
+vertex column) has no kart_tpu counterpart either: it feeds the exact
+refine's checks. ``pk="text"`` has no kart_tpu counterpart: a hash-keyed layer whose pk is
 a G-NAF-shaped address id (:func:`gnaf_ids`), its feature tree laid out by
 the hashed path encoder and its sidecars keyed by the filename hashes with
 their paths, every object as kart_tpu's encoders would write it.
@@ -36,7 +38,16 @@ from kart_tpu_torch.core.repo import KartRepo
 from kart_tpu_torch.core.tree_builder import TreeBuilder
 from kart_tpu_torch.diff import sidecar
 from kart_tpu_torch.epsg import epsg_wkt
-from kart_tpu_torch.geom import boxes_vertex_column
+from kart_tpu_torch.geom import (
+    COORD_SCALE,
+    KIND_LINE,
+    KIND_POINT,
+    KIND_POLY,
+    WORLD_X,
+    WORLD_Y,
+    VertexColumn,
+    boxes_vertex_column,
+)
 from kart_tpu_torch.geometry import Geometry
 from kart_tpu_torch.models.dataset import Dataset3
 from kart_tpu_torch.models.paths import B64_ALPHABET, PathEncoder, b64_batch
@@ -89,6 +100,54 @@ def synth_envelopes(pks, span=None, base=None):
     out[:, 2] = lon + 0.001
     out[:, 3] = lat + 0.001
     return out
+
+
+def synth_shapes(n, seed=0, center=(0.0, 0.0), span=10.0, max_segments=256):
+    """n seeded shapes in a ``span``-degree square around ``center`` as a
+    VertexColumn: star polygons of 4 to ``max_segments`` edges (closed
+    rings, a third with a star hole), multipoints, single points and
+    polylines; one shape in a hundred is stretched past the world's edge
+    and clipped to it, so its vertices sit at +-WORLD_X or +-WORLD_Y."""
+    rng = np.random.default_rng(seed)
+    kinds = rng.choice([KIND_POLY, KIND_POLY, KIND_POINT, KIND_LINE], size=n).astype(np.uint8)
+    ring_counts, xs, ys = [], [], []
+
+    def ring(cx, cy, k, r, closed):
+        ang = np.sort(rng.uniform(0, 2 * np.pi, k))
+        rad = r * np.where(np.arange(k) % 2 == 0, 1.0, rng.uniform(0.3, 0.7))
+        x, y = cx + rad * np.cos(ang), cy + rad * np.sin(ang)
+        if closed:
+            x, y = np.append(x, x[0]), np.append(y, y[0])
+        return x, y
+
+    for i in range(n):
+        cx, cy = (np.asarray(center) + rng.uniform(-span / 2, span / 2, 2))
+        r = rng.uniform(0.05, span / 4)
+        if rng.random() < 0.01:
+            r *= 1e3  # crosses the world's edge, clipped below
+        kind, rings = kinds[i], []
+        if kind == KIND_POLY:
+            rings.append(ring(cx, cy, int(rng.integers(4, max_segments + 1)), r, True))
+            if rng.random() < 1 / 3:
+                rings.append(ring(cx, cy, int(rng.integers(4, 16)), r / 4, True))
+        elif kind == KIND_LINE:
+            rings.append(ring(cx, cy, int(rng.integers(2, max_segments + 1)), r, False))
+        else:
+            for _ in range(int(rng.integers(1, 4))):
+                px, py = cx + rng.uniform(-r, r), cy + rng.uniform(-r, r)
+                rings.append((np.asarray([px]), np.asarray([py])))
+        ring_counts.append(len(rings))
+        for x, y in rings:
+            xs.append(np.clip(np.rint(x * COORD_SCALE), -WORLD_X, WORLD_X).astype(np.int32))
+            ys.append(np.clip(np.rint(y * COORD_SCALE), -WORLD_Y, WORLD_Y).astype(np.int32))
+    vert_counts = np.asarray([len(x) for x in xs], dtype=np.int64)
+    return VertexColumn(
+        kinds,
+        np.concatenate(([0], np.cumsum(np.asarray(ring_counts, np.int64)))),
+        np.concatenate(([0], np.cumsum(vert_counts))),
+        np.concatenate(xs),
+        np.concatenate(ys),
+    )
 
 
 #: the states of G-NAF's ``ADDRESS_DETAIL_PID`` prefixes (``GA`` + state)

@@ -17,11 +17,16 @@ id    name       payload (little-endian; varints are LEB128, zigzag maps
 4     dfor       zigzag-varint first value, then FOR over the deltas
 ====  =========  ==========================================================
 
-Counterpart of the encode half of kart_tpu's ``tiles/streams.py``
-(``zigzag``, ``varint_lengths``, ``varint_encode``, ``bit_width``,
-``bitpack``, ``_runs``, ``_probe_sizes``, ``encode_stream``): the same
-bytes for the same column. The decoders are not ported: nothing in the
-port reads a stream yet.
+Counterpart of kart_tpu's ``tiles/streams.py`` for int streams: the
+encoder (``zigzag``, ``varint_lengths``, ``varint_encode``, ``bit_width``,
+``bitpack``, ``_runs``, ``_probe_sizes``, ``encode_stream``) writes the same
+bytes for the same column, and the decoder (``unzigzag``,
+``varint_decode``, ``bitunpack``, ``decode_stream``) accepts the same bytes
+and raises :class:`TileEncodeError` with the same message on the rest.
+Decoding is a taint boundary: every stream is bounds-checked, canonical
+(no zero-padded varint, no split RLE run, no nonzero padding bits) and
+consumed exactly, so one column has one byte string. The byte-string
+dictionary stream is not ported.
 """
 
 import struct
@@ -30,11 +35,18 @@ import numpy as np
 
 
 class TileEncodeError(ValueError):
-    """An unknown stream encoding was asked for."""
+    """Malformed, truncated or oversized stream bytes, or an unknown
+    encoding asked for."""
 
 
 #: encoding ids (stream header byte)
 RAW, RLE, FOR, DVARINT, DFOR = 0, 1, 2, 3, 4
+
+ENCODING_NAMES = {RAW: "raw", RLE: "rle", FOR: "for", DVARINT: "dvarint", DFOR: "dfor"}
+
+#: ceiling on the rows, rings or vertices one decoded column may claim: a
+#: few crafted bytes must not demand a multi-GB allocation
+MAX_DECODE_ROWS = 1 << 27
 
 _STREAM_HEADER = struct.Struct("<BI")  # encoding id, payload byte length
 
@@ -180,3 +192,142 @@ def encode_stream(values, dtype="i8", force=None):
     else:
         raise TileEncodeError(f"Unknown stream encoding id {enc}")
     return _STREAM_HEADER.pack(enc, len(payload)) + payload
+
+
+def unzigzag(codes):
+    """uint64 zigzag codes -> int64 column."""
+    u = np.asarray(codes, dtype=np.uint64)
+    return ((u >> 1).astype(np.int64)) ^ -(u & 1).astype(np.int64)
+
+
+def varint_decode(data, count, pos=0):
+    """-> (uint64 codes (count,), next pos). Raises unless ``data[pos:]``
+    holds ``count`` complete, canonical varints of at most 64 bits."""
+    buf = np.frombuffer(data, dtype=np.uint8)
+    if count == 0:
+        return np.zeros(0, dtype=np.uint64), pos
+    ends = np.flatnonzero(buf[pos:] < 0x80)
+    if len(ends) < count:
+        raise TileEncodeError(
+            f"Truncated varint stream: {len(ends)} complete values of {count} expected")
+    ends = ends[:count] + pos  # inclusive terminator positions
+    starts = np.concatenate(([pos], ends[:-1] + 1))
+    if np.any(ends - starts >= 10):
+        raise TileEncodeError("Varint value longer than 10 bytes")
+    # a 10-byte varint's last byte carries bits 63..69: above 1 it would
+    # wrap in the shift below
+    tenth = buf[ends[ends - starts == 9]]
+    if len(tenth) and int(tenth.max()) > 1:
+        raise TileEncodeError("Varint value exceeds uint64")
+    # a multi-byte varint ending in 0x00 has a shorter encoding
+    if np.any((ends > starts) & (buf[ends] == 0)):
+        raise TileEncodeError("Non-canonical zero-padded varint")
+    idx_in_group = np.arange(pos, ends[-1] + 1) - np.repeat(starts, ends - starts + 1)
+    window = (buf[pos : ends[-1] + 1] & 0x7F).astype(np.uint64) << (
+        np.uint64(7) * idx_in_group.astype(np.uint64))
+    codes = np.add.reduceat(window, starts - pos)
+    return codes, int(ends[-1]) + 1
+
+
+def bitunpack(data, count, width, pos=0):
+    """packed bytes -> uint64 offsets (count,); bounds-checked, and the
+    last byte's unused low bits must be zero."""
+    if width == 0 or count == 0:
+        return np.zeros(count, dtype=np.uint64)
+    nbytes = (count * width + 7) // 8
+    if pos + nbytes > len(data):
+        raise TileEncodeError(
+            f"Truncated bit-packed stream: {len(data) - pos} bytes of {nbytes} expected")
+    buf = np.frombuffer(data, dtype=np.uint8, count=nbytes, offset=pos)
+    pad = nbytes * 8 - count * width
+    if pad and buf[-1] & ((1 << pad) - 1):
+        raise TileEncodeError("Nonzero padding bits in bit-packed stream")
+    bits = np.unpackbits(buf, count=count * width).reshape(count, width)
+    weights = np.uint64(1) << np.arange(width - 1, -1, -1, dtype=np.uint64)
+    return (bits.astype(np.uint64) * weights[None, :]).sum(axis=1, dtype=np.uint64)
+
+
+def decode_stream(data, count, dtype="i8", pos=0):
+    """Stream bytes at ``pos`` -> (values (count,) of ``dtype``, next pos).
+    One dispatch on the recorded encoding, whole-array numpy below it.
+    Raises :class:`TileEncodeError` unless the payload decodes to exactly
+    ``count`` values and consumes exactly its declared length."""
+    wire = _DTYPES[dtype]
+    if pos + _STREAM_HEADER.size > len(data):
+        raise TileEncodeError("Truncated stream header")
+    enc, nbytes = _STREAM_HEADER.unpack_from(data, pos)
+    pos += _STREAM_HEADER.size
+    end = pos + nbytes
+    if end > len(data):
+        raise TileEncodeError(
+            f"Truncated stream payload: {len(data) - pos} bytes of {nbytes} declared")
+    body = data[pos:end]
+
+    if enc == RAW:
+        if nbytes != count * wire.itemsize:
+            raise TileEncodeError(
+                f"Raw stream holds {nbytes} bytes for {count} {wire.itemsize}-byte values")
+        out = np.frombuffer(body, dtype=wire, count=count).astype(np.int64)
+        consumed = nbytes
+    elif enc == RLE:
+        head, p = varint_decode(body, 1)
+        n_runs = int(head[0])
+        run_lens, p = varint_decode(body, n_runs, p)
+        run_vals, p = varint_decode(body, n_runs, p)
+        lens = run_lens.astype(np.int64)
+        # each run capped before the sum, which could wrap in int64
+        if n_runs and (int(lens.min()) <= 0 or int(lens.max()) > count):
+            raise TileEncodeError(f"RLE run length outside [1, {count}]")
+        total = sum(int(x) for x in lens)
+        if total != count:
+            raise TileEncodeError(f"RLE runs sum to {total}, column holds {count}")
+        vals = unzigzag(run_vals)
+        if n_runs > 1 and np.any(vals[1:] == vals[:-1]):
+            raise TileEncodeError("Non-canonical RLE: adjacent runs share a value")
+        out = np.repeat(vals, lens)
+        consumed = p
+    elif enc == FOR:
+        base, p = varint_decode(body, 1)
+        if p + 1 > len(body):
+            raise TileEncodeError("Truncated FOR stream width byte")
+        w = body[p]
+        p += 1
+        if w > 64:
+            raise TileEncodeError(f"FOR bit width {w} > 64")
+        offs = bitunpack(body, count, w, p)
+        out = unzigzag(base)[0] + offs.astype(np.int64)
+        consumed = p + (count * w + 7) // 8
+    elif enc in (DVARINT, DFOR):
+        if count == 0:
+            out = np.zeros(0, np.int64)
+            consumed = 0
+        elif enc == DVARINT:
+            codes, p = varint_decode(body, count)
+            out = np.cumsum(unzigzag(codes))
+            consumed = p
+        else:
+            first, p = varint_decode(body, 1)
+            dbase, p = varint_decode(body, 1, p)
+            if p + 1 > len(body):
+                raise TileEncodeError("Truncated DFOR stream width byte")
+            w = body[p]
+            p += 1
+            if w > 64:
+                raise TileEncodeError(f"DFOR bit width {w} > 64")
+            offs = bitunpack(body, count - 1, w, p)
+            deltas = unzigzag(dbase)[0] + offs.astype(np.int64)
+            out = np.cumsum(np.concatenate((unzigzag(first), deltas)))
+            consumed = p + ((count - 1) * w + 7) // 8
+    else:
+        raise TileEncodeError(f"Unknown stream encoding id {enc}")
+    if consumed != nbytes:
+        raise TileEncodeError(
+            f"Stream payload declares {nbytes} bytes but its "
+            f"{ENCODING_NAMES[enc]} encoding consumed {consumed}")
+    if len(out) != count:
+        raise TileEncodeError(f"Stream decoded {len(out)} values, column holds {count}")
+    if dtype == "i4":
+        lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+        if len(out) and (int(out.min()) < lo or int(out.max()) > hi):
+            raise TileEncodeError("int32 stream value out of range")
+    return out.astype(wire), end

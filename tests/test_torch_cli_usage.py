@@ -35,6 +35,22 @@ PER_COMMAND = [
     )
 ]
 
+#: kart query: a bad -o, --page not an int, --intersects with no value, an
+#: extra argument, and more
+QUERY = [
+    ["query", "HEAD", "points", "-o", "nosuch"],
+    ["query", "HEAD", "points", "--page", "x"],
+    ["query", "HEAD", "points", "--page-size", "1.5"],
+    ["query", "HEAD", "points", "--intersects"],
+    ["query", "HEAD", "points", "extra"],
+    ["query"],
+    ["query", "HEAD"],
+    ["query", "HEAD", "points", "--host=1"],
+    ["query", "HEAD", "points", "--intersect", "HEAD^:points"],
+    ["query", "HEAD", "points", "--crs", "EPSG:4326"],
+    ["query", "HEAD", "points", "-ojson", "--", "--where"],
+]
+
 OTHERS = [
     ["diff", "--outpt", "x"],
     ["diff", "--output-format"],
@@ -82,7 +98,7 @@ def repo(tmp_path_factory):
     return make_repo_with_edits(tmp_path_factory.mktemp("usage"))[0]
 
 
-@pytest.mark.parametrize("argv", RECORDED + PER_COMMAND + OTHERS, ids=" ".join)
+@pytest.mark.parametrize("argv", RECORDED + PER_COMMAND + QUERY + OTHERS, ids=" ".join)
 def test_usage_errors_match_kart_tpu(repo, argv):
     ref = CliRunner().invoke(kart_cli, ["-C", repo, *argv], prog_name="kart")
     assert ref.exception is None or isinstance(ref.exception, SystemExit), ref.exception

@@ -562,3 +562,134 @@ def test_merge_classify_on_hash_keys_repeats_bit_for_bit(cuda, kind, n):
     for _ in range(20):
         got = merge_classify_sides(*args)
         assert all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+
+
+# --- K5, the spatial join's envelope overlap, and K6, the exact refine -------
+
+def _join_envelopes(seed, n, edge_cases=True):
+    """Envelopes in a 20-degree square (points, boxes, 2% wrapping the
+    anti-meridian), with NaN, -0.0, subnormal, infinite and edge-sharing
+    rows."""
+    rng = np.random.default_rng(seed)
+    w = rng.uniform(-10, 10, n)
+    s = rng.uniform(-10, 10, n)
+    env = np.stack([w, s, w + rng.uniform(0, 3, n) * (rng.random(n) < 0.7),
+                    s + rng.uniform(0, 3, n) * (rng.random(n) < 0.7)], axis=1)
+    wrap = rng.random(n) < 0.02
+    env[wrap, 0] = rng.uniform(170, 180, wrap.sum())
+    env[wrap, 2] = rng.uniform(-180, -170, wrap.sum())
+    env = env.astype(np.float32)
+    if edge_cases and n >= 16:
+        env[0] = np.nan
+        env[1] = (-0.0, -0.0, 0.0, 0.0)
+        env[2] = (0.0, 0.0, 1e-45, 1e-45)
+        env[3] = (-np.inf, -1.0, np.inf, 1.0)
+        env[4] = (1.0, 1.0, 2.0, 2.0)
+        env[5] = (2.0, 2.0, 3.0, 3.0)  # shares a corner with row 4
+        env[6, 1] = np.nan
+    return env
+
+
+JOIN_SHAPES = [(1, 1), (16, 16), (1023, 129), (1024, 128), (1025, 5000), (4096, 65536),
+               (4096, 12_288), (0, 100), (100, 0)]
+
+
+@pytest.mark.parametrize("pairs", [False, True])
+@pytest.mark.parametrize("t,b", JOIN_SHAPES)
+def test_envelope_join_kernel_matches_plain(cuda, t, b, pairs):
+    from kart_tpu_torch.ops.envelope_join import envelope_join, envelope_join_plain
+
+    build = torch.from_numpy(_join_envelopes(t + 1, t)).to(cuda)
+    probe = torch.from_numpy(_join_envelopes(b + 2, b)).to(cuda)
+    runtime.reset_stats()
+    counts, total, got = envelope_join(build, probe, pairs=pairs)
+    torch.cuda.synchronize()
+    assert runtime.stats_snapshot()["envelope_join_launches"] == 1 + (pairs and total > 0)
+    p_counts, p_total, want = envelope_join_plain(build, probe, pairs=pairs)
+    assert counts.dtype == torch.int32 and torch.equal(counts, p_counts)
+    assert total == p_total == int(p_counts.sum())
+    if pairs:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        assert got is None
+
+
+def test_envelope_join_repeats_and_refuses_misaligned_rows(cuda):
+    from kart_tpu_torch.ops.envelope_join import envelope_join
+
+    build = torch.from_numpy(_join_envelopes(3, 4096)).to(cuda)
+    probe = torch.from_numpy(_join_envelopes(4, 65536)).to(cuda)
+    first = envelope_join(build, probe, pairs=True)
+    for _ in range(5):
+        again = envelope_join(build, probe, pairs=True)
+        assert torch.equal(again[0], first[0]) and again[1] == first[1]
+        assert torch.equal(again[2][0], first[2][0]) and torch.equal(again[2][1], first[2][1])
+    flat = torch.from_numpy(_join_envelopes(5, 101)).to(cuda).reshape(-1)
+    with pytest.raises(ValueError, match="aligned"):
+        envelope_join(build, flat[1:401].reshape(100, 4))
+
+
+def _refine_case(kind, n_pairs, seed):
+    from kart_tpu_torch.geom import boxes_vertex_column
+    from kart_tpu_torch.synth import synth_shapes
+
+    rng = np.random.default_rng(seed)
+    if kind == "boxes":
+        env = _join_envelopes(seed, 64, edge_cases=False).astype(np.float64)
+        col_a = col_b = boxes_vertex_column(env)
+    elif kind == "edge":
+        col_a = col_b = synth_shapes(200, seed=seed, span=2.0, max_segments=8)
+    else:
+        col_a = synth_shapes(300, seed=seed)
+        col_b = synth_shapes(300, seed=seed + 1)
+    ia = rng.integers(0, len(col_a), n_pairs)
+    ib = rng.integers(0, len(col_b), n_pairs)
+    usable = col_a.usable()[ia] & col_b.usable()[ib]
+    return col_a, ia[usable], col_b, ib[usable]
+
+
+@pytest.mark.parametrize("kind,n_pairs", [("boxes", 5000), ("edge", 20_000), ("stars", 1),
+                                          ("stars", 3000), ("stars", 0)])
+def test_geom_refine_kernel_matches_plain(cuda, kind, n_pairs):
+    from kart_tpu_torch.ops.geom_refine import geom_refine, geom_refine_plain, resident_segments
+
+    col_a, ia, col_b, ib = _refine_case(kind, n_pairs, 7)
+    seg_a, seg_b = resident_segments(col_a, cuda), resident_segments(col_b, cuda)
+    ia_t, ib_t = torch.from_numpy(ia).to(cuda), torch.from_numpy(ib).to(cuda)
+    runtime.reset_stats()
+    got = geom_refine(seg_a, ia_t, seg_b, ib_t)
+    torch.cuda.synchronize()
+    assert runtime.stats_snapshot()["geom_refine_launches"] == (1 if len(ia) else 0)
+    want = geom_refine_plain(seg_a, ia_t, seg_b, ib_t)
+    assert got.dtype == torch.bool and torch.equal(got, want)
+    if len(ia) > 100:
+        assert bool(want.any()) and not bool(want.all())
+    for _ in range(3):
+        assert torch.equal(geom_refine(seg_a, ia_t, seg_b, ib_t), want)
+
+
+def test_query_join_on_card_matches_cpu(cuda, tmp_path):
+    """A time-travel join and a --bbox scan through the CLI on the card and
+    with --device cpu: the same bytes, and K2, K5 and K6 launched."""
+    import contextlib
+    import io
+
+    from kart_tpu_torch.cli import main as port_main
+    from kart_tpu_torch.synth import synth_repo
+
+    repo, _ = synth_repo(str(tmp_path / "r"), 20_000, spatial=True, seed=3)
+    for argv in (["query", "HEAD", "synth", "--intersects", "HEAD^:synth"],
+                 ["query", "HEAD", "synth", "--bbox", "-60,-30,60,30"]):
+        outs = []
+        for pre in ([], ["--device", "cpu"]):
+            runtime.reset_stats()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                assert port_main([*pre, "-C", repo.workdir, *argv]) == 0
+            outs.append(buf.getvalue())
+            stats = runtime.stats_snapshot()
+            if not pre:
+                assert stats["geom_refine_launches"] > 0
+                key = "envelope_join_launches" if "--intersects" in argv else "envelope_scan_launches"
+                assert stats[key] > 0
+        assert outs[0] == outs[1]
