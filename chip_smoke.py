@@ -6,7 +6,7 @@ kernel against its plain PyTorch version.
                           [--repo-rows 5000000] [--spatial-rows 2000000]
                           [--merge-rows 2000000]
                           [--text-rows 10000000] [--text-merge-rows 1000000] [--seed 0]
-                          [--k4-only | --hash-only | --query-only]
+                          [--k4-only | --hash-only | --query-only | --tiles-only]
 
 Run from the repository root on a machine with an sm_90 (Hopper) card and
 the CUDA toolkit; the kernels are built from ``kart_tpu_torch/csrc`` on
@@ -70,6 +70,28 @@ Q3. K5 on the middle build tile of Q2's join x the probe batch the join
    wrapping the anti-meridian, NaN and edge rows), K6 on 100,000 pairs of ``synth.synth_shapes`` (stars with holes, points,
    polylines, vertices on the world's edge): bit-identical to their plain
    versions on the card, timed beside their bounds (operations)
+T3. run first of the three: K7 on the whole layer's 2M envelopes and on
+   the largest z4 batch of T1's card route, each with edge rows (the
+   poles, the mercator clamp, the anti-meridian, -0.0, subnormals, NaN,
+   infinities): bit-identical to its plain version on the card; against
+   numpy's host projection the largest ulp gap and difference, inside the
+   quantizer's margin, and the quantized boxes equal at zooms 0, 4, 11,
+   18, 24 and 30 (each row in its own tile), with the rows the quantizer
+   projected again; timed beside its bound (bytes, or its SASS's f64
+   instructions)
+T1. ``kart export tiles HEAD --dataset synth --zoom 0-4 --layers
+   bin,ktb2,mvt,geom`` on the point layer three ways: on the card as a
+   user runs it (in this process, K7 launched exactly once for each encode
+   batch that writes a tile), with ``--device cpu --workers 1``, and with
+   ``--device cpu``'s default, the pool of workers (numpy's projection, no
+   launch): equal tree digests, stats lines and warnings (z0-z2 hold tiles
+   over the 65,536-feature ceiling), one worker on the first two routes
+   and more on the pool's; ``--strict`` over z0-z2 exits 2 with the same
+   message on the card and the CPU; the card's export again under cProfile
+T2. the default layers (bin,geojson) on the same layer, whose blobs only
+   the edited rows hold: the same ``Feature blob ... not present locally``
+   error and exit code 2 on the card (K7 once) and the CPU, nothing
+   written; then ``--layers bin --zoom 5`` on both, equal digests
 12. write a rectangular spatial filter into its config, then run ``-o
    feature-count`` and ``-o json-lines`` on the card and with ``--device
    cpu``: equal counts and sha256, and on the card exactly two K2 launches
@@ -132,7 +154,7 @@ Q3. K5 on the middle build tile of Q2's join x the probe batch the join
    under cProfile; ``merge theirs-clean --no-ff`` committing the same
    oids on both routes. Every counted phase fails if a dataset took the
    host path for colliding hash keys (``hash_collision_fallbacks``)
-22. each group of phases' host wall, the ``kernels`` JSON line (K1-K6, each
+22. each group of phases' host wall, the ``kernels`` JSON line (K1-K7, each
    kernel's ``launches`` is the sum of ``launches_by_phase``: every launch
    of the main path's runs, the cProfile runs included, and none of the
    comparisons with the plain versions), the card line, and the result
@@ -146,7 +168,8 @@ so they are held to kart_tpu by the CPU tests only
 Any failed check exits non-zero without the result line. ``--k4-only`` runs
 phases 0, 1, 14 and 15 alone and prints K4's timings as JSON, with no
 result line; ``--hash-only`` runs phases 0, 1 and 18-21 alone the same
-way, ``--query-only`` phases 0, 1, 11 and Q1-Q3.
+way, ``--query-only`` phases 0, 1, 11 and Q1-Q3, ``--tiles-only`` phases 0, 1,
+11 and T1-T3.
 """
 
 import argparse
@@ -157,6 +180,7 @@ import io
 import json
 import os
 import pstats
+import re
 import sqlite3
 import statistics
 import subprocess
@@ -176,7 +200,12 @@ from kart_tpu_torch.core.feature_tree import (
 )
 from kart_tpu_torch.core.objects import MODE_TREE
 from kart_tpu_torch.core.tree_builder import TreeBuilder
-from kart_tpu_torch.diff.backend import PlainTorchBackend, envelope_scan, envelope_scan_plain
+from kart_tpu_torch.diff.backend import (
+    PlainTorchBackend,
+    envelope_scan,
+    envelope_scan_plain,
+    select_backend,
+)
 from kart_tpu_torch.diff.engine import (
     classify_changed,
     feature_count,
@@ -220,6 +249,12 @@ from kart_tpu_torch.spatial_filter.index import DB_NAME, EnvelopeIndexReader
 from kart_tpu_torch.query.join import TILE_ROWS, _alive_ranges, _probe_aggregates, run_join
 from kart_tpu_torch.query.scan import batch_rows
 from kart_tpu_torch.synth import HashedColumns, gnaf_ids, synth_repo, synth_shapes
+from kart_tpu_torch.ops.merc import merc, merc_plain
+from kart_tpu_torch.tiles.clip import _host_merc, quantize_boxes, quantize_margin, refine_rows
+from kart_tpu_torch.tiles.encode import max_features_limit
+from kart_tpu_torch.tiles.grid import MERC_MAX_LAT, parse_zoom_spec, tile_query_wsen
+from kart_tpu_torch.tiles.pyramid import batched, export_batch_tiles, tile_cover, tree_digest
+from kart_tpu_torch.tiles.source import source_for
 
 #: H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
 #: non-tensor-core f32 rate, used for every bound below
@@ -414,6 +449,10 @@ def device_ms(fn, kernels, calls=20):
     short = {k: n for k, n in seen.items() if n != calls}
     if short:
         print(f"    the profiler recorded {short} launches of {calls} made")
+    if not per:
+        timed = [e.key for e in prof.key_averages()
+                 if (getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0))]
+        print(f"    the profiler saw no kernel named {'/'.join(kernels)}; it timed {timed[:8]}")
     print(f"    device check {'+'.join(kernels)}: profiler {fmt_ms(total_ms(per))} a call; "
           f"CUDA events, host work fenced off, {fenced_ms(fn, calls):.4f} ms a call")
     return per
@@ -470,29 +509,30 @@ def kart_cli(*argv, rc_want=0):
     return wall
 
 
-def counted(label, fn, launches, want=1, want_k2=0, want_k4=0, want_k5=0, want_k6=0):
+def counted(label, fn, launches, want=1, want_k2=0, want_k4=0, want_k5=0, want_k6=0,
+            want_k7=0):
     """Run ``fn`` with the launch counters zeroed before and read after;
     fail unless K1 launched exactly ``want`` times (once for each dataset
     the columnar route classifies), K2 ``want_k2`` times, K4 ``want_k4``
-    times, K5 ``want_k5`` times and K6 ``want_k6`` times (``SOME``: at
-    least once), and no hash-keyed dataset took the host path for colliding
-    keys (``hash_collision_fallbacks`` 0), and add the launches read to
-    ``launches[label]`` ([K1, K2, K4, K5, K6]). -> (fn's result, the
-    counters read)."""
+    times, K5 ``want_k5`` times, K6 ``want_k6`` times and K7 ``want_k7``
+    times (``SOME``: at least once), and no hash-keyed dataset took the
+    host path for colliding keys (``hash_collision_fallbacks`` 0), and add
+    the launches read to ``launches[label]`` ([K1, K2, K4, K5, K6, K7]).
+    -> (fn's result, the counters read)."""
     runtime.reset_stats()
     out = fn()
     stats = runtime.stats_snapshot()
     got = [stats["classify_launches"], stats["envelope_scan_launches"],
            stats["merge_classify_launches"], stats["envelope_join_launches"],
-           stats["geom_refine_launches"]]
-    for name, n, w in zip(("K1", "K2", "K4", "K5", "K6"), got,
-                          (want, want_k2, want_k4, want_k5, want_k6)):
+           stats["geom_refine_launches"], stats["merc_launches"]]
+    for name, n, w in zip(("K1", "K2", "K4", "K5", "K6", "K7"), got,
+                          (want, want_k2, want_k4, want_k5, want_k6, want_k7)):
         check(n >= 1 if w is SOME else n == w,
               f"{name} launched {n} times in phase {label}, expected "
               f"{'at least 1' if w is SOME else w}")
     check(stats["hash_collision_fallbacks"] == 0,
           f"phase {label} took the host path for colliding hash keys")
-    total = launches.setdefault(label, [0, 0, 0, 0, 0])
+    total = launches.setdefault(label, [0] * 6)
     for i, n in enumerate(got):
         total[i] += n
     return out, stats
@@ -786,13 +826,15 @@ def card_and_cpu(label, argv, out_path, launches, rc_want=0, counts_only=False, 
     return walls[0], walls[1], digest, survivors
 
 
-def spatial_phases(args, card, launches, dev, filters=True):
-    """Phases 11-13 and Q1-Q3: build the spatial repository, drive ``kart
-    query`` on it (before any spatial filter is set), then spatially
-    filtered ``kart diff`` commands (unless not ``filters``), through the
-    CLI on the card and with ``--device cpu``, adding every card command's
-    launches to ``launches``. -> K5's and K6's entries of the kernels line
-    (without launches)."""
+def spatial_phases(args, card, launches, dev, filters=True, query=True, tiles=True):
+    """Phases 11-13, Q1-Q3 and T1-T3: build the spatial repository, drive
+    ``kart query`` on it (unless not ``query``) and ``kart export tiles``
+    (unless not ``tiles``), before any spatial filter is set, then
+    spatially filtered ``kart diff`` commands (unless not ``filters``),
+    through the CLI on the card and with ``--device cpu``, adding every card
+    command's launches to ``launches``. -> {"k5", "k6", "k7": entries of the
+    kernels line (without launches)} for the phases run."""
+    kernels = {}
     with tempfile.TemporaryDirectory(prefix="kart_smoke_spatial_") as tmp:
         t = time.perf_counter()
         repo, info = synth_repo(os.path.join(tmp, "repo"), args.spatial_rows, edit_frac=0.01,
@@ -807,11 +849,16 @@ def spatial_phases(args, card, launches, dev, filters=True):
         print(f"[11] spatial repo: {args.spatial_rows} point features, {n_edits} edited, "
               f"built in {build_s:.2f} s host wall; {n_objects} objects in {len(packs)} "
               f"packs, {pack_bytes} pack bytes, {sidecar_bytes} sidecar bytes on {card}")
-        t = time.perf_counter()
-        query_kernels = query_phases(repo, tmp, card, launches, dev)
-        print(f"[Q] phases Q1-Q3 host wall {time.perf_counter() - t:.2f} s on {card}")
+        if query:
+            t = time.perf_counter()
+            kernels["k5"], kernels["k6"] = query_phases(repo, tmp, card, launches, dev)
+            print(f"[Q] phases Q1-Q3 host wall {time.perf_counter() - t:.2f} s on {card}")
+        if tiles:
+            t = time.perf_counter()
+            kernels["k7"] = tile_phases(repo, tmp, card, launches, dev)
+            print(f"[T] phases T1-T3 host wall {time.perf_counter() - t:.2f} s on {card}")
         if not filters:
-            return query_kernels
+            return kernels
 
         spec = ["-C", path, "diff"]
         # [12] the rectangle
@@ -904,7 +951,7 @@ def spatial_phases(args, card, launches, dev, filters=True):
               f"{survivors}: quiet --exit-code 0 on both (card {w_card:.4f} s, cpu "
               f"{w_cpu:.4f} s host wall), json-lines the version line only (card "
               f"{w2_card:.4f} s, cpu {w2_cpu:.4f} s); K1 1, K2 2 a command on {card}")
-    return query_kernels
+    return kernels
 
 
 # --- kart query on the point layer: scans, the time-travel join, K5 and K6 ----
@@ -1261,6 +1308,349 @@ def query_kernels_alone(card, dev, build_block, probe_block):
           f"{fmt_ms(k6['device_ms'])}, plain {k6['plain_ms']:.4f} ms, bound {k6['bound_ms']:.4f} "
           f"ms by {k6['bound_by']} on {card}")
     return k5, k6
+
+
+# --- kart export tiles on the point layer: the pyramid, the default layers, K7 --
+
+#: T1's pyramid: zooms and layers of every route (z0-z5 took the tile
+#: phases past their 150 s; z0-z4 still encodes every row twice)
+TILE_ZOOMS = "0-4"
+TILE_LAYERS = "bin,ktb2,mvt,geom"
+#: T1's --strict runs: the zooms whose tiles exceed the 65,536-feature
+#: ceiling at 2M features (z0-z1 all, z2 half), so that the runs that must
+#: fail do not encode the whole pyramid twice more
+TILE_STRICT_ZOOMS = "0-2"
+#: (route, global options, export options) of the card's default and of
+#: --device cpu in this process
+ROUTES_IN_PROCESS = (("card", [], []), ("cpu", ["--device", "cpu"], ["--workers", "1"]))
+#: the zooms T3 quantizes K7's columns at, each row in its own tile
+QUANT_ZOOMS = (0, 4, 11, 18, 24, 30)
+#: H100 SXM f64 instruction rate at the 1,980 MHz boost clock: 64 FP64 lanes an
+#: SM over 132 SMs
+F64_OPS_PER_S = 132 * 64 * 1.98e9
+#: the SASS opcodes counted as K7's f64 work
+F64_OPCODES = re.compile(r"^(DADD|DMUL|DFMA|DSETP|DSET|DMNMX|MUFU\.RCP64H|MUFU\.RSQ64H)\b")
+
+#: the host steps of the card's export (cProfile function names)
+TILE_STEPS = {
+    "prune (block classes, envelope scan)": "rows_for_bbox",
+    "refine": "refine_rows",
+    "projection wrapper (upload, K7, download)": "merc_envelopes",
+    "quantize": "quantize_from_merc",
+    "layer encoders": "build_layers",
+    "writes (the ordered writer)": "consume",
+}
+
+
+def export_cli(argv, out_dir):
+    """One in-process ``kart export tiles`` into ``out_dir``; -> (host wall
+    s, exit code, stdout, stderr)."""
+    out, err = io.StringIO(), io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = kart_main([*argv, "-o", out_dir])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t, rc, out.getvalue(), err.getvalue()
+
+
+def written_tiles(out_dir):
+    """The (z, x, y) addresses of an exported pyramid's files."""
+    found = set()
+    for dirpath, _, names in os.walk(out_dir):
+        rel = os.path.relpath(dirpath, out_dir).split(os.sep)
+        if len(rel) == 2:
+            found |= {(int(rel[0]), int(rel[1]), int(n[: -len(".ktile")])) for n in names}
+    return found
+
+
+def batches_with_tiles(source, zooms, out_dir):
+    """The encode batches of an export that hold a written tile: on the
+    card route, one K7 launch each."""
+    written = written_tiles(out_dir)
+    return sum(any(a in written for a in b)
+               for b in batched(tile_cover(source, zooms), export_batch_tiles()))
+
+
+def stats_line(stdout, out_dir):
+    """An export's stdout line with its output directory and worker count
+    taken out, so that routes compare."""
+    return re.sub(r"; \d+ workers\]", "; N workers]", stdout.replace(out_dir, "<out>"))
+
+
+def largest_batch(source, zooms, zoom):
+    """The (M, 4) f64 envelopes that the card route's batch encoder projects
+    for its batch with the most rows among those holding tiles of ``zoom``:
+    each tile's pruned and refined rows, tiles over the feature ceiling left
+    out, in address order."""
+    env_all = source.envelopes()
+    limit = max_features_limit()
+    best = np.zeros((0, 4))
+    for b in batched(tile_cover(source, zooms), export_batch_tiles()):
+        if not any(z == zoom for z, _, _ in b):
+            continue
+        parts = []
+        for z, x, y in b:
+            rows, env = refine_rows(env_all, source.rows_for_bbox(tile_query_wsen(z, x, y))[0],
+                                    z, x, y)
+            if len(rows) and not (limit and len(rows) > limit):
+                parts.append(env)
+        cat = np.concatenate(parts) if parts else best
+        if len(cat) > len(best):
+            best = cat
+    return best
+
+
+def edge_envelopes():
+    """(w, s, e, n) rows at the projection's edges: the poles, the mercator
+    clamp exactly, the anti-meridian, -0.0, subnormals, NaN, infinities."""
+    m = MERC_MAX_LAT
+    return np.array([
+        (-180.0, -90.0, 180.0, 90.0), (180.0, 90.0, -180.0, -90.0),
+        (-180.0, -m, 180.0, m), (0.0, m, 0.0, -m),
+        (-0.0, -0.0, 0.0, 0.0), (0.0, -0.0, -0.0, 0.0),
+        (5e-324, -5e-324, 1e-310, -1e-310), (-2.2e-308, 2.2e-308, 1e-320, -1e-320),
+        (np.nan, 1.0, 2.0, np.nan), (np.nan, np.nan, np.nan, np.nan),
+        (np.inf, np.inf, -np.inf, -np.inf), (-np.inf, -m, np.inf, m),
+        (179.99999, m - 1e-12, -179.99999, -m + 1e-12), (-179.99999, 89.9, 179.99999, -89.9),
+    ], dtype=np.float64)
+
+
+def ulp_gap(a, b):
+    """The largest distance in units of the last place between finite f64
+    values of ``a`` and ``b`` (the same shape)."""
+    def ordered(x):
+        i = x.view(np.int64)
+        return np.where(i < 0, np.int64(-(2 ** 63)) - i, i)
+
+    fin = np.isfinite(a) & np.isfinite(b)
+    if not fin.any():
+        return 0
+    return int(np.abs(ordered(a[fin]) - ordered(b[fin])).max())
+
+
+def merc_f64_per_row():
+    """K7's f64 instructions a row, counted in its SASS: the f64 opcodes
+    (:data:`F64_OPCODES`) of the grid-stride loop's body, from the target of
+    its backward branch (the widest one) to the branch. Each row runs the body once; the
+    slow-path subroutines after the loop (huge-argument trig reduction, the
+    division's special cases) are left out, and every branch inside the body
+    is counted as taken, so the count is an upper bound of what a row of
+    finite degrees runs."""
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", os.path.join(_build.build_dir(), "libmerc.so")],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    body, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = "merc_kernel" in line
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if inside and m:
+            body.append((int(m.group(1), 16), re.sub(r"^@!?U?P[T0-9]+\s+", "", m.group(2))))
+    loop = [(a, int(ins.split()[-1], 16)) for a, ins in body
+            if ins.startswith("BRA") and int(ins.split()[-1], 16) < a]
+    check(loop, "no backward branch (the grid-stride loop) in K7's SASS")
+    # the grid-stride loop is the widest backward branch (the slow paths'
+    # own loops are short)
+    end, start = max(loop, key=lambda b: b[0] - b[1])
+    n = sum(1 for a, ins in body if start <= a <= end and F64_OPCODES.match(ins))
+    check(n > 0, "no f64 instruction in K7's loop body")
+    return n
+
+
+def k7_alone(label, env, dev, card):
+    """K7 on ``env`` (M, 4) f64 with the edge rows added: bit for bit against
+    its plain version on the card; the ulp gap and largest difference
+    against numpy's host projection, inside the quantizer's margin at each
+    of :data:`QUANT_ZOOMS`; the quantized boxes equal to the host's there,
+    each row in its own tile; then timed. -> its entry (without the bound:
+    :func:`k7_bound`)."""
+    env = np.ascontiguousarray(np.concatenate([env, edge_envelopes()]), dtype=np.float64)
+    e = torch.from_numpy(env).to(dev)
+    k, p = merc(e).cpu().numpy(), merc_plain(e).cpu().numpy()
+    mism = int((k.view(np.int64) != p.view(np.int64)).sum())
+    check(mism == 0, f"[T3] K7 differs from its plain version in {mism} values on {label}")
+    host = np.stack(_host_merc(env))
+    fin = np.isfinite(k)
+    check(np.array_equal(fin, np.isfinite(host))
+          and np.array_equal(k[~fin], host[~fin], equal_nan=True),
+          f"[T3] K7's non-finite values differ from numpy's on {label}")
+    gap = ulp_gap(k, host)
+    diff = float(np.abs(k[fin] - host[fin]).max())
+    patched = {}
+    with np.errstate(invalid="ignore"):
+        for z in QUANT_ZOOMS:
+            scale = float(1 << z) * 4096
+            check(diff * scale < quantize_margin(z),
+                  f"[T3] K7 is {diff} from numpy: outside the quantizer's margin at zoom {z}")
+            n_t = 1 << z
+            xt = np.clip(np.floor(np.nan_to_num(host[0]) * n_t), 0, n_t - 1).astype(np.int64)
+            yt = np.clip(np.floor(np.nan_to_num(host[1]) * n_t), 0, n_t - 1).astype(np.int64)
+            got, patched[z] = quantize_boxes(env, tuple(k), z, xt, yt)
+            want, _ = quantize_boxes(env, tuple(host), z, xt, yt)
+            check(np.array_equal(got, want), f"[T3] K7's boxes differ from the host's at zoom {z} "
+                                             f"on {label}")
+    rows = len(env)
+    entry = {"rows": rows, "max_abs_err": mism, "ulp_gap_numpy": gap, "max_diff_numpy": diff,
+             "rows_patched": patched}
+    print(f"[T3] K7 on {label} ({rows} rows with {len(edge_envelopes())} edge rows): "
+          f"bit-identical to its plain version; against numpy's host projection {gap} ulps at "
+          f"most, largest difference {diff:.3e}, inside the quantizer's margin at zooms "
+          f"{list(QUANT_ZOOMS)}; boxes equal to the host's there, rows patched "
+          f"{patched} on {card}")
+    entry.update({
+        "ms": time_ms(lambda: merc(e)),
+        "device_ms": total_ms(device_ms(lambda: merc(e), ("merc_kernel",))),
+        "fenced_ms": fenced_ms(lambda: merc(e)),
+        "plain_ms": time_ms(lambda: merc_plain(e), batches=3, per_batch=3),
+    })
+    t = time.perf_counter()
+    select_backend(dev).merc_envelopes(env)
+    entry["seam_ms"] = (time.perf_counter() - t) * 1e3
+    entry["label"] = label
+    return entry
+
+
+def k7_bound(entry, f64_per_row, card):
+    """Add K7's bound to its entry: its bytes (64 a row) or its SASS's f64
+    instructions, whichever takes longer; print its timings beside it."""
+    rows = entry["rows"]
+    b = bound(rows * 64, 0)
+    b = max(b, (rows * f64_per_row / F64_OPS_PER_S * 1e3, "operations"))
+    entry.update({
+        "bound_ms": b[0], "bound_by": b[1],
+        "bound_count": f"{rows} rows x 64 bytes at {HBM_BYTES_PER_S:.4g} B/s; {f64_per_row} f64 "
+                       f"instructions a row (SASS) at {F64_OPS_PER_S:.4g} a second",
+    })
+    print(f"[T3] K7 on {entry['label']}: {entry['ms']:.4f} ms, device "
+          f"{fmt_ms(entry['device_ms'])}, fenced {entry['fenced_ms']:.4f} ms, plain "
+          f"{entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms by {entry['bound_by']} "
+          f"({entry['bound_count']}); the backend seam (upload, K7, download) "
+          f"{entry['seam_ms']:.4f} ms host wall on {card}")
+
+
+def tile_phases(repo, tmp, card, launches, dev):
+    """Phases T1-T3 on [11]'s point layer. -> K7's entry of the kernels line
+    (without launches)."""
+    path = repo.workdir
+    head = repo.resolve_refish("HEAD")[0]
+    zooms = parse_zoom_spec(TILE_ZOOMS)
+    spec = ["-C", path, "export", "tiles", "HEAD", "--dataset", "synth"]
+    pyramid = [*spec, "--zoom", TILE_ZOOMS, "--layers", TILE_LAYERS]
+    t = time.perf_counter()
+    source = source_for(repo, head, "synth")
+    source.envelopes()
+    source.vertices()
+    print(f"[T1] source set-up (sidecar mmap, vertex column; shared by the in-process routes "
+          f"below) {time.perf_counter() - t:.4f} s host wall on {card}")
+
+    # [T3] K7 alone, run first: the whole layer, and the largest z4 batch of
+    # T1's card route (in whole-script runs the profiler timed no kernel in
+    # T3's windows when T3 came after T1's pool and T2)
+    n = source.block.count
+    k7 = {"name": "merc", "route": "cuda", "source": "kart_tpu_torch/csrc/merc.cu",
+          "replaces": "kart_tpu/diff/backend.py:415", "library_ms": None,
+          "library_call": "none: no single PyTorch call computes B11", "checked": True}
+    k7.update(k7_alone("the whole layer's envelopes",
+                       np.asarray(source.envelopes()[:n], dtype=np.float64), dev, card))
+    batch = largest_batch(source, zooms, zooms[-1])
+    k7["main_path_batch"] = k7_alone(f"T1's largest z{zooms[-1]} batch", batch, dev, card)
+    k7["max_abs_err"] = max(k7["max_abs_err"], k7["main_path_batch"]["max_abs_err"])
+    k7["f64_per_row"] = f64_per_row = merc_f64_per_row()
+    for entry in (k7, k7["main_path_batch"]):
+        k7_bound(entry, f64_per_row, card)
+
+    # [T1] the pyramid, three ways: the card's default (in this process),
+    # --device cpu in this process, and --device cpu's default (the pool)
+    runs = {}
+    for (route, pre, extra), k7_want in zip((*ROUTES_IN_PROCESS, ("pool", ["--device", "cpu"], [])),
+                                            (SOME, 0, 0)):
+        out_dir = os.path.join(tmp, f"tiles-{route}")
+        runs[route], st = counted("T1", lambda: export_cli([*pre, *pyramid, *extra], out_dir),
+                                  launches, want=0, want_k7=k7_want)
+        wall, rc, stdout, stderr = runs[route]
+        check(rc == 0, f"[T1] export on the {route} route exited {rc}: {stderr}")
+        runs[route] += (tree_digest(out_dir), out_dir, st["merc_launches"])
+        print(f"[T1] {route}: {stdout.strip()}; K7 {st['merc_launches']}; {wall:.4f} s host wall "
+              f"on {card}")
+    want_k7 = batches_with_tiles(source, zooms, runs["card"][5])
+    check(runs["card"][6] == want_k7, f"[T1] K7 launched {runs['card'][6]} times, the export "
+                                      f"has {want_k7} batches with a tile")
+    workers = {r: int(re.search(r"; (\d+) workers\]", v[2]).group(1)) for r, v in runs.items()}
+    check(workers["card"] == workers["cpu"] == 1 and workers["pool"] > 1,
+          f"[T1] the routes ran {workers} workers: the card's default is this process, "
+          f"--device cpu's the pool")
+    digests = {r: v[4] for r, v in runs.items()}
+    check(len(set(digests.values())) == 1, f"[T1] the routes' pyramids differ: {digests}")
+    lines = {r: stats_line(v[2], v[5]) for r, v in runs.items()}
+    check(len(set(lines.values())) == 1 and len({v[3] for v in runs.values()}) == 1,
+          f"[T1] the routes' stats lines or warnings differ: {lines}")
+    skipped = int(re.search(r"(\d+) over the feature ceiling", lines["card"]).group(1))
+    check(skipped > 0 and runs["card"][3].startswith(f"warning: {skipped} tiles skipped"),
+          f"[T1] {skipped} tiles over the ceiling, stderr {runs['card'][3]!r}")
+    print(f"[T1] tree digest {digests['card']} on all three routes, equal stats lines; K7 once a "
+          f"batch with a tile ({want_k7}) on {card}")
+    strict = []
+    for route, pre, extra in ROUTES_IN_PROCESS:
+        argv = [*pre, *spec, "--zoom", TILE_STRICT_ZOOMS, "--layers", TILE_LAYERS, *extra,
+                "--strict"]
+        out_dir = os.path.join(tmp, f"tiles-strict-{route}")
+        res, st = counted("T1", lambda: export_cli(argv, out_dir), launches, want=0,
+                          want_k7=SOME if route == "card" else 0)
+        strict.append(res + (tree_digest(out_dir),))
+        if route == "card":
+            want = batches_with_tiles(source, parse_zoom_spec(TILE_STRICT_ZOOMS), out_dir)
+            check(st["merc_launches"] == want, f"[T1] --strict: K7 launched "
+                                               f"{st['merc_launches']} times, {want} batches")
+    (w_card, rc, out, err, dig), (w_cpu, rc2, out2, err2, dig2) = strict
+    check(rc == rc2 == 2 and out == out2 == "" and err == err2 and dig == dig2
+          and err.startswith("Error: --strict: ") and "tiles exceeded the feature ceiling" in err,
+          f"[T1] --strict exited {rc} / {rc2}: {err!r} / {err2!r}")
+    print(f"[T1] --strict --zoom {TILE_STRICT_ZOOMS}: exit 2 on both, the same message "
+          f"({err.strip()[:90]}...); card {w_card:.4f} s, cpu {w_cpu:.4f} s host wall on {card}")
+    prof_dir = os.path.join(tmp, "tiles-profile")
+    profile, split = counted("T1", lambda: profile_split(
+        lambda: export_cli(pyramid, prof_dir), TILE_STEPS), launches,
+        want=0, want_k7=want_k7)[0]
+    check(tree_digest(prof_dir) == digests["card"], "[T1] the profiled export differs")
+    print("[T1] host profile of the card's export (cProfile, cumulative s): "
+          + "; ".join(f"{k} {v:.4f}" for k, v in split.items()) + f" on {card}")
+    print(profile)
+
+    # [T2] the default layers, then bin at zoom 5
+    default = []
+    for route, pre, extra in ROUTES_IN_PROCESS:
+        out_dir = os.path.join(tmp, f"tiles-default-{route}")
+        res, st = counted("T2", lambda: export_cli([*pre, *spec, "--zoom", TILE_ZOOMS, *extra],
+                                                   out_dir),
+                          launches, want=0, want_k7=1 if route == "card" else 0)
+        default.append(res + (written_tiles(out_dir),))
+    (w_card, rc, out, err, files), (w_cpu, rc2, out2, err2, files2) = default
+    check(rc == rc2 == 2 and out == out2 == "" and err == err2 and not files and not files2
+          and err.startswith("Error: Feature blob ") and "is not present locally" in err,
+          f"[T2] the default layers exited {rc} / {rc2}: {err!r} / {err2!r}")
+    print(f"[T2] default layers (bin,geojson): exit 2 on both, the same message "
+          f"({err.strip()[:100]}...), nothing written; card {w_card:.4f} s (K7 1), cpu "
+          f"{w_cpu:.4f} s host wall on {card}")
+    bins = {}
+    for route, pre, extra in ROUTES_IN_PROCESS:
+        out_dir = os.path.join(tmp, f"tiles-bin-{route}")
+        (wall, rc, out, err), st = counted(
+            "T2", lambda: export_cli([*pre, *spec, "--zoom", "5", "--layers", "bin", *extra],
+                                     out_dir),
+            launches, want=0, want_k7=SOME if route == "card" else 0)
+        check(rc == 0, f"[T2] --layers bin --zoom 5 exited {rc} on the {route} route: {err}")
+        bins[route] = (tree_digest(out_dir), stats_line(out, out_dir), wall, st["merc_launches"])
+        if route == "card":
+            want = batches_with_tiles(source, [5], out_dir)
+            check(st["merc_launches"] == want, f"[T2] K7 launched {st['merc_launches']} times, "
+                                               f"{want} batches")
+    check(bins["card"][:2] == bins["cpu"][:2], f"[T2] --layers bin differs: {bins}")
+    print(f"[T2] --layers bin --zoom 5: {bins['card'][1].strip()}; tree digest {bins['card'][0]} "
+          f"on both; K7 {bins['card'][3]}; card {bins['card'][2]:.4f} s, cpu {bins['cpu'][2]:.4f} "
+          f"s host wall on {card}")
+
+    return k7
 
 
 # --- the merge CLI on a repository with 1M conflicts -------------------------
@@ -1887,6 +2277,9 @@ def main():
     ap.add_argument("--query-only", action="store_true",
                     help="run phases 0, 1, 11 and Q1-Q3 alone and print K5's and K6's timings "
                          "and the launches (no result line)")
+    ap.add_argument("--tiles-only", action="store_true",
+                    help="run phases 0, 1, 11 and T1-T3 alone and print K7's timings and the "
+                         "launches (no result line)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1904,11 +2297,12 @@ def main():
         _build.build_all()
         print(json.dumps(merge_phases(args, card, {}, dev)))
         return 0
-    if args.query_only:
+    if args.query_only or args.tiles_only:
         _build.build_all()
         launches = {}
-        k5, k6 = spatial_phases(args, card, launches, dev, filters=False)
-        print(json.dumps({"k5": k5, "k6": k6, "launches": launches}))
+        kernels = spatial_phases(args, card, launches, dev, filters=False,
+                                 query=args.query_only, tiles=args.tiles_only)
+        print(json.dumps({**kernels, "launches": launches}))
         return 0
     if args.hash_only:
         _build.build_all()
@@ -2117,14 +2511,15 @@ def main():
     tmp.cleanup()
 
     # every card command of phases 8-21 is counted, its cProfile runs too
-    cli_launches = {"3-5": [k1["launches"], kernels[1]["launches"], 0, 0, 0]}
+    cli_launches = {"3-5": [k1["launches"], kernels[1]["launches"], 0, 0, 0, 0]}
     walls = {}
     t = time.perf_counter()
     k1["estimation"] = cli_phases(args, card, cli_launches)
     walls["7-10b"] = time.perf_counter() - t
     t = time.perf_counter()
-    k5, k6 = spatial_phases(args, card, cli_launches, dev)
-    walls["11-13, Q1-Q3"] = time.perf_counter() - t
+    spatial = spatial_phases(args, card, cli_launches, dev)
+    k5, k6, k7 = spatial["k5"], spatial["k6"], spatial["k7"]
+    walls["11-13, Q1-Q3, T1-T3"] = time.perf_counter() - t
     t = time.perf_counter()
     k4 = merge_phases(args, card, cli_launches, dev)
     walls["14-17"] = time.perf_counter() - t
@@ -2145,8 +2540,8 @@ def main():
         "unique_call": "torch.unique(concatenated keys): the union step only (partial)",
         "checked": True,
     })
-    kernels += [k5, k6]
-    for k, i in ((k1, 0), (kernels[1], 1), (kernels[3], 2), (k5, 3), (k6, 4)):
+    kernels += [k5, k6, k7]
+    for k, i in ((k1, 0), (kernels[1], 1), (kernels[3], 2), (k5, 3), (k6, 4), (k7, 5)):
         k["launches_by_phase"] = {p: n[i] for p, n in cli_launches.items() if n[i]}
         k["launches"] = sum(k["launches_by_phase"].values())
 
@@ -2157,9 +2552,65 @@ def main():
     return 0
 
 
+def running(pid):
+    """-> (state, parent pid) of a process that has not exited, else None."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            stat = f.read()
+    except OSError:
+        return None
+    state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+    return None if state in "ZX" else (state, int(ppid))
+
+
+def descendants():
+    """The pids of this process's descendants that have not exited, parents
+    before their children."""
+    parent = {}
+    for d in os.listdir("/proc"):
+        if d.isdigit() and (st := running(d)) is not None:
+            parent[int(d)] = st[1]
+    found, frontier = [], [os.getpid()]
+    while frontier:
+        kids = [p for p, pp in parent.items() if pp in frontier]
+        found += kids
+        frontier = kids
+    return found
+
+
+def stop_descendants(grace_s=2.0):
+    """Stop and reap whatever this script started that still runs, so that
+    it leaves no process behind; each one is named on stderr."""
+    left = descendants()
+    for pid in left:
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:
+            cmd = "?"
+        print(f"[exit] stopping leftover process {pid}: {cmd}", file=sys.stderr)
+    for sig in (15, 9):
+        for pid in left:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, sig)
+        deadline = time.monotonic() + grace_s
+        while left and time.monotonic() < deadline:
+            for pid in list(left):
+                with contextlib.suppress(ChildProcessError):
+                    os.waitpid(pid, os.WNOHANG)
+                if running(pid) is None:
+                    left.remove(pid)
+            time.sleep(0.05)
+        if not left:
+            return
+
+
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        rc = main()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
-        sys.exit(1)
+        rc = 1
+    finally:
+        stop_descendants()
+    sys.exit(rc)

@@ -16,12 +16,17 @@ module keeps the part of them that the ported commands use:
   value.``, ``Invalid value for '--output-format' / '-o': 'x' is not one of
   ...``, ``Invalid value for '--with-file': Path 'x' does not exist.``,
   ``Invalid value for '--page': 'x' is not a valid integer.``,
+  ``Invalid value for '--output' / '-o': Directory 'x' is a file.``,
   ``Missing argument 'LABEL'.``, ``Got unexpected extra argument (x)``,
   ``No such command 'x'.`` and ``Missing command.``;
 * parameters are checked in click's order: those given, in the order first
-  given (options before arguments), then the rest as declared.
+  given (options before arguments), then the rest as declared;
+* groups nest (``kart export tiles``): a group inside the top level given
+  no arguments at all prints its help on stderr and exits 2, as click's
+  does.
 
-``--help`` prints a short help text (not kart_tpu's) and exits 0.
+``--help`` prints a short help text in click's layout and exits 0; only a
+group's (what ``kart export`` prints) is word for word kart_tpu's.
 """
 
 import difflib
@@ -54,13 +59,26 @@ class HelpRequested(Exception):
         self.command = command
 
 
+class NoArgsIsHelp(UsageError):
+    """A sub-group given no arguments at all: click prints its help on
+    stderr and exits 2."""
+
+    def __init__(self, command):
+        super().__init__("", command)
+
+    def show(self, prog="kart", file=None):
+        print(self.command.help_text(prog), file=file or sys.stderr)
+
+
 class Option:
     """One option. ``kind``: ``value`` (takes one value), ``flag`` (True;
     its ``secondary`` names, such as ``--no-ff``, set False) or ``count``."""
 
     def __init__(self, *opts, dest, kind="value", choices=None, default=None,
-                 secondary=(), path_exists=False, integer=False, metavar=None, help=""):
+                 secondary=(), path_exists=False, dir_path=False, integer=False, metavar=None,
+                 help=""):
         self.opts = opts
+        self.dir_path = dir_path
         self.integer = integer
         self.secondary = tuple(secondary)
         self.dest = dest
@@ -86,6 +104,9 @@ class Option:
                              + ", ".join(repr(c) for c in self.choices) + ".", command)
         if self.path_exists and not os.path.exists(value):
             raise UsageError(f"Invalid value for {self.hint()}: Path {value!r} does not exist.",
+                             command)
+        if self.dir_path and os.path.isfile(value):
+            raise UsageError(f"Invalid value for {self.hint()}: Directory {value!r} is a file.",
                              command)
         if self.integer:
             try:
@@ -135,7 +156,7 @@ class Command:
                     (self._short if len(o) == 2 and o[1] != "-" else self._long)[o] = p
 
     def full_name(self, prog="kart"):
-        return prog if self.parent is None else f"{prog} {self.name}"
+        return prog if self.parent is None else f"{self.parent.full_name(prog)} {self.name}"
 
     def usage(self, prog="kart"):
         pieces = ["[OPTIONS]"]
@@ -148,7 +169,7 @@ class Command:
         lines = [f"Usage: {self.usage(prog)}", ""]
         if self.help:
             lines += [f"  {self.help}", ""]
-        lines.append("Options:")
+        rows = []
         for p in self.params:
             if isinstance(p, Option):
                 names = ", ".join((*p.opts, *p.secondary))
@@ -156,11 +177,12 @@ class Command:
                     names += f" [{'|'.join(p.choices)}]"
                 elif p.takes_value:
                     names += f" {p.metavar or 'TEXT'}"
-                lines.append(f"  {names:<40} {p.help}".rstrip())
-        lines.append(f"  {'--help':<40} Show this message and exit.")
+                rows.append((names, p.help))
+        rows.append(("--help", "Show this message and exit."))
+        lines += ["Options:", *_definitions(rows)]
         if self.subcommands:
-            lines += ["", "Commands:"]
-            lines += [f"  {name:<20} {cmd.help}" for name, cmd in self.subcommands.items()]
+            lines += ["", "Commands:",
+                      *_definitions([(n, c.help) for n, c in self.subcommands.items()])]
         return "\n".join(lines)
 
     def parse(self, argv, interspersed=True):
@@ -280,9 +302,24 @@ class Command:
             opts[option.dest] = value
 
 
+def _definitions(rows, col_max=30):
+    """click's two-column listing: terms padded to the longest (at most
+    ``col_max``) plus two spaces; a longer term puts its text on the next
+    line."""
+    width = min(max((len(t) for t, _ in rows), default=0), col_max) + 2
+    out = []
+    for term, text in rows:
+        if len(term) <= col_max:
+            out.append(f"  {term:<{width}}{text}".rstrip())
+        else:
+            out += [f"  {term}", f"  {'':<{width}}{text}".rstrip()]
+    return out
+
+
 class Group(Command):
-    """The top level: global options, then one of ``commands`` (a dict of
-    :class:`Command`)."""
+    """A command that holds others: its options, then one of ``commands``
+    (a dict of :class:`Command` or :class:`Group`). The top level is one;
+    a group inside it, such as ``export``, takes its own sub-command."""
 
     def __init__(self, name, params, commands, help=""):
         super().__init__(name, params, help=help)
@@ -291,7 +328,10 @@ class Group(Command):
             cmd.parent = self
 
     def resolve(self, argv):
-        """argv -> (global Namespace, command, command Namespace)."""
+        """argv -> (this group's Namespace, the command named, its
+        Namespace), going down through nested groups."""
+        if not argv and self.parent is not None:
+            raise NoArgsIsHelp(self)
         values, rest = self.parse(argv, interspersed=False)
         if not rest:
             raise UsageError("Missing command.", self)
@@ -299,5 +339,8 @@ class Group(Command):
         cmd = self.subcommands.get(name)
         if cmd is None:
             raise UsageError(f"No such command {name!r}.", self)
+        if isinstance(cmd, Group):
+            _, cmd, args = cmd.resolve(rest)
+            return values, cmd, args
         args, _ = cmd.parse(rest)
         return values, cmd, args

@@ -5,7 +5,8 @@ Two backends, chosen by device only:
 
 * ``device_torch`` -- a CUDA device: uploads through pinned buffers and
   runs the kernels.
-* ``cpu_torch`` -- the CPU: the plain PyTorch versions.
+* ``cpu_torch`` -- the CPU: the plain PyTorch versions, and numpy's host
+  projection for the tile export.
 
 A third, ``plain_torch``, runs the plain versions on any device; no command
 selects it: it is what the kernels are held against on the card.
@@ -13,7 +14,8 @@ selects it: it is what the kernels are held against on the card.
 There are no row-count gates: a caller that asks for the card gets the
 card, whatever the size, and a failure raises instead of degrading to the
 host. Beside the diff's entry points, the query's: :meth:`join_counts`
-(K5) and :meth:`refine_pairs` (K6).
+(K5) and :meth:`refine_pairs` (K6); and the tile export's:
+:meth:`merc_envelopes` (K7), reached through :func:`project_envelopes`.
 """
 
 import numpy as np
@@ -25,6 +27,7 @@ from kart_tpu_torch.ops.blocks import to_device
 from kart_tpu_torch.ops.diff_kernel import classify_blocks
 from kart_tpu_torch.ops.envelope_join import envelope_join, envelope_join_plain
 from kart_tpu_torch.ops.geom_refine import geom_refine, geom_refine_plain, resident_segments
+from kart_tpu_torch.ops.merc import merc, merc_plain
 
 _SIGNATURES = {
     "kart_envelope_scan": [
@@ -145,6 +148,14 @@ class DiffBackend:
         return (geom_refine_plain if self.plain else geom_refine)(
             resident_segments(col_a, self.device), ia, resident_segments(col_b, self.device), ib)
 
+    def merc_envelopes(self, env):
+        """(M, 4) f64 wsen degrees -> (mx0, my0, mx1, my1) f64 host columns
+        of the normalized mercator projection, computed on this device (an
+        empty batch launches nothing)."""
+        e = to_device(np.ascontiguousarray(env, dtype=np.float64).reshape(-1, 4), self.device)
+        cols = (merc_plain if self.plain else merc)(e).cpu().numpy()
+        return cols[0], cols[1], cols[2], cols[3]
+
 
 class DeviceTorchBackend(DiffBackend):
     name = "device_torch"
@@ -153,9 +164,14 @@ class DeviceTorchBackend(DiffBackend):
 class CpuTorchBackend(DiffBackend):
     name = "cpu_torch"
 
+    def merc_envelopes(self, env):
+        """numpy's host projection, the one the tile quantizer patches
+        against (kart_tpu's CPU backend projects with it too)."""
+        return host_merc_envelopes(env)
+
 
 class PlainTorchBackend(DiffBackend):
-    """The plain versions of K2, K5 and K6 on any device, the card
+    """The plain versions of K2, K5, K6 and K7 on any device, the card
     included: what the query's kernels are checked against through the
     query's own loop, never a route of a command."""
 
@@ -164,6 +180,26 @@ class PlainTorchBackend(DiffBackend):
 
 
 BACKENDS = {cls.name: cls for cls in (DeviceTorchBackend, CpuTorchBackend)}
+
+
+def host_merc_envelopes(env):
+    """(M, 4) f64 wsen degrees -> numpy's (mx0, my0, mx1, my1) mercator
+    columns on the host."""
+    from kart_tpu_torch.tiles.clip import _host_merc
+
+    return _host_merc(np.asarray(env, dtype=np.float64).reshape(-1, 4))
+
+
+def project_envelopes(env, allow_device=True, device=None):
+    """(M, 4) f64 wsen degrees -> (mx0, my0, mx1, my1) normalized-mercator
+    f64 columns: the tile export's projection of one encode batch. With
+    ``allow_device`` it runs on ``device`` (None: the card, K7; ``"cpu"``:
+    numpy on the host); without it, numpy on the host as well, as the
+    pool's workers run it (they never touch a device). Whichever ran, the
+    tile quantizer makes the exported integers the host's."""
+    if not allow_device:
+        return host_merc_envelopes(env)
+    return select_backend(device).merc_envelopes(env)
 
 
 def select_backend(device=None):

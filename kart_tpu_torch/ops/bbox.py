@@ -10,7 +10,9 @@ host f64 scan, so callers pad the query (the pre-pass pads by 1e-4).
 
 Also the host classification of sidecar blocks against a query
 (:func:`classify_env_blocks_np`, kart_tpu's numpy twin of the native
-``classify_block``), which the query's scans and joins prune by.
+``classify_block``), which the query's scans and joins and the tile row
+selection prune by, and kart_tpu's f64 numpy test
+(:func:`bbox_intersects_np`), which the tile row selection scans with.
 """
 
 import threading
@@ -38,6 +40,17 @@ def _cyclic_overlap_np(w1, e1, w2, e2):
     len1 = _range_len_np(w1, e1)
     len2 = _range_len_np(w2, e2)
     return (np.mod(w2 - w1, 360.0) <= len1) | (np.mod(w1 - w2, 360.0) <= len2)
+
+
+def bbox_intersects_np(envelopes, query):
+    """(N, 4) wsen envelopes + query (4,) -> bool (N,), in f64 numpy: the
+    host test of the tile row selection and its exact refine."""
+    envelopes = np.asarray(envelopes, dtype=np.float64)
+    w, s, e, n = (envelopes[:, i] for i in range(4))
+    qw, qs, qe, qn = (float(query[i]) for i in range(4))
+    lat_ok = (s <= qn) & (qs <= n)
+    lon_ok = _cyclic_overlap_np(w, e, np.float64(qw), np.float64(qe))
+    return lat_ok & lon_ok
 
 
 #: block classes of the pruned scan

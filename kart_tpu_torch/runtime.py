@@ -62,6 +62,7 @@ STATS = {
     "merge_classify_launches": 0,
     "envelope_join_launches": 0,
     "geom_refine_launches": 0,
+    "merc_launches": 0,
     "prefilter_old_survivors": 0,
     "prefilter_new_survivors": 0,
     # kart_tpu's own semantics where hash keys collide: a diff or a merge of

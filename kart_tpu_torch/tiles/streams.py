@@ -26,7 +26,8 @@ and raises :class:`TileEncodeError` with the same message on the rest.
 Decoding is a taint boundary: every stream is bounds-checked, canonical
 (no zero-padded varint, no split RLE run, no nonzero padding bits) and
 consumed exactly, so one column has one byte string. The byte-string
-dictionary stream is not ported.
+dictionary stream of the ``props`` layer (:func:`encode_bytes_stream`,
+:func:`decode_bytes_stream`) is kart_tpu's too.
 """
 
 import struct
@@ -331,3 +332,53 @@ def decode_stream(data, count, dtype="i8", pos=0):
         if len(out) and (int(out.min()) < lo or int(out.max()) > hi):
             raise TileEncodeError("int32 stream value out of range")
     return out.astype(wire), end
+
+
+# --- the dictionary-coded byte-string stream (the props layer) -------------------
+
+def encode_bytes_stream(items):
+    """List of byte strings -> dictionary-coded stream: each distinct string
+    stored once, in first-occurrence order, and the column as an index
+    stream into them.
+
+    Layout: varint n_unique, an int stream of the unique byte lengths, the
+    concatenated unique bytes, an int stream of row indices."""
+    index = {}
+    idx_col = np.empty(len(items), dtype=np.int64)
+    uniques = []
+    for i, item in enumerate(items):
+        j = index.get(item)
+        if j is None:
+            j = index[item] = len(uniques)
+            uniques.append(item)
+        idx_col[i] = j
+    lens = np.asarray([len(u) for u in uniques], dtype=np.int64)
+    return b"".join((
+        varint_encode(np.asarray([len(uniques)], np.uint64)),
+        encode_stream(lens, "i8"),
+        b"".join(uniques),
+        encode_stream(idx_col, "i8"),
+    ))
+
+
+def decode_bytes_stream(data, count, pos=0):
+    """-> (list of ``count`` byte strings, next pos); bounds-checked."""
+    head, pos = varint_decode(data, 1, pos)
+    n_unique = int(head[0])
+    if n_unique > max(count, 0):
+        raise TileEncodeError(f"Dictionary holds {n_unique} uniques for {count} rows")
+    lens, pos = decode_stream(data, n_unique, "i8", pos)
+    if len(lens) and int(lens.min()) < 0:
+        raise TileEncodeError("Negative dictionary string length")
+    # summed in Python ints: crafted lengths must not wrap past the check
+    total = sum(int(x) for x in lens)
+    if pos + total > len(data):
+        raise TileEncodeError(f"Truncated dictionary blob: {len(data) - pos} bytes of {total}")
+    uniques = []
+    for n in lens:
+        uniques.append(bytes(data[pos : pos + int(n)]))
+        pos += int(n)
+    idx, pos = decode_stream(data, count, "i8", pos)
+    if len(idx) and (int(idx.min()) < 0 or int(idx.max()) >= n_unique):
+        raise TileEncodeError("Dictionary index out of range")
+    return [uniques[int(i)] for i in idx], pos

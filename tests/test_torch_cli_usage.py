@@ -51,6 +51,29 @@ QUERY = [
     ["query", "HEAD", "points", "-ojson", "--", "--where"],
 ]
 
+#: kart export tiles: the group without a command (its help, exit 2), an
+#: unknown command or option, bad values of --zoom, --layers, --workers and
+#: --max-features, an extra argument, a flag given a value
+EXPORT = [
+    ["export"],
+    ["export", "nope"],
+    ["export", "--bad"],
+    ["export", "tiles", "--zoom", "x"],
+    ["export", "tiles", "--zoom", "3-31"],
+    ["export", "tiles", "--zoom"],
+    ["export", "tiles", "--layers", "nope,bin"],
+    ["export", "tiles", "--layers", ","],
+    ["export", "tiles", "--workers", "x"],
+    ["export", "tiles", "--workers"],
+    ["export", "tiles", "--max-features", "1.5"],
+    ["export", "tiles", "HEAD", "extra"],
+    ["export", "tiles", "--nope"],
+    ["export", "tiles", "--strict=1"],
+    ["export", "tiles", "nosuchref"],
+    ["export", "tiles", "--dataset", "nope"],
+    ["export", "tiles", "-o"],
+]
+
 OTHERS = [
     ["diff", "--outpt", "x"],
     ["diff", "--output-format"],
@@ -98,7 +121,7 @@ def repo(tmp_path_factory):
     return make_repo_with_edits(tmp_path_factory.mktemp("usage"))[0]
 
 
-@pytest.mark.parametrize("argv", RECORDED + PER_COMMAND + QUERY + OTHERS, ids=" ".join)
+@pytest.mark.parametrize("argv", RECORDED + PER_COMMAND + QUERY + OTHERS + EXPORT, ids=" ".join)
 def test_usage_errors_match_kart_tpu(repo, argv):
     ref = CliRunner().invoke(kart_cli, ["-C", repo, *argv], prog_name="kart")
     assert ref.exception is None or isinstance(ref.exception, SystemExit), ref.exception
@@ -125,6 +148,14 @@ def test_main_returns_the_code(repo):
         except SystemExit as e:  # pragma: no cover - the fault this guards
             pytest.fail(f"main({argv}) raised SystemExit({e.code})")
         assert rc == (0 if "--help" in argv else 2)
+
+
+def test_export_group_help_is_click_s(repo):
+    """``kart export`` alone prints the group's help on stderr and exits 2,
+    word for word click's."""
+    ref = CliRunner().invoke(kart_cli, ["-C", repo, "export"], prog_name="kart")
+    rc, out, err = _port(["--device", "cpu", "-C", repo, "export"])
+    assert (rc, out, err) == (ref.exit_code, ref.stdout, ref.stderr) and rc == 2
 
 
 def test_not_a_repository_like_kart_tpu(tmp_path):

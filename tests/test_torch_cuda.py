@@ -693,3 +693,124 @@ def test_query_join_on_card_matches_cpu(cuda, tmp_path):
                 key = "envelope_join_launches" if "--intersects" in argv else "envelope_scan_launches"
                 assert stats[key] > 0
         assert outs[0] == outs[1]
+
+
+def _merc_rows(rng, n):
+    """(n, 4) f64 wsen rows over the world, then the projection's edges: the
+    poles, the mercator clamp exactly, -0.0, subnormals, NaN, infinities."""
+    from kart_tpu_torch.tiles.grid import MERC_MAX_LAT as m
+
+    world = np.stack([rng.uniform(-180, 180, n), rng.uniform(-90, 90, n),
+                      rng.uniform(-180, 180, n), rng.uniform(-90, 90, n)], axis=1)
+    edge = np.array([(-180.0, -90.0, 180.0, 90.0), (0.0, m, 0.0, -m), (-0.0, -0.0, 0.0, 0.0),
+                     (5e-324, -5e-324, 1e-310, -1e-310), (np.nan, np.nan, np.nan, np.nan),
+                     (np.inf, np.inf, -np.inf, -np.inf), (-np.inf, -m, np.inf, m)])
+    return np.ascontiguousarray(np.concatenate([world, edge]))
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 100_000, 2_000_003])
+def test_merc_kernel_matches_plain(cuda, n):
+    """K7 against its plain version on the card, bit for bit, one launch a
+    call (none for an empty batch)."""
+    from kart_tpu_torch.ops.merc import merc, merc_plain
+
+    rows = _merc_rows(np.random.default_rng(n), n) if n else np.zeros((0, 4))
+    env = torch.from_numpy(rows).to(cuda)
+    runtime.reset_stats()
+    got = merc(env)
+    torch.cuda.synchronize()
+    assert runtime.stats_snapshot()["merc_launches"] == (1 if len(rows) else 0)
+    want = merc_plain(env)
+    assert got.shape == (4, len(rows)) and got.dtype == torch.float64
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+    for _ in range(2):
+        assert torch.equal(merc(env).view(torch.int64), want.view(torch.int64))
+
+
+def test_merc_refuses_misaligned_rows_and_projects_through_the_seam(cuda):
+    from kart_tpu_torch.diff.backend import project_envelopes
+    from kart_tpu_torch.ops.merc import merc, merc_plain
+    from kart_tpu_torch.tiles.clip import _host_merc, quantize_from_merc
+
+    rows = _merc_rows(np.random.default_rng(1), 1000)
+    buf = torch.zeros(rows.size + 1, dtype=torch.float64, device=cuda)
+    env = buf[1:].view(-1, 4)
+    env.copy_(torch.from_numpy(rows))
+    with pytest.raises(ValueError):
+        merc(env)
+    runtime.reset_stats()
+    cols = project_envelopes(rows)
+    assert runtime.stats_snapshot()["merc_launches"] == 1
+    want = merc_plain(torch.from_numpy(rows).to(cuda)).cpu().numpy()
+    assert all(np.array_equal(c.view(np.int64), w.view(np.int64)) for c, w in zip(cols, want))
+    ok = np.isfinite(rows).all(axis=1)
+    for z in (0, 9, 21, 30):
+        sel = rows[ok]
+        x = y = (1 << z) // 2
+        assert np.array_equal(
+            quantize_from_merc(sel, tuple(c[ok] for c in cols), z, x, y),
+            quantize_from_merc(sel, _host_merc(sel), z, x, y))
+
+
+def test_export_on_card_matches_cpu(cuda, tmp_path):
+    """kart export tiles through the CLI on the card (--workers 1: K7 once a
+    batch with a tile) and with --device cpu: the same files and output."""
+    import contextlib
+    import io
+
+    from kart_tpu_torch.cli import main as port_main
+    from kart_tpu_torch.synth import synth_repo
+    from kart_tpu_torch.tiles.pyramid import tree_digest
+
+    repo, _ = synth_repo(str(tmp_path / "r"), 20_000, spatial=True, seed=3)
+    outs = []
+    for pre in ([], ["--device", "cpu"]):
+        runtime.reset_stats()
+        out_dir = str(tmp_path / f"t{len(outs)}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert port_main([*pre, "-C", repo.workdir, "export", "tiles", "--zoom", "0-4",
+                              "--layers", "bin,ktb2,mvt,geom", "--workers", "1",
+                              "-o", out_dir]) == 0
+        launches = runtime.stats_snapshot()["merc_launches"]
+        assert launches > 0 if not pre else launches == 0
+        outs.append((tree_digest(out_dir), buf.getvalue().replace(out_dir, "<out>")))
+    assert outs[0] == outs[1]
+
+
+def test_export_default_on_card_launches_k7(cuda, tmp_path, monkeypatch):
+    """kart export tiles on the card without --workers encodes in this
+    process: one K7 launch a batch with a tile to write, one worker in the
+    stdout line, and the files of --device cpu's default pool."""
+    import contextlib
+    import io
+    import os
+    import re
+
+    from kart_tpu_torch.cli import main as port_main
+    from kart_tpu_torch.synth import synth_repo
+    from kart_tpu_torch.tiles.pyramid import batched, tile_cover, tree_digest
+    from kart_tpu_torch.tiles.source import source_for
+
+    monkeypatch.delenv("KART_EXPORT_WORKERS", raising=False)
+    repo, _ = synth_repo(str(tmp_path / "r"), 20_000, spatial=True, seed=4)
+    outs = []
+    for pre in ([], ["--device", "cpu"]):
+        runtime.reset_stats()
+        out_dir = str(tmp_path / f"t{len(outs)}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert port_main([*pre, "-C", repo.workdir, "export", "tiles", "--zoom", "0-4",
+                              "--layers", "bin,mvt", "-o", out_dir]) == 0
+        outs.append((tree_digest(out_dir), buf.getvalue().replace(out_dir, "<out>"),
+                     runtime.stats_snapshot()["merc_launches"]))
+    written = {tuple(int(p) for p in os.path.relpath(os.path.join(d, n)[: -len(".ktile")],
+                                                      tmp_path / "t0").split(os.sep))
+               for d, _, names in os.walk(tmp_path / "t0") for n in names}
+    source = source_for(repo, repo.resolve_refish("HEAD")[0], "synth")
+    want = sum(any(a in written for a in b) for b in batched(tile_cover(source, range(5)), 64))
+    assert outs[0][2] == want > 0 and outs[1][2] == 0
+    assert outs[0][0] == outs[1][0]
+    assert outs[0][1].endswith("; 1 workers]\n")
+    strip = re.compile(r"; \d+ workers\]")
+    assert strip.sub("", outs[0][1]) == strip.sub("", outs[1][1])
