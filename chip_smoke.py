@@ -5,8 +5,11 @@ kernel against its plain PyTorch version.
     python3 chip_smoke.py [--rows 10000000] [--index-rows 1000000]
                           [--repo-rows 5000000] [--spatial-rows 2000000]
                           [--merge-rows 2000000]
-                          [--text-rows 10000000] [--text-merge-rows 1000000] [--seed 0]
-                          [--k4-only | --hash-only | --query-only | --tiles-only]
+                          [--text-rows 5000000] [--text-merge-rows 500000] [--seed 0]
+                          [--stream-rows 100000000] [--crossover-rows 1000000,...]
+                          [--crossover-reps 3] [--chunk-sweep 2000000,...]
+                          [--k4-only | --hash-only | --query-only | --tiles-only |
+                           --stream-only]
 
 Run from the repository root on a machine with an sm_90 (Hopper) card and
 the CUDA toolkit; the kernels are built from ``kart_tpu_torch/csrc`` on
@@ -154,7 +157,36 @@ T2. the default layers (bin,geojson) on the same layer, whose blobs only
    under cProfile; ``merge theirs-clean --no-ff`` committing the same
    oids on both routes. Every counted phase fails if a dataset took the
    host path for colliding hash keys (``hash_collision_fallbacks``)
-22. each group of phases' host wall, the ``kernels`` JSON line (K1-K7, each
+S3. (run at the end of [10b] on [7]'s repository, and after [16] on
+   [14]'s) the streamed routes through the CLI: with
+   ``KART_TORCH_STREAM_MIN_ROWS=1`` and ``KART_TORCH_STREAM_CHUNK_ROWS`` a
+   fifth of the larger side, ``diff -o feature-count`` (also with
+   ``--device cpu``) and ``-o json-lines`` (K1 once a chunk, 5 or more;
+   [9]'s sha256), and ``merge theirs -o json`` then ``merge --abort`` (K4
+   once a chunk; [16]'s stdout and MERGE_INDEX sha256)
+S1. ``free -g`` and ``df`` of the output directory, then ``--stream-rows``
+   int pks a side from ``--seed`` (phase [2]'s generator, no envelopes: a
+   base, its edit, and a second edit of the base), written as KCOL1
+   sidecars and mmap'd back; the diff of base and edit on the host floor
+   (``ops/host_classify.py``, a copy of kart_tpu's native merge-join), on
+   the card in one chunk (one K1 launch: the row knob raised) and streamed
+   (the default chunk size): equal classes sha256 and counts on the three,
+   the floor's changed keys against the truth, counts-only too; each card
+   route's split (pinned allocation, staging from the mmap, the copy up,
+   K1, the download) from its own run
+S2. the 3-way merge of the three sides (base, edit, second edit) in one
+   chunk and streamed (one K4 launch a chunk): equal union, decision and
+   presence sha256 and counts, equal to K4's plain version on the card
+   over the whole sides, and the union size and counts equal to what the
+   edits' truths give; each route's split
+S4. ``columnar_equal`` (B12) on 8 x 10M int64 columns with null masks, on
+   the card against the CPU; with ``--stream-only`` first the crossover:
+   the floor, the card in one chunk and the card streamed at
+   ``--crossover-rows`` a side (prefixes of [S1]'s sides), host walls
+   first and best of ``--crossover-reps``, and the streamed route at
+   ``--stream-rows`` by ``--chunk-sweep`` chunk rows
+22. each group of phases' host wall (S1-S4 first, [1-6] the build, the data
+   and phases 3-6), the ``kernels`` JSON line (K1-K7, each
    kernel's ``launches`` is the sum of ``launches_by_phase``: every launch
    of the main path's runs, the cProfile runs included, and none of the
    comparisons with the plain versions), the card line, and the result
@@ -169,7 +201,9 @@ Any failed check exits non-zero without the result line. ``--k4-only`` runs
 phases 0, 1, 14 and 15 alone and prints K4's timings as JSON, with no
 result line; ``--hash-only`` runs phases 0, 1 and 18-21 alone the same
 way, ``--query-only`` phases 0, 1, 11 and Q1-Q3, ``--tiles-only`` phases 0, 1,
-11 and T1-T3.
+11 and T1-T3, ``--stream-only`` phases 0, 1 and S1-S4 (S3 on repositories it
+builds at ``--repo-rows`` and ``--merge-rows``, with the monolithic card and
+``--device cpu`` runs of its commands made there).
 """
 
 import argparse
@@ -225,16 +259,22 @@ from kart_tpu_torch.ops import bbox as bbox_ops
 from kart_tpu_torch.ops.blocks import FeatureBlock, block_tensors, to_device
 from kart_tpu_torch.ops.diff_kernel import (
     TILE_ROWS,
+    block_splits,
     classify,
+    classify_blocks,
     classify_plain,
+    columnar_equal,
+    stream_chunk_rows,
     tile_coranks,
     tile_coranks_plain,
 )
 from kart_tpu_torch.ops.envelope_codec import EnvelopeCodec
 from kart_tpu_torch.ops.envelope_join import envelope_join, envelope_join_plain
 from kart_tpu_torch.ops.geom_refine import geom_refine, geom_refine_plain, resident_segments
+from kart_tpu_torch.ops.host_classify import classify_blocks_host
 from kart_tpu_torch.ops.merge_kernel import (
     launch_merge_classify,
+    merge_classify,
     merge_classify_sides,
     merge_classify_sides_plain,
     merge_tile_plan,
@@ -354,31 +394,43 @@ def make_dense_envelopes(rng, n):
     return env
 
 
-def make_versions(rng, n):
-    """Base and edited (keys, oids, envelopes), plus the changed keys."""
+def make_versions(rng, n, envelopes=True, beyond_offset=1):
+    """Base and edited (keys, oids, envelopes or None), plus the changed
+    keys; the inserts past the max pk start ``beyond_offset`` above it."""
     pks = np.cumsum(rng.integers(1, 4, n)).astype(np.int64) + 1000
     oids = rng.integers(0, 2**32, size=(n, 5), dtype=np.uint32)
-    env = make_envelopes(rng, n, n_nan=7)
+    env = make_envelopes(rng, n, n_nan=7) if envelopes else None
+    return (pks, oids, env), *edit_version(rng, pks, oids, env, beyond_offset)
+
+
+def edit_version(rng, pks, oids, env=None, beyond_offset=1):
+    """An edit of a base version: 1% updates (the flipped oid word
+    rotating), 0.1% deletes, 0.1% inserts (half into gaps, half past the
+    max pk). -> (keys, oids, envelopes or None) unsorted, and the truth."""
+    n = len(pks)
     n_upd, n_del, n_ins = n // 100, n // 1000, n // 1000
     rows = rng.permutation(n)
     upd = np.sort(rows[:n_upd])
     dele = np.sort(rows[n_upd : n_upd + n_del])
     oids2 = oids.copy()
     oids2[upd, np.arange(n_upd) % 5] ^= rng.integers(1, 2**32, n_upd, dtype=np.uint32)
-    env2 = env.copy()
-    moved = upd[: n_upd // 2]
-    env2[moved] = make_envelopes(rng, len(moved))
+    env2 = None
+    if env is not None:
+        env2 = env.copy()
+        moved = upd[: n_upd // 2]
+        env2[moved] = make_envelopes(rng, len(moved))
     keep = np.ones(n, dtype=bool)
     keep[dele] = False
     free = np.flatnonzero(np.diff(pks) > 1)
     inter = pks[rng.choice(free, n_ins // 2, replace=False)] + 1
-    beyond = pks[-1] + 1 + 7 * np.arange(n_ins - n_ins // 2, dtype=np.int64)
+    beyond = pks[-1] + beyond_offset + 7 * np.arange(n_ins - n_ins // 2, dtype=np.int64)
     ins = np.concatenate([inter, beyond])
     keys2 = np.concatenate([pks[keep], ins])
     oids2 = np.concatenate([oids2[keep], rng.integers(0, 2**32, size=(n_ins, 5), dtype=np.uint32)])
-    env2 = np.concatenate([env2[keep], make_envelopes(rng, n_ins)])
+    if env is not None:
+        env2 = np.concatenate([env2[keep], make_envelopes(rng, n_ins)])
     truth = {"upd": pks[upd], "del": pks[dele], "ins": np.sort(ins)}
-    return (pks, oids, env), (keys2, oids2, env2), truth
+    return (keys2, oids2, env2), truth
 
 
 def write_index(rng, gitdir, n):
@@ -493,6 +545,9 @@ def bound(bytes_moved, ops):
 
 
 def mismatches(a, b):
+    """The largest absolute difference of two integer tensors (``b`` moved
+    to ``a``'s device: the card's classify returns its classes on the host)."""
+    b = b.to(a.device)
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item()) if a.numel() else 0
 
 
@@ -580,9 +635,11 @@ def profile_split(fn, steps=JSONL_STEPS, top=12):
     return out.getvalue(), split
 
 
-def cli_phases(args, card, launches):
+def cli_phases(args, card, launches, s_walls=None):
     """Phases 7-10: build the repository, then drive ``kart diff`` through
-    the CLI, adding every card command's launches to ``launches``."""
+    the CLI, adding every card command's launches to ``launches``; with
+    ``s_walls``, [S3]'s diff on the same repository (its wall in
+    ``s_walls``)."""
     with tempfile.TemporaryDirectory(prefix="kart_smoke_repo_") as tmp:
         t = time.perf_counter()
         repo, info = synth_repo(os.path.join(tmp, "repo"), args.repo_rows, edit_frac=0.01,
@@ -618,6 +675,7 @@ def cli_phases(args, card, launches):
             n_lines = sum(1 for _ in f)
         check('"type":"version"' in first and n_lines == n_edits,
               f"json-lines has {n_lines} feature lines, expected {n_edits}")
+        jsonl_digest = digest
         print(f"[9] json-lines: card {wall_card:.4f} s, cpu {wall_cpu:.4f} s host wall, "
               f"{os.path.getsize(card_out)} bytes, sha256 {digest} on both; "
               f"K1 launches 1 on {card}")
@@ -648,6 +706,9 @@ def cli_phases(args, card, launches):
         t = time.perf_counter()
         k1_estimation = estimation_phases(path, tmp, card, launches, n_edits, repo)
         print(f"[10b] phase host wall {time.perf_counter() - t:.4f} s on {card}")
+        if s_walls is not None:
+            s_walls["S3"] = s_walls.get("S3", 0.0) + stream_cli_diff(
+                repo, path, tmp, card, launches, n_edits, jsonl_digest)
     return k1_estimation
 
 
@@ -1840,12 +1901,12 @@ def k4_check_and_time(label, blocks, dev, card, truth=None, phase="15"):
     return out
 
 
-def merge_phases(args, card, launches, dev):
+def merge_phases(args, card, launches, dev, s_walls=None):
     """Phases 14-17: build the merge repository, check and time K4, then
     drive ``kart merge`` and ``kart conflicts`` through the CLI on the
     card and with ``--device cpu``, adding every card command's launches
-    to ``launches``. -> K4's entry of the kernels line (without
-    launches)."""
+    to ``launches``; with ``s_walls``, [S3]'s merge after [16] (its wall in
+    ``s_walls``). -> K4's entry of the kernels line (without launches)."""
     os.environ.update(GIT_AUTHOR_DATE=MERGE_DATE, GIT_COMMITTER_DATE=MERGE_DATE)
     n = args.merge_rows
     with tempfile.TemporaryDirectory(prefix="kart_smoke_merge_") as tmp:
@@ -1931,6 +1992,9 @@ def merge_phases(args, card, launches, dev):
         print("[16] host profile of the card's merge (cProfile, cumulative s): "
               + "; ".join(f"{k} {v:.4f}" for k, v in split.items()) + f" on {card}")
         print(profile)
+        if s_walls is not None:
+            s_walls["S3"] = s_walls.get("S3", 0.0) + stream_cli_merge(
+                path, tmp, card, launches, trio, (out_sha("merge.card"), mi_card))
 
         # [17] the clean merge, committed, on both routes
         head = repo.refs.get("refs/heads/main")
@@ -2256,6 +2320,384 @@ def hash_merge_phases(args, card, launches, dev):
 
 # --- main -------------------------------------------------------------------
 
+# --- the classify at north-star scale: the host floor and the streamed routes ------
+
+#: the environment knobs of the streamed routes (``ops/diff_kernel.py``)
+MIN_ROWS_KNOB, CHUNK_KNOB = "KART_TORCH_STREAM_MIN_ROWS", "KART_TORCH_STREAM_CHUNK_ROWS"
+MONOLITHIC = {MIN_ROWS_KNOB: str(2**62)}
+STREAMED = {MIN_ROWS_KNOB: "1"}
+
+
+@contextlib.contextmanager
+def knobs(values):
+    """Set environment knobs for the block, then put them back."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def release_pinned():
+    """Return cached pinned host memory and free device memory, so that
+    the next route pays its own pinned allocation, as a new process does."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None:
+        empty()
+
+
+def classes_digest(*arrays):
+    """sha256 over the bytes of each array (tensors on any device, numpy)."""
+    h = hashlib.sha256()
+    for a in arrays:
+        a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def run_route(route, old, new, dev, counts_only=False, timings=None):
+    """One classify of two blocks by ``route`` ("floor", "monolithic",
+    "streamed", or "upload": each column through ``to_device``, one K1
+    launch, the classes brought back with ``.cpu()``, the card's route
+    before it had one driver), from the blocks' arrays to classes and
+    counts on the host; a card route's split goes into ``timings``.
+    -> ((old_class, new_class, counts) tensors on the host, host wall s)."""
+    release_pinned()
+    t = time.perf_counter()
+    if route == "floor":
+        out = classify_blocks_host(old, new)
+        if counts_only:
+            out = (None, None, out[2])
+    elif route == "upload":
+        out = classify(*block_tensors(old, dev), *block_tensors(new, dev),
+                       counts_only=counts_only)
+        out = tuple(None if x is None else x.cpu() for x in out)
+    else:
+        with knobs(MONOLITHIC if route == "monolithic" else STREAMED):
+            out = classify_blocks(old, new, dev, counts_only=counts_only, timings=timings)
+        out = tuple(None if x is None else x.cpu() for x in out)
+    return out, time.perf_counter() - t
+
+
+def side_blocks(tmp, name, keys, oids):
+    """Write one side as a KCOL1 sidecar (keys and oids only) and mmap it
+    back. -> its FeatureBlock."""
+    path = save_sidecar_file(os.path.join(tmp, f"{name}.kcol"), keys, oids.view(np.uint8))
+    return load_block_file(path)
+
+
+def fmt_split(split):
+    return ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                     for k, v in split.items())
+
+
+def merge_expectation(base_rows, ours, theirs, truth_o, truth_t):
+    """The 3-way merge of a base with two edits of it, from the edits'
+    truths alone (no merge code): every key only theirs changed is
+    take-theirs, every key both changed is a conflict unless ours and
+    theirs now agree (both deleted, or equal oids), and the union is the
+    base plus both sides' inserts. -> (union rows, conflicts, take-theirs)."""
+    def changed(truth):
+        return np.union1d(np.union1d(truth["upd"], truth["del"]), truth["ins"])
+
+    ch_o, ch_t = changed(truth_o), changed(truth_t)
+    both = np.intersect1d(ch_o, ch_t)
+
+    def look(block):
+        keys = np.asarray(block.keys[: block.count])
+        i = np.searchsorted(keys, both)
+        ic = np.minimum(i, max(len(keys) - 1, 0))
+        return (i < len(keys)) & (keys[ic] == both), np.asarray(block.oids)[ic]
+
+    (po, wo), (pt, wt) = look(ours), look(theirs)
+    agree = (~po & ~pt) | (po & pt & (wo == wt).all(axis=1))
+    return (base_rows + len(np.union1d(truth_o["ins"], truth_t["ins"])),
+            int((~agree).sum()), len(np.setdiff1d(ch_t, ch_o)))
+
+
+def stream_phases(args, card, launches, dev):
+    """Phases S1, S2 and S4 (S3 runs inside the CLI and merge phases, on
+    their repositories): the diff and the merge at ``--stream-rows`` a side
+    at block level, on the host floor, the card in one chunk and the card
+    streamed, each card route's split from its own run; ``columnar_equal``;
+    with ``--stream-only`` also the crossover of the three routes and the
+    chunk sweep that set the knobs' defaults. -> ({phase: wall s}, K1's
+    and K4's streamed timings, the crossover table)."""
+    walls, out = {}, {}
+    n = args.stream_rows
+    tmp = tempfile.TemporaryDirectory(prefix="kart_smoke_stream_")
+    print("[S1] host memory and the output directory's disk before generating:")
+    print(subprocess.run(["free", "-g"], capture_output=True, text=True).stdout.rstrip())
+    print(subprocess.run(["df", "-h", tmp.name], capture_output=True, text=True).stdout.rstrip())
+    t_phase = t = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 100)
+    (k1, o1, _), (k2, o2, _), truth = make_versions(rng, n, envelopes=False)
+    old = side_blocks(tmp.name, "old", k1, o1)
+    new = side_blocks(tmp.name, "new", k2, o2)
+    (k3, o3, _), truth_t = edit_version(np.random.default_rng(args.seed + 101), k1, o1,
+                                        beyond_offset=3)
+    theirs = side_blocks(tmp.name, "theirs", k3, o3)
+    del k1, o1, k2, o2, k3, o3
+    gen_s = time.perf_counter() - t
+    want = [len(truth["ins"]), len(truth["upd"]), len(truth["del"])]
+    print(f"[S1] data: {old.count} / {new.count} / {theirs.count} rows (base, edited, theirs), "
+          f"sidecars {sum(os.path.getsize(os.path.join(tmp.name, f)) for f in os.listdir(tmp.name))}"
+          f" bytes written and mmap'd back in {gen_s:.2f} s; the page cache is warm: this "
+          f"process wrote the files just now; truth {want}")
+
+    # [S1] the diff on the three routes, each card route's split from its own run
+    results, split = {}, {"monolithic": {}, "streamed": {}}
+    for route in ("floor", "monolithic", "streamed"):
+        (res, wall), stats = counted(
+            "S1", lambda: run_route(route, old, new, dev, timings=split.get(route)), launches,
+            want=0 if route == "floor" else SOME)
+        results[route] = (classes_digest(*res[:2]), res[2].tolist(), wall,
+                          stats["classify_launches"])
+        if route == "floor":
+            oc, nc = res[0].numpy(), res[1].numpy()
+            keys_old, keys_new = np.asarray(old.keys[: old.count]), np.asarray(new.keys[: new.count])
+            check(np.array_equal(keys_old[oc == 3], truth["del"])
+                  and np.array_equal(keys_old[oc == 2], truth["upd"])
+                  and np.array_equal(keys_new[nc == 2], truth["upd"])
+                  and np.array_equal(keys_new[nc == 1], truth["ins"]),
+                  "S1: the floor's changed keys differ from the truth")
+            del oc, nc, keys_old, keys_new
+        del res
+    _, (_, n_chunks) = block_splits((old, new))
+    check(results["monolithic"][3] == 1 == split["monolithic"]["chunks"],
+          f"S1: the monolithic route launched K1 {results['monolithic'][3]} times")
+    check(results["streamed"][3] == n_chunks == split["streamed"]["chunks"],
+          f"S1: the streamed route launched K1 {results['streamed'][3]} times for "
+          f"{n_chunks} chunks")
+    digests = {r: v[0] for r, v in results.items()}
+    check(len(set(digests.values())) == 1, f"S1: classes differ between routes: {digests}")
+    check(all(v[1] == want for v in results.values()), f"S1: counts differ: {results}")
+    for route in ("floor", "monolithic", "streamed"):
+        (res, wall), _ = counted("S1", lambda: run_route(route, old, new, dev, counts_only=True),
+                                 launches, want=0 if route == "floor" else SOME)
+        check(res[2].tolist() == want, f"S1: {route} counts-only said {res[2].tolist()}")
+        results[route] += (wall,)
+    print(f"[S1] classes sha256 {digests['floor']} and counts {want} on the floor, the card in "
+          f"one chunk and the card streamed ({n_chunks} chunks of {stream_chunk_rows()} rows); "
+          "host wall s (full, counts-only): "
+          + ", ".join(f"{r} {v[2]:.4f} / {v[4]:.4f}" for r, v in results.items()) + f" on {card}")
+    for route, sp in split.items():
+        print(f"[S1] {route} split (the full run above): {fmt_split(sp)} on {card}")
+    out["k1_streamed"] = {"rows": n, "chunks": n_chunks, "chunk_rows": stream_chunk_rows(),
+                          "wall_s": {r: v[2] for r, v in results.items()},
+                          "counts_only_wall_s": {r: v[4] for r, v in results.items()},
+                          "split": split}
+    walls["S1"] = time.perf_counter() - t_phase
+
+    # [S2] the merge on the card, one chunk and streamed, against K4's plain
+    # version on the whole sides and against the edits' truths
+    t = time.perf_counter()
+    merges, m_split = {}, {}
+    blocks = (old, new, theirs)
+    _, (_, m_chunks) = block_splits(blocks)
+    for route, values, k4 in (("monolithic", MONOLITHIC, 1), ("streamed", STREAMED, m_chunks)):
+        release_pinned()
+        m_split[route] = {}
+        with knobs(values):
+            (res, stats) = counted("S2", lambda: timed_call(
+                lambda: merge_classify(*blocks, dev, timings=m_split[route])),
+                launches, want=0, want_k4=k4)
+        (union, decision, presence, counts), wall = res
+        merges[route] = (classes_digest(union), classes_digest(decision),
+                         classes_digest(presence), counts, wall, len(union))
+        del union, decision, presence, res
+    check(merges["monolithic"][:4] == merges["streamed"][:4],
+          f"S2: the streamed merge differs from the one-chunk merge: {merges}")
+    release_pinned()
+    t_ref = time.perf_counter()
+    ref_args = k4_inputs(blocks, dev)
+    ref = merge_classify_sides_plain(*ref_args)
+    ref_c = ref[3].tolist()
+    plain = (classes_digest(ref[0]), classes_digest(ref[1]), classes_digest(ref[2]),
+             {"conflicts": ref_c[0], "take_theirs": ref_c[1]})
+    ref_s = time.perf_counter() - t_ref
+    del ref_args, ref
+    release_pinned()
+    check(merges["streamed"][:4] == plain,
+          f"S2: the streamed merge differs from K4's plain version on the card: "
+          f"{merges['streamed'][:4]} against {plain}")
+    u_want, c_want, t_want = merge_expectation(old.count, new, theirs, truth, truth_t)
+    got = merges["streamed"]
+    check((got[5], got[3]["conflicts"], got[3]["take_theirs"]) == (u_want, c_want, t_want),
+          f"S2: union {got[5]}, counts {got[3]} against the truths' {u_want}, {c_want}, {t_want}")
+    check(c_want > 0 and t_want > 0, "S2: the merge has no conflicts or no take-theirs rows")
+    print(f"[S2] merge of {n} rows a side: union {got[5]} rows, sha256 union {got[0]}, decision "
+          f"{got[1]}, presence {got[2]}, counts {got[3]}: equal in one chunk, streamed ({m_chunks}"
+          f" chunks, K4 {m_chunks}) and K4's plain version on the card over the whole sides "
+          f"({ref_s:.4f} s with the upload); union size and counts equal to the edits' truths; "
+          f"host wall s: monolithic {merges['monolithic'][4]:.4f}, streamed {got[4]:.4f} on {card}")
+    for route, sp in m_split.items():
+        print(f"[S2] {route} split: {fmt_split(sp)} on {card}")
+    out["k4_streamed"] = {"rows": n, "chunks": m_chunks, "union": got[5],
+                          "wall_s": {r: v[4] for r, v in merges.items()}, "split": m_split,
+                          "plain_on_card_s": ref_s}
+    walls["S2"] = time.perf_counter() - t
+    del theirs, blocks
+
+    # [S4] B12 on the card; with --stream-only the crossover and the chunk sweep
+    t = time.perf_counter()
+    if args.stream_only:
+        out["crossover"] = crossover(args, old, new, dev, card)
+    cols = torch.from_numpy(np.random.default_rng(args.seed + 104).integers(
+        -2, 2, size=(8, 10_000_000), dtype=np.int64))
+    new_cols = cols.clone()
+    new_cols[0, ::97] += 1
+    masks = [torch.zeros(cols.shape, dtype=torch.bool) for _ in range(2)]
+    masks[1][3, ::89] = True
+    want_eq = columnar_equal(cols, new_cols, *masks)
+    d_args = [x.to(dev) for x in (cols, new_cols, *masks)]
+    got_eq = columnar_equal(*d_args)
+    check(torch.equal(got_eq.cpu(), want_eq), "columnar_equal on the card differs from the CPU")
+    eq_card = time_ms(lambda: columnar_equal(*d_args))
+    t_cpu = time.perf_counter()
+    for _ in range(3):
+        columnar_equal(cols, new_cols, *masks)
+    eq_cpu = (time.perf_counter() - t_cpu) / 3 * 1e3
+    print(f"[S4] columnar_equal on 8 x 10,000,000 int64 columns with null masks: card "
+          f"{eq_card:.4f} ms (CUDA events), CPU {eq_cpu:.4f} ms (host wall, {torch.get_num_threads()}"
+          f" threads), {int(want_eq.sum())} rows equal on both on {card}")
+    out["columnar_equal_ms"] = {"card": eq_card, "cpu": eq_cpu}
+    walls["S4"] = time.perf_counter() - t
+    del cols, new_cols, masks, d_args, old, new
+    release_pinned()
+    tmp.cleanup()
+    return walls, out
+
+
+def crossover(args, old, new, dev, card):
+    """[S4] with ``--stream-only``: the floor, the card's earlier one-upload
+    route, the card in one chunk and the card streamed at
+    ``--crossover-rows`` a side (prefixes of [S1]'s sides), interleaved,
+    host walls first and best of ``--crossover-reps``; the streamed route
+    at [S1]'s size by ``--chunk-sweep`` chunk rows. -> the table."""
+    table = []
+    keys_old = np.asarray(old.keys[: old.count])
+    keys_new = np.asarray(new.keys[: new.count])
+    for rows in args.crossover_rows:
+        rows = min(rows, old.count)
+        m = int(np.searchsorted(keys_new, keys_old[rows - 1], side="right"))
+        a = FeatureBlock(old.keys[:rows], old.oids[:rows], rows)
+        b = FeatureBlock(new.keys[:m], new.oids[:m], m)
+        row = {"rows": rows}
+        routes = ("floor", "upload", "monolithic", "streamed")
+        for _ in range(args.crossover_reps):  # the routes interleaved, each rep
+            for route in routes:
+                split = {}
+                wall = run_route(route, a, b, dev, timings=split)[1]
+                row.setdefault(route, {"all_s": []})["all_s"].append(wall)
+                if split and wall == min(row[route]["all_s"]):
+                    row[route]["split_of_best"] = split
+        for route in routes:
+            ws = row[route]["all_s"]
+            row[route].update(first_s=ws[0], best_s=min(ws))
+        table.append(row)
+        print(f"[S4] {rows} rows a side: host wall s (first, best of {args.crossover_reps}) "
+              + ", ".join(f"{r} {row[r]['first_s']:.4f} / {row[r]['best_s']:.4f}" for r in routes)
+              + "; best runs' splits: " + "; ".join(
+                  f"{r} {fmt_split(row[r]['split_of_best'])}" for r in routes[2:]) + f" on {card}")
+    sweep = {}
+    for chunk in args.chunk_sweep:
+        with knobs({CHUNK_KNOB: str(chunk)}):
+            ws = [run_route("streamed", old, new, dev)[1] for _ in range(3)]
+        sweep[chunk] = min(ws)
+    print(f"[S4] streamed at {old.count} rows a side by chunk rows, best host wall s: "
+          + ", ".join(f"{c} {w:.4f}" for c, w in sweep.items()) + f" on {card}")
+    return {"table": table, "chunk_sweep_best_s": sweep}
+
+
+def timed_call(fn):
+    """-> (fn's result, host wall s, the card synchronized)."""
+    t = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t
+
+
+def stream_cli_diff(repo, path, tmp, card, launches, n_edits, ref):
+    """[S3], the diff: on [7]'s repository with the knobs lowered so that a
+    command runs 5 or more chunks, ``-o feature-count`` and ``-o
+    json-lines`` through the streamed route: one K1 launch a chunk, and the
+    bytes of the monolithic card run and of ``--device cpu`` (``ref``: the
+    json-lines sha256 [9] found equal on both, or None to run both here).
+    -> host wall s."""
+    t = time.perf_counter()
+    blocks = [load_block(repo, repo.structure(rev).datasets["synth"]) for rev in ("HEAD^", "HEAD")]
+    chunk = max(1, max(b.count for b in blocks) // 5)
+    _, (_, n_chunks) = block_splits(blocks, chunk)
+    check(n_chunks >= 4, f"S3: {n_chunks} chunks")
+    counts_text = f"synth:\n\t{n_edits} features changed\n"
+    jsonl = ["-C", path, "diff", "-o", "json-lines", "HEAD^...HEAD", "--output"]
+    out = os.path.join(tmp, "s3.jsonl")
+    if ref is None:
+        with knobs(MONOLITHIC):
+            kart_cli(*jsonl, out)
+        ref = sha256_of(out)
+        kart_cli("--device", "cpu", *jsonl, out)
+        check(sha256_of(out) == ref, "S3: json-lines differs card / cpu")
+    with knobs({**STREAMED, CHUNK_KNOB: str(chunk)}):
+        texts = []
+        for pre, want in (([], n_chunks), (["--device", "cpu"], 0)):
+            fc = os.path.join(tmp, "s3.count")
+            counted("S3", lambda: kart_cli(*pre, "-C", path, "diff", "-o", "feature-count",
+                                           "--output", fc, "HEAD^...HEAD"), launches, want=want)
+            with open(fc) as f:
+                texts.append(f.read())
+        check(texts == [counts_text] * 2, f"S3: feature-count said {texts}")
+        wall, _ = counted("S3", lambda: kart_cli(*jsonl, out), launches, want=n_chunks)
+        check(sha256_of(out) == ref, "S3: the streamed json-lines differs from the monolithic run")
+    print(f"[S3] diff on the {blocks[0].count}-row repo, streamed in {n_chunks} chunks of {chunk}"
+          f" rows: feature-count {n_edits} (K1 {n_chunks} counts-only, equal to --device cpu), "
+          f"json-lines sha256 {ref} equal to the monolithic card and --device cpu (K1 "
+          f"{n_chunks}, {wall:.4f} s host wall) on {card}")
+    return time.perf_counter() - t
+
+
+def stream_cli_merge(path, tmp, card, launches, blocks, ref):
+    """[S3], the merge: ``merge theirs -o json`` on [14]'s repository
+    through the streamed route (5 or more chunks, one K4 launch each), then
+    ``merge --abort``: stdout and MERGE_INDEX as ``ref`` (the sha256 pair
+    [16] found equal on the card and with ``--device cpu``, or None to run
+    both here). -> host wall s."""
+    t = time.perf_counter()
+    chunk = max(1, max(b.count for b in blocks) // 5)
+    _, (_, n_chunks) = block_splits(blocks, chunk)
+    check(n_chunks >= 4, f"S3: {n_chunks} merge chunks")
+    mi_path = os.path.join(path, ".kart", "MERGE_INDEX")
+    out = os.path.join(tmp, "s3.merge")
+
+    def merge(*pre):
+        with open(out, "w") as f, contextlib.redirect_stdout(f):
+            kart_cli(*pre, "-C", path, "merge", "theirs", "-o", "json")
+        digests = (sha256_of(out), sha256_of(mi_path))
+        with contextlib.redirect_stdout(io.StringIO()):
+            kart_cli(*pre, "-C", path, "merge", "--abort")
+        return digests
+
+    if ref is None:
+        with knobs(MONOLITHIC):
+            ref = merge()
+        check(merge("--device", "cpu") == ref, "S3: merge differs card / cpu")
+    with knobs({**STREAMED, CHUNK_KNOB: str(chunk)}):
+        got, _ = counted("S3", merge, launches, want=0, want_k4=n_chunks)
+    check(got == ref, f"S3: the streamed merge wrote {got}, the monolithic one {ref}")
+    print(f"[S3] merge theirs -o json streamed in {n_chunks} chunks of {chunk} rows (K4 "
+          f"{n_chunks}): stdout sha256 {got[0]} and MERGE_INDEX sha256 {got[1]} equal to the "
+          f"monolithic card and --device cpu; {time.perf_counter() - t:.4f} s on {card}")
+    return time.perf_counter() - t
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=10_000_000)
@@ -2265,10 +2707,18 @@ def main():
     ap.add_argument("--repo-rows", type=int, default=5_000_000)
     ap.add_argument("--spatial-rows", type=int, default=2_000_000)
     ap.add_argument("--merge-rows", type=int, default=2_000_000)
-    ap.add_argument("--text-rows", type=int, default=10_000_000)
-    # the text-pk merge below [14]'s 2M rows: the query phases need the time
-    ap.add_argument("--text-merge-rows", type=int, default=1_000_000)
+    # the hash-keyed repos below config #2's 10M rows and [14]'s 2M: at 10M and
+    # 1M the phases before S1 alone took 1154 s of the 1,200 s on a slow host
+    ap.add_argument("--text-rows", type=int, default=5_000_000)
+    ap.add_argument("--text-merge-rows", type=int, default=500_000)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--stream-rows", type=int, default=100_000_000)
+    ap.add_argument("--crossover-rows", type=int_list,
+                    default=[1_000_000, 2_000_000, 10_000_000, 16_000_000, 24_000_000,
+                             32_000_000, 48_000_000, 64_000_000, 100_000_000])
+    ap.add_argument("--crossover-reps", type=int, default=3)
+    ap.add_argument("--chunk-sweep", type=int_list,
+                    default=[2_000_000, 4_000_000, 8_000_000, 16_000_000, 32_000_000])
     ap.add_argument("--k4-only", action="store_true",
                     help="run phases 0, 1, 14 and 15 alone and print K4's timings (no result line)")
     ap.add_argument("--hash-only", action="store_true",
@@ -2280,6 +2730,9 @@ def main():
     ap.add_argument("--tiles-only", action="store_true",
                     help="run phases 0, 1, 11 and T1-T3 alone and print K7's timings and the "
                          "launches (no result line)")
+    ap.add_argument("--stream-only", action="store_true",
+                    help="run phases 0, 1 and S1-S4 alone (S3 on repositories of its own) and "
+                         "print the streamed routes' timings and the launches (no result line)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2304,6 +2757,17 @@ def main():
                                  query=args.query_only, tiles=args.tiles_only)
         print(json.dumps({**kernels, "launches": launches}))
         return 0
+    if args.stream_only:
+        _build.build_all()
+        launches = {}
+        t = time.perf_counter()
+        walls = {"S3": stream_cli_alone(args, card, launches)}
+        t_s, streamed = stream_phases(args, card, launches, dev)
+        walls.update(t_s)
+        print("[S] phase walls s: " + ", ".join(f"[{k}] {v:.2f}" for k, v in walls.items())
+              + f"; all {time.perf_counter() - t:.2f} on {card}")
+        print(json.dumps({**streamed, "launches": launches}))
+        return 0
     if args.hash_only:
         _build.build_all()
         launches = {}
@@ -2316,7 +2780,7 @@ def main():
         print(json.dumps({"k1_hash_keys": k1, "k4_hash_keys": k4, "launches": launches}))
         return 0
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     build_dir, logs = _build.build_all()
     print(f"[1] built {sorted(logs)} in {time.perf_counter() - t0:.2f} s into {build_dir}")
     for k, log in sorted(logs.items()):
@@ -2512,29 +2976,37 @@ def main():
 
     # every card command of phases 8-21 is counted, its cProfile runs too
     cli_launches = {"3-5": [k1["launches"], kernels[1]["launches"], 0, 0, 0, 0]}
-    walls = {}
+    walls, s_walls = {"1-6": time.perf_counter() - t_start}, {}
     t = time.perf_counter()
-    k1["estimation"] = cli_phases(args, card, cli_launches)
-    walls["7-10b"] = time.perf_counter() - t
+    k1["estimation"] = cli_phases(args, card, cli_launches, s_walls)
+    walls["7-10b"] = time.perf_counter() - t - s_walls["S3"]
     t = time.perf_counter()
     spatial = spatial_phases(args, card, cli_launches, dev)
     k5, k6, k7 = spatial["k5"], spatial["k6"], spatial["k7"]
     walls["11-13, Q1-Q3, T1-T3"] = time.perf_counter() - t
     t = time.perf_counter()
-    k4 = merge_phases(args, card, cli_launches, dev)
-    walls["14-17"] = time.perf_counter() - t
+    s3_diff = s_walls["S3"]
+    k4 = merge_phases(args, card, cli_launches, dev, s_walls)
+    walls["14-17"] = time.perf_counter() - t - (s_walls["S3"] - s3_diff)
     t = time.perf_counter()
     k1["hash_keys"] = hash_diff_phases(args, card, cli_launches, dev)
     walls["18-20"] = time.perf_counter() - t
     t = time.perf_counter()
     k4["hash_keys"] = hash_merge_phases(args, card, cli_launches, dev)
     walls["21"] = time.perf_counter() - t
-    print("[22] phase walls s: " + ", ".join(f"[{k}] {v:.2f}" for k, v in walls.items())
-          + f" on {card}")
+    t_s, streamed = stream_phases(args, card, cli_launches, dev)
+    s_walls.update(t_s)
+    k1["streamed"], k4_streamed = streamed["k1_streamed"], streamed["k4_streamed"]
+    k1["columnar_equal_ms"] = streamed["columnar_equal_ms"]
+    print("[S] phase walls s: " + ", ".join(f"[{k}] {v:.2f}" for k, v in s_walls.items())
+          + f"; all {sum(s_walls.values()):.2f} on {card}")
+    print("[22] phase walls s: " + ", ".join(f"[{k}] {v:.2f}" for k, v in
+                                             {**s_walls, **walls}.items())
+          + f"; all since the build {time.perf_counter() - t_start:.2f} on {card}")
     kernels.append({
         "name": "merge_classify", "route": "cuda",
         "source": "kart_tpu_torch/csrc/merge_classify.cu",
-        "replaces": "kart_tpu/ops/merge_kernel.py:43", **k4,
+        "replaces": "kart_tpu/ops/merge_kernel.py:43", **k4, "streamed": k4_streamed,
         "library_call": "torch.searchsorted(ancestor_keys, union): one side's lookup only "
                         "(partial)",
         "unique_call": "torch.unique(concatenated keys): the union step only (partial)",
@@ -2550,6 +3022,24 @@ def main():
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def int_list(text):
+    return [int(x) for x in text.split(",") if x]
+
+
+def stream_cli_alone(args, card, launches):
+    """[S3] on repositories of its own (``--stream-only``): [7]'s at
+    ``--repo-rows`` and [14]'s at ``--merge-rows``, each command's
+    monolithic card and ``--device cpu`` runs made here. -> host wall s."""
+    os.environ.update(GIT_AUTHOR_DATE=MERGE_DATE, GIT_COMMITTER_DATE=MERGE_DATE)
+    with tempfile.TemporaryDirectory(prefix="kart_smoke_s3_") as tmp:
+        repo, info = synth_repo(os.path.join(tmp, "repo"), args.repo_rows, edit_frac=0.01,
+                                seed=args.seed, blobs="changed")
+        wall = stream_cli_diff(repo, repo.workdir, tmp, card, launches, info["n_edits"], None)
+        repo, blocks, _ = build_merge_repo(os.path.join(tmp, "merge"), args.merge_rows, args.seed)
+        trio = [blocks["ancestor"], blocks["ours"], blocks["theirs"]]
+        return wall + stream_cli_merge(repo.workdir, tmp, card, launches, trio, None)
 
 
 def running(pid):

@@ -5,15 +5,18 @@ Two backends, chosen by device only:
 
 * ``device_torch`` -- a CUDA device: uploads through pinned buffers and
   runs the kernels.
-* ``cpu_torch`` -- the CPU: the plain PyTorch versions, and numpy's host
-  projection for the tile export.
+* ``cpu_torch`` -- the CPU: the diff's classify on the host floor, a copy
+  of kart_tpu's native merge-join (``ops/host_classify.py``), the plain
+  PyTorch versions of the other kernels, and numpy's host projection for
+  the tile export.
 
 A third, ``plain_torch``, runs the plain versions on any device; no command
 selects it: it is what the kernels are held against on the card.
 
 There are no row-count gates: a caller that asks for the card gets the
 card, whatever the size, and a failure raises instead of degrading to the
-host. Beside the diff's entry points, the query's: :meth:`join_counts`
+host. (At north-star scale the card streams the blocks through K1 in
+chunks: ``diff_kernel.classify_blocks``.) Beside the diff's entry points, the query's: :meth:`join_counts`
 (K5) and :meth:`refine_pairs` (K6); and the tile export's:
 :meth:`merc_envelopes` (K7), reached through :func:`project_envelopes`.
 """
@@ -27,6 +30,7 @@ from kart_tpu_torch.ops.blocks import to_device
 from kart_tpu_torch.ops.diff_kernel import classify_blocks
 from kart_tpu_torch.ops.envelope_join import envelope_join, envelope_join_plain
 from kart_tpu_torch.ops.geom_refine import geom_refine, geom_refine_plain, resident_segments
+from kart_tpu_torch.ops.host_classify import classify_blocks_host
 from kart_tpu_torch.ops.merc import merc, merc_plain
 
 _SIGNATURES = {
@@ -163,6 +167,13 @@ class DeviceTorchBackend(DiffBackend):
 
 class CpuTorchBackend(DiffBackend):
     name = "cpu_torch"
+
+    def classify(self, old_block, new_block):
+        """The host floor: kart_tpu's native merge-join, built with g++."""
+        return classify_blocks_host(old_block, new_block)
+
+    def counts(self, old_block, new_block):
+        return classify_blocks_host(old_block, new_block)[2]
 
     def merc_envelopes(self, env):
         """numpy's host projection, the one the tile quantizer patches

@@ -14,14 +14,35 @@ the card needs no sort, only a merge-path co-rank join that compares full
 rows; :func:`tile_coranks` is the partition alone, held against
 :func:`tile_coranks_plain`. The plain classify is the ``searchsorted``
 join in the shape of ``_classify_binsearch_core``/``classify_blocks_reference``.
+
+On the card, blocks go up through one driver,
+:func:`classify_blocks_streamed` (kart_tpu's ``classify_blocks_streamed``):
+it cuts the key space into chunks (:func:`stream_chunk_splits`) and runs K1
+a chunk, the next chunk's staging and upload overlapping the current one's
+launch. :func:`classify_blocks` gives it chunks of
+``KART_TORCH_STREAM_CHUNK_ROWS`` when the larger side has
+``KART_TORCH_STREAM_MIN_ROWS`` rows or more, or when the sides would fill
+more than half of the card's free memory (``blocks.streams``), and
+otherwise one chunk; both knobs are read at call time.
+:func:`columnar_equal` is kart_tpu's row equality over attribute columns
+with null masks, as a torch op.
 """
+
+import time
 
 import numpy as np
 import torch
 
 from kart_tpu_torch import runtime
 from kart_tpu_torch.ops import _build
-from kart_tpu_torch.ops.blocks import block_tensors, unpack_oid_hex
+from kart_tpu_torch.ops.blocks import (
+    StreamStager,
+    block_tensors,
+    stream_chunk_rows,
+    streams,
+    to_device,
+    unpack_oid_hex,
+)
 
 UNCHANGED = 0
 INSERT = 1
@@ -202,12 +223,164 @@ def _join_side(keys, oids, other_keys, other_oids, missing):
     return cls.to(torch.int8)
 
 
-def classify_blocks(old_block, new_block, device, *, counts_only=False):
-    """FeatureBlock x2 -> (old_class, new_class, counts) on ``device``
-    (a resolved torch.device), uploading the count-sliced columns."""
+def classify_blocks(old_block, new_block, device, *, counts_only=False, timings=None):
+    """FeatureBlock x2 -> (old_class, new_class, counts) on ``device`` (a
+    resolved torch.device). On the card every call is
+    :func:`classify_blocks_streamed`, in chunks when ``blocks.streams``
+    says so and otherwise in one (one K1 launch); its classes and counts
+    come back on the host, and ``timings`` collects its split. Elsewhere
+    the count-sliced columns go to ``device`` and :func:`classify` runs
+    there."""
+    rows = (old_block.count, new_block.count)
+    if streams(device, rows):
+        return classify_blocks_streamed(old_block, new_block, device,
+                                        counts_only=counts_only, timings=timings)
+    if device.type == "cuda":
+        return classify_blocks_streamed(old_block, new_block, device, chunk_rows=max(rows),
+                                        counts_only=counts_only, timings=timings)
     ok, oo = block_tensors(old_block, device)
     nk, no = block_tensors(new_block, device)
     return classify(ok, oo, nk, no, counts_only=counts_only)
+
+
+# --- the card's driver ----------------------------------------------------------------------
+
+def stream_chunk_splits(key_arrays, chunk_rows):
+    """Key-space chunking for the streamed routes (a copy of kart_tpu's
+    ``stream_chunk_splits``): sorted key arrays (one per side) -> (per-side
+    split-point arrays, n_chunks), where chunk c of side s is rows
+    ``splits[s][c]:splits[s][c+1]``. A key falls in the same chunk on every
+    side, so merge-joins stay chunk-local. Boundaries balance the combined
+    population: candidate keys are fine-grained quantiles of each side, and
+    each target combined rank picks the nearest candidate."""
+    chunk_rows = max(int(chunk_rows), 1)
+    n_chunks = max(1, -(-max(len(k) for k in key_arrays) // chunk_rows))
+    total = sum(len(k) for k in key_arrays)
+
+    def _quantile_keys(keys, m):
+        if not len(keys) or m <= 0:
+            return keys[:0]
+        return keys[(np.arange(1, m) * len(keys)) // m]
+
+    cand = np.unique(
+        np.concatenate([_quantile_keys(k, 4 * n_chunks) for k in key_arrays])
+    )
+    if len(cand):
+        ranks = sum(np.searchsorted(k, cand) for k in key_arrays)
+        targets = (np.arange(1, n_chunks) * total) // n_chunks
+        picks = np.searchsorted(ranks, targets)
+        bounds = np.unique(cand[np.minimum(picks, len(cand) - 1)])
+    else:
+        bounds = cand
+    splits = tuple(
+        np.concatenate(([0], np.searchsorted(k, bounds), [len(k)]))
+        for k in key_arrays
+    )
+    return splits, len(bounds) + 1
+
+
+def block_splits(blocks, chunk_rows=None):
+    """-> (the blocks' real keys, their :func:`stream_chunk_splits`) at
+    ``chunk_rows`` (default :func:`stream_chunk_rows`)."""
+    keys = tuple(np.asarray(b.keys[: b.count]) for b in blocks)
+    return keys, stream_chunk_splits(keys, stream_chunk_rows() if chunk_rows is None
+                                     else chunk_rows)
+
+
+def classify_blocks_streamed(old_block, new_block, device, chunk_rows=None,
+                             counts_only=False, timings=None):
+    """B1s: the classify of two blocks chunk by chunk of the key space, in
+    chunks of ``chunk_rows`` (default ``blocks.stream_chunk_rows``).
+    -> (old_class int8 (n_old,) or None, new_class int8 (n_new,) or None,
+    counts int64 (3,)), CPU tensors.
+
+    On the card each chunk is one K1 launch: the chunk's rows go up from
+    the blocks' arrays through two pinned staging pieces on a copy stream
+    (``blocks.StreamStager``; two device slots, or one for a single chunk)
+    while the previous chunk's K1 runs; the classes come back into pinned
+    host memory on the copy stream, enqueued after the next chunk's
+    upload; the counts are summed on the card and read once. On the CPU the same chunks run
+    :func:`classify_plain` (for the tests; no command takes it)."""
+    n_old, n_new = old_block.count, new_block.count
+    (old_keys, new_keys), ((o_split, n_split), n_chunks) = block_splits(
+        (old_block, new_block), chunk_rows)
+    if device.type not in ("cpu", "cuda"):
+        raise runtime.DeviceUnavailable(f"classify: unsupported device {device}")
+    if device.type == "cpu":
+        if timings is not None:
+            timings["chunks"] = n_chunks
+        return _classify_streamed_plain(old_block, new_block, o_split, n_split, n_chunks,
+                                        counts_only)
+    t0 = time.perf_counter()
+    caps = [max(int(np.diff(s).max()), 1) for s in (o_split, n_split)]
+    stager = StreamStager(device, caps, timings, slots=min(n_chunks, 2))
+    out = None
+    if not counts_only:
+        out = (stager.pinned(n_old, torch.int8), stager.pinned(n_new, torch.int8))
+    total = torch.zeros(3, dtype=torch.int64, device=device)
+    pending = None
+    for c in range(n_chunks):
+        slot = c % stager.slots
+        ok, oo, nk, no = stager.upload(slot, (
+            (old_keys, old_block.oids, int(o_split[c]), int(o_split[c + 1])),
+            (new_keys, new_block.oids, int(n_split[c]), int(n_split[c + 1]))))
+        with stager.timed("k1_ms", stager.compute):
+            oc, nc, counts = classify(ok, oo, nk, no, counts_only=counts_only)
+        total += counts
+        stager.launched(slot)
+        if pending is not None:
+            stager.download(*pending)
+            pending = None
+        if not counts_only:
+            done = torch.cuda.Event()
+            done.record(stager.compute)
+            pending = ([(cls, dst[int(split[c]):int(split[c + 1])])
+                        for cls, dst, split in zip((oc, nc), out, (o_split, n_split))], done)
+    if pending is not None:
+        stager.download(*pending)
+    counts = total.cpu()
+    stager.finish()
+    stager.add("chunks", n_chunks)
+    stager.add("wall_s", time.perf_counter() - t0)
+    if counts_only:
+        return None, None, counts
+    return out[0], out[1], counts
+
+
+def _classify_streamed_plain(old_block, new_block, o_split, n_split, n_chunks, counts_only):
+    cpu = torch.device("cpu")
+    old_class = torch.empty(old_block.count, dtype=torch.int8)
+    new_class = torch.empty(new_block.count, dtype=torch.int8)
+    total = torch.zeros(3, dtype=torch.int64)
+    for c in range(n_chunks):
+        sides = []
+        for block, split in ((old_block, o_split), (new_block, n_split)):
+            sides.append(chunk_tensors(block.keys, block.oids, int(split[c]),
+                                       int(split[c + 1]), cpu))
+        oc, nc, counts = classify_plain(*sides[0], *sides[1])
+        old_class[int(o_split[c]):int(o_split[c + 1])] = oc
+        new_class[int(n_split[c]):int(n_split[c + 1])] = nc
+        total += counts
+    if counts_only:
+        return None, None, total
+    return old_class, new_class, total
+
+
+def chunk_tensors(keys, oids, lo, hi, device):
+    """-> (keys int64, oids int32 (n, 5)) of a side's rows ``lo:hi`` on
+    ``device``."""
+    return (to_device(np.asarray(keys[lo:hi], dtype=np.int64), device),
+            to_device(np.asarray(oids[lo:hi]).reshape(hi - lo, 5), device, dtype=np.int32))
+
+
+# --- B12 ---------------------------------------------------------------------------
+
+def columnar_equal(old_cols, new_cols, null_mask_old, null_mask_new):
+    """Row equality over aligned (C, N) attribute columns with (C, N) null
+    masks, on their device: a row is equal when every column is equal and
+    the null pattern is the same (two nulls with different payloads are
+    unequal), as kart_tpu's ``columnar_equal``. -> bool (N,)."""
+    return ((old_cols == new_cols) & (null_mask_old == null_mask_new)).all(dim=0)
 
 
 def counts_dict(counts):

@@ -1,0 +1,128 @@
+"""The host floor of the diff's classify: what ``--device cpu`` runs.
+
+kart_tpu never runs its device code on a CPU: it classifies with its
+native C++ merge-join (``classify_blocks_host`` over ``native/kart_io.cpp``
+``io_classify_sorted``), sequential scans of the two key-sorted sides. The
+port keeps its own copy of that source (``hostsrc/classify_sorted.cpp``),
+builds it with ``g++`` into ``_build/host-<hash>/`` (a hash of the source
+and the flags, under a file lock, written to a temporary name and renamed)
+and calls it through ctypes on the blocks' own arrays, mmap views
+included, with no copy. A missing compiler or a failed build raises
+:class:`HostBuildError`; nothing falls back to a slower route. K1's plain
+version (``diff_kernel.classify_plain``) stays what the card's kernel is
+held against.
+"""
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import numpy as np
+import torch
+
+from kart_tpu_torch.ops import _build
+
+HOSTSRC_DIR = os.path.join(_build.PKG_DIR, "hostsrc")
+SOURCE = "classify_sorted.cpp"
+CXX_FLAGS = ("-O3", "-shared", "-fPIC")
+LIB_NAME = "libclassify_sorted.so"
+
+
+class HostBuildError(RuntimeError):
+    """The host floor's source could not be compiled (no g++, or g++
+    failed)."""
+
+
+def find_cxx():
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise HostBuildError("g++ not found on PATH; it builds the diff's host classify "
+                             f"({os.path.join('hostsrc', SOURCE)})")
+    return cxx
+
+
+def build_dir():
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    with open(os.path.join(HOSTSRC_DIR, SOURCE), "rb") as fh:
+        h.update(fh.read())
+    return os.path.join(_build.BUILD_ROOT, "host-" + h.hexdigest()[:16])
+
+
+def build_library():
+    """Compile the floor unless the cache holds it. -> the library's path."""
+    d = build_dir()
+    path = os.path.join(d, LIB_NAME)
+    if os.path.exists(path):
+        return path
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(_build.BUILD_ROOT, ".host-lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(path):
+            return path
+        tmp = f"{path}.tmp{os.getpid()}"
+        cmd = [find_cxx(), *CXX_FLAGS, "-o", tmp, os.path.join(HOSTSRC_DIR, SOURCE)]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise HostBuildError(f"g++ failed for {SOURCE} (exit {r.returncode}):\n"
+                                 f"{r.stdout}{r.stderr}")
+        os.replace(tmp, path)
+    return path
+
+
+_lib = None
+_lock = threading.Lock()
+
+
+def _library():
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build_library())
+            lib.io_classify_sorted.restype = ctypes.c_int64
+            lib.io_classify_sorted.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ]
+            _lib = lib
+    return _lib
+
+
+def classify_sorted(old_keys, old_oids_u8, new_keys, new_oids_u8):
+    """The merge-join over count-sliced key-sorted sides: keys int64 (n,),
+    oids uint8 (n, 20). -> (old_class int8 (n_old,), new_class int8
+    (n_new,), counts int64 [inserts, updates, deletes]), numpy."""
+    lib = _library()
+    n_old, n_new = len(old_keys), len(new_keys)
+    old_keys = np.ascontiguousarray(old_keys, dtype=np.int64)
+    new_keys = np.ascontiguousarray(new_keys, dtype=np.int64)
+    old_oids_u8 = np.ascontiguousarray(old_oids_u8, dtype=np.uint8).reshape(n_old, 20)
+    new_oids_u8 = np.ascontiguousarray(new_oids_u8, dtype=np.uint8).reshape(n_new, 20)
+    old_class = np.zeros(n_old, dtype=np.int8)
+    new_class = np.zeros(n_new, dtype=np.int8)
+    counts = np.zeros(3, dtype=np.int64)
+    lib.io_classify_sorted(
+        old_keys.ctypes.data, old_oids_u8.ctypes.data, n_old,
+        new_keys.ctypes.data, new_oids_u8.ctypes.data, n_new,
+        old_class.ctypes.data, new_class.ctypes.data, counts.ctypes.data,
+    )
+    return old_class, new_class, counts
+
+
+def classify_blocks_host(old_block, new_block):
+    """FeatureBlock x2 -> (old_class int8, new_class int8, counts int64
+    (3,)) CPU tensors, what ``classify_blocks`` returns on the CPU."""
+    n_old, n_new = old_block.count, new_block.count
+    old_class, new_class, counts = classify_sorted(
+        old_block.keys[:n_old], _oid_bytes(old_block.oids, n_old),
+        new_block.keys[:n_new], _oid_bytes(new_block.oids, n_new),
+    )
+    return torch.from_numpy(old_class), torch.from_numpy(new_class), torch.from_numpy(counts)
+
+
+def _oid_bytes(oids, n):
+    return np.asarray(oids[:n]).reshape(n, 5).view(np.uint8).reshape(n, 20)

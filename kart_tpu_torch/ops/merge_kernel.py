@@ -19,17 +19,23 @@ sorted sides that emits the union on the card (:func:`merge_classify_sides`;
 twin of the JAX function over a given union, padding semantics included;
 :func:`merge_classify_sides_plain` adds ``torch.unique`` of the keys.
 Nothing here falls back: a CUDA tensor launches K4 exactly once per call or
-raises, and only CPU tensors take the plain versions.
+raises, and only CPU tensors take the plain versions. On the card
+:func:`merge_classify` runs the sides through K4 with one driver,
+:func:`merge_classify_streamed` (kart_tpu's ``merge_classify_streamed``):
+chunk by chunk of the key space under the diff's knobs (``blocks.streams``)
+and otherwise in one chunk, one K4 launch a chunk.
 """
 
 import ctypes
+import time
 
 import numpy as np
 import torch
 
 from kart_tpu_torch import runtime
 from kart_tpu_torch.ops import _build
-from kart_tpu_torch.ops.blocks import block_tensors
+from kart_tpu_torch.ops.blocks import StreamStager, block_tensors, stage_rows, streams
+from kart_tpu_torch.ops.diff_kernel import block_splits, chunk_tensors
 
 KEEP_OURS = 0
 TAKE_THEIRS = 1
@@ -57,19 +63,135 @@ _SIGNATURES = {
 _SIDE_NAMES = ("ancestor", "ours", "theirs")
 
 
-def merge_classify(ancestor_block, ours_block, theirs_block, device=None):
+def merge_classify(ancestor_block, ours_block, theirs_block, device=None, timings=None):
     """FeatureBlock x3 -> (union (U,) int64, decision (U,) int8, presence
     (U,) int8, {"conflicts", "take_theirs"}), numpy on the host. ``device``:
-    None for the card (one K4 launch), ``"cpu"`` for the plain version."""
+    None for the card (:func:`merge_classify_streamed`: one K4 launch, or
+    one a chunk at north-star scale; ``timings`` collects its split),
+    ``"cpu"`` for the plain version."""
     device = runtime.resolve_device(device)
+    blocks = (ancestor_block, ours_block, theirs_block)
+    rows = tuple(b.count for b in blocks)
+    if streams(device, rows):
+        return merge_classify_streamed(*blocks, device, timings=timings)
+    if device.type == "cuda":
+        return merge_classify_streamed(*blocks, device, chunk_rows=max(rows), timings=timings)
     sides = []
-    for block in (ancestor_block, ours_block, theirs_block):
+    for block in blocks:
         sides.extend(block_tensors(block, device))
         sides.append(block.count)
     union, decision, presence, counts = merge_classify_sides(*sides)
     c = counts.tolist()
     return (union.cpu().numpy(), decision.cpu().numpy(), presence.cpu().numpy(),
             {"conflicts": int(c[0]), "take_theirs": int(c[1])})
+
+
+def merge_classify_streamed(ancestor_block, ours_block, theirs_block, device,
+                            chunk_rows=None, timings=None):
+    """B6s: :func:`merge_classify` chunk by chunk of the key space
+    (``diff_kernel.stream_chunk_splits`` over the three sides, chunks of
+    ``chunk_rows``, default ``blocks.stream_chunk_rows``), with the same
+    result: the chunks' unions, decisions and presence bytes concatenated
+    in chunk order are the whole merge's, and the counts are summed.
+
+    On the card each chunk is one K4 launch, its rows uploaded through
+    pinned staging pieces on a copy stream (``blocks.StreamStager``) while
+    the previous chunk's K4 runs. A chunk's counts are read back (the
+    launch's one sync: its union size) only after the next chunk's upload
+    and launch are enqueued; its rows then come down on the copy stream
+    into a pinned landing slot sized to the union, and are copied into the
+    result one chunk later still. On the CPU the chunks run
+    :func:`merge_classify_sides_plain` (for the tests). ``timings``: see
+    ``blocks.StreamStager``."""
+    blocks = (ancestor_block, ours_block, theirs_block)
+    keys, (splits, n_chunks) = block_splits(blocks, chunk_rows)
+    if device.type not in ("cpu", "cuda"):
+        raise runtime.DeviceUnavailable(f"merge_classify: unsupported device {device}")
+    t0 = time.perf_counter()
+    upper = sum(b.count for b in blocks)
+    union = np.empty(upper, dtype=np.int64)
+    decision = np.empty(upper, dtype=np.int8)
+    presence = np.empty(upper, dtype=np.int8)
+    totals = [0, 0]
+    at = 0
+
+    def land(u, d, p, c):
+        """Append a chunk's rows (numpy) and counts to the result."""
+        nonlocal at
+        n = len(u)
+        for dst, src in ((union, u), (decision, d), (presence, p)):
+            stage_rows(dst[at:at + n], src)
+        totals[0] += int(c[0])
+        totals[1] += int(c[1])
+        at += n
+
+    def rows(c):
+        return [(keys[s], b.oids, int(splits[s][c]), int(splits[s][c + 1]))
+                for s, b in enumerate(blocks)]
+
+    if device.type == "cpu":
+        for c in range(n_chunks):
+            args = []
+            for k, o, lo, hi in rows(c):
+                args += [*chunk_tensors(k, o, lo, hi, device), hi - lo]
+            u, d, p, counts = merge_classify_sides_plain(*args)
+            land(u.numpy(), d.numpy(), p.numpy(), counts.tolist())
+    else:
+        caps = [max(int(np.diff(s).max()), 1) for s in splits]
+        stager = StreamStager(device, caps, timings, slots=min(n_chunks, 2))
+        landing = [None] * stager.slots
+        launched = downloaded = None
+
+        def download(chunk):
+            """Read a launched chunk's counts, then enqueue its rows'
+            copies into its landing slot (grown to the union size, with an
+            eighth to spare, when it is short)."""
+            slot, outs, host_counts, done = chunk
+            done.synchronize()
+            c = host_counts.tolist()
+            n = c[2]
+            if landing[slot] is None or len(landing[slot][0]) < n:
+                size = n + n // 8 + 1
+                landing[slot] = (stager.pinned(size, torch.int64), stager.pinned(size, torch.int8),
+                                 stager.pinned(size, torch.int8))
+            pairs = [(src[:n], dst[:n]) for src, dst in zip(outs[:3], landing[slot])]
+            return slot, c, stager.download(pairs, done)
+
+        def land_slot(chunk):
+            slot, c, landed = chunk
+            landed.synchronize()
+            with stager.clock("landing_s"):
+                land(*(x[:c[2]].numpy() for x in landing[slot]), c)
+
+        for c in range(n_chunks):
+            slot = c % stager.slots
+            sides = rows(c)
+            dev = stager.upload(slot, sides)
+            sizes = [hi - lo for _, _, lo, hi in sides]
+            with stager.timed("k4_ms", stager.compute):
+                outs = launch_merge_classify(dev[0], dev[1], sizes[0], dev[2], dev[3], sizes[1],
+                                             dev[4], dev[5], sizes[2])
+            stager.launched(slot)
+            host_counts = torch.empty(3, dtype=torch.int64, pin_memory=True)
+            host_counts.copy_(outs[3], non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stager.compute)
+            if launched is not None:
+                fetched = download(launched)
+                if downloaded is not None:
+                    land_slot(downloaded)
+                downloaded = fetched
+            launched = (slot, outs, host_counts, done)
+        fetched = download(launched)
+        if downloaded is not None:
+            land_slot(downloaded)
+        land_slot(fetched)
+        stager.finish()
+    if timings is not None:
+        timings["chunks"] = n_chunks
+        timings["wall_s"] = time.perf_counter() - t0
+    return (union[:at], decision[:at], presence[:at],
+            {"conflicts": totals[0], "take_theirs": totals[1]})
 
 
 def merge_classify_sides(a_keys, a_oids, a_count, o_keys, o_oids, o_count,

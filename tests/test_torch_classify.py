@@ -15,9 +15,11 @@ from kart_tpu.ops.blocks import FeatureBlock as RefBlock
 from kart_tpu.ops.blocks import pack_oid_hex as ref_pack_oid_hex
 from kart_tpu.ops.diff_kernel import (
     _classify_padded,
+    _classify_padded_binsearch,
     _padded_arrays,
     classify_blocks_reference,
 )
+from kart_tpu.ops.diff_kernel import columnar_equal as ref_columnar_equal
 from kart_tpu_torch.diff.engine import classify_changed
 from kart_tpu_torch.ops.blocks import FeatureBlock, PAD_KEY, pack_oid_hex, unpack_oid_hex
 from kart_tpu_torch.ops.diff_kernel import (
@@ -26,6 +28,7 @@ from kart_tpu_torch.ops.diff_kernel import (
     changed_indices,
     classify,
     classify_plain,
+    columnar_equal,
     tile_coranks,
     tile_coranks_plain,
 )
@@ -131,6 +134,58 @@ def test_classify_matches_sort_join_and_reference(name):
 
     _, _, only = classify(tk, to, uk, uo, tn, un, counts_only=True)
     np.testing.assert_array_equal(only.numpy(), counts.numpy())
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_classify_matches_binsearch_variant(name):
+    """B2: kart_tpu's binary-search join (its XLA-CPU variant) over
+    bucket-padded sides, padded tails and counts included, against K1's
+    plain version over the same padded tensors."""
+    ok, oo, nk, no = _case(name)
+    n_old, n_new = len(ok), len(nk)
+    a = _padded_arrays(RefBlock.from_arrays(ok, oo, [None] * n_old))
+    b = _padded_arrays(RefBlock.from_arrays(nk, no, [None] * n_new))
+    assert len(a[0]) > n_old and len(b[0]) > n_new
+    s_old, s_new, _, s_counts = _classify_padded_binsearch(a[0], a[1], b[0], b[1], n_old, n_new)
+    tk, to, tn = _padded_tensors(ok, oo)
+    uk, uo, un = _padded_tensors(nk, no)
+    np.testing.assert_array_equal(tk.numpy(), a[0])
+    np.testing.assert_array_equal(uk.numpy(), b[0])
+    old_class, new_class, counts = classify(tk, to, uk, uo, tn, un)
+    np.testing.assert_array_equal(old_class.numpy(), np.asarray(s_old)[:n_old])
+    np.testing.assert_array_equal(new_class.numpy(), np.asarray(s_new)[:n_new])
+    # the padded tails: kart_tpu classes them unchanged, the port leaves them out
+    assert not np.asarray(s_old)[n_old:].any() and not np.asarray(s_new)[n_new:].any()
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(s_counts))
+    p_old, p_new, p_counts = classify_plain(tk[:tn], to[:tn], uk[:un], uo[:un])
+    assert torch.equal(p_old, old_class) and torch.equal(p_new, new_class)
+    assert torch.equal(p_counts, counts)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_columnar_equal_matches_kart_tpu(seed):
+    """B12: row equality over (C, N) columns with null masks: every column
+    equal and the same null pattern (two nulls with different payloads are
+    unequal, a null against a value with the same payload too)."""
+    rng = np.random.default_rng(seed)
+    c, n = 1 + seed, 500
+    old = rng.integers(-3, 3, size=(c, n)).astype([np.int32, np.float32, np.int32, np.float32][seed])
+    new = old.copy()
+    flip = rng.random((c, n)) < 0.05
+    new[flip] = new[flip] + 1
+    if old.dtype == np.float32:
+        old[:, 7] = np.nan
+        new[:, 7] = np.nan
+    m_old = rng.random((c, n)) < 0.1
+    m_new = m_old.copy()
+    m_new[:, :10] = ~m_new[:, :10]
+    m_old[:, 20:25] = m_new[:, 20:25] = True
+    new[:, 20:25] = old[:, 20:25] + 1  # both null, payloads differ
+    want = np.asarray(ref_columnar_equal(old, new, m_old, m_new))
+    got = columnar_equal(*(torch.from_numpy(x) for x in (old, new, m_old, m_new)))
+    assert got.dtype == torch.bool and got.shape == (n,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not got[20:25].any() and not got[:10].any() and 0 < int(got.sum()) < n
 
 
 @pytest.mark.parametrize("name", ["mixed0", "extreme_keys", "all_insert"])

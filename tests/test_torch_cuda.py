@@ -814,3 +814,141 @@ def test_export_default_on_card_launches_k7(cuda, tmp_path, monkeypatch):
     assert outs[0][1].endswith("; 1 workers]\n")
     strip = re.compile(r"; \d+ workers\]")
     assert strip.sub("", outs[0][1]) == strip.sub("", outs[1][1])
+
+
+# --- the streamed routes (B1s, B6s) --------------------------------------------------------
+
+STREAM_CASES = [("edited", 200_000, 1000), ("edited", 1_000_000, 250_000),
+                ("edited", 1_000_000, 10**9), ("below", 3000, 700), ("random", 70_000, 9_000)]
+
+
+def _stream_blocks(kind, n):
+    old, oo, new, no = _edited_sides(n) if kind == "edited" else _sides(kind, n, n)
+    return (FeatureBlock.from_arrays(old, oo, pad=False),
+            FeatureBlock.from_arrays(new, no, pad=False))
+
+
+@pytest.mark.parametrize("kind,n,chunk", STREAM_CASES)
+@pytest.mark.parametrize("counts_only", [False, True])
+def test_classify_streamed_matches_monolithic(cuda, monkeypatch, kind, n, chunk, counts_only):
+    """B1s on the card: one K1 launch a chunk, classes (on the host) and
+    counts equal to one monolithic launch and to the CPU's streamed route;
+    the timings split is filled."""
+    old, new = _stream_blocks(kind, n)
+    _, (_, n_chunks) = diff_kernel.block_splits((old, new), chunk)
+    timings = {}
+    runtime.reset_stats()
+    got = diff_kernel.classify_blocks_streamed(old, new, cuda, chunk_rows=chunk,
+                                               counts_only=counts_only, timings=timings)
+    assert runtime.stats_snapshot()["classify_launches"] == n_chunks == timings["chunks"]
+    monkeypatch.setenv("KART_TORCH_STREAM_MIN_ROWS", str(10**12))
+    want = classify_blocks(old, new, cuda, counts_only=counts_only)
+    cpu = diff_kernel.classify_blocks_streamed(old, new, torch.device("cpu"), chunk_rows=chunk,
+                                               counts_only=counts_only)
+    for g, w, c in zip(got, want, cpu):
+        if w is None:
+            assert g is None and c is None
+            continue
+        assert g.device.type == "cpu" and torch.equal(g, w.cpu()) and torch.equal(g, c)
+    assert {"pinned_alloc_s", "staging_s", "h2d_ms", "k1_ms", "wall_s"} <= set(timings)
+    assert ("d2h_ms" in timings) != counts_only
+
+
+def test_classify_routes_through_the_stream_on_the_card(cuda, monkeypatch):
+    old, new = _stream_blocks("edited", 300_000)
+    monkeypatch.setenv("KART_TORCH_STREAM_MIN_ROWS", "1")
+    monkeypatch.setenv("KART_TORCH_STREAM_CHUNK_ROWS", "70000")
+    _, (_, n_chunks) = diff_kernel.block_splits((old, new))
+    assert n_chunks >= 4
+    runtime.reset_stats()
+    got = feature_count(old, new, device="cuda")
+    assert runtime.stats_snapshot()["classify_launches"] == n_chunks
+    assert got == feature_count(old, new, device="cpu")
+
+
+def test_classify_streamed_repeats_bit_for_bit(cuda):
+    old, new = _stream_blocks("edited", 1_000_000)
+    first = diff_kernel.classify_blocks_streamed(old, new, cuda, chunk_rows=100_000)
+    for _ in range(3):
+        again = diff_kernel.classify_blocks_streamed(old, new, cuda, chunk_rows=100_000)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind,n,chunk", [("random", 70_001, 5000), ("rows", 2_000_000, 300_000),
+                                          ("rows", 2_000_000, 10**9), ("randomao", 1000, 100),
+                                          ("range", 100_000, 7_000)])
+def test_merge_streamed_matches_monolithic(cuda, monkeypatch, kind, n, chunk):
+    """B6s on the card: one K4 launch a chunk; union, decision, presence and
+    counts equal to one monolithic launch, to ``np.unique`` and to the CPU's
+    streamed route."""
+    sides = _merge_case(kind, n, n)
+    blocks = [FeatureBlock.from_arrays(k, o, pad=False) for k, o in sides]
+    _, (_, n_chunks) = diff_kernel.block_splits(blocks, chunk)
+    runtime.reset_stats()
+    got = merge_kernel.merge_classify_streamed(*blocks, cuda, chunk_rows=chunk, timings={})
+    assert runtime.stats_snapshot()["merge_classify_launches"] == n_chunks
+    monkeypatch.setenv("KART_TORCH_STREAM_MIN_ROWS", str(10**12))
+    want = merge_kernel.merge_classify(*blocks, "cuda")
+    cpu = merge_kernel.merge_classify_streamed(*blocks, torch.device("cpu"), chunk_rows=chunk)
+    for g, w, c in zip(got[:3], want[:3], cpu[:3]):
+        assert g.dtype == w.dtype and np.array_equal(g, w) and np.array_equal(g, c)
+    assert got[3] == want[3] == cpu[3]
+    assert np.array_equal(got[0], np.unique(np.concatenate([k for k, _ in sides])))
+    monkeypatch.setenv("KART_TORCH_STREAM_MIN_ROWS", "1")
+    monkeypatch.setenv("KART_TORCH_STREAM_CHUNK_ROWS", str(chunk))
+    runtime.reset_stats()
+    routed = merge_kernel.merge_classify(*blocks, "cuda")
+    assert runtime.stats_snapshot()["merge_classify_launches"] == n_chunks
+    for g, r in zip(got[:3], routed[:3]):
+        assert np.array_equal(g, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.float32])
+def test_columnar_equal_on_card_matches_cpu(cuda, dtype):
+    rng = np.random.default_rng(3)
+    old = torch.from_numpy(rng.integers(-2, 2, size=(8, 100_003))).to(dtype)
+    new = old.clone()
+    new[rng.random((8, 100_003)) < 0.01] += 1
+    masks = [torch.from_numpy(rng.random((8, 100_003)) < 0.02) for _ in range(2)]
+    want = diff_kernel.columnar_equal(old, new, *masks)
+    got = diff_kernel.columnar_equal(*(t.to(cuda) for t in (old, new, *masks)))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("n", [0, 5000, 1_000_000])
+def test_one_chunk_route_below_the_row_knob(cuda, monkeypatch, n):
+    """Below the row knob the card's classify and merge run their driver in
+    one chunk: one launch, one staging slot, results on the host equal to
+    the CPU's, and the split filled on the real route."""
+    from kart_tpu_torch.ops import blocks
+
+    monkeypatch.setenv("KART_TORCH_STREAM_MIN_ROWS", str(10**12))
+    old, new = _stream_blocks("edited", n) if n else (
+        FeatureBlock.from_arrays(np.zeros(0, np.int64), np.zeros((0, 5), np.uint32), pad=False),) * 2
+    slots = []
+    real = blocks.StreamStager.__init__
+
+    def spy(self, *a, **k):
+        real(self, *a, **k)
+        slots.append(self.slots)
+
+    monkeypatch.setattr(blocks.StreamStager, "__init__", spy)
+    timings = {}
+    runtime.reset_stats()
+    got = classify_blocks(old, new, cuda, timings=timings)
+    assert runtime.stats_snapshot()["classify_launches"] == (1 if n else 0) and slots == [1]
+    want = classify_blocks(old, new, torch.device("cpu"))
+    for g, w in zip(got, want):
+        assert g.device.type == "cpu" and torch.equal(g, w)
+    assert timings["chunks"] == 1 and "pinned_alloc_s" in timings
+    assert ({"staging_s", "h2d_ms"} <= set(timings)) == bool(n)
+    m_timings = {}
+    runtime.reset_stats()
+    merged = merge_kernel.merge_classify(old, new, new, "cuda", timings=m_timings)
+    assert runtime.stats_snapshot()["merge_classify_launches"] == 1 and slots == [1, 1]
+    plain = merge_kernel.merge_classify(old, new, new, "cpu")
+    for g, w in zip(merged[:3], plain[:3]):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    assert merged[3] == plain[3]
+    assert m_timings["chunks"] == 1 and {"landing_s", "d2h_ms", "k4_ms"} <= set(m_timings)

@@ -749,6 +749,42 @@ def test_export_default_on_the_card_projects_in_process(synth, tmp_path, monkeyp
         assert _CountingCard.calls == []
 
 
+@pytest.mark.parametrize("route", ["card", "cpu"])
+def test_export_stdout_differs_from_kart_tpu_only_in_the_card_worker_count(
+        synth, tmp_path, monkeypatch, route):
+    """C4, a documented divergence: with no ``--workers`` and no
+    ``KART_EXPORT_WORKERS``, the card's export encodes in its own process
+    and its stdout line says ``1 workers`` where kart_tpu's says its pool's
+    count; every other byte of the line, stderr, the exit code and the files
+    are kart_tpu's. With ``--device cpu`` the port pools as kart_tpu does and
+    prints kart_tpu's count."""
+    monkeypatch.delenv("KART_EXPORT_WORKERS", raising=False)
+    argv = ["export", "tiles", "--zoom", "0-3", "--layers", "bin"]  # 85 tiles: two batches
+    tdir, jdir = tmp_path / "port", tmp_path / "ref"
+    tdir.mkdir()
+    jdir.mkdir()
+    want = _ref_cli(synth, argv, jdir)
+    if route == "card":
+        card = torch.device("cuda", 0)
+        monkeypatch.setattr(tpyramid.runtime, "resolve_device", lambda device=None: card)
+        monkeypatch.setattr(tbackend, "select_backend",
+                            lambda device=None: tbackend.CpuTorchBackend(torch.device("cpu")))
+        out, err = io.StringIO(), io.StringIO()
+        monkeypatch.chdir(tdir)
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            got = (port_main(["-C", synth, *argv]), out.getvalue(), err.getvalue())
+    else:
+        got = _port_cli(synth, argv, tdir)
+    assert got[0] == want[0] == 0 and got[2] == want[2]
+    (t_line,), (j_line,) = got[1].splitlines(), want[1].splitlines()
+    t_head, t_workers = t_line.rsplit("; ", 1)
+    j_head, j_workers = j_line.rsplit("; ", 1)
+    assert t_head == j_head
+    assert j_workers == f"{jpyramid.export_workers()} workers]"
+    assert t_workers == ("1 workers]" if route == "card" else j_workers)
+    assert tpyramid.tree_digest(str(tdir)) == jpyramid.tree_digest(str(jdir))
+
+
 # --- purity of the new modules ------------------------------------------------------------
 
 NEW_MODULES = ["kart_tpu_torch.tiles", "kart_tpu_torch.tiles.grid", "kart_tpu_torch.tiles.clip",
