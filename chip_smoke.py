@@ -68,11 +68,17 @@ Q2. ``query HEAD synth --intersects HEAD^:synth -o count`` on the card at
    ``--approx``) on the card and with ``--device cpu`` (equal sha256); the
    card's full join under cProfile
 Q3. K5 on the middle build tile of Q2's join x the probe batch the join
-   gives it, and on a 4096-row tile x a 65,536-row batch of dense envelopes
-   (at least half the probe rows matched, pairs with both and with one side
-   wrapping the anti-meridian, NaN and edge rows), K6 on 100,000 pairs of ``synth.synth_shapes`` (stars with holes, points,
-   polylines, vertices on the world's edge): bit-identical to their plain
-   versions on the card, timed beside their bounds (operations)
+   gives it, on the same tile x 12,288 rows of that batch, and on a
+   4096-row tile x a 65,536-row batch of dense envelopes (at least half the
+   probe rows matched, pairs with both and with one side wrapping the
+   anti-meridian, NaN and edge rows); K6 on 100,000 random pairs of
+   ``synth.synth_shapes`` (stars with holes, points, polylines, vertices on
+   the world's edge), on 100,000 pairs of them whose boxes overlap, and on
+   the refine batch Q2's join hands it for the same tile and batch (box x
+   box): bit-identical to their plain versions on the card, timed (wrapper,
+   profiler device time over every kernel of the wrapper, ``fenced_ms``)
+   beside their bounds (operations; K6 also beside its design's own bound,
+   the work left after its exact culls, computed from the same inputs)
 T3. run first of the three: K7 on the whole layer's 2M envelopes and on
    the largest z4 batch of T1's card route, each with edge rows (the
    poles, the mercator clamp, the anti-meridian, -0.0, subnormals, NaN,
@@ -270,7 +276,14 @@ from kart_tpu_torch.ops.diff_kernel import (
 )
 from kart_tpu_torch.ops.envelope_codec import EnvelopeCodec
 from kart_tpu_torch.ops.envelope_join import envelope_join, envelope_join_plain
-from kart_tpu_torch.ops.geom_refine import geom_refine, geom_refine_plain, resident_segments
+from kart_tpu_torch.ops.geom_refine import (
+    PLAIN_SLAB_ELEMENTS,
+    SHORT_SEGMENTS,
+    _slabs,
+    geom_refine,
+    geom_refine_plain,
+    resident_segments,
+)
 from kart_tpu_torch.ops.host_classify import classify_blocks_host
 from kart_tpu_torch.ops.merge_kernel import (
     launch_merge_classify,
@@ -286,7 +299,13 @@ from kart_tpu_torch.spatial_filter import (
     envelope_prepass,
 )
 from kart_tpu_torch.spatial_filter.index import DB_NAME, EnvelopeIndexReader
-from kart_tpu_torch.query.join import TILE_ROWS, _alive_ranges, _probe_aggregates, run_join
+from kart_tpu_torch.query.join import (
+    TILE_ROWS,
+    _alive_ranges,
+    _make_refine_ctx,
+    _probe_aggregates,
+    run_join,
+)
 from kart_tpu_torch.query.scan import batch_rows
 from kart_tpu_torch.synth import HashedColumns, gnaf_ids, synth_repo, synth_shapes
 from kart_tpu_torch.ops.merc import merc, merc_plain
@@ -477,12 +496,17 @@ def time_ms(fn, batches=5, per_batch=10, warmup=3):
 
 
 def device_ms(fn, kernels, calls=20):
+    """:func:`device_times` without the fenced time."""
+    return device_times(fn, kernels, calls)[0]
+
+
+def device_times(fn, kernels, calls=20):
     """Device time per launch of each CUDA kernel whose name contains one of
     ``kernels`` (each launched once a call), from a torch.profiler window of
     ``calls`` calls after warm-up: the mean over the launches the profiler
     recorded, which it reports beside the launches made when it saw fewer,
     and beside :func:`fenced_ms` of the same call.
-    -> {name fragment: ms} for the kernels the profiler saw."""
+    -> ({name fragment: ms} for the kernels the profiler saw, fenced ms)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -505,9 +529,10 @@ def device_ms(fn, kernels, calls=20):
         timed = [e.key for e in prof.key_averages()
                  if (getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0))]
         print(f"    the profiler saw no kernel named {'/'.join(kernels)}; it timed {timed[:8]}")
+    fenced = fenced_ms(fn, calls)
     print(f"    device check {'+'.join(kernels)}: profiler {fmt_ms(total_ms(per))} a call; "
-          f"CUDA events, host work fenced off, {fenced_ms(fn, calls):.4f} ms a call")
-    return per
+          f"CUDA events, host work fenced off, {fenced:.4f} ms a call")
+    return per, fenced
 
 
 def fenced_ms(fn, calls=20):
@@ -1036,6 +1061,19 @@ K5_OPS_PER_TEST = 12
 #: logic)
 K6_OPS_PER_SEGMENT_TEST = 58
 K6_OPS_PER_CROSSING = 14
+#: K6's culls (csrc/geom_refine.cu): a segment's box (4 min/max), a box
+#: test (4 compares), a start (or a feature's box) against the other side's
+#: start range (3 compares), the half-open y test of a crossing (2 compares
+#: and their xor)
+K6_OPS_SEGMENT_BOX = 4
+K6_OPS_BOX_TEST = 4
+K6_OPS_START = 3
+K6_OPS_UPWARD = 3
+#: the kernels each wrapper launches, by name fragment for the profiler
+K5_KERNELS = ("envelope_join_kernel",)
+K6_KERNELS = ("geom_refine_short_kernel", "geom_refine_long_kernel")
+#: the smaller join batch Q3 times K5 on
+SMALL_BATCH_ROWS = 12_288
 #: H100 SXM issue rates at the 1,980 MHz boost clock over 132 SMs: f32
 #: compares and predicate logic on the 128 FMA/ALU lanes of an SM, int32
 #: multiply-adds on its 64 integer lanes
@@ -1234,7 +1272,7 @@ def main_path_join_batch(build_block, probe_block):
     """What Q2's full join hands K5 for its middle build tile: that tile's
     envelopes and the probe batch holding the tile's middle row (in the
     time-travel join most of the tile's features meet themselves there),
-    as host f32 arrays."""
+    as host f32 arrays, with the tile's index and the batch's first row."""
     build_env = np.ascontiguousarray(build_block.envelopes, dtype=np.float32)
     probe_env = np.asarray(probe_block.envelopes, dtype=np.float32)
     tile_agg, _ = block_aggregates(build_env, TILE_ROWS)
@@ -1247,8 +1285,171 @@ def main_path_join_batch(build_block, probe_block):
             c_hi = min(c_lo + batch_rows(), r_hi)
             if c_lo <= mid < c_hi:
                 return (build_env[t * TILE_ROWS : (t + 1) * TILE_ROWS].copy(),
-                        probe_env[c_lo:c_hi].copy())
+                        probe_env[c_lo:c_hi].copy(), t, c_lo)
     raise SystemExit(f"FAIL: [Q3] no probe batch of tile {t} holds row {mid}")
+
+
+def main_path_refine_batch(build, probe, t, c_lo, build_block, probe_block, dev):
+    """What Q2's full join hands K6 for the same tile and batch: K5's pairs
+    (from its plain version) whose both sides have usable, non-wrapping
+    geometry, as ``_refine_chunk`` passes them on. -> (build column, build
+    features, probe column, probe rows), the indices int64 on ``dev``."""
+    _, _, (pair_probe, pair_build) = envelope_join_plain(build, probe, pairs=True)
+    col_build, col_probe = build_block.vertex_column(), probe_block.vertex_column()
+    check(col_build is not None and col_probe is not None, "[Q3] the layer has no vertex column")
+    refine = _make_refine_ctx(col_build, np.arange(build_block.count),
+                              np.asarray(build_block.envelopes, dtype=np.float32), col_probe,
+                              probe_block.envelopes, dev)
+    env_row = t * TILE_ROWS + pair_build.to(torch.int64)
+    probe_row = c_lo + pair_probe.to(torch.int64)
+    u = refine["probe_ok"][probe_row] & refine["build_ok"][env_row]
+    return col_build, refine["build_feat"][env_row[u]], col_probe, probe_row[u]
+
+
+def overlapping_pairs(col_a, col_b, n, rng):
+    """``n`` random pairs of ``col_a`` x ``col_b`` features whose integer
+    vertex boxes overlap, as the join's candidates' envelopes do."""
+    def boxes(col):
+        x0, y0, x1, y1, offs = col.segment_table()
+        lo = offs[:-1].copy()
+        b = [np.minimum.reduceat(np.minimum(x0, x1), lo), np.maximum.reduceat(np.maximum(x0, x1), lo),
+             np.minimum.reduceat(np.minimum(y0, y1), lo), np.maximum.reduceat(np.maximum(y0, y1), lo)]
+        check(bool((np.diff(offs) > 0).all()), "[Q3] a shape without segments")
+        return b
+    (alx, ahx, aly, ahy), (blx, bhx, bly, bhy) = boxes(col_a), boxes(col_b)
+    ia_all, ib_all = [], []
+    while sum(map(len, ia_all)) < n:
+        ia = rng.integers(0, len(col_a), 4 * n)
+        ib = rng.integers(0, len(col_b), 4 * n)
+        keep = ((alx[ia] <= bhx[ib]) & (blx[ib] <= ahx[ia]) & (aly[ia] <= bhy[ib])
+                & (bly[ib] <= ahy[ia]))
+        ia_all.append(ia[keep])
+        ib_all.append(ib[keep])
+    return np.concatenate(ia_all)[:n], np.concatenate(ib_all)[:n]
+
+
+def k6_work(seg_a, ia, seg_b, ib, verdict):
+    """The exact refine's work on these pairs, in integer instructions, two
+    ways (computed from the inputs on their device, in the plain version's
+    padded slabs, not from K6's counters) -> (reference work, design work).
+    Reference: a false verdict's every cell, a segment test and a crossing
+    a polygon side; a true verdict one segment test. Design (K6's culls on
+    the features' boxes, which the resident table holds): a false verdict
+    tests the two feature boxes; where they meet, it computes every
+    segment's box and tests it against the other feature's box, tests every
+    cell of two surviving segments by their boxes, and runs the segment
+    test where those meet; where the other side is a polygon and this
+    side's box reaches its start range (three compares), it tests every
+    start against the other side's box, and for a surviving start runs the
+    half-open y test on every segment of the other side, and the rest of
+    the crossing where that holds. A true verdict: one segment test, as the
+    reference counts it (the least any order needs)."""
+    ref = des = 0.0
+    n = len(ia)
+    longest = lambda segs, idx: int((segs[4][idx + 1] - segs[4][idx]).max())  # noqa: E731
+    rows = max(PLAIN_SLAB_ELEMENTS // (max(longest(seg_a, ia), 1) * max(longest(seg_b, ib), 1)),
+               1)
+    for lo in range(0, n, rows):
+        hi = min(lo + rows, n)
+        a, a_n, a_poly = _slabs(seg_a, ia[lo:hi])
+        b, b_n, b_poly = _slabs(seg_b, ib[lo:hi])
+        am = torch.arange(a[0].shape[1], device=ia.device)[None, :] < a_n[:, None]
+        bm = torch.arange(b[0].shape[1], device=ia.device)[None, :] < b_n[:, None]
+        big = 1 << 40
+
+        def seg_boxes(v, m):
+            return (torch.where(m, torch.minimum(v[0], v[2]), big),
+                    torch.where(m, torch.maximum(v[0], v[2]), -big),
+                    torch.where(m, torch.minimum(v[1], v[3]), big),
+                    torch.where(m, torch.maximum(v[1], v[3]), -big))
+
+        def meets(p, q):
+            return (p[0] <= q[1]) & (q[0] <= p[1]) & (p[2] <= q[3]) & (q[2] <= p[3])
+
+        sa, sb = seg_boxes(a, am), seg_boxes(b, bm)
+        fa = (sa[0].min(1).values, sa[1].max(1).values, sa[2].min(1).values, sa[3].max(1).values)
+        fb = (sb[0].min(1).values, sb[1].max(1).values, sb[2].min(1).values, sb[3].max(1).values)
+        fmeet = meets(fa, fb)
+        live_a = am & meets(sa, [v[:, None] for v in fb]) & fmeet[:, None]
+        live_b = bm & meets(sb, [v[:, None] for v in fa]) & fmeet[:, None]
+        box_hits = (meets([v[:, :, None] for v in sa], [v[:, None, :] for v in sb])
+                    & live_a[:, :, None] & live_b[:, None, :]).sum(dim=(1, 2))
+
+        def starts(x, y, n_x, poly_other, fx, f, ring, ring_m):
+            reach = poly_other & (fx[3] >= f[2]) & (fx[2] < f[3]) & (fx[0] < f[1])
+            live = ((torch.arange(x.shape[1], device=x.device)[None, :] < n_x[:, None])
+                    & reach[:, None] & (y >= f[2][:, None]) & (y < f[3][:, None])
+                    & (x < f[1][:, None]))
+            py = y[:, :, None]
+            upward = ((ring[1][:, None, :] <= py) != (ring[3][:, None, :] <= py))
+            ups = (upward & live[:, :, None] & ring_m[:, None, :]).sum(dim=(1, 2))
+            return (K6_OPS_START * (poly_other.long() + reach * n_x)
+                    + K6_OPS_UPWARD * live.sum(1) * ring_m.sum(1)
+                    + (K6_OPS_PER_CROSSING - K6_OPS_UPWARD) * ups)
+
+        work = (K6_OPS_BOX_TEST
+                + fmeet * ((K6_OPS_SEGMENT_BOX + K6_OPS_BOX_TEST) * (a_n + b_n)
+                           + K6_OPS_BOX_TEST * live_a.sum(1) * live_b.sum(1)
+                           + K6_OPS_PER_SEGMENT_TEST * box_hits)
+                + starts(a[0], a[1], a_n, b_poly, fa, fb, b, bm)
+                + starts(b[0], b[1], b_n, a_poly, fb, fa, a, am))
+        cells = a_n * b_n * (K6_OPS_PER_SEGMENT_TEST
+                             + K6_OPS_PER_CROSSING * (a_poly.long() + b_poly.long()))
+        false = ~verdict[lo:hi]
+        n_true = int((~false).sum())
+        ref += float(cells[false].sum()) + n_true * K6_OPS_PER_SEGMENT_TEST
+        des += float(work[false].sum()) + n_true * K6_OPS_PER_SEGMENT_TEST
+    return ref, des
+
+
+def k6_bytes(seg_a, ia, seg_b, ib):
+    """What a refine call must move: the pair indices and verdicts, and each
+    distinct feature's segments, offsets, kind and box once."""
+    out = len(ia) * 17
+    for segs, idx in ((seg_a, ia), (seg_b, ib)):
+        u = torch.unique(idx)
+        out += int((segs[4][u + 1] - segs[4][u]).sum()) * 16 + len(u) * 25
+    return out
+
+
+def k6_entry(label, seg_a, ia, seg_b, ib, card):
+    """K6 on one draw of pairs: bit for bit against its plain version,
+    timed beside its two bounds. -> the entry, its largest difference."""
+    want = geom_refine_plain(seg_a, ia, seg_b, ib)
+    err = mismatches(geom_refine(seg_a, ia, seg_b, ib), want)
+    n_true = int(want.sum())
+    ref_ops, des_ops = k6_work(seg_a, ia, seg_b, ib, want)
+    moved = k6_bytes(seg_a, ia, seg_b, ib)
+    b_ref = max(bound(moved, 0), (ref_ops / INT_OPS_PER_S * 1e3, "operations"))
+    b_des = max(bound(moved, 0), (des_ops / INT_OPS_PER_S * 1e3, "operations"))
+    sa = (seg_a[4][ia + 1] - seg_a[4][ia]).cpu().numpy()
+    sb = (seg_b[4][ib + 1] - seg_b[4][ib]).cpu().numpy()
+    call = lambda: geom_refine(seg_a, ia, seg_b, ib)  # noqa: E731
+    per, fenced = device_times(call, K6_KERNELS)
+    plain = time_ms(lambda: geom_refine_plain(seg_a, ia, seg_b, ib), batches=2, per_batch=1,
+                    warmup=0) if len(ia) > 10_000 else time_ms(
+        lambda: geom_refine_plain(seg_a, ia, seg_b, ib), batches=3, per_batch=3)
+    entry = {
+        "pairs": len(ia), "true": n_true, "segment_cells": int((sa * sb).sum()),
+        "short_pairs": int(((sa <= SHORT_SEGMENTS) & (sb <= SHORT_SEGMENTS)).sum()),
+        "max_abs_err": err,
+        "ms": time_ms(call), "device_ms": total_ms(per), "device_split": per,
+        "fenced_ms": fenced, "plain_ms": plain,
+        "bound_ms": b_ref[0], "bound_by": b_ref[1],
+        "bound_count": f"{ref_ops:.6g} integer instructions (the reference's work: false "
+                       f"verdicts every cell's terms, true one segment test) at "
+                       f"{INT_OPS_PER_S:.4g} a second; {moved} bytes",
+        "design_bound_ms": b_des[0], "design_bound_by": b_des[1],
+        "design_bound_count": f"{des_ops:.6g} integer instructions (K6's culls, then the terms "
+                              f"on what survives; true verdicts one segment test)",
+    }
+    print(f"[Q3] K6 on {label}: {len(ia)} pairs ({entry['short_pairs']} short, "
+          f"{entry['segment_cells']} segment cells, {n_true} true), bit-identical to the plain "
+          f"version; {entry['ms']:.4f} ms, device {fmt_ms(entry['device_ms'])} "
+          f"(fenced {fenced:.4f}), plain {plain:.4f} ms; reference-work bound "
+          f"{b_ref[0]:.4f} ms by {b_ref[1]}, design bound {b_des[0]:.4f} ms by {b_des[1]} "
+          f"on {card}")
+    return entry, err
 
 
 def check_k5(build, probe):
@@ -1265,21 +1466,43 @@ def check_k5(build, probe):
     return (err, total, int((p_counts > 0).sum()), int((pw & bw).sum()), int((pw ^ bw).sum()))
 
 
+def k5_times(build, probe):
+    """K5's wrapper time (alone and with its pairs), device time beside
+    ``fenced_ms`` and the plain version's time on one tile x batch."""
+    per, fenced = device_times(lambda: envelope_join(build, probe), K5_KERNELS)
+    return {
+        "ms": time_ms(lambda: envelope_join(build, probe)),
+        "ms_pairs": time_ms(lambda: envelope_join(build, probe, pairs=True)),
+        "device_ms": total_ms(per), "fenced_ms": fenced,
+        "plain_ms": time_ms(lambda: envelope_join_plain(build, probe), batches=3, per_batch=3),
+        "bound_ms": len(build) * len(probe) * K5_OPS_PER_TEST / PRED_OPS_PER_S * 1e3,
+    }
+
+
 def query_kernels_alone(card, dev, build_block, probe_block):
     """Phase Q3: K5 on the (build tile, probe batch) that Q2's full join
-    gives it and on a 4096-row tile x a 65,536-row batch of dense envelopes
-    that reach every branch of the overlap test, K6 on 100,000 pairs of
-    seeded shapes, each bit for bit against its plain version on the card,
-    timed beside its bound. -> their entries of the kernels line (without
-    launches)."""
+    gives it, on 12,288 rows of that batch around the tile's middle row and
+    on a 4096-row tile x a 65,536-row batch of dense envelopes that reach
+    every branch of the overlap test; K6 on 100,000 pairs of seeded shapes
+    drawn at random, on 100,000 drawn so that their boxes overlap, and on
+    the refine batch Q2's join hands it for the same tile and batch (box x
+    box); each bit for bit against its plain version on the card, timed
+    beside its bound (K6 beside two: the reference's work and its own
+    design's). -> their entries of the kernels line (without launches)."""
     rng = np.random.default_rng(9)
-    build, probe = (torch.from_numpy(a).to(dev) for a in main_path_join_batch(build_block,
-                                                                           probe_block))
+    build_np, probe_np, tile, c_lo = main_path_join_batch(build_block, probe_block)
+    build, probe = torch.from_numpy(build_np).to(dev), torch.from_numpy(probe_np).to(dev)
     t, b = len(build), len(probe)
     err_k5, total, matched, _, _ = check_k5(build, probe)
     check(err_k5 == 0 and total >= t // 2,
           f"K5 differs from its plain version ({err_k5}) or found {total} pairs for a {t}-row "
           f"tile of the time-travel join")
+    mid = tile * TILE_ROWS + TILE_ROWS // 2 - c_lo
+    s_lo = min(max(mid - SMALL_BATCH_ROWS // 2, 0), max(b - SMALL_BATCH_ROWS, 0))
+    s_probe = probe[s_lo : s_lo + SMALL_BATCH_ROWS].contiguous()
+    s_err, s_total, s_matched, _, _ = check_k5(build, s_probe)
+    check(s_err == 0 and s_total > 0, f"K5 differs from its plain version on {len(s_probe)} "
+                                      f"rows ({s_err}) or found no pair")
     d_build = torch.from_numpy(make_dense_envelopes(rng, 4096)).to(dev)
     d_probe = torch.from_numpy(make_dense_envelopes(rng, 65536)).to(dev)
     d_err, d_total, d_matched, both_wrap, one_wrap = check_k5(d_build, d_probe)
@@ -1290,85 +1513,73 @@ def query_kernels_alone(card, dev, build_block, probe_block):
     tests = t * b
     b5 = bound((t + b) * 16 + b * 4 + 8 + total * 8, 0)
     b5 = max(b5, (tests * K5_OPS_PER_TEST / PRED_OPS_PER_S * 1e3, "operations"))
-    dense = {
-        "shape": [4096, 65536], "pairs": d_total, "probe_rows_matched": d_matched,
-        "both_wrap_pairs": both_wrap, "one_wrap_pairs": one_wrap, "max_abs_err": d_err,
-        "ms": time_ms(lambda: envelope_join(d_build, d_probe)),
-        "ms_pairs": time_ms(lambda: envelope_join(d_build, d_probe, pairs=True)),
-        "device_ms": total_ms(device_ms(lambda: envelope_join(d_build, d_probe),
-                                        ("envelope_join_kernel",))),
-        "plain_ms": time_ms(lambda: envelope_join_plain(d_build, d_probe), batches=3,
-                            per_batch=3),
-        "bound_ms": 4096 * 65536 * K5_OPS_PER_TEST / PRED_OPS_PER_S * 1e3,
-    }
+    dense = {"shape": [4096, 65536], "pairs": d_total, "probe_rows_matched": d_matched,
+             "both_wrap_pairs": both_wrap, "one_wrap_pairs": one_wrap, "max_abs_err": d_err,
+             **k5_times(d_build, d_probe)}
+    small = {"shape": [t, len(s_probe)], "pairs": s_total, "probe_rows_matched": s_matched,
+             "max_abs_err": s_err, **k5_times(build, s_probe)}
     k5 = {
         "name": "envelope_join", "route": "cuda",
         "source": "kart_tpu_torch/csrc/envelope_join.cu",
         "replaces": "kart_tpu/diff/backend.py:514",
-        "max_abs_err": max(err_k5, d_err), "shape": [t, b], "pairs": total,
-        "probe_rows_matched": matched,
-        "ms": time_ms(lambda: envelope_join(build, probe)),
-        "ms_pairs": time_ms(lambda: envelope_join(build, probe, pairs=True)),
-        "device_ms": total_ms(device_ms(lambda: envelope_join(build, probe),
-                                        ("envelope_join_kernel",))),
-        "plain_ms": time_ms(lambda: envelope_join_plain(build, probe), batches=3, per_batch=3),
-        "bound_ms": b5[0], "bound_by": b5[1],
+        "max_abs_err": max(err_k5, s_err, d_err), "shape": [t, b], "pairs": total,
+        "probe_rows_matched": matched, **k5_times(build, probe),
+        "bound_by": b5[1],
         "bound_count": f"{tests} pair tests x {K5_OPS_PER_TEST} instructions at "
                        f"{PRED_OPS_PER_S:.4g} a second",
-        "library_ms": None, "checked": True, "dense": dense,
+        "library_ms": None, "checked": True, "dense": dense, "batch_12288": small,
     }
-    print(f"[Q3] K5 on Q2's middle build tile x its probe batch ({t} x {b} rows): bit-identical "
-          f"counts, total {total} ({matched} probe rows matched) and pairs to the plain version; "
-          f"{k5['ms']:.4f} ms ({k5['ms_pairs']:.4f} with the pairs), device "
-          f"{fmt_ms(k5['device_ms'])}, plain {k5['plain_ms']:.4f} ms, bound "
-          f"{k5['bound_ms']:.4f} ms by {k5['bound_by']} on {card}")
-    print(f"[Q3] K5 on dense envelopes, 4096 x 65,536 rows: bit-identical, total {d_total} "
-          f"({d_matched} probe rows matched, {both_wrap} pairs both wrapping, {one_wrap} one "
-          f"wrapping); {dense['ms']:.4f} ms ({dense['ms_pairs']:.4f} with the pairs), device "
-          f"{fmt_ms(dense['device_ms'])}, plain {dense['plain_ms']:.4f} ms, bound "
-          f"{dense['bound_ms']:.4f} ms by operations on {card}")
+    k5["bound_ms"] = b5[0]
+    for label, e in (("Q2's middle build tile x its probe batch", k5),
+                     (f"the same tile x {len(s_probe)} rows of that batch", small),
+                     ("dense envelopes", dense)):
+        shape = e["shape"]
+        print(f"[Q3] K5 on {label} ({shape[0]} x {shape[1]} rows): bit-identical counts, "
+              f"total {e['pairs']} ({e['probe_rows_matched']} probe rows matched) and pairs to "
+              f"the plain version; {e['ms']:.4f} ms ({e['ms_pairs']:.4f} with the pairs), "
+              f"device {fmt_ms(e['device_ms'])} (fenced {e['fenced_ms']:.4f}; "
+              f"{_per_test_ns(e, shape)} ns a test), plain {e['plain_ms']:.4f} ms, bound "
+              f"{e['bound_ms']:.4f} ms by operations on {card}")
+    print(f"[Q3] dense envelopes: {both_wrap} pairs both wrapping, {one_wrap} one wrapping")
 
     col_a, col_b = synth_shapes(20_000, seed=11), synth_shapes(20_000, seed=12)
     ia = rng.integers(0, len(col_a), 100_000)
     ib = rng.integers(0, len(col_b), 100_000)
     seg_a, seg_b = resident_segments(col_a, dev), resident_segments(col_b, dev)
     ia_t, ib_t = torch.from_numpy(ia).to(dev), torch.from_numpy(ib).to(dev)
-    verdict = geom_refine(seg_a, ia_t, seg_b, ib_t)
-    want = geom_refine_plain(seg_a, ia_t, seg_b, ib_t)
-    err_k6 = mismatches(verdict, want)
-    n_true = int(want.sum())
-    check(err_k6 == 0 and 0 < n_true < len(ia), f"K6 differs from its plain version ({err_k6}) "
-                                                f"or its verdicts are all alike ({n_true})")
-    offs_a, offs_b = col_a.segment_table()[4], col_b.segment_table()[4]
-    sa, sb = np.diff(offs_a)[ia], np.diff(offs_b)[ib]
-    poly_a, poly_b = col_a.kinds[ia] == 3, col_b.kinds[ib] == 3
-    # a false verdict needs every term over the whole matrix, a true one at
-    # least one segment test: what these pairs need, not what they could
-    false = ~want.cpu().numpy()
-    per_cell = K6_OPS_PER_SEGMENT_TEST + K6_OPS_PER_CROSSING * (poly_a.astype(int) + poly_b)
-    ops = float((sa * sb * per_cell)[false].sum()) + n_true * K6_OPS_PER_SEGMENT_TEST
-    b6 = max(bound(len(ia) * 17 + int(offs_a[-1] + offs_b[-1]) * 16, 0),
-             (ops / INT_OPS_PER_S * 1e3, "operations"))
+    k6_rand, err_rand = k6_entry("100,000 random pairs of seeded shapes", seg_a, ia_t, seg_b,
+                                 ib_t, card)
+    check(err_rand == 0 and 0 < k6_rand["true"] < len(ia),
+          f"K6 differs from its plain version ({err_rand}) or its verdicts are all alike "
+          f"({k6_rand['true']})")
+    oa, ob = overlapping_pairs(col_a, col_b, 100_000, rng)
+    k6_over, err_over = k6_entry("100,000 pairs of seeded shapes whose boxes overlap", seg_a,
+                                 torch.from_numpy(oa).to(dev), seg_b,
+                                 torch.from_numpy(ob).to(dev), card)
+    check(err_over == 0 and 0 < k6_over["true"] < len(oa),
+          f"K6 differs from its plain version on overlapping pairs ({err_over}) or its verdicts "
+          f"are all alike ({k6_over['true']})")
+    col_build, bi, col_probe, pj = main_path_refine_batch(build, probe, tile, c_lo, build_block,
+                                                          probe_block, dev)
+    check(len(bi) >= t // 2, f"[Q3] the refine batch holds {len(bi)} pairs for a {t}-row tile")
+    k6_box, err_box = k6_entry("Q2's refine batch of the same tile and batch (box x box)",
+                               resident_segments(col_build, dev), bi,
+                               resident_segments(col_probe, dev), pj, card)
+    check(err_box == 0 and k6_box["short_pairs"] == len(bi),
+          f"K6 differs from its plain version on the box batch ({err_box}) or a box pair was "
+          f"not short ({k6_box['short_pairs']} of {len(bi)})")
     k6 = {
         "name": "geom_refine", "route": "cuda", "source": "kart_tpu_torch/csrc/geom_refine.cu",
         "replaces": "kart_tpu/diff/backend.py:609",
-        "max_abs_err": err_k6, "pairs": len(ia), "true": n_true,
-        "segment_cells": int((sa * sb).sum()),
-        "ms": time_ms(lambda: geom_refine(seg_a, ia_t, seg_b, ib_t)),
-        "device_ms": total_ms(device_ms(lambda: geom_refine(seg_a, ia_t, seg_b, ib_t),
-                                        ("geom_refine_kernel",))),
-        "plain_ms": time_ms(lambda: geom_refine_plain(seg_a, ia_t, seg_b, ib_t), batches=2,
-                            per_batch=1, warmup=0),
-        "bound_ms": b6[0], "bound_by": b6[1],
-        "bound_count": f"{ops:.6g} integer instructions (false verdicts: every cell's terms; "
-                       f"true: one segment test) at {INT_OPS_PER_S:.4g} a second",
-        "library_ms": None, "checked": True,
+        **k6_rand, "max_abs_err": max(err_rand, err_over, err_box),
+        "library_ms": None, "checked": True, "overlapping": k6_over, "box_batch": k6_box,
     }
-    print(f"[Q3] K6 on {len(ia)} pairs of seeded shapes ({k6['segment_cells']} segment cells, "
-          f"{n_true} true): bit-identical to the plain version; {k6['ms']:.4f} ms, device "
-          f"{fmt_ms(k6['device_ms'])}, plain {k6['plain_ms']:.4f} ms, bound {k6['bound_ms']:.4f} "
-          f"ms by {k6['bound_by']} on {card}")
     return k5, k6
+
+
+def _per_test_ns(entry, shape):
+    t = entry["device_ms"]
+    return "n/a" if t is None else f"{t * 1e6 / (shape[0] * shape[1]):.6f}"
 
 
 # --- kart export tiles on the point layer: the pyramid, the default layers, K7 --

@@ -164,11 +164,14 @@ def stream_ptr(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def grid_blocks(device, n, threads=256, per_sm=8):
     """Blocks for a grid-stride launch over ``n`` items: enough to fill
     every SM ``per_sm`` times over, never more than the items need."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-n // threads), sms * per_sm))
+    return max(1, min(-(-n // threads), sm_count(device) * per_sm))
 
 
 P = ctypes.c_void_p

@@ -17,10 +17,17 @@ from kart_tpu_torch.ops import _build
 
 _SIGNATURES = {
     "kart_envelope_join": [
-        _build.P, _build.I32, _build.P, _build.I32, _build.P, _build.P,
-        _build.P, _build.P, _build.P, _build.I32, _build.P,
+        _build.P, _build.I32, _build.I32, _build.I32, _build.P, _build.I32, _build.P, _build.P,
+        _build.P, _build.P, _build.P, _build.P, _build.I32, _build.P,
     ]
 }
+
+#: probe rows a block of K5 (128 threads x 4 rows) and its largest slice of
+#: build rows (``csrc/envelope_join.cu``)
+BLOCK_ROWS = 512
+MAX_SLICE = 1024
+#: blocks a launch aims at for each SM
+BLOCKS_PER_SM = 16
 
 #: probe rows a chunk of the plain version (bounds its (chunk, T) matrices)
 PLAIN_CHUNK_ROWS = 8192
@@ -52,12 +59,15 @@ def envelope_join(build_env, probe_env, pairs=False):
     for env in (build_env, probe_env):
         if env.numel() and env.data_ptr() % 16:
             raise ValueError("envelope_join: envelope rows must be 16-byte aligned")
+    slice_rows, n_slices = tile_slices(t, b, _build.sm_count(device))
     counts = torch.empty(b, dtype=torch.int32, device=device)
     total = torch.empty(1, dtype=torch.int64, device=device)
+    cells = torch.empty(b * n_slices if pairs else 0, dtype=torch.int32, device=device)
     lib = _build.load_library("envelope_join", device, _SIGNATURES)
     stream = _build.stream_ptr(device)
-    rc = lib.kart_envelope_join(build_env.data_ptr(), t, probe_env.data_ptr(), b,
-                                counts.data_ptr(), total.data_ptr(), None, None, None,
+    rc = lib.kart_envelope_join(build_env.data_ptr(), t, slice_rows, n_slices,
+                                probe_env.data_ptr(), b, counts.data_ptr(), total.data_ptr(),
+                                cells.data_ptr() if pairs else None, None, None, None,
                                 device.index, stream)
     _build.check(lib, rc, "envelope_join")
     runtime.count("envelope_join_launches")
@@ -67,14 +77,28 @@ def envelope_join(build_env, probe_env, pairs=False):
     pair_probe = torch.empty(n_pairs, dtype=torch.int32, device=device)
     pair_build = torch.empty(n_pairs, dtype=torch.int32, device=device)
     if n_pairs:
-        wide = counts.to(torch.int64)
+        wide = cells.to(torch.int64)
         offs = torch.cumsum(wide, 0) - wide
-        rc = lib.kart_envelope_join(build_env.data_ptr(), t, probe_env.data_ptr(), b,
-                                    None, None, offs.data_ptr(), pair_probe.data_ptr(),
+        rc = lib.kart_envelope_join(build_env.data_ptr(), t, slice_rows, n_slices,
+                                    probe_env.data_ptr(), b, None, None, cells.data_ptr(),
+                                    offs.data_ptr(), pair_probe.data_ptr(),
                                     pair_build.data_ptr(), device.index, stream)
         _build.check(lib, rc, "envelope_join (pairs)")
         runtime.count("envelope_join_launches")
     return counts, n_pairs, (pair_probe, pair_build)
+
+
+def tile_slices(t, b, sms):
+    """K5's cut of a ``t``-row build tile for a ``b``-row probe batch ->
+    (slice rows, slices): enough slices that the blocks (512 probe rows x
+    one slice) fill every SM ``BLOCKS_PER_SM`` times over, each slice a
+    multiple of 32 rows and at most ``MAX_SLICE``."""
+    if t == 0:
+        return 32, 0
+    ceil = lambda x, y: -(-x // y)  # noqa: E731
+    want = ceil(BLOCKS_PER_SM * sms, max(ceil(b, BLOCK_ROWS), 1))
+    slice_rows = min(MAX_SLICE, ceil(ceil(t, want), 32) * 32)
+    return slice_rows, ceil(t, slice_rows)
 
 
 def overlap_matrix(probe, build):

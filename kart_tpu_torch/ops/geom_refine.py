@@ -7,9 +7,11 @@ one exact verdict each: some segment of one touches some segment of the
 other, or a vertex of one lies inside the other where that one is a
 polygon (even-odd rule). Both sides come as their vertex column's flat
 segment table (:func:`resident_segments`), which stays on the device
-between calls, so a call moves only the pair indices.
+between calls with each feature's box beside it, so a call moves only the
+pair indices.
 """
 
+import numpy as np
 import torch
 
 from kart_tpu_torch import runtime
@@ -18,24 +20,62 @@ from kart_tpu_torch.ops import _build
 from kart_tpu_torch.ops.blocks import to_device
 
 _SIGNATURES = {
-    "kart_geom_refine": [_build.P] * 14 + [_build.I64, _build.P, _build.I32, _build.I32, _build.P]
+    "kart_geom_refine": [_build.P] * 16
+    + [_build.I64, _build.P, _build.P, _build.I32, _build.I32, _build.P]
 }
+
+#: the longest side of a short pair, which K6 gives 8 lanes (kGroup in
+#: ``csrc/geom_refine.cu``); a longer one goes to the long kernel
+SHORT_SEGMENTS = 8
 
 #: the plain version's largest (pairs, SA, SB) slab, in elements
 PLAIN_SLAB_ELEMENTS = 1 << 24
 
-_THREADS = 256
+
+class SegmentTable(tuple):
+    """A segment table (x0, y0, x1, y1, offs, kinds) with ``boxes``, int32
+    (N, 4): each feature's segments' box as (low x, high x, low y, high y),
+    (INT32_MAX, INT32_MIN, INT32_MAX, INT32_MIN) for a feature without
+    segments, which K6's exact culls read, and ``longest``, the most
+    segments a feature holds."""
+
+    boxes = None
+    longest = None
+
+
+def feature_boxes(x0, y0, x1, y1, offs):
+    """Host segment table -> int32 (N, 4) feature boxes (:class:`SegmentTable`)."""
+    n = len(offs) - 1
+    info = np.iinfo(np.int32)
+    boxes = np.tile(np.asarray([info.max, info.min, info.max, info.min], np.int32), (n, 1))
+    some = offs[1:] > offs[:-1]
+    lo = offs[:-1][some]
+    if len(lo):
+        boxes[some, 0] = np.minimum.reduceat(np.minimum(x0, x1), lo)
+        boxes[some, 1] = np.maximum.reduceat(np.maximum(x0, x1), lo)
+        boxes[some, 2] = np.minimum.reduceat(np.minimum(y0, y1), lo)
+        boxes[some, 3] = np.maximum.reduceat(np.maximum(y0, y1), lo)
+    return boxes
+
+
+def segment_table(x0, y0, x1, y1, offs, kinds, device):
+    """Host segment columns (x0, y0, x1, y1 int32 (S,), offs int64 (N+1,),
+    kinds uint8 (N,)) -> a :class:`SegmentTable` on ``device``, with its
+    feature boxes and longest feature."""
+    segs = SegmentTable(to_device(np.ascontiguousarray(a), device)
+                        for a in (x0, y0, x1, y1, offs, kinds))
+    segs.boxes = to_device(feature_boxes(x0, y0, x1, y1, offs), device)
+    segs.longest = int(np.diff(offs).max()) if len(offs) > 1 else 0
+    return segs
 
 
 def resident_segments(col, device):
-    """A VertexColumn's segment table on ``device``: (x0, y0, x1, y1 int32
-    (S,), offs int64 (N+1,), kinds uint8 (N,)), uploaded on the first call
-    for that device and kept on the column."""
+    """A VertexColumn's :func:`segment_table` on ``device``, built on the
+    first call for that device and kept on the column."""
     key = str(device)
     segs = col._resident.get(key)
     if segs is None:
-        x0, y0, x1, y1, offs = col.segment_table()
-        segs = tuple(to_device(a, device) for a in (x0, y0, x1, y1, offs, col.kinds))
+        segs = segment_table(*col.segment_table(), col.kinds, device)
         col._resident[key] = segs
     return segs
 
@@ -46,6 +86,12 @@ def _check(segs, idx, device, what):
     if ([t.dtype for t in segs]
             != [torch.int32] * 4 + [torch.int64, torch.uint8]):
         raise ValueError(f"geom_refine: {what} segments must be int32 x4, int64 offs, uint8 kinds")
+    if device.type == "cuda":
+        boxes = getattr(segs, "boxes", None)
+        if (boxes is None or boxes.device != device or boxes.dtype != torch.int32
+                or boxes.shape != (segs[4].numel() - 1, 4) or not boxes.is_contiguous()):
+            raise ValueError(f"geom_refine: {what} segments need their feature boxes "
+                             "(segment_table, resident_segments)")
     if idx.dtype != torch.int64 or idx.dim() != 1 or not idx.is_contiguous():
         raise ValueError(f"geom_refine: {what} pair indices must be contiguous int64 (P,)")
 
@@ -53,7 +99,8 @@ def _check(segs, idx, device, what):
 def geom_refine(seg_a, ia, seg_b, ib):
     """Segment tables of columns A and B (:func:`resident_segments`) + int64
     (P,) feature indices -> bool (P,) exact verdicts, on the indices'
-    device. CUDA tensors run K6; CPU tensors run :func:`geom_refine_plain`."""
+    device. CUDA tensors run K6 (its two kernels, counted as one launch);
+    CPU tensors run :func:`geom_refine_plain`."""
     device = ia.device
     _check(seg_a, ia, device, "A")
     _check(seg_b, ib, device, "B")
@@ -64,14 +111,20 @@ def geom_refine(seg_a, ia, seg_b, ib):
     if device.type != "cuda":
         raise runtime.DeviceUnavailable(f"geom_refine: unsupported device {device}")
     n = ia.numel()
+    if n >= 2**31:
+        raise ValueError("geom_refine: 2^31 pairs or more in one call")
     out = torch.empty(n, dtype=torch.uint8, device=device)
     if n == 0:
         return out.view(torch.bool)
+    may_long = max(seg_a.longest, seg_b.longest) > SHORT_SEGMENTS
+    # the long pairs' list and two counters
+    scratch = torch.empty(n + 2, dtype=torch.int32, device=device)
     lib = _build.load_library("geom_refine", device, _SIGNATURES)
     rc = lib.kart_geom_refine(
-        *(t.data_ptr() for t in seg_a), *(t.data_ptr() for t in seg_b),
-        ia.data_ptr(), ib.data_ptr(), n, out.data_ptr(),
-        _build.grid_blocks(device, n * 32, threads=_THREADS), device.index,
+        *(t.data_ptr() for t in seg_a), seg_a.boxes.data_ptr(),
+        *(t.data_ptr() for t in seg_b), seg_b.boxes.data_ptr(),
+        ia.data_ptr(), ib.data_ptr(), n, out.data_ptr(), scratch.data_ptr(), int(may_long),
+        device.index,
         _build.stream_ptr(device),
     )
     _build.check(lib, rc, "geom_refine")

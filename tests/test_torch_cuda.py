@@ -668,6 +668,137 @@ def test_geom_refine_kernel_matches_plain(cuda, kind, n_pairs):
         assert torch.equal(geom_refine(seg_a, ia_t, seg_b, ib_t), want)
 
 
+#: K5 at slicings the join's batches reach: t not a multiple of the slice,
+#: one probe row, a 12,288-row batch, a pair total of 0 and pairs in
+#: row-major order across slice boundaries
+SLICE_CASES = [("random", 4095, 12_288), ("random", 4097, 65_536), ("random", 1000, 1),
+               ("random", 4096, 1), ("random", 33, 70_001), ("disjoint", 4096, 12_288),
+               ("all", 4096, 3000), ("all", 1025, 513)]
+
+
+@pytest.mark.parametrize("kind,t,b", SLICE_CASES)
+def test_envelope_join_kernel_across_slices(cuda, kind, t, b):
+    from kart_tpu_torch.ops._build import sm_count
+    from kart_tpu_torch.ops.envelope_join import envelope_join, envelope_join_plain, tile_slices
+
+    build = _join_envelopes(t + 3, t)
+    probe = _join_envelopes(b + 4, b)
+    if kind == "disjoint":  # the probe side 100 degrees north-east of the build side
+        probe[:, :4] = np.abs(probe[:, :4]) + np.float32(100)
+    elif kind == "all":  # every row meets every row: pairs cross every slice
+        build[:] = (-1.0, -1.0, 1.0, 1.0)
+        build[::7] = (170.0, -1.0, -170.0, 1.0)  # wrapping rows meet them too
+        probe[:] = (-180.0, -1.0, 180.0, 1.0)
+    build_t, probe_t = torch.from_numpy(build).to(cuda), torch.from_numpy(probe).to(cuda)
+    slice_rows, n_slices = tile_slices(t, b, sm_count(cuda))
+    assert (n_slices - 1) * slice_rows < t <= n_slices * slice_rows
+    counts, total, got = envelope_join(build_t, probe_t, pairs=True)
+    p_counts, p_total, want = envelope_join_plain(build_t, probe_t, pairs=True)
+    assert torch.equal(counts, p_counts) and total == p_total
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if kind == "disjoint":
+        assert total == 0 and len(got[0]) == 0
+    if kind == "all":
+        assert total == t * b and n_slices > 1
+
+
+def _concat_columns(c1, c2):
+    from kart_tpu_torch.geom import VertexColumn
+
+    return VertexColumn(np.concatenate([c1.kinds, c2.kinds]),
+                        np.concatenate([c1.feat_offsets, c2.feat_offsets[1:] + c1.feat_offsets[-1]]),
+                        np.concatenate([c1.ring_offsets, c2.ring_offsets[1:] + c1.ring_offsets[-1]]),
+                        np.concatenate([c1.x, c2.x]), np.concatenate([c1.y, c2.y]))
+
+
+def _ring(n, r, closed, cx=0.0, cy=0.0):
+    from kart_tpu_torch.geom import KIND_LINE, KIND_POLY, VertexColumn
+
+    ang = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    x = np.rint((cx + r * np.cos(ang)) * 1e5).astype(np.int32)
+    y = np.rint((cy + r * np.sin(ang)) * 1e5).astype(np.int32)
+    if not closed:  # a polyline of n + 1 vertices: n segments
+        x, y = np.append(x, x[0] + 7), np.append(y, y[0])
+    return VertexColumn(np.asarray([KIND_POLY if closed else KIND_LINE], np.uint8),
+                        np.asarray([0, 1]), np.asarray([0, len(x)]), x, y)
+
+
+def _refine_regime(kind, seed):
+    """K6's regimes: 3,600 box x box pairs whose envelopes overlap (the
+    join's batch) and 400 drawn at random, one 256 x 256-segment false pair both ways round, and a
+    draw mixing box pairs and star pairs in one call."""
+    from kart_tpu_torch.geom import boxes_vertex_column
+    from kart_tpu_torch.synth import synth_shapes
+
+    rng = np.random.default_rng(seed)
+    if kind == "box_batch":
+        env = _join_envelopes(seed, 3000, edge_cases=False).astype(np.float64)
+        col = boxes_vertex_column(env)
+        w, s, e, n = (env[:, k] for k in range(4))
+        hit = ((w[:, None] <= e[None, :]) & (w[None, :] <= e[:, None])
+               & (s[:, None] <= n[None, :]) & (s[None, :] <= n[:, None]))
+        ia, ib = np.nonzero(hit & col.usable()[:, None] & col.usable()[None, :])
+        pick = rng.choice(len(ia), min(3600, len(ia)), replace=False)
+        # and 400 pairs whose envelopes mostly miss, for false verdicts
+        ok = np.flatnonzero(col.usable())
+        ia = np.concatenate([ia[pick], rng.choice(ok, 400)])
+        ib = np.concatenate([ib[pick], rng.choice(ok, 400)])
+        return col, ia, col, ib
+    if kind == "long_false":
+        # a polygon of 256 segments inside a polyline of 256 around it
+        col = _concat_columns(_ring(256, 1.0, True), _ring(256, 1.5, False))
+        return col, np.asarray([0, 1]), col, np.asarray([1, 0])
+    boxes = boxes_vertex_column(_join_envelopes(seed, 500, edge_cases=False).astype(np.float64))
+    col = _concat_columns(boxes, synth_shapes(500, seed=seed, span=20.0))
+    ia, ib = rng.integers(0, len(col), 20_000), rng.integers(0, len(col), 20_000)
+    usable = col.usable()[ia] & col.usable()[ib]
+    return col, ia[usable], col, ib[usable]
+
+
+@pytest.mark.parametrize("kind", ["box_batch", "long_false", "mixed"])
+def test_geom_refine_kernel_regimes(cuda, kind):
+    from kart_tpu_torch.ops.geom_refine import geom_refine, geom_refine_plain, resident_segments
+
+    col_a, ia, col_b, ib = _refine_regime(kind, 11)
+    seg_a, seg_b = resident_segments(col_a, cuda), resident_segments(col_b, cuda)
+    ia_t, ib_t = torch.from_numpy(ia).to(cuda), torch.from_numpy(ib).to(cuda)
+    runtime.reset_stats()
+    got = geom_refine(seg_a, ia_t, seg_b, ib_t)
+    torch.cuda.synchronize()
+    assert runtime.stats_snapshot()["geom_refine_launches"] == 1
+    want = geom_refine_plain(seg_a, ia_t, seg_b, ib_t)
+    assert torch.equal(got, want)
+    if kind == "long_false":
+        assert not bool(want.any())
+        sizes = np.diff(col_a.segment_table()[4])
+        assert sizes.tolist() == [256, 256]
+    else:
+        assert bool(want.any()) and not bool(want.all())
+    if kind == "mixed":
+        cells = np.diff(col_a.segment_table()[4])
+        assert (cells[ia] <= 8).any() and (cells[ia] > 8).any()
+
+
+def test_geom_refine_kernel_on_cull_boundaries(cuda):
+    from torch_refine_cases import EXPECTED, all_pairs, cases_column, open_chain_tables
+
+    from kart_tpu_torch.ops.geom_refine import geom_refine, geom_refine_plain, resident_segments
+
+    col, names = cases_column()
+    ia, ib = (torch.from_numpy(v).to(cuda) for v in all_pairs(len(col)))
+    seg = resident_segments(col, cuda)
+    got = geom_refine(seg, ia, seg, ib)
+    assert torch.equal(got, geom_refine_plain(seg, ia, seg, ib))
+    at = {name: i for i, name in enumerate(names)}
+    verdicts = got.cpu().numpy()
+    for (a, b), verdict in EXPECTED.items():
+        assert bool(verdicts[at[a] * len(col) + at[b]]) is verdict, (a, b)
+    seg_a, seg_b = open_chain_tables(cuda)
+    idx = torch.zeros(1, dtype=torch.int64, device=cuda)
+    assert geom_refine(seg_a, idx, seg_b, idx).tolist() == [True]
+    assert geom_refine_plain(seg_a, idx, seg_b, idx).tolist() == [True]
+
+
 def test_query_join_on_card_matches_cpu(cuda, tmp_path):
     """A time-travel join and a --bbox scan through the CLI on the card and
     with --device cpu: the same bytes, and K2, K5 and K6 launched."""

@@ -164,3 +164,56 @@ def test_refine_refuses_bad_input():
         geom_refine(segs, torch.zeros(2, dtype=torch.int32), segs, torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="differ"):
         geom_refine(segs, torch.zeros(2, dtype=torch.int64), segs, torch.zeros(3, dtype=torch.int64))
+
+
+def test_refine_plain_matches_kart_tpu_on_cull_boundaries():
+    """K6's culls are exact at their edges: boxes sharing an edge or a
+    corner, collinear and zero-length segments, starts at another side's
+    smallest and largest y and largest x, starts left of a polygon whose
+    ring does not repeat its first vertex, both ways round every pair."""
+    from torch_refine_cases import EXPECTED, all_pairs, cases_column
+
+    col, names = cases_column()
+    ia, ib = all_pairs(len(col))
+    want = jgeom.refine_pairs_host(_as_kart_tpu(col), ia, _as_kart_tpu(col), ib)
+    got = _verdicts(col, ia, col, ib)
+    assert np.array_equal(got, want)
+    at = {name: i for i, name in enumerate(names)}
+    for (a, b), verdict in EXPECTED.items():
+        assert bool(got[at[a] * len(col) + at[b]]) is verdict, (a, b)
+
+
+def test_refine_plain_counts_an_unclosed_ring_as_kart_tpu_does():
+    """A start left of a polygon whose segments do not close crosses an odd
+    number of them: the plain version counts the crossings as kart_tpu's
+    predicates do, and finds it inside (no cull of starts left of a side)."""
+    from torch_refine_cases import open_chain_tables
+
+    seg_a, seg_b = open_chain_tables(CPU)
+    idx = torch.zeros(1, dtype=torch.int64)
+    got = geom_refine_plain(seg_a, idx, seg_b, idx)
+    px, py = (np.asarray([int(seg_a[k][0])], np.int64) for k in (0, 1))
+    ring = [seg_b[k].numpy().astype(np.int64) for k in range(4)]
+    crossings = int(jgeom.ray_crossings(px[:, None], py[:, None], *(c[None, :] for c in ring))
+                    .sum())
+    touch = bool(jgeom.seg_pairs_intersect(px, py, px, py, *ring).any())
+    assert crossings == 1 and not touch
+    assert got.tolist() == [True]
+
+
+@pytest.mark.parametrize("wkts", [EDGE_WKTS_A, ODD_WKTS], ids=["edge_a", "odd"])
+def test_resident_feature_boxes_hold_every_segment(wkts):
+    """The boxes K6's culls read: each feature's segments' low and high x
+    and y, the empty box for a feature without segments, and the longest
+    feature's segment count."""
+    _, col = _both(wkts)
+    segs = resident_segments(col, CPU)
+    info = np.iinfo(np.int32)
+    assert segs.boxes.dtype == torch.int32 and segs.boxes.shape == (len(col), 4)
+    for i in range(len(col)):
+        x0, y0, x1, y1 = col.segments(i)
+        want = ([min(x0.min(), x1.min()), max(x0.max(), x1.max()), min(y0.min(), y1.min()),
+                 max(y0.max(), y1.max())] if len(x0) else
+                [info.max, info.min, info.max, info.min])
+        assert segs.boxes[i].tolist() == [int(v) for v in want], i
+    assert segs.longest == max(len(col.segments(i)[0]) for i in range(len(col)))

@@ -597,3 +597,74 @@ TEXT_PK_CASES = {
 @pytest.mark.parametrize("case", sorted(TEXT_PK_CASES))
 def test_query_on_text_pks_like_kart_tpu(text_pk, case):
     _compare(text_pk, text_pk, ["query", "HEAD", "synth", *TEXT_PK_CASES[case]])
+
+
+@pytest.mark.parametrize("t,b", [(4096, 65_536), (4096, 12_288), (4096, 1), (4095, 700),
+                                 (1, 1), (33, 70_001), (4096, 10_000_000), (0, 5)])
+def test_envelope_join_slices_cover_the_tile(t, b):
+    """K5's cut of a build tile: slices of a multiple of 32 rows, at most
+    1024, that cover the tile exactly and, where the tile allows, give
+    every one of 132 SMs four blocks of 512 probe rows."""
+    from kart_tpu_torch.ops.envelope_join import BLOCK_ROWS, MAX_SLICE, tile_slices
+
+    rows, n = tile_slices(t, b, 132)
+    assert rows % 32 == 0 and 32 <= rows <= MAX_SLICE
+    if t == 0:
+        assert n == 0
+        return
+    assert (n - 1) * rows < t <= n * rows
+    blocks = -(-b // BLOCK_ROWS) * n
+    assert blocks >= min(4 * 132, -(-b // BLOCK_ROWS) * -(-t // 32)) or rows == MAX_SLICE
+
+
+@pytest.mark.parametrize("t,b", [(700, 9000), (1025, 300), (64, 1)])
+def test_envelope_join_slice_offsets_give_row_major_pairs(t, b):
+    """The pairs pass's layout, on the host: each (probe row, slice) count,
+    their exclusive scan in row-major order as the wrapper takes it, and
+    each (row, slice) writing its pairs in build-row order from its offset,
+    give kart_tpu's np.nonzero order."""
+    from kart_tpu_torch.ops.envelope_join import tile_slices
+
+    build, probe = _join_envelopes(t + 7, t), _join_envelopes(b + 8, b)
+    hit = jbackend._join_overlap_np(
+        probe[:, 0:1], probe[:, 1:2], probe[:, 2:3], probe[:, 3:4],
+        build[:, 0], build[:, 1], build[:, 2], build[:, 3])
+    rows, n = tile_slices(t, b, 132)
+    cells = np.stack([hit[:, s * rows:(s + 1) * rows].sum(axis=1) for s in range(n)], axis=1)
+    wide = torch.from_numpy(cells.reshape(-1).astype(np.int64))
+    offs = (torch.cumsum(wide, 0) - wide).numpy().reshape(b, n)
+    total = int(cells.sum())
+    pair_probe, pair_build = np.full(total, -1), np.full(total, -1)
+    for row in range(b):
+        for s in range(n):
+            cols = np.flatnonzero(hit[row, s * rows:(s + 1) * rows]) + s * rows
+            at = offs[row, s]
+            pair_probe[at:at + len(cols)] = row
+            pair_build[at:at + len(cols)] = cols
+    want_probe, want_build = np.nonzero(hit)
+    assert np.array_equal(pair_probe, want_probe) and np.array_equal(pair_build, want_build)
+
+
+def test_envelope_join_wrap_branches_equal_kart_tpus_predicate():
+    """K5 branches on the build row's wrap bit: a wrapping build row meets
+    a probe row when lat & (a | b | pwrap), a plain one when lat & ((a & b)
+    | (pwrap & (a | b))), and with no wrap on either side lat & a & b: the
+    same verdicts as kart_tpu's predicate on rows that reach every branch."""
+    env = _join_envelopes(21, 3000)
+    rng = np.random.default_rng(22)
+    wrap = rng.random(3000) < 0.2
+    env[wrap, 0] = rng.uniform(150, 180, wrap.sum())
+    env[wrap, 2] = rng.uniform(-180, -150, wrap.sum())
+    p, q = env[:, None, :], env[None, :, :]
+    lat = (q[..., 1] <= p[..., 3]) & (p[..., 1] <= q[..., 3])
+    a, b = q[..., 0] <= p[..., 2], p[..., 0] <= q[..., 2]
+    pwrap, bwrap = p[..., 2] < p[..., 0], q[..., 2] < q[..., 0]
+    got = np.where(bwrap, lat & (a | b | pwrap), lat & ((a & b) | (pwrap & (a | b))))
+    plain = lat & a & b
+    want = jbackend._join_overlap_np(
+        env[:, 0:1], env[:, 1:2], env[:, 2:3], env[:, 3:4], env[:, 0], env[:, 1], env[:, 2],
+        env[:, 3])
+    assert np.array_equal(got, want)
+    neither = ~pwrap & ~bwrap
+    assert np.array_equal(plain[neither], want[neither])
+    assert (bwrap & pwrap & want).any() and ((bwrap ^ pwrap) & want).any()
