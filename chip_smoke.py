@@ -8,8 +8,8 @@ kernel against its plain PyTorch version.
                           [--text-rows 5000000] [--text-merge-rows 500000] [--seed 0]
                           [--stream-rows 100000000] [--crossover-rows 1000000,...]
                           [--crossover-reps 3] [--chunk-sweep 2000000,...]
-                          [--k4-only | --hash-only | --query-only | --tiles-only |
-                           --stream-only]
+                          [--k4-only | --hash-only | --query-only | --kernels-only |
+                           --tiles-only | --stream-only]
 
 Run from the repository root on a machine with an sm_90 (Hopper) card and
 the CUDA toolkit; the kernels are built from ``kart_tpu_torch/csrc`` on
@@ -77,8 +77,10 @@ Q3. K5 on the middle build tile of Q2's join x the probe batch the join
    the refine batch Q2's join hands it for the same tile and batch (box x
    box): bit-identical to their plain versions on the card, timed (wrapper,
    profiler device time over every kernel of the wrapper, ``fenced_ms``)
-   beside their bounds (operations; K6 also beside its design's own bound,
-   the work left after its exact culls, computed from the same inputs)
+   beside their bounds, computed from the same inputs (K5: its least
+   instructions, given each row's wrap bit; K6: its design's work, what its
+   exact culls leave, and beside it the reference's work, every cell of a
+   false verdict)
 T3. run first of the three: K7 on the whole layer's 2M envelopes and on
    the largest z4 batch of T1's card route, each with edge rows (the
    poles, the mercator clamp, the anti-meridian, -0.0, subnormals, NaN,
@@ -206,10 +208,16 @@ so they are held to kart_tpu by the CPU tests only
 Any failed check exits non-zero without the result line. ``--k4-only`` runs
 phases 0, 1, 14 and 15 alone and prints K4's timings as JSON, with no
 result line; ``--hash-only`` runs phases 0, 1 and 18-21 alone the same
-way, ``--query-only`` phases 0, 1, 11 and Q1-Q3, ``--tiles-only`` phases 0, 1,
-11 and T1-T3, ``--stream-only`` phases 0, 1 and S1-S4 (S3 on repositories it
-builds at ``--repo-rows`` and ``--merge-rows``, with the monolithic card and
-``--device cpu`` runs of its commands made there).
+way, ``--query-only`` phases 0, 1, 11 and Q1-Q3, ``--kernels-only`` phases 0,
+1, 11 and Q3, ``--tiles-only`` phases 0, 1, 11 and T1-T3, ``--stream-only``
+phases 0, 1 and S1-S4 (S3 on repositories it builds at ``--repo-rows`` and
+``--merge-rows``, with the monolithic card and ``--device cpu`` runs of its
+commands made there).
+
+To time another checkout's K5 and K6 on the same inputs (a parent commit,
+say), run this script with that checkout's package in its place:
+``PYTHONSAFEPATH=1 PYTHONPATH=<checkout> python3 chip_smoke.py
+--kernels-only``.
 """
 
 import argparse
@@ -278,7 +286,6 @@ from kart_tpu_torch.ops.envelope_codec import EnvelopeCodec
 from kart_tpu_torch.ops.envelope_join import envelope_join, envelope_join_plain
 from kart_tpu_torch.ops.geom_refine import (
     PLAIN_SLAB_ELEMENTS,
-    SHORT_SEGMENTS,
     _slabs,
     geom_refine,
     geom_refine_plain,
@@ -914,7 +921,8 @@ def card_and_cpu(label, argv, out_path, launches, rc_want=0, counts_only=False, 
 
 def spatial_phases(args, card, launches, dev, filters=True, query=True, tiles=True):
     """Phases 11-13, Q1-Q3 and T1-T3: build the spatial repository, drive
-    ``kart query`` on it (unless not ``query``) and ``kart export tiles``
+    ``kart query`` on it (unless not ``query``; Q3 alone where ``query`` is
+    ``"kernels"``) and ``kart export tiles``
     (unless not ``tiles``), before any spatial filter is set, then
     spatially filtered ``kart diff`` commands (unless not ``filters``),
     through the CLI on the card and with ``--device cpu``, adding every card
@@ -937,7 +945,9 @@ def spatial_phases(args, card, launches, dev, filters=True, query=True, tiles=Tr
               f"packs, {pack_bytes} pack bytes, {sidecar_bytes} sidecar bytes on {card}")
         if query:
             t = time.perf_counter()
-            kernels["k5"], kernels["k6"] = query_phases(repo, tmp, card, launches, dev)
+            kernels["k5"], kernels["k6"] = (
+                query_kernels_alone(card, dev, *point_layer(repo)) if query == "kernels"
+                else query_phases(repo, tmp, card, launches, dev))
             print(f"[Q] phases Q1-Q3 host wall {time.perf_counter() - t:.2f} s on {card}")
         if tiles:
             t = time.perf_counter()
@@ -1052,8 +1062,12 @@ JOIN_STRIP = "0,-90,18,90"
 #: the synthetic layer's first pk
 SYNTH_PK_BASE = 1 << 24
 
-#: K5's instructions a pair test: 6 f32 compares, 5 predicate ops, the count
-K5_OPS_PER_TEST = 12
+#: K5's least instructions a pair test, each row's wrap bit known (one
+#: compare a row): 4 f32 compares chained on their predicate (lat & a & b
+#: where neither row wraps, lat & (a | b) where one does) and the count's
+#: add; 2 compares and the add where both wrap (lat alone)
+K5_OPS_PER_TEST = 5
+K5_OPS_BOTH_WRAP = 3
 #: K6's integer instructions: a segment test (16 widening multiplies, 4
 #: int64 subtractions of 2, 8 int64 sign tests of 2, 24 int32 subtractions,
 #: ~2 of logic) and a ray crossing (4 int32 subtractions, 2 widening
@@ -1069,9 +1083,14 @@ K6_OPS_SEGMENT_BOX = 4
 K6_OPS_BOX_TEST = 4
 K6_OPS_START = 3
 K6_OPS_UPWARD = 3
-#: the kernels each wrapper launches, by name fragment for the profiler
+#: the kernels each wrapper launches, by name fragment for the profiler (K6's
+#: last, the one kernel of its earlier design, so that --kernels-only times
+#: an older checkout too)
 K5_KERNELS = ("envelope_join_kernel",)
-K6_KERNELS = ("geom_refine_short_kernel", "geom_refine_long_kernel")
+K6_KERNELS = ("geom_refine_short_kernel", "geom_refine_long_kernel", "geom_refine_kernel")
+#: the longest side of a pair K6's short kernel takes (SHORT_SEGMENTS in
+#: ops/geom_refine.py): the main path's box pairs must be short
+K6_SHORT_SIDE = 8
 #: the smaller join batch Q3 times K5 on
 SMALL_BATCH_ROWS = 12_288
 #: H100 SXM issue rates at the 1,980 MHz boost clock over 132 SMs: f32
@@ -1127,13 +1146,18 @@ def query_card_and_cpu(label, argv, out_path, launches, k2=0, k5=0, k6=0, rc_wan
     return walls[0], walls[1], digest, stats, rcs[0]
 
 
+def point_layer(repo):
+    """[11]'s point layer at HEAD^ and HEAD, as feature blocks."""
+    return tuple(load_block(repo, repo.structure(rev).datasets["synth"])
+                 for rev in ("HEAD^", "HEAD"))
+
+
 def query_phases(repo, tmp, card, launches, dev):
     """Phases Q1-Q3 on [11]'s point layer. -> K5's and K6's entries of the
     kernels line (without launches)."""
     path = repo.workdir
     spec = ["-C", path, "query", "HEAD", "synth"]
-    old = load_block(repo, repo.structure("HEAD^").datasets["synth"])
-    new = load_block(repo, repo.structure("HEAD").datasets["synth"])
+    old, new = point_layer(repo)
     n_rows = new.count
 
     # [Q1] scans
@@ -1312,8 +1336,10 @@ def overlapping_pairs(col_a, col_b, n, rng):
     def boxes(col):
         x0, y0, x1, y1, offs = col.segment_table()
         lo = offs[:-1].copy()
-        b = [np.minimum.reduceat(np.minimum(x0, x1), lo), np.maximum.reduceat(np.maximum(x0, x1), lo),
-             np.minimum.reduceat(np.minimum(y0, y1), lo), np.maximum.reduceat(np.maximum(y0, y1), lo)]
+        b = [np.minimum.reduceat(np.minimum(x0, x1), lo),
+             np.maximum.reduceat(np.maximum(x0, x1), lo),
+             np.minimum.reduceat(np.minimum(y0, y1), lo),
+             np.maximum.reduceat(np.maximum(y0, y1), lo)]
         check(bool((np.diff(offs) > 0).all()), "[Q3] a shape without segments")
         return b
     (alx, ahx, aly, ahy), (blx, bhx, bly, bhy) = boxes(col_a), boxes(col_b)
@@ -1431,24 +1457,24 @@ def k6_entry(label, seg_a, ia, seg_b, ib, card):
         lambda: geom_refine_plain(seg_a, ia, seg_b, ib), batches=3, per_batch=3)
     entry = {
         "pairs": len(ia), "true": n_true, "segment_cells": int((sa * sb).sum()),
-        "short_pairs": int(((sa <= SHORT_SEGMENTS) & (sb <= SHORT_SEGMENTS)).sum()),
+        "short_pairs": int(((sa <= K6_SHORT_SIDE) & (sb <= K6_SHORT_SIDE)).sum()),
         "max_abs_err": err,
         "ms": time_ms(call), "device_ms": total_ms(per), "device_split": per,
         "fenced_ms": fenced, "plain_ms": plain,
-        "bound_ms": b_ref[0], "bound_by": b_ref[1],
-        "bound_count": f"{ref_ops:.6g} integer instructions (the reference's work: false "
-                       f"verdicts every cell's terms, true one segment test) at "
-                       f"{INT_OPS_PER_S:.4g} a second; {moved} bytes",
-        "design_bound_ms": b_des[0], "design_bound_by": b_des[1],
-        "design_bound_count": f"{des_ops:.6g} integer instructions (K6's culls, then the terms "
-                              f"on what survives; true verdicts one segment test)",
+        "bound_ms": b_des[0], "bound_by": b_des[1],
+        "bound_count": f"{des_ops:.6g} integer instructions (K6's culls, then the terms on what "
+                       f"survives; true verdicts one segment test) at {INT_OPS_PER_S:.4g} a "
+                       f"second; {moved} bytes",
+        "reference_bound_ms": b_ref[0], "reference_bound_by": b_ref[1],
+        "reference_bound_count": f"{ref_ops:.6g} integer instructions (the reference's work: "
+                                 f"false verdicts every cell's terms, true one segment test)",
     }
     print(f"[Q3] K6 on {label}: {len(ia)} pairs ({entry['short_pairs']} short, "
           f"{entry['segment_cells']} segment cells, {n_true} true), bit-identical to the plain "
           f"version; {entry['ms']:.4f} ms, device {fmt_ms(entry['device_ms'])} "
-          f"(fenced {fenced:.4f}), plain {plain:.4f} ms; reference-work bound "
-          f"{b_ref[0]:.4f} ms by {b_ref[1]}, design bound {b_des[0]:.4f} ms by {b_des[1]} "
-          f"on {card}")
+          f"(fenced {fenced:.4f}), plain {plain:.4f} ms; bound (the design's work) "
+          f"{b_des[0]:.4f} ms by {b_des[1]}, reference-work bound {b_ref[0]:.4f} ms by "
+          f"{b_ref[1]} on {card}")
     return entry, err
 
 
@@ -1466,16 +1492,37 @@ def check_k5(build, probe):
     return (err, total, int((p_counts > 0).sum()), int((pw & bw).sum()), int((pw ^ bw).sum()))
 
 
+def k5_bound(build, probe):
+    """K5's bound on one tile x batch, from its inputs: the larger of its
+    bytes (each envelope read once, the counts and the total written once:
+    the counts pass, which is what is timed) and its least instructions
+    (:data:`K5_OPS_PER_TEST` a test, :data:`K5_OPS_BOTH_WRAP` where both
+    rows wrap, one compare a row for its wrap bit).
+    -> {bound_ms, bound_by, bound_count}."""
+    t, b = len(build), len(probe)
+    wraps = lambda env: int((env[:, 2] < env[:, 0]).sum())  # noqa: E731
+    both = wraps(build) * wraps(probe)
+    ops = t * b * K5_OPS_PER_TEST - both * (K5_OPS_PER_TEST - K5_OPS_BOTH_WRAP) + t + b
+    ms, by = max(bound((t + b) * 16 + b * 4 + 8, 0),
+                 (ops / PRED_OPS_PER_S * 1e3, "operations"))
+    return {"bound_ms": ms, "bound_by": by,
+            "bound_count": f"{t * b} pair tests ({both} with both rows wrapping) x "
+                           f"{K5_OPS_PER_TEST} instructions ({K5_OPS_BOTH_WRAP} both wrapping) "
+                           f"and {t + b} wrap compares, {ops} in all, at {PRED_OPS_PER_S:.4g} a "
+                           f"second"}
+
+
 def k5_times(build, probe):
     """K5's wrapper time (alone and with its pairs), device time beside
-    ``fenced_ms`` and the plain version's time on one tile x batch."""
+    ``fenced_ms``, the plain version's time and the bound on one tile x
+    batch."""
     per, fenced = device_times(lambda: envelope_join(build, probe), K5_KERNELS)
     return {
         "ms": time_ms(lambda: envelope_join(build, probe)),
         "ms_pairs": time_ms(lambda: envelope_join(build, probe, pairs=True)),
         "device_ms": total_ms(per), "fenced_ms": fenced,
         "plain_ms": time_ms(lambda: envelope_join_plain(build, probe), batches=3, per_batch=3),
-        "bound_ms": len(build) * len(probe) * K5_OPS_PER_TEST / PRED_OPS_PER_S * 1e3,
+        **k5_bound(build, probe),
     }
 
 
@@ -1510,9 +1557,6 @@ def query_kernels_alone(card, dev, build_block, probe_block):
           f"K5 differs from its plain version on dense envelopes ({d_err}), or they reach too "
           f"few branches: {d_total} pairs, {d_matched} of {len(d_probe)} probe rows matched, "
           f"{both_wrap} both wrapping, {one_wrap} one wrapping")
-    tests = t * b
-    b5 = bound((t + b) * 16 + b * 4 + 8 + total * 8, 0)
-    b5 = max(b5, (tests * K5_OPS_PER_TEST / PRED_OPS_PER_S * 1e3, "operations"))
     dense = {"shape": [4096, 65536], "pairs": d_total, "probe_rows_matched": d_matched,
              "both_wrap_pairs": both_wrap, "one_wrap_pairs": one_wrap, "max_abs_err": d_err,
              **k5_times(d_build, d_probe)}
@@ -1524,12 +1568,8 @@ def query_kernels_alone(card, dev, build_block, probe_block):
         "replaces": "kart_tpu/diff/backend.py:514",
         "max_abs_err": max(err_k5, s_err, d_err), "shape": [t, b], "pairs": total,
         "probe_rows_matched": matched, **k5_times(build, probe),
-        "bound_by": b5[1],
-        "bound_count": f"{tests} pair tests x {K5_OPS_PER_TEST} instructions at "
-                       f"{PRED_OPS_PER_S:.4g} a second",
         "library_ms": None, "checked": True, "dense": dense, "batch_12288": small,
     }
-    k5["bound_ms"] = b5[0]
     for label, e in (("Q2's middle build tile x its probe batch", k5),
                      (f"the same tile x {len(s_probe)} rows of that batch", small),
                      ("dense envelopes", dense)):
@@ -1539,7 +1579,7 @@ def query_kernels_alone(card, dev, build_block, probe_block):
               f"the plain version; {e['ms']:.4f} ms ({e['ms_pairs']:.4f} with the pairs), "
               f"device {fmt_ms(e['device_ms'])} (fenced {e['fenced_ms']:.4f}; "
               f"{_per_test_ns(e, shape)} ns a test), plain {e['plain_ms']:.4f} ms, bound "
-              f"{e['bound_ms']:.4f} ms by operations on {card}")
+              f"{e['bound_ms']:.4f} ms by {e['bound_by']} ({e['bound_count']}) on {card}")
     print(f"[Q3] dense envelopes: {both_wrap} pairs both wrapping, {one_wrap} one wrapping")
 
     col_a, col_b = synth_shapes(20_000, seed=11), synth_shapes(20_000, seed=12)
@@ -2938,6 +2978,9 @@ def main():
     ap.add_argument("--query-only", action="store_true",
                     help="run phases 0, 1, 11 and Q1-Q3 alone and print K5's and K6's timings "
                          "and the launches (no result line)")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="run phases 0, 1, 11 and Q3 alone and print K5's and K6's timings "
+                         "(no result line)")
     ap.add_argument("--tiles-only", action="store_true",
                     help="run phases 0, 1, 11 and T1-T3 alone and print K7's timings and the "
                          "launches (no result line)")
@@ -2961,11 +3004,12 @@ def main():
         _build.build_all()
         print(json.dumps(merge_phases(args, card, {}, dev)))
         return 0
-    if args.query_only or args.tiles_only:
+    if args.query_only or args.kernels_only or args.tiles_only:
         _build.build_all()
         launches = {}
         kernels = spatial_phases(args, card, launches, dev, filters=False,
-                                 query=args.query_only, tiles=args.tiles_only)
+                                 query="kernels" if args.kernels_only else args.query_only,
+                                 tiles=args.tiles_only)
         print(json.dumps({**kernels, "launches": launches}))
         return 0
     if args.stream_only:

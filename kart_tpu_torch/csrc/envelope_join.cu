@@ -21,9 +21,14 @@
 //     build row) from its own offset, in build-row order: the pairs come out
 //     in row-major order, np.nonzero's.
 //
-// Bound: operations. B x T pair tests of ~12 instructions (6 f32 compares,
-// ~6 predicate ops and the count); the bytes (16 B a row) are negligible.
-// What held the one-thread-a-probe-row design to 44% of it: too few warps at
+// Bound: operations. B x T pair tests; the bytes (16 B a row) are
+// negligible. The reference's form is ~12 instructions a test (6 f32
+// compares, ~5 predicate ops, the count); with each row's wrap bit known the
+// least is 4 compares chained on their predicate and the count's add (lat &
+// a & b where neither row wraps, lat & (a | b) where one does, lat alone
+// with 2 compares where both do), which is the bound chip_smoke.py's
+// k5_bound counts from the inputs. What held the one-thread-a-probe-row
+// design to 44% of the 12-instruction count: too few warps at
 // the join's batch sizes (a 12,288-row batch was 96 blocks for 132 SMs), one
 // shared load for each test, and the build row's wrap bit recomputed by
 // every probe row. Design:

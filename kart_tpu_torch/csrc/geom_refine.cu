@@ -17,13 +17,16 @@
 //
 // Bound: operations. The reference's work is SA*SB segment tests (~58
 // integer instructions each) plus 2 * SA*SB ray crossings (~14) for a false
-// verdict. What held the one-warp-a-pair design to 30% of that: a 64-bit
-// division and modulo in every cell, eight global loads a cell, idle lanes
-// on short sides (a box is a closed 5-vertex ring, 5 segments: a box pair
-// kept 25 of 32 lanes busy in the segment term and 5 in each containment
-// term, each of those walking 5 segments serially), a static
-// grid-stride loop that left long pairs for the tail, and the whole matrix
-// walked for every false verdict. Design, two kernels a call:
+// verdict. This design culls most of it, so its bound is its own work (the
+// culls' compares on every cell and start they visit, the terms on what
+// survives: chip_smoke.py's k6_work, from the inputs), with the reference's
+// beside it. What held the one-warp-a-pair design to 30% of the reference's
+// work: a 64-bit division and modulo in every cell, eight global loads a
+// cell, idle lanes on short sides (a box is a closed 5-vertex ring, 5
+// segments: a box pair kept 25 of 32 lanes busy in the segment term and 5
+// in each containment term, each of those walking 5 segments serially), a
+// static grid-stride loop that left long pairs for the tail, and the whole
+// matrix walked for every false verdict. Design, two kernels a call:
 //   - short pairs (both sides at most kGroup segments: the point layer's
 //     boxes, a --bbox rectangle against them): kGroup lanes a pair, four
 //     pairs a warp, every segment in a register and passed round the group
@@ -51,6 +54,7 @@
 // the rings close, which the kernel does not assume.
 // Every term stops once some lane found a hit: the OR cannot change after.
 
+#include <atomic>
 #include <climits>
 
 #include "common.cuh"
@@ -465,6 +469,27 @@ geom_refine_long_kernel(Segs A, Segs B, const int64_t* __restrict__ ia,
   }
 }
 
+// Blocks of the long kernel resident on `device` at once (its SMs times the
+// blocks an SM holds), queried on a device's first call and kept. -> 0 and
+// `*out`, or the CUDA error.
+int long_blocks_resident(int device, int64_t* out) {
+  constexpr int kDevices = 64;
+  static std::atomic<int64_t> cache[kDevices];
+  if (device >= 0 && device < kDevices) {
+    *out = cache[device].load(std::memory_order_relaxed);
+    if (*out > 0) return 0;
+  }
+  int sms = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, geom_refine_long_kernel,
+                                                        kLongThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *out = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  if (device >= 0 && device < kDevices) cache[device].store(*out, std::memory_order_relaxed);
+  return 0;
+}
+
 }  // namespace
 
 // Each side: the flat segment table of a vertex column (x0, y0, x1, y1
@@ -494,12 +519,6 @@ extern "C" int kart_geom_refine(const void* ax0, const void* ay0,
     err = cudaMemsetAsync(counters, 0, 2 * sizeof(unsigned), st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, geom_refine_long_kernel,
-                                                        kLongThreads, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const Segs A{static_cast<const int*>(ax0), static_cast<const int*>(ay0),
                static_cast<const int*>(ax1), static_cast<const int*>(ay1),
                static_cast<const int64_t*>(a_offs),
@@ -514,7 +533,9 @@ extern "C" int kart_geom_refine(const void* ax0, const void* ay0,
       long_pairs, counters, static_cast<uint8_t*>(out));
   err = cudaGetLastError();
   if (err != cudaSuccess || !may_long) return static_cast<int>(err);
-  const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  int64_t resident = 0;
+  const int rc = long_blocks_resident(device, &resident);
+  if (rc != 0) return rc;
   const int64_t wanted = (n_pairs + kLongWarps - 1) / kLongWarps;
   const int64_t long_blocks = resident < wanted ? resident : wanted;
   geom_refine_long_kernel<<<static_cast<unsigned>(long_blocks), kLongThreads, 0, st>>>(

@@ -77,8 +77,7 @@ def envelope_join(build_env, probe_env, pairs=False):
     pair_probe = torch.empty(n_pairs, dtype=torch.int32, device=device)
     pair_build = torch.empty(n_pairs, dtype=torch.int32, device=device)
     if n_pairs:
-        wide = cells.to(torch.int64)
-        offs = torch.cumsum(wide, 0) - wide
+        offs = slice_offsets(cells)
         rc = lib.kart_envelope_join(build_env.data_ptr(), t, slice_rows, n_slices,
                                     probe_env.data_ptr(), b, None, None, cells.data_ptr(),
                                     offs.data_ptr(), pair_probe.data_ptr(),
@@ -99,6 +98,14 @@ def tile_slices(t, b, sms):
     want = ceil(BLOCKS_PER_SM * sms, max(ceil(b, BLOCK_ROWS), 1))
     slice_rows = min(MAX_SLICE, ceil(ceil(t, want), 32) * 32)
     return slice_rows, ceil(t, slice_rows)
+
+
+def slice_offsets(cells):
+    """The pairs pass's layout: int32 (B * slices,) per-(probe row, slice)
+    counts, row-major -> int64 their exclusive scan, where each (row,
+    slice) writes its pairs, so that they come out in row-major order."""
+    wide = cells.to(torch.int64)
+    return torch.cumsum(wide, 0) - wide
 
 
 def overlap_matrix(probe, build):

@@ -11,6 +11,8 @@ between calls with each feature's box beside it, so a call moves only the
 pair indices.
 """
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -32,15 +34,20 @@ SHORT_SEGMENTS = 8
 PLAIN_SLAB_ELEMENTS = 1 << 24
 
 
-class SegmentTable(tuple):
-    """A segment table (x0, y0, x1, y1, offs, kinds) with ``boxes``, int32
-    (N, 4): each feature's segments' box as (low x, high x, low y, high y),
-    (INT32_MAX, INT32_MIN, INT32_MAX, INT32_MIN) for a feature without
-    segments, which K6's exact culls read, and ``longest``, the most
-    segments a feature holds."""
+class SegmentTable(NamedTuple):
+    """A vertex column's flat segment table on one device, as K6 reads it."""
 
-    boxes = None
-    longest = None
+    x0: torch.Tensor  # int32 (S,) segment endpoints, feature by feature
+    y0: torch.Tensor
+    x1: torch.Tensor
+    y1: torch.Tensor
+    offs: torch.Tensor  # int64 (N+1,): feature i's segments are [offs[i], offs[i+1])
+    kinds: torch.Tensor  # uint8 (N,)
+    #: int32 (N, 4), each feature's segments' box (low x, high x, low y, high
+    #: y), (INT32_MAX, INT32_MIN, INT32_MAX, INT32_MIN) for a feature without
+    #: segments: what K6's exact culls read
+    boxes: torch.Tensor
+    longest: int  # the most segments a feature holds
 
 
 def feature_boxes(x0, y0, x1, y1, offs):
@@ -62,11 +69,9 @@ def segment_table(x0, y0, x1, y1, offs, kinds, device):
     """Host segment columns (x0, y0, x1, y1 int32 (S,), offs int64 (N+1,),
     kinds uint8 (N,)) -> a :class:`SegmentTable` on ``device``, with its
     feature boxes and longest feature."""
-    segs = SegmentTable(to_device(np.ascontiguousarray(a), device)
-                        for a in (x0, y0, x1, y1, offs, kinds))
-    segs.boxes = to_device(feature_boxes(x0, y0, x1, y1, offs), device)
-    segs.longest = int(np.diff(offs).max()) if len(offs) > 1 else 0
-    return segs
+    cols = (to_device(np.ascontiguousarray(a), device) for a in (x0, y0, x1, y1, offs, kinds))
+    return SegmentTable(*cols, to_device(feature_boxes(x0, y0, x1, y1, offs), device),
+                        int(np.diff(offs).max()) if len(offs) > 1 else 0)
 
 
 def resident_segments(col, device):
@@ -81,17 +86,18 @@ def resident_segments(col, device):
 
 
 def _check(segs, idx, device, what):
-    if len(segs) != 6 or any(t.device != device or not t.is_contiguous() for t in segs):
+    if not isinstance(segs, SegmentTable):
+        raise ValueError(f"geom_refine: {what} segments must be a SegmentTable "
+                         "(segment_table, resident_segments)")
+    tensors = segs[:-1]  # all but ``longest``, in K6's argument order
+    if any(t.device != device or not t.is_contiguous() for t in tensors):
         raise ValueError(f"geom_refine: {what} segments must be contiguous tensors on {device}")
-    if ([t.dtype for t in segs]
-            != [torch.int32] * 4 + [torch.int64, torch.uint8]):
-        raise ValueError(f"geom_refine: {what} segments must be int32 x4, int64 offs, uint8 kinds")
-    if device.type == "cuda":
-        boxes = getattr(segs, "boxes", None)
-        if (boxes is None or boxes.device != device or boxes.dtype != torch.int32
-                or boxes.shape != (segs[4].numel() - 1, 4) or not boxes.is_contiguous()):
-            raise ValueError(f"geom_refine: {what} segments need their feature boxes "
-                             "(segment_table, resident_segments)")
+    if ([t.dtype for t in tensors]
+            != [torch.int32] * 4 + [torch.int64, torch.uint8, torch.int32]):
+        raise ValueError(f"geom_refine: {what} segments must be int32 x4, int64 offs, uint8 "
+                         "kinds, int32 boxes")
+    if segs.boxes.shape != (segs.offs.numel() - 1, 4):
+        raise ValueError(f"geom_refine: {what} segments need one box a feature")
     if idx.dtype != torch.int64 or idx.dim() != 1 or not idx.is_contiguous():
         raise ValueError(f"geom_refine: {what} pair indices must be contiguous int64 (P,)")
 
@@ -121,8 +127,8 @@ def geom_refine(seg_a, ia, seg_b, ib):
     scratch = torch.empty(n + 2, dtype=torch.int32, device=device)
     lib = _build.load_library("geom_refine", device, _SIGNATURES)
     rc = lib.kart_geom_refine(
-        *(t.data_ptr() for t in seg_a), seg_a.boxes.data_ptr(),
-        *(t.data_ptr() for t in seg_b), seg_b.boxes.data_ptr(),
+        *(t.data_ptr() for t in seg_a[:-1]),
+        *(t.data_ptr() for t in seg_b[:-1]),
         ia.data_ptr(), ib.data_ptr(), n, out.data_ptr(), scratch.data_ptr(), int(may_long),
         device.index,
         _build.stream_ptr(device),
@@ -136,7 +142,7 @@ def _slabs(segs, idx):
     """Per pair, its feature's segments zero-padded to the longest:
     -> ([x0, y0, x1, y1] int64 (P, cap), counts int64 (P,), is polygon
     bool (P,))."""
-    x0, y0, x1, y1, offs, kinds = segs
+    x0, y0, x1, y1, offs, kinds = segs[:6]
     lo = offs[idx]
     counts = offs[idx + 1] - lo
     cap = max(int(counts.max()), 1) if counts.numel() else 1

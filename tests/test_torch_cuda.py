@@ -780,11 +780,22 @@ def test_geom_refine_kernel_regimes(cuda, kind):
 
 
 def test_geom_refine_kernel_on_cull_boundaries(cuda):
-    from torch_refine_cases import EXPECTED, all_pairs, cases_column, open_chain_tables
+    """The cases' pinned verdicts through both kernels: the short pairs and,
+    with a side of more than SHORT_SEGMENTS segments, the long kernel."""
+    from torch_refine_cases import EXPECTED, LONG, all_pairs, cases_column, open_chain_tables
 
-    from kart_tpu_torch.ops.geom_refine import geom_refine, geom_refine_plain, resident_segments
+    from kart_tpu_torch.ops.geom_refine import (
+        SHORT_SEGMENTS,
+        geom_refine,
+        geom_refine_plain,
+        resident_segments,
+    )
 
     col, names = cases_column()
+    sizes = np.diff(col.segment_table()[4])
+    long_names = set(LONG.values())
+    assert all(sizes[names.index(n)] > SHORT_SEGMENTS for n in long_names)
+    assert sum(bool({a, b} & long_names) for a, b in EXPECTED) * 2 > len(EXPECTED)
     ia, ib = (torch.from_numpy(v).to(cuda) for v in all_pairs(len(col)))
     seg = resident_segments(col, cuda)
     got = geom_refine(seg, ia, seg, ib)

@@ -154,7 +154,10 @@ def test_resident_segments_are_kept_on_the_column():
     col = synth_shapes(10, seed=1)
     first = resident_segments(col, CPU)
     assert resident_segments(col, CPU) is first
-    assert [t.dtype for t in first] == [torch.int32] * 4 + [torch.int64, torch.uint8]
+    assert first._fields[-2:] == ("boxes", "longest")
+    assert ([t.dtype for t in first[:7]]
+            == [torch.int32] * 4 + [torch.int64, torch.uint8, torch.int32])
+    assert first.longest == int(np.diff(col.segment_table()[4]).max())
 
 
 def test_refine_refuses_bad_input():
@@ -170,8 +173,11 @@ def test_refine_plain_matches_kart_tpu_on_cull_boundaries():
     """K6's culls are exact at their edges: boxes sharing an edge or a
     corner, collinear and zero-length segments, starts at another side's
     smallest and largest y and largest x, starts left of a polygon whose
-    ring does not repeat its first vertex, both ways round every pair."""
-    from torch_refine_cases import EXPECTED, all_pairs, cases_column
+    ring does not repeat its first vertex, both ways round every pair;
+    each pinned verdict again with a side long enough for the long kernel."""
+    from torch_refine_cases import EXPECTED, LONG, all_pairs, cases_column
+
+    from kart_tpu_torch.ops.geom_refine import SHORT_SEGMENTS
 
     col, names = cases_column()
     ia, ib = all_pairs(len(col))
@@ -181,6 +187,13 @@ def test_refine_plain_matches_kart_tpu_on_cull_boundaries():
     at = {name: i for i, name in enumerate(names)}
     for (a, b), verdict in EXPECTED.items():
         assert bool(got[at[a] * len(col) + at[b]]) is verdict, (a, b)
+    sizes = np.diff(col.segment_table()[4])
+    long_names = set(LONG.values())
+    short = [(a, b) for a, b in EXPECTED if not {a, b} & long_names]
+    for a, b in short:
+        twins = [(LONG.get(a), b), (a, LONG.get(b))]
+        assert any(t in EXPECTED and max(sizes[at[t[0]]], sizes[at[t[1]]]) > SHORT_SEGMENTS
+                   for t in twins), (a, b)
 
 
 def test_refine_plain_counts_an_unclosed_ring_as_kart_tpu_does():

@@ -620,10 +620,11 @@ def test_envelope_join_slices_cover_the_tile(t, b):
 @pytest.mark.parametrize("t,b", [(700, 9000), (1025, 300), (64, 1)])
 def test_envelope_join_slice_offsets_give_row_major_pairs(t, b):
     """The pairs pass's layout, on the host: each (probe row, slice) count,
-    their exclusive scan in row-major order as the wrapper takes it, and
-    each (row, slice) writing its pairs in build-row order from its offset,
-    give kart_tpu's np.nonzero order."""
-    from kart_tpu_torch.ops.envelope_join import tile_slices
+    the wrapper's exclusive scan of them (``slice_offsets``) on its slicing
+    (``tile_slices``), and each (row, slice) writing its pairs in build-row
+    order from its offset, give kart_tpu's np.nonzero order. The kernel's
+    own writes are held to the plain version by the ``cuda`` slice cases."""
+    from kart_tpu_torch.ops.envelope_join import slice_offsets, tile_slices
 
     build, probe = _join_envelopes(t + 7, t), _join_envelopes(b + 8, b)
     hit = jbackend._join_overlap_np(
@@ -631,8 +632,9 @@ def test_envelope_join_slice_offsets_give_row_major_pairs(t, b):
         build[:, 0], build[:, 1], build[:, 2], build[:, 3])
     rows, n = tile_slices(t, b, 132)
     cells = np.stack([hit[:, s * rows:(s + 1) * rows].sum(axis=1) for s in range(n)], axis=1)
-    wide = torch.from_numpy(cells.reshape(-1).astype(np.int64))
-    offs = (torch.cumsum(wide, 0) - wide).numpy().reshape(b, n)
+    offs = slice_offsets(torch.from_numpy(cells.reshape(-1).astype(np.int32)))
+    assert offs.dtype == torch.int64
+    offs = offs.numpy().reshape(b, n)
     total = int(cells.sum())
     pair_probe, pair_build = np.full(total, -1), np.full(total, -1)
     for row in range(b):
@@ -646,10 +648,15 @@ def test_envelope_join_slice_offsets_give_row_major_pairs(t, b):
 
 
 def test_envelope_join_wrap_branches_equal_kart_tpus_predicate():
-    """K5 branches on the build row's wrap bit: a wrapping build row meets
-    a probe row when lat & (a | b | pwrap), a plain one when lat & ((a & b)
-    | (pwrap & (a | b))), and with no wrap on either side lat & a & b: the
-    same verdicts as kart_tpu's predicate on rows that reach every branch."""
+    """An algebra check, of the forms K5 and its bound take (it runs no port
+    code: the kernel's branches are CUDA, held to the plain version by the
+    ``cuda`` cases). K5 branches on the build row's wrap bit: a wrapping
+    build row meets a probe row when lat & (a | b | pwrap), a plain one when
+    lat & ((a & b) | (pwrap & (a | b))), and with no wrap on either side
+    lat & a & b: the same verdicts as kart_tpu's predicate on rows that
+    reach every branch. Its bound counts four compares a test, two where
+    both rows wrap: with each row's wrap bit known, one wrapping side gives
+    lat & (a | b), both lat alone."""
     env = _join_envelopes(21, 3000)
     rng = np.random.default_rng(22)
     wrap = rng.random(3000) < 0.2
@@ -667,4 +674,8 @@ def test_envelope_join_wrap_branches_equal_kart_tpus_predicate():
     assert np.array_equal(got, want)
     neither = ~pwrap & ~bwrap
     assert np.array_equal(plain[neither], want[neither])
+    one = pwrap ^ bwrap
+    assert np.array_equal((lat & (a | b))[one], want[one])
+    both = pwrap & bwrap
+    assert np.array_equal(lat[both], want[both])
     assert (bwrap & pwrap & want).any() and ((bwrap ^ pwrap) & want).any()

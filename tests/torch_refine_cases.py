@@ -8,8 +8,15 @@ culls: segment boxes that share only an edge or a corner, collinear
 segments, points, starts exactly at another side's smallest and largest y
 and its largest x, starts left of a polygon whose vertex ring does not
 repeat its first vertex, a ring with a hole, a one-vertex polygon, and
-boxes that touch only at a corner or miss by one unit.
+boxes that touch only at a corner or miss by one unit. Each case that holds
+a boundary also has a long version, of more segments than K6's short
+kernel takes (``SHORT_SEGMENTS``), with the same verdicts: its sides cut
+into collinear pieces, a line drawn on collinearly away from what it meets,
+a point repeated. So every pinned verdict is checked through the long
+kernel's culls as well.
 """
+
+import math
 
 import numpy as np
 
@@ -82,6 +89,36 @@ def cases_column():
     return col, list(CASES)
 
 
+def _split(ring, pieces=10):
+    """The ring with each side cut into collinear pieces at lattice points:
+    the most of at most ``pieces`` that divide the side evenly (a side of
+    no length stays whole)."""
+    out = [ring[0]]
+    for (x0, y0), (x1, y1) in zip(ring, ring[1:]):
+        g = math.gcd(abs(x1 - x0), abs(y1 - y0))
+        n = max(d for d in range(1, pieces + 1) if g % d == 0) if g else 1
+        out += [(x0 + (x1 - x0) * i // n, y0 + (y1 - y0) * i // n) for i in range(1, n + 1)]
+    return out
+
+
+#: case -> its long version's name
+LONG = {name: f"{name}_long" for name in (
+    "line_diag", "line_collinear_touch", "flat_a", "point_same", "diamond", "square_open_ring",
+    "holed", "box_a", "box_corner", "box_one_unit_off", "box_edge", "box_inside", "box_around")}
+CASES.update({
+    # drawn on down y = x to (-9, -9), away from every case it meets
+    LONG["line_diag"]: (KIND_LINE, [[(i, i) for i in range(-9, 3)]]),
+    # drawn on up y = x to (13, 13)
+    LONG["line_collinear_touch"]: (KIND_LINE, [[(i, i) for i in range(2, 14)]]),
+    # drawn on left to (-6, 0)
+    LONG["flat_a"]: (KIND_LINE, [[(x, 0) for x in range(-6, 5)]]),
+    LONG["point_same"]: (KIND_POINT, [[(1, 1)]] * 10),
+    **{LONG[name]: (KIND_POLY, [_split(ring) for ring in CASES[name][1]])
+       for name in ("diamond", "square_open_ring", "holed", "box_a", "box_corner",
+                    "box_one_unit_off", "box_edge", "box_inside", "box_around")},
+})
+
+
 #: verdicts the cases pin down, whatever the route: (a, b) -> verdict
 EXPECTED = {
     ("line_diag", "line_box_edge_only"): False,
@@ -117,6 +154,9 @@ EXPECTED = {
     ("box_inside", "box_a"): True,
     ("box_a", "box_around"): True,
 }
+#: ... and the same verdicts with either side long, where it has a long version
+EXPECTED.update({pair: verdict for (a, b), verdict in list(EXPECTED.items())
+                 for pair in ((LONG.get(a), b), (a, LONG.get(b))) if None not in pair})
 
 
 def all_pairs(n):
