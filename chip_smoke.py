@@ -4,6 +4,7 @@ kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--rows 10000000] [--index-rows 1000000]
                           [--repo-rows 5000000] [--spatial-rows 2000000]
+                          [--index-repo-rows 400000]
                           [--merge-rows 2000000]
                           [--text-rows 5000000] [--text-merge-rows 500000] [--seed 0]
                           [--stream-rows 100000000] [--crossover-rows 1000000,...]
@@ -113,10 +114,29 @@ T2. the default layers (bin,geojson) on the same layer, whose blobs only
    and ``-o json-lines --crs EPSG:4277`` (OSGB 1936: a 7-parameter datum
    shift): two K2 and one K1 launch a card command, equal sha256 with
    ``--device cpu``, the features [12]'s json-lines wrote
+12b. three projected filters: an NZTM (EPSG:2193) polygon over New
+   Zealand, a Web Mercator (EPSG:3857) rectangle over Europe and a UTM 60S
+   (EPSG:32760) polygon whose EPSG:4326 envelope reaches past the
+   anti-meridian; under each, ``-o feature-count`` and ``-o json-lines`` on
+   the card (two K2 and one K1 launch a command, counts-only for
+   feature-count) and with ``--device cpu`` (equal sha256); then under
+   [12]'s rectangle ``-o json-lines --crs EPSG:2193`` and ``-o geojson --crs
+   EPSG:3857`` the same way, each output reprojected
 13. the same under a polygon filter with a hole (``-o json`` and ``quiet
    --exit-code``: equal sha256 and exit codes), and under a rect around one
    unedited feature (``quiet --exit-code`` exits 0, json-lines has no
    feature line)
+11i. (after [13]) a point layer with every blob real,
+   ``synth.synth_repo(spatial=True, blobs="real")`` at ``--index-repo-rows``:
+   ``kart spatial-filter index`` through the CLI (its line counts the
+   features; each row's point inside its decoded envelope; a second run
+   indexes 0), ``kart spatial-filter resolve -o json`` of [12b]'s three
+   filters, then ``blob_filter_for_spec`` with [12]'s rectangle and with the
+   NZTM polygon's wire argument over every feature blob of HEAD and HEAD^,
+   on the card (K3 once a filter, the second filter uploading nothing: the
+   index's columns stay resident) and with ``device="cpu"``: equal verdict
+   sha256, equal to K3's plain version on the card; K3 timed on the index's
+   envelopes beside its bound
 14. build a merge repository with the port's own code, oids only (no
    blob): ``synth.synth_repo(--merge-rows, edit_frac=0.5)`` gives the
    ancestor and ours (``main``, half the rows rewritten); branch
@@ -194,7 +214,8 @@ S4. ``columnar_equal`` (B12) on 8 x 10M int64 columns with null masks, on
    first and best of ``--crossover-reps``, and the streamed route at
    ``--stream-rows`` by ``--chunk-sweep`` chunk rows
 22. each group of phases' host wall (S1-S4 first, [1-6] the build, the data
-   and phases 3-6), the ``kernels`` JSON line (K1-K7, each
+   and phases 3-6; [12b] and [11i] on their own), the ``kernels`` JSON line
+   (K1-K7, K3's figures on [11i]'s index in ``index_envelopes``, each
    kernel's ``launches`` is the sum of ``launches_by_phase``: every launch
    of the main path's runs, the cProfile runs included, and none of the
    comparisons with the plain versions), the card line, and the result
@@ -303,9 +324,10 @@ from kart_tpu_torch.ops.merge_kernel import (
 from kart_tpu_torch.spatial_filter import (
     PREPASS_PAD,
     ResolvedSpatialFilterSpec,
+    blob_filter_for_spec,
     envelope_prepass,
 )
-from kart_tpu_torch.spatial_filter.index import DB_NAME, EnvelopeIndexReader
+from kart_tpu_torch.spatial_filter.index import DB_NAME, EnvelopeIndexReader, db_path
 from kart_tpu_torch.query.join import (
     TILE_ROWS,
     _alive_ranges,
@@ -342,6 +364,19 @@ PREPASS_WSEN = "-30.3,-20.7,60.1,40.9"
 FILTER_RECT = "EPSG:4326;POLYGON((-60 -30,60 -30,60 30,-60 30,-60 -30))"
 FILTER_POLY = ("EPSG:4326;POLYGON((-60 -40,0 -50,60 -40,40 40,-40 40,-60 -40),"
                "(-10 -10,10 -10,10 10,-10 10,-10 -10))")
+
+
+#: [12b]'s projected filters: an NZTM polygon over New Zealand, a Web
+#: Mercator rectangle over Europe, and a UTM 60S polygon whose EPSG:4326
+#: envelope reaches past the anti-meridian
+FILTERS_PROJECTED = {
+    "nztm": "EPSG:2193;POLYGON((1090000 4740000,2100000 4740000,2100000 6200000,"
+            "1600000 6250000,1090000 6200000,1090000 4740000))",
+    "webmerc": "EPSG:3857;POLYGON((-1113195 4163881,3339585 4163881,3339585 8399738,"
+               "-1113195 8399738,-1113195 4163881))",
+    "utm60s": "EPSG:32760;POLYGON((600000 5500000,900000 5500000,900000 7500000,"
+              "600000 7500000,600000 5500000))",
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -597,29 +632,30 @@ def kart_cli(*argv, rc_want=0):
 
 
 def counted(label, fn, launches, want=1, want_k2=0, want_k4=0, want_k5=0, want_k6=0,
-            want_k7=0):
+            want_k7=0, want_k3=0):
     """Run ``fn`` with the launch counters zeroed before and read after;
     fail unless K1 launched exactly ``want`` times (once for each dataset
     the columnar route classifies), K2 ``want_k2`` times, K4 ``want_k4``
-    times, K5 ``want_k5`` times, K6 ``want_k6`` times and K7 ``want_k7``
-    times (``SOME``: at least once), and no hash-keyed dataset took the
-    host path for colliding keys (``hash_collision_fallbacks`` 0), and add
-    the launches read to ``launches[label]`` ([K1, K2, K4, K5, K6, K7]).
+    times, K5 ``want_k5`` times, K6 ``want_k6`` times, K7 ``want_k7`` times
+    and K3 ``want_k3`` times (``SOME``: at least once), and no hash-keyed
+    dataset took the host path for colliding keys
+    (``hash_collision_fallbacks`` 0), and add the launches read to
+    ``launches[label]`` ([K1, K2, K4, K5, K6, K7, K3]).
     -> (fn's result, the counters read)."""
     runtime.reset_stats()
     out = fn()
     stats = runtime.stats_snapshot()
     got = [stats["classify_launches"], stats["envelope_scan_launches"],
            stats["merge_classify_launches"], stats["envelope_join_launches"],
-           stats["geom_refine_launches"], stats["merc_launches"]]
-    for name, n, w in zip(("K1", "K2", "K4", "K5", "K6", "K7"), got,
-                          (want, want_k2, want_k4, want_k5, want_k6, want_k7)):
+           stats["geom_refine_launches"], stats["merc_launches"], stats["bbox_launches"]]
+    for name, n, w in zip(("K1", "K2", "K4", "K5", "K6", "K7", "K3"), got,
+                          (want, want_k2, want_k4, want_k5, want_k6, want_k7, want_k3)):
         check(n >= 1 if w is SOME else n == w,
               f"{name} launched {n} times in phase {label}, expected "
               f"{'at least 1' if w is SOME else w}")
     check(stats["hash_collision_fallbacks"] == 0,
           f"phase {label} took the host path for colliding hash keys")
-    total = launches.setdefault(label, [0] * 6)
+    total = launches.setdefault(label, [0] * 7)
     for i, n in enumerate(got):
         total[i] += n
     return out, stats
@@ -1009,6 +1045,56 @@ def spatial_phases(args, card, launches, dev, filters=True, query=True, tiles=Tr
                   f"card {w_card:.4f} s, cpu {w_cpu:.4f} s host wall; K1 1, K2 2 on {card}")
         print(f"[12a] phase host wall {time.perf_counter() - t:.4f} s on {card}")
 
+        # [12b] projected filters, and projected --crs targets under the rectangle
+        t = time.perf_counter()
+        for name, spec_text in FILTERS_PROJECTED.items():
+            set_filter(repo, spec_text)
+            out = os.path.join(tmp, f"{name}-count")
+            w_count, w_count_cpu, _, survivors = card_and_cpu(
+                "12b", [*spec, "-o", "feature-count", "HEAD^...HEAD"], out, launches,
+                counts_only=True)
+            with open(f"{out}.card") as f:
+                text = f.read()
+            n_count = int(text.split("\t")[1].split()[0]) if text.strip() else 0
+            check(0 < n_count < n_edits, f"[12b] {name} feature-count said {text!r}")
+            out = os.path.join(tmp, f"{name}.jsonl")
+            w_card, w_cpu, digest, _ = card_and_cpu(
+                "12b", [*spec, "-o", "json-lines", "HEAD^...HEAD"], out, launches)
+            with open(f"{out}.card") as f:
+                n = sum('"type":"feature"' in line for line in f)
+            check(0 < n <= n_count, f"[12b] {name} json-lines has {n} feature lines")
+            wsen = ResolvedSpatialFilterSpec.from_spec_string(spec_text).envelope_wsen_4326
+            if name == "utm60s":
+                check(wsen[2] > 180, f"[12b] the UTM 60S filter's envelope {wsen} stops short "
+                                     "of the anti-meridian")
+            print(f"[12b] {name} filter (EPSG:4326 envelope {tuple(round(v, 4) for v in wsen)}), "
+                  f"survivors (old, new) {survivors}: feature-count {n_count} (card "
+                  f"{w_count:.4f} s, cpu {w_count_cpu:.4f} s host wall, K1 1 counts-only, K2 2), "
+                  f"json-lines {n} features, sha256 {digest} on both (card {w_card:.4f} s, cpu "
+                  f"{w_cpu:.4f} s host wall, K1 1, K2 2) on {card}")
+        set_filter(repo, FILTER_RECT)
+        for name, argv in (("jsonl-2193", ["-o", "json-lines", "--crs", "EPSG:2193"]),
+                           ("geojson-3857", ["-o", "geojson", "--crs", "EPSG:3857"])):
+            out = os.path.join(tmp, f"rect-{name}")
+            w_card, w_cpu, digest, _ = card_and_cpu("12b", [*spec, *argv, "HEAD^...HEAD"], out,
+                                                    launches)
+            with open(f"{out}.card") as f:
+                body = f.read()
+            if name.startswith("geojson"):
+                feats = json.loads(body)["features"]
+                n = len(feats) // 2
+                check(any(abs(c) > 180 for f in feats if f["geometry"]
+                          for c in f["geometry"]["coordinates"]),
+                      "--crs EPSG:3857 left the GeoJSON in degrees")
+            else:
+                n = body.count('"type":"feature"')
+                check(digest != plain_jsonl, "--crs EPSG:2193 left the json-lines as they were")
+            check(n == n_lines, f"[12b] rect filter {name} has {n} features, json-lines {n_lines}")
+            print(f"[12b] rect filter {' '.join(argv)}: {n} features, sha256 {digest} on both; "
+                  f"card {w_card:.4f} s, cpu {w_cpu:.4f} s host wall; K1 1, K2 2 on {card}")
+        kernels["walls"] = {"12b": time.perf_counter() - t}
+        print(f"[12b] phase host wall {kernels['walls']['12b']:.4f} s on {card}")
+
         # [13] the polygon with a hole
         set_filter(repo, FILTER_POLY)
         js_out = os.path.join(tmp, "poly.json")
@@ -1048,6 +1134,143 @@ def spatial_phases(args, card, launches, dev, filters=True, query=True, tiles=Tr
               f"{w_cpu:.4f} s host wall), json-lines the version line only (card "
               f"{w2_card:.4f} s, cpu {w2_cpu:.4f} s); K1 1, K2 2 a command on {card}")
     return kernels
+
+
+# --- the envelope index and the blob filter on a layer of real blobs (K3) -----
+
+#: [11i]'s blob filters: [12]'s rectangle as w,s,e,n, then the NZTM polygon's
+#: wire argument
+BLOB_FILTER_RECT = "-60,-30,60,30"
+
+
+def _cli_stdout(label, launches, *argv):
+    """One counted CLI command that launches no kernel. -> (wall s, stdout)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        wall = counted(label, lambda: kart_cli(*argv), launches, want=0)[0]
+    return wall, buf.getvalue()
+
+
+def _verdicts(blob_filter, pairs):
+    """The filter's verdict on every (path, oid) as bytes. -> (bytes, wall s)."""
+    t = time.perf_counter()
+    out = bytes(bytearray(blob_filter(p, o) for p, o in pairs))
+    return out, time.perf_counter() - t
+
+
+def index_phases(args, card, launches, dev):
+    """Phase 11i: ``synth_repo(spatial=True, blobs="real")`` at
+    ``--index-repo-rows``, ``kart spatial-filter index`` (twice) and
+    ``resolve`` through the CLI, then ``blob_filter_for_spec`` on the card
+    (one K3 launch a filter, the second filter's columns resident) and with
+    ``device="cpu"`` over every feature blob of HEAD and HEAD^, its
+    verdicts held to K3's plain version on the card. -> K3's figures on
+    the index's envelopes, and the phase's host wall."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="kart_smoke_index_") as tmp:
+        t = time.perf_counter()
+        repo, info = synth_repo(os.path.join(tmp, "repo"), args.index_repo_rows, seed=args.seed,
+                                blobs="real", spatial=True)
+        build_s = time.perf_counter() - t
+        n, n_edits, path = info["n"], info["n_edits"], repo.workdir
+        index_s, line = _cli_stdout("11i", launches, "-C", path, "spatial-filter", "index")
+        m = re.fullmatch(r"Indexed (\d+) feature envelopes over (\d+) new commits\n", line)
+        check(m is not None and int(m[2]) == 2 and int(m[1]) >= n + n_edits,
+              f"[11i] spatial-filter index said {line!r}")
+        again_s, line2 = _cli_stdout("11i", launches, "-C", path, "spatial-filter", "index")
+        check(line2 == "Indexed 0 feature envelopes over 0 new commits\n",
+              f"[11i] the second index run said {line2!r}")
+        with EnvelopeIndexReader.open(repo.gitdir) as reader:
+            oids, wsen = reader.all_envelopes()
+        check(len(oids) == n + n_edits, f"[11i] the index holds {len(oids)} rows, "
+                                        f"expected {n + n_edits}")
+        row = {o: i for i, o in enumerate(oids)}
+        pairs, checked = [], 0
+        for rev in ("HEAD^", "HEAD"):
+            ds = repo.structure(rev).datasets["synth"]
+            paths, pks, blob_oids = ds.feature_index()
+            hexes = blob_oids.tobytes().hex()
+            rev_oids = [hexes[40 * i: 40 * i + 40] for i in range(len(paths))]
+            pairs += [(f"synth/.table-dataset/feature/{p}", o) for p, o in zip(paths, rev_oids)]
+            block = load_block(repo, ds, pad=False)
+            env = np.asarray(block.envelopes).astype(np.float64)
+            # each row's blob is the point at its sidecar envelope's south-west
+            # corner: the decoded envelope must hold it
+            idx = np.asarray([row[o] for o in rev_oids])
+            by_key = np.searchsorted(np.asarray(block.keys[: block.count]), pks)
+            x, y = env[by_key, 0], env[by_key, 1]
+            got = wsen[idx]
+            check(bool(((got[:, 0] <= x) & (x <= got[:, 2]) & (got[:, 1] <= y)
+                        & (y <= got[:, 3])).all()),
+                  f"[11i] an indexed envelope of {rev} misses its row's point")
+            checked += len(idx)
+        print(f"[11i] real-blob layer: {n} point features, {n_edits} edited, built in "
+              f"{build_s:.2f} s; spatial-filter index {line.strip()!r} in {index_s:.2f} s host "
+              f"wall, again {line2.strip()!r} in {again_s:.4f} s; {len(oids)} index rows, "
+              f"{checked} rows' points inside their decoded envelopes on {card}")
+
+        for name in FILTERS_PROJECTED:
+            spec_text = FILTERS_PROJECTED[name]
+            wall, out = _cli_stdout("11i", launches, "-C", path, "spatial-filter", "resolve",
+                                    "-o", "json", spec_text)
+            doc = json.loads(out)["kart.spatialfilter/v1"]
+            w, s_, e, n_ = ResolvedSpatialFilterSpec.from_spec_string(spec_text).envelope_wsen_4326
+            check(doc["crs"] == spec_text.split(";")[0]
+                  and doc["envelope4326"] == {"w": w, "s": s_, "e": e, "n": n_},
+                  f"[11i] resolve {name} printed {doc}")
+            print(f"[11i] spatial-filter resolve -o json {name}: envelope4326 "
+                  f"{doc['envelope4326']} in {wall:.4f} s host wall on {card}")
+
+        q_args = [BLOB_FILTER_RECT, ResolvedSpatialFilterSpec.from_spec_string(
+            FILTERS_PROJECTED["nztm"]).filter_arg]
+        padded = [torch.from_numpy(c).to(dev) for c in bbox_ops.pad_envelopes(wsen)[:4]]
+        uploads = []
+        for arg in q_args:
+            t = time.perf_counter()
+            bf, stats = counted("11i", lambda arg=arg: blob_filter_for_spec(repo, arg), launches,
+                                want=0, want_k3=1)
+            make_s = time.perf_counter() - t
+            uploads.append(stats["bbox_uploads"])
+            card_v, card_s = _verdicts(bf, pairs)
+            cpu_v, cpu_s = _verdicts(blob_filter_for_spec(repo, arg, device="cpu"), pairs)
+            check(card_v == cpu_v, f"[11i] blob filter {arg}: card and cpu verdicts differ")
+            w, s_, e, n_ = (float(v) for v in arg.split(","))
+            q = (w - PREPASS_PAD, s_ - PREPASS_PAD, e + PREPASS_PAD, n_ + PREPASS_PAD)
+            plain = bbox_ops.bbox_cyclic_plain(*padded, q)[: len(oids)].cpu().numpy()
+            want = bytes(bytearray(bool(plain[row[o]]) for _, o in pairs))
+            check(card_v == want, f"[11i] blob filter {arg}: verdicts differ from K3's plain "
+                                  "version")
+            kept = sum(card_v)
+            check(0 < kept < len(pairs), f"[11i] blob filter {arg} kept {kept} of {len(pairs)}")
+            print(f"[11i] blob_filter_for_spec {arg}: {kept} of {len(pairs)} feature blobs "
+                  f"kept, verdict sha256 {hashlib.sha256(card_v).hexdigest()} on the card, the "
+                  f"cpu and K3's plain version; filter built in {make_s:.4f} s (K3 1, "
+                  f"{stats['bbox_uploads']} upload), verdicts {card_s:.2f} s card / "
+                  f"{cpu_s:.2f} s cpu host wall on {card}")
+        check(uploads == [1, 0], f"[11i] the blob filters uploaded {uploads} times, "
+                                 "expected [1, 0] (the second resident)")
+
+        # K3 alone on the index's envelopes
+        key = ("envidx", db_path(repo.gitdir), os.stat(db_path(repo.gitdir)).st_mtime_ns)
+        w, s_, e, n_, cnt = bbox_ops._resident_columns(key, wsen, dev)
+        query = [float(v) for v in BLOB_FILTER_RECT.split(",")]
+        b = bound(cnt * 16 + w.numel(), cnt * 16)
+        per, fenced = device_times(lambda: bbox_ops.bbox_cyclic(w, s_, e, n_, query, cnt),
+                                   ("bbox_kernel",))
+        k3_index = {
+            "rows": cnt,
+            "ms": time_ms(lambda: bbox_ops.bbox_cyclic(w, s_, e, n_, query, cnt)),
+            "device_ms": total_ms(per), "fenced_ms": fenced,
+            "plain_ms": time_ms(lambda: bbox_ops.bbox_cyclic_plain(w, s_, e, n_, query),
+                                batches=3, per_batch=3),
+            "bound_ms": b[0], "bound_by": b[1],
+        }
+        print(f"[11i] K3 on the index's {cnt} envelopes: {k3_index['ms']:.4f} ms, device "
+              f"{fmt_ms(k3_index['device_ms'])}, fenced {fenced:.4f} ms (plain "
+              f"{k3_index['plain_ms']:.4f} ms, bound {b[0]:.4f} ms by {b[1]}) on {card}")
+    wall = time.perf_counter() - t_phase
+    print(f"[11i] phase host wall {wall:.2f} s on {card}")
+    return k3_index, wall
 
 
 # --- kart query on the point layer: scans, the time-travel join, K5 and K6 ----
@@ -2957,6 +3180,10 @@ def main():
     # phases need the time within the script's limit
     ap.add_argument("--repo-rows", type=int, default=5_000_000)
     ap.add_argument("--spatial-rows", type=int, default=2_000_000)
+    # [11i]'s layer of real blobs, cut from [11]'s 2M rows: the index decodes
+    # every blob on the host (70 s at 500,000 rows on the card's host), and
+    # [11i] with [12b] must stay within 100 s of the script's time limit
+    ap.add_argument("--index-repo-rows", type=int, default=400_000)
     ap.add_argument("--merge-rows", type=int, default=2_000_000)
     # the hash-keyed repos below config #2's 10M rows and [14]'s 2M: at 10M and
     # 1M the phases before S1 alone took 1154 s of the 1,200 s on a slow host
@@ -3230,7 +3457,8 @@ def main():
     tmp.cleanup()
 
     # every card command of phases 8-21 is counted, its cProfile runs too
-    cli_launches = {"3-5": [k1["launches"], kernels[1]["launches"], 0, 0, 0, 0]}
+    cli_launches = {"3-5": [k1["launches"], kernels[1]["launches"], 0, 0, 0, 0,
+                            kernels[2]["launches"]]}
     walls, s_walls = {"1-6": time.perf_counter() - t_start}, {}
     t = time.perf_counter()
     k1["estimation"] = cli_phases(args, card, cli_launches, s_walls)
@@ -3238,7 +3466,9 @@ def main():
     t = time.perf_counter()
     spatial = spatial_phases(args, card, cli_launches, dev)
     k5, k6, k7 = spatial["k5"], spatial["k6"], spatial["k7"]
-    walls["11-13, Q1-Q3, T1-T3"] = time.perf_counter() - t
+    walls["11-13, Q1-Q3, T1-T3"] = time.perf_counter() - t - spatial["walls"]["12b"]
+    walls["12b"] = spatial["walls"]["12b"]
+    kernels[2]["index_envelopes"], walls["11i"] = index_phases(args, card, cli_launches, dev)
     t = time.perf_counter()
     s3_diff = s_walls["S3"]
     k4 = merge_phases(args, card, cli_launches, dev, s_walls)
@@ -3268,7 +3498,8 @@ def main():
         "checked": True,
     })
     kernels += [k5, k6, k7]
-    for k, i in ((k1, 0), (kernels[1], 1), (kernels[3], 2), (k5, 3), (k6, 4), (k7, 5)):
+    for k, i in ((k1, 0), (kernels[1], 1), (kernels[3], 2), (k5, 3), (k6, 4), (k7, 5),
+                 (kernels[2], 6)):
         k["launches_by_phase"] = {p: n[i] for p, n in cli_launches.items() if n[i]}
         k["launches"] = sum(k["launches_by_phase"].values())
 

@@ -3,7 +3,8 @@
     python -m kart_tpu_torch [-C PATH] [--device DEVICE] COMMAND [options] [ARGS...]
 
 with the commands ``diff``, ``show``, ``create-patch``, ``merge``,
-``conflicts``, ``resolve``, ``query`` and ``export tiles``. Global options come before the command, as
+``conflicts``, ``resolve``, ``query``, ``export tiles`` and ``spatial-filter
+index|resolve``. Global options come before the command, as
 in kart_tpu's CLI: ``-C PATH`` runs as if started in PATH, and ``--device``
 picks where the kernels run (default: the card, ``cuda:0``; ``cpu`` runs
 their plain PyTorch versions). Without a card and without ``--device cpu``
@@ -32,10 +33,11 @@ NOT_FOUND = 40
 
 def build_cli():
     """-> the top-level :class:`~.parser.Group` of the ported commands."""
-    from kart_tpu_torch.cli import diff_cmds, merge_cmds, query_cmds, tile_cmds
+    from kart_tpu_torch.cli import diff_cmds, merge_cmds, query_cmds, spatial_cmds, tile_cmds
 
     commands = {cmd.name: cmd for cmd in (*diff_cmds.commands(), *merge_cmds.commands(),
-                                          *query_cmds.commands(), *tile_cmds.commands())}
+                                          *query_cmds.commands(), *tile_cmds.commands(),
+                                          *spatial_cmds.commands())}
     return Group(
         "kart",
         [

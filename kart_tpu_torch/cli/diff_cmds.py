@@ -3,7 +3,7 @@
 Counterpart of kart_tpu's ``cli/diff_cmds.py`` ``diff``, ``show`` and
 ``create-patch`` commands, with their option names, defaults and messages:
 every output format (text by default, json, json-lines, geojson, html,
-quiet, feature-count), ``--crs`` (geographic targets), ``--exit-code`` and
+quiet, feature-count), ``--crs`` (any CRS, geographic or projected), ``--exit-code`` and
 ``--only-feature-count`` (the sampled estimate, one counts-only K1 launch
 a dataset on the card). ``kart log`` and ``kart apply`` are not ported.
 """

@@ -5,9 +5,9 @@ defaults, messages and exit codes (a refused operation prints ``Error:
 <message>`` and exits 2). ``merge`` runs one classify a dataset on the
 card (``--device cpu``: the plain version). ``conflicts`` writes text
 (features as ``feature_as_text`` blocks, or the ``-s``/``-ss``
-summaries), json and geojson, reprojected by ``--crs``; ``resolve`` takes
-a version (``--with``) or the features of a GeoJSON file (``--with-file``).
-A projected ``--crs`` target exits 30 before anything is written.
+summaries), json and geojson, reprojected by ``--crs`` to any CRS of the
+transform engine, geographic or projected; ``resolve`` takes a version
+(``--with``) or the features of a GeoJSON file (``--with-file``).
 """
 
 import json

@@ -181,8 +181,11 @@ class Command:
         rows.append(("--help", "Show this message and exit."))
         lines += ["Options:", *_definitions(rows)]
         if self.subcommands:
-            lines += ["", "Commands:",
-                      *_definitions([(n, c.help) for n, c in self.subcommands.items()])]
+            # click's limit at a formatter width of 80 (its test runner's):
+            # the width less 6, less the longest name
+            limit = 74 - max(len(n) for n in self.subcommands)
+            lines += ["", "Commands:", *_definitions(
+                [(n, _short_help(c.help, limit)) for n, c in self.subcommands.items()])]
         return "\n".join(lines)
 
     def parse(self, argv, interspersed=True):
@@ -300,6 +303,31 @@ class Command:
             opts[option.dest] = name not in option.secondary
         else:
             opts[option.dest] = value
+
+
+def _short_help(text, limit):
+    """click's one-line form of a help text in a group's command list: up
+    to the first sentence's end, else whole words within ``limit`` and
+    "..." where words were cut."""
+    words = text.split()
+    total = 0
+    for i, word in enumerate(words):
+        total += len(word) + (i > 0)
+        if total > limit:
+            break
+        if word[-1] == ".":
+            return " ".join(words[: i + 1])
+        if total == limit and i != len(words) - 1:
+            break
+    else:
+        return " ".join(words)
+    total += len("...")
+    while i > 0:
+        total -= len(words[i]) + (i > 0)
+        if total <= limit:
+            break
+        i -= 1
+    return " ".join(words[:i]) + "..."
 
 
 def _definitions(rows, col_max=30):

@@ -3,7 +3,7 @@ them (``refs/heads/<name>`` files of 40-hex + newline, ``packed-refs``,
 a ``HEAD`` symref, an INI-with-subsections ``config``).
 
 Counterpart of kart_tpu's ``core/refs.py``: ``RefStore`` (loose and packed
-refs, HEAD, symbolic refs, writes with their reflog line) and ``Config``
+refs, their listing, HEAD, symbolic refs, writes with their reflog line) and ``Config``
 (read, ``set_many``). Reflog reading and the directory/file conflict
 check are not ported.
 """
@@ -92,6 +92,26 @@ class RefStore:
             kind, target = self.head_target()
             if kind == "symbolic" and target == ref:
                 self._append_reflog("HEAD", old, oid, log_message)
+
+    def iter_refs(self, prefix="refs/"):
+        """Yield (ref_name, oid) under ``prefix``, sorted; loose refs shadow
+        packed ones of the same name, and write debris is skipped."""
+        combined = {ref: oid for ref, oid in self._packed_refs().items()
+                    if ref.startswith(prefix)}
+        base = self._ref_path(prefix.rstrip("/"))
+        if os.path.isdir(base):
+            for dirpath, dirnames, filenames in sorted(os.walk(base)):
+                dirnames.sort()
+                for fn in sorted(filenames):
+                    if re.search(r"\.(lock|tmp)\d*$", fn):
+                        continue
+                    full = os.path.join(dirpath, fn)
+                    rel = os.path.relpath(full, self.gitdir).replace(os.sep, "/")
+                    with open(full) as f:
+                        value = f.read().strip()
+                    if value and not value.startswith("ref: "):
+                        combined[rel] = value
+        yield from sorted(combined.items())
 
     def head_target(self):
         """-> ('symbolic', refname) or ('direct', oid) or (None, None)."""

@@ -330,6 +330,27 @@ class KartRepo:
                 push(p)
         return None
 
+    def topo_commits(self, start_oids):
+        """Every commit reachable from ``start_oids``, parents before
+        children."""
+        order, visited = [], set()
+        stack = [(oid, False) for oid in start_oids]
+        while stack:
+            oid, processed = stack.pop()
+            if processed:
+                order.append(oid)
+                continue
+            if oid in visited:
+                continue
+            try:
+                parents = self.odb.read_commit(oid).parents
+            except ObjectMissing:
+                continue  # shallow-clone boundary
+            visited.add(oid)
+            stack.append((oid, True))
+            stack.extend((p, False) for p in parents)
+        return order
+
     def _ancestor_set(self, oid):
         out, stack = set(), [oid]
         while stack:

@@ -59,11 +59,16 @@ def prefilter_rect(wsen):
 
 
 def _prefilter_rect(spatial_filter_spec):
-    """The padded prefilter rect of an active spatial filter spec, or
-    None."""
+    """The padded prefilter rect of an active spatial filter spec, or None
+    (also when its CRS cannot be moved to EPSG:4326: the filter then
+    fails open, as in kart_tpu)."""
     if spatial_filter_spec is None or spatial_filter_spec.match_all:
         return None
-    return prefilter_rect(spatial_filter_spec.envelope_wsen_4326)
+    try:
+        wsen = spatial_filter_spec.envelope_wsen_4326
+    except Exception:  # kart_tpu's policy: an unresolvable filter CRS fails open
+        return None
+    return prefilter_rect(wsen)
 
 
 def spatial_prefilter_blocks(old_block, new_block, rect_wsen, device=None):

@@ -34,8 +34,9 @@ class ExtendedJsonEncoder(json.JSONEncoder):
 
 def geometry_transform_for_dataset(ds, target_crs):
     """Transform from a dataset's first CRS to ``target_crs``, or None when
-    there is no target or the dataset declares no CRS. A target (or a
-    dataset CRS) the port cannot transform raises here, before any output."""
+    there is no target or the dataset declares no CRS. A target that does
+    not resolve raises here, before any output; a projection the engine
+    lacks raises when the first geometry is transformed, as in kart_tpu."""
     if target_crs is None or ds is None:
         return None
     ids = ds.crs_identifiers()

@@ -12,14 +12,15 @@ locally. Counterpart of the client half of kart_tpu's
 ``spatial_filter/__init__.py`` (``MatchResult``,
 ``ResolvedSpatialFilterSpec``, ``SpatialFilter`` and the polygon helpers),
 numpy f64 in kart_tpu's operation order so that the verdicts are the same
-bits. Only geographic CRSes are ported: a filter or dataset CRS that would
-need a projection raises ``NotYetImplemented`` before the transform's
-fail-open ``try``, so no diff passes unfiltered for want of a projection.
+bits. Filter and dataset CRSes may be geographic or projected: a filter
+that cannot be transformed into a dataset's CRS (a projection the engine
+lacks) is logged and not applied to that dataset, as in kart_tpu.
 
-Server side: the pre-pass of spatially filtered clones, one batch bbox
-test of every indexed feature envelope against the filter rect (K3), the
-batch half of kart_tpu's ``blob_filter_for_spec``. The per-blob filter and
-its on-the-fly envelope decoder are not ported.
+Server side: :func:`blob_filter_for_spec`, the blob filter of a spatially
+filtered clone. Its pre-pass is one batch bbox test of every indexed
+feature envelope against the filter rect (K3, :func:`envelope_prepass`);
+a blob the index lacks is decoded and its envelope moved to EPSG:4326
+(:class:`_DatasetEnvelopeDecoder`).
 """
 
 import logging
@@ -29,12 +30,13 @@ from enum import Enum
 import numpy as np
 
 from kart_tpu_torch.core.odb import ObjectPromised
-from kart_tpu_torch.core.repo import KartConfigKeys, NotYetImplemented
+from kart_tpu_torch.core.repo import KartConfigKeys
+from kart_tpu_torch.core.serialise import msg_unpack
 from kart_tpu_torch.crs import CRS, Transform, make_crs
 from kart_tpu_torch.geometry import MULTIPOLYGON, POLYGON, Geometry, parse_wkb
 from kart_tpu_torch.ops.bbox import bbox_intersects
 from kart_tpu_torch.runtime import resolve_device
-from kart_tpu_torch.spatial_filter.index import EnvelopeIndexReader, db_path
+from kart_tpu_torch.spatial_filter.index import EnvelopeIndexReader, db_path, wrap_lon
 
 L = logging.getLogger("kart_tpu_torch.spatial_filter")
 
@@ -87,10 +89,6 @@ class ResolvedSpatialFilterSpec:
             return
         self.crs_spec = crs_spec
         self.crs = make_crs(crs_spec)
-        if not self.crs.is_geographic:
-            raise NotYetImplemented(
-                f"spatial filter CRS {crs_spec!r} is projected; projections are not ported yet"
-            )
         if isinstance(geometry, Geometry):
             self.geometry = geometry
         else:
@@ -131,10 +129,18 @@ class ResolvedSpatialFilterSpec:
 
     @property
     def envelope_wsen_4326(self):
-        """(w, s, e, n) in EPSG:4326, the form the envelope prefilter
-        takes."""
-        x0, x1, y0, y1 = self.envelope_native  # a geographic CRS: no transform
+        """(w, s, e, n) in EPSG:4326, the form the envelope prefilter, the
+        envelope index and the wire filter argument take."""
+        env = self.envelope_native
+        if not self.crs.is_geographic:
+            env = Transform(self.crs, make_crs(EPSG_4326_WKT)).transform_envelope(env)
+        x0, x1, y0, y1 = env
         return (x0, y0, x1, y1)
+
+    @property
+    def filter_arg(self):
+        """The ``extension:spatial=`` argument: ``w,s,e,n`` in EPSG:4326."""
+        return ",".join(f"{v:.7f}" for v in self.envelope_wsen_4326)
 
     def config_items(self):
         return {
@@ -179,10 +185,8 @@ class SpatialFilter:
         if ds_crs_wkt:
             ds_crs = CRS(ds_crs_wkt)
             if ds_crs != spec.crs:
-                # raises NotYetImplemented for what is not ported, outside
-                # the fail-open try below
-                t = Transform(spec.crs, ds_crs)
                 try:
+                    t = Transform(spec.crs, ds_crs)
                     x0, x1, y0, y1 = t.transform_envelope((x0, x1, y0, y1))
                     if parts is not None:
                         parts = [
@@ -504,3 +508,92 @@ def envelope_prepass(gitdir, wsen, device=None):
     matched = {o for o, h in zip(oids, hits) if h}
     rejected = {o for o, h in zip(oids, hits) if not h}
     return matched, rejected
+
+
+def blob_filter_for_spec(src_repo, wsen_arg, device=None):
+    """-> callable(path, oid) -> bool, the blob filter of a spatially
+    filtered clone of ``src_repo`` by ``wsen_arg`` ("w,s,e,n" or a
+    4-sequence, EPSG:4326). A feature blob whose envelope misses the rect is
+    vetoed (left promised on the client); every other blob ships, and so
+    does one with no envelope (fail open).
+
+    With an envelope index, every indexed envelope is tested at once by K3
+    on ``device`` (None: the card; see :func:`envelope_prepass`), with the
+    columns resident across filters; a blob the index lacks is decoded and
+    its envelope moved to EPSG:4326 (:class:`_DatasetEnvelopeDecoder`)."""
+    w, s, e, n = parse_wsen(wsen_arg)
+    matched_oids, rejected_oids = envelope_prepass(src_repo.gitdir, (w, s, e, n), device)
+    decoder = _DatasetEnvelopeDecoder(src_repo)
+
+    def blob_filter(path, oid):
+        ds_feature = _split_feature_path(path)
+        if ds_feature is None:
+            return True  # a meta or other non-feature blob always ships
+        if matched_oids is not None:
+            if oid in matched_oids:
+                return True
+            if oid in rejected_oids:
+                return False
+        env_4326 = decoder.envelope_4326(ds_feature[0], oid)
+        if env_4326 is None:
+            return True  # no geometry, or not decodable: fail open
+        return _rect_overlaps(env_4326, (w, e, s, n))
+
+    return blob_filter
+
+
+def _split_feature_path(path):
+    """'<ds>/.table-dataset/feature/ab/cd' -> (ds_path, rel) or None."""
+    for dirname in (".table-dataset", ".sno-dataset"):
+        marker = f"/{dirname}/feature/"
+        idx = path.find(marker)
+        if idx >= 0:
+            return path[:idx], path[idx + len(marker):]
+    return None
+
+
+class _DatasetEnvelopeDecoder:
+    """A feature blob's envelope in EPSG:4326, decoded on the fly, with
+    each dataset's transform (of HEAD's dataset at that path) built once."""
+
+    def __init__(self, repo):
+        self.repo = repo
+        self._cache = {}
+
+    def _dataset_transform(self, ds_path):
+        """-> a Transform, "identity", or None (no such spatial dataset, or
+        an unusable CRS: its blobs fail open)."""
+        if ds_path in self._cache:
+            return self._cache[ds_path]
+        transform = None
+        try:
+            ds = self.repo.structure("HEAD").datasets.get(ds_path)
+            if ds is not None and ds.geom_column_name is not None:
+                ids = ds.crs_identifiers()
+                crs_wkt = ds.get_crs_definition(ids[0]) if ids else None
+                transform = "identity"
+                if crs_wkt:
+                    ds_crs = CRS(crs_wkt)
+                    if not ds_crs.is_geographic:
+                        transform = Transform(ds_crs, make_crs(EPSG_4326_WKT))
+        except Exception:  # kart_tpu's policy: fail open
+            transform = None
+        self._cache[ds_path] = transform
+        return transform
+
+    def envelope_4326(self, ds_path, oid):
+        """-> (min-x, max-x, min-y, max-y) in EPSG:4326, cyclic (x0 > x1)
+        where it crosses the anti-meridian, or None."""
+        transform = self._dataset_transform(ds_path)
+        if transform is None:
+            return None
+        try:
+            _, values = msg_unpack(self.repo.odb.read_blob(oid))
+            geom = next((v for v in values if isinstance(v, Geometry)), None)
+            env = None if geom is None else geom.envelope()
+            if env is None or transform == "identity":
+                return env
+            x0, x1, y0, y1 = transform.transform_envelope(env)
+            return (float(wrap_lon(x0)), float(wrap_lon(x1)), y0, y1)
+        except Exception:  # kart_tpu's policy: fail open
+            return None

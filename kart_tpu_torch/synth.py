@@ -15,6 +15,15 @@ dates (``GIT_AUTHOR_DATE``/``GIT_COMMITTER_DATE``) and seed, it writes the
 same commits and byte-identical sidecars as kart_tpu. The polygon
 repository is not ported.
 
+``spatial=True`` with ``blobs="real"`` has no kart_tpu counterpart (its
+spatial synth writes promised or changed blobs only): the same point layer
+with every feature blob written, each point at its envelope's south-west
+corner as in the changed blobs, for what decodes every blob (the envelope
+index writer, the blob filter). Nor has ``crs``: the point layer's
+geometries in another CRS of the registry (``EPSG:2193``, say), each point
+moved there from EPSG:4326, while the sidecars keep their EPSG:4326
+envelopes.
+
 :func:`synth_shapes` (seeded stars with holes, points and polylines as a
 vertex column) has no kart_tpu counterpart either: it feeds the exact
 refine's checks. ``pk="text"`` has no kart_tpu counterpart: a hash-keyed layer whose pk is
@@ -37,6 +46,7 @@ from kart_tpu_torch.core.objects import MODE_TREE
 from kart_tpu_torch.core.repo import KartRepo
 from kart_tpu_torch.core.tree_builder import TreeBuilder
 from kart_tpu_torch.diff import sidecar
+from kart_tpu_torch.crs import Transform, make_crs
 from kart_tpu_torch.epsg import epsg_wkt
 from kart_tpu_torch.geom import (
     COORD_SCALE,
@@ -232,17 +242,18 @@ def _changed_row_oids(odb, sel_pks, ratings, schema, geom_xy=None, batch=200_000
 
 
 def synth_repo(path, n, *, edit_frac=0.01, seed=0, blobs="changed", ds_path="synth",
-               spatial=False, pk="int"):
+               spatial=False, pk="int", crs="EPSG:4326"):
     """Create a repo at ``path`` with one dataset of ``n`` features and two
     commits: the base import and an ``edit_frac`` rating rewrite.
-    ``spatial=True`` (with ``blobs="changed"``) makes it a point layer whose
-    sidecars carry envelope and vertex columns; ``pk="text"`` a hash-keyed
-    layer of G-NAF-shaped ids (:data:`SYNTH_TEXT_SCHEMA`).
+    ``spatial=True`` (with ``blobs="changed"`` or ``"real"``) makes it a point
+    layer whose sidecars carry envelope and vertex columns; ``pk="text"`` a hash-keyed
+    layer of G-NAF-shaped ids (:data:`SYNTH_TEXT_SCHEMA`); ``crs`` the
+    point layer's CRS (its points moved there from EPSG:4326).
     -> (repo, {"base_commit", "edit_commit", "n", "n_edits"})."""
     if blobs not in ("real", "changed", "promised"):
         raise ValueError(f"blobs={blobs!r}: use 'real', 'changed' or 'promised'")
-    if spatial and blobs != "changed":
-        raise ValueError("spatial synth repos are ported for blobs='changed' only")
+    if spatial and blobs == "promised":
+        raise ValueError("spatial synth repos take blobs='changed' or 'real'")
     if pk not in ("int", "text") or (spatial and pk != "int"):
         raise ValueError(f"pk={pk!r}: use 'int', or 'text' without spatial")
     repo = KartRepo.init_repository(path)
@@ -253,9 +264,18 @@ def synth_repo(path, n, *, edit_frac=0.01, seed=0, blobs="changed", ds_path="syn
 
     schema, crs_defs, envelopes, vertices = SYNTH_SCHEMA, None, None, None
     encoder, hashed = PathEncoder.INT_PK_ENCODER, None
+    to_crs = None
     if spatial:
         schema = SYNTH_SPATIAL_SCHEMA
         crs_defs = {"EPSG:4326": epsg_wkt(4326)}
+        if crs != "EPSG:4326":
+            geom_col = schema.columns[1]
+            schema = Schema([schema.columns[0], ColumnSchema(
+                id=geom_col.id, name=geom_col.name, data_type=geom_col.data_type,
+                extra_type_info={**geom_col.extra_type_info, "geometryCRS": crs},
+            ), schema.columns[2]])
+            crs_defs = {crs: make_crs(crs).wkt}
+            to_crs = Transform("EPSG:4326", crs)
         envelopes = synth_envelopes(pks)
         # each synthetic feature's vertex geometry is its envelope's box
         vertices = boxes_vertex_column(envelopes)
@@ -264,7 +284,15 @@ def synth_repo(path, n, *, edit_frac=0.01, seed=0, blobs="changed", ds_path="syn
         ids = gnaf_ids(np.arange(n))
         hashed = HashedColumns(ids)
 
-    def blob_rows(sel, ratings, geom_xy=None):
+    def blob_rows(sel, ratings):
+        """Real blobs of rows ``sel``; a point layer's points sit at their
+        envelopes' south-west corners."""
+        geom_xy = None
+        if envelopes is not None:
+            geom_xy = (envelopes[sel, 0].astype(np.float64),
+                       envelopes[sel, 1].astype(np.float64))
+            if to_crs is not None:
+                geom_xy = to_crs.transform(*geom_xy)
         if hashed is not None:
             encode = schema.encode_feature_blob
             return odb.write_blobs_raw([encode({"code": ids[r], "rating": v})[1]
@@ -290,13 +318,9 @@ def synth_repo(path, n, *, edit_frac=0.01, seed=0, blobs="changed", ds_path="syn
         elif blobs == "promised":
             oids2[edit_rows] = _random_oids(n_edits, seed + 2)
         else:
-            geom_xy = None
-            if envelopes is not None:
-                geom_xy = (envelopes[edit_rows, 0].astype(np.float64),
-                           envelopes[edit_rows, 1].astype(np.float64))
             with odb.bulk_pack(level=0):
-                oids1[edit_rows] = blob_rows(edit_rows, sel / 2.0, geom_xy)
-                oids2[edit_rows] = blob_rows(edit_rows, sel.astype(np.float64), geom_xy)
+                oids1[edit_rows] = blob_rows(edit_rows, sel / 2.0)
+                oids2[edit_rows] = blob_rows(edit_rows, sel.astype(np.float64))
 
     plan = plan_int_feature_tree(pks) if hashed is None else hashed.plan()
     keys, paths = (pks, None) if hashed is None else (hashed.keys, hashed.paths)

@@ -74,6 +74,22 @@ EXPORT = [
     ["export", "tiles", "-o"],
 ]
 
+#: kart spatial-filter: the group alone (its help, exit 2), an unknown
+#: command or option, a bad or missing -o, extra arguments, a flag given a
+#: value
+SPATIAL = [
+    ["spatial-filter"],
+    ["spatial-filter", "nope"],
+    ["spatial-filter", "--bad"],
+    ["spatial-filter", "index", "--bad"],
+    ["spatial-filter", "index", "extra"],
+    ["spatial-filter", "index", "--clear=1"],
+    ["spatial-filter", "resolve", "-o", "x"],
+    ["spatial-filter", "resolve", "-o"],
+    ["spatial-filter", "resolve", "a", "b"],
+    ["spatial-filter", "resolve", "nonsense"],
+]
+
 OTHERS = [
     ["diff", "--outpt", "x"],
     ["diff", "--output-format"],
@@ -121,7 +137,8 @@ def repo(tmp_path_factory):
     return make_repo_with_edits(tmp_path_factory.mktemp("usage"))[0]
 
 
-@pytest.mark.parametrize("argv", RECORDED + PER_COMMAND + QUERY + OTHERS + EXPORT, ids=" ".join)
+@pytest.mark.parametrize("argv", RECORDED + PER_COMMAND + QUERY + OTHERS + EXPORT + SPATIAL,
+                         ids=" ".join)
 def test_usage_errors_match_kart_tpu(repo, argv):
     ref = CliRunner().invoke(kart_cli, ["-C", repo, *argv], prog_name="kart")
     assert ref.exception is None or isinstance(ref.exception, SystemExit), ref.exception
@@ -155,6 +172,14 @@ def test_export_group_help_is_click_s(repo):
     word for word click's."""
     ref = CliRunner().invoke(kart_cli, ["-C", repo, "export"], prog_name="kart")
     rc, out, err = _port(["--device", "cpu", "-C", repo, "export"])
+    assert (rc, out, err) == (ref.exit_code, ref.stdout, ref.stderr) and rc == 2
+
+
+def test_spatial_filter_group_help_is_click_s(repo):
+    """``kart spatial-filter`` alone: the group's help word for word, its
+    commands' help cut as click cuts it, on stderr, exit 2."""
+    ref = CliRunner().invoke(kart_cli, ["-C", repo, "spatial-filter"], prog_name="kart")
+    rc, out, err = _port(["--device", "cpu", "-C", repo, "spatial-filter"])
     assert (rc, out, err) == (ref.exit_code, ref.stdout, ref.stderr) and rc == 2
 
 

@@ -837,6 +837,40 @@ def test_query_join_on_card_matches_cpu(cuda, tmp_path):
         assert outs[0] == outs[1]
 
 
+def test_projected_filtered_diff_on_card_matches_cpu(cuda, tmp_path):
+    """An NZTM (EPSG:2193) point layer under an NZTM filter through the CLI
+    on the card and with --device cpu: the same bytes (which
+    tests/test_torch_spatial_index.py holds to kart_tpu's on this layer),
+    two K2 launches (one a side) and one K1 launch a command."""
+    import contextlib
+    import io
+
+    from kart_tpu_torch.cli import main as port_main
+    from kart_tpu_torch.core.repo import KartRepo
+    from kart_tpu_torch.spatial_filter import ResolvedSpatialFilterSpec
+    from kart_tpu_torch.synth import synth_repo
+
+    repo, _ = synth_repo(str(tmp_path / "r"), 20_000, spatial=True, seed=3, crs="EPSG:2193")
+    KartRepo(repo.workdir).config.set_many(ResolvedSpatialFilterSpec.from_spec_string(
+        "EPSG:2193;POLYGON((1090000 4740000,2100000 4740000,2100000 6200000,1090000 6200000,"
+        "1090000 4740000))").config_items())
+    for argv in (["diff", "-o", "json-lines", "HEAD^...HEAD"],
+                 ["diff", "-o", "feature-count", "HEAD^...HEAD"],
+                 ["diff", "-o", "geojson", "--crs", "EPSG:3857", "HEAD^...HEAD"]):
+        outs = []
+        for pre in ([], ["--device", "cpu"]):
+            runtime.reset_stats()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                assert port_main([*pre, "-C", repo.workdir, *argv]) == 0
+            outs.append(buf.getvalue())
+            stats = runtime.stats_snapshot()
+            want = (2, 1) if not pre else (0, 0)
+            assert (stats["envelope_scan_launches"], stats["classify_launches"]) == want
+        assert outs[0] == outs[1]
+    assert '"type":"feature"' in outs[0] or "Feature" in outs[0]
+
+
 def _merc_rows(rng, n):
     """(n, 4) f64 wsen rows over the world, then the projection's edges: the
     poles, the mercator clamp exactly, -0.0, subnormals, NaN, infinities."""

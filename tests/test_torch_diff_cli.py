@@ -9,8 +9,8 @@ on an imported GPKG points repo and a synthetic repo; ``show`` and
 delta route; and hash-keyed datasets (a text pk, a composite pk, the
 legacy layout with no path-structure.json, a pk retyped from int to text)
 on both routes, with keys at both ends of the key range and forced key
-collisions. What the port still refuses (a working-copy diff, a projected
-``--crs`` target or dataset CRS) exits 30 with no output."""
+collisions; projected ``--crs`` targets and dataset CRSes (NZTM). What
+the port still refuses (a working-copy diff) exits 30 with no output."""
 
 import contextlib
 import io
@@ -346,16 +346,23 @@ def projected_repo(tmp_path_factory):
     ["nztm", "show", "--crs", "EPSG:4326"],
 ])
 def test_not_ported_yet_is_a_named_error(repos, projected_repo, opts, capsys):
-    """What the port does not run yet (a working-copy diff, a projected
-    ``--crs`` target or dataset CRS) exits 30 with a named error (kart_tpu's
-    NOT_YET_IMPLEMENTED code), never a partial output."""
+    """A working-copy diff is not ported: it exits 30 with a named error
+    (kart_tpu's NOT_YET_IMPLEMENTED code), never a partial output. A
+    projected ``--crs`` target or dataset CRS prints kart_tpu's bytes and
+    exit code (the name is kept from when the port refused those too)."""
     path = repos[("points", "columnar")][0]
     if opts[0] == "nztm":
         path, opts = projected_repo, opts[1:]
     rc = port_main(["--device", "cpu", "-C", path, *opts])
     got = capsys.readouterr()
-    assert rc == 30 and got.out == "" and got.err.startswith("Error: ")
-    assert "not ported" in got.err
+    if opts == ["diff", "-o", "json", "HEAD"]:
+        assert rc == 30 and got.out == "" and got.err.startswith("Error: ")
+        assert "not ported" in got.err
+        return
+    ref = CliRunner().invoke(kart_cli, ["-C", path, *opts])
+    assert ref.exception is None or isinstance(ref.exception, SystemExit), ref.exception
+    assert (rc, got.out) == (ref.exit_code, ref.stdout)
+    assert rc == 0 and got.out.strip()
 
 
 # --- hash-keyed datasets ------------------------------------------------------

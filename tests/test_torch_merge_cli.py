@@ -9,9 +9,9 @@ layer (a geometry column in EPSG:4326) with diverging edits on both
 branches: conflicts as text, json and geojson, reprojected by ``--crs``,
 resolved with ``--with`` and ``--with-file`` (a GeoJSON the port's own
 ``conflicts -o geojson`` wrote); and from an imported table whose pk is
-text (a hash-keyed dataset), its MERGE_INDEX in JSON and in KMIX2. What
-the port does not do yet (a working copy to update, a projected ``--crs``
-target) exits 30 and writes nothing."""
+text (a hash-keyed dataset), its MERGE_INDEX in JSON and in KMIX2;
+``--crs`` to projected targets too. What the port does not do yet (a
+working copy to update) exits 30 and writes nothing."""
 
 import contextlib
 import io
@@ -665,15 +665,11 @@ def test_colliding_hash_keys_merge_on_the_host_path(text_pk_repo, tmp_path, monk
                                   ["conflicts", "-o", "json", "--crs", "EPSG:2193"],
                                   ["conflicts", "-o", "json", "--flat", "--crs", "EPSG:3857"]])
 def test_not_ported_conflict_outputs(points_repo, tmp_path, argv):
-    """A projected ``--crs`` target: kart_tpu reprojects, the port cannot
-    yet and exits 30 before anything is written (text shows no coordinates,
-    so ``conflicts --crs`` in text runs: ``POINT_SCENARIOS``)."""
+    """A projected ``--crs`` target: the port's conflicts, reprojected,
+    print kart_tpu's bytes and exit code and leave the same state (the name
+    is kept from when the port refused them)."""
     kpath, ppath = _copies(points_repo, tmp_path, setup_points_conflict)
-    assert _run_port(["--device", "cpu", "-C", ppath, "merge", "theirs"])[0] == 0
-    ref = CliRunner().invoke(kart_cli, ["-C", kpath, "merge", "theirs"])
-    assert ref.exit_code == 0
-    assert CliRunner().invoke(kart_cli, ["-C", kpath, *argv]).exit_code == 0
-    _not_yet(ppath, argv)
+    _run_steps(kpath, ppath, [["merge", "theirs"], argv])
 
 
 LABEL_SETS = {

@@ -6,6 +6,7 @@ import ast
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -17,7 +18,7 @@ from kart_tpu_torch.cli import main as cli_main
 from kart_tpu_torch.diff import backend, engine
 from kart_tpu_torch.ops import _build, bbox
 from kart_tpu_torch.ops.blocks import FeatureBlock
-from kart_tpu_torch.spatial_filter import envelope_prepass
+from kart_tpu_torch.spatial_filter import blob_filter_for_spec, envelope_prepass
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(kart_tpu_torch.__file__))
@@ -65,7 +66,8 @@ def test_walk_reaches_every_package():
     assert {".", "core", "models", "cli", "diff", "ops", "spatial_filter", "tiles"} <= dirs
     assert {"kart_tpu_torch.cli.diff_cmds", "kart_tpu_torch.core.msgpack",
             "kart_tpu_torch.__main__", "kart_tpu_torch.crs", "kart_tpu_torch.epsg",
-            "kart_tpu_torch.geom", "kart_tpu_torch.tiles.streams"} <= set(_modules())
+            "kart_tpu_torch.geom", "kart_tpu_torch.tiles.streams", "kart_tpu_torch.gridshift",
+            "kart_tpu_torch.cli.spatial_cmds"} <= set(_modules())
 
 
 def test_imports_with_jax_and_kart_tpu_blocked():
@@ -101,6 +103,8 @@ ENTRY_POINTS = {
         _block(), _block(), (0, 0, 1, 1)),
     "bbox_intersects": lambda: bbox.bbox_intersects(np.zeros((3, 4)), (0, 0, 1, 1)),
     "envelope_prepass": lambda: envelope_prepass(ROOT, "0,0,1,1"),
+    "blob_filter_for_spec": lambda: blob_filter_for_spec(types.SimpleNamespace(gitdir=ROOT),
+                                                         "0,0,1,1"),
     "resolve_device": lambda: runtime.resolve_device(),
     "cli_main": lambda: cli_main(["-C", ROOT, "diff", "-o", "feature-count", "HEAD^...HEAD"]),
 }

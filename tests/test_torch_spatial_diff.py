@@ -211,9 +211,43 @@ def test_spatial_synth_blobs_carry_points(synth_pair):
     assert out.count('"geom":"0101000000') == 2 * (SYNTH_N // 100)
 
 
-def test_spatial_synth_refuses_what_is_not_ported(tmp_path):
+def test_spatial_synth_refuses_what_is_not_ported(tmp_path, synth_pair):
+    """``spatial=True, blobs="real"`` (which kart_tpu's spatial synth does
+    not write): every blob a point at its envelope's south-west corner, the
+    same sidecars as the changed layer but for its oids, the edited rows'
+    blobs equal to kart_tpu's changed layer's, and the same diff; the
+    promised spatial layer is still refused (the name is kept from when the
+    real layer was refused too)."""
+    from kart_tpu_torch.core.serialise import msg_unpack
+
     with pytest.raises(ValueError):
-        tsynth.synth_repo(str(tmp_path / "r"), 10, blobs="real", spatial=True)
+        tsynth.synth_repo(str(tmp_path / "p"), 10, blobs="promised", spatial=True)
+    base, _tinfo, jinfo = synth_pair
+    with pytest.MonkeyPatch.context() as m:
+        m.setenv("GIT_AUTHOR_DATE", DATE)
+        m.setenv("GIT_COMMITTER_DATE", DATE)
+        repo, info = tsynth.synth_repo(str(tmp_path / "real"), SYNTH_N, seed=3, blobs="real",
+                                       spatial=True)
+    assert info["n_edits"] == jinfo["n_edits"]
+    changed = TRepo(str(base / "ref"))
+    for rev in ("HEAD^", "HEAD"):
+        ds = repo.structure(rev).datasets["synth"]
+        block = sidecar.load_block(repo, ds, pad=False)
+        ref_block = sidecar.load_block(changed, changed.structure(rev).datasets["synth"],
+                                       pad=False)
+        assert np.array_equal(np.asarray(block.envelopes), np.asarray(ref_block.envelopes))
+        assert np.array_equal(np.asarray(block.keys[:block.count]),
+                              np.asarray(ref_block.keys[:ref_block.count]))
+        paths, oids = ds.feature_tree.blob_columns()
+        env = np.asarray(block.envelopes)
+        keys = np.asarray(block.keys[:block.count])
+        rows = np.searchsorted(keys, [int(ds.decode_path_to_pks(p)[0]) for p in paths])
+        for i in range(0, len(paths), 997):
+            _, values = msg_unpack(repo.odb.read_blob(oids[i].tobytes().hex()))
+            x0, x1, y0, y1 = values[0].envelope()
+            assert (x0, y0) == (float(env[rows[i], 0]), float(env[rows[i], 1]))
+    opts = ["-o", "json-lines", "HEAD^...HEAD"]
+    assert _run_port(str(tmp_path / "real"), opts) == _run_ref(str(base / "ref"), opts)
 
 
 # -- imported repos: the tree walk and the columnar route without and with
@@ -377,25 +411,41 @@ def test_points_mixed_shows_either_side_matches(point_repos):
     assert rc == 0 and fids == [2, 3, 4, 5, 9, 101, 102, 103, 104, 105, 106, 107]
 
 
+def _projected_rect(code):
+    """POINT_FILTERS' rect around fids 1..5, its corners moved into
+    EPSG:``code`` by kart_tpu."""
+    from kart_tpu.crs import Transform, make_crs
+
+    t = Transform(make_crs("EPSG:4326"), make_crs(f"EPSG:{code}"))
+    xs, ys = t.transform([100.0, 106.0, 106.0, 100.0, 100.0], [-42.0, -42.0, -39.0, -39.0, -42.0])
+    ring = ",".join(f"{float(x)!r} {float(y)!r}" for x, y in zip(xs, ys))
+    return f"EPSG:{code};POLYGON(({ring}))"
+
+
 @pytest.mark.parametrize("code", [2193, 3857])
 @pytest.mark.parametrize("route", ["tree", "envelopes"])
-def test_projected_filter_crs_is_not_yet_implemented(point_repos, code, route, capsys):
-    """kart_tpu filters by a projected CRS; the port cannot transform one
-    yet, so it exits NOT_YET_IMPLEMENTED with nothing on stdout, for every
-    format: it never prints an unfiltered diff."""
+def test_projected_filter_crs_is_not_yet_implemented(point_repos, prefilter_calls, code, route):
+    """A filter in a projected CRS (one far from the points, one around
+    fids 1..5): the port's stdout and exit code equal kart_tpu's for every
+    format, on the tree walk and on the envelope prefilter (the name is kept
+    from when the port refused such filters)."""
     path = point_repos[("mixed", route)]
     repo = JRepo(path)
-    spec = ResolvedSpatialFilterSpec.from_spec_string(
-        f"EPSG:{code};POLYGON((1000 1000,2000 1000,2000 2000,1000 2000,1000 1000))")
-    repo.config.set_many(spec.config_items())
-    for fmt in FORMATS:
-        opts = [*fmt, "HEAD^...HEAD"]
-        assert _run_ref(path, opts)[0] in (0, 1)
-        capsys.readouterr()
-        rc, out = _run_port(path, opts)
-        err = capsys.readouterr().err
-        assert rc == NOT_YET_IMPLEMENTED and out == "" and err.startswith("Error: "), fmt
-        assert "not ported" in err
+    far = f"EPSG:{code};POLYGON((1000 1000,2000 1000,2000 2000,1000 2000,1000 1000))"
+    for spec_text in (far, _projected_rect(code)):
+        spec = ResolvedSpatialFilterSpec.from_spec_string(spec_text)
+        repo.config.set_many(spec.config_items())
+        outs = []
+        for fmt in FORMATS:
+            opts = [*fmt, "HEAD^...HEAD"]
+            want = _run_ref(path, opts)
+            got = _run_port(path, opts)
+            assert got == want, (spec_text, fmt)
+            outs.append(got[1])
+        assert len(prefilter_calls) == (len(FORMATS) if route == "envelopes" else 0)
+        prefilter_calls.clear()
+    # around the points, fids 2..5 show where the far filter shows none of them
+    assert '"fid":3' in outs[2]
 
 
 def test_promised_blobs_under_a_filter_are_not_yet_implemented(tmp_path, capsys):

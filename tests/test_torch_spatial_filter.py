@@ -1,5 +1,5 @@
 """The client half of the spatial filter, held to kart_tpu with zero
-tolerance: CRSes and their geographic transforms, WKT and hex-WKB
+tolerance: CRSes and their transforms (geographic and projected), WKT and hex-WKB
 geometries and their envelopes, filter specs, and the exact match verdicts
 of ``SpatialFilter``; plus the write half of the sidecar's vertex column
 (the KTB2 stream codec and ``encode_vertex_column``), byte for byte.
@@ -24,7 +24,6 @@ from kart_tpu_torch import epsg as tepsg
 from kart_tpu_torch import geom as tgeom
 from kart_tpu_torch import geometry as tgeometry
 from kart_tpu_torch import spatial_filter as tsf
-from kart_tpu_torch.core.repo import NotYetImplemented
 from kart_tpu_torch.tiles import streams as tstreams
 
 GEOGRAPHIC_CODES = sorted(tepsg.GEOGRAPHIC)
@@ -45,7 +44,7 @@ def _outcome(fn, *args, **kwargs):
 def test_geographic_registry_matches():
     assert tepsg.GEOGRAPHIC == jepsg.GEOGRAPHIC
     assert tepsg.ELLIPSOIDS == jepsg.ELLIPSOIDS
-    assert tepsg.PROJECTED == frozenset(jepsg.PROJECTED)
+    assert tepsg.PROJECTED == jepsg.PROJECTED
     assert tepsg.UTM_FAMILIES == jepsg.UTM_FAMILIES
     assert tepsg.registry_summary() == jepsg.registry_summary()
 
@@ -122,18 +121,29 @@ def test_make_crs_errors_match(spec):
 
 @pytest.mark.parametrize("code", PROJECTED_CODES)
 def test_projected_codes_not_ported(code):
-    """A projected registry code raises NotYetImplemented, where kart_tpu
-    builds a projected CRS; the same WKT given raw parses but refuses to
-    transform."""
-    assert jcrs.make_crs(f"EPSG:{code}").is_projected
-    with pytest.raises(NotYetImplemented):
-        tcrs.make_crs(f"EPSG:{code}")
-    with pytest.raises(NotYetImplemented):
-        tepsg.epsg_wkt(code)
-    raw = tcrs.CRS(jepsg.epsg_wkt(code))
-    assert raw.is_projected and not raw.is_geographic
-    with pytest.raises(NotYetImplemented):
-        tcrs.Transform(tcrs.make_crs("EPSG:4326"), raw)
+    """A projected registry code: the same WKT and CRS facts as kart_tpu,
+    and bit-identical transforms both ways between it and EPSG:4326 (the
+    name is kept from when the port refused these codes)."""
+    t, j = tcrs.make_crs(f"EPSG:{code}"), jcrs.make_crs(f"EPSG:{code}")
+    assert t.is_projected and t.wkt == j.wkt
+    assert tepsg.epsg_wkt(code) == jepsg.epsg_wkt(code)
+    # 2193 and 3857 resolve to the curated WKTs before the registry
+    assert (t.wkt == tepsg.epsg_wkt(code)) == (code not in (2193, 3857))
+    assert _crs_facts(t) == _crs_facts(j)
+    assert (t.projection, t.params) == (j.projection, j.params)
+    geo_t, geo_j = tcrs.make_crs("EPSG:4326"), jcrs.make_crs("EPSG:4326")
+    rng = np.random.default_rng(code)
+    lon = rng.uniform(-180, 180, 400)
+    lat = rng.uniform(-80, 80, 400)
+    fwd_t, fwd_j = tcrs.Transform(geo_t, t), jcrs.Transform(geo_j, j)
+    xs, ys = fwd_j.transform(lon, lat)
+    for a, b in zip(fwd_t.transform(lon, lat), (xs, ys)):
+        assert a.tobytes() == b.tobytes()
+    finite = np.isfinite(xs) & np.isfinite(ys)
+    inv_t, inv_j = tcrs.Transform(t, geo_t), jcrs.Transform(j, geo_j)
+    for a, b in zip(inv_t.transform(xs[finite], ys[finite]),
+                    inv_j.transform(xs[finite], ys[finite])):
+        assert a.tobytes() == b.tobytes()
 
 
 PAIRS = [(4326, 4167), (4167, 4326), (4326, 4272), (4272, 4326), (4277, 4326), (4267, 4230),
@@ -330,12 +340,19 @@ def test_match_all_spec(text):
 
 @pytest.mark.parametrize("code", [2193, 3857])
 def test_projected_filter_crs_not_ported(code):
-    """kart_tpu resolves a projected filter; the port raises
-    NotYetImplemented before any transform can fail open."""
+    """A filter in a projected CRS resolves as in kart_tpu: the same
+    geometry, native and EPSG:4326 envelopes, wire argument and config (the
+    name is kept from when the port refused it)."""
     text = f"EPSG:{code};POLYGON((1000 1000,2000 1000,2000 2000,1000 2000,1000 1000))"
-    assert not jsf.ResolvedSpatialFilterSpec.from_spec_string(text).match_all
-    with pytest.raises(NotYetImplemented):
-        tsf.ResolvedSpatialFilterSpec.from_spec_string(text)
+    t = tsf.ResolvedSpatialFilterSpec.from_spec_string(text)
+    j = jsf.ResolvedSpatialFilterSpec.from_spec_string(text)
+    assert not t.match_all and t.crs.is_projected
+    assert bytes(t.geometry) == bytes(j.geometry)
+    assert t.envelope_native == j.envelope_native
+    assert t.envelope_wsen_4326 == j.envelope_wsen_4326
+    assert t.filter_arg == j.filter_arg
+    assert t.config_items() == j.config_items()
+    assert t.crs == tcrs.make_crs(t.crs_spec)
 
 
 # -- match verdicts ----------------------------------------------------------
