@@ -9,8 +9,9 @@ kernel against its plain PyTorch version.
                           [--text-rows 5000000] [--text-merge-rows 500000] [--seed 0]
                           [--stream-rows 100000000] [--crossover-rows 1000000,...]
                           [--crossover-reps 3] [--chunk-sweep 2000000,...]
+                          [--history-commits 6]
                           [--k4-only | --hash-only | --query-only | --kernels-only |
-                           --tiles-only | --stream-only]
+                           --tiles-only | --history-only | --stream-only]
 
 Run from the repository root on a machine with an sm_90 (Hopper) card and
 the CUDA toolkit; the kernels are built from ``kart_tpu_torch/csrc`` on
@@ -126,6 +127,32 @@ T2. the default layers (bin,geojson) on the same layer, whose blobs only
    --exit-code``: equal sha256 and exit codes), and under a rect around one
    unedited feature (``quiet --exit-code`` exits 0, json-lines has no
    feature line)
+H0. (after [13], on [11]'s layer) ``--history-commits`` commits of
+   ``synth.commit_point_edits``, each moving 0.1% of the rows (real blobs),
+   deleting 0.01% and inserting 0.01% past the max pk (real blobs), the
+   second onto the poles and the anti-meridian; no sidecar written, as a
+   pushed history arrives; each commit's truth recorded
+H1. the changed-block CDC: ``events.cdc.dirty_tiles`` at zooms 0-8 for
+   each consecutive pair on the card (one K1 launch an event; the new
+   tip's sidecar derived, with envelopes and no vertex column), each
+   event's split (derive, classify, cover); then, the derived files deleted
+   and the tile sources dropped, with ``device="cpu"``: equal summary and
+   derived-sidecar sha256, ``changed`` equal to H0's truth; the whole range
+   from [11]'s edit commit (truncated, one K1), a created ref (no K1) and an
+   identical pair (empty, no K1) on both routes
+H2. ``kart log`` on the card and with ``--device cpu`` (equal stdout
+   sha256 and exit codes): text, ``--oneline --graph``, ``-o json
+   --with-dataset-changes`` (all but the root: one K1 a commit), ``-o
+   json-lines --with-feature-count veryfast`` (the cache deleted before each
+   route; one counts-only K1 a commit but the root), ``-o json
+   --with-feature-count exact -n 3`` (no K1), ``--oneline -n 1
+   synth:feature:<pk>`` for a pk the first history commit moved (one K1 a
+   walked commit), ``--grep``, ``--author``, ``--since @<epoch>``, ``--skip
+   2 -n 3`` (no K1)
+H3. ``kart build-annotations`` on the card with a fresh cache (one K1 a
+   commit but the root, whose diff is the tree walk), again (no launch),
+   and with ``--device cpu`` on a fresh cache: equal ``kart_annotations``
+   rows in order
 11i. (after [13]) a point layer with every blob real,
    ``synth.synth_repo(spatial=True, blobs="real")`` at ``--index-repo-rows``:
    ``kart spatial-filter index`` through the CLI (its line counts the
@@ -214,7 +241,7 @@ S4. ``columnar_equal`` (B12) on 8 x 10M int64 columns with null masks, on
    first and best of ``--crossover-reps``, and the streamed route at
    ``--stream-rows`` by ``--chunk-sweep`` chunk rows
 22. each group of phases' host wall (S1-S4 first, [1-6] the build, the data
-   and phases 3-6; [12b] and [11i] on their own), the ``kernels`` JSON line
+   and phases 3-6; [12b], [11i] and H0-H3 on their own), the ``kernels`` JSON line
    (K1-K7, K3's figures on [11i]'s index in ``index_envelopes``, each
    kernel's ``launches`` is the sum of ``launches_by_phase``: every launch
    of the main path's runs, the cProfile runs included, and none of the
@@ -230,7 +257,8 @@ Any failed check exits non-zero without the result line. ``--k4-only`` runs
 phases 0, 1, 14 and 15 alone and prints K4's timings as JSON, with no
 result line; ``--hash-only`` runs phases 0, 1 and 18-21 alone the same
 way, ``--query-only`` phases 0, 1, 11 and Q1-Q3, ``--kernels-only`` phases 0,
-1, 11 and Q3, ``--tiles-only`` phases 0, 1, 11 and T1-T3, ``--stream-only``
+1, 11 and Q3, ``--tiles-only`` phases 0, 1, 11 and T1-T3, ``--history-only``
+phases 0, 1, 11 and H0-H3, ``--stream-only``
 phases 0, 1 and S1-S4 (S3 on repositories it builds at ``--repo-rows`` and
 ``--merge-rows``, with the monolithic card and ``--device cpu`` runs of its
 commands made there).
@@ -287,6 +315,7 @@ from kart_tpu_torch.diff.sidecar import (
     load_block_file,
     save_sidecar,
     save_sidecar_file,
+    sidecar_file,
 )
 from kart_tpu_torch.models.paths import PathEncoder
 from kart_tpu_torch.ops import _build
@@ -336,13 +365,20 @@ from kart_tpu_torch.query.join import (
     run_join,
 )
 from kart_tpu_torch.query.scan import batch_rows
-from kart_tpu_torch.synth import HashedColumns, gnaf_ids, synth_repo, synth_shapes
+from kart_tpu_torch.synth import (
+    HashedColumns,
+    commit_point_edits,
+    gnaf_ids,
+    synth_repo,
+    synth_shapes,
+)
 from kart_tpu_torch.ops.merc import merc, merc_plain
 from kart_tpu_torch.tiles.clip import _host_merc, quantize_boxes, quantize_margin, refine_rows
 from kart_tpu_torch.tiles.encode import max_features_limit
 from kart_tpu_torch.tiles.grid import MERC_MAX_LAT, parse_zoom_spec, tile_query_wsen
 from kart_tpu_torch.tiles.pyramid import batched, export_batch_tiles, tile_cover, tree_digest
-from kart_tpu_torch.tiles.source import source_for
+from kart_tpu_torch.tiles.source import drop_sources, source_for
+from kart_tpu_torch.events import cdc
 
 #: H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
 #: non-tensor-core f32 rate, used for every bound below
@@ -955,15 +991,18 @@ def card_and_cpu(label, argv, out_path, launches, rc_want=0, counts_only=False, 
     return walls[0], walls[1], digest, survivors
 
 
-def spatial_phases(args, card, launches, dev, filters=True, query=True, tiles=True):
+def spatial_phases(args, card, launches, dev, filters=True, query=True, tiles=True,
+                   history=True):
     """Phases 11-13, Q1-Q3 and T1-T3: build the spatial repository, drive
     ``kart query`` on it (unless not ``query``; Q3 alone where ``query`` is
     ``"kernels"``) and ``kart export tiles``
     (unless not ``tiles``), before any spatial filter is set, then
     spatially filtered ``kart diff`` commands (unless not ``filters``),
     through the CLI on the card and with ``--device cpu``, adding every card
-    command's launches to ``launches``. -> {"k5", "k6", "k7": entries of the
-    kernels line (without launches)} for the phases run."""
+    command's launches to ``launches``; then [H0]-[H3] on the same layer
+    (unless not ``history``). -> {"k5", "k6", "k7": entries of the kernels
+    line (without launches)} for the phases run, and {"walls": {phase: host
+    wall s}} for [12b] and [H0]-[H3]."""
     kernels = {}
     with tempfile.TemporaryDirectory(prefix="kart_smoke_spatial_") as tmp:
         t = time.perf_counter()
@@ -989,7 +1028,11 @@ def spatial_phases(args, card, launches, dev, filters=True, query=True, tiles=Tr
             t = time.perf_counter()
             kernels["k7"] = tile_phases(repo, tmp, card, launches, dev)
             print(f"[T] phases T1-T3 host wall {time.perf_counter() - t:.2f} s on {card}")
+        kernels["walls"] = {}
         if not filters:
+            if history:
+                kernels["walls"].update(history_phases(repo, tmp, card, launches,
+                                                       args.history_commits, args.seed))
             return kernels
 
         spec = ["-C", path, "diff"]
@@ -1092,7 +1135,7 @@ def spatial_phases(args, card, launches, dev, filters=True, query=True, tiles=Tr
             check(n == n_lines, f"[12b] rect filter {name} has {n} features, json-lines {n_lines}")
             print(f"[12b] rect filter {' '.join(argv)}: {n} features, sha256 {digest} on both; "
                   f"card {w_card:.4f} s, cpu {w_cpu:.4f} s host wall; K1 1, K2 2 on {card}")
-        kernels["walls"] = {"12b": time.perf_counter() - t}
+        kernels["walls"]["12b"] = time.perf_counter() - t
         print(f"[12b] phase host wall {kernels['walls']['12b']:.4f} s on {card}")
 
         # [13] the polygon with a hole
@@ -1133,7 +1176,282 @@ def spatial_phases(args, card, launches, dev, filters=True, query=True, tiles=Tr
               f"{survivors}: quiet --exit-code 0 on both (card {w_card:.4f} s, cpu "
               f"{w_cpu:.4f} s host wall), json-lines the version line only (card "
               f"{w2_card:.4f} s, cpu {w2_cpu:.4f} s); K1 1, K2 2 a command on {card}")
+        if history:
+            kernels["walls"].update(history_phases(repo, tmp, card, launches,
+                                                   args.history_commits, args.seed))
     return kernels
+
+
+# --- history on [11]'s layer: the changed-block CDC, kart log, build-annotations (K1) ---
+
+def history_commits(repo, n_commits, seed):
+    """[H0]: ``n_commits`` commits on top of [11]'s HEAD, each moving 0.1%
+    of the live rows (real blobs at new points), deleting 0.01% and
+    inserting 0.01% past the max pk (real blobs); the second moves half
+    its rows onto the anti-meridian (+-180 and +-179.99999) and a third
+    onto the poles. No sidecar is written, as a pushed history arrives.
+    -> (the tips from [11]'s edit commit on, each commit's truth, a pk
+    moved by the first commit and by no later one)."""
+    rng = np.random.default_rng(seed + 11)
+    ds = repo.structure("HEAD").datasets["synth"]
+    block = load_block(repo, ds)
+    live = np.asarray(block.keys[: block.count]).copy()
+    next_pk = int(live[-1]) + 1
+    tips, truths, touched = [repo.head_commit_oid], [], []
+    for c in range(n_commits):
+        k_move, k_ins = len(live) // 1000, len(live) // 10000
+        pick = rng.choice(len(live), k_move + k_ins, replace=False)
+        moved, gone = live[pick[:k_move]], live[pick[k_move:]]
+        lon, lat = rng.uniform(-180.0, 180.0, k_move), rng.uniform(-85.0, 85.0, k_move)
+        if c == 1 % n_commits:
+            lon[: k_move // 2] = rng.choice([-180.0, 180.0, 179.99999, -179.99999], k_move // 2)
+            lat[::3] = rng.choice([-90.0, 90.0], len(lat[::3]))
+        new = np.arange(next_pk, next_pk + k_ins, dtype=np.int64)
+        next_pk += k_ins
+        tips.append(commit_point_edits(
+            repo, moves=(moved, lon, lat),
+            inserts=(new, rng.uniform(-180.0, 180.0, k_ins), rng.uniform(-85.0, 85.0, k_ins)),
+            deletes=gone, message=f"history {c}\n\nmoves {k_move}, deletes and inserts {k_ins}"))
+        touched.append((moved, gone))
+        live = np.sort(np.concatenate([np.setdiff1d(live, gone, assume_unique=True), new]))
+        truths.append({"inserts": k_ins, "updates": k_move, "deletes": k_ins})
+    later = np.concatenate([np.concatenate(t) for t in touched[1:]] or [np.zeros(0, np.int64)])
+    first_moved = int(np.setdiff1d(touched[0][0], later)[0])
+    return tips, truths, first_moved
+
+
+def _tip_sidecar(repo, commit):
+    return sidecar_file(repo, repo.structure(commit).datasets["synth"].feature_tree.oid)
+
+
+def _derived_header(path):
+    with open(path, "rb") as f:
+        f.readline()
+        return json.loads(f.readline())
+
+
+class _Split:
+    """Host seconds spent in the CDC's three steps (derive, classify,
+    cover), read by wrapping the module's functions while it runs."""
+
+    STEPS = {"derive": "ensure_derived_sidecar", "classify": "changed_envelopes",
+             "cover": "tiles_for_envelopes"}
+
+    def __enter__(self):
+        self.seconds = dict.fromkeys(self.STEPS, 0.0)
+        self._saved = {}
+        for step, name in self.STEPS.items():
+            fn = getattr(cdc, name)
+            self._saved[name] = fn
+
+            def timed(*a, _fn=fn, _step=step, **kw):
+                t = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.seconds[_step] += time.perf_counter() - t
+
+            setattr(cdc, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(cdc, name, fn)
+
+
+def _summary_sha(summary):
+    return hashlib.sha256(json.dumps(summary).encode()).hexdigest()
+
+
+def cdc_phase(repo, tips, truths, card, launches):
+    """[H1]: ``dirty_tiles`` at zooms 0-8 for each consecutive pair of
+    tips on the card (one K1 launch an event, the new tip's sidecar
+    derived), then, with the derived files deleted and the tile sources
+    dropped, with ``device="cpu"``: equal summary and derived-sidecar
+    sha256, and ``changed`` equal to [H0]'s truth. Then the whole range
+    (truncated, with a bbox), a created ref (``old_oid=None``: no K1) and
+    an identical pair (empty, no K1), on both routes."""
+    files = [_tip_sidecar(repo, t) for t in tips[1:]]
+    routes = {}
+    for route in ("card", "cpu"):
+        for f in files:
+            if os.path.exists(f):
+                os.remove(f)
+        drop_sources(repo.gitdir)
+        device = None if route == "card" else "cpu"
+        rows = []
+        for i, (old, new, f) in enumerate(zip(tips, tips[1:], files)):
+            check(not os.path.exists(f), f"[H1] {new[:7]} has a sidecar before its event")
+            t = time.perf_counter()
+            with _Split() as split:
+                if route == "card":
+                    summary = counted("H1", lambda: cdc.dirty_tiles(repo, old, new),
+                                      launches)[0]
+                else:
+                    summary = cdc.dirty_tiles(repo, old, new, device="cpu")
+            wall = time.perf_counter() - t
+            entry = summary.get("synth", {})
+            check(entry.get("changed") == truths[i],
+                  f"[H1] {route} event {i} changed {entry.get('changed')} != {truths[i]}")
+            header = _derived_header(f)
+            check(header["envelope_bytes"] > 0 and "geom_bytes" not in header,
+                  f"[H1] {new[:7]}'s sidecar was not derived: {header}")
+            rows.append((_summary_sha(summary), sha256_of(f), entry["tile_count"],
+                         entry["truncated"]))
+            print(f"[H1] {route} event {i} {old[:7]}..{new[:7]}: {entry['changed']}, "
+                  f"{entry['tile_count']} tiles (truncated {entry['truncated']}), wall "
+                  f"{wall:.4f} s: " + ", ".join(f"{k} {v:.4f}" for k, v in split.seconds.items())
+                  + f" s on {card}")
+        extra = []
+        for label, old, new, want in (("range", tips[0], tips[-1], 1),
+                                      ("create", None, tips[-1], 0),
+                                      ("same", tips[-1], tips[-1], 0)):
+            t = time.perf_counter()
+            if route == "card":
+                summary = counted("H1", lambda: cdc.dirty_tiles(repo, old, new), launches,
+                                  want=want)[0]
+            else:
+                summary = cdc.dirty_tiles(repo, old, new, device="cpu")
+            wall = time.perf_counter() - t
+            if label == "same":
+                check(summary == {}, f"[H1] an identical pair gave {summary}")
+            else:
+                entry = summary["synth"]
+                check(entry["truncated"] and entry["tiles"] is None and entry["bbox"] is not None,
+                      f"[H1] {label}: truncated {entry['truncated']}, bbox {entry['bbox']}")
+            extra.append(_summary_sha(summary))
+            print(f"[H1] {route} {label}: {json.dumps(summary)[:160]}; wall {wall:.4f} s on {card}")
+        routes[route] = (rows, extra)
+    check(routes["card"] == routes["cpu"], "[H1] the card's summaries or derived sidecars differ "
+                                           "from the CPU route's")
+    n_changed = sum(sum(t.values()) for t in truths)
+    print(f"[H1] {len(files)} events, {n_changed} changed rows: summaries and derived sidecars "
+          f"equal on the card and the CPU, changed equal to [H0]'s truth on {card}")
+
+
+def _log_runs(path, tmp, label, argv, launches, k1, counts_only=0, db=None, rc_want=0):
+    """One ``kart log`` on the card (K1 ``k1`` times, ``counts_only`` of
+    them counts-only) and with ``--device cpu``, ``db`` (the annotations
+    cache) deleted before each: equal stdout sha256 and exit codes.
+    -> (sha256, card wall s, cpu wall s)."""
+    out = os.path.join(tmp, f"log-{label}")
+    walls = []
+    for where in ("card", "cpu"):
+        if db is not None and os.path.exists(db):
+            os.remove(db)
+        pre = [] if where == "card" else ["--device", "cpu"]
+
+        def go():
+            with open(f"{out}.{where}", "w") as f, contextlib.redirect_stdout(f):
+                return kart_cli(*pre, "-C", path, "log", *argv, rc_want=rc_want)
+
+        if where == "card":
+            wall, stats = counted("H2", go, launches, want=k1)
+            n = stats["classify_counts_only_launches"]
+            check(n == counts_only, f"[H2] {label}: K1 ran counts-only {n} times, expected "
+                                    f"{counts_only}")
+        else:
+            wall = go()
+        walls.append(wall)
+    digest = sha256_of(f"{out}.card")
+    check(digest == sha256_of(f"{out}.cpu"), f"[H2] log {' '.join(argv)}: card and --device cpu "
+                                             "differ")
+    return digest, walls[0], walls[1]
+
+
+def _annotation_rows(db):
+    with contextlib.closing(sqlite3.connect(db)) as con:
+        return con.execute("SELECT id, object_id, annotation_type, data FROM kart_annotations "
+                           "ORDER BY id").fetchall()
+
+
+def log_phase(repo, tmp, tips, moved_pk, card, launches):
+    """[H2]: ``kart log`` on the card and with ``--device cpu``: equal
+    stdout sha256 and exit codes, K1 as the history predicts (every diffed
+    commit has a sidecar on both sides but the root, whose diff is the tree
+    walk)."""
+    path, db = repo.workdir, os.path.join(repo.gitdir, "annotations.db")
+    n_hist = len(tips) - 1
+    n_all = n_hist + 2  # with [11]'s import and edit commits
+    head_time = repo.odb.read_commit(tips[-1]).committer.time
+    cases = [
+        ("text", [], 0, 0),
+        ("oneline-graph", ["--oneline", "--graph"], 0, 0),
+        # the root's diff is a tree walk of every row on each route: left
+        # out here, it runs in [H3]
+        ("json-datasets", ["-o", "json", "--with-dataset-changes", "-n", str(n_all - 1)],
+         n_all - 1, 0),
+        ("jsonl-veryfast", ["-o", "json-lines", "--with-feature-count", "veryfast"],
+         n_all - 1, n_all - 1),
+        ("json-exact-3", ["-o", "json", "--with-feature-count", "exact", "-n", "3"], 0, 0),
+        # the newest change of a moved feature: one K1 a walked commit
+        ("feature", ["--oneline", "-n", "1", f"synth:feature:{moved_pk}"], n_hist, 0),
+        ("grep", ["--oneline", "--grep", "^history [02468]"], 0, 0),
+        ("author", ["--oneline", "--author", "Synth", "--author", "^Nobody"], 0, 0),
+        ("since", ["-o", "json", "--since", f"@{head_time}"], 0, 0),
+        ("skip", ["--oneline", "--skip", "2", "-n", "3"], 0, 0),
+    ]
+    for label, argv, k1, k1_counts in cases:
+        digest, w_card, w_cpu = _log_runs(path, tmp, label, argv, launches, k1, k1_counts,
+                                          db=db if "--with-feature-count" in argv else None)
+        with open(os.path.join(tmp, f"log-{label}.card")) as f:
+            body = f.read()
+        check(body.strip(), f"[H2] log {' '.join(argv)} printed nothing")
+        print(f"[H2] log {' '.join(argv)}: {len(body.splitlines())} lines, sha256 {digest} on "
+              f"both; card {w_card:.4f} s, cpu {w_cpu:.4f} s host wall; K1 {k1}"
+              + (f" ({k1_counts} counts-only)" if k1_counts else "") + f" on {card}")
+    with open(os.path.join(tmp, "log-feature.card")) as f:
+        check(f.read().split()[0] == tips[1][:7], "[H2] the feature filter did not stop at the "
+                                                  "commit that moved the feature")
+
+
+def annotations_phase(repo, tips, card, launches):
+    """[H3]: ``kart build-annotations`` on the card with a fresh cache (one
+    K1 a commit but the root), again (no launch: every count cached), and
+    with ``--device cpu`` on a fresh cache: equal rows in order."""
+    path, db = repo.workdir, os.path.join(repo.gitdir, "annotations.db")
+    n_all = len(tips) + 1
+    runs = []
+    for label, pre, fresh, k1 in (("card", [], True, n_all - 1), ("card again", [], False, 0),
+                                  ("cpu", ["--device", "cpu"], True, None)):
+        if fresh and os.path.exists(db):
+            os.remove(db)
+        buf = io.StringIO()
+
+        def go():
+            with contextlib.redirect_stdout(buf):
+                return kart_cli(*pre, "-C", path, "build-annotations")
+
+        wall = counted("H3", go, launches, want=k1)[0] if k1 is not None else go()
+        check(buf.getvalue() == f"Built annotations for {n_all} commit(s)\n",
+              f"[H3] {label} printed {buf.getvalue()!r}")
+        rows = _annotation_rows(db)
+        runs.append(rows)
+        print(f"[H3] build-annotations ({label}): {len(rows)} rows, {wall:.4f} s host wall; "
+              f"K1 {k1 if k1 is not None else '(cpu)'} on {card}")
+    check(runs[0] == runs[1] == runs[2], "[H3] the annotation rows differ between the runs")
+    counts = [json.loads(r[3]).get("synth") for r in runs[0]]
+    print(f"[H3] rows equal on the three runs; counts newest first {counts} on {card}")
+
+
+def history_phases(repo, tmp, card, launches, n_commits, seed):
+    """[H0]-[H3] on [11]'s layer (after every phase that reads it at its
+    own HEAD). -> {phase: host wall s}."""
+    walls = {}
+    t = time.perf_counter()
+    tips, truths, moved_pk = history_commits(repo, n_commits, seed)
+    walls["H0"] = time.perf_counter() - t
+    print(f"[H0] {n_commits} commits on the point layer, each {truths[0]}: "
+          f"{walls['H0']:.4f} s host wall on {card}")
+    for label, fn in (("H1", lambda: cdc_phase(repo, tips, truths, card, launches)),
+                      ("H2", lambda: log_phase(repo, tmp, tips, moved_pk, card, launches)),
+                      ("H3", lambda: annotations_phase(repo, tips, card, launches))):
+        t = time.perf_counter()
+        fn()
+        walls[label] = time.perf_counter() - t
+    print("[H] phase walls s: " + ", ".join(f"[{k}] {v:.2f}" for k, v in walls.items())
+          + f"; all {sum(walls.values()):.2f} on {card}")
+    return walls
 
 
 # --- the envelope index and the blob filter on a layer of real blobs (K3) -----
@@ -3211,6 +3529,12 @@ def main():
     ap.add_argument("--tiles-only", action="store_true",
                     help="run phases 0, 1, 11 and T1-T3 alone and print K7's timings and the "
                          "launches (no result line)")
+    # 6, cut from 10: at 10 the history phases took 113.97 s on an H100 machine (PERF.md
+    # §4), over their 100 s budget; the root commit's diffs (no K1) take a fixed ~45 s
+    ap.add_argument("--history-commits", type=int, default=6)
+    ap.add_argument("--history-only", action="store_true",
+                    help="run phases 0, 1, 11 and H0-H3 alone and print the launches (no "
+                         "result line)")
     ap.add_argument("--stream-only", action="store_true",
                     help="run phases 0, 1 and S1-S4 alone (S3 on repositories of its own) and "
                          "print the streamed routes' timings and the launches (no result line)")
@@ -3231,12 +3555,12 @@ def main():
         _build.build_all()
         print(json.dumps(merge_phases(args, card, {}, dev)))
         return 0
-    if args.query_only or args.kernels_only or args.tiles_only:
+    if args.query_only or args.kernels_only or args.tiles_only or args.history_only:
         _build.build_all()
         launches = {}
         kernels = spatial_phases(args, card, launches, dev, filters=False,
                                  query="kernels" if args.kernels_only else args.query_only,
-                                 tiles=args.tiles_only)
+                                 tiles=args.tiles_only, history=args.history_only)
         print(json.dumps({**kernels, "launches": launches}))
         return 0
     if args.stream_only:
@@ -3466,8 +3790,8 @@ def main():
     t = time.perf_counter()
     spatial = spatial_phases(args, card, cli_launches, dev)
     k5, k6, k7 = spatial["k5"], spatial["k6"], spatial["k7"]
-    walls["11-13, Q1-Q3, T1-T3"] = time.perf_counter() - t - spatial["walls"]["12b"]
-    walls["12b"] = spatial["walls"]["12b"]
+    walls["11-13, Q1-Q3, T1-T3"] = time.perf_counter() - t - sum(spatial["walls"].values())
+    walls.update(spatial["walls"])
     kernels[2]["index_envelopes"], walls["11i"] = index_phases(args, card, cli_launches, dev)
     t = time.perf_counter()
     s3_diff = s_walls["S3"]

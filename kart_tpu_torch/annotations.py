@@ -5,10 +5,16 @@ counts of ``kart diff --only-feature-count``, under a key that is the same
 for A<>B and B<>A. When the gitdir cannot be written, entries live in
 memory for the process.
 
-Counterpart of kart_tpu's ``annotations.py`` (``DiffAnnotations.get`` and
-``set``): the same file, table, index, keys and JSON values, so each
-package reads what the other wrote. ``count_changes`` and ``build_all``
-are not ported.
+It also holds each commit's exact per-dataset feature-change counts
+against its first parent: :meth:`DiffAnnotations.count_changes` fills one
+entry from a diff on the engine (one K1 launch a dataset when both
+revisions have sidecars, the tree walk otherwise), and
+:meth:`DiffAnnotations.build_all` (``kart build-annotations``) fills them
+for HEAD's history.
+
+Counterpart of kart_tpu's ``annotations.py`` (all of it): the same file,
+table, index, keys and JSON values, so each package reads what the other
+wrote.
 """
 
 import json
@@ -74,3 +80,35 @@ class DiffAnnotations:
                 "VALUES (?, ?, ?)",
                 (*key, json.dumps(data)),
             )
+
+    def count_changes(self, base_rs, target_rs, device=None):
+        """Per-dataset feature-change counts between two revisions, from the
+        cache or from a diff on ``device`` (which then fills it)."""
+        base_tree = base_rs.tree_oid if base_rs else None
+        target_tree = target_rs.tree_oid if target_rs else None
+        cached = self.get(base_tree, target_tree)
+        if cached is not None:
+            return cached
+        from kart_tpu_torch.diff.engine import get_repo_diff
+
+        diff = get_repo_diff(base_rs, target_rs, device=device)
+        counts = {ds_path: len(ds_diff.get("feature", ())) for ds_path, ds_diff in diff.items()}
+        self.set(base_tree, target_tree, counts)
+        return counts
+
+    def build_all(self, all_reachable=False, device=None):
+        """Count the changes of HEAD's history, newest first, each commit
+        against its first parent: the newest 100 commits, or every one with
+        ``all_reachable``. -> the number of commits annotated."""
+        repo = self.repo
+        if repo.head_is_unborn:
+            return 0
+        built = 0
+        for oid, commit in repo.walk_commits(repo.head_commit_oid):
+            parent = commit.parents[0] if commit.parents else None
+            self.count_changes(repo.structure(parent) if parent else None, repo.structure(oid),
+                               device=device)
+            built += 1
+            if not all_reachable and built >= 100:
+                break
+        return built

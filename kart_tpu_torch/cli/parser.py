@@ -71,8 +71,10 @@ class NoArgsIsHelp(UsageError):
 
 
 class Option:
-    """One option. ``kind``: ``value`` (takes one value), ``flag`` (True;
-    its ``secondary`` names, such as ``--no-ff``, set False) or ``count``."""
+    """One option. ``kind``: ``value`` (takes one value), ``multiple``
+    (click's ``multiple=True``: takes one value each time it is given, a
+    tuple of them, ``()`` when never given), ``flag`` (True; its
+    ``secondary`` names, such as ``--no-ff``, set False) or ``count``."""
 
     def __init__(self, *opts, dest, kind="value", choices=None, default=None,
                  secondary=(), path_exists=False, dir_path=False, integer=False, metavar=None,
@@ -87,18 +89,23 @@ class Option:
         self.path_exists = path_exists
         self.metavar = metavar
         self.help = help
-        if default is None and kind in ("flag", "count"):
-            default = 0 if kind == "count" else False
+        if default is None and kind in ("flag", "count", "multiple"):
+            default = {"flag": False, "count": 0, "multiple": ()}[kind]
         self.default = default
 
     @property
     def takes_value(self):
-        return self.kind == "value"
+        return self.kind in ("value", "multiple")
 
     def hint(self):
         return " / ".join(repr(o) for o in self.opts)
 
     def convert(self, value, command=None):
+        if self.kind == "multiple":
+            return tuple(self._convert_one(v, command) for v in value)
+        return self._convert_one(value, command)
+
+    def _convert_one(self, value, command):
         if self.choices is not None and value not in self.choices:
             raise UsageError(f"Invalid value for {self.hint()}: {value!r} is not one of "
                              + ", ".join(repr(c) for c in self.choices) + ".", command)
@@ -301,6 +308,8 @@ class Command:
             opts[option.dest] = opts.get(option.dest, 0) + 1
         elif option.kind == "flag":
             opts[option.dest] = name not in option.secondary
+        elif option.kind == "multiple":
+            opts[option.dest] = (*opts.get(option.dest, ()), value)
         else:
             opts[option.dest] = value
 

@@ -3,8 +3,8 @@ gitdirs are recognised too) holding objects, refs and config.
 
 Counterpart of kart_tpu's ``core/repo.py``: ``KartRepo`` with ``_locate``,
 ``init_repository``, ``resolve_refish``, ``resolve_commit``,
-``merge_base``, ``structure``, ``create_commit``, the ``head_*``
-properties, ``has_promisor_remote``, the spatial filter's config keys
+``walk_commits``, ``merge_base``, ``structure``, ``create_commit``, the
+``head_*`` properties, ``has_promisor_remote``, the spatial filter's config keys
 (``KartConfigKeys``) and the merge state machine (``KartRepoState``, the
 ``MERGE_*`` state files in the gitdir). The working copy is only located
 (:meth:`KartRepo.working_copy_location`), never opened; tags' creation,
@@ -143,6 +143,10 @@ class KartRepo:
     @property
     def head_commit_oid(self):
         return self.refs.head_resolved()
+
+    @property
+    def head_is_unborn(self):
+        return self.head_commit_oid is None
 
     @property
     def head_tree_oid(self):
@@ -303,6 +307,36 @@ class KartRepo:
         return self.odb.read_commit(oid)
 
     # -- history -------------------------------------------------------------
+
+    def walk_commits(self, start_oid, *, first_parent=False):
+        """Yield (oid, Commit) from ``start_oid`` backwards, newest
+        committer time first (``git log``'s default order); equal times go
+        in the order the commits were reached, children first. A missing
+        parent is a shallow boundary; a missing ``start_oid`` raises
+        ObjectMissing."""
+        seen, heap = set(), []
+        counter = 0
+
+        def push(oid, *, tolerate_missing):
+            nonlocal counter
+            if oid in seen:
+                return
+            seen.add(oid)
+            try:
+                commit = self.odb.read_commit(oid)
+            except ObjectMissing:
+                if tolerate_missing:
+                    return
+                raise
+            heapq.heappush(heap, (-commit.committer.time, counter, oid, commit))
+            counter += 1
+
+        push(start_oid, tolerate_missing=False)
+        while heap:
+            _, _, oid, commit = heapq.heappop(heap)
+            yield oid, commit
+            for p in commit.parents[:1] if first_parent else commit.parents:
+                push(p, tolerate_missing=True)
 
     def merge_base(self, oid_a, oid_b):
         """Best common ancestor: the newest (by committer time) ancestor of

@@ -16,7 +16,9 @@ pair is classified whole and left to the writers' per-value filter. A
 hash-keyed dataset's keys are hashes of its filenames: its pks come from
 the changed rows' paths, the fast count and the fused row plan decline it
 (its collision guard needs the changed rows), and colliding keys send it
-to the tree walk, as in kart_tpu.
+to the tree walk, as in kart_tpu. An int-pk dataset added or deleted whole
+(a root commit's diff) is listed from one vectorized walk of its feature
+tree, with the tree walk's deltas in the tree walk's order.
 """
 
 from typing import NamedTuple
@@ -200,6 +202,9 @@ def get_feature_diff(base_ds, target_ds, ds_filter=None):
     base_oid, target_oid = _tree_oid(base_ds), _tree_oid(target_ds)
     if base_oid == target_oid:
         return result
+    whole = target_ds if base_oid is None else base_ds if target_oid is None else None
+    if whole is not None and not _hash_keyed(whole):
+        return _whole_dataset_diff(whole, target_oid is None, feature_filter)
     odb = (base_ds or target_ds).feature_tree.odb
     for path, old_oid, new_oid in tree_diff_entries(odb, base_oid, target_oid):
         ds = base_ds if old_oid is not None else target_ds
@@ -212,6 +217,23 @@ def get_feature_diff(base_ds, target_ds, ds_filter=None):
         new = (KeyValue((key, target_ds.get_feature_promise_from_oid(pks, new_oid)))
                if new_oid is not None else None)
         result.add_delta(Delta(old, new))
+    return result
+
+
+def _whole_dataset_diff(ds, deleted, feature_filter=None):
+    """Every feature of an int-pk dataset that was added (or, ``deleted``,
+    removed) whole, in the tree walk's order, from one vectorized walk of
+    its feature tree (:meth:`~kart_tpu_torch.models.dataset.Dataset3
+    .feature_index`) rather than a per-path decode."""
+    _, pks, oids_u8 = ds.feature_index()
+    hexes = oids_u8.tobytes().hex()
+    promise = ds.get_feature_promise_from_oid
+    result = DeltaDiff()
+    for i, pk in enumerate(pks.tolist()):
+        if feature_filter is not None and pk not in feature_filter:
+            continue
+        kv = KeyValue((pk, promise((pk,), hexes[40 * i : 40 * i + 40])))
+        result.add_delta(Delta(kv, None) if deleted else Delta(None, kv))
     return result
 
 

@@ -25,10 +25,12 @@ changed rows' filenames. The ``geom`` section (the vertex column of
 an undecoded view that :meth:`FeatureBlock.vertex_column` decodes on first
 use. The repo-level helpers (:func:`sidecar_file`, :func:`has_sidecar`,
 :func:`load_block`, :func:`ensure_block`, :func:`save_sidecar`,
-:func:`build_sidecar`) mirror kart_tpu's ``diff/sidecar.py``, with
-:func:`_feature_envelope_wsen` for envelopes read from blobs; deriving a
-sidecar from a commit and the importer's capture are not ported (the port
-does not import).
+:func:`build_sidecar`, :func:`derive_sidecar`) mirror kart_tpu's
+``diff/sidecar.py``, with :func:`_feature_envelope_wsen` for envelopes
+read from blobs. :func:`derive_sidecar` writes a new tree's sidecar from
+an older one and the rows that changed (what the changed-block CDC does
+for a pushed tip); deriving one inside a commit, and the importer's
+capture, are not ported (the port neither commits diffs nor imports).
 """
 
 import json
@@ -326,3 +328,33 @@ def build_sidecar(repo, dataset, pad=False):
     else:
         save_sidecar(repo, feature_tree.oid, hash_keys_for_paths(paths), oids_u8, paths=paths)
     return load_block(repo, dataset, pad=pad)
+
+
+def derive_sidecar(repo, old_block, new_feature_tree_oid, removed, added, added_envs=None):
+    """A new feature tree's sidecar from an older int-pk block and the
+    change set, in O(changed) array work: ``removed`` the pks that went,
+    ``added`` {pk: oid hex} the rows written (an added pk overrides a
+    removal). ``added_envs`` {pk: wsen} carries the envelope column over
+    when the old block has one. The new sidecar has no vertex column.
+    -> its path."""
+    keys = old_block.keys[: old_block.count]
+    oids_u8 = np.ascontiguousarray(old_block.oids[: old_block.count]).view(np.uint8).reshape(-1, 20)
+    envs = (np.asarray(old_block.envelopes)
+            if old_block.envelopes is not None and added_envs is not None else None)
+    drop = set(removed) | set(added)
+    if drop:
+        mask = ~np.isin(keys, np.fromiter(drop, dtype=np.int64, count=len(drop)))
+        keys, oids_u8 = keys[mask], oids_u8[mask]
+        if envs is not None:
+            envs = envs[mask]
+    if added:
+        add_keys = np.fromiter(added.keys(), dtype=np.int64, count=len(added))
+        add_oids = np.frombuffer(bytes.fromhex("".join(added.values())),
+                                 dtype=np.uint8).reshape(-1, 20)
+        keys = np.concatenate([keys, add_keys])
+        oids_u8 = np.concatenate([oids_u8, add_oids])
+        if envs is not None:
+            add_env = np.array([added_envs[int(pk)] for pk in add_keys],
+                               dtype=np.float32).reshape(-1, 4)
+            envs = np.concatenate([envs, add_env])
+    return save_sidecar(repo, new_feature_tree_oid, keys, oids_u8, envelopes=envs)

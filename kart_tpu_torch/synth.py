@@ -29,7 +29,10 @@ vertex column) has no kart_tpu counterpart either: it feeds the exact
 refine's checks. ``pk="text"`` has no kart_tpu counterpart: a hash-keyed layer whose pk is
 a G-NAF-shaped address id (:func:`gnaf_ids`), its feature tree laid out by
 the hashed path encoder and its sidecars keyed by the filename hashes with
-their paths, every object as kart_tpu's encoders would write it.
+their paths, every object as kart_tpu's encoders would write it. Nor has
+:func:`commit_point_edits`: a further commit of a point layer that moves,
+inserts and deletes rows, with real blobs for the rows it writes and no
+sidecar (a history as it arrives by a push, for the changed-block CDC).
 """
 
 import hashlib
@@ -343,3 +346,32 @@ def synth_repo(path, n, *, edit_frac=0.01, seed=0, blobs="changed", ds_path="syn
                              paths=paths)
     return repo, {"base_commit": commits[0], "edit_commit": commits[1], "n": n,
                   "n_edits": n_edits}
+
+
+def commit_point_edits(repo, *, moves=None, inserts=None, deletes=(), message="edit points",
+                       ref="HEAD", ds_path="synth"):
+    """Commit edits of a :data:`SYNTH_SPATIAL_SCHEMA` point layer on top of
+    ``ref``: ``moves`` and ``inserts``, each ``(pks, lon, lat)`` columns or
+    None, are written as real blobs with their points there (rating: the
+    pk), and the pks ``deletes`` are removed. Only the feature tree's
+    touched paths are rewritten, and no sidecar is written. -> the commit
+    oid."""
+    odb = repo.odb
+    parent, _ = repo.resolve_refish(ref)
+    encoder = PathEncoder.INT_PK_ENCODER
+    root = f"{ds_path}/{Dataset3.DATASET_DIRNAME}/feature/"
+    with odb.bulk_pack(level=0):
+        tb = TreeBuilder(odb, odb.read_commit(parent).tree)
+        for rows in (moves, inserts):
+            if rows is None:
+                continue
+            pks, lon, lat = (np.asarray(c) for c in rows)
+            pks = pks.astype(np.int64)
+            oids = _changed_row_oids(odb, pks, pks.astype(np.float64), SYNTH_SPATIAL_SCHEMA,
+                                     (lon.astype(np.float64), lat.astype(np.float64)))
+            for pk, oid in zip(pks.tolist(), oids):
+                tb.insert(root + encoder.encode_pks_to_path((pk,)), bytes(oid).hex())
+        for pk in np.asarray(deletes, dtype=np.int64).tolist():
+            tb.remove(root + encoder.encode_pks_to_path((pk,)))
+        tree = tb.flush()
+    return repo.create_commit(ref, tree, message, [parent])

@@ -90,6 +90,27 @@ SPATIAL = [
     ["spatial-filter", "resolve", "nonsense"],
 ]
 
+#: kart log: a bad --with-feature-count, a count that is no integer, an
+#: unparseable date (not a usage error: ``Error:`` alone), a flag given a
+#: value, a repeatable option with no value, a bad -o
+LOG = [
+    ["log", "--with-feature-count", "roughly"],
+    ["log", "-n", "three"],
+    ["log", "-nx"],
+    ["log", "--skip", "1.5"],
+    ["log", "--since", "next tuesday"],
+    ["log", "--until", "2024-02-30"],
+    ["log", "--graph=1"],
+    ["log", "--author"],
+    ["log", "--grep", "x", "--grep"],
+    ["log", "-o", "geojson"],
+    ["log", "--json-style", "loose"],
+    ["log", "--with-dataset-change"],
+    ["build-annotations", "extra"],
+    ["build-annotations", "--all-reachable=1"],
+    ["build-annotations", "--all"],
+]
+
 OTHERS = [
     ["diff", "--outpt", "x"],
     ["diff", "--output-format"],
@@ -137,7 +158,8 @@ def repo(tmp_path_factory):
     return make_repo_with_edits(tmp_path_factory.mktemp("usage"))[0]
 
 
-@pytest.mark.parametrize("argv", RECORDED + PER_COMMAND + QUERY + OTHERS + EXPORT + SPATIAL,
+@pytest.mark.parametrize("argv",
+                         RECORDED + PER_COMMAND + QUERY + OTHERS + EXPORT + SPATIAL + LOG,
                          ids=" ".join)
 def test_usage_errors_match_kart_tpu(repo, argv):
     ref = CliRunner().invoke(kart_cli, ["-C", repo, *argv], prog_name="kart")
@@ -190,10 +212,18 @@ def test_not_a_repository_like_kart_tpu(tmp_path):
     assert (rc, out, err) == (ref.exit_code, ref.stdout, ref.stderr)
 
 
-@pytest.mark.parametrize("command", ["log", "apply", "status", "import"])
+@pytest.mark.parametrize("command", ["tag", "apply", "status", "import"])
 def test_unported_kart_commands_are_unknown_commands(repo, command):
     """A kart command the port lacks is a usage error, as any unknown one."""
     rc, out, err = _port(["--device", "cpu", "-C", repo, command])
     assert rc == 2 and out == ""
     assert _edges(err) == ("Usage: kart [OPTIONS] COMMAND [ARGS]...",
                            f"Error: No such command {command!r}.")
+
+
+def test_build_annotations_help_is_click_s(repo):
+    """``kart build-annotations --help``, word for word click's."""
+    ref = CliRunner().invoke(kart_cli, ["-C", repo, "build-annotations", "--help"],
+                             prog_name="kart")
+    rc, out, err = _port(["--device", "cpu", "-C", repo, "build-annotations", "--help"])
+    assert (rc, out, err) == (ref.exit_code, ref.stdout, ref.stderr) and rc == 0

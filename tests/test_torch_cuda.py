@@ -1128,3 +1128,95 @@ def test_one_chunk_route_below_the_row_knob(cuda, monkeypatch, n):
         assert g.dtype == w.dtype and np.array_equal(g, w)
     assert merged[3] == plain[3]
     assert m_timings["chunks"] == 1 and {"landing_s", "d2h_ms", "k4_ms"} <= set(m_timings)
+
+
+def _point_history_on(path, n=20_000, commits=3, seed=5):
+    """The port's point layer and ``commits`` commits of
+    ``commit_point_edits`` (no sidecars). -> (repo, tips from the layer's
+    edit commit on)."""
+    from kart_tpu_torch.synth import commit_point_edits, synth_repo
+
+    repo, info = synth_repo(path, n, seed=seed, blobs="changed", spatial=True)
+    rng = np.random.default_rng(seed)
+    live = np.arange(1 << 24, (1 << 24) + n, dtype=np.int64)
+    tips = [info["edit_commit"]]
+    for c in range(commits):
+        pick = rng.choice(len(live), 30, replace=False)
+        moved, gone = live[pick[:25]], live[pick[25:]]
+        new = live[-1] + 1 + np.arange(5, dtype=np.int64)
+        lat = rng.uniform(-85, 85, 25)
+        lat[::4] = 90.0 if c % 2 else -90.0
+        tips.append(commit_point_edits(
+            repo, moves=(moved, rng.choice([-180.0, 179.99999, 12.5], 25), lat),
+            inserts=(new, rng.uniform(-180, 180, 5), rng.uniform(-85, 85, 5)),
+            deletes=gone, message=f"history {c}"))
+        live = np.sort(np.concatenate([np.setdiff1d(live, gone), new]))
+    return repo, tips
+
+
+def test_dirty_tiles_on_card_matches_cpu(cuda, tmp_path):
+    """Each event of a pushed history on the card (one K1 launch, the new
+    tip's sidecar derived) and again with device="cpu" after the derived
+    files are deleted: the same summaries and the same derived bytes."""
+    import json
+    import os
+
+    from kart_tpu_torch.diff import sidecar
+    from kart_tpu_torch.events.cdc import dirty_tiles
+    from kart_tpu_torch.tiles.source import drop_sources
+
+    repo, tips = _point_history_on(str(tmp_path / "r"))
+    files = [sidecar.sidecar_file(repo, repo.structure(t).datasets["synth"].feature_tree.oid)
+             for t in tips[1:]]
+    outs = []
+    for device in (None, "cpu"):
+        for f in files:
+            if os.path.exists(f):
+                os.remove(f)
+        drop_sources()
+        got = []
+        for old, new, f in zip(tips, tips[1:], files):
+            runtime.reset_stats()
+            summary = dirty_tiles(repo, old, new, device=device)
+            assert runtime.stats_snapshot()["classify_launches"] == (device is None)
+            assert summary["synth"]["changed"] == {"inserts": 5, "updates": 25, "deletes": 5}
+            with open(f, "rb") as fh:
+                got.append((json.dumps(summary), fh.read()))
+        outs.append(got)
+    assert outs[0] == outs[1]
+
+
+def test_log_and_build_annotations_on_card_match_cpu(cuda, tmp_path):
+    """``log -o json --with-dataset-changes`` and ``build-annotations`` on
+    the card (one K1 launch a commit whose sides both have sidecars, none
+    for the root) and with --device cpu: the same bytes and rows."""
+    import contextlib
+    import io
+    import os
+    import sqlite3
+
+    from kart_tpu_torch.cli import main as port_main
+    from kart_tpu_torch.events.cdc import dirty_tiles
+
+    repo, tips = _point_history_on(str(tmp_path / "r"))
+    for old, new in zip(tips, tips[1:]):
+        dirty_tiles(repo, old, new, device="cpu")  # derives every tip's sidecar
+    db = os.path.join(repo.gitdir, "annotations.db")
+    for argv, want in ((["log", "-o", "json", "--with-dataset-changes"], len(tips)),
+                       (["build-annotations"], len(tips))):
+        outs = []
+        for pre in ([], ["--device", "cpu"]):
+            if os.path.exists(db):
+                os.remove(db)
+            runtime.reset_stats()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                assert port_main([*pre, "-C", repo.workdir, *argv]) == 0
+            if not pre:
+                assert runtime.stats_snapshot()["classify_launches"] == want
+            rows = []
+            if os.path.exists(db):
+                with contextlib.closing(sqlite3.connect(db)) as con:
+                    rows = con.execute("SELECT * FROM kart_annotations ORDER BY id").fetchall()
+            outs.append((buf.getvalue(), rows))
+        assert outs[0] == outs[1]

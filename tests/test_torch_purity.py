@@ -16,6 +16,7 @@ import kart_tpu_torch
 from kart_tpu_torch import runtime
 from kart_tpu_torch.cli import main as cli_main
 from kart_tpu_torch.diff import backend, engine
+from kart_tpu_torch.events.cdc import dirty_tiles
 from kart_tpu_torch.ops import _build, bbox
 from kart_tpu_torch.ops.blocks import FeatureBlock
 from kart_tpu_torch.spatial_filter import blob_filter_for_spec, envelope_prepass
@@ -63,11 +64,13 @@ def test_no_jax_or_kart_tpu_imports(path):
 
 def test_walk_reaches_every_package():
     dirs = {os.path.relpath(os.path.dirname(f), PKG) for f in _port_files()[1:]}
-    assert {".", "core", "models", "cli", "diff", "ops", "spatial_filter", "tiles"} <= dirs
+    assert {".", "core", "models", "cli", "diff", "ops", "spatial_filter", "tiles",
+            "events"} <= dirs
     assert {"kart_tpu_torch.cli.diff_cmds", "kart_tpu_torch.core.msgpack",
             "kart_tpu_torch.__main__", "kart_tpu_torch.crs", "kart_tpu_torch.epsg",
             "kart_tpu_torch.geom", "kart_tpu_torch.tiles.streams", "kart_tpu_torch.gridshift",
-            "kart_tpu_torch.cli.spatial_cmds"} <= set(_modules())
+            "kart_tpu_torch.cli.spatial_cmds", "kart_tpu_torch.events.cdc",
+            "kart_tpu_torch.cli.data_cmds"} <= set(_modules())
 
 
 def test_imports_with_jax_and_kart_tpu_blocked():
@@ -107,6 +110,9 @@ ENTRY_POINTS = {
                                                          "0,0,1,1"),
     "resolve_device": lambda: runtime.resolve_device(),
     "cli_main": lambda: cli_main(["-C", ROOT, "diff", "-o", "feature-count", "HEAD^...HEAD"]),
+    "dirty_tiles": lambda: dirty_tiles(types.SimpleNamespace(gitdir=ROOT), None, None),
+    "cli_log": lambda: cli_main(["-C", ROOT, "log", "-o", "json", "--with-dataset-changes"]),
+    "cli_build_annotations": lambda: cli_main(["-C", ROOT, "build-annotations"]),
 }
 
 

@@ -15,6 +15,7 @@ import io
 import os
 import shutil
 import sqlite3
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -206,11 +207,16 @@ INDEX = ["spatial-filter", "index"]
 
 
 def _edit(path):
+    """Two edit commits, dated alike in every copy so that the copies
+    index the same commit oids (otherwise a second that turns between two
+    copies' commits makes their oids differ)."""
     repo = JRepo(path)
-    for table in ("nztm", "utm60s"):
-        ds = repo.structure("HEAD").datasets[table]
-        edit_commit(repo, table, updates=[{**ds.get_feature([6]), "geom":
-                                           ds.get_feature([7])["geom"]}], message="more")
+    dates = {"GIT_AUTHOR_DATE": "2000000000 +0000", "GIT_COMMITTER_DATE": "2000000000 +0000"}
+    with mock.patch.dict(os.environ, dates):
+        for table in ("nztm", "utm60s"):
+            ds = repo.structure("HEAD").datasets[table]
+            edit_commit(repo, table, updates=[{**ds.get_feature([6]), "geom":
+                                               ds.get_feature([7])["geom"]}], message="more")
 
 
 @pytest.mark.parametrize("repo_kind", ["imported", "synth_real"])
