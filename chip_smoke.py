@@ -34,6 +34,24 @@ first use. Phases:
 6. timings beside each kernel's bound: the wrapper's time (CUDA events,
    after warm-up) and the kernels' own device time (torch.profiler),
    checked by CUDA events with the wrapper's host work fenced off
+M1. (after [6]) several devices on the one card, listed S = 1, 2 and 4
+   times as a mesh: B3 (``diff.device_batch.classify_blocks_batched``, in
+   rounds of 65,536-row key-aligned chunks, full and counts-only) and B7
+   (``parallel.classify_blocks_sharded``, the key-modulus partition) on
+   phases 3-5's sides: classes sha256-equal to the one-card route's and
+   equal counts, K1 once a chunk (B3) and once a non-empty shard (B7), each
+   route's host wall beside the one-card route's
+M2. (in [10b] and after [15]) B8 (``diff.backend.sampled_counts_sharded``)
+   on [10b]'s four sampled row sets: counts equal to the one-card
+   counts-only K1, one counts-only K1 a key-aligned slice (at most S); the
+   sharded merge (``parallel.sharded_merge.sharded_merge_classify``) on
+   [14]'s blocks: union, decision, presence and stats equal to
+   ``merge_classify``'s, K4 S times
+M3. the mesh forms of K2 (after [6], on phases 3-5's envelopes), K5 and K6
+   (in Q3, on Q2's build tile x probe batch and its refine batch) and K7
+   (in T3, on T1's largest z4 batch, and its quantized boxes against the
+   host's): equal to one launch, one launch an entry (K5: a counts pass an
+   entry and a pairs pass where it found pairs)
 7. build a repository with the port's ``synth.synth_repo``: ``--repo-rows``
    int-pk features, real blobs for the 1% edited rows only, from ``--seed``
 8-10. ``kart diff`` through the port's CLI entry point (``kart_tpu_torch.cli
@@ -240,6 +258,12 @@ S4. ``columnar_equal`` (B12) on 8 x 10M int64 columns with null masks, on
    ``--crossover-rows`` a side (prefixes of [S1]'s sides), host walls
    first and best of ``--crossover-reps``, and the streamed route at
    ``--stream-rows`` by ``--chunk-sweep`` chunk rows
+V1. a V2 repository (``synth.v2_repo``: ``.sno-dataset``, the legacy hashed
+   layout, a point column, no sidecar): every diff format, the estimates,
+   ``show``, ``create-patch``, ``log --with-dataset-changes`` and
+   ``--with-feature-count``, ``query`` (count, ``--where``, ``--bbox``) and
+   ``export tiles``, on the card and with ``--device cpu``, each route on
+   its own copy: equal stdout (and tile tree) sha256, exit 0
 22. each group of phases' host wall (S1-S4 first, [1-6] the build, the data
    and phases 3-6; [12b], [11i] and H0-H3 on their own), the ``kernels`` JSON line
    (K1-K7, K3's figures on [11i]'s index in ``index_envelopes``, each
@@ -298,11 +322,16 @@ from kart_tpu_torch.core.feature_tree import (
 from kart_tpu_torch.core.objects import MODE_TREE
 from kart_tpu_torch.core.tree_builder import TreeBuilder
 from kart_tpu_torch.diff.backend import (
+    DeviceTorchBackend,
     PlainTorchBackend,
+    ShardedTorchBackend,
     envelope_scan,
     envelope_scan_plain,
+    sampled_counts_sharded,
     select_backend,
+    sharded_merc_envelopes,
 )
+from kart_tpu_torch.diff.device_batch import batch_splits, classify_blocks_batched, device_batch_rows
 from kart_tpu_torch.diff.engine import (
     classify_changed,
     feature_count,
@@ -350,6 +379,8 @@ from kart_tpu_torch.ops.merge_kernel import (
     merge_tile_plan,
     merge_tile_plan_plain,
 )
+from kart_tpu_torch.parallel.sharded_diff import classify_blocks_sharded, partition_block
+from kart_tpu_torch.parallel.sharded_merge import sharded_merge_classify
 from kart_tpu_torch.spatial_filter import (
     PREPASS_PAD,
     ResolvedSpatialFilterSpec,
@@ -371,6 +402,7 @@ from kart_tpu_torch.synth import (
     gnaf_ids,
     synth_repo,
     synth_shapes,
+    v2_repo,
 )
 from kart_tpu_torch.ops.merc import merc, merc_plain
 from kart_tpu_torch.tiles.clip import _host_merc, quantize_boxes, quantize_margin, refine_rows
@@ -931,6 +963,8 @@ def estimation_phases(path, tmp, card, launches, n_edits, repo):
                                                  ("corank_kernel", "classify_tiles"))),
                  "bound_ms": b[0], "bound_by": b[1]}
             timings.append(t)
+            one = classify(ok, oo, nk, no, counts_only=True)[2].cpu()
+            t["mesh"] = mesh_sampled_counts(acc, so, sn, one, card, launches, dev)
             del ok, oo, nk, no
         print(f"[10b] --only-feature-count {acc} {' '.join(extra)}: {text.strip()!r}; sampled "
               f"rows (old, new) ({so.count}, {sn.count}); sha256 {digest} card / cpu / cached; "
@@ -1021,7 +1055,7 @@ def spatial_phases(args, card, launches, dev, filters=True, query=True, tiles=Tr
         if query:
             t = time.perf_counter()
             kernels["k5"], kernels["k6"] = (
-                query_kernels_alone(card, dev, *point_layer(repo)) if query == "kernels"
+                query_kernels_alone(card, dev, *point_layer(repo), launches) if query == "kernels"
                 else query_phases(repo, tmp, card, launches, dev))
             print(f"[Q] phases Q1-Q3 host wall {time.perf_counter() - t:.2f} s on {card}")
         if tiles:
@@ -1180,6 +1214,247 @@ def spatial_phases(args, card, launches, dev, filters=True, query=True, tiles=Tr
             kernels["walls"].update(history_phases(repo, tmp, card, launches,
                                                    args.history_commits, args.seed))
     return kernels
+
+
+# --- several devices: the mesh routes on one card listed S times (B3, B7, B8, the mesh forms) ---
+
+#: the meshes the M phases list the card in: every chip run so far has had one
+#: card, so a mesh of S entries is ``[cuda:0] * S``
+MESH_SIZES = (1, 2, 4)
+
+
+def tensor_sha(t):
+    """sha256 of a tensor's bytes, on the host."""
+    return hashlib.sha256(np.ascontiguousarray(t.cpu().numpy()).tobytes()).hexdigest()
+
+
+def timed_counted(label, fn, launches, **want):
+    """:func:`counted`, with ``fn``'s host wall (the card synchronized).
+    -> (fn's result, the counters read, host wall s)."""
+    t = time.perf_counter()
+
+    def run():
+        out = fn()
+        torch.cuda.synchronize()
+        return out
+
+    out, stats = counted(label, run, launches, **want)
+    return out, stats, time.perf_counter() - t
+
+
+def mesh_classify_phase(old, new, res, card, launches, dev):
+    """[M1] B3 (``classify_blocks_batched``) and B7 (``classify_blocks_sharded``)
+    on phases 3-5's sides, the card listed S times: classes sha256-equal to
+    the one-card route's (``res``, from [3]'s ``classify_changed``), equal
+    counts, counts-only too; K1 once a chunk for B3 (its rounds x S slots,
+    less the last round's empty ones) and once a non-empty shard for B7."""
+    want_old, want_new = tensor_sha(res.old_class), tensor_sha(res.new_class)
+    want_counts = [res.counts[k] for k in ("inserts", "updates", "deletes")]
+    t = time.perf_counter()
+    one = classify_blocks(old, new, dev)
+    one_wall = time.perf_counter() - t
+    check(tensor_sha(one[0]) == want_old and tensor_sha(one[1]) == want_new,
+          "[M1] the one-card route's classes changed between runs")
+    keys = (np.asarray(old.keys[: old.count]), np.asarray(new.keys[: new.count]))
+    batch = device_batch_rows()
+    _, n_chunks = batch_splits(keys, batch)
+    walls = {}
+    for s in MESH_SIZES:
+        mesh = [dev] * s
+        for counts_only in (False, True):
+            got, stats, wall = timed_counted(
+                "M1", lambda: classify_blocks_batched(old, new, mesh, counts_only=counts_only),
+                launches, want=n_chunks)
+            check(got[2].tolist() == want_counts,
+                  f"[M1] B3 over {s} counts {got[2].tolist()} != one card's {want_counts}")
+            if counts_only:
+                check(got[0] is None and got[1] is None
+                      and stats["classify_counts_only_launches"] == n_chunks,
+                      "[M1] B3's counts-only route returned classes or ran full launches")
+            else:
+                check(tensor_sha(got[0]) == want_old and tensor_sha(got[1]) == want_new,
+                      f"[M1] B3 over {s} entries: classes differ from the one-card route")
+            walls[f"B3 S={s}{' counts-only' if counts_only else ''}"] = wall
+        shards = sum(1 for a, b in zip(partition_block(old, s)[2], partition_block(new, s)[2])
+                     if a + b)
+        got, stats, wall = timed_counted(
+            "M1", lambda: classify_blocks_sharded(old, new, mesh), launches, want=shards)
+        check(got[2].tolist() == want_counts and tensor_sha(got[0]) == want_old
+              and tensor_sha(got[1]) == want_new,
+              f"[M1] B7 over {s} entries differs from the one-card route")
+        walls[f"B7 S={s}"] = wall
+        print(f"[M1] S={s}: B3 {-(-n_chunks // s)} rounds of {batch}-row chunks, K1 {n_chunks} "
+              f"(full and counts-only), {walls[f'B3 S={s}']:.4f} / "
+              f"{walls[f'B3 S={s} counts-only']:.4f} s host wall; B7 K1 {shards}, "
+              f"{wall:.4f} s; the one-card route {one_wall:.4f} s; classes sha256 "
+              f"{want_old[:16]} / {want_new[:16]} and counts {want_counts} on every route on "
+              f"{card}")
+    return {"one_card_s": one_wall, "chunks": n_chunks, "batch_rows": batch, **walls}
+
+
+def mesh_sampled_counts(acc, so, sn, one_counts, card, launches, dev):
+    """[M2] B8 (``sampled_counts_sharded``) on an estimate's sampled rows:
+    counts equal to the one-card counts-only K1, one counts-only K1 a
+    key-aligned slice (at most S)."""
+    out = {}
+    for s in MESH_SIZES:
+        got, stats, wall = timed_counted(
+            "M2", lambda: sampled_counts_sharded(so, sn, [dev] * s), launches, want=SOME)
+        k1 = stats["classify_launches"]
+        check(got.tolist() == one_counts.tolist() and k1 <= s
+              and stats["classify_counts_only_launches"] == k1,
+              f"[M2] B8 over {s} entries at {acc}: counts {got.tolist()} != "
+              f"{one_counts.tolist()}, or {k1} launches")
+        out[s] = {"k1": k1, "wall_s": wall}
+    print(f"[M2] B8 at {acc} ({so.count} / {sn.count} sampled rows): counts "
+          f"{one_counts.tolist()} on one card and over "
+          + ", ".join(f"S={s} (K1 counts-only {v['k1']}, {v['wall_s']:.4f} s)"
+                      for s, v in out.items()) + f" on {card}")
+    return out
+
+
+def mesh_merge_phase(trio, card, launches, dev):
+    """[M2] the sharded merge (B7) on [14]'s blocks: union, decision,
+    presence and stats equal to ``merge_classify``'s, K4 once an entry."""
+    t = time.perf_counter()
+    one = merge_classify(*trio)
+    one_wall = time.perf_counter() - t
+    digests = [hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest() for a in one[:3]]
+    walls = {}
+    for s in MESH_SIZES:
+        got, _, walls[s] = timed_counted(
+            "M2", lambda: sharded_merge_classify(*trio, mesh=[dev] * s), launches, want=0,
+            want_k4=s)
+        check(all(g.dtype == w.dtype and np.array_equal(g, w) for g, w in zip(got[:3], one[:3]))
+              and got[3] == one[3],
+              f"[M2] the sharded merge over {s} entries differs from merge_classify")
+    print(f"[M2] sharded merge of {[b.count for b in trio]} rows: union {len(one[0])}, stats "
+          f"{one[3]}, union / decision / presence sha256 {' / '.join(d[:16] for d in digests)} "
+          f"equal to one card's ({one_wall:.4f} s) over "
+          + ", ".join(f"S={s} (K4 {s}, {w:.4f} s)" for s, w in walls.items()) + f" on {card}")
+    return {"one_card_s": one_wall, **{f"S={s}": w for s, w in walls.items()}}
+
+
+def mesh_scan_phase(block, env, rect, card, launches, dev):
+    """[M3] K2's mesh form on phases 3-5's envelopes: hits equal to one
+    launch on the whole column, K2 once an entry."""
+    want = envelope_scan(env, rect)
+    for s in MESH_SIZES:
+        got, _, wall = timed_counted(
+            "M3", lambda: ShardedTorchBackend([dev] * s).envelope_hits(block, rect), launches,
+            want=0, want_k2=s)
+        check(torch.equal(got, want), f"[M3] K2 over {s} entries differs from one launch")
+        print(f"[M3] K2 over S={s} on {block.count} envelopes: {int(want.sum())} hits, equal to "
+              f"one launch; K2 {s}, {wall:.4f} s host wall on {card}")
+
+
+def mesh_join_refine_phase(build, probe, refine, card, launches, dev):
+    """[M3] K5's and K6's mesh forms on Q2's build tile x probe batch and
+    its refine batch: per-probe counts, pair total, pairs and verdicts equal
+    to one card's; K5 a counts pass an entry (and a pairs pass where it
+    found pairs), K6 once an entry."""
+    want = envelope_join(build, probe, pairs=True)
+    col_build, bi, col_probe, pj = refine
+    one = DeviceTorchBackend(dev)
+    want_v = one.refine_pairs(col_build, bi, col_probe, pj)
+    for s in MESH_SIZES:
+        mesh = ShardedTorchBackend([dev] * s)
+        got, stats, w5 = timed_counted("M3", lambda: mesh.join_counts(build, probe, True),
+                                       launches, want=0, want_k5=SOME)
+        check(torch.equal(got[0], want[0]) and got[1] == want[1]
+              and all(torch.equal(a, b) for a, b in zip(got[2], want[2]))
+              and s <= stats["envelope_join_launches"] <= 2 * s,
+              f"[M3] K5 over {s} entries differs from one card, or launched "
+              f"{stats['envelope_join_launches']} times")
+        got_v, _, w6 = timed_counted("M3", lambda: mesh.refine_pairs(col_build, bi, col_probe,
+                                                                       pj),
+                                     launches, want=0, want_k6=s)
+        check(torch.equal(got_v, want_v), f"[M3] K6 over {s} entries differs from one card")
+        print(f"[M3] S={s}: K5 on {len(build)} x {len(probe)} rows, {want[1]} pairs, K5 "
+              f"{stats['envelope_join_launches']}, {w5:.4f} s; K6 on {len(bi)} pairs "
+              f"({int(want_v.sum())} true), K6 {s}, {w6:.4f} s host wall; equal to one card on "
+              f"{card}")
+
+
+def mesh_merc_phase(env, card, launches, dev):
+    """[M3] K7's mesh form on T1's largest batch: the mercator columns equal
+    to one launch's and the exported integers equal to the host's at the
+    batch's zoom, K7 once an entry."""
+    want = DeviceTorchBackend(dev).merc_envelopes(env)
+    host = _host_merc(env)
+    z = 4  # each row quantized in its own z4 tile, from its north-west corner
+    xs = np.clip(np.floor(host[0] * (1 << z)), 0, (1 << z) - 1).astype(np.int64)
+    ys = np.clip(np.floor(host[1] * (1 << z)), 0, (1 << z) - 1).astype(np.int64)
+    for s in MESH_SIZES:
+        got, _, wall = timed_counted(
+            "M3", lambda: sharded_merc_envelopes(env, [dev] * s), launches, want=0, want_k7=s)
+        check(all(np.array_equal(g, w) for g, w in zip(got, want)),
+              f"[M3] K7 over {s} entries differs from one launch")
+        ints = [quantize_boxes(env, cols, z, xs, ys)[0] for cols in (got, host)]
+        check(np.array_equal(*ints), f"[M3] K7 over {s} entries: exported integers differ")
+        print(f"[M3] K7 over S={s} on {len(env)} rows: columns equal to one launch, quantized "
+              f"boxes equal to the host's; K7 {s}, {wall:.4f} s host wall on {card}")
+
+
+#: [V1]'s commands: every one that a V2 repository runs
+V2_COMMANDS = [
+    ("diff", "-o", "json", "HEAD^...HEAD"), ("diff", "-o", "json-lines", "HEAD^...HEAD"),
+    ("diff", "HEAD^...HEAD"), ("diff", "-o", "geojson", "HEAD^...HEAD"),
+    ("diff", "-o", "feature-count", "HEAD^...HEAD"),
+    ("diff", "--only-feature-count", "veryfast", "HEAD^...HEAD"),
+    ("diff", "--only-feature-count", "exact", "HEAD^...HEAD"),
+    ("show",), ("show", "-o", "json", "HEAD^"), ("create-patch", "HEAD"),
+    ("log", "-o", "json", "--with-dataset-changes"),
+    ("log", "-o", "json", "--with-feature-count", "veryfast"),
+    ("query", "HEAD", "mytable"), ("query", "HEAD", "mytable", "--where", "fid < 4", "-o", "json"),
+    ("query", "HEAD", "mytable", "--bbox", "0,0,3.5,3", "-o", "json"),
+    ("export", "tiles", "--zoom", "0-2", "--layers", "geojson,bin", "-o", "{tiles}"),
+]
+
+
+def v2_phase(card, launches):
+    """[V1] a small V2 repository (``synth.v2_repo``: ``.sno-dataset``, the
+    legacy layout, a point column): every command of :data:`V2_COMMANDS` on
+    the card and with ``--device cpu``, each route on its own copy: equal
+    stdout (and tile tree) sha256 and exit codes."""
+    import shutil
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="kart_smoke_v2_") as tmp:
+        v2_repo(os.path.join(tmp, "src"), n=9, spatial=True)
+        for i, cmd in enumerate(V2_COMMANDS):
+            digests = {}
+            for where in ("card", "cpu"):
+                path = shutil.copytree(os.path.join(tmp, "src"), os.path.join(tmp, f"{where}{i}"))
+                tiles = os.path.join(tmp, f"tiles-{where}{i}")
+                argv = [a.replace("{tiles}", tiles) for a in cmd]
+                out = os.path.join(tmp, f"out-{where}{i}")
+                pre = [] if where == "card" else ["--device", "cpu"]
+                runtime.reset_stats()
+                with open(out, "w") as f, contextlib.redirect_stdout(f):
+                    rc = kart_main([*pre, "-C", path, *argv])
+                torch.cuda.synchronize()
+                if where == "card":
+                    stats = runtime.stats_snapshot()
+                    total = launches.setdefault("V1", [0] * 7)
+                    for j, key in enumerate(("classify_launches", "envelope_scan_launches",
+                                             "merge_classify_launches", "envelope_join_launches",
+                                             "geom_refine_launches", "merc_launches",
+                                             "bbox_launches")):
+                        total[j] += stats[key]
+                with open(out) as f:
+                    text = f.read().replace(tiles, "{tiles}")
+                digests[where] = (rc, hashlib.sha256(text.encode()).hexdigest(),
+                                  tree_digest(tiles) if os.path.isdir(tiles) else None)
+            check(digests["card"] == digests["cpu"] and digests["card"][0] == 0,
+                  f"[V1] {' '.join(cmd)}: card {digests['card']} != cpu {digests['cpu']}")
+            print(f"[V1] {' '.join(cmd)}: exit 0, sha256 {digests['card'][1][:16]}"
+                  + (f", tiles {digests['card'][2][:16]}" if digests["card"][2] else "")
+                  + f" on both on {card}")
+    wall = time.perf_counter() - t0
+    print(f"[V1] V2 repository: {len(V2_COMMANDS)} commands equal card / --device cpu; launches "
+          f"[K1, K2, K4, K5, K6, K7, K3] {launches.get('V1')}; {wall:.2f} s host wall on {card}")
+    return wall
 
 
 # --- history on [11]'s layer: the changed-block CDC, kart log, build-annotations (K1) ---
@@ -1830,7 +2105,7 @@ def query_phases(repo, tmp, card, launches, dev):
     print(profile)
 
     # [Q3] the kernels alone
-    return query_kernels_alone(card, dev, old, new)
+    return query_kernels_alone(card, dev, old, new, launches)
 
 
 def main_path_join_batch(build_block, probe_block):
@@ -2067,7 +2342,7 @@ def k5_times(build, probe):
     }
 
 
-def query_kernels_alone(card, dev, build_block, probe_block):
+def query_kernels_alone(card, dev, build_block, probe_block, launches):
     """Phase Q3: K5 on the (build tile, probe batch) that Q2's full join
     gives it, on 12,288 rows of that batch around the tile's middle row and
     on a 4096-row tile x a 65,536-row batch of dense envelopes that reach
@@ -2149,6 +2424,7 @@ def query_kernels_alone(card, dev, build_block, probe_block):
     check(err_box == 0 and k6_box["short_pairs"] == len(bi),
           f"K6 differs from its plain version on the box batch ({err_box}) or a box pair was "
           f"not short ({k6_box['short_pairs']} of {len(bi)})")
+    mesh_join_refine_phase(build, probe, (col_build, bi, col_probe, pj), card, launches, dev)
     k6 = {
         "name": "geom_refine", "route": "cuda", "source": "kart_tpu_torch/csrc/geom_refine.cu",
         "replaces": "kart_tpu/diff/backend.py:609",
@@ -2408,6 +2684,7 @@ def tile_phases(repo, tmp, card, launches, dev):
                        np.asarray(source.envelopes()[:n], dtype=np.float64), dev, card))
     batch = largest_batch(source, zooms, zooms[-1])
     k7["main_path_batch"] = k7_alone(f"T1's largest z{zooms[-1]} batch", batch, dev, card)
+    mesh_merc_phase(batch, card, launches, dev)
     k7["max_abs_err"] = max(k7["max_abs_err"], k7["main_path_batch"]["max_abs_err"])
     k7["f64_per_row"] = f64_per_row = merc_f64_per_row()
     for entry in (k7, k7["main_path_batch"]):
@@ -2729,6 +3006,7 @@ def merge_phases(args, card, launches, dev, s_walls=None):
         k4.update({f"{k}_10m": v for k, v in k4_big.items() if k.endswith("ms")})
         if args.k4_only:
             return k4
+        k4["mesh"] = mesh_merge_phase(trio, card, launches, dev)
 
         # [16] merge on the card and with --device cpu
         path = repo.workdir
@@ -3778,12 +4056,18 @@ def main():
           + ", ".join(f"{k} {v:.4f} ms" for k, v in k1_split.items()) + f" on {card}")
     print(f"[6] envelope_scan, wrapping rect: {k2_wrap_ms:.4f} ms, device "
           f"{fmt_ms(k2_wrap_dev)} on {card}")
-    tmp.cleanup()
 
     # every card command of phases 8-21 is counted, its cProfile runs too
     cli_launches = {"3-5": [k1["launches"], kernels[1]["launches"], 0, 0, 0, 0,
                             kernels[2]["launches"]]}
     walls, s_walls = {"1-6": time.perf_counter() - t_start}, {}
+    # [M1] and [M3]'s K2: the mesh routes on phases 3-5's sides, read again
+    t = time.perf_counter()
+    k1["mesh"] = mesh_classify_phase(old, new, res, card, cli_launches, dev)
+    mesh_scan_phase(old, env_old, prefilter_rect(RECT_PLAIN), card, cli_launches, dev)
+    walls["M1, M3 K2"] = time.perf_counter() - t
+    del env_old, env_new
+    tmp.cleanup()
     t = time.perf_counter()
     k1["estimation"] = cli_phases(args, card, cli_launches, s_walls)
     walls["7-10b"] = time.perf_counter() - t - s_walls["S3"]
@@ -3809,6 +4093,7 @@ def main():
     k1["columnar_equal_ms"] = streamed["columnar_equal_ms"]
     print("[S] phase walls s: " + ", ".join(f"[{k}] {v:.2f}" for k, v in s_walls.items())
           + f"; all {sum(s_walls.values()):.2f} on {card}")
+    walls["V1"] = v2_phase(card, cli_launches)
     print("[22] phase walls s: " + ", ".join(f"[{k}] {v:.2f}" for k, v in
                                              {**s_walls, **walls}.items())
           + f"; all since the build {time.perf_counter() - t_start:.2f} on {card}")

@@ -6,9 +6,11 @@ with the commands ``diff``, ``show``, ``create-patch``, ``log``, ``merge``,
 ``conflicts``, ``resolve``, ``query``, ``export tiles``, ``spatial-filter
 index|resolve`` and ``build-annotations``. Global options come before the command, as
 in kart_tpu's CLI: ``-C PATH`` runs as if started in PATH, and ``--device``
-picks where the kernels run (default: the card, ``cuda:0``; ``cpu`` runs
-their plain PyTorch versions). Without a card and without ``--device cpu``
-the command raises :class:`~kart_tpu_torch.runtime.DeviceUnavailable`;
+picks where the kernels run (default: the card, ``cuda:0``, or with 2 or
+more cards the mesh of all of them for work that ``parallel.should_shard``
+sends there; ``cuda:N`` pins card N; ``cpu`` runs the host floor and the
+plain PyTorch versions). Without a card and without ``--device cpu`` the
+command raises :class:`~kart_tpu_torch.runtime.DeviceUnavailable`;
 nothing falls back.
 
 Counterpart of kart_tpu's ``cli/__init__.py`` (``-C`` and the entry point's
@@ -72,7 +74,9 @@ def main(argv=None):
     except UsageError as e:
         e.show()
         return INVALID_ARGUMENT
-    device = runtime.resolve_device(glob.device)
+    runtime.resolve_device(glob.device)  # no card: raise before any work
+    # the commands take the request itself: unnamed, the card may be the mesh
+    device = glob.device
     try:
         try:
             repo = KartRepo(glob.repo_dir or ".")

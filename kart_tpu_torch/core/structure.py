@@ -6,21 +6,24 @@ Counterpart of the read side of kart_tpu's ``core/structure.py``
 """
 
 from kart_tpu_torch.core.odb import TreeView
-from kart_tpu_torch.core.repo import NotFound, NotYetImplemented
-from kart_tpu_torch.models.dataset import Dataset3
+from kart_tpu_torch.core.repo import NotFound
+from kart_tpu_torch.models.dataset import Dataset2, Dataset3, dataset_class_for_version
 
 _RESERVED_DIRS = {".kart", ".sno", ".git"}
 #: the inner directory names of V3 and of V2 datasets
-DATASET_DIRNAMES = (Dataset3.DATASET_DIRNAME, ".sno-dataset")
+DATASET_DIRNAMES = (Dataset3.DATASET_DIRNAME, Dataset2.DATASET_DIRNAME)
 MAX_DATASET_DEPTH = 5
 
 
 class Datasets:
-    """The dataset trees found in a root tree, by path."""
+    """The dataset trees found in a root tree, by path: V3 and V2 trees
+    alike, as kart_tpu finds them. A repository whose structure version is
+    neither raises NotYetImplemented here, as kart_tpu's does."""
 
     def __init__(self, repo, tree):
         self.repo = repo
         self.tree = tree
+        self.dataset_class = dataset_class_for_version(repo.version)
         self._cache = None
 
     def _discover(self):
@@ -32,9 +35,10 @@ class Datasets:
         return self._cache
 
     def _walk(self, tree, prefix, found, depth):
-        if Dataset3.is_dataset_tree(tree):
-            found[prefix] = Dataset3(tree, prefix, self.repo)
-            return
+        for cls in (Dataset3, Dataset2):
+            if cls.is_dataset_tree(tree):
+                found[prefix] = cls(tree, prefix, self.repo)
+                return
         if depth <= 0:
             return
         for entry in tree.entries():
@@ -74,10 +78,6 @@ class RepoStructure:
                     self._bare_tree_oid, self.commit_oid = self.commit_oid, None
             except KeyError:
                 pass
-        if repo.version != 3:
-            raise NotYetImplemented(
-                f"Repo structure version {repo.version} is not ported (supported: 3)"
-            )
 
     @property
     def commit(self):

@@ -1,21 +1,33 @@
 """The diff backend registry and kernel K2, the envelope prefilter scan
 (``csrc/envelope_scan.cu``), with its plain PyTorch version.
 
-Two backends, chosen by device only:
+Three backends, chosen by device and, on several cards, by rows:
 
-* ``device_torch`` -- a CUDA device: uploads through pinned buffers and
+* ``device_torch`` -- one CUDA device: uploads through pinned buffers and
   runs the kernels.
+* ``sharded_torch`` -- the mesh of every visible card
+  (:mod:`kart_tpu_torch.parallel`), kart_tpu's ``sharded_jax``: the
+  classify in rounds of key-aligned batches (:mod:`.device_batch`, B3),
+  the estimation's sampled counts one key-aligned slice a device (B8),
+  and the mesh forms of K2, K5, K6 and K7, each device on its own rows.
+  :func:`select_backend` picks it as kart_tpu's ``select_backend`` does:
+  when the caller asked for the card without naming one, and
+  ``parallel.should_shard`` passes for the rows (2 or more cards,
+  ``KART_DIFF_SHARDED``, ``KART_SHARDED_MIN_ROWS``). With one card every
+  route is ``device_torch``'s.
 * ``cpu_torch`` -- the CPU: the diff's classify on the host floor, a copy
   of kart_tpu's native merge-join (``ops/host_classify.py``), the plain
   PyTorch versions of the other kernels, and numpy's host projection for
   the tile export.
 
-A third, ``plain_torch``, runs the plain versions on any device; no command
+A fourth, ``plain_torch``, runs the plain versions on any device; no command
 selects it: it is what the kernels are held against on the card.
 
-There are no row-count gates: a caller that asks for the card gets the
-card, whatever the size, and a failure raises instead of degrading to the
-host. (At north-star scale the card streams the blocks through K1 in
+Below the sharding rule there are no row-count gates: a caller that asks
+for the card gets the card, whatever the size, and a failure raises
+instead of degrading to the host or to one card (kart_tpu's sharded
+backend falls back to its host backend on any failure; the port's does
+not). (At north-star scale the card streams the blocks through K1 in
 chunks: ``diff_kernel.classify_blocks``.) Beside the diff's entry points, the query's: :meth:`join_counts`
 (K5) and :meth:`refine_pairs` (K6); and the tile export's:
 :meth:`merc_envelopes` (K7), reached through :func:`project_envelopes`.
@@ -25,13 +37,22 @@ import numpy as np
 import torch
 
 from kart_tpu_torch import runtime
+from kart_tpu_torch.diff.device_batch import batch_splits, classify_blocks_batched
 from kart_tpu_torch.ops import _build
 from kart_tpu_torch.ops.blocks import to_device
-from kart_tpu_torch.ops.diff_kernel import classify_blocks
-from kart_tpu_torch.ops.envelope_join import envelope_join, envelope_join_plain
+from kart_tpu_torch.ops.diff_kernel import chunk_tensors, classify, classify_blocks
+from kart_tpu_torch.ops.envelope_join import (
+    JoinLaunch,
+    envelope_join,
+    envelope_join_finish,
+    envelope_join_launch,
+    envelope_join_plain,
+)
 from kart_tpu_torch.ops.geom_refine import geom_refine, geom_refine_plain, resident_segments
 from kart_tpu_torch.ops.host_classify import classify_blocks_host
 from kart_tpu_torch.ops.merc import merc, merc_plain
+from kart_tpu_torch.parallel.mesh import HostCopies, asks_for_mesh, make_mesh, on, shard_rows
+from kart_tpu_torch.parallel.sharded_diff import STATS, should_shard
 
 _SIGNATURES = {
     "kart_envelope_scan": [
@@ -113,13 +134,23 @@ def _mod360(x):
 
 
 class DiffBackend:
-    """One execution layer on one device."""
+    """One execution layer on one device. ``routable``: the device was asked
+    for as the card, without an index, so :meth:`for_rows` may hand a large
+    enough piece of work to the mesh."""
 
     name = None
     plain = False
 
-    def __init__(self, device):
+    def __init__(self, device, routable=False):
         self.device = device
+        self.routable = routable
+
+    def for_rows(self, n_rows):
+        """The backend for work of ``n_rows`` rows: the mesh when this
+        backend is routable and ``should_shard(n_rows)``, else this one."""
+        if self.routable and should_shard(n_rows):
+            return ShardedTorchBackend(make_mesh())
+        return self
 
     def classify(self, old_block, new_block):
         """-> (old_class int8, new_class int8, counts int64 (3,)) tensors."""
@@ -128,6 +159,11 @@ class DiffBackend:
     def counts(self, old_block, new_block):
         """Counts-only classify (`-o feature-count`): no class arrays."""
         return classify_blocks(old_block, new_block, self.device, counts_only=True)[2]
+
+    def sampled_counts(self, old_sub, new_sub):
+        """Counts of an estimation's sampled rows (small blocks, called
+        once)."""
+        return self.counts(old_sub, new_sub)
 
     def envelope_hits(self, block, query):
         """bool (count,) envelope-vs-query hits of one sidecar block."""
@@ -181,6 +217,58 @@ class CpuTorchBackend(DiffBackend):
         return host_merc_envelopes(env)
 
 
+class ShardedTorchBackend(DiffBackend):
+    """The mesh (a list of torch.devices, :mod:`kart_tpu_torch.parallel`):
+    every device runs its own rows through the one-card kernels, and the
+    results come back on the mesh's first device (``device``) or the host,
+    as the one-card backend returns them. Where kart_tpu's sharded backend
+    hands a case to its base class (a wrapping query rectangle, fewer
+    envelopes than :data:`DEVICE_MIN_ENVELOPES`) this one hands it to the
+    one-card route on the first device."""
+
+    name = "sharded_torch"
+
+    def __init__(self, mesh):
+        self.mesh = list(mesh)
+        super().__init__(self.mesh[0])
+
+    def for_rows(self, n_rows):
+        return self
+
+    def classify(self, old_block, new_block):
+        result = classify_blocks_batched(old_block, new_block, self.mesh)
+        STATS["sharded_classify_calls"] += 1
+        return result
+
+    def counts(self, old_block, new_block):
+        counts = classify_blocks_batched(old_block, new_block, self.mesh, counts_only=True)[2]
+        STATS["sharded_classify_calls"] += 1
+        return counts
+
+    def sampled_counts(self, old_sub, new_sub):
+        counts = sampled_counts_sharded(old_sub, new_sub, self.mesh)
+        STATS["sharded_classify_calls"] += 1
+        return counts
+
+    def envelope_hits(self, block, query):
+        q = np.asarray(query, dtype=np.float64)
+        if q[2] < q[0] or block.count < DEVICE_MIN_ENVELOPES:
+            return super().envelope_hits(block, query)
+        return sharded_envelope_hits(block.envelopes, block.count, q, self.mesh)
+
+    def merc_envelopes(self, env):
+        e = np.ascontiguousarray(env, dtype=np.float64).reshape(-1, 4)
+        if len(e) < DEVICE_MIN_ENVELOPES:
+            return super().merc_envelopes(e)
+        return sharded_merc_envelopes(e, self.mesh)
+
+    def join_counts(self, build_env, probe_env, pairs=False):
+        return sharded_join_counts(build_env, probe_env, pairs, self.mesh)
+
+    def refine_pairs(self, col_a, ia, col_b, ib):
+        return sharded_refine_pairs(col_a, ia, col_b, ib, self.mesh)
+
+
 class PlainTorchBackend(DiffBackend):
     """The plain versions of K2, K5, K6 and K7 on any device, the card
     included: what the query's kernels are checked against through the
@@ -190,7 +278,7 @@ class PlainTorchBackend(DiffBackend):
     plain = True
 
 
-BACKENDS = {cls.name: cls for cls in (DeviceTorchBackend, CpuTorchBackend)}
+BACKENDS = {cls.name: cls for cls in (DeviceTorchBackend, ShardedTorchBackend, CpuTorchBackend)}
 
 
 def host_merc_envelopes(env):
@@ -210,11 +298,128 @@ def project_envelopes(env, allow_device=True, device=None):
     tile quantizer makes the exported integers the host's."""
     if not allow_device:
         return host_merc_envelopes(env)
-    return select_backend(device).merc_envelopes(env)
+    return select_backend(device).for_rows(len(env)).merc_envelopes(env)
 
 
-def select_backend(device=None):
+def select_backend(device=None, n_rows=None):
     """The backend for ``device`` (``None`` = the card; raises
-    DeviceUnavailable without one)."""
+    DeviceUnavailable without one) and work of ``n_rows`` rows: the mesh
+    (``sharded_torch``) when the card was asked for without an index and
+    ``should_shard(n_rows)``, as kart_tpu's ``select_backend`` routes; an
+    explicit ``cuda:N`` pins one card, ``"cpu"`` is the host floor. Without
+    ``n_rows`` the one-device backend, whose :meth:`DiffBackend.for_rows`
+    routes each piece of work later."""
     dev = runtime.resolve_device(device)
-    return BACKENDS["device_torch" if dev.type == "cuda" else "cpu_torch"](dev)
+    if dev.type != "cuda":
+        return BACKENDS["cpu_torch"](dev)
+    backend = BACKENDS["device_torch"](dev, routable=asks_for_mesh(device))
+    return backend if n_rows is None else backend.for_rows(n_rows)
+
+
+# --- the mesh forms ----------------------------------------------------------------------
+
+#: kart_tpu's ``KART_DEVICE_MIN_ENVELOPES`` default: below it its sharded
+#: backend leaves the envelope scan and the projection to its base class
+DEVICE_MIN_ENVELOPES = 1_000_000
+
+
+def _pieces(n, mesh):
+    """-> [(device, lo, hi)]: ``n`` rows cut into one contiguous piece a
+    device of ``mesh``."""
+    return [(d, lo, hi) for d, (lo, hi) in zip(mesh, shard_rows(n, len(mesh)))]
+
+
+def sampled_counts_sharded(old_block, new_block, mesh):
+    """B8 (kart_tpu's ``sampled_counts_pmapped``): an estimation's sampled
+    rows as at most one key-aligned slice a device (the capacity grows until
+    at most S chunks remain), one counts-only K1 a non-empty slice, the
+    counts summed on the mesh's first device. -> counts int64 (3,), CPU."""
+    n_dev = len(mesh)
+    n_old, n_new = old_block.count, new_block.count
+    sides = ((np.asarray(old_block.keys[:n_old]), old_block.oids),
+             (np.asarray(new_block.keys[:n_new]), new_block.oids))
+    cap = max(-(-max(n_old, n_new, 1) // n_dev), 1)
+    while True:
+        splits, n_chunks = batch_splits([k for k, _ in sides], cap)
+        if n_chunks <= n_dev:
+            break
+        cap *= 2
+    total = torch.zeros(3, dtype=torch.int64, device=mesh[0])
+    for c, device in zip(range(n_chunks), mesh):
+        with on(device):
+            args = []
+            for (keys, oids), split in zip(sides, splits):
+                args += chunk_tensors(keys, oids, int(split[c]), int(split[c + 1]), device)
+            total += classify(*args, counts_only=True)[2].to(mesh[0])
+    return total.cpu()
+
+
+def sharded_envelope_hits(envelopes, count, query, mesh):
+    """K2 over the mesh: the first ``count`` (n, 4) f32 envelope rows cut
+    into one piece a device, each scanned there -> bool (count,) hits on the
+    mesh's first device."""
+    hits = []
+    for device, lo, hi in _pieces(count, mesh):
+        with on(device):
+            env = to_device(np.asarray(envelopes[lo:hi], dtype=np.float32), device)
+            hits.append(envelope_scan(env, query))
+    return torch.cat([h.to(mesh[0]) for h in hits])
+
+
+def sharded_merc_envelopes(env, mesh):
+    """K7 over the mesh: (M, 4) f64 degrees cut into one piece a device ->
+    (mx0, my0, mx1, my1) f64 host columns."""
+    copies = HostCopies()
+    for device, lo, hi in _pieces(len(env), mesh):
+        with on(device):
+            copies.add(merc(to_device(np.ascontiguousarray(env[lo:hi]), device)))
+    cols = np.concatenate(copies.arrays(), axis=1)
+    return cols[0], cols[1], cols[2], cols[3]
+
+
+def sharded_join_counts(build_env, probe_env, pairs, mesh):
+    """K5 over the mesh: the probe rows cut into one piece a device, the
+    build tile copied to each device once, every device's counts pass
+    enqueued before any pair total is read (one read a device), then the
+    pairs passes. -> (counts int32 (B,), pair total, (probe rows, build
+    rows) int32 in row-major order or None), on the mesh's first device."""
+    home = mesh[0]
+    builds = {}
+    runs = []
+    for device, lo, hi in _pieces(probe_env.shape[0], mesh):
+        with on(device):
+            if device not in builds:
+                builds[device] = build_env.to(device)
+            probe = probe_env[lo:hi].to(device)
+            if device.type == "cuda":
+                runs.append((lo, envelope_join_launch(builds[device], probe, pairs)))
+            else:
+                runs.append((lo, envelope_join_plain(builds[device], probe, pairs)))
+    totals = [int(r.total.item()) if isinstance(r, JoinLaunch) else r[1] for _, r in runs]
+    done = []
+    for (lo, r), n in zip(runs, totals):
+        if isinstance(r, JoinLaunch):
+            with on(r.probe_env.device):
+                r = envelope_join_finish(r, n)
+        done.append((lo, r))
+    counts = torch.cat([r[0].to(home) for _, r in done])
+    if not pairs:
+        return counts, sum(totals), None
+    probe_rows = torch.cat([(r[2][0] + lo).to(home) for lo, r in done])
+    build_rows = torch.cat([r[2][1].to(home) for _, r in done])
+    return counts, sum(totals), (probe_rows, build_rows)
+
+
+def sharded_refine_pairs(col_a, ia, col_b, ib, mesh):
+    """K6 over the mesh: the candidate pairs cut into one piece a device,
+    each device refining its pairs against its own resident segment tables
+    -> bool (P,) verdicts on the mesh's first device."""
+    ia = torch.as_tensor(np.asarray(ia, dtype=np.int64)) if isinstance(ia, np.ndarray) else ia
+    ib = torch.as_tensor(np.asarray(ib, dtype=np.int64)) if isinstance(ib, np.ndarray) else ib
+    verdicts = []
+    for device, lo, hi in _pieces(ia.numel(), mesh):
+        with on(device):
+            verdicts.append(geom_refine(
+                resident_segments(col_a, device), ia[lo:hi].to(device),
+                resident_segments(col_b, device), ib[lo:hi].to(device)))
+    return torch.cat([v.to(mesh[0]) for v in verdicts])

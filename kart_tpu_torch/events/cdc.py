@@ -2,8 +2,8 @@
 sidecar columns alone.
 
 1. **Row delta**: both tips' sorted (key, oid) sidecar columns go through
-   the diff's classify (kernel K1 on the card,
-   :func:`kart_tpu_torch.ops.diff_kernel.classify_blocks`): a row changed
+   the diff's classify (:func:`kart_tpu_torch.diff.backend.select_backend`:
+   kernel K1 on the card, the host floor on the CPU): a row changed
    when its key was inserted or deleted, or kept with another oid. No
    feature blob is read: the oid is the value's identity.
 2. **Changed envelopes**: the changed rows' wsen rectangles, from the same
@@ -33,7 +33,7 @@ Counterpart of kart_tpu's ``events/cdc.py``, all of it, with the same
 summaries and the same derived sidecar bytes. The public entry points
 take ``device`` (``None``: the card, raising
 :class:`~kart_tpu_torch.runtime.DeviceUnavailable` without one; ``"cpu"``:
-the classify's plain version). kart_tpu's fault-injection hook and its
+the host floor, as ``kart diff --device cpu`` classifies). kart_tpu's fault-injection hook and its
 telemetry spans and counters are not ported: the port has neither the
 event emitter nor telemetry.
 """
@@ -303,11 +303,13 @@ def ensure_derived_sidecar(repo, old_ds, new_ds):
 
 def changed_envelopes(old_source, new_source, device):
     """-> ((M, 4) f64 envelopes of the changed rows of both tips, counts)
-    from one classify of the two sidecars' (key, oid) columns on
-    ``device`` (a resolved torch.device). ``None`` on one side means the
-    dataset appeared or went: every row of the other side changed, and no
-    classify runs."""
-    from kart_tpu_torch.ops.diff_kernel import changed_indices, classify_blocks, counts_dict
+    from one classify of the two sidecars' (key, oid) columns through the
+    diff's backend for ``device`` (as the diff engine classifies: K1 on the
+    card, the mesh on several cards, the host floor for ``"cpu"``).
+    ``None`` on one side means the dataset appeared or went: every row of
+    the other side changed, and no classify runs."""
+    from kart_tpu_torch.diff.backend import select_backend
+    from kart_tpu_torch.ops.diff_kernel import changed_indices, counts_dict
 
     if old_source is None and new_source is None:
         return np.zeros((0, 4), dtype=np.float64), {}
@@ -315,7 +317,9 @@ def changed_envelopes(old_source, new_source, device):
         src = new_source if old_source is None else old_source
         envs = np.asarray(src.envelopes(), dtype=np.float64)
         return envs, {"inserts" if old_source is None else "deletes": src.block.count}
-    old_class, new_class, counts = classify_blocks(old_source.block, new_source.block, device)
+    old_block, new_block = old_source.block, new_source.block
+    backend = select_backend(device).for_rows(max(old_block.count, new_block.count))
+    old_class, new_class, counts = backend.classify(old_block, new_block)
     old_idx, new_idx = changed_indices(old_class, new_class)
     parts = []
     if len(old_idx):
@@ -358,7 +362,7 @@ def dirty_tiles(repo, old_oid, new_oid, *, zooms=DEFAULT_EVENT_ZOOMS, max_tiles=
     by ``bbox``). Datasets whose feature trees are identical are left out.
     ``device``: where the classify runs (one K1 launch a changed dataset
     on the card)."""
-    dev = runtime.resolve_device(device)
+    runtime.resolve_device(device)  # no card: raise before any work
     summary = {}
     old_sets = _datasets_at(repo, old_oid)
     new_sets = _datasets_at(repo, new_oid)
@@ -377,7 +381,7 @@ def dirty_tiles(repo, old_oid, new_oid, *, zooms=DEFAULT_EVENT_ZOOMS, max_tiles=
             summary[ds_path] = {"changed": None, "zooms": list(zooms), "tiles": None,
                                 "tile_count": None, "bbox": None, "truncated": False}
             continue
-        envs, counts = changed_envelopes(old_src, new_src, dev)
+        envs, counts = changed_envelopes(old_src, new_src, device)
         entry = {"changed": counts, "zooms": list(zooms), "bbox": _bbox_of(envs),
                  "truncated": False}
         tiles = {}

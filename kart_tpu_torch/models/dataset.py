@@ -14,7 +14,9 @@ layout when there is no ``path-structure.json``), ``feature_index``,
 the fused JSON serialisers ``_json_value_str``, ``_jsonl_serializer`` and
 ``feature_json_str_from_data``; ``FeatureOidPromise``), ``encode_feature``
 for ``kart resolve --with-file``, and
-``new_dataset_meta_blobs`` for the synthetic-repo builder. Applying
+``new_dataset_meta_blobs`` for the synthetic repositories, and
+``Dataset2`` with ``dataset_class_for_version`` (a V2 repository's
+``.sno-dataset`` trees, read as V3 in the legacy hashed layout). Applying
 diffs, import iterators and spatially filtered feature streams are not
 ported.
 """
@@ -38,6 +40,12 @@ from kart_tpu_torch.models.paths import PathEncoder, encoder_for_schema
 from kart_tpu_torch.models.schema import Legend, Schema
 
 ATTACHMENT_META_ITEMS = ("metadata.xml",)
+
+
+class NotYetImplemented(RuntimeError):
+    """A repository structure version with no dataset class (kart_tpu's
+    ``models.dataset.NotYetImplemented``: not a RepoError, so the CLI does
+    not turn it into an exit code)."""
 
 
 class DatasetCapabilityError(RuntimeError):
@@ -401,3 +409,23 @@ class Dataset3:
 
     def __repr__(self):
         return f"{type(self).__name__}({self.path!r})"
+
+
+class Dataset2(Dataset3):
+    """A legacy V2 dataset: another inner directory name and, with no
+    ``path-structure.json``, the legacy hashed 256^2 feature paths."""
+
+    VERSION = 2
+    DATASET_DIRNAME = ".sno-dataset"
+
+
+def dataset_class_for_version(version):
+    """The dataset class of a repository structure version; any version
+    but 2 and 3 raises :class:`NotYetImplemented`, as kart_tpu's does."""
+    if version == 3:
+        return Dataset3
+    if version == 2:
+        return Dataset2
+    raise NotYetImplemented(
+        f"Repo structure version {version} is not supported (supported: 2, 3)"
+    )

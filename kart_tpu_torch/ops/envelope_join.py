@@ -10,6 +10,8 @@ on request the overlapping pairs themselves in row-major order, which the
 exact refine takes instead of rebuilding the matrix on the host.
 """
 
+from typing import NamedTuple
+
 import torch
 
 from kart_tpu_torch import runtime
@@ -53,6 +55,35 @@ def envelope_join(build_env, probe_env, pairs=False):
         return envelope_join_plain(build_env, probe_env, pairs)
     if device.type != "cuda":
         raise runtime.DeviceUnavailable(f"envelope_join: unsupported device {device}")
+    launch = envelope_join_launch(build_env, probe_env, pairs)
+    return envelope_join_finish(launch, int(launch.total.item()))
+
+
+class JoinLaunch(NamedTuple):
+    """K5's counts pass, enqueued and not yet read back."""
+
+    build_env: torch.Tensor
+    probe_env: torch.Tensor
+    counts: torch.Tensor  # int32 (B,)
+    total: torch.Tensor  # int64 (1,): the pair total, on the device
+    cells: torch.Tensor  # int32 (B * slices,) when pairs were asked for
+    slice_rows: int
+    n_slices: int
+    pairs: bool
+
+
+def envelope_join_launch(build_env, probe_env, pairs=False):
+    """K5's counts pass on CUDA tensors (checked as :func:`envelope_join`
+    checks them), with no host sync: -> a :class:`JoinLaunch`, whose pair
+    total :func:`envelope_join_finish` takes once it has been read. A mesh
+    enqueues every device's pass before it reads any total."""
+    _check(build_env, "build envelopes")
+    _check(probe_env, "probe envelopes")
+    device = probe_env.device
+    if build_env.device != device:
+        raise ValueError("envelope_join: both sides must be on one device")
+    if device.type != "cuda":
+        raise runtime.DeviceUnavailable(f"envelope_join: K5 needs a CUDA device, not {device}")
     t, b = build_env.shape[0], probe_env.shape[0]
     if t >= 2**31 or b >= 2**31:
         raise ValueError("envelope_join: a side holds 2^31 rows or more")
@@ -64,27 +95,36 @@ def envelope_join(build_env, probe_env, pairs=False):
     total = torch.empty(1, dtype=torch.int64, device=device)
     cells = torch.empty(b * n_slices if pairs else 0, dtype=torch.int32, device=device)
     lib = _build.load_library("envelope_join", device, _SIGNATURES)
-    stream = _build.stream_ptr(device)
     rc = lib.kart_envelope_join(build_env.data_ptr(), t, slice_rows, n_slices,
                                 probe_env.data_ptr(), b, counts.data_ptr(), total.data_ptr(),
                                 cells.data_ptr() if pairs else None, None, None, None,
-                                device.index, stream)
+                                device.index, _build.stream_ptr(device))
     _build.check(lib, rc, "envelope_join")
     runtime.count("envelope_join_launches")
-    n_pairs = int(total.item())
-    if not pairs:
-        return counts, n_pairs, None
+    return JoinLaunch(build_env, probe_env, counts, total, cells, slice_rows, n_slices, pairs)
+
+
+def envelope_join_finish(launch, n_pairs):
+    """A :class:`JoinLaunch` and its pair total, read back -> what
+    :func:`envelope_join` returns: the pairs pass runs when pairs were
+    asked for and found."""
+    if not launch.pairs:
+        return launch.counts, n_pairs, None
+    device = launch.probe_env.device
     pair_probe = torch.empty(n_pairs, dtype=torch.int32, device=device)
     pair_build = torch.empty(n_pairs, dtype=torch.int32, device=device)
     if n_pairs:
-        offs = slice_offsets(cells)
-        rc = lib.kart_envelope_join(build_env.data_ptr(), t, slice_rows, n_slices,
-                                    probe_env.data_ptr(), b, None, None, cells.data_ptr(),
-                                    offs.data_ptr(), pair_probe.data_ptr(),
-                                    pair_build.data_ptr(), device.index, stream)
+        lib = _build.load_library("envelope_join", device, _SIGNATURES)
+        offs = slice_offsets(launch.cells)
+        rc = lib.kart_envelope_join(launch.build_env.data_ptr(), launch.build_env.shape[0],
+                                    launch.slice_rows, launch.n_slices,
+                                    launch.probe_env.data_ptr(), launch.probe_env.shape[0],
+                                    None, None, launch.cells.data_ptr(), offs.data_ptr(),
+                                    pair_probe.data_ptr(), pair_build.data_ptr(),
+                                    device.index, _build.stream_ptr(device))
         _build.check(lib, rc, "envelope_join (pairs)")
         runtime.count("envelope_join_launches")
-    return counts, n_pairs, (pair_probe, pair_build)
+    return launch.counts, n_pairs, (pair_probe, pair_build)
 
 
 def tile_slices(t, b, sms):

@@ -74,7 +74,9 @@ def run_query(repo, refish, ds_path, *, where=None, bbox=None, intersects=None,
     document. ``intersects`` is ``(refish2, ds_path2)``: the join, which
     takes no ``where`` or ``count_by``. ``approx=True`` stops spatial
     verdicts at the envelopes. The kernels run on ``device`` (None: the
-    card; ``"cpu"``: the plain versions)."""
+    card; ``"cpu"``: the plain versions); on several cards each stage goes
+    to the mesh by its own rows (``DiffBackend.for_rows``: a scan's block,
+    a refine's candidates, a join's probe side), as kart_tpu routes them."""
     from kart_tpu_torch.diff.backend import select_backend
 
     backend = select_backend(device)

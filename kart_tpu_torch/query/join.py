@@ -224,6 +224,9 @@ def run_join(repo, refish, ds_path, refish2, ds_path2, *, bbox=None, output="cou
         build_feat = np.flatnonzero(b_hits).astype(np.int64)
         build_env = np.ascontiguousarray(build_env[build_feat])
         probe_mask = _hits(backend, probe_block, query)
+    # the join's batches and refines route on the whole probe side, as
+    # kart_tpu's route_rows does
+    backend = backend.for_rows(n_probe)
     refine = None
     if exact:
         refine = _make_refine_ctx(col_build, build_feat, build_env, col_probe,
@@ -274,4 +277,4 @@ def _hits(backend, block, query):
     """bool (count,) host array: the block's envelopes against ``query`` (K2)."""
     if not block.count:
         return np.zeros(0, dtype=bool)
-    return backend.envelope_hits(block, query).cpu().numpy()
+    return backend.for_rows(block.count).envelope_hits(block, query).cpu().numpy()

@@ -33,6 +33,9 @@ their paths, every object as kart_tpu's encoders would write it. Nor has
 :func:`commit_point_edits`: a further commit of a point layer that moves,
 inserts and deletes rows, with real blobs for the rows it writes and no
 sidecar (a history as it arrives by a push, for the changed-block CDC).
+:func:`v2_repo` builds a small V2 repository (``.sno-dataset``, the legacy
+hashed paths, two commits) as kart_tpu's ``tests/test_upgrade.py``
+``make_v2_repo`` does, optionally with a point geometry column.
 """
 
 import hashlib
@@ -45,7 +48,7 @@ from kart_tpu_torch.core.feature_tree import (
     plan_feature_tree,
     plan_int_feature_tree,
 )
-from kart_tpu_torch.core.objects import MODE_TREE
+from kart_tpu_torch.core.objects import MODE_TREE, Signature
 from kart_tpu_torch.core.repo import KartRepo
 from kart_tpu_torch.core.tree_builder import TreeBuilder
 from kart_tpu_torch.diff import sidecar
@@ -62,7 +65,7 @@ from kart_tpu_torch.geom import (
     boxes_vertex_column,
 )
 from kart_tpu_torch.geometry import Geometry
-from kart_tpu_torch.models.dataset import Dataset3
+from kart_tpu_torch.models.dataset import Dataset2, Dataset3
 from kart_tpu_torch.models.paths import B64_ALPHABET, PathEncoder, b64_batch
 from kart_tpu_torch.models.schema import ColumnSchema, Schema
 
@@ -375,3 +378,54 @@ def commit_point_edits(repo, *, moves=None, inserts=None, deletes=(), message="e
             tb.remove(root + encoder.encode_pks_to_path((pk,)))
         tree = tb.flush()
     return repo.create_commit(ref, tree, message, [parent])
+
+
+V2_COLUMNS = [
+    {"id": "c1", "name": "fid", "dataType": "integer", "primaryKeyIndex": 0, "size": 64},
+    {"id": "c2", "name": "name", "dataType": "text"},
+    {"id": "c3", "name": "rating", "dataType": "float", "size": 64},
+]
+V2_GEOMETRY = {"id": "c4", "name": "geom", "dataType": "geometry", "geometryType": "POINT",
+               "geometryCRS": "EPSG:4326"}
+
+
+def v2_repo(path, n=6, *, spatial=False):
+    """A V2 repository at ``path`` (``kart.repostructure.version`` 2, one
+    ``.sno-dataset`` table ``mytable`` in the legacy hashed layout, the
+    feature blobs packed, no sidecar): the import of ``n`` rows, then a commit adding row
+    ``n + 1``. ``spatial`` adds an EPSG:4326 point column, row i at (i,
+    i / 2) degrees. -> (repo, first commit, second commit)."""
+    repo = KartRepo.init_repository(path)
+    repo.config.set_many({"user.name": "V2 author", "user.email": "v2@example.com",
+                          "kart.repostructure.version": "2"})
+    cols = V2_COLUMNS + ([V2_GEOMETRY] if spatial else [])
+    schema = Schema.from_column_dicts(cols)
+    enc = PathEncoder.LEGACY_ENCODER
+    odb = repo.odb
+    crs_defs = {"EPSG:4326": epsg_wkt(4326)} if spatial else None
+
+    def row(i, name, rating):
+        feature = {"fid": i, "name": name, "rating": rating}
+        if spatial:
+            feature["geom"] = Geometry.from_wkb(struct.pack("<BIdd", 1, 1, float(i), i / 2.0))
+        return schema.encode_feature_blob(feature)
+
+    prefix = f"mytable/{Dataset2.DATASET_DIRNAME}/{Dataset2.FEATURE_PATH}"
+    tb = TreeBuilder(odb)
+    for blob_path, data in Dataset2.new_dataset_meta_blobs(
+            "mytable", schema, title="My V2 table", crs_defs=crs_defs, path_encoder=enc):
+        tb.insert(blob_path, odb.write_blob(data))
+    with odb.bulk_pack(level=0):
+        for i in range(1, n + 1):
+            pk_values, blob = row(i, f"row-{i}", i * 1.5)
+            tb.insert(prefix + enc.encode_pks_to_path(pk_values), odb.write_blob(blob))
+    sig = Signature.now("V2 author", "v2@example.com")
+    tree1 = tb.flush()
+    c1 = repo.create_commit("HEAD", tree1, "v2 initial import", [], author=sig, committer=sig)
+    tb2 = TreeBuilder(odb, tree1)
+    pk_values, blob = row(n + 1, "added-later", 0.5)
+    with odb.bulk_pack(level=0):
+        tb2.insert(prefix + enc.encode_pks_to_path(pk_values), odb.write_blob(blob))
+    c2 = repo.create_commit("HEAD", tb2.flush(), "v2 second commit", [c1], author=sig,
+                            committer=sig)
+    return repo, c1, c2

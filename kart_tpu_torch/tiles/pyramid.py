@@ -209,9 +209,8 @@ def export_pyramid(source, zooms, out_dir, *, layers=None, extent=DEFAULT_EXTENT
     each tile visited."""
     from concurrent.futures import ProcessPoolExecutor
 
-    device = runtime.resolve_device(device)
     if workers is None:
-        workers = export_workers(on_card=device.type == "cuda")
+        workers = export_workers(on_card=runtime.resolve_device(device).type == "cuda")
     batch = batch_tiles if batch_tiles is not None else export_batch_tiles()
     total = cover_size(source, zooms)
     batches = batched(tile_cover(source, zooms), batch)

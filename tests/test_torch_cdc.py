@@ -450,3 +450,35 @@ def test_tree_delta_blob_and_tree_swaps_match_kart_tpu(tmp_path):
     assert "x" in cdc._tree_delta(trepo.odb, old, new)[0]
     with pytest.raises(cdc._DeltaUnavailable):
         cdc._tree_delta(trepo.odb, old, b[0])  # a blob where a tree should be
+
+
+def test_cpu_events_classify_on_the_host_floor(tmp_path, monkeypatch):
+    """``dirty_tiles(device="cpu")`` classifies through the diff's backend:
+    the host floor (``classify_blocks_host``) once a changed dataset whose
+    two sides are spatial, and never K1's plain version; the summaries and
+    the derived sidecars stay kart_tpu's, byte for byte."""
+    from kart_tpu_torch.diff import backend
+    from kart_tpu_torch.ops import diff_kernel
+
+    _, tips, truths = _point_history(str(tmp_path / "src"), n=5000, commits=2, seed=11)
+    jrepo, trepo = _both(str(tmp_path / "src"), tmp_path)
+    floor = []
+    host = backend.classify_blocks_host
+
+    def counted(old_block, new_block):
+        floor.append((old_block.count, new_block.count))
+        return host(old_block, new_block)
+
+    def refused(*args, **kwargs):
+        raise AssertionError("K1's plain version ran for a --device cpu event")
+
+    monkeypatch.setattr(backend, "classify_blocks_host", counted)
+    monkeypatch.setattr(diff_kernel, "classify_plain", refused)
+    monkeypatch.setattr(diff_kernel, "classify", refused)
+    for i, (old, new, truth) in enumerate(zip(tips, tips[1:], truths)):
+        got = _summaries_equal(jrepo, trepo, old, new)
+        assert got["synth"]["changed"] == truth
+        assert len(floor) == i + 1
+        assert _sidecar_bytes(trepo, new)[1] == _sidecar_bytes(jrepo, new)[1]
+    _summaries_equal(jrepo, trepo, tips[0], tips[-1])
+    assert len(floor) == len(tips)

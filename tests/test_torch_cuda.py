@@ -1220,3 +1220,120 @@ def test_log_and_build_annotations_on_card_match_cpu(cuda, tmp_path):
                     rows = con.execute("SELECT * FROM kart_annotations ORDER BY id").fetchall()
             outs.append((buf.getvalue(), rows))
         assert outs[0] == outs[1]
+
+
+# --- several devices: cuda:0 listed S times (B3, B7, B8, the mesh forms) -------------------
+
+MESH_SIZES = [1, 2, 4]
+
+
+def _merge_triple(n):
+    """(ancestor, ours, theirs) blocks: ours and theirs each edit the
+    ancestor, some edits alike."""
+    anc, ao, ours, oo = _edited_sides(n)
+    rng = np.random.default_rng(n + 1)
+    keep = rng.random(len(anc)) >= 0.002
+    tk, to = anc[keep], ao[keep].copy()
+    ch = rng.random(len(tk)) < 0.01
+    to[ch] = rng.integers(0, 2**32, size=(int(ch.sum()), 5), dtype=np.uint32)
+    return [FeatureBlock.from_arrays(k, o, pad=False) for k, o in ((anc, ao), (ours, oo),
+                                                                    (tk, to))]
+
+
+@pytest.mark.parametrize("s", MESH_SIZES)
+@pytest.mark.parametrize("kind,n", [("edited", 300_000), ("below", 3000), ("random", 0)])
+def test_mesh_classifies_match_one_card(cuda, s, kind, n):
+    """B3 and B7 on one card listed S times: classes and counts equal to the
+    one-card route, K1 launched once a non-empty chunk (B3) or shard (B7)."""
+    from kart_tpu_torch.diff.device_batch import batch_splits, classify_blocks_batched
+    from kart_tpu_torch.parallel.sharded_diff import classify_blocks_sharded, partition_block
+
+    old, new = _stream_blocks(kind, n)
+    mesh = [cuda] * s
+    want = classify_blocks(old, new, cuda)
+    want = [t.cpu() for t in want]
+    _, n_chunks = batch_splits((old.keys[: old.count], new.keys[: new.count]), 65536)
+    for counts_only in (False, True):
+        runtime.reset_stats()
+        got = classify_blocks_batched(old, new, mesh, counts_only=counts_only)
+        assert runtime.stats_snapshot()["classify_launches"] == n_chunks
+        assert torch.equal(got[2], want[2])
+        if not counts_only:
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    runtime.reset_stats()
+    got = classify_blocks_sharded(old, new, mesh)
+    shards = sum(1 for a, b in zip(partition_block(old, s)[2], partition_block(new, s)[2])
+                 if a + b)
+    assert runtime.stats_snapshot()["classify_launches"] == shards
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("s", MESH_SIZES)
+def test_mesh_sampled_counts_and_merge_match_one_card(cuda, s):
+    from kart_tpu_torch.diff.backend import sampled_counts_sharded
+    from kart_tpu_torch.parallel.sharded_merge import sharded_merge_classify
+
+    mesh = [cuda] * s
+    old, new = _stream_blocks("edited", 200_000)
+    want = classify_blocks(old, new, cuda, counts_only=True)[2].cpu()
+    runtime.reset_stats()
+    assert torch.equal(sampled_counts_sharded(old, new, mesh), want)
+    launches = runtime.stats_snapshot()
+    assert 1 <= launches["classify_counts_only_launches"] == launches["classify_launches"] <= s
+    sides = _merge_triple(150_000)
+    one = merge_kernel.merge_classify(*sides, device=cuda)
+    runtime.reset_stats()
+    got = sharded_merge_classify(*sides, mesh=mesh)
+    assert runtime.stats_snapshot()["merge_classify_launches"] == s
+    for g, w in zip(got[:3], one[:3]):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    assert got[3] == one[3]
+
+
+@pytest.mark.parametrize("s", MESH_SIZES)
+def test_mesh_envelope_forms_match_one_card(cuda, s, monkeypatch):
+    """K2, K5, K6 and K7 on one card listed S times: hits, per-probe counts,
+    pairs, verdicts and the mercator columns equal to one launch."""
+    from kart_tpu_torch.diff import backend
+    from kart_tpu_torch.synth import synth_shapes
+
+    monkeypatch.setattr(backend, "DEVICE_MIN_ENVELOPES", 0)
+    rng = np.random.default_rng(s)
+    env = rng.uniform(-60, 60, size=(20_001, 4)).astype(np.float32)
+    env[:, 2:] = env[:, :2] + rng.uniform(0, 3, size=(20_001, 2)).astype(np.float32)
+    blk = FeatureBlock(np.arange(20_001, dtype=np.int64), np.zeros((20_001, 5), np.uint32),
+                       20_001, envelopes=env)
+    one, mesh = backend.DeviceTorchBackend(cuda), backend.ShardedTorchBackend([cuda] * s)
+    q = (-10.0, -10.0, 10.0, 10.0)
+    runtime.reset_stats()
+    assert torch.equal(mesh.envelope_hits(blk, q), one.envelope_hits(blk, q))
+    assert runtime.stats_snapshot()["envelope_scan_launches"] == s + 1
+    b = torch.from_numpy(env[:3000]).to(cuda)
+    p = torch.from_numpy(env[3000:]).to(cuda)
+    got, want = mesh.join_counts(b, p, True), one.join_counts(b, p, True)
+    assert torch.equal(got[0], want[0]) and got[1] == want[1] > 0
+    assert all(torch.equal(x, y) for x, y in zip(got[2], want[2]))
+    col = synth_shapes(400, seed=s, max_segments=40)
+    ia, ib = rng.integers(0, 400, 5000), rng.integers(0, 400, 5000)
+    assert torch.equal(mesh.refine_pairs(col, ia, col, ib), one.refine_pairs(col, ia, col, ib))
+    e64 = env.astype(np.float64)
+    for g, w in zip(mesh.merc_envelopes(e64), one.merc_envelopes(e64)):
+        assert np.array_equal(g, w)
+
+
+def test_mesh_shard_failure_raises_on_the_card(cuda, monkeypatch):
+    from kart_tpu_torch.diff import device_batch
+
+    real, calls = device_batch.classify, []
+
+    def second_fails(*args, **kwargs):
+        calls.append(1)
+        if len(calls) == 2:
+            raise _build.KernelLaunchError("shard 1 failed")
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(device_batch, "classify", second_fails)
+    old, new = _stream_blocks("edited", 200_000)
+    with pytest.raises(_build.KernelLaunchError, match="shard 1"):
+        device_batch.classify_blocks_batched(old, new, [cuda] * 2, batch_rows=50_000)

@@ -16,9 +16,12 @@ import kart_tpu_torch
 from kart_tpu_torch import runtime
 from kart_tpu_torch.cli import main as cli_main
 from kart_tpu_torch.diff import backend, engine
+from kart_tpu_torch.diff.device_batch import classify_blocks_batched
 from kart_tpu_torch.events.cdc import dirty_tiles
 from kart_tpu_torch.ops import _build, bbox
 from kart_tpu_torch.ops.blocks import FeatureBlock
+from kart_tpu_torch.parallel import classify_blocks_sharded
+from kart_tpu_torch.parallel.sharded_merge import sharded_merge_classify
 from kart_tpu_torch.spatial_filter import blob_filter_for_spec, envelope_prepass
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -65,12 +68,15 @@ def test_no_jax_or_kart_tpu_imports(path):
 def test_walk_reaches_every_package():
     dirs = {os.path.relpath(os.path.dirname(f), PKG) for f in _port_files()[1:]}
     assert {".", "core", "models", "cli", "diff", "ops", "spatial_filter", "tiles",
-            "events"} <= dirs
+            "events", "parallel"} <= dirs
     assert {"kart_tpu_torch.cli.diff_cmds", "kart_tpu_torch.core.msgpack",
             "kart_tpu_torch.__main__", "kart_tpu_torch.crs", "kart_tpu_torch.epsg",
             "kart_tpu_torch.geom", "kart_tpu_torch.tiles.streams", "kart_tpu_torch.gridshift",
             "kart_tpu_torch.cli.spatial_cmds", "kart_tpu_torch.events.cdc",
-            "kart_tpu_torch.cli.data_cmds"} <= set(_modules())
+            "kart_tpu_torch.cli.data_cmds", "kart_tpu_torch.parallel",
+            "kart_tpu_torch.parallel.mesh", "kart_tpu_torch.parallel.sharded_diff",
+            "kart_tpu_torch.parallel.sharded_merge",
+            "kart_tpu_torch.diff.device_batch"} <= set(_modules())
 
 
 def test_imports_with_jax_and_kart_tpu_blocked():
@@ -99,6 +105,10 @@ def _block():
 
 ENTRY_POINTS = {
     "select_backend": lambda: backend.select_backend(),
+    "select_backend_rows": lambda: backend.select_backend(None, 10**9),
+    "classify_blocks_sharded": lambda: classify_blocks_sharded(_block(), _block()),
+    "classify_blocks_batched": lambda: classify_blocks_batched(_block(), _block()),
+    "sharded_merge_classify": lambda: sharded_merge_classify(_block(), _block(), _block()),
     "classify_changed": lambda: engine.classify_changed(_block(), _block()),
     "feature_count": lambda: engine.feature_count(_block(), _block()),
     "feature_count_rect": lambda: engine.feature_count(_block(), _block(), (0, 0, 1, 1)),
