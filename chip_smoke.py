@@ -35,16 +35,15 @@ first use. Phases:
    after warm-up) and the kernels' own device time (torch.profiler),
    checked by CUDA events with the wrapper's host work fenced off
 M1. (after [6]) several devices on the one card, listed S = 1, 2 and 4
-   times as a mesh: B3 (``diff.device_batch.classify_blocks_batched``, in
-   rounds of 65,536-row key-aligned chunks, full and counts-only) and B7
-   (``parallel.classify_blocks_sharded``, the key-modulus partition) on
-   phases 3-5's sides: classes sha256-equal to the one-card route's and
-   equal counts, K1 once a chunk (B3) and once a non-empty shard (B7), each
-   route's host wall beside the one-card route's
-M2. (in [10b] and after [15]) B8 (``diff.backend.sampled_counts_sharded``)
-   on [10b]'s four sampled row sets: counts equal to the one-card
-   counts-only K1, one counts-only K1 a key-aligned slice (at most S); the
-   sharded merge (``parallel.sharded_merge.sharded_merge_classify``) on
+   times as a mesh: B3 (``ShardedTorchBackend.classify`` and ``counts``:
+   ``diff_kernel.classify_blocks_streamed`` dealing its key-aligned chunks
+   out over the mesh, at least one an entry) on phases 3-5's sides:
+   classes sha256-equal to the one-card route's and equal counts, K1 once
+   a chunk, the host wall beside the one-card route's
+M2. (in [10b] and after [15]) B8 (the mesh's counts-only classify on
+   [10b]'s four sampled row sets): counts equal to the one-card counts-only
+   K1, one counts-only K1 a key-aligned slice (at most S); the sharded
+   merge (B7, ``parallel.sharded_merge.sharded_merge_classify``) on
    [14]'s blocks: union, decision, presence and stats equal to
    ``merge_classify``'s, K4 S times
 M3. the mesh forms of K2 (after [6], on phases 3-5's envelopes), K5 and K6
@@ -52,6 +51,17 @@ M3. the mesh forms of K2 (after [6], on phases 3-5's envelopes), K5 and K6
    (in T3, on T1's largest z4 batch, and its quantized boxes against the
    host's): equal to one launch, one launch an entry (K5: a counts pass an
    entry and a pairs pass where it found pairs)
+M4. the commands through the mesh: with the card listed S = 2 and 4 times
+   as every visible card (``parallel.sharded_diff.best_device_count`` and
+   ``diff.backend.make_mesh`` patched; the mesh's row floor
+   ``KART_SHARDED_MIN_ROWS`` at 1), ``kart diff -o json-lines`` (after [9]),
+   ``diff --only-feature-count medium`` (in [10b]), ``query --intersects
+   --bbox`` (after Q2's strip join) and ``merge --dry-run -o json`` (on a
+   :data:`MESH_MERGE_ROWS`-row merge repository) through the CLI entry point:
+   stdout sha256-equal to the one-card run's, and the mesh's counters and
+   launch counts showing that it was taken (``STATS``; K1 once a chunk,
+   more than one; K2 S times a side; K5 at least S counts passes a batch;
+   K4 S times)
 7. build a repository with the port's ``synth.synth_repo``: ``--repo-rows``
    int-pk features, real blobs for the 1% edited rows only, from ``--seed``
 8-10. ``kart diff`` through the port's CLI entry point (``kart_tpu_torch.cli
@@ -321,17 +331,16 @@ from kart_tpu_torch.core.feature_tree import (
 )
 from kart_tpu_torch.core.objects import MODE_TREE
 from kart_tpu_torch.core.tree_builder import TreeBuilder
+from kart_tpu_torch.diff import backend as backend_module
 from kart_tpu_torch.diff.backend import (
     DeviceTorchBackend,
     PlainTorchBackend,
     ShardedTorchBackend,
     envelope_scan,
     envelope_scan_plain,
-    sampled_counts_sharded,
     select_backend,
     sharded_merc_envelopes,
 )
-from kart_tpu_torch.diff.device_batch import batch_splits, classify_blocks_batched, device_batch_rows
 from kart_tpu_torch.diff.engine import (
     classify_changed,
     feature_count,
@@ -357,6 +366,7 @@ from kart_tpu_torch.ops.diff_kernel import (
     classify_blocks,
     classify_plain,
     columnar_equal,
+    mesh_chunk_rows,
     stream_chunk_rows,
     tile_coranks,
     tile_coranks_plain,
@@ -379,7 +389,7 @@ from kart_tpu_torch.ops.merge_kernel import (
     merge_tile_plan,
     merge_tile_plan_plain,
 )
-from kart_tpu_torch.parallel.sharded_diff import classify_blocks_sharded, partition_block
+from kart_tpu_torch.parallel import sharded_diff
 from kart_tpu_torch.parallel.sharded_merge import sharded_merge_classify
 from kart_tpu_torch.spatial_filter import (
     PREPASS_PAD,
@@ -815,6 +825,15 @@ def cli_phases(args, card, launches, s_walls=None):
         print(f"[9] json-lines: card {wall_card:.4f} s, cpu {wall_cpu:.4f} s host wall, "
               f"{os.path.getsize(card_out)} bytes, sha256 {digest} on both; "
               f"K1 launches 1 on {card}")
+        dev = runtime.resolve_device(None)
+
+        def mesh_jsonl(s):
+            kart_cli(*jsonl, f"{card_out}.mesh{s}")
+            return f"{card_out}.mesh{s}"
+
+        mesh_cli("diff -o json-lines", mesh_jsonl, jsonl_digest, launches, dev, card,
+                 "sharded_classify_calls", lambda s, st: 1 < st["classify_launches"] <= s,
+                 want=SOME)
         for where, pre in (("card", []), ("cpu", ["--device", "cpu"])):
             profile, split = counted(
                 "9", lambda: profile_split(lambda: kart_cli(*pre, *jsonl, card_out)),
@@ -944,6 +963,17 @@ def estimation_phases(path, tmp, card, launches, n_edits, repo):
         digest = sha256_of(f"{out}.card")
         check(digest == sha256_of(f"{out}.cpu") == sha256_of(f"{out}.cached"),
               f"the {acc} estimate differs card / cpu / cached")
+        if acc == "medium" and not extra:
+
+            def mesh_estimate(s):
+                os.remove(db)
+                go([], f"{out}.mesh{s}")
+                return f"{out}.mesh{s}"
+
+            mesh_cli(f"diff --only-feature-count {acc}", mesh_estimate, digest, launches, dev,
+                     card, "sharded_classify_calls",
+                     lambda s, st: st["classify_counts_only_launches"]
+                     == st["classify_launches"] <= s, want=SOME)
         with open(f"{out}.card") as f:
             text = f.read()
         if acc == "good" and not extra:
@@ -1243,11 +1273,10 @@ def timed_counted(label, fn, launches, **want):
 
 
 def mesh_classify_phase(old, new, res, card, launches, dev):
-    """[M1] B3 (``classify_blocks_batched``) and B7 (``classify_blocks_sharded``)
-    on phases 3-5's sides, the card listed S times: classes sha256-equal to
-    the one-card route's (``res``, from [3]'s ``classify_changed``), equal
-    counts, counts-only too; K1 once a chunk for B3 (its rounds x S slots,
-    less the last round's empty ones) and once a non-empty shard for B7."""
+    """[M1] B3 (``ShardedTorchBackend.classify`` and ``counts``) on phases
+    3-5's sides, the card listed S times: classes sha256-equal to the
+    one-card route's (``res``, from [3]'s ``classify_changed``), equal
+    counts, counts-only too; K1 once a chunk (at least one an entry)."""
     want_old, want_new = tensor_sha(res.old_class), tensor_sha(res.new_class)
     want_counts = [res.counts[k] for k in ("inserts", "updates", "deletes")]
     t = time.perf_counter()
@@ -1255,51 +1284,41 @@ def mesh_classify_phase(old, new, res, card, launches, dev):
     one_wall = time.perf_counter() - t
     check(tensor_sha(one[0]) == want_old and tensor_sha(one[1]) == want_new,
           "[M1] the one-card route's classes changed between runs")
-    keys = (np.asarray(old.keys[: old.count]), np.asarray(new.keys[: new.count]))
-    batch = device_batch_rows()
-    _, n_chunks = batch_splits(keys, batch)
-    walls = {}
+    rows = (old.count, new.count)
+    walls, chunks = {}, {}
     for s in MESH_SIZES:
-        mesh = [dev] * s
+        mesh = ShardedTorchBackend([dev] * s)
+        _, (_, n_chunks) = block_splits((old, new), mesh_chunk_rows(rows, s))
+        chunks[s] = n_chunks
         for counts_only in (False, True):
             got, stats, wall = timed_counted(
-                "M1", lambda: classify_blocks_batched(old, new, mesh, counts_only=counts_only),
-                launches, want=n_chunks)
+                "M1", lambda: (None, None, mesh.counts(old, new)) if counts_only
+                else mesh.classify(old, new), launches, want=n_chunks)
             check(got[2].tolist() == want_counts,
                   f"[M1] B3 over {s} counts {got[2].tolist()} != one card's {want_counts}")
             if counts_only:
-                check(got[0] is None and got[1] is None
-                      and stats["classify_counts_only_launches"] == n_chunks,
-                      "[M1] B3's counts-only route returned classes or ran full launches")
+                check(stats["classify_counts_only_launches"] == n_chunks,
+                      "[M1] B3's counts-only route ran full launches")
             else:
                 check(tensor_sha(got[0]) == want_old and tensor_sha(got[1]) == want_new,
                       f"[M1] B3 over {s} entries: classes differ from the one-card route")
             walls[f"B3 S={s}{' counts-only' if counts_only else ''}"] = wall
-        shards = sum(1 for a, b in zip(partition_block(old, s)[2], partition_block(new, s)[2])
-                     if a + b)
-        got, stats, wall = timed_counted(
-            "M1", lambda: classify_blocks_sharded(old, new, mesh), launches, want=shards)
-        check(got[2].tolist() == want_counts and tensor_sha(got[0]) == want_old
-              and tensor_sha(got[1]) == want_new,
-              f"[M1] B7 over {s} entries differs from the one-card route")
-        walls[f"B7 S={s}"] = wall
-        print(f"[M1] S={s}: B3 {-(-n_chunks // s)} rounds of {batch}-row chunks, K1 {n_chunks} "
-              f"(full and counts-only), {walls[f'B3 S={s}']:.4f} / "
-              f"{walls[f'B3 S={s} counts-only']:.4f} s host wall; B7 K1 {shards}, "
-              f"{wall:.4f} s; the one-card route {one_wall:.4f} s; classes sha256 "
-              f"{want_old[:16]} / {want_new[:16]} and counts {want_counts} on every route on "
-              f"{card}")
-    return {"one_card_s": one_wall, "chunks": n_chunks, "batch_rows": batch, **walls}
+        print(f"[M1] S={s}: B3 in {n_chunks} chunks of at most "
+              f"{mesh_chunk_rows(rows, s)} rows, K1 {n_chunks} (full and counts-only), "
+              f"{walls[f'B3 S={s}']:.4f} / {walls[f'B3 S={s} counts-only']:.4f} s host wall; "
+              f"the one-card route {one_wall:.4f} s; classes sha256 {want_old[:16]} / "
+              f"{want_new[:16]} and counts {want_counts} on every route on {card}")
+    return {"one_card_s": one_wall, "chunks": chunks, **walls}
 
 
 def mesh_sampled_counts(acc, so, sn, one_counts, card, launches, dev):
-    """[M2] B8 (``sampled_counts_sharded``) on an estimate's sampled rows:
-    counts equal to the one-card counts-only K1, one counts-only K1 a
+    """[M2] B8 (the mesh's counts-only classify) on an estimate's sampled
+    rows: counts equal to the one-card counts-only K1, one counts-only K1 a
     key-aligned slice (at most S)."""
     out = {}
     for s in MESH_SIZES:
         got, stats, wall = timed_counted(
-            "M2", lambda: sampled_counts_sharded(so, sn, [dev] * s), launches, want=SOME)
+            "M2", lambda: ShardedTorchBackend([dev] * s).counts(so, sn), launches, want=SOME)
         k1 = stats["classify_launches"]
         check(got.tolist() == one_counts.tolist() and k1 <= s
               and stats["classify_counts_only_launches"] == k1,
@@ -1323,7 +1342,7 @@ def mesh_merge_phase(trio, card, launches, dev):
     walls = {}
     for s in MESH_SIZES:
         got, _, walls[s] = timed_counted(
-            "M2", lambda: sharded_merge_classify(*trio, mesh=[dev] * s), launches, want=0,
+            "M2", lambda: sharded_merge_classify(*trio, [dev] * s), launches, want=0,
             want_k4=s)
         check(all(g.dtype == w.dtype and np.array_equal(g, w) for g, w in zip(got[:3], one[:3]))
               and got[3] == one[3],
@@ -1394,6 +1413,90 @@ def mesh_merc_phase(env, card, launches, dev):
         check(np.array_equal(*ints), f"[M3] K7 over {s} entries: exported integers differ")
         print(f"[M3] K7 over S={s} on {len(env)} rows: columns equal to one launch, quantized "
               f"boxes equal to the host's; K7 {s}, {wall:.4f} s host wall on {card}")
+
+
+#: the meshes [M4] runs the commands over
+CLI_MESH_SIZES = (2, 4)
+#: rows of [M4]'s merge repository: [14]'s builder cut from 2M, whose dry run
+#: takes 14 s, so that three dry runs take seconds
+MESH_MERGE_ROWS = 100_000
+
+
+@contextlib.contextmanager
+def card_as_mesh(dev, s):
+    """[M4]: the card listed ``s`` times as every visible card (what the
+    routing rule and the backend's mesh read), and the mesh's row floor at
+    1 row, so that every command's work goes to the mesh."""
+    saved = (sharded_diff.best_device_count, backend_module.make_mesh,
+             os.environ.get("KART_SHARDED_MIN_ROWS"))
+    sharded_diff.best_device_count = lambda limit=None: s
+    backend_module.make_mesh = lambda: [dev] * s
+    os.environ["KART_SHARDED_MIN_ROWS"] = "1"
+    try:
+        yield
+    finally:
+        sharded_diff.best_device_count, backend_module.make_mesh = saved[:2]
+        if saved[2] is None:
+            os.environ.pop("KART_SHARDED_MIN_ROWS", None)
+        else:
+            os.environ["KART_SHARDED_MIN_ROWS"] = saved[2]
+
+
+def mesh_cli(what, run, want_digest, launches, dev, card, stat, check_stats, **want):
+    """[M4] one command through the CLI with the card as a mesh of each of
+    :data:`CLI_MESH_SIZES`: ``run(s)`` runs it and returns its output
+    file; its sha256 must be ``want_digest`` (the one-card run's), the
+    mesh counter ``stat`` of ``sharded_diff.STATS`` (where one counts the
+    route) must grow by one, and ``check_stats(s, counters)`` must hold.
+    -> {S: host wall s}."""
+    walls = {}
+    for s in CLI_MESH_SIZES:
+        before = sharded_diff.STATS.get(stat, 0)
+        with card_as_mesh(dev, s):
+            out, stats, wall = timed_counted("M4", lambda: run(s), launches, **want)
+        digest = sha256_of(out)
+        check(digest == want_digest, f"[M4] {what} over {s} entries: sha256 {digest} != "
+                                     f"the one-card run's {want_digest}")
+        check(stat is None or sharded_diff.STATS[stat] == before + 1,
+              f"[M4] {what} over {s} entries did not take the mesh ({stat})")
+        check(check_stats(s, stats), f"[M4] {what} over {s} entries: launches {stats}")
+        walls[s] = wall
+        print(f"[M4] {what} over S={s}: sha256 {digest[:16]} equal to one card; K1 "
+              f"{stats['classify_launches']}, K2 {stats['envelope_scan_launches']}, K4 "
+              f"{stats['merge_classify_launches']}, K5 {stats['envelope_join_launches']}, K6 "
+              f"{stats['geom_refine_launches']}; {wall:.4f} s host wall on {card}")
+    return walls
+
+
+def mesh_merge_cli_phase(args, card, launches, dev):
+    """[M4] ``merge theirs --dry-run -o json`` on a :data:`MESH_MERGE_ROWS`
+    merge repository ([14]'s builder), on one card and then over the mesh:
+    equal stdout, K4 once an entry."""
+    os.environ.update(GIT_AUTHOR_DATE=MERGE_DATE, GIT_COMMITTER_DATE=MERGE_DATE)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="kart_smoke_mesh_merge_") as tmp:
+        repo, _, truth = build_merge_repo(os.path.join(tmp, "repo"), MESH_MERGE_ROWS,
+                                          args.seed + 4)
+        argv = ["-C", repo.workdir, "merge", "theirs", "--dry-run", "-o", "json"]
+
+        def run(name):
+            out = os.path.join(tmp, name)
+            with open(out, "w") as f, contextlib.redirect_stdout(f):
+                kart_cli(*argv)
+            return out
+
+        one, _, one_wall = timed_counted("M4", lambda: run("one"), launches, want=0, want_k4=1)
+        with open(one) as f:
+            doc = json.load(f)
+        n_conf = int((truth["theirs"] == 2).sum())
+        check(doc["kart.merge/v1"]["conflicts"] == {"synth": {"feature": n_conf}},
+              f"[M4] the one-card dry run said {doc}")
+        print(f"[M4] merge --dry-run -o json on {MESH_MERGE_ROWS} rows: {n_conf} "
+              f"conflicts, K4 1, {one_wall:.4f} s host wall on one card on {card}")
+        mesh_cli("merge --dry-run -o json", lambda s: run(f"mesh{s}"), sha256_of(one),
+                 launches, dev, card, "sharded_merge_calls",
+                 lambda s, st: st["merge_classify_launches"] == s, want=0, want_k4=SOME)
+    return time.perf_counter() - t0
 
 
 #: [V1]'s commands: every one that a V2 repository runs
@@ -2098,6 +2201,21 @@ def query_phases(repo, tmp, card, launches, dev):
               f"tiles, pairs {doc['pairs']}, count {doc['count']}; K2 2, "
               f"K5 {st['envelope_join_launches']}, K6 {st['geom_refine_launches']}; sha256 "
               f"{digest} on both; card {w_card:.4f} s, cpu {w_cpu:.4f} s host wall on {card}")
+        if name == "count":
+            batches = doc["stats"]["batches"]
+
+            def mesh_join(s, argv=argv, out=out):
+                with open(f"{out}.mesh{s}", "w") as f, contextlib.redirect_stdout(f):
+                    kart_cli(*strip, *argv)
+                return f"{out}.mesh{s}"
+
+            # no counter of STATS reads the join: K2 S times a side and at
+            # least S K5 counts passes a batch show the mesh
+            mesh_cli(f"query --intersects --bbox {JOIN_STRIP} -o count", mesh_join, digest,
+                     launches, dev, card, None,
+                     lambda s, st: (st["envelope_scan_launches"] == 2 * s
+                                    and st["envelope_join_launches"] >= s * batches),
+                     want=0, want_k2=SOME, want_k5=SOME, want_k6=SOME)
     profile, split = counted("Q2", lambda: profile_split(full, JOIN_STEPS), launches, want=0,
                              want_k5=SOME, want_k6=SOME)[0]
     print("[Q2] host profile of the card's full join (cProfile, cumulative s): "
@@ -4081,6 +4199,7 @@ def main():
     s3_diff = s_walls["S3"]
     k4 = merge_phases(args, card, cli_launches, dev, s_walls)
     walls["14-17"] = time.perf_counter() - t - (s_walls["S3"] - s3_diff)
+    walls["M4 merge"] = mesh_merge_cli_phase(args, card, cli_launches, dev)
     t = time.perf_counter()
     k1["hash_keys"] = hash_diff_phases(args, card, cli_launches, dev)
     walls["18-20"] = time.perf_counter() - t

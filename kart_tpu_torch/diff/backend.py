@@ -7,14 +7,15 @@ Three backends, chosen by device and, on several cards, by rows:
   runs the kernels.
 * ``sharded_torch`` -- the mesh of every visible card
   (:mod:`kart_tpu_torch.parallel`), kart_tpu's ``sharded_jax``: the
-  classify in rounds of key-aligned batches (:mod:`.device_batch`, B3),
-  the estimation's sampled counts one key-aligned slice a device (B8),
-  and the mesh forms of K2, K5, K6 and K7, each device on its own rows.
-  :func:`select_backend` picks it as kart_tpu's ``select_backend`` does:
-  when the caller asked for the card without naming one, and
-  ``parallel.should_shard`` passes for the rows (2 or more cards,
-  ``KART_DIFF_SHARDED``, ``KART_SHARDED_MIN_ROWS``). With one card every
-  route is ``device_torch``'s.
+  classify with its key-aligned chunks dealt out over the devices
+  (``diff_kernel.classify_blocks_streamed`` with a mesh: B3, and B8 for
+  the estimation's sampled rows, at least one chunk a device), and the
+  mesh forms of K2, K5, K6 and K7, each device on its own rows. A
+  ``device_torch`` backend for the card asked for without an index hands
+  each piece of work to it as kart_tpu's ``select_backend`` routes: when
+  ``parallel.should_shard`` passes for the rows of that piece (2 or more
+  cards, ``KART_SHARDED_MIN_ROWS``). With one card every route is
+  ``device_torch``'s.
 * ``cpu_torch`` -- the CPU: the diff's classify on the host floor, a copy
   of kart_tpu's native merge-join (``ops/host_classify.py``), the plain
   PyTorch versions of the other kernels, and numpy's host projection for
@@ -37,10 +38,9 @@ import numpy as np
 import torch
 
 from kart_tpu_torch import runtime
-from kart_tpu_torch.diff.device_batch import batch_splits, classify_blocks_batched
 from kart_tpu_torch.ops import _build
 from kart_tpu_torch.ops.blocks import to_device
-from kart_tpu_torch.ops.diff_kernel import chunk_tensors, classify, classify_blocks
+from kart_tpu_torch.ops.diff_kernel import classify_blocks, classify_blocks_streamed
 from kart_tpu_torch.ops.envelope_join import (
     JoinLaunch,
     envelope_join,
@@ -134,22 +134,18 @@ def _mod360(x):
 
 
 class DiffBackend:
-    """One execution layer on one device. ``routable``: the device was asked
-    for as the card, without an index, so :meth:`for_rows` may hand a large
-    enough piece of work to the mesh."""
+    """One execution layer on one device."""
 
     name = None
     plain = False
 
-    def __init__(self, device, routable=False):
+    def __init__(self, device):
         self.device = device
-        self.routable = routable
 
     def for_rows(self, n_rows):
-        """The backend for work of ``n_rows`` rows: the mesh when this
-        backend is routable and ``should_shard(n_rows)``, else this one."""
-        if self.routable and should_shard(n_rows):
-            return ShardedTorchBackend(make_mesh())
+        """The backend that work of ``n_rows`` rows runs on, decided once
+        (the spatial join decides on its whole probe side): this one, but
+        for a routable ``device_torch``."""
         return self
 
     def classify(self, old_block, new_block):
@@ -157,13 +153,9 @@ class DiffBackend:
         return classify_blocks(old_block, new_block, self.device)
 
     def counts(self, old_block, new_block):
-        """Counts-only classify (`-o feature-count`): no class arrays."""
+        """Counts-only classify (`-o feature-count`, the estimation's
+        sampled rows): no class arrays."""
         return classify_blocks(old_block, new_block, self.device, counts_only=True)[2]
-
-    def sampled_counts(self, old_sub, new_sub):
-        """Counts of an estimation's sampled rows (small blocks, called
-        once)."""
-        return self.counts(old_sub, new_sub)
 
     def envelope_hits(self, block, query):
         """bool (count,) envelope-vs-query hits of one sidecar block."""
@@ -198,7 +190,43 @@ class DiffBackend:
 
 
 class DeviceTorchBackend(DiffBackend):
+    """One card. ``routable``: the card was asked for without an index, so
+    each call hands its work to the mesh of every visible card when
+    ``should_shard`` passes for the rows it was given (kart_tpu's
+    ``select_backend`` rule), and otherwise runs it on this card."""
+
     name = "device_torch"
+
+    def __init__(self, device, routable=False):
+        super().__init__(device)
+        self.routable = routable
+
+    def for_rows(self, n_rows):
+        if not self.routable:
+            return self
+        if should_shard(n_rows):
+            return ShardedTorchBackend(make_mesh())
+        return DeviceTorchBackend(self.device)
+
+    def _on(self, n_rows):
+        """Where a call on ``n_rows`` rows runs: :meth:`for_rows`'s
+        backend when routable, else the one-card methods on this card."""
+        return self.for_rows(n_rows) if self.routable else super()
+
+    def classify(self, old_block, new_block):
+        return self._on(max(old_block.count, new_block.count)).classify(old_block, new_block)
+
+    def counts(self, old_block, new_block):
+        return self._on(max(old_block.count, new_block.count)).counts(old_block, new_block)
+
+    def envelope_hits(self, block, query):
+        return self._on(block.count).envelope_hits(block, query)
+
+    def refine_pairs(self, col_a, ia, col_b, ib):
+        return self._on(len(ia)).refine_pairs(col_a, ia, col_b, ib)
+
+    def merc_envelopes(self, env):
+        return self._on(len(env)).merc_envelopes(env)
 
 
 class CpuTorchBackend(DiffBackend):
@@ -232,23 +260,18 @@ class ShardedTorchBackend(DiffBackend):
         self.mesh = list(mesh)
         super().__init__(self.mesh[0])
 
-    def for_rows(self, n_rows):
-        return self
-
     def classify(self, old_block, new_block):
-        result = classify_blocks_batched(old_block, new_block, self.mesh)
+        """B3: the blocks' key-aligned chunks dealt out over the mesh, one
+        K1 a chunk on its device."""
         STATS["sharded_classify_calls"] += 1
-        return result
+        return classify_blocks_streamed(old_block, new_block, self.device, mesh=self.mesh)
 
     def counts(self, old_block, new_block):
-        counts = classify_blocks_batched(old_block, new_block, self.mesh, counts_only=True)[2]
+        """B3 counts-only; on an estimation's sampled rows B8: at most one
+        key-aligned slice a device, one counts-only K1 each."""
         STATS["sharded_classify_calls"] += 1
-        return counts
-
-    def sampled_counts(self, old_sub, new_sub):
-        counts = sampled_counts_sharded(old_sub, new_sub, self.mesh)
-        STATS["sharded_classify_calls"] += 1
-        return counts
+        return classify_blocks_streamed(old_block, new_block, self.device, mesh=self.mesh,
+                                        counts_only=True)[2]
 
     def envelope_hits(self, block, query):
         q = np.asarray(query, dtype=np.float64)
@@ -298,22 +321,19 @@ def project_envelopes(env, allow_device=True, device=None):
     tile quantizer makes the exported integers the host's."""
     if not allow_device:
         return host_merc_envelopes(env)
-    return select_backend(device).for_rows(len(env)).merc_envelopes(env)
+    return select_backend(device).merc_envelopes(env)
 
 
-def select_backend(device=None, n_rows=None):
+def select_backend(device=None):
     """The backend for ``device`` (``None`` = the card; raises
-    DeviceUnavailable without one) and work of ``n_rows`` rows: the mesh
-    (``sharded_torch``) when the card was asked for without an index and
-    ``should_shard(n_rows)``, as kart_tpu's ``select_backend`` routes; an
-    explicit ``cuda:N`` pins one card, ``"cpu"`` is the host floor. Without
-    ``n_rows`` the one-device backend, whose :meth:`DiffBackend.for_rows`
-    routes each piece of work later."""
+    DeviceUnavailable without one): ``device_torch`` for the card, routable
+    to the mesh (``sharded_torch``) call by call when the card was asked for
+    without an index, as kart_tpu's ``select_backend`` routes; an explicit
+    ``cuda:N`` pins one card, ``"cpu"`` is the host floor."""
     dev = runtime.resolve_device(device)
     if dev.type != "cuda":
         return BACKENDS["cpu_torch"](dev)
-    backend = BACKENDS["device_torch"](dev, routable=asks_for_mesh(device))
-    return backend if n_rows is None else backend.for_rows(n_rows)
+    return BACKENDS["device_torch"](dev, routable=asks_for_mesh(device))
 
 
 # --- the mesh forms ----------------------------------------------------------------------
@@ -327,31 +347,6 @@ def _pieces(n, mesh):
     """-> [(device, lo, hi)]: ``n`` rows cut into one contiguous piece a
     device of ``mesh``."""
     return [(d, lo, hi) for d, (lo, hi) in zip(mesh, shard_rows(n, len(mesh)))]
-
-
-def sampled_counts_sharded(old_block, new_block, mesh):
-    """B8 (kart_tpu's ``sampled_counts_pmapped``): an estimation's sampled
-    rows as at most one key-aligned slice a device (the capacity grows until
-    at most S chunks remain), one counts-only K1 a non-empty slice, the
-    counts summed on the mesh's first device. -> counts int64 (3,), CPU."""
-    n_dev = len(mesh)
-    n_old, n_new = old_block.count, new_block.count
-    sides = ((np.asarray(old_block.keys[:n_old]), old_block.oids),
-             (np.asarray(new_block.keys[:n_new]), new_block.oids))
-    cap = max(-(-max(n_old, n_new, 1) // n_dev), 1)
-    while True:
-        splits, n_chunks = batch_splits([k for k, _ in sides], cap)
-        if n_chunks <= n_dev:
-            break
-        cap *= 2
-    total = torch.zeros(3, dtype=torch.int64, device=mesh[0])
-    for c, device in zip(range(n_chunks), mesh):
-        with on(device):
-            args = []
-            for (keys, oids), split in zip(sides, splits):
-                args += chunk_tensors(keys, oids, int(split[c]), int(split[c + 1]), device)
-            total += classify(*args, counts_only=True)[2].to(mesh[0])
-    return total.cpu()
 
 
 def sharded_envelope_hits(envelopes, count, query, mesh):

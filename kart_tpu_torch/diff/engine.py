@@ -83,10 +83,8 @@ def spatial_prefilter_blocks(old_block, new_block, rect_wsen, device=None):
         return None
     query = np.asarray(rect_wsen, dtype=np.float64)
     o_n, n_n = old_block.count, new_block.count
-    o_idx = np.flatnonzero(
-        backend.for_rows(o_n).envelope_hits(old_block, query).cpu().numpy())
-    n_idx = np.flatnonzero(
-        backend.for_rows(n_n).envelope_hits(new_block, query).cpu().numpy())
+    o_idx = np.flatnonzero(backend.envelope_hits(old_block, query).cpu().numpy())
+    n_idx = np.flatnonzero(backend.envelope_hits(new_block, query).cpu().numpy())
     o_keys = old_block.keys[:o_n]
     n_keys = new_block.keys[:n_n]
     if o_n and n_n:
@@ -137,9 +135,7 @@ def classify_changed(old_block, new_block, device=None):
     """The classify half of the columnar diff: classes of every row of
     both sides, the changed rows and their oid hexes (what
     ``get_feature_diff_columnar`` materialises deltas from)."""
-    rows = max(old_block.count, new_block.count)
-    old_class, new_class, counts = select_backend(device).for_rows(rows).classify(
-        old_block, new_block)
+    old_class, new_class, counts = select_backend(device).classify(old_block, new_block)
     old_idx, new_idx = changed_indices(old_class, new_class)
     return ClassifyResult(
         old_class, new_class, counts_dict(counts), old_idx, new_idx,
@@ -158,8 +154,7 @@ def feature_count(old_block, new_block, rect=None, device=None):
         if filtered is None:
             return None
         old_block, new_block = filtered
-    rows = max(old_block.count, new_block.count)
-    return int(backend.for_rows(rows).counts(old_block, new_block).sum())
+    return int(backend.counts(old_block, new_block).sum())
 
 
 # --- the repository diff -----------------------------------------------------
@@ -383,8 +378,7 @@ def get_dataset_feature_count_fast(base_rs, target_rs, ds_path, device=None,
         blocks = spatial_prefilter_blocks(*blocks, rect, device)
         if blocks is None:
             return None  # no envelope columns: the writer filters the deltas
-    rows = max(b.count for b in blocks)
-    return int(select_backend(device).for_rows(rows).counts(*blocks).sum())
+    return int(select_backend(device).counts(*blocks).sum())
 
 
 def get_feature_diff_rows(base_rs, target_rs, ds_path, device=None):
@@ -406,8 +400,7 @@ def get_feature_diff_rows(base_rs, target_rs, ds_path, device=None):
     if blocks is None:
         return None
     old_block, new_block = blocks
-    rows = max(old_block.count, new_block.count)
-    old_class, new_class, _ = select_backend(device).for_rows(rows).classify(old_block, new_block)
+    old_class, new_class, _ = select_backend(device).classify(old_block, new_block)
     old_idx, new_idx = changed_indices(old_class, new_class)
     okeys = np.asarray(old_block.keys[old_idx])
     nkeys = np.asarray(new_block.keys[new_idx])

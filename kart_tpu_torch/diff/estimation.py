@@ -21,7 +21,7 @@ Counterpart of kart_tpu's ``diff/estimation.py`` (all of it). Its sampled
 count runs as a ``jax.pmap`` reduction over devices
 (``diff/backend.py:_make_pmapped_counts``); here it is one counts-only K1
 launch on one card, and on several cards (``sharded_torch``) one a
-key-aligned slice a card (B8, ``diff.backend.sampled_counts_sharded``).
+key-aligned slice a card (B8).
 """
 
 import numpy as np
@@ -141,8 +141,7 @@ def estimate_counts_from_blocks(old_block, new_block, accuracy, device=None):
     CPU), scaled by ``64 / samples`` (exact at ``good``)."""
     k = min(ACCURACY_SUBTREE_SAMPLES[accuracy], SAMPLE_PARTITIONS)
     old_sub, new_sub = sample_block(old_block, k), sample_block(new_block, k)
-    rows = max(old_sub.count, new_sub.count)
-    total = int(select_backend(device).for_rows(rows).sampled_counts(old_sub, new_sub).sum())
+    total = int(select_backend(device).counts(old_sub, new_sub).sum())
     if k == SAMPLE_PARTITIONS:
         return total
     return round(total * SAMPLE_PARTITIONS / k)

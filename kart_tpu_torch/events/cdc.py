@@ -317,9 +317,8 @@ def changed_envelopes(old_source, new_source, device):
         src = new_source if old_source is None else old_source
         envs = np.asarray(src.envelopes(), dtype=np.float64)
         return envs, {"inserts" if old_source is None else "deletes": src.block.count}
-    old_block, new_block = old_source.block, new_source.block
-    backend = select_backend(device).for_rows(max(old_block.count, new_block.count))
-    old_class, new_class, counts = backend.classify(old_block, new_block)
+    old_class, new_class, counts = select_backend(device).classify(old_source.block,
+                                                                  new_source.block)
     old_idx, new_idx = changed_indices(old_class, new_class)
     parts = []
     if len(old_idx):

@@ -23,7 +23,9 @@ launch. :func:`classify_blocks` gives it chunks of
 ``KART_TORCH_STREAM_CHUNK_ROWS`` when the larger side has
 ``KART_TORCH_STREAM_MIN_ROWS`` rows or more, or when the sides would fill
 more than half of the card's free memory (``blocks.streams``), and
-otherwise one chunk; both knobs are read at call time.
+otherwise one chunk; both knobs are read at call time. Over several
+devices (a mesh, B3 and B8) the same driver deals the chunks out in turn,
+at least one a device.
 :func:`columnar_equal` is kart_tpu's row equality over attribute columns
 with null masks, as a torch op.
 """
@@ -287,8 +289,17 @@ def block_splits(blocks, chunk_rows=None):
                                      else chunk_rows)
 
 
+def mesh_chunk_rows(side_rows, n_devices):
+    """The default chunk of a classify over ``n_devices`` devices:
+    :func:`stream_chunk_rows`, cut to a ``1 / n_devices`` share of the
+    larger side so that every device gets a chunk (kart_tpu's B8 grows its
+    slices until at most one a device remains; B3 deals its batches out the
+    same way)."""
+    return min(stream_chunk_rows(), max(-(-max(side_rows) // n_devices), 1))
+
+
 def classify_blocks_streamed(old_block, new_block, device, chunk_rows=None,
-                             counts_only=False, timings=None):
+                             counts_only=False, timings=None, mesh=None):
     """B1s: the classify of two blocks chunk by chunk of the key space, in
     chunks of ``chunk_rows`` (default ``blocks.stream_chunk_rows``).
     -> (old_class int8 (n_old,) or None, new_class int8 (n_new,) or None,
@@ -300,8 +311,21 @@ def classify_blocks_streamed(old_block, new_block, device, chunk_rows=None,
     while the previous chunk's K1 runs; the classes come back into pinned
     host memory on the copy stream, enqueued after the next chunk's
     upload; the counts are summed on the card and read once. On the CPU the same chunks run
-    :func:`classify_plain` (for the tests; no command takes it)."""
+    :func:`classify_plain` (for the tests; no command takes it).
+
+    ``mesh`` (a list of devices of ``device``'s type, ``device`` first) is
+    several devices (B3 and B8, kart_tpu's ``classify_blocks_batched`` and
+    ``sampled_counts_pmapped``): chunk c runs on ``mesh[c % S]``, through
+    that entry's own stager and streams, the counts are summed on
+    ``device``, and the default chunk is :func:`mesh_chunk_rows`. A failed
+    launch or copy on any entry raises (kart_tpu's backend falls back to
+    the host there; the port does not)."""
     n_old, n_new = old_block.count, new_block.count
+    mesh = [device] if mesh is None else list(mesh)
+    if mesh[0] != device or any(d.type != device.type for d in mesh):
+        raise ValueError(f"classify: mesh {mesh} does not start at {device}")
+    if chunk_rows is None and len(mesh) > 1:
+        chunk_rows = mesh_chunk_rows((n_old, n_new), len(mesh))
     (old_keys, new_keys), ((o_split, n_split), n_chunks) = block_splits(
         (old_block, new_block), chunk_rows)
     if device.type not in ("cpu", "cuda"):
@@ -312,36 +336,45 @@ def classify_blocks_streamed(old_block, new_block, device, chunk_rows=None,
         return _classify_streamed_plain(old_block, new_block, o_split, n_split, n_chunks,
                                         counts_only)
     t0 = time.perf_counter()
-    caps = [max(int(np.diff(s).max()), 1) for s in (o_split, n_split)]
-    stager = StreamStager(device, caps, timings, slots=min(n_chunks, 2))
+    n_dev = len(mesh)
+    stagers = []
+    for s, dev in enumerate(mesh[:n_chunks]):
+        caps = [max(int(np.diff(split)[s::n_dev].max()), 1) for split in (o_split, n_split)]
+        with torch.cuda.device(dev):
+            stagers.append(StreamStager(dev, caps, timings,
+                                        slots=min(len(range(s, n_chunks, n_dev)), 2)))
     out = None
     if not counts_only:
-        out = (stager.pinned(n_old, torch.int8), stager.pinned(n_new, torch.int8))
+        out = (stagers[0].pinned(n_old, torch.int8), stagers[0].pinned(n_new, torch.int8))
     total = torch.zeros(3, dtype=torch.int64, device=device)
     pending = None
     for c in range(n_chunks):
-        slot = c % stager.slots
-        ok, oo, nk, no = stager.upload(slot, (
-            (old_keys, old_block.oids, int(o_split[c]), int(o_split[c + 1])),
-            (new_keys, new_block.oids, int(n_split[c]), int(n_split[c + 1]))))
-        with stager.timed("k1_ms", stager.compute):
-            oc, nc, counts = classify(ok, oo, nk, no, counts_only=counts_only)
-        total += counts
-        stager.launched(slot)
-        if pending is not None:
-            stager.download(*pending)
-            pending = None
-        if not counts_only:
-            done = torch.cuda.Event()
-            done.record(stager.compute)
-            pending = ([(cls, dst[int(split[c]):int(split[c + 1])])
-                        for cls, dst, split in zip((oc, nc), out, (o_split, n_split))], done)
+        dev, stager = mesh[c % n_dev], stagers[c % n_dev]
+        slot = (c // n_dev) % stager.slots
+        with torch.cuda.device(dev):
+            ok, oo, nk, no = stager.upload(slot, (
+                (old_keys, old_block.oids, int(o_split[c]), int(o_split[c + 1])),
+                (new_keys, new_block.oids, int(n_split[c]), int(n_split[c + 1]))))
+            with stager.timed("k1_ms", stager.compute):
+                oc, nc, counts = classify(ok, oo, nk, no, counts_only=counts_only)
+            total += counts.to(device)
+            stager.launched(slot)
+            if pending is not None:
+                pending[0].download(*pending[1:])
+                pending = None
+            if not counts_only:
+                done = torch.cuda.Event()
+                done.record(stager.compute)
+                pending = (stager, [(cls, dst[int(split[c]):int(split[c + 1])])
+                                    for cls, dst, split in zip((oc, nc), out, (o_split, n_split))],
+                           done)
     if pending is not None:
-        stager.download(*pending)
+        pending[0].download(*pending[1:])
     counts = total.cpu()
-    stager.finish()
-    stager.add("chunks", n_chunks)
-    stager.add("wall_s", time.perf_counter() - t0)
+    for stager in stagers:
+        stager.finish()
+    stagers[0].add("chunks", n_chunks)
+    stagers[0].add("wall_s", time.perf_counter() - t0)
     if counts_only:
         return None, None, counts
     return out[0], out[1], counts
@@ -349,9 +382,9 @@ def classify_blocks_streamed(old_block, new_block, device, chunk_rows=None,
 
 def _classify_streamed_plain(old_block, new_block, o_split, n_split, n_chunks, counts_only):
     cpu = torch.device("cpu")
-    old_class = torch.empty(old_block.count, dtype=torch.int8)
-    new_class = torch.empty(new_block.count, dtype=torch.int8)
-    total = torch.zeros(3, dtype=torch.int64)
+    old_class = torch.empty(old_block.count, dtype=torch.int8, device=cpu)
+    new_class = torch.empty(new_block.count, dtype=torch.int8, device=cpu)
+    total = torch.zeros(3, dtype=torch.int64, device=cpu)
     for c in range(n_chunks):
         sides = []
         for block, split in ((old_block, o_split), (new_block, n_split)):

@@ -68,21 +68,20 @@ def merge_classify(ancestor_block, ours_block, theirs_block, device=None, timing
     (U,) int8, {"conflicts", "take_theirs"}), numpy on the host. ``device``:
     None for the card (:func:`merge_classify_streamed`: one K4 launch, or
     one a chunk at north-star scale; ``timings`` collects its split),
-    ``"cpu"`` for the plain version. With 2 or more cards, the card asked
-    for without an index and ``parallel.should_shard`` of the largest side,
-    the mesh's ``sharded_merge_classify`` (K4 once a card), as kart_tpu
-    routes it; it raises where kart_tpu's falls back to one chip."""
-    from kart_tpu_torch.parallel.mesh import asks_for_mesh
-    from kart_tpu_torch.parallel.sharded_diff import should_shard
+    ``"cpu"`` for the plain version. Where the diff's backend for
+    ``device`` hands the largest side's rows to the mesh, the mesh's
+    ``sharded_merge_classify`` (K4 once a card), as kart_tpu routes it; it
+    raises where kart_tpu's falls back to one chip."""
+    from kart_tpu_torch.diff.backend import ShardedTorchBackend, select_backend
 
     blocks = (ancestor_block, ours_block, theirs_block)
     rows = tuple(b.count for b in blocks)
-    resolved = runtime.resolve_device(device)
-    if asks_for_mesh(device) and should_shard(max(rows)):
+    route = select_backend(device).for_rows(max(rows))
+    if isinstance(route, ShardedTorchBackend):
         from kart_tpu_torch.parallel.sharded_merge import sharded_merge_classify
 
-        return sharded_merge_classify(*blocks)
-    device = resolved
+        return sharded_merge_classify(*blocks, mesh=route.mesh)
+    device = route.device
     if streams(device, rows):
         return merge_classify_streamed(*blocks, device, timings=timings)
     if device.type == "cuda":

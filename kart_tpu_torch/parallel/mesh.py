@@ -5,8 +5,7 @@ from one process with ``shard_map`` and ``pmap``; the port keeps that
 shape: one process holds the list and runs each shard's work on its own
 device's current stream. By default the mesh is every visible card; the
 CPU tests list ``torch.device("cpu")`` S times, and one card may be listed
-S times to run a mesh's program on it. :data:`FEATURES_AXIS` is kept as a
-name only: a list has no named axes.
+S times to run a mesh's program on it.
 """
 
 import contextlib
@@ -15,9 +14,6 @@ import numpy as np
 import torch
 
 from kart_tpu_torch import runtime
-
-FEATURES_AXIS = "features"
-
 
 def best_device_count(limit=None):
     """Cards for a new mesh: every visible card (0 without CUDA),

@@ -1,29 +1,24 @@
-"""Mesh-sharded diff classification (B7): kart_tpu's
+"""The key-modulus partition and the mesh's routing rule: kart_tpu's
 ``parallel/sharded_diff.py``.
 
 Blocks are partitioned on the host by ``key % n_shards`` (numpy: torch has
 no uint64 remainder, and keys run up to 2^63), so a feature lands on the
-same shard in every revision and each shard's old/new join is local to
-it: K1 runs once a shard on that shard's device, and only the three counts
-are summed across the mesh (on its first device), where kart_tpu ``psum``s
-them.
+same shard in every revision and each shard's join is local to it: the
+sharded merge (:mod:`.sharded_merge`) runs K4 once a shard on that shard's
+device. The mesh's diff classify deals key-aligned chunks out instead
+(``ops.diff_kernel.classify_blocks_streamed`` with a mesh).
 
-Routing keeps kart_tpu's knobs: :func:`should_shard` reads
-``KART_DIFF_SHARDED`` (``0``, ``1`` or ``auto``) and
-``KART_SHARDED_MIN_ROWS`` (default 2,000,000, kart_tpu's device row
-floor; the port reads none of kart_tpu's other knobs), and asks for 2 or
-more visible cards. Unlike kart_tpu's, nothing here falls back to one card
-or to the host: a failed launch or copy on any shard raises.
+Routing: :func:`should_shard` sends work of ``KART_SHARDED_MIN_ROWS`` rows
+or more (default 2,000,000, kart_tpu's device row floor, not measured on
+H100s) to the mesh, and only with 2 or more visible cards. Unlike
+kart_tpu's, nothing here falls back to one card or to the host: a failed
+launch or copy on any shard raises.
 """
 
-import os
-
 import numpy as np
-import torch
 
-from kart_tpu_torch.ops.blocks import PAD_KEY, FeatureBlock, _env_int, bucket_size, to_device
-from kart_tpu_torch.ops.diff_kernel import classify, counts_dict
-from kart_tpu_torch.parallel.mesh import HostCopies, best_device_count, make_mesh, on
+from kart_tpu_torch.ops.blocks import PAD_KEY, _env_int, bucket_size, to_device
+from kart_tpu_torch.parallel.mesh import best_device_count
 
 #: how many times the mesh paths ran in this process (the tests read it:
 #: a one-card route taking over would otherwise be invisible)
@@ -85,95 +80,12 @@ def shard_tensors(part, s, device):
             to_device(oids[s, :n].reshape(n, 5), device, dtype=np.int32))
 
 
-def sharded_classify(mesh, old_block, new_block):
-    """FeatureBlock x2 -> per-shard classes and the mesh's counts: K1 once a
-    shard on the shard's device (its plain version on the CPU). -> (old_class
-    (S, B) int8, new_class (S, B) int8, zero past each shard's count,
-    {inserts, updates, deletes}, (old_part, new_part))."""
-    mesh = list(mesh)
-    n_shards = len(mesh)
-    old_part = partition_block(old_block, n_shards)
-    new_part = partition_block(new_block, n_shards)
-    # the shards of a pair share one bucket size
-    bucket = max(old_part[0].shape[1], new_part[0].shape[1])
-    old_part = _repad(old_part, bucket)
-    new_part = _repad(new_part, bucket)
-
-    total = torch.zeros(3, dtype=torch.int64, device=mesh[0])
-    copies = HostCopies()
-    for s, device in enumerate(mesh):
-        with on(device):
-            oc, nc, counts = classify(*shard_tensors(old_part, s, device),
-                                      *shard_tensors(new_part, s, device))
-            copies.add(oc)
-            copies.add(nc)
-            total += counts.to(mesh[0])
-    host = copies.arrays()
-    old_class = np.zeros((n_shards, bucket), dtype=np.int8)
-    new_class = np.zeros((n_shards, bucket), dtype=np.int8)
-    for s in range(n_shards):
-        old_class[s, : int(old_part[2][s])] = host[2 * s]
-        new_class[s, : int(new_part[2][s])] = host[2 * s + 1]
-    return old_class, new_class, counts_dict(total.cpu()), (old_part, new_part)
-
-
-def sharded_diff_step(mesh, old_block, new_block):
-    """Partition, classify on the mesh, sum the counts. -> counts dict."""
-    _, _, counts, _ = sharded_classify(mesh, old_block, new_block)
-    return counts
-
-
 def _sharded_min_rows():
     return _env_int("KART_SHARDED_MIN_ROWS", DEVICE_MIN_ROWS)
 
 
 def should_shard(n_rows):
-    """Whether a block of ``n_rows`` rows goes over the mesh:
-    ``KART_DIFF_SHARDED=0`` never, ``1`` whatever the rows, ``auto`` (the
-    default) from :func:`_sharded_min_rows` rows; and in every mode only
-    with 2 or more visible cards. The row test runs before any CUDA query."""
-    mode = os.environ.get("KART_DIFF_SHARDED", "auto")
-    if mode == "0":
-        return False
-    if mode != "1" and n_rows < _sharded_min_rows():
-        return False
-    return best_device_count() >= 2
-
-
-def _scatter_to_block_order(part_class, src, n_rows):
-    """(S, B) per-shard classes + (S, B) source rows -> (n_rows,) classes in
-    block order (UNCHANGED where padded)."""
-    out = np.zeros(n_rows, dtype=np.int8)
-    valid = src >= 0
-    out[src[valid]] = np.asarray(part_class)[valid]
-    return out
-
-
-def classify_blocks_sharded(old_block, new_block, mesh=None):
-    """The mesh's drop-in for ``ops.diff_kernel.classify_blocks``: ->
-    (old_class int8 (n_old,), new_class int8 (n_new,), counts int64 (3,)),
-    CPU tensors in block-row order, from one K1 launch a shard over
-    ``mesh`` (default: every visible card)."""
-    if mesh is None:
-        mesh = make_mesh()
-    old_class_p, new_class_p, counts, (old_part, new_part) = sharded_classify(
-        mesh, old_block, new_block)
-    STATS["sharded_classify_calls"] += 1
-    old_class = _scatter_to_block_order(old_class_p, old_part[3], old_block.count)
-    new_class = _scatter_to_block_order(new_class_p, new_part[3], new_block.count)
-    return (torch.from_numpy(old_class), torch.from_numpy(new_class),
-            torch.tensor([counts["inserts"], counts["updates"], counts["deletes"]],
-                         dtype=torch.int64, device="cpu"))
-
-
-def synthetic_block(n, seed=0):
-    """A FeatureBlock of keys 0..n-1 with random oids (seeded), padded to
-    its bucket, for checks and benchmarks."""
-    rng = np.random.default_rng(seed)
-    keys = np.arange(n, dtype=np.int64)
-    oids = rng.integers(0, 2**32, size=(n, 5), dtype=np.uint32)
-    size = bucket_size(max(n, 1))
-    if size > n:
-        keys = np.concatenate([keys, np.full(size - n, PAD_KEY, dtype=np.int64)])
-        oids = np.concatenate([oids, np.zeros((size - n, 5), dtype=np.uint32)])
-    return FeatureBlock(keys, oids, n)
+    """Whether work of ``n_rows`` rows goes over the mesh: from
+    :func:`_sharded_min_rows` rows, and only with 2 or more visible cards.
+    The row test runs before any CUDA query."""
+    return n_rows >= _sharded_min_rows() and best_device_count() >= 2

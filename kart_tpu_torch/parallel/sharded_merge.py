@@ -15,17 +15,18 @@ failed launch or copy on any shard raises; nothing falls back to one card.
 import numpy as np
 
 from kart_tpu_torch.ops.merge_kernel import launch_merge_classify, merge_classify_sides_plain
-from kart_tpu_torch.parallel.mesh import HostCopies, make_mesh, on
+from kart_tpu_torch.parallel.mesh import HostCopies, on
 from kart_tpu_torch.parallel.sharded_diff import STATS, _repad, partition_block, shard_tensors
 
 
-def sharded_merge_classify(ancestor_block, ours_block, theirs_block, mesh=None):
-    """The mesh's drop-in for ``ops.merge_kernel.merge_classify``: ->
-    (union (U,) int64, decision (U,) int8, presence (U,) int8, {conflicts,
-    take_theirs}), numpy, in global sorted-union order. On a card K4 is
-    launched once a shard, every shard's launch enqueued before any union
-    size is read; on the CPU each shard runs K4's plain version."""
-    mesh = make_mesh() if mesh is None else list(mesh)
+def sharded_merge_classify(ancestor_block, ours_block, theirs_block, mesh):
+    """The mesh's drop-in for ``ops.merge_kernel.merge_classify`` over
+    ``mesh`` (a list of devices): -> (union (U,) int64, decision (U,) int8,
+    presence (U,) int8, {conflicts, take_theirs}), numpy, in global
+    sorted-union order. On a card K4 is launched once a shard, every
+    shard's launch enqueued before any union size is read; on the CPU each
+    shard runs K4's plain version."""
+    mesh = list(mesh)
     n_shards = len(mesh)
     parts = [partition_block(b, n_shards) for b in (ancestor_block, ours_block, theirs_block)]
     bucket = max(p[0].shape[1] for p in parts)

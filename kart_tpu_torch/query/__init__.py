@@ -75,8 +75,8 @@ def run_query(repo, refish, ds_path, *, where=None, bbox=None, intersects=None,
     takes no ``where`` or ``count_by``. ``approx=True`` stops spatial
     verdicts at the envelopes. The kernels run on ``device`` (None: the
     card; ``"cpu"``: the plain versions); on several cards each stage goes
-    to the mesh by its own rows (``DiffBackend.for_rows``: a scan's block,
-    a refine's candidates, a join's probe side), as kart_tpu routes them."""
+    to the mesh by its own rows (a scan's block, a refine's candidates, a
+    join's probe side), as kart_tpu routes them."""
     from kart_tpu_torch.diff.backend import select_backend
 
     backend = select_backend(device)

@@ -277,4 +277,4 @@ def _hits(backend, block, query):
     """bool (count,) host array: the block's envelopes against ``query`` (K2)."""
     if not block.count:
         return np.zeros(0, dtype=bool)
-    return backend.for_rows(block.count).envelope_hits(block, query).cpu().numpy()
+    return backend.envelope_hits(block, query).cpu().numpy()

@@ -362,7 +362,7 @@ def _bbox_indices(block, query, stats, backend):
         raise QueryError(
             "--bbox needs an envelope column (no geometry in this dataset's sidecar)")
     if block.count:
-        hits = backend.for_rows(block.count).envelope_hits(block, query).cpu().numpy()
+        hits = backend.envelope_hits(block, query).cpu().numpy()
     else:
         hits = np.zeros(0, dtype=bool)
     _prune_stats(block, query, stats)
@@ -386,8 +386,8 @@ def _refine_bbox_indices(ds, block, idx, query, stats, backend):
     cand = np.flatnonzero(usable)
     if not len(cand):
         return idx
-    verdict = backend.for_rows(len(cand)).refine_pairs(
-        col, idx[cand], qcol, np.zeros(len(cand), dtype=np.int64)).cpu().numpy()
+    verdict = backend.refine_pairs(col, idx[cand], qcol,
+                                   np.zeros(len(cand), dtype=np.int64)).cpu().numpy()
     keep = np.ones(len(idx), dtype=bool)
     keep[cand] = verdict
     stats["pairs_refined"] += int(len(cand))

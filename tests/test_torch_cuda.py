@@ -1243,48 +1243,43 @@ def _merge_triple(n):
 @pytest.mark.parametrize("s", MESH_SIZES)
 @pytest.mark.parametrize("kind,n", [("edited", 300_000), ("below", 3000), ("random", 0)])
 def test_mesh_classifies_match_one_card(cuda, s, kind, n):
-    """B3 and B7 on one card listed S times: classes and counts equal to the
-    one-card route, K1 launched once a non-empty chunk (B3) or shard (B7)."""
-    from kart_tpu_torch.diff.device_batch import batch_splits, classify_blocks_batched
-    from kart_tpu_torch.parallel.sharded_diff import classify_blocks_sharded, partition_block
-
+    """B3 on one card listed S times, at its default chunk (a 1/S share)
+    and at 65,536 rows (many chunks, a ragged last turn): classes and
+    counts equal to the one-card route, K1 launched once a chunk that
+    holds a row (an empty chunk launches nothing)."""
     old, new = _stream_blocks(kind, n)
     mesh = [cuda] * s
-    want = classify_blocks(old, new, cuda)
-    want = [t.cpu() for t in want]
-    _, n_chunks = batch_splits((old.keys[: old.count], new.keys[: new.count]), 65536)
-    for counts_only in (False, True):
-        runtime.reset_stats()
-        got = classify_blocks_batched(old, new, mesh, counts_only=counts_only)
-        assert runtime.stats_snapshot()["classify_launches"] == n_chunks
-        assert torch.equal(got[2], want[2])
-        if not counts_only:
-            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    runtime.reset_stats()
-    got = classify_blocks_sharded(old, new, mesh)
-    shards = sum(1 for a, b in zip(partition_block(old, s)[2], partition_block(new, s)[2])
-                 if a + b)
-    assert runtime.stats_snapshot()["classify_launches"] == shards
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    want = [t.cpu() for t in classify_blocks(old, new, cuda)]
+    rows = (old.count, new.count)
+    for chunk in (diff_kernel.mesh_chunk_rows(rows, s), 65536):
+        _, ((o_split, n_split), _) = diff_kernel.block_splits((old, new), chunk)
+        busy = int(np.count_nonzero(np.diff(o_split) + np.diff(n_split)))
+        for counts_only in (False, True):
+            runtime.reset_stats()
+            got = diff_kernel.classify_blocks_streamed(old, new, cuda, chunk_rows=chunk,
+                                                       counts_only=counts_only, mesh=mesh)
+            assert runtime.stats_snapshot()["classify_launches"] == busy
+            assert torch.equal(got[2], want[2])
+            if not counts_only:
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("s", MESH_SIZES)
 def test_mesh_sampled_counts_and_merge_match_one_card(cuda, s):
-    from kart_tpu_torch.diff.backend import sampled_counts_sharded
+    from kart_tpu_torch.diff.backend import ShardedTorchBackend
     from kart_tpu_torch.parallel.sharded_merge import sharded_merge_classify
 
     mesh = [cuda] * s
     old, new = _stream_blocks("edited", 200_000)
     want = classify_blocks(old, new, cuda, counts_only=True)[2].cpu()
     runtime.reset_stats()
-    assert torch.equal(sampled_counts_sharded(old, new, mesh), want)
+    assert torch.equal(ShardedTorchBackend(mesh).counts(old, new), want)
     launches = runtime.stats_snapshot()
     assert 1 <= launches["classify_counts_only_launches"] == launches["classify_launches"] <= s
     sides = _merge_triple(150_000)
     one = merge_kernel.merge_classify(*sides, device=cuda)
     runtime.reset_stats()
-    got = sharded_merge_classify(*sides, mesh=mesh)
+    got = sharded_merge_classify(*sides, mesh)
     assert runtime.stats_snapshot()["merge_classify_launches"] == s
     for g, w in zip(got[:3], one[:3]):
         assert g.dtype == w.dtype and np.array_equal(g, w)
@@ -1323,9 +1318,7 @@ def test_mesh_envelope_forms_match_one_card(cuda, s, monkeypatch):
 
 
 def test_mesh_shard_failure_raises_on_the_card(cuda, monkeypatch):
-    from kart_tpu_torch.diff import device_batch
-
-    real, calls = device_batch.classify, []
+    real, calls = diff_kernel.classify, []
 
     def second_fails(*args, **kwargs):
         calls.append(1)
@@ -1333,7 +1326,7 @@ def test_mesh_shard_failure_raises_on_the_card(cuda, monkeypatch):
             raise _build.KernelLaunchError("shard 1 failed")
         return real(*args, **kwargs)
 
-    monkeypatch.setattr(device_batch, "classify", second_fails)
+    monkeypatch.setattr(diff_kernel, "classify", second_fails)
     old, new = _stream_blocks("edited", 200_000)
     with pytest.raises(_build.KernelLaunchError, match="shard 1"):
-        device_batch.classify_blocks_batched(old, new, [cuda] * 2, batch_rows=50_000)
+        diff_kernel.classify_blocks_streamed(old, new, cuda, mesh=[cuda] * 2)

@@ -1,16 +1,18 @@
 """Several devices on the CPU: the port's mesh routes (``kart_tpu_torch
-.parallel`` and ``diff.device_batch``, B3, B7, B8 and the mesh forms of K2,
-K5, K6 and K7) against kart_tpu's sharded functions on its virtual CPU
-mesh, on the same numpy inputs made from a seed, for meshes of S = 1, 2, 3,
-4 and 8 entries (``[torch.device("cpu")] * S``: each shard runs its
-kernel's plain version): host layouts array for array, and classes,
-counts, unions, decisions, presence, hits, per-probe counts, pair totals
-and verdicts bit for bit. The merc form is held to the port's one-card
-projection. Cases: empty sides, one side empty, every key in one shard,
-int keys near +-2^62, hash keys near 2^63, and chunk counts that S does not
-divide. Then the routing rule (``should_shard``'s knobs, ``select_backend``
-and ``merge_classify`` choosing the mesh only for an unnamed card with 2 or
-more visible), a failing shard raising instead of falling back, and every
+.parallel``, and ``diff.backend.ShardedTorchBackend``: the classify with
+its chunks dealt out over the mesh (B3, B8), the sharded merge (B7) and the
+mesh forms of K2, K5, K6 and K7) against kart_tpu's sharded functions on
+its virtual CPU mesh, on the same numpy inputs made from a seed, for meshes
+of S = 1, 2, 3, 4 and 8 entries (``[torch.device("cpu")] * S``: each shard
+runs its kernel's plain version): the key-modulus partition array for
+array, and classes, counts, unions, decisions, presence, hits, per-probe
+counts, pair totals and verdicts bit for bit. The merc form is held to the
+port's one-card projection. Cases: empty sides, one side empty, every key
+in one shard, int keys near +-2^62, hash keys near 2^63, and chunk counts
+that S does not divide. Then the routing rule (``should_shard``'s row
+floor and card count; a routable card backend and ``merge_classify``
+choosing the mesh call by call, only for an unnamed card with 2 or more
+visible), a failing shard raising instead of falling back, and every
 allocation on the mesh routes naming its device. No process is started."""
 
 import inspect
@@ -28,7 +30,7 @@ from kart_tpu.parallel import sharded_diff as jsharded
 from kart_tpu.parallel.mesh import make_mesh as jmake_mesh
 from kart_tpu.parallel.sharded_merge import sharded_merge_classify as jsharded_merge
 from kart_tpu_torch import runtime
-from kart_tpu_torch.diff import backend, device_batch, engine
+from kart_tpu_torch.diff import backend, engine
 from kart_tpu_torch.ops import diff_kernel, merge_kernel
 from kart_tpu_torch.ops.blocks import FeatureBlock
 from kart_tpu_torch.parallel import mesh as tmesh
@@ -124,60 +126,13 @@ def test_partition_block_matches_kart_tpu(s, name):
             assert np.array_equal(g, w)
 
 
-@pytest.mark.parametrize("batch_rows", [1, 256, 1000])
-@pytest.mark.parametrize("name", CASES)
-def test_batch_splits_match_kart_tpu(name, batch_rows):
-    ok, _, nk, _ = _case(name)
-    got_splits, got_n = device_batch.batch_splits((ok, nk), batch_rows)
-    want_splits, want_n = jbatch.batch_splits((ok, nk), batch_rows)
-    assert got_n == want_n
-    for g, w in zip(got_splits, want_splits):
-        assert g.dtype == w.dtype and np.array_equal(g, w)
-
-
-@pytest.mark.parametrize("s", MESH_SIZES)
-@pytest.mark.parametrize("name", ["random", "old_empty", "hash_keys"])
-def test_pack_unpack_and_roundtrip_match_kart_tpu(name, s):
-    ok, oo, nk, no = _case(name)
-    for keys, oids in ((ok, oo), (nk, no)):
-        (splits,), n_chunks = device_batch.batch_splits((keys,), 256)
-        for chunk0 in range(0, max(n_chunks, 1), s):
-            got = device_batch.pack_round(keys, oids, splits, chunk0, s, 256)
-            want = jbatch.pack_round(keys, oids, splits, chunk0, s, 256)
-            for g, w in zip(got, want):
-                assert g.dtype == w.dtype and np.array_equal(g, w)
-            classes = (got[0] % 4).astype(np.int8)
-            dest_g, dest_w = np.full(len(keys), 9, np.int8), np.full(len(keys), 9, np.int8)
-            device_batch.unpack_round(dest_g, classes, splits, chunk0, s)
-            jbatch.unpack_round(dest_w, classes, splits, chunk0, s)
-            assert np.array_equal(dest_g, dest_w)
-        for g, w in zip(device_batch.roundtrip_arrays(keys, oids, 256, s),
-                        jbatch.roundtrip_arrays(keys, oids, 256, s)):
-            assert np.array_equal(g, w)
-        assert np.array_equal(device_batch.roundtrip_arrays(keys, oids, 256, s)[0], keys)
-
-
-def test_env_and_geom_packs_match_kart_tpu():
-    rng = np.random.default_rng(3)
-    env = rng.uniform(-100, 100, size=(1000, 4)).astype(np.float32)
-    for lo, hi, s, per in ((0, 1000, 4, 256), (17, 500, 3, 256), (0, 0, 2, 256)):
-        for g, w in zip(device_batch.pack_env_round(env, lo, hi, s, per),
-                        jbatch.pack_env_round(env, lo, hi, s, per)):
-            np.testing.assert_array_equal(g, w)
-    with pytest.raises(ValueError):
-        device_batch.pack_env_round(env, 0, 1000, 2, 256)
-    col = synth_shapes(60, seed=4, max_segments=40)
-    jcol = JVertexColumn(col.kinds, col.feat_offsets, col.ring_offsets, col.x, col.y)
-    ia, ib = rng.integers(0, 60, 300), rng.integers(0, 60, 300)
-    got = device_batch.pack_geom_pairs(col, ia, col, ib)
-    want = jbatch.pack_geom_pairs(jcol, ia, jcol, ib)
-    assert sorted(got) == sorted(want)
-    for k in got:
-        for g, w in zip(*(([x] if isinstance(x, np.ndarray) else x) for x in (got[k], want[k]))):
-            assert g.dtype == w.dtype and np.array_equal(g, w), k
-
-
 # --- the classifies ----------------------------------------------------------------------
+
+def _mesh_classify(old, new, s, **kwargs):
+    """The port's B3: the blocks' chunks dealt out over a mesh of S CPU
+    entries."""
+    return diff_kernel.classify_blocks_streamed(old, new, CPU, mesh=_mesh(s), **kwargs)
+
 
 @pytest.mark.parametrize("s", MESH_SIZES)
 def test_batched_classify_matches_kart_tpu(s):
@@ -185,48 +140,66 @@ def test_batched_classify_matches_kart_tpu(s):
     for name in CASES:
         (old, new), (jold, jnew) = _blocks(name)
         want = jbatch.classify_blocks_batched(jold, jnew, mesh=jmesh, batch_rows=256)
-        got = device_batch.classify_blocks_batched(old, new, mesh, batch_rows=256)
-        assert _counts(got[2]) == want[2], name
-        assert got[0].dtype == got[1].dtype == torch.int8
-        np.testing.assert_array_equal(got[0].numpy(), want[0])
-        np.testing.assert_array_equal(got[1].numpy(), want[1])
+        for got in (_mesh_classify(old, new, s, chunk_rows=256),
+                    backend.ShardedTorchBackend(mesh).classify(old, new)):
+            assert _counts(got[2]) == want[2], name
+            assert got[0].dtype == got[1].dtype == torch.int8
+            np.testing.assert_array_equal(got[0].numpy(), want[0])
+            np.testing.assert_array_equal(got[1].numpy(), want[1])
         want_c = jbatch.classify_blocks_batched(jold, jnew, mesh=jmesh, batch_rows=256,
                                                 counts_only=True)
-        got_c = device_batch.classify_blocks_batched(old, new, mesh, batch_rows=256,
-                                                     counts_only=True)
+        got_c = _mesh_classify(old, new, s, chunk_rows=256, counts_only=True)
         assert got_c[0] is None and got_c[1] is None
         assert _counts(got_c[2]) == want_c[2] == want[2], name
+        assert _counts(backend.ShardedTorchBackend(mesh).counts(old, new)) == want[2]
+
+
+@pytest.mark.parametrize("chunk_rows", [1, 256, 1000])
+@pytest.mark.parametrize("name", CASES)
+def test_mesh_classify_chunks_match_kart_tpu(name, chunk_rows):
+    """Three entries, so that S divides few chunk counts: every chunk size
+    gives kart_tpu's batched classes and counts."""
+    (old, new), (jold, jnew) = _blocks(name)
+    want = jbatch.classify_blocks_batched(jold, jnew, mesh=jmake_mesh(3), batch_rows=256)
+    timings = {}
+    got = _mesh_classify(old, new, 3, chunk_rows=chunk_rows, timings=timings)
+    assert _counts(got[2]) == want[2]
+    np.testing.assert_array_equal(got[0].numpy(), want[0])
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+    rows = max(old.count, new.count, 1)
+    assert timings["chunks"] <= -(-rows // chunk_rows)
 
 
 @pytest.mark.parametrize("s", MESH_SIZES)
 def test_sharded_classify_matches_kart_tpu(s):
+    """The mesh's classify against kart_tpu's other mesh classify (B7, the
+    key-modulus partition): the same classes and counts whatever the cut."""
     mesh, jmesh = _mesh(s), jmake_mesh(s)
     for name in CASES:
         (old, new), (jold, jnew) = _blocks(name)
         want = jsharded.classify_blocks_sharded(jold, jnew, mesh=jmesh)
         before = sharded_diff.STATS["sharded_classify_calls"]
-        got = sharded_diff.classify_blocks_sharded(old, new, mesh)
+        got = backend.ShardedTorchBackend(mesh).classify(old, new)
         assert sharded_diff.STATS["sharded_classify_calls"] == before + 1
         assert _counts(got[2]) == want[2], name
         np.testing.assert_array_equal(got[0].numpy(), want[0])
         np.testing.assert_array_equal(got[1].numpy(), want[1])
-        assert sharded_diff.sharded_diff_step(mesh, old, new) == want[2]
-        # the per-shard classes, padding included
-        g_old, g_new, g_counts, _ = sharded_diff.sharded_classify(mesh, old, new)
-        w_old, w_new, w_counts, _ = jsharded.sharded_classify(jmesh, jold, jnew)
-        assert g_counts == w_counts
-        np.testing.assert_array_equal(g_old, np.asarray(w_old))
-        np.testing.assert_array_equal(g_new, np.asarray(w_new))
+        assert _counts(backend.ShardedTorchBackend(mesh).counts(old, new)) == (
+            jsharded.sharded_diff_step(jmesh, jold, jnew))
 
 
 @pytest.mark.parametrize("s", MESH_SIZES)
 def test_sampled_counts_match_kart_tpu(s):
+    """B8: the mesh's counts-only classify at its default chunk, at most
+    one key-aligned slice a device."""
     for name in CASES:
         (old, new), (jold, jnew) = _blocks(name)
         want = jbackend.sampled_counts_pmapped(jold, jnew)
-        got = backend.sampled_counts_sharded(old, new, _mesh(s))
+        timings = {}
+        got = _mesh_classify(old, new, s, counts_only=True, timings=timings)[2]
         assert _counts(got) == want, name
-        assert _counts(backend.ShardedTorchBackend(_mesh(s)).sampled_counts(old, new)) == want
+        assert 1 <= timings["chunks"] <= s
+        assert _counts(backend.ShardedTorchBackend(_mesh(s)).counts(old, new)) == want
 
 
 def _merge_sides(name):
@@ -253,7 +226,7 @@ def test_sharded_merge_matches_kart_tpu(s):
         port = [FeatureBlock.from_arrays(k, o) for k, o in sides]
         ref = [JBlock.from_arrays(k, o, [str(x) for x in k]) for k, o in sides]
         want = jsharded_merge(*ref, mesh=jmesh)
-        got = sharded_merge.sharded_merge_classify(*port, mesh=_mesh(s))
+        got = sharded_merge.sharded_merge_classify(*port, _mesh(s))
         for g, w in zip(got[:3], want[:3]):
             assert g.dtype == w.dtype and np.array_equal(g, w), name
         assert got[3] == want[3], name
@@ -349,8 +322,7 @@ def test_merc_matches_the_one_card_projection(s, monkeypatch):
 # --- routing, failures and allocations ---------------------------------------------------
 
 def test_should_shard_knobs(monkeypatch):
-    for name in ("KART_DIFF_SHARDED", "KART_SHARDED_MIN_ROWS"):
-        monkeypatch.delenv(name, raising=False)
+    monkeypatch.delenv("KART_SHARDED_MIN_ROWS", raising=False)
     cards = {"n": 2}
     monkeypatch.setattr(sharded_diff, "best_device_count", lambda limit=None: cards["n"])
     assert sharded_diff._sharded_min_rows() == 2_000_000
@@ -358,13 +330,10 @@ def test_should_shard_knobs(monkeypatch):
     assert sharded_diff.should_shard(2_000_000)
     monkeypatch.setenv("KART_SHARDED_MIN_ROWS", "10")
     assert sharded_diff.should_shard(10) and not sharded_diff.should_shard(9)
-    monkeypatch.setenv("KART_DIFF_SHARDED", "0")
-    assert not sharded_diff.should_shard(10**9)
-    monkeypatch.setenv("KART_DIFF_SHARDED", "1")
+    monkeypatch.setenv("KART_SHARDED_MIN_ROWS", "0")
     assert sharded_diff.should_shard(0)
     cards["n"] = 1
-    assert not sharded_diff.should_shard(10**9)  # "1" still needs two cards
-    monkeypatch.setenv("KART_DIFF_SHARDED", "auto")
+    assert not sharded_diff.should_shard(10**9)  # the mesh needs two cards
     monkeypatch.setenv("KART_SHARDED_MIN_ROWS", "100")
     cards["n"] = 8
     assert sharded_diff.should_shard(100) and not sharded_diff.should_shard(99)
@@ -387,7 +356,6 @@ def fake_cards(monkeypatch):
     cards = {"n": 2}
     monkeypatch.setattr(sharded_diff, "best_device_count", lambda limit=None: cards["n"])
     monkeypatch.setattr(backend, "make_mesh", lambda: _mesh(cards["n"]))
-    monkeypatch.setattr(sharded_merge, "make_mesh", lambda: _mesh(cards["n"]))
     real = runtime.resolve_device
 
     def resolve(device=None):
@@ -396,25 +364,31 @@ def fake_cards(monkeypatch):
 
     monkeypatch.setattr(runtime, "resolve_device", resolve)
     monkeypatch.setenv("KART_SHARDED_MIN_ROWS", "100")
-    monkeypatch.delenv("KART_DIFF_SHARDED", raising=False)
     return cards
 
 
 def test_select_backend_picks_the_mesh(fake_cards):
-    got = backend.select_backend(None, 100)
+    """An unnamed card's backend hands each piece of work to the mesh from
+    the row floor on, and runs smaller ones on its card; a named card and
+    the CPU never route."""
+    card = backend.select_backend(None)
+    assert type(card) is backend.DeviceTorchBackend and card.routable
+    got = card.for_rows(100)
     assert isinstance(got, backend.ShardedTorchBackend) and got.mesh == _mesh(2)
-    assert isinstance(backend.select_backend("cuda", 10**6), backend.ShardedTorchBackend)
-    assert type(backend.select_backend(None, 99)) is backend.DeviceTorchBackend
-    assert type(backend.select_backend(None)) is backend.DeviceTorchBackend
-    assert type(backend.select_backend("cuda:0", 10**6)) is backend.DeviceTorchBackend
-    assert type(backend.select_backend(torch.device("cuda", 0), 10**6)) is (
-        backend.DeviceTorchBackend)
-    assert type(backend.select_backend("cpu", 10**6)) is backend.CpuTorchBackend
-    assert isinstance(backend.select_backend(None).for_rows(100), backend.ShardedTorchBackend)
-    assert type(backend.select_backend("cuda:0").for_rows(100)) is backend.DeviceTorchBackend
+    assert isinstance(backend.select_backend("cuda").for_rows(10**6),
+                      backend.ShardedTorchBackend)
+    small = card.for_rows(99)
+    assert type(small) is backend.DeviceTorchBackend and not small.routable
+    assert small.for_rows(10**6) is small
+    for pinned in ("cuda:0", torch.device("cuda", 0)):
+        one = backend.select_backend(pinned)
+        assert type(one) is backend.DeviceTorchBackend and not one.routable
+        assert one.for_rows(10**6) is one
+    cpu = backend.select_backend("cpu")
+    assert type(cpu) is backend.CpuTorchBackend and cpu.for_rows(10**6) is cpu
     assert backend.BACKENDS["sharded_torch"] is backend.ShardedTorchBackend
     fake_cards["n"] = 1
-    assert type(backend.select_backend(None, 10**6)) is backend.DeviceTorchBackend
+    assert type(backend.select_backend(None).for_rows(10**6)) is backend.DeviceTorchBackend
 
 
 def test_engine_and_merge_route_through_the_mesh(fake_cards, monkeypatch):
@@ -462,16 +436,13 @@ def test_a_failing_shard_raises(fake_cards, monkeypatch):
     (old, new), _ = _blocks("random")
     host = []
     monkeypatch.setattr(backend, "classify_blocks_host", lambda *a: host.append(a))
-    monkeypatch.setenv("KART_DEVICE_BATCH_ROWS", "256")
-    monkeypatch.setattr(device_batch, "classify", _raise_on_second(device_batch.classify))
+    real = diff_kernel.classify_plain
+    monkeypatch.setattr(diff_kernel, "classify_plain", _raise_on_second(real))
     with pytest.raises(runtime.DeviceUnavailable, match="shard 1"):
-        backend.select_backend(None, 10**6).classify(old, new)
-    monkeypatch.setattr(sharded_diff, "classify", _raise_on_second(sharded_diff.classify))
+        backend.select_backend(None).classify(old, new)
+    monkeypatch.setattr(diff_kernel, "classify_plain", _raise_on_second(real))
     with pytest.raises(runtime.DeviceUnavailable, match="shard 1"):
-        sharded_diff.classify_blocks_sharded(old, new, _mesh(2))
-    monkeypatch.setattr(backend, "classify", _raise_on_second(backend.classify))
-    with pytest.raises(runtime.DeviceUnavailable, match="shard 1"):
-        backend.sampled_counts_sharded(old, new, _mesh(8))
+        backend.ShardedTorchBackend(_mesh(8)).counts(old, new)
     monkeypatch.setattr(sharded_merge, "merge_classify_sides_plain",
                         _raise_on_second(sharded_merge.merge_classify_sides_plain))
     sides = [FeatureBlock.from_arrays(k, o) for k, o in _merge_sides("random")]
@@ -513,11 +484,10 @@ def test_mesh_routes_allocate_on_named_devices(monkeypatch):
     mesh = _mesh(3)
     (old, new), _ = _blocks("random")
     sharded = backend.ShardedTorchBackend(mesh)
-    outs = [*device_batch.classify_blocks_batched(old, new, mesh, batch_rows=256),
-            *sharded_diff.classify_blocks_sharded(old, new, mesh),
-            backend.sampled_counts_sharded(old, new, mesh)]
+    outs = [*_mesh_classify(old, new, 3, chunk_rows=256), *sharded.classify(old, new),
+            sharded.counts(old, new)]
     sides = [FeatureBlock.from_arrays(k, o) for k, o in _merge_sides("random")]
-    sharded_merge.sharded_merge_classify(*sides, mesh=mesh)
+    sharded_merge.sharded_merge_classify(*sides, mesh)
     env = _envelopes(400, 2)
     blk = FeatureBlock(np.arange(400, dtype=np.int64), np.zeros((400, 5), np.uint32), 400,
                        envelopes=env)

@@ -16,11 +16,10 @@ import kart_tpu_torch
 from kart_tpu_torch import runtime
 from kart_tpu_torch.cli import main as cli_main
 from kart_tpu_torch.diff import backend, engine
-from kart_tpu_torch.diff.device_batch import classify_blocks_batched
 from kart_tpu_torch.events.cdc import dirty_tiles
-from kart_tpu_torch.ops import _build, bbox
+from kart_tpu_torch.ops import _build, bbox, merge_kernel
 from kart_tpu_torch.ops.blocks import FeatureBlock
-from kart_tpu_torch.parallel import classify_blocks_sharded
+from kart_tpu_torch.parallel import make_mesh
 from kart_tpu_torch.parallel.sharded_merge import sharded_merge_classify
 from kart_tpu_torch.spatial_filter import blob_filter_for_spec, envelope_prepass
 
@@ -75,8 +74,7 @@ def test_walk_reaches_every_package():
             "kart_tpu_torch.cli.spatial_cmds", "kart_tpu_torch.events.cdc",
             "kart_tpu_torch.cli.data_cmds", "kart_tpu_torch.parallel",
             "kart_tpu_torch.parallel.mesh", "kart_tpu_torch.parallel.sharded_diff",
-            "kart_tpu_torch.parallel.sharded_merge",
-            "kart_tpu_torch.diff.device_batch"} <= set(_modules())
+            "kart_tpu_torch.parallel.sharded_merge"} <= set(_modules())
 
 
 def test_imports_with_jax_and_kart_tpu_blocked():
@@ -105,10 +103,11 @@ def _block():
 
 ENTRY_POINTS = {
     "select_backend": lambda: backend.select_backend(),
-    "select_backend_rows": lambda: backend.select_backend(None, 10**9),
-    "classify_blocks_sharded": lambda: classify_blocks_sharded(_block(), _block()),
-    "classify_blocks_batched": lambda: classify_blocks_batched(_block(), _block()),
-    "sharded_merge_classify": lambda: sharded_merge_classify(_block(), _block(), _block()),
+    "select_backend_for_rows": lambda: backend.select_backend().for_rows(10**9),
+    "make_mesh": lambda: make_mesh(),
+    "merge_classify": lambda: merge_kernel.merge_classify(_block(), _block(), _block()),
+    "sharded_merge_classify": lambda: sharded_merge_classify(_block(), _block(), _block(),
+                                                             make_mesh()),
     "classify_changed": lambda: engine.classify_changed(_block(), _block()),
     "feature_count": lambda: engine.feature_count(_block(), _block()),
     "feature_count_rect": lambda: engine.feature_count(_block(), _block(), (0, 0, 1, 1)),
