@@ -111,7 +111,7 @@ Q3. K5 on the middle build tile of Q2's join x the probe batch the join
    instructions, given each row's wrap bit; K6: its design's work, what its
    exact culls leave, and beside it the reference's work, every cell of a
    false verdict)
-T3. run first of the three: K7 on the whole layer's 2M envelopes and on
+T3. run first of the three: K7 on the whole layer's envelopes and on
    the largest z4 batch of T1's card route, each with edge rows (the
    poles, the mercator clamp, the anti-meridian, -0.0, subnormals, NaN,
    infinities): bit-identical to its plain version on the card; against
@@ -199,7 +199,7 @@ H3. ``kart build-annotations`` on the card with a fresh cache (one K1 a
    deletes the rest (the conflicts), rewrites a fifth of the rows ours
    left alone, deletes 1% more and inserts 1% past the max pk (the
    take-theirs rows); branch ``theirs-clean`` makes only the latter
-   changes. At 2,000,000 rows: 1,000,000 conflicts and 440,000
+   changes. Half the rows conflict and 22% are
    take-theirs, checked against a numpy truth computed by row from the
    generated oids
 15. K4 on the three commits' blocks and on a 10M-row-a-side triple from
@@ -1418,7 +1418,7 @@ def mesh_merc_phase(env, card, launches, dev):
 #: the meshes [M4] runs the commands over
 CLI_MESH_SIZES = (2, 4)
 #: rows of [M4]'s merge repository: [14]'s builder cut from 2M, whose dry run
-#: takes 14 s, so that three dry runs take seconds
+#: took 14 s, so that three dry runs take seconds
 MESH_MERGE_ROWS = 100_000
 
 
@@ -2113,8 +2113,8 @@ def query_phases(repo, tmp, card, launches, dev):
           f"bbox union {union} outside the query")
     print(f"[Q1] -o bbox: union {union}; sha256 {digest} on both; card {w_card:.4f} s, cpu "
           f"{w_cpu:.4f} s host wall on {card}")
-    # at 2M rows the first 50,000 fids lie in the southernmost band, outside
-    # the rectangle: an empty page; where some lie inside, the page reads
+    # at 1M and 2M rows the first 50,000 fids lie in the southernmost band,
+    # outside the rectangle: an empty page; where some lie inside, the page reads
     # blobs that this layer does not hold and both routes refuse it alike
     out = os.path.join(tmp, "q1-json-first")
     where = f"fid < {SYNTH_PK_BASE + 50000}"
@@ -2564,7 +2564,7 @@ def _per_test_ns(entry, shape):
 TILE_ZOOMS = "0-4"
 TILE_LAYERS = "bin,ktb2,mvt,geom"
 #: T1's --strict runs: the zooms whose tiles exceed the 65,536-feature
-#: ceiling at 2M features (z0-z1 all, z2 half), so that the runs that must
+#: ceiling at 1M-2M features (z0-z1 all, some of z2), so that the runs that must
 #: fail do not encode the whole pyramid twice more
 TILE_STRICT_ZOOMS = "0-2"
 #: (route, global options, export options) of the card's default and of
@@ -2901,7 +2901,7 @@ def tile_phases(repo, tmp, card, launches, dev):
     return k7
 
 
-# --- the merge CLI on a repository with 1M conflicts -------------------------
+# --- the merge CLI on a repository whose rows conflict by half ---------------
 
 #: the host steps of ``kart merge`` (cProfile function names)
 MERGE_STEPS = {
@@ -3157,7 +3157,7 @@ def merge_phases(args, card, launches, dev, s_walls=None):
                                          want=0, want_k4=1)
         mi_card = sha256_of(mi_path)
         with open(mi_path, "rb") as f:
-            check(f.read(6) == b"KMIX2\n", "MERGE_INDEX of 1M conflicts is not KMIX2")
+            check(f.read(6) == b"KMIX2\n", "MERGE_INDEX of [16]'s conflicts is not KMIX2")
         mi_bytes = os.path.getsize(mi_path)
         walls["conflicts -ss"] = cli_to("conflicts.json", "conflicts", "-ss", "-o", "json")
         with open(os.path.join(tmp, "conflicts.json")) as f:
@@ -3890,19 +3890,18 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=10_000_000)
     ap.add_argument("--index-rows", type=int, default=1_000_000)
-    # the int CLI repo and the point layer below 10M rows: the hash-keyed
-    # phases need the time within the script's limit
+    # the int CLI repo below 10M rows: the hash-keyed phases need the time
+    # within the script's limit
     ap.add_argument("--repo-rows", type=int, default=5_000_000)
-    ap.add_argument("--spatial-rows", type=int, default=2_000_000)
-    # [11i]'s layer of real blobs, cut from [11]'s 2M rows: the index decodes
-    # every blob on the host (70 s at 500,000 rows on the card's host), and
-    # [11i] with [12b] must stay within 100 s of the script's time limit
-    ap.add_argument("--index-repo-rows", type=int, default=400_000)
-    ap.add_argument("--merge-rows", type=int, default=2_000_000)
-    # the hash-keyed repos below config #2's 10M rows and [14]'s 2M: at 10M and
-    # 1M the phases before S1 alone took 1154 s of the 1,200 s on a slow host
-    ap.add_argument("--text-rows", type=int, default=5_000_000)
-    ap.add_argument("--text-merge-rows", type=int, default=500_000)
+    # [11]-[13], Q, T and H on 1M points, [14]-[17] on 1M merge rows, [11i]'s
+    # real-blob layer at 200,000 and the hash-keyed repos at 1M and 200,000:
+    # cut by half or more from 2M, 2M, 400,000, 5M and 500,000, where the
+    # script took 947 s on one H100 host and over its 1,200 s limit on another
+    ap.add_argument("--spatial-rows", type=int, default=1_000_000)
+    ap.add_argument("--index-repo-rows", type=int, default=200_000)
+    ap.add_argument("--merge-rows", type=int, default=1_000_000)
+    ap.add_argument("--text-rows", type=int, default=1_000_000)
+    ap.add_argument("--text-merge-rows", type=int, default=200_000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stream-rows", type=int, default=100_000_000)
     ap.add_argument("--crossover-rows", type=int_list,
@@ -4179,6 +4178,7 @@ def main():
     cli_launches = {"3-5": [k1["launches"], kernels[1]["launches"], 0, 0, 0, 0,
                             kernels[2]["launches"]]}
     walls, s_walls = {"1-6": time.perf_counter() - t_start}, {}
+    progress("1-6", t_start)
     # [M1] and [M3]'s K2: the mesh routes on phases 3-5's sides, read again
     t = time.perf_counter()
     k1["mesh"] = mesh_classify_phase(old, new, res, card, cli_launches, dev)
@@ -4189,24 +4189,31 @@ def main():
     t = time.perf_counter()
     k1["estimation"] = cli_phases(args, card, cli_launches, s_walls)
     walls["7-10b"] = time.perf_counter() - t - s_walls["S3"]
+    progress("7-10b", t_start)
     t = time.perf_counter()
     spatial = spatial_phases(args, card, cli_launches, dev)
     k5, k6, k7 = spatial["k5"], spatial["k6"], spatial["k7"]
     walls["11-13, Q1-Q3, T1-T3"] = time.perf_counter() - t - sum(spatial["walls"].values())
     walls.update(spatial["walls"])
+    progress("11-13, Q, T, H", t_start)
     kernels[2]["index_envelopes"], walls["11i"] = index_phases(args, card, cli_launches, dev)
+    progress("11i", t_start)
     t = time.perf_counter()
     s3_diff = s_walls["S3"]
     k4 = merge_phases(args, card, cli_launches, dev, s_walls)
     walls["14-17"] = time.perf_counter() - t - (s_walls["S3"] - s3_diff)
     walls["M4 merge"] = mesh_merge_cli_phase(args, card, cli_launches, dev)
+    progress("14-17, M4 merge", t_start)
     t = time.perf_counter()
     k1["hash_keys"] = hash_diff_phases(args, card, cli_launches, dev)
     walls["18-20"] = time.perf_counter() - t
+    progress("18-20", t_start)
     t = time.perf_counter()
     k4["hash_keys"] = hash_merge_phases(args, card, cli_launches, dev)
     walls["21"] = time.perf_counter() - t
+    progress("21", t_start)
     t_s, streamed = stream_phases(args, card, cli_launches, dev)
+    progress("S1-S4", t_start)
     s_walls.update(t_s)
     k1["streamed"], k4_streamed = streamed["k1_streamed"], streamed["k4_streamed"]
     k1["columnar_equal_ms"] = streamed["columnar_equal_ms"]
@@ -4236,6 +4243,13 @@ def main():
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def progress(phase, t_start):
+    """Name on stderr the phase just done and the seconds since the start,
+    so that a run cut at its time limit shows how far it got."""
+    print(f"[progress] {phase} done, {time.perf_counter() - t_start:.1f} s since the start",
+          file=sys.stderr, flush=True)
 
 
 def int_list(text):
