@@ -3,10 +3,10 @@
 kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--rows 10000000] [--index-rows 1000000]
-                          [--repo-rows 5000000] [--spatial-rows 2000000]
-                          [--index-repo-rows 400000]
-                          [--merge-rows 2000000]
-                          [--text-rows 5000000] [--text-merge-rows 500000] [--seed 0]
+                          [--repo-rows 5000000] [--spatial-rows 1000000]
+                          [--index-repo-rows 200000]
+                          [--merge-rows 1000000]
+                          [--text-rows 1000000] [--text-merge-rows 200000] [--seed 0]
                           [--stream-rows 100000000] [--crossover-rows 1000000,...]
                           [--crossover-reps 3] [--chunk-sweep 2000000,...]
                           [--history-commits 6]
@@ -181,6 +181,32 @@ H3. ``kart build-annotations`` on the card with a fresh cache (one K1 a
    commit but the root, whose diff is the tree walk), again (no launch),
    and with ``--device cpu`` on a fresh cache: equal ``kart_annotations``
    rows in order
+W1. (after [H3], on [11]'s layer) the write path: a source commit of H0's
+   shape on a branch ``w-src`` at [11]'s edit commit (0.1% of the rows moved
+   by up to 0.05 degrees, 0.01% deleted and 0.01% inserted beside existing
+   rows, real blobs; the moved and deleted rows drawn from [11]'s edited
+   rows, whose old blobs a patch needs), its sidecar derived by the CDC (one
+   K1); its unfiltered and [12]'s-rectangle filtered ``diff -o json-lines``
+   on the card; ``create-patch`` of it (one K1), a branch ``w`` at its
+   parent with the port's refs, the CDC's sidecar set aside, and ``kart
+   apply --ref w`` (no launch): the applied commit's tree, parent, author
+   and message equal to the source's, and the tip's sidecar derived by the
+   commit right after it, with envelope and vertex columns, its keys and
+   oids equal to a walk of the tree and its keys, oids and envelopes to the
+   CDC's; the apply's host wall and its derivation's
+W2. the card reading what the commit wrote, with no sidecar written or
+   rewritten: ``diff -o json-lines w^...w`` (one K1) and the same under
+   [12]'s rectangle (two K2, one K1) on the card and with ``--device cpu``,
+   sha256-equal to each other and to the source commit's; ``query w synth
+   --intersects w^:synth --bbox`` over Q2's strip (two K2, K5, K6) on the
+   card and the CPU, sha256-equal, and its document equal to the source
+   commit's but for the probe commit; the full join ``query w synth
+   --intersects w^:synth -o count`` on the card (K5, K6)
+W3. (at the end of [10b], on a copy of [7]'s repository, packs and sidecars
+   linked) ``data ls -o json``, ``data version``, ``meta get -o json``,
+   ``meta set`` of the title, ``commit-files`` of a file outside the
+   datasets and ``meta get`` of the new title: their outputs, commits and
+   walls, no launch
 11i. (after [13]) a point layer with every blob real,
    ``synth.synth_repo(spatial=True, blobs="real")`` at ``--index-repo-rows``:
    ``kart spatial-filter index`` through the CLI (its line counts the
@@ -275,7 +301,7 @@ V1. a V2 repository (``synth.v2_repo``: ``.sno-dataset``, the legacy hashed
    ``export tiles``, on the card and with ``--device cpu``, each route on
    its own copy: equal stdout (and tile tree) sha256, exit 0
 22. each group of phases' host wall (S1-S4 first, [1-6] the build, the data
-   and phases 3-6; [12b], [11i] and H0-H3 on their own), the ``kernels`` JSON line
+   and phases 3-6; [12b], [11i], H0-H3 and W1-W3 on their own), the ``kernels`` JSON line
    (K1-K7, K3's figures on [11i]'s index in ``index_envelopes``, each
    kernel's ``launches`` is the sum of ``launches_by_phase``: every launch
    of the main path's runs, the cProfile runs included, and none of the
@@ -292,7 +318,7 @@ phases 0, 1, 14 and 15 alone and prints K4's timings as JSON, with no
 result line; ``--hash-only`` runs phases 0, 1 and 18-21 alone the same
 way, ``--query-only`` phases 0, 1, 11 and Q1-Q3, ``--kernels-only`` phases 0,
 1, 11 and Q3, ``--tiles-only`` phases 0, 1, 11 and T1-T3, ``--history-only``
-phases 0, 1, 11 and H0-H3, ``--stream-only``
+phases 0, 1, 11, H0-H3 and W1-W2, ``--stream-only``
 phases 0, 1 and S1-S4 (S3 on repositories it builds at ``--repo-rows`` and
 ``--merge-rows``, with the monolithic card and ``--device cpu`` runs of its
 commands made there).
@@ -312,6 +338,7 @@ import json
 import os
 import pstats
 import re
+import shutil
 import sqlite3
 import statistics
 import subprocess
@@ -330,6 +357,7 @@ from kart_tpu_torch.core.feature_tree import (
     plan_int_feature_tree,
 )
 from kart_tpu_torch.core.objects import MODE_TREE
+from kart_tpu_torch.core.repo import KartConfigKeys, KartRepo
 from kart_tpu_torch.core.tree_builder import TreeBuilder
 from kart_tpu_torch.diff import backend as backend_module
 from kart_tpu_torch.diff.backend import (
@@ -781,11 +809,11 @@ def profile_split(fn, steps=JSONL_STEPS, top=12):
     return out.getvalue(), split
 
 
-def cli_phases(args, card, launches, s_walls=None):
+def cli_phases(args, card, launches, s_walls=None, w_walls=None):
     """Phases 7-10: build the repository, then drive ``kart diff`` through
     the CLI, adding every card command's launches to ``launches``; with
     ``s_walls``, [S3]'s diff on the same repository (its wall in
-    ``s_walls``)."""
+    ``s_walls``); with ``w_walls``, [W3] on a copy of it (its wall there)."""
     with tempfile.TemporaryDirectory(prefix="kart_smoke_repo_") as tmp:
         t = time.perf_counter()
         repo, info = synth_repo(os.path.join(tmp, "repo"), args.repo_rows, edit_frac=0.01,
@@ -864,6 +892,9 @@ def cli_phases(args, card, launches, s_walls=None):
         if s_walls is not None:
             s_walls["S3"] = s_walls.get("S3", 0.0) + stream_cli_diff(
                 repo, path, tmp, card, launches, n_edits, jsonl_digest)
+        if w_walls is not None:
+            w_walls["W3"] = other_commands_phase(repo, tmp, card, launches)
+            progress("W3", args.t_start)
     return k1_estimation
 
 
@@ -1093,10 +1124,18 @@ def spatial_phases(args, card, launches, dev, filters=True, query=True, tiles=Tr
             kernels["k7"] = tile_phases(repo, tmp, card, launches, dev)
             print(f"[T] phases T1-T3 host wall {time.perf_counter() - t:.2f} s on {card}")
         kernels["walls"] = {}
+
+        def history_and_writes():
+            walls, tips = history_phases(repo, tmp, card, launches, args.history_commits,
+                                         args.seed)
+            kernels["walls"].update(walls)
+            kernels["walls"].update(write_phases(repo, tmp, tips[0], card, launches,
+                                                 args.seed))
+            progress("W1-W2", args.t_start)
+
         if not filters:
             if history:
-                kernels["walls"].update(history_phases(repo, tmp, card, launches,
-                                                       args.history_commits, args.seed))
+                history_and_writes()
             return kernels
 
         spec = ["-C", path, "diff"]
@@ -1241,8 +1280,7 @@ def spatial_phases(args, card, launches, dev, filters=True, query=True, tiles=Tr
               f"{w_cpu:.4f} s host wall), json-lines the version line only (card "
               f"{w2_card:.4f} s, cpu {w2_cpu:.4f} s); K1 1, K2 2 a command on {card}")
         if history:
-            kernels["walls"].update(history_phases(repo, tmp, card, launches,
-                                                   args.history_commits, args.seed))
+            history_and_writes()
     return kernels
 
 
@@ -1814,7 +1852,8 @@ def annotations_phase(repo, tips, card, launches):
 
 def history_phases(repo, tmp, card, launches, n_commits, seed):
     """[H0]-[H3] on [11]'s layer (after every phase that reads it at its
-    own HEAD). -> {phase: host wall s}."""
+    own HEAD). -> ({phase: host wall s}, [H0]'s tips from [11]'s edit commit
+    on)."""
     walls = {}
     t = time.perf_counter()
     tips, truths, moved_pk = history_commits(repo, n_commits, seed)
@@ -1829,7 +1868,278 @@ def history_phases(repo, tmp, card, launches, n_commits, seed):
         walls[label] = time.perf_counter() - t
     print("[H] phase walls s: " + ", ".join(f"[{k}] {v:.2f}" for k, v in walls.items())
           + f"; all {sum(walls.values()):.2f} on {card}")
+    return walls, tips
+
+
+# --- the write path on [11]'s layer: apply, and the card reading what it wrote ---------
+
+def _sidecar_columns(path):
+    """A sidecar's keys, oids and envelopes, as numpy copies."""
+    block = load_block_file(path)
+    n = block.count
+    return (np.array(block.keys[:n]), np.array(block.oids[:n]),
+            None if block.envelopes is None else np.array(block.envelopes[:n]))
+
+
+def _columnar_state(repo):
+    """{sidecar file: mtime} of the repository: a sidecar built by a tree
+    walk during a command shows as a new or rewritten file."""
+    d = os.path.join(repo.gitdir, "columnar")
+    return {f: os.stat(os.path.join(d, f)).st_mtime_ns for f in os.listdir(d)}
+
+
+def write_source_commit(repo, parent, seed):
+    """[W1]'s source: a commit of H0's shape on a branch ``w-src`` at
+    ``parent`` ([11]'s edit commit, whose sidecar has the vertex column),
+    moving 0.1% of the rows, deleting 0.01% and inserting 0.01% past the
+    max pk (real blobs). Its moved and deleted rows hold real blobs at the
+    parent (they are drawn from [11]'s edited rows), which a patch's old
+    values need: H0's own commits move rows whose old blobs the layer does
+    not hold. Each move is an edit's nudge, within 0.05 degrees of the
+    row's point, and each insert lands beside an existing row: moves
+    anywhere (H0's) widen every 4,096-row block's envelope aggregate to the
+    world, which the join's pruning then cannot use, and the strip join's
+    ``--device cpu`` run took 210 s at 1M rows on an H100 machine's host.
+    -> (its oid, its truth)."""
+    old, new = (load_block(repo, repo.structure(r).datasets["synth"])
+                for r in (f"{parent}^", parent))
+    n = new.count
+    keys, env = np.asarray(new.keys[:n]), np.asarray(new.envelopes[:n], dtype=np.float64)
+    edited = np.flatnonzero((np.asarray(old.oids[: old.count]) != np.asarray(new.oids[:n]))
+                            .any(axis=1))
+    rng = np.random.default_rng(seed + 23)
+    k_move, k_ins = n // 1000, n // 10000
+    pick = rng.choice(edited, k_move + k_ins, replace=False)
+    moved, gone = pick[:k_move], pick[k_move:]
+    beside = rng.choice(n, k_ins, replace=False)
+
+    def nudged(rows):
+        return (np.clip(env[rows, 0] + rng.uniform(-0.05, 0.05, len(rows)), -179.9, 179.9),
+                np.clip(env[rows, 1] + rng.uniform(-0.05, 0.05, len(rows)), -89.9, 89.9))
+
+    ins = int(keys[-1]) + 1 + np.arange(k_ins, dtype=np.int64)
+    repo.refs.set("refs/heads/w-src", parent)
+    tip = commit_point_edits(
+        repo, moves=(keys[moved], *nudged(moved)), inserts=(ins, *nudged(beside)),
+        deletes=keys[gone], message="moves for a patch", ref="refs/heads/w-src")
+    return tip, {"inserts": k_ins, "updates": k_move, "deletes": k_ins}
+
+
+def write_phases(repo, tmp, parent, card, launches, seed):
+    """[W1]-[W2] on [11]'s layer after [H0]-[H3]: the source commit of
+    :func:`write_source_commit`, its sidecar derived by the CDC (envelopes,
+    no vertex column) for the source's own commands; ``create-patch`` of it,
+    then ``apply --ref w`` onto a branch ``w`` at its parent, the CDC's
+    sidecar set aside so that the commit derives the tip's sidecar anew
+    (with the vertex column); then the card reading that sidecar. -> {phase:
+    host wall s}."""
+    from kart_tpu_torch.diff import sidecar as sidecar_module
+
+    path = repo.workdir
+    walls = {}
+    t = time.perf_counter()
+    set_filter_none(repo)
+    src, truth = write_source_commit(repo, parent, seed)
+    summary = counted("W1", lambda: cdc.dirty_tiles(repo, parent, src), launches)[0]
+    check(summary["synth"]["changed"] == truth,
+          f"[W1] the source commit changed {summary['synth']['changed']} != {truth}")
+    tip_file = _tip_sidecar(repo, src)
+    check("geom_bytes" not in _derived_header(tip_file), "[W1] the CDC wrote a vertex column")
+
+    # the source tip's commands, on the CDC's sidecar
+    src_runs = {}
+    for name, argv, k2 in (("unfiltered", ["diff", "-o", "json-lines", f"{parent}...{src}"], 0),
+                           ("filtered", ["diff", "-o", "json-lines", f"{parent}...{src}"], 2)):
+        if k2:
+            set_filter(repo, FILTER_RECT)
+        out = os.path.join(tmp, f"w-src-{name}")
+        wall = counted("W2", lambda: kart_cli("-C", path, *argv, "--output", out), launches,
+                       want_k2=k2)[0]
+        set_filter_none(repo)
+        src_runs[name] = sha256_of(out)
+        print(f"[W1] the source commit's {name} diff on the card (CDC's sidecar): sha256 "
+              f"{src_runs[name]}, {wall:.4f} s host wall on {card}")
+
+    # [W1] create-patch, a branch at the parent, apply
+    patch = os.path.join(tmp, "w.patch")
+    counted("W1", lambda: kart_cli("-C", path, "create-patch", src, "--output", patch), launches)
+    repo.refs.set("refs/heads/w", parent)
+    os.replace(tip_file, f"{tip_file}.cdc")
+    derive = []
+    update = sidecar_module.update_sidecar_for_commit
+
+    def timed_update(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return update(*a, **kw)
+        finally:
+            derive.append(time.perf_counter() - t0)
+
+    sidecar_module.update_sidecar_for_commit = timed_update
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            apply_wall = counted("W1", lambda: kart_cli("-C", path, "apply", "--ref", "w", patch),
+                                 launches, want=0)[0]
+    finally:
+        sidecar_module.update_sidecar_for_commit = update
+    w_oid = repo.refs.get("refs/heads/w")
+    check(buf.getvalue() == f"Commit {w_oid[:7]}\n", f"[W1] apply printed {buf.getvalue()!r}")
+    w_commit, src_commit = repo.odb.read_commit(w_oid), repo.odb.read_commit(src)
+    check(w_commit.tree == src_commit.tree and w_commit.parents == (parent,),
+          "[W1] the applied commit's tree or parent differs from the source's")
+    check(w_commit.author == src_commit.author and w_commit.message == src_commit.message,
+          "[W1] the applied commit's author or message differs from the patch's")
+    check(len(derive) == 1 and os.path.exists(tip_file),
+          "[W1] the commit derived no sidecar for its feature tree")
+    header = _derived_header(tip_file)
+    check(header["envelope_bytes"] > 0 and header.get("geom_bytes", 0) > 0,
+          f"[W1] the derived sidecar lacks a column: {header}")
+    keys, oids, envs = _sidecar_columns(tip_file)
+    _, walk_pks, walk_oids = repo.structure(w_oid).datasets["synth"].feature_index()
+    order = np.argsort(walk_pks, kind="stable")
+    check(np.array_equal(keys, walk_pks[order])
+          and np.array_equal(oids.view(np.uint8).reshape(-1, 20), walk_oids[order]),
+          "[W1] the derived sidecar's keys or oids differ from a walk of the tree")
+    cdc_keys, cdc_oids, cdc_envs = _sidecar_columns(f"{tip_file}.cdc")
+    check(np.array_equal(keys, cdc_keys) and np.array_equal(oids, cdc_oids)
+          and np.array_equal(envs, cdc_envs),
+          "[W1] the derived sidecar's columns differ from the CDC's derivation")
+    verts = load_block_file(tip_file).vertex_column()
+    check(verts is not None and len(verts) == len(keys) and (verts.kinds != 0).all(),
+          "[W1] the derived vertex column is missing or has an unusable row")
+    walls["W1"] = time.perf_counter() - t
+    print(f"[W1] apply --ref w of the source commit ({truth}): tree and author equal to the "
+          f"source's; derived sidecar ({len(keys)} rows, {os.path.getsize(tip_file)} bytes, "
+          f"{header['geom_bytes']} of them the vertex column) with keys and oids equal to a "
+          f"walk of the tree and keys, oids and envelopes equal to the CDC's; apply "
+          f"{apply_wall:.4f} s host wall, its derivation {derive[0]:.4f} s; the CDC's event "
+          f"{summary['synth']['tile_count']} tiles (truncated {summary['synth']['truncated']}) "
+          f"on {card}")
+
+    # [W2] the card reads what the commit wrote
+    t = time.perf_counter()
+    before = _columnar_state(repo)
+    for name, k2 in (("unfiltered", 0), ("filtered", 2)):
+        if k2:
+            set_filter(repo, FILTER_RECT)
+        out = os.path.join(tmp, f"w-{name}")
+        w_card, w_cpu, digest, _ = card_and_cpu(
+            "W2", ["-C", path, "diff", "-o", "json-lines", "w^...w"], out, launches, k2=k2)
+        set_filter_none(repo)
+        check(digest == src_runs[name], f"[W2] the {name} diff of w differs from the source's")
+        with open(f"{out}.card") as f:
+            n_lines = sum('"type":"feature"' in line for line in f)
+        print(f"[W2] {name} diff -o json-lines w^...w: {n_lines} feature lines, sha256 {digest} "
+              f"on the card, the CPU and the source commit; card {w_card:.4f} s, cpu "
+              f"{w_cpu:.4f} s host wall; K1 1, K2 {k2} on {card}")
+    strip = ["query", "w", "synth", "--intersects", "w^:synth", "--bbox", JOIN_STRIP, "-o", "count"]
+    out = os.path.join(tmp, "w-strip")
+    w_card, w_cpu, digest, st, _ = query_card_and_cpu("W2", ["-C", path, *strip], out, launches,
+                                                      k2=2, k5=SOME, k6=SOME)
+    src_out = os.path.join(tmp, "w-strip-src")
+    with open(src_out, "w") as f, contextlib.redirect_stdout(f):
+        counted("W2", lambda: kart_cli("-C", path, "query", src, "synth", "--intersects",
+                                       f"{parent}:synth", "--bbox", JOIN_STRIP, "-o", "count"),
+                launches, want=0, want_k2=2, want_k5=SOME, want_k6=SOME)
+    doc, src_doc = query_doc(f"{out}.card"), query_doc(src_out)
+    w_oid = repo.refs.get("refs/heads/w")
+    check(doc.pop("commit") == w_oid and src_doc.pop("commit") == src and doc == src_doc,
+          "[W2] the strip join of w differs from the source's but for the probe commit")
+    check(doc["exact"] and doc["count"] > 0 and doc["stats"]["pairs_refined"] > 0,
+          f"[W2] the strip join said {doc}")
+    print(f"[W2] query w synth --intersects w^:synth --bbox {JOIN_STRIP} -o count: count "
+          f"{doc['count']}, pairs {doc['pairs']}, refined {doc['stats']['pairs_refined']}; K2 2, "
+          f"K5 {st['envelope_join_launches']}, K6 {st['geom_refine_launches']}; sha256 {digest} "
+          f"on the card and the CPU, the source commit's document equal but for its commit; card "
+          f"{w_card:.4f} s, cpu {w_cpu:.4f} s host wall on {card}")
+    out = os.path.join(tmp, "w-full")
+
+    def full():
+        with open(out, "w") as f, contextlib.redirect_stdout(f):
+            return kart_cli("-C", path, "query", "w", "synth", "--intersects", "w^:synth", "-o",
+                            "count")
+
+    wall, st = counted("W2", full, launches, want=0, want_k5=SOME, want_k6=SOME)
+    doc = query_doc(out)
+    n_rows = len(keys)
+    check(doc["exact"] and doc["count"] > 0 and doc["stats"]["pairs_refined"] >= doc["count"],
+          f"[W2] the full join said {doc}")
+    check(_columnar_state(repo) == before, "[W2] a command wrote or rewrote a sidecar")
+    walls["W2"] = time.perf_counter() - t
+    print(f"[W2] query w synth --intersects w^:synth -o count at {n_rows} rows a side: count "
+          f"{doc['count']}, pairs {doc['pairs']}; K5 {st['envelope_join_launches']}, K6 "
+          f"{st['geom_refine_launches']}; {wall:.4f} s host wall; no sidecar written or "
+          f"rewritten by any W2 command on {card}")
     return walls
+
+
+def set_filter_none(repo):
+    """Clear the repository's spatial filter (an empty spec matches all)."""
+    repo.config.set_many({KartConfigKeys.KART_SPATIALFILTER_GEOMETRY: "",
+                          KartConfigKeys.KART_SPATIALFILTER_CRS: ""})
+
+
+def other_commands_phase(repo, tmp, card, launches):
+    """[W3] on a copy of [7]'s repository (its packs and sidecars linked):
+    ``data ls -o json``, ``data version``, ``meta get -o json``, ``meta
+    set`` of the title, ``commit-files`` of a file outside the datasets, and
+    the reads again; no kernel launched. -> host wall s."""
+    t = time.perf_counter()
+    dst = os.path.join(tmp, "w3")
+
+    def link_immutable(a, b):
+        # packs and sidecars are replaced, never written in place
+        parent = os.path.basename(os.path.dirname(a))
+        return os.link(a, b) if parent in ("pack", "columnar") else shutil.copy2(a, b)
+
+    shutil.copytree(repo.workdir, dst, copy_function=link_immutable)
+    copy_s = time.perf_counter() - t
+    head = repo.head_commit_oid
+
+    def run(*argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            wall = counted("W3", lambda: kart_cli("-C", dst, *argv), launches, want=0)[0]
+        return buf.getvalue(), wall
+
+    runs = []
+    out, wall = run("data", "ls", "-o", "json")
+    check(json.loads(out) == {"kart.data.ls/v1": ["synth"]}, f"[W3] data ls said {out!r}")
+    runs.append(("data ls -o json", wall))
+    out, wall = run("data", "version")
+    check(out == "This Kart repo uses Datasets v3\n", f"[W3] data version said {out!r}")
+    runs.append(("data version", wall))
+    out, wall = run("meta", "get", "-o", "json", "synth")
+    check(json.loads(out)["synth"]["title"] == "synthetic benchmark layer",
+          f"[W3] meta get said {out[:200]!r}")
+    runs.append(("meta get -o json", wall))
+    out, wall = run("meta", "set", "-m", "retitle", "synth", "title=A retitled layer")
+    copy = KartRepo(dst)
+    meta_oid = copy.head_commit_oid
+    check(out == f"Commit {meta_oid[:7]}\n" and copy.odb.read_commit(meta_oid).parents == (head,),
+          f"[W3] meta set printed {out!r}")
+    check(copy.structure("HEAD").datasets["synth"].feature_tree.oid
+          == repo.structure("HEAD").datasets["synth"].feature_tree.oid,
+          "[W3] meta set changed the feature tree")
+    runs.append(("meta set", wall))
+    out, wall = run("commit-files", "-m", "readme", "README.md=the synthetic layer")
+    files_oid = copy.head_commit_oid
+    check(out == f"Committed {files_oid[:7]}\n"
+          and copy.structure("HEAD").tree.get("README.md").data == b"the synthetic layer",
+          f"[W3] commit-files printed {out!r}")
+    runs.append(("commit-files", wall))
+    out, wall = run("meta", "get", "-o", "json", "synth", "title")
+    check(json.loads(out) == {"synth": {"title": "A retitled layer"}},
+          f"[W3] meta get after meta set said {out!r}")
+    runs.append(("meta get title", wall))
+    check(repo.head_commit_oid == head, "[W3] the copy's commits moved the original's HEAD")
+    total = time.perf_counter() - t
+    print(f"[W3] on a copy of [7]'s repository ({copy_s:.4f} s to copy, packs and sidecars "
+          f"linked): "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in runs) + f"; all {total:.4f} s host wall, "
+          f"no launch on {card}")
+    return total
 
 
 # --- the envelope index and the blob filter on a layer of real blobs (K3) -----
@@ -3928,12 +4238,13 @@ def main():
     # §4), over their 100 s budget; the root commit's diffs (no K1) take a fixed ~45 s
     ap.add_argument("--history-commits", type=int, default=6)
     ap.add_argument("--history-only", action="store_true",
-                    help="run phases 0, 1, 11 and H0-H3 alone and print the launches (no "
-                         "result line)")
+                    help="run phases 0, 1, 11, H0-H3 and W1-W2 alone and print the launches "
+                         "(no result line)")
     ap.add_argument("--stream-only", action="store_true",
                     help="run phases 0, 1 and S1-S4 alone (S3 on repositories of its own) and "
                          "print the streamed routes' timings and the launches (no result line)")
     args = ap.parse_args()
+    args.t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("FAIL: CUDA is not available", file=sys.stderr)
@@ -4187,14 +4498,16 @@ def main():
     del env_old, env_new
     tmp.cleanup()
     t = time.perf_counter()
-    k1["estimation"] = cli_phases(args, card, cli_launches, s_walls)
-    walls["7-10b"] = time.perf_counter() - t - s_walls["S3"]
+    w_walls = {}
+    k1["estimation"] = cli_phases(args, card, cli_launches, s_walls, w_walls)
+    walls["7-10b"] = time.perf_counter() - t - s_walls["S3"] - w_walls["W3"]
     progress("7-10b", t_start)
     t = time.perf_counter()
     spatial = spatial_phases(args, card, cli_launches, dev)
     k5, k6, k7 = spatial["k5"], spatial["k6"], spatial["k7"]
     walls["11-13, Q1-Q3, T1-T3"] = time.perf_counter() - t - sum(spatial["walls"].values())
     walls.update(spatial["walls"])
+    walls.update(w_walls)
     progress("11-13, Q, T, H", t_start)
     kernels[2]["index_envelopes"], walls["11i"] = index_phases(args, card, cli_launches, dev)
     progress("11i", t_start)

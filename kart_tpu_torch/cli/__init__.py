@@ -2,9 +2,10 @@
 
     python -m kart_tpu_torch [-C PATH] [--device DEVICE] COMMAND [options] [ARGS...]
 
-with the commands ``diff``, ``show``, ``create-patch``, ``log``, ``merge``,
-``conflicts``, ``resolve``, ``query``, ``export tiles``, ``spatial-filter
-index|resolve`` and ``build-annotations``. Global options come before the command, as
+with the commands ``diff``, ``show``, ``create-patch``, ``log``, ``apply``,
+``merge``, ``conflicts``, ``resolve``, ``query``, ``export tiles``,
+``spatial-filter index|resolve``, ``data ls|version``, ``meta get|set``,
+``commit-files`` and ``build-annotations``. Global options come before the command, as
 in kart_tpu's CLI: ``-C PATH`` runs as if started in PATH, and ``--device``
 picks where the kernels run (default: the card, ``cuda:0``, or with 2 or
 more cards the mesh of all of them for work that ``parallel.should_shard``

@@ -1,7 +1,8 @@
-"""``kart diff``, ``kart show``, ``kart create-patch`` and ``kart log``.
+"""``kart diff``, ``kart show``, ``kart create-patch``, ``kart log`` and
+``kart apply``.
 
 Counterpart of kart_tpu's ``cli/diff_cmds.py`` ``diff``, ``show``,
-``create-patch`` and ``log`` commands, with their option names, defaults
+``create-patch``, ``log`` and ``apply`` commands, with their option names, defaults
 and messages: every output format (text by default, json, json-lines,
 geojson, html, quiet, feature-count), ``--crs`` (any CRS, geographic or
 projected), ``--exit-code`` and ``--only-feature-count`` (the sampled
@@ -11,8 +12,10 @@ the history in committer-date order with every option of kart_tpu's
 count and first-parent limits, dataset and feature filters,
 ``--with-dataset-changes`` and ``--with-feature-count``); each commit it
 diffs against its first parent goes through the engine on the CLI's
-device (one K1 launch when both revisions have sidecars). ``kart apply``
-is not ported.
+device (one K1 launch when both revisions have sidecars). ``apply``
+commits a patch that ``create-patch`` wrote (:mod:`kart_tpu_torch.apply`,
+host work): the commit derives the changed datasets' sidecars, which the
+next diff and query read on the card.
 """
 
 import json
@@ -70,6 +73,14 @@ def commands():
             Option("--output", dest="output_path", default="-"),
             Argument("refish"),
         ], run_create_patch, help="Write a JSON patch of the changes introduced by a commit"),
+        Command("apply", [
+            Option("--no-commit", dest="no_commit", kind="flag",
+                   help="Apply to the working copy only"),
+            Option("--allow-empty", dest="allow_empty", kind="flag"),
+            Option("--ref", dest="ref", default="HEAD",
+                   help="Which branch to apply the patch onto (default: HEAD)"),
+            Argument("patch_file", readable_file=True),
+        ], run_apply, help="Apply a JSON patch (as written by create-patch)."),
         Command("log", [
             Option("--output-format", "-o", dest="output_format",
                    choices=["text", "json", "json-lines"], default="text"),
@@ -193,6 +204,18 @@ def run_create_patch(args, repo, device):
     _write(JsonDiffWriter(repo, spec, (), args.output_path, json_style=args.json_style,
                           device=device, commit=commit, patch_type=args.patch_type,
                           include_patch_header=True))
+    return 0
+
+
+def run_apply(args, repo, device):
+    from kart_tpu_torch.apply import apply_patch
+
+    with open(sys.stdin.fileno() if args.patch_file == "-" else args.patch_file,
+              closefd=args.patch_file != "-") as f:
+        patch = json.load(f)
+    commit_oid = apply_patch(repo, patch, no_commit=args.no_commit,
+                             allow_empty=args.allow_empty, ref=args.ref)
+    print(f"Commit {commit_oid[:7]}")
     return 0
 
 

@@ -86,7 +86,6 @@ def _refusable(fn):
 
 def run_merge(args, repo, device):
     from kart_tpu_torch.merge import (
-        _require_no_working_copy,
         abort_merging_state,
         complete_merging_state,
         do_merge,
@@ -96,7 +95,7 @@ def run_merge(args, repo, device):
         if args.abort_:
             if repo.state != KartRepoState.MERGING:
                 raise _CliError("Repository is not in 'merging' state")
-            _require_no_working_copy(repo)
+            repo.require_no_working_copy()
             abort_merging_state(repo)
             print("Merge aborted")
             return 0

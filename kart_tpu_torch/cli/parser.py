@@ -17,10 +17,13 @@ module keeps the part of them that the ported commands use:
   ...``, ``Invalid value for '--with-file': Path 'x' does not exist.``,
   ``Invalid value for '--page': 'x' is not a valid integer.``,
   ``Invalid value for '--output' / '-o': Directory 'x' is a file.``,
-  ``Missing argument 'LABEL'.``, ``Got unexpected extra argument (x)``,
-  ``No such command 'x'.`` and ``Missing command.``;
-* parameters are checked in click's order: those given, in the order first
-  given (options before arguments), then the rest as declared;
+  ``Invalid value for 'PATCH_FILE': 'x': No such file or directory``,
+  ``Missing argument 'LABEL'.``, ``Missing option '--message' / '-m'.``,
+  ``Got unexpected extra argument (x)``, ``No such command 'x'.`` and
+  ``Missing command.``;
+* parameters are checked in click's order: the options given, in the
+  order first given, then every argument, then the other options as
+  declared;
 * groups nest (``kart export tiles``): a group inside the top level given
   no arguments at all prints its help on stderr and exits 2, as click's
   does.
@@ -78,8 +81,9 @@ class Option:
 
     def __init__(self, *opts, dest, kind="value", choices=None, default=None,
                  secondary=(), path_exists=False, dir_path=False, integer=False, metavar=None,
-                 help=""):
+                 required=False, help=""):
         self.opts = opts
+        self.required = required
         self.dir_path = dir_path
         self.integer = integer
         self.secondary = tuple(secondary)
@@ -125,13 +129,26 @@ class Option:
 
 
 class Argument:
-    """One positional argument: ``nargs`` 1 or -1 (the rest)."""
+    """One positional argument: ``nargs`` 1 or -1 (the rest), required by
+    default with one value and not with the rest, as in click. A
+    ``readable_file`` must open for reading, as click's ``File("r")``
+    checks (``-``, the standard input, passes)."""
 
-    def __init__(self, dest, *, required=True, nargs=1, default=None):
+    def __init__(self, dest, *, required=None, nargs=1, default=None, readable_file=False):
         self.dest = dest
-        self.required = required and nargs == 1
+        self.required = nargs == 1 if required is None else required
         self.nargs = nargs
         self.default = default if nargs == 1 else ()
+        self.readable_file = readable_file
+
+    def convert(self, value, command=None):
+        if self.readable_file and value != "-":
+            try:
+                open(value).close()
+            except OSError as e:
+                raise UsageError(f"Invalid value for {self.dest.upper()!r}: '{value}': "
+                                 f"{e.strerror}", command) from None
+        return value
 
     def metavar(self):
         text = self.dest.upper()
@@ -223,8 +240,7 @@ class Command:
                     given[p.dest], positional = tuple(positional), []
                 elif positional:
                     given[p.dest] = positional.pop(0)
-                if p.dest in given:
-                    order.append(p)
+                order.append(p)  # given or not, after the options, as click orders them
         values = self._convert(opts, order, given)
         if positional:
             s = "" if len(positional) == 1 else "s"
@@ -239,15 +255,18 @@ class Command:
         values = {}
         for p in seen + [p for p in self.params if p not in seen]:
             if isinstance(p, Argument):
+                if p.required and given.get(p.dest) in (None, ()):
+                    hint = p.dest.upper() + ("..." if p.nargs == -1 else "")
+                    raise UsageError(f"Missing argument {hint!r}.", self)
                 if p.dest in given:
-                    values[p.dest] = given[p.dest]
-                elif p.required:
-                    raise UsageError(f"Missing argument {p.dest.upper()!r}.", self)
+                    values[p.dest] = p.convert(given[p.dest], self)
                 else:
                     values[p.dest] = p.default
             elif p.dest in opts:
                 value = opts[p.dest]
                 values[p.dest] = p.convert(value, self) if p.takes_value else value
+            elif p.required:
+                raise UsageError(f"Missing option {p.hint()}.", self)
             else:
                 values[p.dest] = p.default
         return values

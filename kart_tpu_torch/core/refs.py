@@ -3,7 +3,7 @@ them (``refs/heads/<name>`` files of 40-hex + newline, ``packed-refs``,
 a ``HEAD`` symref, an INI-with-subsections ``config``).
 
 Counterpart of kart_tpu's ``core/refs.py``: ``RefStore`` (loose and packed
-refs, their listing, HEAD, symbolic refs, writes with their reflog line) and ``Config``
+refs, their listing and existence, HEAD, symbolic refs, writes with their reflog line) and ``Config``
 (read, ``set_many``). Reflog reading and the directory/file conflict
 check are not ported.
 """
@@ -77,6 +77,9 @@ class RefStore:
         if value.startswith("ref: "):
             return self.get(value[5:])
         return value or None
+
+    def exists(self, ref):
+        return os.path.exists(self._ref_path(ref)) or ref in self._packed_refs()
 
     def set(self, ref, oid, log_message=None):
         check_ref_format(ref)

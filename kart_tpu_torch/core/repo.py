@@ -214,6 +214,14 @@ class KartRepo:
             return None
         return location if found else None
 
+    def require_no_working_copy(self):
+        """Raise NotYetImplemented when the repository has a working copy:
+        where kart_tpu updates it after a command, the port, which writes
+        none, refuses before the command writes anything."""
+        location = self.working_copy_location()
+        if location is not None:
+            raise NotYetImplemented(f"Updating the working copy ({location}) is not ported yet")
+
     def has_promisor_remote(self):
         names = {".".join(k.split(".")[1:-1]) for k in self.config.keys("remote.")
                  if len(k.split(".")) >= 3}

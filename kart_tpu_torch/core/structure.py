@@ -1,18 +1,37 @@
 """A repository at one revision, and the datasets in its tree.
 
-Counterpart of the read side of kart_tpu's ``core/structure.py``
-(``Datasets``, ``RepoStructure`` with ``decode_path``). Committing a diff
-(``commit_diff``/``create_tree_from_diff``) is not ported.
+Counterpart of kart_tpu's ``core/structure.py``: ``Datasets``,
+``RepoStructure`` with ``decode_path``, and the write path, where a
+RepoDiff becomes one commit: ``create_tree_from_diff`` (every dataset's
+diff applied through one tree builder, conflict-checked),
+``check_values_match_schema`` (``SchemaViolation``), ``commit_diff`` and
+``_update_sidecars``, which derives each changed int-pk dataset's sidecar
+for the new feature tree from its parent's (a cache: a failed derivation
+logs a warning and never fails the commit).
 """
 
+import logging
+
 from kart_tpu_torch.core.odb import TreeView
-from kart_tpu_torch.core.repo import NotFound
+from kart_tpu_torch.core.repo import InvalidOperation, NotFound
+from kart_tpu_torch.core.tree_builder import TreeBuilder
 from kart_tpu_torch.models.dataset import Dataset2, Dataset3, dataset_class_for_version
+from kart_tpu_torch.models.schema import Schema
+
+L = logging.getLogger(__name__)
 
 _RESERVED_DIRS = {".kart", ".sno", ".git"}
 #: the inner directory names of V3 and of V2 datasets
 DATASET_DIRNAMES = (Dataset3.DATASET_DIRNAME, Dataset2.DATASET_DIRNAME)
 MAX_DATASET_DEPTH = 5
+
+
+class SchemaViolation(InvalidOperation):
+    pass
+
+
+class PatchApplyError(InvalidOperation):
+    pass
 
 
 class Datasets:
@@ -116,3 +135,93 @@ class RepoStructure:
                 return ds_path, "inner", inner
         ds_path, _, name = full_path.rpartition("/")
         return ds_path, "attachment", name
+
+    # -- writing -------------------------------------------------------------
+
+    def create_tree_from_diff(self, repo_diff, *, allow_missing_old=False):
+        """Apply a RepoDiff to this revision's tree -> the new tree oid. A
+        dataset the revision lacks must come with a schema insert."""
+        tb = TreeBuilder(self.repo.odb, self.tree_oid)
+        datasets = self.datasets
+        for ds_path, ds_diff in repo_diff.items():
+            ds = datasets.get(ds_path)
+            if ds is None:
+                meta_diff = ds_diff.get("meta")
+                if not meta_diff or "schema.json" not in meta_diff:
+                    raise PatchApplyError(
+                        f"Diff contains dataset {ds_path!r} which is not in this revision")
+                ds = datasets.dataset_class(None, ds_path, self.repo)
+            ds.apply_diff(ds_diff, tb, allow_missing_old=allow_missing_old)
+        return tb.flush()
+
+    def commit_diff(self, repo_diff, message, *, ref="HEAD", allow_empty=False, amend=False,
+                    author=None, committer=None, validate=True):
+        """Validate and apply a RepoDiff, derive the changed datasets'
+        sidecars and commit -> the commit oid. ``ref`` HEAD moves the ref
+        this revision was resolved from (HEAD itself for an oid)."""
+        if validate:
+            self.check_values_match_schema(repo_diff)
+        new_tree = self.create_tree_from_diff(repo_diff)
+        if not allow_empty and not amend and new_tree == self.tree_oid:
+            raise InvalidOperation("No changes to commit", "NO_CHANGES")
+        self._update_sidecars(repo_diff, new_tree)
+        if amend:
+            commit = self.commit
+            if commit is None:
+                raise InvalidOperation("Cannot amend: no commit at this revision")
+            parents = list(commit.parents)
+            if message is None:
+                message = commit.message
+        else:
+            parents = [self.commit_oid] if self.commit_oid else []
+        return self.repo.create_commit(
+            ref if self.ref is None else (self.ref if ref == "HEAD" else ref),
+            new_tree, message, parents, author=author, committer=committer)
+
+    def _update_sidecars(self, repo_diff, new_tree):
+        """Derive each changed dataset's sidecar for its new feature tree
+        (not when its meta changed too: its blobs may follow a new schema).
+        A failure logs a warning and leaves the next diff to walk the tree."""
+        from kart_tpu_torch.diff import sidecar
+
+        try:
+            root = self.repo.odb.tree(new_tree)
+            for ds_path, ds_diff in repo_diff.items():
+                feature_diff = ds_diff.get("feature")
+                if not feature_diff or ds_diff.get("meta"):
+                    continue
+                old_ds = self.datasets.get(ds_path)
+                if old_ds is None:
+                    continue
+                node = root.get_or_none(f"{ds_path}/{old_ds.DATASET_DIRNAME}/feature")
+                if node is not None:
+                    sidecar.update_sidecar_for_commit(self.repo, old_ds, node.oid, feature_diff)
+        except Exception:
+            L.warning("columnar sidecar update failed (cache only)", exc_info=True)
+
+    def check_values_match_schema(self, repo_diff):
+        """Raise SchemaViolation naming every column whose new value does
+        not fit its type (one example a column)."""
+        datasets = self.datasets
+        all_violations = {}
+        for ds_path, ds_diff in repo_diff.items():
+            feature_diff = ds_diff.get("feature")
+            if not feature_diff:
+                continue
+            meta_diff = ds_diff.get("meta") or {}
+            if "schema.json" in meta_diff and meta_diff["schema.json"].new is not None:
+                schema = Schema.from_column_dicts(meta_diff["schema.json"].new_value)
+            else:
+                ds = datasets.get(ds_path)
+                if ds is None:
+                    continue
+                schema = ds.schema
+            violations = {}
+            for delta in feature_diff.values():
+                if delta.new is not None:
+                    schema.validate_feature(delta.new_value, violations)
+            if violations:
+                all_violations[ds_path] = violations
+        if all_violations:
+            details = "\n".join(v for ds in all_violations.values() for v in ds.values())
+            raise SchemaViolation(f"Schema violation:\n{details}")

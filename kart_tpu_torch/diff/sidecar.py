@@ -28,9 +28,11 @@ use. The repo-level helpers (:func:`sidecar_file`, :func:`has_sidecar`,
 :func:`build_sidecar`, :func:`derive_sidecar`) mirror kart_tpu's
 ``diff/sidecar.py``, with :func:`_feature_envelope_wsen` for envelopes
 read from blobs. :func:`derive_sidecar` writes a new tree's sidecar from
-an older one and the rows that changed (what the changed-block CDC does
-for a pushed tip); deriving one inside a commit, and the importer's
-capture, are not ported (the port neither commits diffs nor imports).
+an older one and the rows that changed: the changed-block CDC does it for
+a pushed tip (envelopes, no vertex column), and a commit does it through
+:func:`update_sidecar_for_commit` from its feature deltas (envelopes and
+the vertex column, carried over from the parent's sidecar). The
+importer's capture is not ported (the port does not import).
 """
 
 import json
@@ -38,7 +40,8 @@ import os
 
 import numpy as np
 
-from kart_tpu_torch.geom import encode_vertex_column
+from kart_tpu_torch.core.objects import hash_object
+from kart_tpu_torch.geom import VertexColumn, encode_vertex_column, vertex_column_from_blobs
 from kart_tpu_torch.geometry import Geometry
 from kart_tpu_torch.ops.blocks import PAD_KEY, FeatureBlock, bucket_size, hash_keys_for_paths
 
@@ -330,23 +333,67 @@ def build_sidecar(repo, dataset, pad=False):
     return load_block(repo, dataset, pad=pad)
 
 
-def derive_sidecar(repo, old_block, new_feature_tree_oid, removed, added, added_envs=None):
+def update_sidecar_for_commit(repo, old_ds, new_feature_tree_oid, feature_diff):
+    """Derive the sidecar of a commit's new feature tree from the parent
+    dataset's sidecar and the commit's feature deltas, in O(changed) work:
+    an int-pk dataset only, and nothing when the new tree has a sidecar
+    already or the parent has none (a sidecar is a cache). The parent's
+    envelope and vertex columns are carried over, the added rows' read
+    from their new values. -> the sidecar's path, or None."""
+    if old_ds is None or old_ds.feature_tree is None:
+        return None
+    if old_ds.path_encoder.scheme != "int":
+        return None
+    target = sidecar_file(repo, new_feature_tree_oid)
+    if os.path.exists(target):
+        return target
+    block = load_block(repo, old_ds)
+    if block is None:
+        return None
+    schema = old_ds.schema
+    geom_col = old_ds.geom_column_name
+    removed, added = set(), {}
+    added_envs = {} if block.envelopes is not None else None
+    added_geoms = {} if block.vertex_column() is not None else None
+    for delta in feature_diff.values():
+        if delta.old is not None:
+            removed.add(int(delta.old_key))
+        if delta.new is not None:
+            pk_values, blob = schema.encode_feature_blob(delta.new_value)
+            pk = int(pk_values[0])
+            added[pk] = hash_object("blob", blob)
+            if added_envs is not None:
+                added_envs[pk] = _feature_envelope_wsen(delta.new_value, geom_col)
+            if added_geoms is not None:
+                value = (delta.new_value.get(geom_col)
+                         if geom_col is not None and hasattr(delta.new_value, "get") else None)
+                added_geoms[pk] = bytes(value) if value else None
+    return derive_sidecar(repo, block, new_feature_tree_oid, removed, added, added_envs,
+                          added_geoms)
+
+
+def derive_sidecar(repo, old_block, new_feature_tree_oid, removed, added, added_envs=None,
+                   added_geoms=None):
     """A new feature tree's sidecar from an older int-pk block and the
     change set, in O(changed) array work: ``removed`` the pks that went,
     ``added`` {pk: oid hex} the rows written (an added pk overrides a
     removal). ``added_envs`` {pk: wsen} carries the envelope column over
-    when the old block has one. The new sidecar has no vertex column.
-    -> its path."""
+    when the old block has one, and ``added_geoms`` {pk: GPKG geometry or
+    None} the vertex column the same way: kept rows are gathered, added
+    rows extracted. -> its path."""
     keys = old_block.keys[: old_block.count]
     oids_u8 = np.ascontiguousarray(old_block.oids[: old_block.count]).view(np.uint8).reshape(-1, 20)
     envs = (np.asarray(old_block.envelopes)
             if old_block.envelopes is not None and added_envs is not None else None)
+    verts = old_block.vertex_column() if added_geoms is not None else None
     drop = set(removed) | set(added)
     if drop:
         mask = ~np.isin(keys, np.fromiter(drop, dtype=np.int64, count=len(drop)))
         keys, oids_u8 = keys[mask], oids_u8[mask]
         if envs is not None:
             envs = envs[mask]
+        if verts is not None:
+            verts = verts.take(np.flatnonzero(mask))
     if added:
         add_keys = np.fromiter(added.keys(), dtype=np.int64, count=len(added))
         add_oids = np.frombuffer(bytes.fromhex("".join(added.values())),
@@ -357,4 +404,8 @@ def derive_sidecar(repo, old_block, new_feature_tree_oid, removed, added, added_
             add_env = np.array([added_envs[int(pk)] for pk in add_keys],
                                dtype=np.float32).reshape(-1, 4)
             envs = np.concatenate([envs, add_env])
-    return save_sidecar(repo, new_feature_tree_oid, keys, oids_u8, envelopes=envs)
+        if verts is not None:
+            add_verts = vertex_column_from_blobs(added_geoms.get(int(pk)) for pk in add_keys)
+            verts = VertexColumn.concat([verts, add_verts])
+    return save_sidecar(repo, new_feature_tree_oid, keys, oids_u8, envelopes=envs,
+                        vertices=verts)

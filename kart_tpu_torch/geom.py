@@ -199,6 +199,21 @@ class VertexColumn:
             self.y[vert_idx],
         )
 
+    @classmethod
+    def concat(cls, cols):
+        """Row concatenation (a derived sidecar's kept rows, then its added
+        ones)."""
+        cols = list(cols)
+        ring_counts = np.concatenate([np.diff(c.feat_offsets) for c in cols])
+        vert_counts = np.concatenate([np.diff(c.ring_offsets) for c in cols])
+        return cls(
+            np.concatenate([c.kinds for c in cols]),
+            np.concatenate(([0], np.cumsum(ring_counts))),
+            np.concatenate(([0], np.cumsum(vert_counts))),
+            np.concatenate([c.x for c in cols]),
+            np.concatenate([c.y for c in cols]),
+        )
+
 
 # --- extraction: GPKG blobs -> VertexColumn ----------------------------------
 

@@ -31,7 +31,6 @@ from kart_tpu_torch.core.repo import (
     MERGE_MSG,
     InvalidOperation,
     KartRepoState,
-    NotYetImplemented,
 )
 from kart_tpu_torch.core.structure import DATASET_DIRNAMES, RepoStructure
 from kart_tpu_torch.core.tree_builder import TreeBuilder
@@ -393,7 +392,7 @@ def do_merge(repo, theirs_refish, *, message=None, dry_run=False, ff=True, ff_on
         return MergeResult(already_merged=True, commit_oid=ours_oid, dry_run=dry_run)
     if ancestor_oid == ours_oid and ff:
         if not dry_run:
-            _require_no_working_copy(repo)
+            repo.require_no_working_copy()
             _update_head_to(repo, theirs_oid)
         return MergeResult(commit_oid=theirs_oid, fast_forward=True, dry_run=dry_run)
     if ff_only:
@@ -409,7 +408,7 @@ def do_merge(repo, theirs_refish, *, message=None, dry_run=False, ff=True, ff_on
     if conflicts:
         merge_index = MergeIndex(merged_tree, conflicts)
         if not dry_run:
-            _require_no_working_copy(repo)
+            repo.require_no_working_copy()
             merge_index.write_to_repo(repo)
             repo.write_gitdir_file(MERGE_HEAD, theirs_oid)
             repo.write_gitdir_file(MERGE_MSG, message)
@@ -419,7 +418,7 @@ def do_merge(repo, theirs_refish, *, message=None, dry_run=False, ff=True, ff_on
                            merging=not dry_run, merged_tree=merged_tree)
     if dry_run:
         return MergeResult(dry_run=True, stats=stats, merged_tree=merged_tree)
-    _require_no_working_copy(repo)
+    repo.require_no_working_copy()
     commit_oid = _create_merge_commit(repo, merged_tree, message, [ours_oid, theirs_oid])
     return MergeResult(commit_oid=commit_oid, stats=stats, merged_tree=merged_tree)
 
@@ -434,7 +433,7 @@ def complete_merging_state(repo, *, message=None):
         raise InvalidOperation(
             f"Merge is not yet complete - {len(unresolved)} conflicts "
             'still need resolving. See "kart conflicts" / "kart resolve"')
-    _require_no_working_copy(repo)
+    repo.require_no_working_copy()
     theirs_oid = repo.read_gitdir_file(MERGE_HEAD).strip()
     message = message or repo.read_gitdir_file(MERGE_MSG) or "Merge"
     final_tree = merge_index.write_resolved_tree(repo.odb)
@@ -448,14 +447,6 @@ def abort_merging_state(repo):
     """Delete whichever ``MERGE_*`` state files exist."""
     for name in (MERGE_HEAD, MERGE_INDEX, MERGE_BRANCH, MERGE_MSG):
         repo.remove_gitdir_file(name)
-
-
-def _require_no_working_copy(repo):
-    """kart_tpu resets the working copy after this step; the port does not
-    write one, so it refuses before writing anything."""
-    location = repo.working_copy_location()
-    if location is not None:
-        raise NotYetImplemented(f"Updating the working copy ({location}) is not ported yet")
 
 
 def _resolve_commit_and_ref(repo, refish):

@@ -13,12 +13,14 @@ layout when there is no ``path-structure.json``), ``feature_index``,
 ``decode_path_to_pks``, ``get_feature*``, ``get_feature_promise_from_oid``,
 the fused JSON serialisers ``_json_value_str``, ``_jsonl_serializer`` and
 ``feature_json_str_from_data``; ``FeatureOidPromise``), ``encode_feature``
-for ``kart resolve --with-file``, and
-``new_dataset_meta_blobs`` for the synthetic repositories, and
-``Dataset2`` with ``dataset_class_for_version`` (a V2 repository's
-``.sno-dataset`` trees, read as V3 in the legacy hashed layout). Applying
-diffs, import iterators and spatially filtered feature streams are not
-ported.
+for ``kart resolve --with-file``, ``new_dataset_meta_blobs`` for new
+datasets, and the write side of a commit: ``encode_meta_item`` and
+``apply_diff`` (``apply_meta_diff``, ``apply_feature_diff``), which write a
+dataset's diff through a tree builder with kart_tpu's conflict checks and
+``PatchApplyError`` texts. ``Dataset2`` with ``dataset_class_for_version``
+covers a V2 repository's ``.sno-dataset`` trees, read and written as V3
+in the legacy hashed layout. Import iterators and spatially filtered
+feature streams are not ported.
 """
 
 import json
@@ -26,7 +28,7 @@ from json.encoder import encode_basestring_ascii
 
 import numpy as np
 
-from kart_tpu_torch.core.odb import TreeView
+from kart_tpu_torch.core.odb import ObjectMissing, TreeView
 from kart_tpu_torch.core.serialise import (
     ensure_bytes,
     ensure_text,
@@ -379,6 +381,11 @@ class Dataset3:
         fn = self._jsonl_fns.get(legend_hash) or self._jsonl_serializer(legend_hash)
         return fn(pk_values, non_pk_values)
 
+    @property
+    def feature_count(self):
+        feature_tree = self.feature_tree
+        return 0 if feature_tree is None else sum(1 for _ in feature_tree.walk_blobs())
+
     def encode_feature(self, feature, schema=None, *, relative=False):
         """Name-keyed feature -> (its blob path, full or relative to the
         dataset's inner tree, blob bytes)."""
@@ -406,6 +413,121 @@ class Dataset3:
         for ident, wkt in (crs_defs or {}).items():
             blobs.append((f"{inner}/{cls.CRS_PATH}{ident}.wkt", ensure_bytes(wkt)))
         return blobs
+
+    def encode_meta_item(self, name, value):
+        """Meta item name and value -> (full path, blob bytes, or None to
+        delete it)."""
+        if value is None:
+            data = None
+        elif name.endswith(".json"):
+            data = json_pack(value)
+        else:
+            data = ensure_bytes(value)
+        if name in ATTACHMENT_META_ITEMS:
+            return (f"{self.path}/{name}", data)
+        return (f"{self.inner_path}/{self.META_PATH}{name}", data)
+
+    # -- applying diffs ------------------------------------------------------
+
+    def apply_diff(self, ds_diff, tree_builder, *, allow_missing_old=False):
+        """Write one dataset's DatasetDiff through ``tree_builder``, each
+        delta's old value checked against this version first."""
+        schema = self.apply_meta_diff(ds_diff.get("meta"), tree_builder,
+                                      allow_missing_old=allow_missing_old)
+        self.apply_feature_diff(ds_diff.get("feature"), tree_builder, schema=schema,
+                                allow_missing_old=allow_missing_old)
+
+    def apply_meta_diff(self, meta_diff, tree_builder, *, allow_missing_old=False):
+        """-> the schema the dataset's features are encoded with after the
+        meta diff: a new ``schema.json`` writes its legend too, and on a new
+        dataset the path structure of its pk."""
+        from kart_tpu_torch.core.structure import PatchApplyError
+
+        schema = None if self.inner_tree is None else self.schema
+        if not meta_diff:
+            return schema
+        for name, delta in meta_diff.items():
+            if not allow_missing_old:
+                current = self.get_meta_item(name) if self.inner_tree is not None else None
+                if current != delta.old_value:
+                    raise PatchApplyError(
+                        f"Conflict at {self.path}:meta:{name} — "
+                        f"value does not match the patch's old value")
+            if name == "schema.json":
+                if delta.new is None:
+                    raise PatchApplyError(
+                        f"Cannot delete schema of {self.path}; delete the dataset instead")
+                new_schema = Schema.from_column_dicts(delta.new_value)
+                if (schema is not None and not schema.is_pk_compatible(new_schema)
+                        and self.feature_count):
+                    raise NotYetImplemented(
+                        "Schema changes that alter the primary key are not yet "
+                        "supported on non-empty datasets")
+                path, data = self.encode_meta_item(name, delta.new_value)
+                tree_builder.insert(path, tree_builder.odb.write_blob(data))
+                tree_builder.insert(
+                    f"{self.inner_path}/{self.LEGEND_PATH}{new_schema.legend_hash}",
+                    tree_builder.odb.write_blob(new_schema.legend.dumps()))
+                if schema is None:
+                    enc = encoder_for_schema(new_schema)
+                    if enc is not PathEncoder.LEGACY_ENCODER:
+                        tree_builder.insert(f"{self.inner_path}/{self.PATH_STRUCTURE_PATH}",
+                                            tree_builder.odb.write_blob(json_pack(enc.to_dict())))
+                    self._meta_cache["__encoder__"] = enc
+                schema = new_schema
+                continue
+            path, data = self.encode_meta_item(name, delta.new_value)
+            if data is None:
+                tree_builder.remove(path)
+            else:
+                tree_builder.insert(path, tree_builder.odb.write_blob(data))
+        return schema
+
+    def apply_feature_diff(self, feature_diff, tree_builder, *, schema=None,
+                           allow_missing_old=False):
+        """Write a feature DeltaDiff: an old value must be the feature this
+        version holds, and an insert must find no feature at its path."""
+        from kart_tpu_torch.core.structure import PatchApplyError
+
+        if not feature_diff:
+            return
+        schema = schema or self.schema
+        odb = tree_builder.odb
+        has_tree = self.feature_tree is not None
+        for delta in feature_diff.values():
+            old_pks = None
+            if delta.old is not None:
+                key = delta.old_key
+                old_pks = schema.sanitise_pks(key if isinstance(key, (list, tuple)) else [key])
+            old_path = self.encode_pks_to_path(old_pks) if old_pks is not None else None
+            if not allow_missing_old and delta.old is not None:
+                try:
+                    current = self.get_feature(old_pks) if has_tree else None
+                except (KeyError, ObjectMissing):
+                    current = None
+                if current != delta.old_value:
+                    raise PatchApplyError(
+                        f"Conflict at {self.path}:feature:{delta.old_key} — "
+                        f"feature does not match the patch's old value")
+            if delta.new is None:
+                tree_builder.remove(old_path)
+                continue
+            pk_values, blob = schema.encode_feature_blob(delta.new_value)
+            rel = self.path_encoder.encode_pks_to_path(pk_values)
+            new_path = f"{self.inner_path}/{self.FEATURE_PATH}{rel}"
+            if delta.old is None and not allow_missing_old and has_tree:
+                if self.get_data_at(self.FEATURE_PATH + rel, missing_ok=True) is not None:
+                    raise PatchApplyError(
+                        f"Conflict at {self.path}:feature:{delta.new_key} — "
+                        f"inserted feature already exists")
+            if old_path is not None and old_path != new_path:
+                tree_builder.remove(old_path)
+            tree_builder.insert(new_path, odb.write_blob(blob))
+
+    def encode_pks_to_path(self, pk_values):
+        """pk values -> the feature's full blob path."""
+        return (f"{self.inner_path}/{self.FEATURE_PATH}"
+                f"{self.path_encoder.encode_pks_to_path(tuple(pk_values))}")
 
     def __repr__(self):
         return f"{type(self).__name__}({self.path!r})"

@@ -33,6 +33,9 @@ their paths, every object as kart_tpu's encoders would write it. Nor has
 :func:`commit_point_edits`: a further commit of a point layer that moves,
 inserts and deletes rows, with real blobs for the rows it writes and no
 sidecar (a history as it arrives by a push, for the changed-block CDC).
+:func:`commit_feature_edits` is the counterpart of kart_tpu's helper of the
+same name: a small feature diff of inserts, updates and deletes, committed
+through ``commit_diff`` (and so with the derived sidecar).
 :func:`v2_repo` builds a small V2 repository (``.sno-dataset``, the legacy
 hashed paths, two commits) as kart_tpu's ``tests/test_upgrade.py``
 ``make_v2_repo`` does, optionally with a point geometry column.
@@ -349,6 +352,31 @@ def synth_repo(path, n, *, edit_frac=0.01, seed=0, blobs="changed", ds_path="syn
                              paths=paths)
     return repo, {"base_commit": commits[0], "edit_commit": commits[1], "n": n,
                   "n_edits": n_edits}
+
+
+def commit_feature_edits(repo, ds_path, *, inserts=(), updates=(), deletes=(),
+                         message="edit features", ref="HEAD"):
+    """Commit a small feature diff against ``ref``: ``inserts`` and
+    ``updates`` are name-keyed features, ``deletes`` pks; an update's and a
+    delete's old values are read from ``ref``. -> the commit oid."""
+    from kart_tpu_torch.diff.structs import DatasetDiff, Delta, DeltaDiff, KeyValue, RepoDiff
+
+    structure = repo.structure(ref)
+    ds = structure.datasets[ds_path]
+    pk_col = ds.schema.pk_columns[0].name
+    feature_diff = DeltaDiff()
+    for f in inserts:
+        feature_diff.add_delta(Delta.insert(KeyValue((f[pk_col], f))))
+    for f in updates:
+        old = ds.get_feature([f[pk_col]])
+        feature_diff.add_delta(Delta.update(KeyValue((f[pk_col], old)), KeyValue((f[pk_col], f))))
+    for pk in deletes:
+        feature_diff.add_delta(Delta.delete(KeyValue((pk, ds.get_feature([pk])))))
+    ds_diff = DatasetDiff()
+    ds_diff["feature"] = feature_diff
+    repo_diff = RepoDiff()
+    repo_diff[ds_path] = ds_diff
+    return structure.commit_diff(repo_diff, message)
 
 
 def commit_point_edits(repo, *, moves=None, inserts=None, deletes=(), message="edit points",

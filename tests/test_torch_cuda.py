@@ -1222,6 +1222,64 @@ def test_log_and_build_annotations_on_card_match_cpu(cuda, tmp_path):
         assert outs[0] == outs[1]
 
 
+def test_applied_commit_on_card_matches_cpu(cuda, tmp_path):
+    """``kart apply`` of a point layer's commit onto a branch at its
+    parent derives the tip's sidecar (envelopes and vertex column); the
+    card then diffs the applied commit (one K1 launch, no sidecar built by
+    a tree walk) and joins it against its parent (K5, K6), giving the
+    bytes of ``--device cpu``."""
+    import contextlib
+    import io
+    import json
+    import os
+
+    from kart_tpu_torch.cli import main as port_main
+    from kart_tpu_torch.diff import sidecar
+    from kart_tpu_torch.synth import commit_point_edits, synth_repo
+
+    repo, info = synth_repo(str(tmp_path / "r"), 20_000, seed=9, blobs="real", spatial=True)
+    pks = (1 << 24) + np.arange(0, 20_000, 97)
+    repo.refs.set("refs/heads/src", info["edit_commit"])
+    src = commit_point_edits(repo, moves=(pks[:150], np.linspace(-179, 179, 150),
+                                          np.linspace(-80, 80, 150)),
+                             inserts=(np.array([(1 << 24) + 30_000]), np.array([5.0]),
+                                      np.array([6.0])),
+                             deletes=pks[150:170], ref="refs/heads/src")
+    path = repo.workdir
+
+    def run(*argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert port_main(list(argv)) == 0
+        return buf.getvalue()
+
+    patch = str(tmp_path / "p.json")
+    with open(patch, "w") as f:
+        f.write(run("-C", path, "create-patch", src))
+    repo.refs.set("refs/heads/w", info["edit_commit"])
+    runtime.reset_stats()
+    run("-C", path, "apply", "--ref", "w", patch)
+    assert runtime.stats_snapshot()["classify_launches"] == 0
+    ds = repo.structure("w").datasets["synth"]
+    block = sidecar.load_block(repo, ds)
+    assert block is not None and block.envelopes is not None and block.vertex_column() is not None
+    files = sorted(os.listdir(os.path.join(repo.gitdir, "columnar")))
+    for argv, kernels in ((["diff", "-o", "json-lines", "w^...w"], {"classify_launches": 1}),
+                          (["query", "w", "synth", "--intersects", "w^:synth", "-o", "json"],
+                           {"envelope_join_launches": None, "geom_refine_launches": None})):
+        outs = []
+        for pre in ([], ["--device", "cpu"]):
+            runtime.reset_stats()
+            outs.append(run(*pre, "-C", path, *argv))
+            if not pre:
+                st = runtime.stats_snapshot()
+                for name, want in kernels.items():
+                    assert st[name] == want if want is not None else st[name] > 0, (name, st)
+        assert outs[0] == outs[1] and outs[0]
+    assert json.loads(outs[0])["kart.query/v2"]["count"] > 0
+    assert sorted(os.listdir(os.path.join(repo.gitdir, "columnar"))) == files
+
+
 # --- several devices: cuda:0 listed S times (B3, B7, B8, the mesh forms) -------------------
 
 MESH_SIZES = [1, 2, 4]
