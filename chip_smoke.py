@@ -9,9 +9,9 @@ kernel against its plain PyTorch version.
                           [--text-rows 1000000] [--text-merge-rows 200000] [--seed 0]
                           [--stream-rows 100000000] [--crossover-rows 1000000,...]
                           [--crossover-reps 3] [--chunk-sweep 2000000,...]
-                          [--history-commits 6]
+                          [--history-commits 6] [--wc-rows 100000]
                           [--k4-only | --hash-only | --query-only | --kernels-only |
-                           --tiles-only | --history-only | --stream-only]
+                           --tiles-only | --history-only | --stream-only | --wc-only]
 
 Run from the repository root on a machine with an sm_90 (Hopper) card and
 the CUDA toolkit; the kernels are built from ``kart_tpu_torch/csrc`` on
@@ -300,6 +300,31 @@ V1. a V2 repository (``synth.v2_repo``: ``.sno-dataset``, the legacy hashed
    ``--with-feature-count``, ``query`` (count, ``--where``, ``--bbox``) and
    ``export tiles``, on the card and with ``--device cpu``, each route on
    its own copy: equal stdout (and tile tree) sha256, exit 0
+E1. (after V1) the edit loop's way in: a ``--wc-rows`` point layer of
+   ``tests/helpers.py`` ``create_points_gpkg``'s schema written with
+   ``sqlite3`` from ``--seed``, then ``kart init --import <gpkg>
+   --workingcopy-location wc.gpkg``: the rate line, the captured sidecar's
+   keys and oids equal to a walk of the feature tree, the working copy's
+   rows (pk, name, rating, geometry bytes, in pk order) equal to the
+   source's by sha256; then ``import --replace-ids`` of 100 ids from a
+   second GPKG at the source's path (90 changed, 5 gone, 5 new): the derived
+   sidecar equal to a walk, the copy to the truth; no launch
+E2. H0's mix of edits through a client's ``sqlite3`` connection to the
+   working copy (0.1% of the rows moved by at most 0.05 degrees and
+   renamed, 0.01% deleted, 0.01% inserted beside existing rows; the GPKG
+   envelope functions registered so the triggers track them): ``status``,
+   ``status -o json`` (the counts) and ``diff -o json`` (no launch), ``commit
+   -m`` (its derived sidecar equal to a walk), then ``diff HEAD^...HEAD -o
+   json-lines`` on the card (one K1) and with ``--device cpu`` (equal
+   sha256)
+E3. ``switch -c side HEAD^`` (a reset without ``--force``: one K1; K1's
+   device time on its two sidecars), an edit on ``side`` committed,
+   ``switch main`` (kart_tpu rewrites the copy there: no launch) and
+   ``merge side`` (one K4, the copy rewritten), each working copy's digest
+   equal to the seed's truth of its commit; ``reset --discard-changes
+   HEAD^`` and, after a delete, ``restore``, each to its truth; the switches,
+   the side commit and the merge again with ``--device cpu`` on a copy of the
+   repository made before them: equal stdout sha256 and working copies
 22. each group of phases' host wall (S1-S4 first, [1-6] the build, the data
    and phases 3-6; [12b], [11i], H0-H3 and W1-W3 on their own), the ``kernels`` JSON line
    (K1-K7, K3's figures on [11i]'s index in ``index_envelopes``, each
@@ -321,7 +346,7 @@ way, ``--query-only`` phases 0, 1, 11 and Q1-Q3, ``--kernels-only`` phases 0,
 phases 0, 1, 11, H0-H3 and W1-W2, ``--stream-only``
 phases 0, 1 and S1-S4 (S3 on repositories it builds at ``--repo-rows`` and
 ``--merge-rows``, with the monolithic card and ``--device cpu`` runs of its
-commands made there).
+commands made there), ``--wc-only`` phases 0, 1 and E1-E3.
 
 To time another checkout's K5 and K6 on the same inputs (a parent commit,
 say), run this script with that checkout's package in its place:
@@ -341,6 +366,7 @@ import re
 import shutil
 import sqlite3
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -358,6 +384,7 @@ from kart_tpu_torch.core.feature_tree import (
 )
 from kart_tpu_torch.core.objects import MODE_TREE
 from kart_tpu_torch.core.repo import KartConfigKeys, KartRepo
+from kart_tpu_torch.crs import make_crs
 from kart_tpu_torch.core.tree_builder import TreeBuilder
 from kart_tpu_torch.diff import backend as backend_module
 from kart_tpu_torch.diff.backend import (
@@ -449,6 +476,7 @@ from kart_tpu_torch.tiles.grid import MERC_MAX_LAT, parse_zoom_spec, tile_query_
 from kart_tpu_torch.tiles.pyramid import batched, export_batch_tiles, tile_cover, tree_digest
 from kart_tpu_torch.tiles.source import drop_sources, source_for
 from kart_tpu_torch.events import cdc
+from kart_tpu_torch.workingcopy.gpkg import _register_gpkg_functions
 
 #: H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
 #: non-tensor-core f32 rate, used for every bound below
@@ -2140,6 +2168,330 @@ def other_commands_phase(repo, tmp, card, launches):
           + ", ".join(f"{k} {v:.4f} s" for k, v in runs) + f"; all {total:.4f} s host wall, "
           f"no launch on {card}")
     return total
+
+
+# --- the edit loop through the working copy (E1-E3) --------------------------
+
+#: the working copy's file, named in the repository's config by ``init``
+WC_FILE = "wc.gpkg"
+WC_TABLE = "points"
+
+
+def wc_point(x, y):
+    """A 2D point as GPKG binary in EPSG:4326, as an editing client writes
+    it (no envelope, little-endian)."""
+    return b"GP\x00\x01" + struct.pack("<i", 4326) + struct.pack("<BI2d", 1, 1, x, y)
+
+
+def write_points_gpkg(path, rows):
+    """A GPKG of ``tests/helpers.py`` ``create_points_gpkg``'s schema (fid
+    integer pk, geom POINT EPSG:4326, name text, rating real) holding
+    ``rows`` {pk: (x, y, name, rating)}."""
+    con = sqlite3.connect(path)
+    try:
+        con.executescript("""
+            CREATE TABLE gpkg_contents (
+                table_name TEXT NOT NULL PRIMARY KEY, data_type TEXT NOT NULL,
+                identifier TEXT UNIQUE, description TEXT DEFAULT '',
+                last_change DATETIME, min_x DOUBLE, min_y DOUBLE,
+                max_x DOUBLE, max_y DOUBLE, srs_id INTEGER);
+            CREATE TABLE gpkg_geometry_columns (
+                table_name TEXT NOT NULL, column_name TEXT NOT NULL,
+                geometry_type_name TEXT NOT NULL, srs_id INTEGER NOT NULL,
+                z TINYINT NOT NULL, m TINYINT NOT NULL,
+                CONSTRAINT pk_geom_cols PRIMARY KEY (table_name, column_name));
+            CREATE TABLE gpkg_spatial_ref_sys (
+                srs_name TEXT NOT NULL, srs_id INTEGER NOT NULL PRIMARY KEY,
+                organization TEXT NOT NULL, organization_coordsys_id INTEGER NOT NULL,
+                definition TEXT NOT NULL, description TEXT);""")
+        con.execute("INSERT INTO gpkg_spatial_ref_sys VALUES ('WGS 84', 4326, 'EPSG', 4326, ?, "
+                    "NULL)", (make_crs("EPSG:4326").wkt,))
+        con.execute("INSERT INTO gpkg_contents (table_name, data_type, identifier, srs_id) "
+                    "VALUES (?, 'features', ?, 4326)", (WC_TABLE, f"{WC_TABLE} title"))
+        con.execute("INSERT INTO gpkg_geometry_columns VALUES (?, 'geom', 'POINT', 4326, 0, 0)",
+                    (WC_TABLE,))
+        con.execute(f"CREATE TABLE {WC_TABLE} (fid INTEGER PRIMARY KEY AUTOINCREMENT NOT NULL, "
+                    "geom POINT, name TEXT, rating REAL)")
+        con.executemany(f"INSERT INTO {WC_TABLE} (fid, geom, name, rating) VALUES (?,?,?,?)",
+                        ((pk, wc_point(x, y), name, r)
+                         for pk, (x, y, name, r) in sorted(rows.items())))
+        con.commit()
+    finally:
+        con.close()
+
+
+def _row_bytes(fid, name, rating, geom):
+    name_b = name.encode()
+    return struct.pack("<qI", fid, len(name_b)) + name_b + struct.pack("<d", rating) + geom
+
+
+def wc_digest(path):
+    """(rows, sha256 of (pk, name, rating, geometry bytes) in pk order) of
+    the working copy's layer."""
+    con = sqlite3.connect(path)
+    try:
+        h, n = hashlib.sha256(), 0
+        for row in con.execute(f"SELECT fid, name, rating, geom FROM {WC_TABLE} ORDER BY fid"):
+            h.update(_row_bytes(*row))
+            n += 1
+        return n, h.hexdigest()
+    finally:
+        con.close()
+
+
+def truth_digest(rows):
+    """:func:`wc_digest` of the rows ``rows`` {pk: (x, y, name, rating)}."""
+    h = hashlib.sha256()
+    for pk, (x, y, name, rating) in sorted(rows.items()):
+        h.update(_row_bytes(pk, name, rating, wc_point(x, y)))
+    return len(rows), h.hexdigest()
+
+
+def edit_wc(path, moves=(), deletes=(), inserts=()):
+    """Edit the working copy as a GPKG client would: its own connection,
+    the envelope functions the rtree triggers call registered, so the
+    tracking triggers record each row. ``moves``/``inserts``: [(pk, (x, y,
+    name, rating))]."""
+    con = sqlite3.connect(path)
+    _register_gpkg_functions(con)
+    try:
+        con.executemany(f"UPDATE {WC_TABLE} SET geom = ?, name = ?, rating = ? WHERE fid = ?",
+                        [(wc_point(x, y), name, r, pk) for pk, (x, y, name, r) in moves])
+        con.executemany(f"DELETE FROM {WC_TABLE} WHERE fid = ?", [(pk,) for pk in deletes])
+        con.executemany(f"INSERT INTO {WC_TABLE} (fid, geom, name, rating) VALUES (?,?,?,?)",
+                        [(pk, wc_point(x, y), name, r) for pk, (x, y, name, r) in inserts])
+        con.commit()
+    finally:
+        con.close()
+
+
+def wc_edits(rng, rows, n_move, n_del, n_ins, label, exclude=(), first_new=None):
+    """H0's mix on ``rows``: ``n_move`` rows moved by at most 0.05 degrees
+    and renamed, ``n_del`` deleted, ``n_ins`` inserted beside existing rows
+    with pks from ``first_new`` (default: past the max pk); none of
+    ``exclude`` touched. -> (moves, deletes, inserts)."""
+    pks = np.array(sorted(set(rows) - set(exclude)), dtype=np.int64)
+    pick = rng.choice(len(pks), n_move + n_del, replace=False)
+    moves = []
+    for pk in pks[pick[:n_move]].tolist():
+        x, y, _, r = rows[pk]
+        dx, dy = rng.uniform(-0.05, 0.05, 2)
+        moves.append((pk, (float(np.clip(x + dx, -180, 180)), float(np.clip(y + dy, -85, 85)),
+                           f"{label}-{pk}", r)))
+    deletes = pks[pick[n_move:]].tolist()
+    first_new = max(rows) + 1 if first_new is None else first_new
+    inserts = []
+    for i, near in enumerate(rng.choice(pks, n_ins).tolist()):
+        x, y, _, _ = rows[near]
+        inserts.append((first_new + i, (x + 1e-4, y, f"{label}-new-{i}", float(i) / 4)))
+    return moves, deletes, inserts
+
+
+def apply_edits(rows, moves, deletes, inserts):
+    out = dict(rows)
+    out.update(moves)
+    for pk in deletes:
+        del out[pk]
+    out.update(inserts)
+    return out
+
+
+def _sidecar_is_walk(repo, label):
+    """The HEAD feature tree's sidecar: present, and its keys and oids those
+    of a walk of the tree."""
+    ds = repo.structure("HEAD").datasets[WC_TABLE]
+    block = load_block(repo, ds)
+    check(block is not None, f"[{label}] HEAD's feature tree has no sidecar")
+    _, pks, oids = ds.feature_index()
+    order = np.argsort(pks, kind="stable")
+    check(np.array_equal(np.asarray(block.keys[: block.count]), pks[order])
+          and np.array_equal(np.asarray(block.oids[: block.count]).view(np.uint8).reshape(-1, 20),
+                             oids[order]),
+          f"[{label}] the sidecar differs from a walk of the feature tree")
+    return block
+
+
+def _cli_out(label, launches, argv, want=0, want_k4=0):
+    """One counted CLI call -> (stdout, stderr, host wall s)."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        wall = counted(label, lambda: kart_cli(*argv), launches, want=want, want_k4=want_k4)[0]
+    return out.getvalue(), err.getvalue(), wall
+
+
+def wc_phases(args, card, launches, dev):
+    """[E1]-[E3]: the edit loop on a ``--wc-rows`` point layer imported
+    from a GPKG the script writes. -> {step: host wall s}."""
+    os.environ.update(GIT_AUTHOR_DATE=MERGE_DATE, GIT_COMMITTER_DATE=MERGE_DATE)
+    walls = {}
+    rng = np.random.default_rng(args.seed + 19)
+    n = args.wc_rows
+    with tempfile.TemporaryDirectory(prefix="kart_smoke_wc_") as tmp:
+        # ---- E1: init --import, then --replace-ids ----
+        t = time.perf_counter()
+        src = os.path.join(tmp, "src", f"{WC_TABLE}.gpkg")
+        os.makedirs(os.path.dirname(src))
+        rows = {pk: (x, y, f"p{pk}", r) for pk, x, y, r in zip(
+            range(1, n + 1), rng.uniform(-180, 180, n).tolist(), rng.uniform(-85, 85, n).tolist(),
+            np.round(rng.uniform(0, 5, n), 3).tolist())}
+        write_points_gpkg(src, rows)
+        walls["E1 source"] = time.perf_counter() - t
+        path = os.path.join(tmp, "repo")
+        _, err, walls["E1 init --import"] = _cli_out(
+            "E1", launches, ["init", "--import", src, "--workingcopy-location", WC_FILE, path])
+        rate_line = err.strip().splitlines()[-1]
+        check(rate_line.startswith(f"Imported {n} features in "), f"[E1] import said {err!r}")
+        repo = KartRepo(path)
+        _sidecar_is_walk(repo, "E1")
+        wc = os.path.join(path, WC_FILE)
+        check(wc_digest(wc) == truth_digest(rows), "[E1] the working copy differs from the source")
+        truths = {repo.head_commit_oid: rows}
+        # a second GPKG at the source's path (its column ids follow the path):
+        # 90 listed rows changed, 5 listed rows gone, 5 listed rows new
+        n_ids = min(100, n // 2)
+        listed = rng.choice(np.arange(1, n + 1), n_ids - 5, replace=False).tolist()
+        changed, gone = listed[: n_ids - 10], listed[n_ids - 10:]
+        new = list(range(n + 1, n + 6))
+        second = {pk: (rows[pk][0], rows[pk][1], f"replaced-{pk}", rows[pk][3] + 1)
+                  for pk in changed}
+        second.update((pk, (0.5 * i, -0.5 * i, f"new-{pk}", 1.0)) for i, pk in enumerate(new))
+        os.remove(src)
+        write_points_gpkg(src, second)
+        ids = os.path.join(tmp, "ids.txt")
+        with open(ids, "w") as f:
+            f.write("".join(f"{pk}\n" for pk in [*changed, *gone, *new]))
+        _, err, walls["E1 import --replace-ids"] = _cli_out(
+            "E1", launches, ["-C", path, "import", "--replace-ids", "@" + ids, src])
+        rows = apply_edits(rows, second.items(), gone, ())
+        repo = KartRepo(path)
+        _sidecar_is_walk(repo, "E1 replace-ids")
+        check(wc_digest(wc) == truth_digest(rows), "[E1] the working copy differs after "
+                                                   "--replace-ids")
+        truths[repo.head_commit_oid] = rows
+        print(f"[E1] init --import of {n} points: {rate_line.split(' in ', 1)[1]} "
+              f"({walls['E1 init --import']:.4f} s with the working copy written); "
+              f"--replace-ids of {n_ids} ids {walls['E1 import --replace-ids']:.4f} s; "
+              f"sidecars equal to walks, working copies to the seed's truth; no launch, on {card}")
+
+        # ---- E2: edits in the working copy, status, diff, commit ----
+        n_move, n_small = max(1, n // 1000), max(1, n // 10000)
+        moves, deletes, inserts = wc_edits(rng, rows, n_move, n_small, n_small, "e2")
+        t = time.perf_counter()
+        edit_wc(wc, moves, deletes, inserts)
+        walls["E2 edits"] = time.perf_counter() - t
+        want_counts = {WC_TABLE: {"feature": {k: v for k, v in (
+            ("updates", n_move), ("deletes", n_small), ("inserts", n_small))}}}
+        out, _, walls["E2 status"] = _cli_out("E2", launches, ["-C", path, "status"])
+        check("Changes in working copy:" in out and f"feature: {n_move} updates" in out,
+              f"[E2] status said {out!r}")
+        out, _, walls["E2 status -o json"] = _cli_out("E2", launches,
+                                                     ["-C", path, "status", "-o", "json"])
+        got = json.loads(out)["kart.status/v1"]["workingCopy"]["changes"]
+        check({d: {p: dict(sorted(c.items())) for p, c in v.items()} for d, v in got.items()}
+              == {d: {p: dict(sorted(c.items())) for p, c in v.items()}
+                  for d, v in want_counts.items()}, f"[E2] status -o json said {got}")
+        out, _, walls["E2 diff -o json"] = _cli_out("E2", launches,
+                                                   ["-C", path, "diff", "-o", "json"])
+        feats = json.loads(out)["kart.diff/v1+hexwkb"][WC_TABLE]["feature"]
+        check(len(feats) == n_move + 2 * n_small, f"[E2] diff -o json has {len(feats)} deltas")
+        out, _, walls["E2 commit"] = _cli_out("E2", launches, ["-C", path, "commit", "-m",
+                                                             "edits"])
+        rows = apply_edits(rows, moves, deletes, inserts)
+        repo = KartRepo(path)
+        check(out.startswith("[main ") and out.rstrip().endswith("] edits"),
+              f"[E2] commit said {out!r}")
+        _sidecar_is_walk(repo, "E2 commit")
+        check(wc_digest(wc) == truth_digest(rows), "[E2] the working copy differs after commit")
+        main_tip = repo.head_commit_oid
+        truths[main_tip] = rows
+        jl = os.path.join(tmp, "e2.jsonl")
+        card_s, cpu_s, digest, _ = card_and_cpu(
+            "E2", ["-C", path, "diff", "HEAD^...HEAD", "-o", "json-lines"], jl, launches, k2=0)
+        with open(f"{jl}.card") as f:
+            n_lines = sum(json.loads(line)["type"] == "feature" for line in f)
+        check(n_lines == n_move + 2 * n_small, f"[E2] json-lines has {n_lines} features")
+        walls["E2 diff HEAD^...HEAD card"], walls["E2 diff HEAD^...HEAD cpu"] = card_s, cpu_s
+        print(f"[E2] {n_move} moves, {n_small} deletes, {n_small} inserts through a client's "
+              f"connection: status {walls['E2 status']:.4f} s, status -o json "
+              f"{walls['E2 status -o json']:.4f} s, diff -o json {walls['E2 diff -o json']:.4f} s "
+              f"(no launch), commit {walls['E2 commit']:.4f} s (sidecar derived, equal to a "
+              f"walk); diff HEAD^...HEAD -o json-lines {card_s:.4f} s on the card (one K1), "
+              f"{cpu_s:.4f} s with --device cpu, sha256 {digest[:16]} on both, on {card}")
+
+        # ---- E3: switch, merge, reset, restore; again with --device cpu ----
+        cpu_path = os.path.join(tmp, "cpu", "repo")
+
+        def link_immutable(a, b):
+            parent = os.path.basename(os.path.dirname(a))
+            return os.link(a, b) if parent in ("pack", "columnar") else shutil.copy2(a, b)
+
+        shutil.copytree(path, cpu_path, copy_function=link_immutable)
+        side_edits = None
+        results = {}
+        for route, where, pre in (("card", path, []), ("cpu", cpu_path, ["--device", "cpu"])):
+            wc_r = os.path.join(where, WC_FILE)
+            lab = "E3" if route == "card" else "E3 cpu"
+            k1 = 1 if route == "card" else 0
+            k4 = 1 if route == "card" else 0
+            res = results[route] = {}
+            out, _, walls[f"E3 switch -c side HEAD^ {route}"] = _cli_out(
+                lab, launches, [*pre, "-C", where, "switch", "-c", "side", "HEAD^"], want=k1)
+            base = KartRepo(where).head_commit_oid
+            res["switch"] = (hashlib.sha256(out.encode()).hexdigest(), wc_digest(wc_r))
+            check(res["switch"][1] == truth_digest(truths[base]),
+                  f"[E3] {route}: the working copy differs from HEAD^'s truth after switch -c")
+            if side_edits is None:
+                side_edits = wc_edits(rng, truths[base], n_move, 0, n_small, "side",
+                                      exclude=[pk for pk, _ in moves] + deletes,
+                                      first_new=max(truths[main_tip]) + 1)
+            edit_wc(wc_r, side_edits[0], (), side_edits[2])
+            _cli_out(lab, launches, [*pre, "-C", where, "commit", "-m", "side edits"])
+            out, _, walls[f"E3 switch main {route}"] = _cli_out(
+                lab, launches, [*pre, "-C", where, "switch", "main"])
+            res["switch main"] = (hashlib.sha256(out.encode()).hexdigest(), wc_digest(wc_r))
+            check(res["switch main"][1] == truth_digest(truths[main_tip]),
+                  f"[E3] {route}: the working copy differs from main's truth after switch main")
+            out, _, walls[f"E3 merge side {route}"] = _cli_out(
+                lab, launches, [*pre, "-C", where, "merge", "side"], want_k4=k4)
+            merged = dict(truths[main_tip])
+            merged.update(side_edits[0])
+            merged.update(side_edits[2])
+            res["merge"] = (hashlib.sha256(out.encode()).hexdigest(), wc_digest(wc_r),
+                            KartRepo(where).head_commit_oid)
+            check(res["merge"][1] == truth_digest(merged),
+                  f"[E3] {route}: the working copy differs from the merge's truth")
+            if route == "card":
+                # K1 of the non-force switch alone, on its two sidecars
+                r = KartRepo(where)
+                old = load_block(r, r.structure(main_tip).datasets[WC_TABLE])
+                new = load_block(r, r.structure(base).datasets[WC_TABLE])
+                k1_split = device_ms(lambda: classify_changed(old, new),
+                                     ("corank_kernel", "classify_tiles"))
+                walls["E3 switch K1 device ms"] = total_ms(k1_split)
+                out, _, walls["E3 reset --discard-changes HEAD^"] = _cli_out(
+                    lab, launches, ["-C", where, "reset", "--discard-changes", "HEAD^"])
+                check(wc_digest(wc_r) == truth_digest(truths[main_tip]),
+                      "[E3] the working copy differs from HEAD^'s truth after reset")
+                gone = sorted(truths[main_tip])[: n_small]
+                edit_wc(wc_r, deletes=gone)
+                _, _, walls["E3 restore"] = _cli_out(lab, launches, ["-C", where, "restore"])
+                check(wc_digest(wc_r) == truth_digest(truths[main_tip]),
+                      "[E3] the working copy differs from HEAD's truth after restore")
+        check(results["card"] == results["cpu"],
+              f"[E3] the card's and --device cpu's stdout and working copies differ: {results}")
+        print(f"[E3] switch -c side HEAD^ (one K1, its device time "
+              f"{fmt_ms(walls['E3 switch K1 device ms'])}) "
+              f"{walls['E3 switch -c side HEAD^ card']:.4f} s, switch main (a full rewrite, no "
+              f"launch) {walls['E3 switch main card']:.4f} s, merge side (one K4) "
+              f"{walls['E3 merge side card']:.4f} s, reset --discard-changes HEAD^ "
+              f"{walls['E3 reset --discard-changes HEAD^']:.4f} s, restore "
+              f"{walls['E3 restore']:.4f} s; --device cpu: switch -c "
+              f"{walls['E3 switch -c side HEAD^ cpu']:.4f} s, merge "
+              f"{walls['E3 merge side cpu']:.4f} s; stdout sha256 and working copies equal to "
+              f"the card's and to the seed's truths, on {card}")
+    for k in ("GIT_AUTHOR_DATE", "GIT_COMMITTER_DATE"):
+        os.environ.pop(k, None)
+    return walls
 
 
 # --- the envelope index and the blob filter on a layer of real blobs (K3) -----
@@ -4240,6 +4592,13 @@ def main():
     ap.add_argument("--history-only", action="store_true",
                     help="run phases 0, 1, 11, H0-H3 and W1-W2 alone and print the launches "
                          "(no result line)")
+    # 100,000, cut from 1,000,000: the edit loop's import and working-copy
+    # writes are per-feature Python on the host (PERF.md §4), and E1-E3 write
+    # the whole layer into the working copy eight times
+    ap.add_argument("--wc-rows", type=int, default=100_000)
+    ap.add_argument("--wc-only", action="store_true",
+                    help="run phases 0, 1 and E1-E3 alone and print the launches (no result "
+                         "line)")
     ap.add_argument("--stream-only", action="store_true",
                     help="run phases 0, 1 and S1-S4 alone (S3 on repositories of its own) and "
                          "print the streamed routes' timings and the launches (no result line)")
@@ -4268,6 +4627,14 @@ def main():
                                  query="kernels" if args.kernels_only else args.query_only,
                                  tiles=args.tiles_only, history=args.history_only)
         print(json.dumps({**kernels, "launches": launches}))
+        return 0
+    if args.wc_only:
+        _build.build_all()
+        launches = {}
+        t = time.perf_counter()
+        walls = wc_phases(args, card, launches, dev)
+        print(f"[E] all {time.perf_counter() - t:.2f} s on {card}")
+        print(json.dumps({"walls": walls, "launches": launches}))
         return 0
     if args.stream_only:
         _build.build_all()
@@ -4533,6 +4900,10 @@ def main():
     print("[S] phase walls s: " + ", ".join(f"[{k}] {v:.2f}" for k, v in s_walls.items())
           + f"; all {sum(s_walls.values()):.2f} on {card}")
     walls["V1"] = v2_phase(card, cli_launches)
+    t = time.perf_counter()
+    wc_phases(args, card, cli_launches, dev)
+    walls["E1-E3"] = time.perf_counter() - t
+    progress("E1-E3", t_start)
     print("[22] phase walls s: " + ", ".join(f"[{k}] {v:.2f}" for k, v in
                                              {**s_walls, **walls}.items())
           + f"; all since the build {time.perf_counter() - t_start:.2f} on {card}")

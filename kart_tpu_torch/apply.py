@@ -9,10 +9,10 @@ Counterpart of kart_tpu's ``apply.py``: ``parse_patch`` and
 ``apply_patch`` with the same ``--ref`` rules, author signature,
 ``--allow-empty`` and messages; the commit goes through
 :meth:`~kart_tpu_torch.core.structure.RepoStructure.commit_diff`, so it
-derives the changed datasets' sidecars. Where kart_tpu would update a
-working copy (a patch applied to HEAD, or ``--no-commit``) and the
-repository has one, the port raises ``NotYetImplemented`` before it writes
-anything.
+derives the changed datasets' sidecars. A patch applied to HEAD moves the
+working copy to the new commit (a forced reset); ``--no-commit`` writes the
+patch's feature changes into the working copy as tracked edits instead of
+committing them.
 """
 
 import re
@@ -24,6 +24,7 @@ from kart_tpu_torch.core.structure import PatchApplyError
 from kart_tpu_torch.diff.structs import DatasetDiff, Delta, DeltaDiff, KeyValue, RepoDiff
 from kart_tpu_torch.geometry import Geometry
 from kart_tpu_torch.models.schema import Schema
+from kart_tpu_torch.workingcopy import get_working_copy
 
 
 def _feature_from_json(feature_json, schema):
@@ -141,9 +142,11 @@ def _author_from_header(header):
     return Signature(header["authorName"], header.get("authorEmail", ""), ts, offset)
 
 
-def apply_patch(repo, patch_json, *, no_commit=False, allow_empty=False, ref="HEAD"):
+def apply_patch(repo, patch_json, *, no_commit=False, allow_empty=False, ref="HEAD",
+                device=None):
     """Commit a patch onto ``ref`` (HEAD, or a branch) -> the new commit
-    oid. The commit carries the patch's message and author."""
+    oid, or None with ``no_commit`` (the patch went into the working copy).
+    The commit carries the patch's message and author."""
     if ref != "HEAD":
         if no_commit:
             raise InvalidOperation("--no-commit and --ref are incompatible")
@@ -157,10 +160,23 @@ def apply_patch(repo, patch_json, *, no_commit=False, allow_empty=False, ref="HE
             ref = "HEAD"
     repo_diff, header = parse_patch(repo, patch_json, ref=ref)
     head_rs = repo.structure(ref)
-    if ref == "HEAD":
-        repo.require_no_working_copy()
+    wc = get_working_copy(repo, device=device) if ref == "HEAD" else None
+    if wc is not None:
+        wc.assert_db_tree_match(head_rs.tree_oid)
     if no_commit:
-        raise InvalidOperation("--no-commit requires a working copy")
+        if wc is None:
+            raise InvalidOperation("--no-commit requires a working copy")
+        with wc.session() as con:
+            for ds_path, ds_diff in repo_diff.items():
+                ds = head_rs.datasets.get(ds_path)
+                if ds is None:
+                    raise PatchApplyError("Cannot apply new-dataset patch to working copy only")
+                wc._apply_feature_diff_sql(con, ds, ds_diff.get("feature", DeltaDiff()),
+                                           track_changes_as_dirty=True)
+        return None
     message = header.get("message") or "Apply patch"
-    return head_rs.commit_diff(repo_diff, message, allow_empty=allow_empty,
-                               author=_author_from_header(header), ref=ref)
+    commit_oid = head_rs.commit_diff(repo_diff, message, allow_empty=allow_empty,
+                                     author=_author_from_header(header), ref=ref)
+    if wc is not None:
+        wc.reset(repo.structure(commit_oid), force=True)
+    return commit_oid

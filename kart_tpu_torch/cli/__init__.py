@@ -2,10 +2,12 @@
 
     python -m kart_tpu_torch [-C PATH] [--device DEVICE] COMMAND [options] [ARGS...]
 
-with the commands ``diff``, ``show``, ``create-patch``, ``log``, ``apply``,
-``merge``, ``conflicts``, ``resolve``, ``query``, ``export tiles``,
-``spatial-filter index|resolve``, ``data ls|version``, ``meta get|set``,
-``commit-files`` and ``build-annotations``. Global options come before the command, as
+with the commands ``init``, ``import``, ``status``, ``commit``, ``checkout``,
+``switch``, ``restore``, ``reset``, ``create-workingcopy``, ``branch``,
+``diff``, ``show``, ``create-patch``, ``log``, ``apply``, ``merge``,
+``conflicts``, ``resolve``, ``query``, ``export tiles``, ``spatial-filter
+index|resolve``, ``data ls|version``, ``meta get|set``, ``commit-files`` and
+``build-annotations``. Global options come before the command, as
 in kart_tpu's CLI: ``-C PATH`` runs as if started in PATH, and ``--device``
 picks where the kernels run (default: the card, ``cuda:0``, or with 2 or
 more cards the mesh of all of them for work that ``parallel.should_shard``
@@ -20,7 +22,7 @@ parsed with click's rules and usage messages (:mod:`.parser`). Errors print
 ``Error: <message>`` on stderr and exit with kart_tpu's codes: 2 for a bad
 argument, an unknown command or a path that is not a repository, 20 for
 an invalid operation, 30 for what is not ported yet, 40 for an
-unresolvable revision.
+unresolvable revision, 48 for an import source that cannot be read.
 """
 
 import sys
@@ -32,6 +34,7 @@ INVALID_ARGUMENT = 2
 INVALID_OPERATION = 20
 NOT_YET_IMPLEMENTED = 30
 NOT_FOUND = 40
+NO_IMPORT_SOURCE = 48
 
 
 def build_cli():
@@ -41,13 +44,16 @@ def build_cli():
         diff_cmds,
         merge_cmds,
         query_cmds,
+        ref_cmds,
+        repo_cmds,
         spatial_cmds,
         tile_cmds,
     )
 
     commands = {cmd.name: cmd for cmd in (*diff_cmds.commands(), *merge_cmds.commands(),
                                           *query_cmds.commands(), *tile_cmds.commands(),
-                                          *spatial_cmds.commands(), *data_cmds.commands())}
+                                          *spatial_cmds.commands(), *data_cmds.commands(),
+                                          *repo_cmds.commands(), *ref_cmds.commands())}
     return Group(
         "kart",
         [
@@ -65,6 +71,7 @@ def main(argv=None):
     never raises SystemExit). ``argv`` defaults to ``sys.argv[1:]``."""
     from kart_tpu_torch.core.repo import KartRepo, NotFound, NotYetImplemented, RepoError
     from kart_tpu_torch.diff.writers import DiffUsageError
+    from kart_tpu_torch.importer import ImportSourceError
 
     cli = build_cli()
     try:
@@ -79,15 +86,20 @@ def main(argv=None):
     # the commands take the request itself: unnamed, the card may be the mesh
     device = glob.device
     try:
-        try:
-            repo = KartRepo(glob.repo_dir or ".")
-        except NotFound as e:
-            UsageError(str(e), cmd).show()
-            return INVALID_ARGUMENT
+        repo = None
+        if getattr(cmd, "needs_repo", True):  # ``init`` makes its own
+            try:
+                repo = KartRepo(glob.repo_dir or ".")
+            except NotFound as e:
+                UsageError(str(e), cmd).show()
+                return INVALID_ARGUMENT
         return cmd.run(args, repo, device)
     except DiffUsageError as e:
         UsageError(str(e), cmd).show()
         return INVALID_ARGUMENT
+    except ImportSourceError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return NO_IMPORT_SOURCE
     except RepoError as e:
         code = (NOT_YET_IMPLEMENTED if isinstance(e, NotYetImplemented)
                 else NOT_FOUND if isinstance(e, NotFound) else INVALID_OPERATION)

@@ -6,9 +6,10 @@ messages and exit codes (a refused command prints ``Error: <message>`` and
 exits 2). ``data`` and ``meta`` are groups whose help and usage errors are
 click's. ``meta set`` commits a meta diff through
 :meth:`~kart_tpu_torch.core.structure.RepoStructure.commit_diff`, and
-``commit-files`` writes repository files through a tree builder; where
-kart_tpu would then update a working copy and the repository has one, the
-port raises ``NotYetImplemented`` (exit 30) before it writes anything.
+``commit-files`` writes repository files through a tree builder; when the
+commit moves HEAD, each then moves the working copy to it without
+``--force`` (a K1 diff of the two trees on the CLI's device), keeping its
+edits.
 ``build-annotations`` counts the feature changes of HEAD's history into
 the annotations cache (:meth:`kart_tpu_torch.annotations.DiffAnnotations
 .build_all`), each commit diffed against its first parent on the CLI's
@@ -21,6 +22,7 @@ import sys
 from kart_tpu_torch.cli.parser import Argument, Command, Group, Option
 from kart_tpu_torch.core.repo import KartRepoState
 from kart_tpu_torch.diff.output import dump_json_output
+from kart_tpu_torch.workingcopy import get_working_copy
 
 INVALID_ARGUMENT = 2
 
@@ -160,8 +162,12 @@ def run_meta_set(args, repo, device):
     ds_diff["meta"] = meta_diff
     repo_diff = RepoDiff()
     repo_diff[args.dataset] = ds_diff
-    repo.require_no_working_copy()
+    wc = get_working_copy(repo, device=device)
     oid = structure.commit_diff(repo_diff, args.message or f"Update metadata for {args.dataset}")
+    if wc is not None:
+        # non-force: only the dataset whose meta changed is written again,
+        # edits elsewhere stay
+        wc.reset(repo.structure(oid))
     print(f"Commit {oid[:7]}")
     return 0
 
@@ -178,8 +184,8 @@ def run_commit_files(args, repo, device):
     commit_to = "HEAD" if args.ref == "HEAD" else ref_name
     if commit_to is None or (commit_to != "HEAD" and not commit_to.startswith("refs/heads/")):
         raise _CliError(f"{args.ref!r} is not a branch that can be committed to")
-    if commit_to == "HEAD" or repo.head_branch == commit_to:
-        repo.require_no_working_copy()
+    moves_head = commit_to == "HEAD" or repo.head_branch == commit_to
+    wc = get_working_copy(repo, device=device) if moves_head else None
     parent = repo.odb.read_commit(parent_oid)
     tb = TreeBuilder(repo.odb, parent.tree)
     for item in args.items:
@@ -204,6 +210,8 @@ def run_commit_files(args, repo, device):
     if new_tree == parent.tree and not args.allow_empty:
         raise _CliError("No changes to commit")
     new_commit = repo.create_commit(commit_to, new_tree, args.message, [parent_oid])
+    if wc is not None:
+        wc.reset(repo.structure(new_commit))  # non-force: the copy's edits stay
     print(f"Committed {new_commit[:7]}")
     return 0
 

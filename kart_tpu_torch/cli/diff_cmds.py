@@ -158,7 +158,12 @@ def print_estimated_counts(repo, commit_spec, accuracy, output_format, output_pa
     """``kart diff --only-feature-count``: -> True when a dataset changed."""
     from kart_tpu_torch.diff.estimation import estimate_diff_feature_counts
 
-    base_rs, target_rs = BaseDiffWriter.parse_diff_commit_spec(repo, commit_spec)
+    base_rs, target_rs, working_copy = BaseDiffWriter.parse_diff_commit_spec(repo, commit_spec)
+    if working_copy is not None:
+        # the working copy has no trees to sample: count its diff
+        writer = BaseDiffWriter.get_diff_writer_class("feature-count")(
+            repo, commit_spec, filters, output_path, device=device)
+        return _write(writer)
     wanted = {f.split(":", 1)[0] for f in filters} if filters else None
     counts = estimate_diff_feature_counts(repo, base_rs, target_rs, accuracy=accuracy,
                                           ds_paths=wanted, device=device)
@@ -214,8 +219,8 @@ def run_apply(args, repo, device):
               closefd=args.patch_file != "-") as f:
         patch = json.load(f)
     commit_oid = apply_patch(repo, patch, no_commit=args.no_commit,
-                             allow_empty=args.allow_empty, ref=args.ref)
-    print(f"Commit {commit_oid[:7]}")
+                             allow_empty=args.allow_empty, ref=args.ref, device=device)
+    print(f"Commit {commit_oid[:7]}" if commit_oid else "Applied patch to working copy")
     return 0
 
 

@@ -89,18 +89,21 @@ def run_merge(args, repo, device):
         abort_merging_state,
         complete_merging_state,
         do_merge,
+        reset_working_copy,
     )
+    from kart_tpu_torch.workingcopy import get_working_copy
 
     try:
         if args.abort_:
             if repo.state != KartRepoState.MERGING:
                 raise _CliError("Repository is not in 'merging' state")
-            repo.require_no_working_copy()
+            get_working_copy(repo)  # raises before any write where it is not ported
             abort_merging_state(repo)
+            reset_working_copy(repo, device)
             print("Merge aborted")
             return 0
         if args.continue_:
-            commit_oid = complete_merging_state(repo, message=args.message)
+            commit_oid = complete_merging_state(repo, message=args.message, device=device)
             if args.output_format == "json":
                 dump_json_output({"kart.merge/v1": {"commit": commit_oid}}, "-")
             else:

@@ -24,6 +24,8 @@ module keeps the part of them that the ported commands use:
 * parameters are checked in click's order: the options given, in the
   order first given, then every argument, then the other options as
   declared;
+* a command made with ``ignore_unknown_options`` (``kart init``) keeps an
+  unknown option as an argument, as click's context setting does;
 * groups nest (``kart export tiles``): a group inside the top level given
   no arguments at all prints its help on stderr and exits 2, as click's
   does.
@@ -166,8 +168,10 @@ class Command:
     """A command: its options and arguments in declaration order, and
     ``run(args, repo, device)``; a group holds sub-commands instead."""
 
-    def __init__(self, name, params, run=None, *, help="", parent=None):
+    def __init__(self, name, params, run=None, *, help="", parent=None,
+                 ignore_unknown_options=False):
         self.name = name
+        self.ignore_unknown_options = ignore_unknown_options
         self.params = list(params)
         self.run = run
         self.help = help
@@ -221,6 +225,9 @@ class Command:
             if arg == "--":
                 break
             if arg[:1] == "-" and len(arg) > 1:
+                if self.ignore_unknown_options and self._unknown(arg):
+                    largs.append(arg)  # click keeps it as an argument
+                    continue
                 self._process_opts(arg, rargs, opts, order)
             elif interspersed:
                 largs.append(arg)
@@ -270,6 +277,12 @@ class Command:
             else:
                 values[p.dest] = p.default
         return values
+
+    def _unknown(self, arg):
+        """True when ``arg`` names no option of this command (a short
+        cluster by its first letter)."""
+        name = arg.split("=", 1)[0] if arg[:2] == "--" else arg[:2]
+        return name != "--help" and name not in self._long and name not in self._short
 
     def _process_opts(self, arg, rargs, opts, order):
         explicit = None

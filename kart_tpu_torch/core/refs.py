@@ -81,6 +81,35 @@ class RefStore:
     def exists(self, ref):
         return os.path.exists(self._ref_path(ref)) or ref in self._packed_refs()
 
+    def delete(self, ref):
+        """Remove a ref, loose and packed ('^' peel lines stay with the tag
+        before them)."""
+        path = self._ref_path(ref)
+        if os.path.exists(path):
+            os.remove(path)
+        if ref not in self._packed_refs():
+            return
+        packed_path = os.path.join(self.gitdir, "packed-refs")
+        with open(packed_path) as f:
+            lines = f.readlines()
+        out, skipping = [], False
+        for line in lines:
+            stripped = line.strip()
+            if stripped.startswith("^"):
+                if not skipping:
+                    out.append(line)
+                continue
+            skipping = False
+            if stripped and not stripped.startswith("#") and stripped.partition(" ")[2] == ref:
+                skipping = True
+                continue
+            out.append(line)
+        tmp = packed_path + f".lock{os.getpid()}"
+        with open(tmp, "w") as f:
+            f.writelines(out)
+        os.replace(tmp, packed_path)
+        self._packed_cache = None
+
     def set(self, ref, oid, log_message=None):
         check_ref_format(ref)
         old = self.get(ref)

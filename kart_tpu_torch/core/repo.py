@@ -6,16 +6,15 @@ Counterpart of kart_tpu's ``core/repo.py``: ``KartRepo`` with ``_locate``,
 ``walk_commits``, ``merge_base``, ``structure``, ``create_commit``, the
 ``head_*`` properties, ``has_promisor_remote``, the spatial filter's config keys
 (``KartConfigKeys``) and the merge state machine (``KartRepoState``, the
-``MERGE_*`` state files in the gitdir). The working copy is only located
-(:meth:`KartRepo.working_copy_location`), never opened; tags' creation,
-remotes and gc are not ported.
+``MERGE_*`` state files in the gitdir), ``is_bare``, ``is_ancestor`` and
+the ``working_copy`` property (:mod:`kart_tpu_torch.workingcopy`); tags'
+creation, remotes and gc are not ported.
 """
 
 import hashlib
 import heapq
 import os
 import re
-import sqlite3
 import struct
 
 from kart_tpu_torch.core.objects import Commit, Signature, tag_target
@@ -74,9 +73,6 @@ MERGE_HEAD = "MERGE_HEAD"
 MERGE_INDEX = "MERGE_INDEX"
 MERGE_BRANCH = "MERGE_BRANCH"
 MERGE_MSG = "MERGE_MSG"
-
-#: the table that marks a GPKG working copy as initialised
-_GPKG_STATE_TABLE = "gpkg_kart_state"
 
 
 class KartRepo:
@@ -137,6 +133,10 @@ class KartRepo:
         return cls(path)
 
     @property
+    def is_bare(self):
+        return self.workdir is None
+
+    @property
     def head_branch(self):
         return self.refs.head_branch()
 
@@ -187,40 +187,14 @@ class KartRepo:
         if os.path.exists(path):
             os.remove(path)
 
-    def working_copy_location(self):
-        """Where kart_tpu's ``get_working_copy`` would find an initialised
-        working copy (the configured location, else ``<workdir
-        name>.gpkg`` in the workdir), or None. A database URL counts as
-        one: whether it is initialised cannot be told without a server."""
-        location = self.config.get(KartConfigKeys.KART_WORKINGCOPY_LOCATION)
-        if location is None and self.workdir is not None:
-            location = f"{os.path.basename(self.workdir) or 'data'}.gpkg"
-        if location is None:
-            return None
-        if not str(location).lower().endswith(".gpkg"):
-            return location
-        path = (location if os.path.isabs(location) or self.workdir is None
-                else os.path.join(self.workdir, location))
-        if not os.path.exists(path):
-            return None
-        try:
-            con = sqlite3.connect(f"file:{path}?mode=ro", uri=True)
-            try:
-                found = con.execute("SELECT count(*) FROM sqlite_master WHERE name = ?",
-                                    (_GPKG_STATE_TABLE,)).fetchone()[0]
-            finally:
-                con.close()
-        except sqlite3.DatabaseError:
-            return None
-        return location if found else None
+    @property
+    def working_copy(self):
+        """The repository's initialised working copy, or None; a non-force
+        reset of it classifies on the card (``get_working_copy(repo,
+        device=...)`` names another device)."""
+        from kart_tpu_torch.workingcopy import get_working_copy
 
-    def require_no_working_copy(self):
-        """Raise NotYetImplemented when the repository has a working copy:
-        where kart_tpu updates it after a command, the port, which writes
-        none, refuses before the command writes anything."""
-        location = self.working_copy_location()
-        if location is not None:
-            raise NotYetImplemented(f"Updating the working copy ({location}) is not ported yet")
+        return get_working_copy(self)
 
     def has_promisor_remote(self):
         names = {".".join(k.split(".")[1:-1]) for k in self.config.keys("remote.")
@@ -393,6 +367,9 @@ class KartRepo:
             stack.extend((p, False) for p in parents)
         return order
 
+    def is_ancestor(self, maybe_ancestor, descendant):
+        return maybe_ancestor in self._ancestor_set(descendant)
+
     def _ancestor_set(self, oid):
         out, stack = set(), [oid]
         while stack:
@@ -436,6 +413,9 @@ class KartRepo:
         from kart_tpu_torch.core.structure import RepoStructure
 
         return RepoStructure(self, refish)
+
+    def datasets(self, refish="HEAD"):
+        return self.structure(refish).datasets
 
 
 def _split_rev_operators(refish):

@@ -18,7 +18,10 @@ the changed rows' paths, the fast count and the fused row plan decline it
 (its collision guard needs the changed rows), and colliding keys send it
 to the tree walk, as in kart_tpu. An int-pk dataset added or deleted whole
 (a root commit's diff) is listed from one vectorized walk of its feature
-tree, with the tree walk's deltas in the tree walk's order.
+tree, with the tree walk's deltas in the tree walk's order. With
+``include_wc_diff`` the dataset and repo diffs add a working copy's edits
+(:meth:`~kart_tpu_torch.workingcopy.gpkg.GpkgWorkingCopy
+.diff_dataset_to_working_copy`, host work) on top of the revisions' diff.
 """
 
 from typing import NamedTuple
@@ -443,10 +446,12 @@ def get_meta_diff(base_ds, target_ds, ds_filter=None):
 
 
 def get_dataset_diff(base_rs, target_rs, ds_path, *, ds_filter=None, device=None,
-                     spatial_filter_spec=None):
+                     spatial_filter_spec=None, include_wc_diff=False, working_copy=None):
     """DatasetDiff for one dataset between two revisions; under a spatial
     filter spec, the envelope prefilter's survivors only (the writers apply
-    the exact residue)."""
+    the exact residue). With ``include_wc_diff`` the working copy's edits
+    (``working_copy``, else the repository's) go on top: tracked rows read
+    on the host, no kernel."""
     base_ds = base_rs.datasets.get(ds_path) if base_rs is not None else None
     target_ds = target_rs.datasets.get(ds_path) if target_rs is not None else None
     diff = DatasetDiff()
@@ -455,13 +460,21 @@ def get_dataset_diff(base_rs, target_rs, ds_path, *, ds_filter=None, device=None
     diff["meta"] = get_meta_diff(base_ds, target_ds, ds_filter)
     diff["feature"] = _feature_diff_routed(base_ds, target_ds, ds_filter, device,
                                            spatial_filter_spec)
+    if include_wc_diff:
+        if target_ds is None:
+            raise ValueError("Cannot diff working copy against a deleted dataset")
+        wc = working_copy if working_copy is not None else target_rs.repo.working_copy
+        if wc is not None:
+            wc_diff = wc.diff_dataset_to_working_copy(target_ds, ds_filter=ds_filter)
+            diff = DatasetDiff.concatenated(diff, wc_diff)
     diff.prune()
     return diff
 
 
 def get_repo_diff(base_rs, target_rs, *, repo_key_filter=None, device=None,
-                  spatial_filter_spec=None):
-    """RepoDiff between two revisions."""
+                  spatial_filter_spec=None, include_wc_diff=False, working_copy=None):
+    """RepoDiff between two revisions (the working copy's edits on top with
+    ``include_wc_diff``)."""
     repo_key_filter = repo_key_filter or RepoKeyFilter.MATCH_ALL_FILTER()
     base_paths = set(base_rs.datasets.paths()) if base_rs is not None else set()
     target_paths = set(target_rs.datasets.paths()) if target_rs is not None else set()
@@ -471,7 +484,8 @@ def get_repo_diff(base_rs, target_rs, *, repo_key_filter=None, device=None,
             continue
         ds_diff = get_dataset_diff(base_rs, target_rs, ds_path,
                                    ds_filter=repo_key_filter[ds_path], device=device,
-                                   spatial_filter_spec=spatial_filter_spec)
+                                   spatial_filter_spec=spatial_filter_spec,
+                                   include_wc_diff=include_wc_diff, working_copy=working_copy)
         if ds_diff:
             repo_diff[ds_path] = ds_diff
     repo_diff.prune(recurse=False)

@@ -31,8 +31,9 @@ read from blobs. :func:`derive_sidecar` writes a new tree's sidecar from
 an older one and the rows that changed: the changed-block CDC does it for
 a pushed tip (envelopes, no vertex column), and a commit does it through
 :func:`update_sidecar_for_commit` from its feature deltas (envelopes and
-the vertex column, carried over from the parent's sidecar). The
-importer's capture is not ported (the port does not import).
+the vertex column, carried over from the parent's sidecar).
+:class:`SidecarCapture` collects an import's (key, oid) columns as they
+stream and writes the new tree's sidecar from them, with no tree walk.
 """
 
 import json
@@ -258,6 +259,58 @@ def load_block_file(path, pad=False):
 def sidecar_file(repo, feature_tree_oid):
     """The sidecar path of a feature tree: ``.kart/columnar/<oid>.kcol``."""
     return os.path.join(repo.gitdir, "columnar", feature_tree_oid + ".kcol")
+
+
+class SidecarCapture:
+    """The (key, oid) rows an import writes, captured as it streams: an
+    int-pk dataset's pks, or a hash-keyed one's paths, with the blob oids;
+    :meth:`save` writes the sidecar from them."""
+
+    def __init__(self):
+        self._pk_chunks = []  # int64 arrays
+        self._path_chunks = []  # lists of paths under feature/
+        self._oid_chunks = []  # 20 bytes an oid
+        self.count = 0
+
+    def add_int_raw(self, pks, oid_bytes):
+        """An int64 pk array and its concatenated 20-byte oids."""
+        self._pk_chunks.append(np.asarray(pks, dtype=np.int64))
+        self._oid_chunks.append(oid_bytes)
+        self.count += len(pks)
+
+    def add_path_batch(self, rel_paths, oid_hexes):
+        self._path_chunks.append(list(rel_paths))
+        self._oid_chunks.append(bytes.fromhex("".join(oid_hexes)))
+        self.count += len(rel_paths)
+
+    def int_columns(self):
+        """(pks int64 (n,), oids (n, 20) uint8) of an int-pk capture, or
+        None: the importer builds the feature tree from them."""
+        if not self._pk_chunks or self._path_chunks:
+            return None
+        return (np.concatenate(self._pk_chunks),
+                np.frombuffer(b"".join(self._oid_chunks), dtype=np.uint8).reshape(-1, 20))
+
+    def replace_int_columns(self, pks_arr, oids_u8):
+        """Replace the captured int-pk columns (the importer's last-wins
+        dedup: the sidecar holds what the tree holds)."""
+        self._pk_chunks = [np.ascontiguousarray(pks_arr, dtype=np.int64)]
+        self._oid_chunks = [np.ascontiguousarray(oids_u8, dtype=np.uint8).tobytes()]
+        self.count = len(pks_arr)
+
+    def save(self, repo, feature_tree_oid):
+        """Write the sidecar of ``feature_tree_oid``; -> its path, or None
+        when nothing (or a mix of keys) was captured."""
+        if not self.count:
+            return None
+        oids_u8 = np.frombuffer(b"".join(self._oid_chunks), dtype=np.uint8).reshape(-1, 20)
+        if self._pk_chunks and not self._path_chunks:
+            return save_sidecar(repo, feature_tree_oid, np.concatenate(self._pk_chunks), oids_u8)
+        if self._path_chunks and not self._pk_chunks:
+            paths = [p for chunk in self._path_chunks for p in chunk]
+            return save_sidecar(repo, feature_tree_oid, hash_keys_for_paths(paths), oids_u8,
+                                paths=paths)
+        return None
 
 
 def has_sidecar(repo, dataset):

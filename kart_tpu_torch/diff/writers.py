@@ -3,7 +3,8 @@ default), ``json``, ``json-lines``, ``geojson``, ``html``, ``quiet`` and
 ``feature-count``.
 
 A writer is built from a commit spec (``A..B`` or ``A...B``; ``A^?`` is A's
-first parent or the empty revision), streams the diff in its format and
+first parent or the empty revision; ``A`` alone or nothing diffs A, or HEAD,
+against the working copy's edits), streams the diff in its format and
 reports ``has_changes`` for the exit code. Values stay lazy until each
 delta is written; every writer passes ``device`` to the engine, whose
 columnar route runs kernel K1 there. ``target_crs`` (``--crs``) reprojects
@@ -13,6 +14,7 @@ writer write a patch.
 
 Counterpart of kart_tpu's ``diff/writers.py``: ``BaseDiffWriter``
 (``parse_diff_commit_spec``, ``iter_deltas``, ``get_geometry_transforms``,
+``write_warnings_footer`` with the working copy's spatial-filter pk conflicts,
 ``commit_header_json``), ``TextDiffWriter``, ``JsonDiffWriter``,
 ``JsonLinesDiffWriter`` (the delta route and the fused columnar row route,
 single process), ``GeojsonDiffWriter``, ``QuietDiffWriter``,
@@ -20,9 +22,10 @@ single process), ``GeojsonDiffWriter``, ``QuietDiffWriter``,
 filter: the engine prefilters sidecar block pairs by envelope (kernel K2),
 and ``iter_deltas`` streams only the deltas one of whose sides matches the
 filter (the exact per-value residue); the exit code follows what is
-written, not the unfiltered diff. kart_tpu colours text on a terminal only;
-these writers print its plain form. Not ported: working-copy diffs, the
-forked materialisers and the promised-blob backfill of partial clones (a
+written, not the unfiltered diff. A working-copy diff takes the delta route
+(no fused rows, no counts-only K1). kart_tpu colours text on a terminal
+only; these writers print its plain form. Not ported: the forked
+materialisers and the promised-blob backfill of partial clones (a
 filtered repo with a promisor remote raises ``NotYetImplemented``). Every
 refusal comes before any output.
 """
@@ -35,7 +38,7 @@ import sys
 from datetime import datetime, timedelta, timezone
 
 from kart_tpu_torch.core.odb import ObjectMissing
-from kart_tpu_torch.core.repo import InvalidOperation, NotYetImplemented
+from kart_tpu_torch.core.repo import InvalidOperation, NotFound, NotYetImplemented
 from kart_tpu_torch.diff.engine import (
     get_dataset_diff,
     get_dataset_feature_count_fast,
@@ -113,8 +116,10 @@ class BaseDiffWriter:
         self.patch_type = patch_type
         self.include_patch_header = include_patch_header
         self.repo_key_filter = RepoKeyFilter.build_from_user_patterns(user_key_filters)
-        self.base_rs, self.target_rs = self.parse_diff_commit_spec(repo, commit_spec)
+        self.base_rs, self.target_rs, self.working_copy = self.parse_diff_commit_spec(
+            repo, commit_spec)
         self.has_changes = False
+        self.spatial_filter_pk_conflicts = {}
         # the repo's spatial filter: diffs show only the deltas that match it
         self.spatial_filter_spec = repo.spatial_filter_spec()
         self._ds_sf_cache = {}
@@ -137,21 +142,28 @@ class BaseDiffWriter:
 
     @classmethod
     def parse_diff_commit_spec(cls, repo, commit_spec):
-        """'A..B' or 'A...B' -> (base_rs, target_rs). ``A..B`` diffs from
-        merge-base(A, B), as git log reads it."""
+        """'A..B', 'A...B', 'A' or '' -> (base_rs, target_rs, working_copy).
+        ``A..B`` diffs from merge-base(A, B), as git log reads it; 'A' (and
+        '', HEAD) diffs A against the working copy, which must hold HEAD's
+        tree."""
         parts = re.split(r"(\.{2,3})", commit_spec or "HEAD")
-        if len(parts) != 3:
-            raise NotYetImplemented(
-                "working-copy diffs are not ported: give two revisions (eg HEAD^...HEAD)"
-            )
+        if len(parts) == 3:
+            base_rs = repo.structure(parts[0] or "HEAD")
+            target_rs = repo.structure(parts[2] or "HEAD")
+            if parts[1] == "..":
+                ancestor = repo.merge_base(base_rs.commit_oid, target_rs.commit_oid)
+                if ancestor is None:
+                    raise InvalidOperation("No common ancestor found — try the ... operator")
+                base_rs = repo.structure(ancestor)
+            return base_rs, target_rs, None
         base_rs = repo.structure(parts[0] or "HEAD")
-        target_rs = repo.structure(parts[2] or "HEAD")
-        if parts[1] == "..":
-            ancestor = repo.merge_base(base_rs.commit_oid, target_rs.commit_oid)
-            if ancestor is None:
-                raise InvalidOperation("No common ancestor found — try the ... operator")
-            base_rs = repo.structure(ancestor)
-        return base_rs, target_rs
+        target_rs = repo.structure("HEAD")
+        working_copy = repo.working_copy
+        if working_copy is None:
+            raise NotFound("No working copy — diff between commits requires two revisions "
+                           "(eg HEAD^...HEAD)")
+        working_copy.assert_db_tree_match(target_rs.tree_oid)
+        return base_rs, target_rs, working_copy
 
     @property
     def all_ds_paths(self):
@@ -163,12 +175,37 @@ class BaseDiffWriter:
     def get_repo_diff(self):
         return get_repo_diff(self.base_rs, self.target_rs,
                              repo_key_filter=self.repo_key_filter, device=self.device,
-                             spatial_filter_spec=self.spatial_filter_spec)
+                             spatial_filter_spec=self.spatial_filter_spec,
+                             include_wc_diff=self.working_copy is not None,
+                             working_copy=self.working_copy)
 
     def get_ds_diff(self, ds_path):
         return get_dataset_diff(self.base_rs, self.target_rs, ds_path,
                                 ds_filter=self.repo_key_filter[ds_path], device=self.device,
-                                spatial_filter_spec=self.spatial_filter_spec)
+                                spatial_filter_spec=self.spatial_filter_spec,
+                                include_wc_diff=self.working_copy is not None,
+                                working_copy=self.working_copy)
+
+    def write_warnings_footer(self):
+        """On stderr, the working copy's inserted rows whose pks features
+        outside the spatial filter hold (a commit would overwrite them)."""
+        if self.working_copy is not None:
+            for ds_path, pks in self.working_copy.spatial_filter_pk_conflicts.items():
+                if pks:
+                    existing = self.spatial_filter_pk_conflicts.setdefault(ds_path, [])
+                    existing.extend(pk for pk in pks if pk not in existing)
+        conflicts = self.spatial_filter_pk_conflicts
+        if not any(conflicts.values()):
+            return
+        print("Warning: Some primary keys of newly-inserted features in the working copy "
+              "conflict with features outside the spatial filter - if committed, they would "
+              "overwrite those features.", file=sys.stderr)
+        for ds_path, pks in conflicts.items():
+            if pks:
+                shown = ", ".join(str(pk) for pk in pks[:50])
+                more = f", (... {len(pks) - 50} more)" if len(pks) > 50 else ""
+                print(f"  In dataset {ds_path} the conflicting primary key values are: "
+                      f"{shown}{more}", file=sys.stderr)
 
     def _ds_spatial_filter(self, ds_path):
         """The dataset's SpatialFilter (the filter in the dataset's CRS), or
@@ -298,6 +335,7 @@ class BaseDiffWriter:
             if ds_diff:
                 self._mark_ds_changes(ds_diff)
                 self.write_ds_diff(ds_path, ds_diff)
+        self.write_warnings_footer()
         return self.has_changes
 
     def write_header(self):
@@ -439,6 +477,7 @@ class JsonDiffWriter(BaseDiffWriter):
         if self.include_patch_header:
             output["kart.patch/v1"] = self.patch_header()
         self.fp = dump_json_output(output, self.output_path, json_style=self.json_style)
+        self.write_warnings_footer()
         return self.has_changes
 
     def patch_header(self):
@@ -514,14 +553,15 @@ class JsonLinesDiffWriter(BaseDiffWriter):
             if ds_diff:
                 self._mark_ds_changes(ds_diff)
                 self.write_ds_diff(ds_path, ds_diff)
+        self.write_warnings_footer()
         return self.has_changes
 
     def _write_ds_fast(self, ds_path):
         """The fused row route for one dataset; True when it handled it. It
         has no per-value residue and no reprojection, so a spatial filter
         or ``--crs`` takes the delta route."""
-        if (self.spatial_filter_spec is not None or not self.repo_key_filter.match_all
-                or self.target_crs is not None):
+        if (self.working_copy is not None or self.spatial_filter_spec is not None
+                or not self.repo_key_filter.match_all or self.target_crs is not None):
             return False
         rows = get_feature_diff_rows(self.base_rs, self.target_rs, ds_path, self.device)
         if rows is None:
@@ -637,6 +677,7 @@ class GeojsonDiffWriter(BaseDiffWriter):
             fp = dump_json_output(collection, path, json_style=self.json_style)
             if fp is not sys.stdout and fp is not out:
                 fp.close()
+        self.write_warnings_footer()
         return self.has_changes
 
 
@@ -660,7 +701,7 @@ class FeatureCountDiffWriter(BaseDiffWriter):
         self.fp = resolve_output_path(self.output_path)
         for ds_path in self.all_ds_paths:
             count = None
-            if self.repo_key_filter.match_all:
+            if self.working_copy is None and self.repo_key_filter.match_all:
                 count = get_dataset_feature_count_fast(
                     self.base_rs, self.target_rs, ds_path, self.device,
                     spatial_filter_spec=self.spatial_filter_spec)
@@ -673,6 +714,7 @@ class FeatureCountDiffWriter(BaseDiffWriter):
             if count:
                 self.has_changes = True
                 self.fp.write(f"{ds_path}:\n\t{count} features changed\n")
+        self.write_warnings_footer()
         return self.has_changes
 
 
@@ -747,4 +789,5 @@ class HtmlDiffWriter(BaseDiffWriter):
         self.fp.write(_HTML_TEMPLATE.format(data=json.dumps(all_data)))
         if hasattr(self.fp, "name"):
             print(f"Wrote {self.fp.name}", file=sys.stderr)
+        self.write_warnings_footer()
         return self.has_changes

@@ -8,8 +8,9 @@ spatial filter need: :class:`Geometry` with its header readers, ``of``,
 :class:`GeomValue` with ``parse_wkb``/``write_wkb``, ``parse_wkt``/
 ``write_wkt`` and ``wkb_envelope``; GeoJSON (``to_geojson``,
 :func:`geojson_to_geometry`) and ``to_coords``/``_build_gpkg`` for
-reprojection; and :func:`gpkg_hex_wkb` (the fused blob->JSON path). EWKB
-and normalisation are not ported.
+reprojection; :func:`gpkg_hex_wkb` (the fused blob->JSON path); and
+``with_crs_id`` and ``normalised``, which a working copy and an import
+need. EWKB is not ported.
 
 Canonical storage form: little-endian header and WKB, srs_id 0, an XY
 envelope for everything but points and empties (XYZ with Z).
@@ -147,6 +148,14 @@ class Geometry(bytes):
     def crs_id(self):
         return struct.unpack_from("<i" if self.is_little_endian else ">i", self, 4)[0]
 
+    def with_crs_id(self, crs_id):
+        """A copy with the srs_id header field set (storage holds 0; a
+        working copy holds the real id)."""
+        if crs_id == self.crs_id:
+            return self
+        fmt = "<i" if self.is_little_endian else ">i"
+        return Geometry(self[:4] + struct.pack(fmt, crs_id) + self[8:])
+
     @property
     def geometry_type(self):
         return flatten_type(self._wkb_type())
@@ -158,6 +167,14 @@ class Geometry(bytes):
     def _wkb_type(self):
         off = self.wkb_offset
         return struct.unpack_from("<I" if self[off] else ">I", self, off + 1)[0]
+
+    @property
+    def has_z(self):
+        return type_has_z(self._wkb_type())
+
+    @property
+    def has_m(self):
+        return type_has_m(self._wkb_type())
 
     # -- conversions ---------------------------------------------------------
 
@@ -249,6 +266,21 @@ class Geometry(bytes):
         if env is None:
             return None
         return env[:4] if only_xy else env
+
+    def normalised(self):
+        """The canonical storage form; self when it is canonical already."""
+        if self.flags & LE_BIT:
+            off = self.wkb_offset
+            if self[off] == 1 and self.envelope_kind == self._wanted_envelope_kind():
+                if self[4:8] == b"\x00\x00\x00\x00":
+                    return self
+                return Geometry(self[:4] + b"\x00\x00\x00\x00" + self[8:])
+        return _build_gpkg(parse_wkb(bytes(self[self.wkb_offset :])), crs_id=0)
+
+    def _wanted_envelope_kind(self):
+        if self.is_empty or self.geometry_type == POINT:
+            return ENVELOPE_NONE
+        return ENVELOPE_XYZ if self.has_z else ENVELOPE_XY
 
 
 # ---------------------------------------------------------------------------

@@ -14,11 +14,11 @@ as ``hash_collision_fallbacks``): a second semantic path, not a fallback
 from the kernel. Its conflict labels are decoded from the paths when they
 are first read (:class:`_DeferredLabels`).
 
-Counterpart of kart_tpu's ``merge/__init__.py``, with two differences of
+Counterpart of kart_tpu's ``merge/__init__.py``, with one difference of
 policy: the classify never falls back (kart_tpu's sharded, streamed and
-host routes of it), and the working copy is never touched. Where kart_tpu
-would reset a working copy, the port raises :class:`NotYetImplemented`
-before it writes anything.
+host routes of it). A merge that commits (a fast-forward, a clean merge,
+``--continue``) writes the new HEAD into the working copy, as kart_tpu
+does (:func:`reset_working_copy`); a merge with conflicts leaves it alone.
 """
 
 import numpy as np
@@ -48,6 +48,7 @@ from kart_tpu_torch.merge.index import (
 from kart_tpu_torch.models.paths import decode_filenames
 from kart_tpu_torch.ops.blocks import FeatureBlock, unpack_oid_hex
 from kart_tpu_torch.ops.merge_kernel import CONFLICT, TAKE_THEIRS, merge_classify
+from kart_tpu_torch.workingcopy import get_working_copy
 
 
 class MergeResult:
@@ -390,10 +391,11 @@ def do_merge(repo, theirs_refish, *, message=None, dry_run=False, ff=True, ff_on
 
     if ancestor_oid == theirs_oid:
         return MergeResult(already_merged=True, commit_oid=ours_oid, dry_run=dry_run)
+    if not dry_run:
+        get_working_copy(repo)  # a location the port cannot update raises before any write
     if ancestor_oid == ours_oid and ff:
         if not dry_run:
-            repo.require_no_working_copy()
-            _update_head_to(repo, theirs_oid)
+            _update_head_to(repo, theirs_oid, device)
         return MergeResult(commit_oid=theirs_oid, fast_forward=True, dry_run=dry_run)
     if ff_only:
         raise InvalidOperation("Can't resolve as a fast-forward merge and --ff-only specified")
@@ -408,7 +410,6 @@ def do_merge(repo, theirs_refish, *, message=None, dry_run=False, ff=True, ff_on
     if conflicts:
         merge_index = MergeIndex(merged_tree, conflicts)
         if not dry_run:
-            repo.require_no_working_copy()
             merge_index.write_to_repo(repo)
             repo.write_gitdir_file(MERGE_HEAD, theirs_oid)
             repo.write_gitdir_file(MERGE_MSG, message)
@@ -418,12 +419,12 @@ def do_merge(repo, theirs_refish, *, message=None, dry_run=False, ff=True, ff_on
                            merging=not dry_run, merged_tree=merged_tree)
     if dry_run:
         return MergeResult(dry_run=True, stats=stats, merged_tree=merged_tree)
-    repo.require_no_working_copy()
     commit_oid = _create_merge_commit(repo, merged_tree, message, [ours_oid, theirs_oid])
+    reset_working_copy(repo, device)
     return MergeResult(commit_oid=commit_oid, stats=stats, merged_tree=merged_tree)
 
 
-def complete_merging_state(repo, *, message=None):
+def complete_merging_state(repo, *, message=None, device=None):
     """``kart merge --continue``: commit the resolved merge."""
     if repo.state != KartRepoState.MERGING:
         raise InvalidOperation("No merge is ongoing")
@@ -433,13 +434,14 @@ def complete_merging_state(repo, *, message=None):
         raise InvalidOperation(
             f"Merge is not yet complete - {len(unresolved)} conflicts "
             'still need resolving. See "kart conflicts" / "kart resolve"')
-    repo.require_no_working_copy()
+    get_working_copy(repo)  # a location the port cannot update raises before any write
     theirs_oid = repo.read_gitdir_file(MERGE_HEAD).strip()
     message = message or repo.read_gitdir_file(MERGE_MSG) or "Merge"
     final_tree = merge_index.write_resolved_tree(repo.odb)
     commit_oid = _create_merge_commit(repo, final_tree, message,
                                       [repo.head_commit_oid, theirs_oid])
     abort_merging_state(repo)
+    reset_working_copy(repo, device)
     return commit_oid
 
 
@@ -466,12 +468,21 @@ def _branch_shorthand(refish, ref):
     return None
 
 
-def _update_head_to(repo, commit_oid):
+def _update_head_to(repo, commit_oid, device=None):
     branch = repo.head_branch
     if branch:
         repo.refs.set(branch, commit_oid, log_message="merge: fast-forward")
     else:
         repo.refs.set_head(commit_oid, log_message="merge: fast-forward")
+    reset_working_copy(repo, device)
+
+
+def reset_working_copy(repo, device=None):
+    """Write HEAD's tree into the working copy, when there is one (a forced
+    reset: no classify)."""
+    wc = get_working_copy(repo, device=device)
+    if wc is not None:
+        wc.reset(RepoStructure(repo, "HEAD"), force=True)
 
 
 def _create_merge_commit(repo, tree_oid, message, parents):

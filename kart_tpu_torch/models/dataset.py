@@ -19,8 +19,8 @@ datasets, and the write side of a commit: ``encode_meta_item`` and
 dataset's diff through a tree builder with kart_tpu's conflict checks and
 ``PatchApplyError`` texts. ``Dataset2`` with ``dataset_class_for_version``
 covers a V2 repository's ``.sno-dataset`` trees, read and written as V3
-in the legacy hashed layout. Import iterators and spatially filtered
-feature streams are not ported.
+in the legacy hashed layout. ``features`` streams a dataset's features
+(spatially filtered, promised blobs skipped) for a working copy's checkout.
 """
 
 import json
@@ -28,7 +28,7 @@ from json.encoder import encode_basestring_ascii
 
 import numpy as np
 
-from kart_tpu_torch.core.odb import ObjectMissing, TreeView
+from kart_tpu_torch.core.odb import ObjectMissing, ObjectPromised, TreeView
 from kart_tpu_torch.core.serialise import (
     ensure_bytes,
     ensure_text,
@@ -385,6 +385,40 @@ class Dataset3:
     def feature_count(self):
         feature_tree = self.feature_tree
         return 0 if feature_tree is None else sum(1 for _ in feature_tree.walk_blobs())
+
+    #: feature blobs :meth:`features` reads a batch
+    FEATURE_READ_CHUNK = 10000
+
+    def features(self, spatial_filter=None, skip_promised=False):
+        """Every feature, in tree order, from one walk of the feature tree
+        and batched blob reads. ``spatial_filter`` drops the features it
+        does not match; with ``skip_promised`` a promised (out-of-filter)
+        blob is skipped instead of raising."""
+        feature_tree = self.feature_tree
+        if feature_tree is None:
+            return
+        odb = feature_tree.odb
+        paths, pk_arr, oids_u8 = self.feature_index()
+        hexes = oids_u8.tobytes().hex()
+        pks = pk_arr.tolist() if pk_arr is not None else None
+        for start in range(0, len(paths), self.FEATURE_READ_CHUNK):
+            stop = min(start + self.FEATURE_READ_CHUNK, len(paths))
+            oids = [hexes[40 * i : 40 * i + 40] for i in range(start, stop)]
+            batch = odb.read_blobs_batch(oids)
+            for i, oid in zip(range(start, stop), oids):
+                pk_values = (pks[i],) if pks is not None else self.decode_path_to_pks(paths[i])
+                data = batch.get(oid)
+                try:
+                    if data is None:
+                        data = odb.read_blob(oid)
+                    feature = self.get_feature(pk_values, data=data)
+                except ObjectPromised:
+                    if skip_promised:
+                        continue
+                    raise
+                if spatial_filter is not None and not spatial_filter.matches(feature):
+                    continue
+                yield feature
 
     def encode_feature(self, feature, schema=None, *, relative=False):
         """Name-keyed feature -> (its blob path, full or relative to the

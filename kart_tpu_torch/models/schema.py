@@ -6,7 +6,8 @@ decodes a stored row: the pk column ids and the non-pk column ids; each
 feature blob names its legend by truncated sha256.
 
 Counterpart of kart_tpu's ``models/schema.py``: ``Legend``,
-``ColumnSchema``, ``Schema`` with ``encode_feature_blob`` and the row
+``ColumnSchema`` (with ``new_id`` and ``deterministic_id``), ``Schema``
+with ``encode_feature_blob``, ``encode_feature``, ``hash_feature`` and the row
 conversions, ``sanitise_pks``, the schema comparisons the write path uses
 (``is_pk_compatible``, ``diff_types``, ``diff_type_counts``,
 ``align_to_self`` with ``DefaultRoundtripContext``) and the value
@@ -14,10 +15,12 @@ validation of a commit (``validate_feature``, ``find_column_violation``
 and one ``_check_<type>`` a constrained type), with kart_tpu's messages.
 """
 
+import hashlib
 import re
+import uuid
 from dataclasses import dataclass, field
 
-from kart_tpu_torch.core.serialise import hexhash, json_pack, msg_pack, msg_unpack
+from kart_tpu_torch.core.serialise import _sha256_of, hexhash, json_pack, msg_pack, msg_unpack
 from kart_tpu_torch.geometry import Geometry
 
 # Python types a stored (msgpack) value may have, per data type
@@ -70,6 +73,16 @@ class ColumnSchema:
     data_type: str
     pk_index: object = None
     extra_type_info: dict = field(default_factory=dict)
+
+    @staticmethod
+    def new_id():
+        return str(uuid.uuid4())
+
+    @staticmethod
+    def deterministic_id(*parts):
+        """A column id that the same parts (a source path, a table, a
+        column name) always give."""
+        return str(uuid.UUID(bytes=_sha256_of(*parts).digest()[:16]))
 
     @classmethod
     def from_dict(cls, d):
@@ -148,6 +161,22 @@ class Schema:
         pk_values = tuple(raw[c] for c in self.legend.pk_columns)
         non_pk_values = tuple(raw[c] for c in self.legend.non_pk_columns)
         return pk_values, msg_pack([self.legend_hash, non_pk_values])
+
+    def encode_feature(self, feature, without_pk=False):
+        """A feature's self-contained binary form, for hashing its content."""
+        raw = {c.id: feature[c.name] for c in self.columns}
+        pk_values = tuple(raw[c] for c in self.legend.pk_columns)
+        non_pk_values = tuple(raw[c] for c in self.legend.non_pk_columns)
+        data = ([self.legend_hash, non_pk_values] if without_pk
+                else [self.legend_hash, pk_values, non_pk_values])
+        return msg_pack(data)
+
+    def hash_feature(self, feature, without_pk=False):
+        """The git blob hash of :meth:`encode_feature`'s bytes."""
+        data = self.encode_feature(feature, without_pk=without_pk)
+        h = hashlib.sha1(b"blob %d\x00" % len(data))
+        h.update(data)
+        return h.hexdigest()
 
     def __getitem__(self, col_id):
         for c in self.columns:

@@ -202,6 +202,14 @@ class SpatialFilter:
                     return cls.MATCH_ALL
         return cls((x0, x1, y0, y1), geom_col, parts)
 
+    def matches(self, feature):
+        """True when ``feature`` matches; a promised geometry raises
+        ObjectPromised."""
+        result = self.match_result(feature)
+        if result is MatchResult.PROMISED:
+            raise ObjectPromised("<feature geometry>")
+        return result is MatchResult.MATCHED
+
     def match_result(self, feature) -> MatchResult:
         if self.match_all:
             return MatchResult.MATCHED

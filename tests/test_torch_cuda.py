@@ -1388,3 +1388,87 @@ def test_mesh_shard_failure_raises_on_the_card(cuda, monkeypatch):
     old, new = _stream_blocks("edited", 200_000)
     with pytest.raises(_build.KernelLaunchError, match="shard 1"):
         diff_kernel.classify_blocks_streamed(old, new, cuda, mesh=[cuda] * 2)
+
+
+def test_working_copy_switch_and_merge_on_card_match_cpu(cuda, tmp_path, monkeypatch):
+    """The edit loop on the card: ``init --import`` (its sidecar captured),
+    an edit committed through the working copy, ``switch -c b HEAD^`` (a
+    reset without ``--force``: one K1 launch) and ``merge`` (one K4), each
+    working copy equal to the one ``--device cpu`` writes on a copy."""
+    import contextlib
+    import hashlib
+    import io
+    import os
+    import shutil
+    import sqlite3
+
+    import struct
+
+    from kart_tpu_torch.cli import main as port_main
+    from kart_tpu_torch.crs import make_crs
+    from kart_tpu_torch.workingcopy.gpkg import _register_gpkg_functions
+
+    monkeypatch.setenv("GIT_AUTHOR_DATE", "1700000000 +0000")
+    monkeypatch.setenv("GIT_COMMITTER_DATE", "1700000000 +0000")
+    src = str(tmp_path / "points.gpkg")
+    con = sqlite3.connect(src)
+    con.executescript(
+        "CREATE TABLE gpkg_contents (table_name TEXT PRIMARY KEY, data_type TEXT, "
+        "identifier TEXT, description TEXT, last_change DATETIME, min_x DOUBLE, "
+        "min_y DOUBLE, max_x DOUBLE, max_y DOUBLE, srs_id INTEGER);"
+        "CREATE TABLE gpkg_geometry_columns (table_name TEXT, column_name TEXT, "
+        "geometry_type_name TEXT, srs_id INTEGER, z TINYINT, m TINYINT);"
+        "CREATE TABLE gpkg_spatial_ref_sys (srs_name TEXT, srs_id INTEGER PRIMARY KEY, "
+        "organization TEXT, organization_coordsys_id INTEGER, definition TEXT, "
+        "description TEXT);"
+        "CREATE TABLE points (fid INTEGER PRIMARY KEY AUTOINCREMENT NOT NULL, geom POINT, "
+        "name TEXT, rating REAL);"
+        "INSERT INTO gpkg_contents (table_name, data_type, identifier, srs_id) "
+        "VALUES ('points', 'features', 'points', 4326);"
+        "INSERT INTO gpkg_geometry_columns VALUES ('points', 'geom', 'POINT', 4326, 0, 0);")
+    con.execute("INSERT INTO gpkg_spatial_ref_sys VALUES ('WGS 84', 4326, 'EPSG', 4326, ?, NULL)",
+                (make_crs("EPSG:4326").wkt,))
+    con.executemany("INSERT INTO points VALUES (?, ?, ?, ?)", [
+        (i, b"GP\x00\x01" + struct.pack("<i", 4326) + struct.pack("<BI2d", 1, 1, i / 100, 1.0),
+         f"p{i}", i / 2) for i in range(1, 12_001)])
+    con.commit()
+    con.close()
+    card = str(tmp_path / "card" / "repo")
+
+    def run(*argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+            assert port_main(list(argv)) == 0, argv
+        return buf.getvalue()
+
+    def edit(path, sql):
+        con = sqlite3.connect(os.path.join(path, "wc.gpkg"))
+        _register_gpkg_functions(con)
+        con.executescript(sql)
+        con.commit()
+        con.close()
+
+    def digest(path):
+        con = sqlite3.connect(os.path.join(path, "wc.gpkg"))
+        rows = con.execute("SELECT * FROM points ORDER BY fid").fetchall()
+        con.close()
+        return hashlib.sha256(repr(rows).encode()).hexdigest()
+
+    run("init", "--import", src, "--workingcopy-location", "wc.gpkg", card)
+    edit(card, "UPDATE points SET name = 'main' WHERE fid < 50;")
+    run("-C", card, "commit", "-m", "main edit")
+    cpu = str(tmp_path / "cpu" / "repo")
+    shutil.copytree(card, cpu)
+    outs = {}
+    for path, pre, k1, k4 in ((card, [], 1, 1), (cpu, ["--device", "cpu"], 0, 0)):
+        runtime.reset_stats()
+        out = run(*pre, "-C", path, "switch", "-c", "b", "HEAD^")
+        assert runtime.stats_snapshot()["classify_launches"] == k1
+        outs.setdefault(path, []).append((out, digest(path)))
+        edit(path, "UPDATE points SET rating = -1 WHERE fid > 11000;")
+        run(*pre, "-C", path, "commit", "-m", "b edit")
+        run(*pre, "-C", path, "switch", "main")
+        runtime.reset_stats()
+        outs[path].append((run(*pre, "-C", path, "merge", "b"), digest(path)))
+        assert runtime.stats_snapshot()["merge_classify_launches"] == k4
+    assert outs[card] == outs[cpu]

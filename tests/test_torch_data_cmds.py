@@ -258,29 +258,38 @@ def test_usage_and_group_help(bases, argv):
 
 
 @pytest.mark.parametrize("argv,code", [
-    (["meta", "set", "points", "title=WC"], 30),
-    (["commit-files", "-m", "x", "a.txt=1"], 30),
-    (["commit-files", "-m", "x", "--ref", "main", "a.txt=1"], 30),
+    (["meta", "set", "points", "title=WC"], 0),
+    (["commit-files", "-m", "x", "a.txt=1"], 0),
+    (["commit-files", "-m", "x", "--ref", "main", "a.txt=1"], 0),
     (["commit-files", "-m", "x", "--ref", "side", "a.txt=1"], 0),
     (["meta", "set", "nosuch", "title=x"], 2),
 ])
 def test_working_copy(bases, tmp_path, argv, code):
-    """With a GPKG working copy: where kart_tpu would update it after the
-    commit, the port exits 30 and writes nothing; otherwise it does what
-    kart_tpu does."""
+    """With a GPKG working copy holding an edit: where the commit moves
+    HEAD the working copy moves to it without ``--force``; ``commit-files``
+    keeps the edit (kart_tpu's
+    ``test_commit_files_preserves_wc_edits_and_validates``), ``meta set``
+    writes its dataset again, as kart_tpu does; kart_tpu's outputs, exit
+    code and gitdir files, and the same rows in every table of the copy."""
+    from test_torch_workingcopy import edit, wc_tables
+
     src = shutil.copytree(bases["two"], str(tmp_path / "src"))
     repo = JRepo(src)
     repo.refs.set("refs/heads/side", repo.resolve_refish("HEAD^")[0])
+    kpath = shutil.copytree(src, str(tmp_path / "k"))
     ppath = shutil.copytree(src, str(tmp_path / "p"))
-    for path in (src, ppath):  # the working copy is found by the workdir's name
+    for path in (kpath, ppath):  # the working copy is found by the workdir's name
         r = CliRunner().invoke(kart_cli, ["-C", path, "create-workingcopy"])
         assert r.exit_code == 0, r.output
-    if code != 30:
-        ref = _kart(["-C", src, *argv])
-        assert _port(["--device", "cpu", "-C", ppath, *argv]) == ref
-        return
-    before = _snapshot(ppath)
-    rc, out, err = _port(["--device", "cpu", "-C", ppath, *argv])
-    assert (rc, out) == (30, "") and err.startswith("Error: Updating the working copy (")
-    assert _snapshot(ppath) == before
-    assert _kart(["-C", src, *argv])[0] == 0  # kart_tpu commits and updates its copy
+    edit(os.path.join(kpath, "k.gpkg"), "UPDATE points SET name = 'keepme' WHERE fid = 6;",
+         port_side=False)
+    edit(os.path.join(ppath, "p.gpkg"), "UPDATE points SET name = 'keepme' WHERE fid = 6;",
+         port_side=True)
+    ref = _kart(["-C", kpath, *argv])
+    got = _port(["--device", "cpu", "-C", ppath, *argv])
+    assert got == ref and got[0] == code, (ref, got)
+    assert _snapshot(ppath) == _snapshot(kpath)
+    assert wc_tables(os.path.join(ppath, "p.gpkg")) == wc_tables(os.path.join(kpath, "k.gpkg"))
+    ref = _kart(["-C", kpath, "diff"])
+    assert _port(["--device", "cpu", "-C", ppath, "diff"]) == ref
+    assert ("keepme" in ref[1]) == (argv[:2] != ["meta", "set"] or code != 0)

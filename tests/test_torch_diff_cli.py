@@ -26,6 +26,7 @@ from helpers import edit_commit, make_imported_repo, make_repo_with_edits
 from kart_tpu.cli import cli as kart_cli
 from kart_tpu.cli import entrypoint as kart_entrypoint
 from kart_tpu.core.repo import KartRepo as JRepo
+from kart_tpu.core.repo import NotFound as JNotFound
 from kart_tpu.diff import sidecar as jsidecar
 from kart_tpu.synth import synth_repo as jsynth_repo
 from kart_tpu_torch.cli import main as port_main
@@ -346,20 +347,20 @@ def projected_repo(tmp_path_factory):
     ["nztm", "show", "--crs", "EPSG:4326"],
 ])
 def test_not_ported_yet_is_a_named_error(repos, projected_repo, opts, capsys):
-    """A working-copy diff is not ported: it exits 30 with a named error
-    (kart_tpu's NOT_YET_IMPLEMENTED code), never a partial output. A
-    projected ``--crs`` target or dataset CRS prints kart_tpu's bytes and
-    exit code (the name is kept from when the port refused those too)."""
+    """A working-copy diff of a repository without one, a projected
+    ``--crs`` target and a dataset CRS: kart_tpu's bytes and exit code (the
+    name is kept from when the port refused them)."""
     path = repos[("points", "columnar")][0]
     if opts[0] == "nztm":
         path, opts = projected_repo, opts[1:]
     rc = port_main(["--device", "cpu", "-C", path, *opts])
     got = capsys.readouterr()
-    if opts == ["diff", "-o", "json", "HEAD"]:
-        assert rc == 30 and got.out == "" and got.err.startswith("Error: ")
-        assert "not ported" in got.err
-        return
     ref = CliRunner().invoke(kart_cli, ["-C", path, *opts])
+    if opts == ["diff", "-o", "json", "HEAD"]:
+        # no working copy: kart_tpu's entry point prints the NotFound, exit 40
+        assert isinstance(ref.exception, JNotFound)
+        assert (rc, got.out, got.err) == (40, ref.stdout, f"Error: {ref.exception}\n")
+        return
     assert ref.exception is None or isinstance(ref.exception, SystemExit), ref.exception
     assert (rc, got.out) == (ref.exit_code, ref.stdout)
     assert rc == 0 and got.out.strip()

@@ -407,21 +407,37 @@ def test_conflicted_merge_writes_json_index(base_repo, tmp_path):
     assert len(labels) == 8 and f"synth:feature:{BASE_PK + N + 6}" in labels
 
 
-def _not_yet(path, argv):
-    before = _state(path)
-    rc, out, err = _run_port(["--device", "cpu", "-C", path, *argv])
-    assert rc == 30 and out == "" and err.startswith("Error: "), (rc, out, err)
-    assert _state(path) == before
+def _merge_with_working_copies(kpath, ppath, argv):
+    """``argv`` in both copies, each with a working copy kart_tpu wrote:
+    equal outputs, refs and MERGE_* files, and the same rows in every
+    table of the copies."""
+    from test_torch_workingcopy import wc_tables
+
+    ref = CliRunner().invoke(kart_cli, ["-C", kpath, *argv])
+    assert ref.exception is None or isinstance(ref.exception, SystemExit), ref.exception
+    got = _run_port(["--device", "cpu", "-C", ppath, *argv])
+    assert got == (ref.exit_code, ref.stdout, ref.stderr), (argv, got)
+    assert _state(ppath) == _state(kpath)
+    assert wc_tables(os.path.join(ppath, "p.gpkg")) == wc_tables(os.path.join(kpath, "k.gpkg"))
 
 
-def test_working_copy_not_ported_yet(base_repo, tmp_path):
-    """A repository with a GPKG working copy: the port refuses a merge that
-    would update it, before writing anything (exit 30)."""
-    kpath, ppath = _copies(base_repo, tmp_path, setup_clean)
-    r = CliRunner().invoke(kart_cli, ["-C", ppath, "create-workingcopy"])
-    assert r.exit_code == 0, r.output
-    _not_yet(ppath, ["merge", "theirs"])
-    _not_yet(ppath, ["merge", "theirs", "--no-ff", "-o", "json"])
+@pytest.mark.parametrize("setup", [setup_clean, setup_conflict], ids=["clean", "conflict"])
+def test_working_copy_not_ported_yet(base_repo, tmp_path, setup):
+    """A repository with a GPKG working copy: both merges as kart_tpu makes
+    them; a clean one writes the merge commit into the copy, a conflicted
+    one leaves it alone until ``--abort`` (the name is kept from when the
+    port refused them)."""
+    kpath, ppath = _copies(base_repo, tmp_path, setup)
+    for path in (kpath, ppath):
+        r = CliRunner().invoke(kart_cli, ["-C", path, "create-workingcopy"])
+        assert r.exit_code == 0, r.output
+    _merge_with_working_copies(kpath, ppath, ["merge", "theirs"])
+    if setup is setup_conflict:
+        _merge_with_working_copies(kpath, ppath, ["merge", "--abort"])
+    else:
+        _merge_with_working_copies(kpath, ppath, ["reset", "--discard-changes", "HEAD^"])
+    _merge_with_working_copies(kpath, ppath, ["merge", "theirs", "--no-ff", "-o", "json"])
+    _merge_with_working_copies(kpath, ppath, ["status"])
 
 
 def _text_pk_repo(tmp_path, n=20):

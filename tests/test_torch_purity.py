@@ -67,14 +67,17 @@ def test_no_jax_or_kart_tpu_imports(path):
 def test_walk_reaches_every_package():
     dirs = {os.path.relpath(os.path.dirname(f), PKG) for f in _port_files()[1:]}
     assert {".", "core", "models", "cli", "diff", "ops", "spatial_filter", "tiles",
-            "events", "parallel"} <= dirs
+            "events", "parallel", "adapters", "workingcopy", "importer"} <= dirs
     assert {"kart_tpu_torch.cli.diff_cmds", "kart_tpu_torch.core.msgpack",
             "kart_tpu_torch.__main__", "kart_tpu_torch.crs", "kart_tpu_torch.epsg",
             "kart_tpu_torch.geom", "kart_tpu_torch.tiles.streams", "kart_tpu_torch.gridshift",
             "kart_tpu_torch.cli.spatial_cmds", "kart_tpu_torch.events.cdc",
             "kart_tpu_torch.cli.data_cmds", "kart_tpu_torch.parallel",
             "kart_tpu_torch.parallel.mesh", "kart_tpu_torch.parallel.sharded_diff",
-            "kart_tpu_torch.parallel.sharded_merge"} <= set(_modules())
+            "kart_tpu_torch.parallel.sharded_merge", "kart_tpu_torch.adapters.gpkg",
+            "kart_tpu_torch.workingcopy.gpkg", "kart_tpu_torch.importer.importer",
+            "kart_tpu_torch.importer.pk_generation", "kart_tpu_torch.cli.repo_cmds",
+            "kart_tpu_torch.cli.ref_cmds"} <= set(_modules())
 
 
 def test_imports_with_jax_and_kart_tpu_blocked():
