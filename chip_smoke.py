@@ -9,9 +9,10 @@ kernel against its plain PyTorch version.
                           [--text-rows 1000000] [--text-merge-rows 200000] [--seed 0]
                           [--stream-rows 100000000] [--crossover-rows 1000000,...]
                           [--crossover-reps 3] [--chunk-sweep 2000000,...]
-                          [--history-commits 6] [--wc-rows 100000]
+                          [--history-commits 6] [--wc-rows 100000] [--remote-rows 50000]
                           [--k4-only | --hash-only | --query-only | --kernels-only |
-                           --tiles-only | --history-only | --stream-only | --wc-only]
+                           --tiles-only | --history-only | --stream-only | --wc-only |
+                           --remote-only]
 
 Run from the repository root on a machine with an sm_90 (Hopper) card and
 the CUDA toolkit; the kernels are built from ``kart_tpu_torch/csrc`` on
@@ -325,6 +326,26 @@ E3. ``switch -c side HEAD^`` (a reset without ``--force``: one K1; K1's
    HEAD^`` and, after a delete, ``restore``, each to its truth; the switches,
    the side commit and the merge again with ``--device cpu`` on a copy of the
    repository made before them: equal stdout sha256 and working copies
+R1. (after E3) a real-blob point layer of [11i]'s kind at ``--remote-rows``
+   and its envelope index, then ``kart clone --no-checkout`` (no launch; refs and object
+   set equal to the source's reachable set), then ``clone
+   --spatial-filter`` of [12]'s rectangle with a GPKG working copy on the
+   card (one K3 over the source's index) and with ``--device cpu``: the
+   absent blobs exactly the seed's out-of-filter rows' (within 0.001
+   degrees of the edge, K3's plain verdict), equal objects, config and
+   working-copy digest, the digest equal to the in-filter truth
+R2. in the filtered clone: 0.1% of the in-filter rows moved through a
+   client's connection, ``commit``, ``push``; a rewritten commit refused
+   without ``--force`` (exit 2, kart_tpu's message), then pushed with it;
+   ``events.cdc.dirty_tiles`` over the pushed range on the source (one K1 on
+   the tip's derived sidecar) equal to ``device="cpu"``'s
+R3. a local commit in the clone and one on the source (other in-filter rows
+   and out-of-filter rows), ``pull`` (one K3 re-filtering the fetch, one
+   K4, the working copy equal to the merge's truth), ``diff HEAD^...HEAD
+   -o json-lines`` on the card and on a copy with ``--device cpu`` (equal
+   sha256; the out-of-filter rows' promised blobs backfilled), ``tag -m``
+   on the source and ``fetch`` into the full clone (the tag peeled to the
+   source's tip)
 22. each group of phases' host wall (S1-S4 first, [1-6] the build, the data
    and phases 3-6; [12b], [11i], H0-H3 and W1-W3 on their own), the ``kernels`` JSON line
    (K1-K7, K3's figures on [11i]'s index in ``index_envelopes``, each
@@ -346,7 +367,8 @@ way, ``--query-only`` phases 0, 1, 11 and Q1-Q3, ``--kernels-only`` phases 0,
 phases 0, 1, 11, H0-H3 and W1-W2, ``--stream-only``
 phases 0, 1 and S1-S4 (S3 on repositories it builds at ``--repo-rows`` and
 ``--merge-rows``, with the monolithic card and ``--device cpu`` runs of its
-commands made there), ``--wc-only`` phases 0, 1 and E1-E3.
+commands made there), ``--wc-only`` phases 0, 1 and E1-E3, ``--remote-only``
+phases 0, 1 and R1-R3.
 
 To time another checkout's K5 and K6 on the same inputs (a parent commit,
 say), run this script with that checkout's package in its place:
@@ -382,7 +404,7 @@ from kart_tpu_torch.core.feature_tree import (
     plan_feature_tree,
     plan_int_feature_tree,
 )
-from kart_tpu_torch.core.objects import MODE_TREE
+from kart_tpu_torch.core.objects import MODE_TREE, Tag
 from kart_tpu_torch.core.repo import KartConfigKeys, KartRepo
 from kart_tpu_torch.crs import make_crs
 from kart_tpu_torch.core.tree_builder import TreeBuilder
@@ -465,6 +487,7 @@ from kart_tpu_torch.synth import (
     HashedColumns,
     commit_point_edits,
     gnaf_ids,
+    synth_envelopes,
     synth_repo,
     synth_shapes,
     v2_repo,
@@ -2631,6 +2654,345 @@ def index_phases(args, card, launches, dev):
     return k3_index, wall
 
 
+# --- clone, push and pull over a local remote (K3, K4, K1) -------------------
+
+#: [R1]-[R3]'s spatial filter: [12]'s rectangle; its points, and the band
+#: outside it (degrees) where a blob's verdict is K3's plain version's on
+#: the index (the prepass's padding and the index's outward rounding may
+#: keep a point that close to the edge)
+R_FILTER = FILTER_RECT
+R_RECT = (-60.0, -30.0, 60.0, 30.0)
+R_BAND = 1e-3
+R_TABLE = "synth"
+
+
+def all_oids(repo):
+    """Every object id a repository holds, loose and packed."""
+    return {o for i in range(256) for o in repo.odb.find_oids_with_prefix(f"{i:02x}")}
+
+
+def reachable_oids(repo, wants):
+    """The commits, tags, trees and blobs ``wants`` reach (blobs by their
+    tree entries, unread)."""
+    out, trees = set(), []
+    for oid in wants:
+        obj_type, content = repo.odb.read_raw(oid)
+        while obj_type == "tag":
+            out.add(oid)
+            oid = Tag.parse(content).target
+            obj_type, content = repo.odb.read_raw(oid)
+        for c_oid, commit in repo.walk_commits(oid):
+            if c_oid not in out:
+                out.add(c_oid)
+                trees.append(commit.tree)
+    while trees:
+        tree = trees.pop()
+        if tree in out:
+            continue
+        out.add(tree)
+        for e in repo.odb.read_tree_entries(tree):
+            if e.is_tree:
+                trees.append(e.oid)
+            else:
+                out.add(e.oid)
+    return out
+
+
+def r_layer_truth(args, n):
+    """The seed's truth of ``synth_repo(n, spatial=True, blobs="real")``:
+    pks, their points and their ratings at HEAD."""
+    pks = np.arange(1 << 24, (1 << 24) + n, dtype=np.int64)
+    env = synth_envelopes(pks)
+    x, y = env[:, 0].astype(np.float64), env[:, 1].astype(np.float64)
+    n_edits = max(1, int(n * 0.01))
+    edit_rows = np.random.default_rng(args.seed + 1).choice(n, size=n_edits, replace=False)
+    rating_head = pks / 2.0
+    rating_head[edit_rows] = pks[edit_rows].astype(np.float64)
+    return pks, x, y, rating_head
+
+
+def r_outside_by(x, y):
+    """How far (degrees, the larger axis) each point lies outside R_RECT; 0 inside."""
+    w, s, e, n = R_RECT
+    return np.maximum(np.maximum(w - x, x - e), np.maximum(s - y, y - n)).clip(min=0)
+
+
+def r_wc_digest(path):
+    """(rows, sha256 of (fid, rating, x, y) in fid order) of the layer in a
+    GPKG working copy, the point read past any GPKG envelope."""
+    con = sqlite3.connect(path)
+    try:
+        h, n = hashlib.sha256(), 0
+        for fid, rating, geom in con.execute(f"SELECT fid, rating, geom FROM {R_TABLE} "
+                                             "ORDER BY fid"):
+            env = {0: 0, 1: 32, 2: 48, 3: 48, 4: 64}[(geom[3] >> 1) & 7]
+            wkb = geom[8 + env:]
+            x, y = struct.unpack("<dd" if wkb[0] == 1 else ">dd", wkb[5:21])
+            h.update(struct.pack("<qddd", fid, rating, x, y))
+            n += 1
+        return n, h.hexdigest()
+    finally:
+        con.close()
+
+
+def r_truth_digest(rows):
+    """:func:`r_wc_digest` of ``rows`` {fid: (rating, x, y)}, those inside R_RECT."""
+    h, n = hashlib.sha256(), 0
+    for fid in sorted(rows):
+        rating, x, y = rows[fid]
+        if r_outside_by(np.float64(x), np.float64(y)) == 0:
+            h.update(struct.pack("<qddd", fid, rating, x, y))
+            n += 1
+    return n, h.hexdigest()
+
+
+def r_moves(rng, rows, pks, rating, inside):
+    """Moves of ``pks`` by at most 0.05 degrees, kept inside R_RECT where
+    ``inside`` (a row picked more than a degree outside stays far outside):
+    -> {fid: (rating, x, y)}."""
+    out = {}
+    for pk in pks.tolist():
+        _, x, y = rows[pk]
+        dx, dy = rng.uniform(-0.05, 0.05, 2)
+        lo, hi = ((-59.9, -29.9), (59.9, 29.9)) if inside else ((-180, -85), (180, 85))
+        out[pk] = (rating, float(np.clip(x + dx, lo[0], hi[0])),
+                   float(np.clip(y + dy, lo[1], hi[1])))
+    return out
+
+
+def r_edit_wc(path, moves):
+    """Write ``moves`` {fid: (rating, x, y)} through a client's connection."""
+    con = sqlite3.connect(path)
+    _register_gpkg_functions(con)
+    try:
+        con.executemany(f"UPDATE {R_TABLE} SET geom = ?, rating = ? WHERE fid = ?",
+                        [(wc_point(x, y), r, pk) for pk, (r, x, y) in moves.items()])
+        con.commit()
+    finally:
+        con.close()
+
+
+def r_cli(label, launches, *argv, rc_want=0, **want):
+    """One counted CLI call (no K1 unless ``want``) -> (stdout, stderr, wall s)."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        wall = counted(label, lambda: kart_cli(*argv, rc_want=rc_want), launches,
+                       **{"want": 0, **want})[0]
+    return out.getvalue(), err.getvalue(), wall
+
+
+def remote_phases(args, card, launches, dev):
+    """[R1]-[R3]: clone, push and pull over a local remote, the remote an
+    indexed real-blob layer of [11i]'s kind at ``--remote-rows``.
+    -> {step: host wall s}."""
+    os.environ.update(GIT_AUTHOR_DATE=MERGE_DATE, GIT_COMMITTER_DATE=MERGE_DATE)
+    walls = {}
+    rng = np.random.default_rng(args.seed + 20)
+    with tempfile.TemporaryDirectory(prefix="kart_smoke_remote_") as tmp:
+        def link_immutable(a, b):
+            parent = os.path.basename(os.path.dirname(a))
+            return os.link(a, b) if parent in ("pack", "columnar") else shutil.copy2(a, b)
+
+        # ---- R1: a full clone, and filtered clones on the card and the CPU ----
+        t = time.perf_counter()
+        src_path = os.path.join(tmp, "src")
+        src, _ = synth_repo(src_path, args.remote_rows, seed=args.seed, blobs="real",
+                            spatial=True)
+        r_cli("R1", launches, "-C", src_path, "spatial-filter", "index")
+        walls["R1 layer"] = time.perf_counter() - t
+        base, edit = src.odb.read_commit(src.head_commit_oid).parents[0], src.head_commit_oid
+        full_path = os.path.join(tmp, "full")
+        _, _, walls["R1 clone --no-checkout"] = r_cli(
+            "R1", launches, "clone", "--no-checkout", src_path, full_path)
+        full = KartRepo(full_path)
+        want_oids = reachable_oids(src, [edit])
+        check(all_oids(full) == want_oids, "[R1] the full clone's objects differ from the "
+                                           "source's reachable set")
+        check(dict(full.refs.iter_refs("refs/remotes/origin/"))
+              == {"refs/remotes/origin/main": edit} and full.head_commit_oid == edit,
+              "[R1] the full clone's refs differ from the source's")
+        n = args.remote_rows
+        pks, x, y, rating_head = r_layer_truth(args, n)
+        dist = r_outside_by(x, y)
+        rows = {int(pk): (float(r), float(px), float(py))
+                for pk, r, px, py in zip(pks, rating_head, x, y)}
+        by_rev = {}
+        for rev in (base, edit):
+            ds = src.structure(rev).datasets[R_TABLE]
+            paths, rev_pks, blob_oids = ds.feature_index()
+            hexes = blob_oids.tobytes().hex()
+            by_rev[rev] = (paths, rev_pks, [hexes[40 * i: 40 * i + 40] for i in range(len(paths))])
+        band_pairs = []
+        far_out = set()
+        for rev, (paths, rev_pks, oids) in by_rev.items():
+            d = dist[rev_pks - pks[0]]
+            for p, o, di in zip(paths, oids, d.tolist()):
+                if di > R_BAND:
+                    far_out.add(o)
+                elif di > 0:
+                    band_pairs.append((f"{R_TABLE}/.table-dataset/feature/{p}", o))
+        plain = blob_filter_for_spec(src, ",".join(str(v) for v in R_RECT), device="cpu")
+        band_out = {o for p, o in band_pairs if not plain(p, o)}
+        want_absent = far_out | band_out
+        clones = {}
+        for route in ("card", "cpu"):
+            dest = os.path.join(tmp, route, "filtered")
+            pre = [] if route == "card" else ["--device", "cpu"]
+            _, _, wall = r_cli("R1" if route == "card" else "R1 cpu", launches, *pre, "clone",
+                                 "--spatial-filter", R_FILTER, src_path, dest,
+                                 want_k3=1 if route == "card" else 0)
+            walls[f"R1 clone --spatial-filter {route}"] = wall
+            repo = KartRepo(dest)
+            got = all_oids(repo)
+            check(got == want_oids - want_absent,
+                  f"[R1] {route}: the filtered clone's blobs differ from the truth: "
+                  f"{len(want_oids - want_absent - got)} missing, "
+                  f"{len(got - (want_oids - want_absent))} extra")
+            wc_d = r_wc_digest(os.path.join(dest, "filtered.gpkg"))
+            check(wc_d == r_truth_digest(rows), f"[R1] {route}: the working copy differs from "
+                                                "the in-filter truth")
+            with open(os.path.join(repo.gitdir, "config")) as f:
+                clones[route] = (got, f.read(), wc_d)
+        check(clones["card"] == clones["cpu"], "[R1] the card's and the cpu's filtered clones "
+                                               "differ")
+        key = ("envidx", db_path(src.gitdir), os.stat(db_path(src.gitdir)).st_mtime_ns)
+        with EnvelopeIndexReader.open(src.gitdir) as reader:
+            _, wsen = reader.all_envelopes()
+        w, s_, e, n_, cnt = bbox_ops._resident_columns(key, wsen, dev)
+        q = [R_RECT[0] - PREPASS_PAD, R_RECT[1] - PREPASS_PAD, R_RECT[2] + PREPASS_PAD,
+             R_RECT[3] + PREPASS_PAD]
+        walls["R1 K3 device ms"] = total_ms(device_times(
+            lambda: bbox_ops.bbox_cyclic(w, s_, e, n_, q, cnt), ("bbox_kernel",))[0])
+        n_in, _ = clones["card"][2]
+        print(f"[R1] a real-blob layer of {n} features built and indexed in "
+              f"{walls['R1 layer']:.4f} s; clone --no-checkout: {len(want_oids)} objects, "
+              f"{walls['R1 clone --no-checkout']:.4f} s host wall, no launch; clone "
+              f"--spatial-filter with a working copy: {walls['R1 clone --spatial-filter card']:.4f} "
+              f"s on the card (one K3 over the index's {cnt} envelopes, device "
+              f"{fmt_ms(walls['R1 K3 device ms'])}), "
+              f"{walls['R1 clone --spatial-filter cpu']:.4f} s with --device cpu; "
+              f"{len(want_absent)} blobs promised ({len(band_pairs)} in the edge band, "
+              f"{len(band_out)} of them out), {n_in} rows in the working copy; objects, config "
+              f"and working copy equal to the truth on both, on {card}")
+
+        # ---- R2: edit, commit and push; a rewrite refused, then forced; the CDC ----
+        clone = os.path.join(tmp, "card", "filtered")
+        wc = os.path.join(clone, "filtered.gpkg")
+        inside = pks[dist == 0]
+        n_edit = max(1, len(inside) // 1000)
+        picks = rng.choice(inside, 3 * n_edit, replace=False)
+        first = r_moves(rng, rows, picks[:n_edit], 1.5, True)
+        r_edit_wc(wc, first)
+        _, _, walls["R2 commit"] = r_cli("R2", launches, "-C", clone, "commit", "-m", "r2 edits")
+        out, _, walls["R2 push"] = r_cli("R2", launches, "-C", clone, "push")
+        tip = KartRepo(clone).head_commit_oid
+        check(src.refs.get("refs/heads/main") == tip and out == f"  {tip[:8]}  refs/heads/main\n",
+              f"[R2] push said {out!r}")
+        r_cli("R2", launches, "-C", clone, "reset", "--discard-changes", "HEAD^")
+        second = r_moves(rng, rows, picks[n_edit: 2 * n_edit], 2.5, True)
+        r_edit_wc(wc, second)
+        r_cli("R2", launches, "-C", clone, "commit", "-m", "r2 rewritten")
+        _, err, _ = r_cli("R2", launches, "-C", clone, "push", rc_want=2)
+        check(err == "Error: Push to refs/heads/main rejected (non-fast-forward); fetch first "
+                     "or use --force\n", f"[R2] the non-fast-forward push said {err!r}")
+        _, _, walls["R2 push --force"] = r_cli("R2", launches, "-C", clone, "push", "--force")
+        forced = KartRepo(clone).head_commit_oid
+        check(src.refs.get("refs/heads/main") == forced, "[R2] push --force did not land")
+        rows_f = {**rows, **second}
+        check(r_wc_digest(wc) == r_truth_digest(rows_f), "[R2] the working copy differs from "
+                                                         "the rewritten commit's truth")
+        summaries = {}
+        derived = _tip_sidecar(src, forced)
+        for route in ("card", "cpu"):
+            if os.path.exists(derived):
+                os.remove(derived)
+            drop_sources(src.gitdir)
+            t = time.perf_counter()
+            if route == "card":
+                summary = counted("R2", lambda: cdc.dirty_tiles(src, edit, forced), launches)[0]
+            else:
+                summary = cdc.dirty_tiles(src, edit, forced, device="cpu")
+            walls[f"R2 dirty_tiles {route}"] = time.perf_counter() - t
+            check(os.path.exists(derived), f"[R2] {route}: the pushed tip's sidecar was not "
+                                           "derived")
+            summaries[route] = (_summary_sha(summary), sha256_of(derived))
+            changed = summary[R_TABLE]["changed"]
+            check(changed == {"updates": n_edit},
+                  f"[R2] {route}: dirty_tiles changed {changed}, expected {n_edit} updates")
+        check(summaries["card"] == summaries["cpu"], "[R2] the card's and the cpu's dirty-tile "
+                                                     "summaries or derived sidecars differ")
+        print(f"[R2] {n_edit} in-filter rows moved through a client's connection: commit "
+              f"{walls['R2 commit']:.4f} s, push {walls['R2 push']:.4f} s; a rewritten commit "
+              f"refused without --force (exit 2), pushed with it in "
+              f"{walls['R2 push --force']:.4f} s; dirty_tiles over the pushed range "
+              f"{walls['R2 dirty_tiles card']:.4f} s on the card (one K1, the tip's sidecar "
+              f"derived), {walls['R2 dirty_tiles cpu']:.4f} s with device='cpu', summaries and "
+              f"sidecars equal, on {card}")
+
+        # ---- R3: diverged history, pull, the backfill, a tag ----
+        local = r_moves(rng, rows_f, picks[2 * n_edit:], 3.5, True)
+        r_edit_wc(wc, local)
+        r_cli("R3", launches, "-C", clone, "commit", "-m", "r3 local")
+        taken = set(picks.tolist())
+        theirs_in = rng.choice(np.array(sorted(set(inside.tolist()) - taken)), n_edit,
+                               replace=False)
+        theirs_out = rng.choice(pks[dist > 1.0], n_edit, replace=False)
+        moved = {**r_moves(rng, rows_f, theirs_in, 0.0, True),
+                 **r_moves(rng, rows_f, theirs_out, 0.0, False)}
+        mv_pks = np.array(sorted(moved), dtype=np.int64)
+        theirs_tip = commit_point_edits(src, moves=(mv_pks, np.array([moved[p][1] for p in mv_pks]),
+                                                    np.array([moved[p][2] for p in mv_pks])),
+                                        message="r3 theirs", ds_path=R_TABLE)
+        moved = {p: (float(p), mx, my) for p, (_, mx, my) in moved.items()}  # rating: the pk
+        out, _, walls["R3 pull"] = r_cli("R3", launches, "-C", clone, "pull", want_k3=1,
+                                         want_k4=1)
+        merged = KartRepo(clone).head_commit_oid
+        check(out == f"Merged and committed as {merged}\n", f"[R3] pull said {out!r}")
+        rows_m = {**rows_f, **local, **moved}
+        check(r_wc_digest(wc) == r_truth_digest(rows_m), "[R3] the working copy differs from "
+                                                         "the merge's truth")
+        cpu_clone = os.path.join(tmp, "cpu3", "filtered")
+        shutil.copytree(clone, cpu_clone, copy_function=link_immutable)
+        before = len(all_oids(KartRepo(clone)))
+        digests = {}
+        for route, where in (("card", clone), ("cpu", cpu_clone)):
+            pre = [] if route == "card" else ["--device", "cpu"]
+            out_path = os.path.join(tmp, f"r3.{route}.jsonl")
+            with open(out_path, "w") as f, contextlib.redirect_stdout(f):
+                walls[f"R3 diff {route}"] = counted(
+                    "R3" if route == "card" else "R3 cpu",
+                    lambda: kart_cli(*pre, "-C", where, "diff", "HEAD^...HEAD", "-o",
+                                     "json-lines"), launches, want=0)[0]
+            digests[route] = sha256_of(out_path)
+        backfilled = len(all_oids(KartRepo(clone))) - before
+        check(digests["card"] == digests["cpu"], "[R3] the card's and the cpu's diffs differ")
+        check(backfilled == 2 * n_edit, f"[R3] the diff backfilled {backfilled} blobs, "
+                                        f"expected {2 * n_edit}")
+        with open(os.path.join(tmp, "r3.card.jsonl")) as f:
+            feats = sorted(json.loads(line)["change"]["+"]["fid"] for line in f
+                           if json.loads(line)["type"] == "feature")
+        check(feats == sorted(theirs_in.tolist()), "[R3] the diff's features are not the "
+                                                   "in-filter rows theirs moved")
+        r_cli("R3", launches, "-C", src_path, "tag", "-m", "r3 release", "r3")
+        out, _, walls["R3 fetch"] = r_cli("R3", launches, "-C", full_path, "fetch")
+        tag_oid = src.refs.get("refs/tags/r3")
+        check(out == f"  {theirs_tip[:8]}  refs/remotes/origin/main\n  {tag_oid[:8]}  "
+                     "refs/tags/r3\n", f"[R3] fetch said {out!r}")
+        full = KartRepo(full_path)
+        check(full.refs.get("refs/tags/r3") == tag_oid and full.odb.object_type(tag_oid) == "tag"
+              and full.resolve_refish("r3")[0] == theirs_tip,
+              "[R3] the fetched tag does not peel to the source's tip")
+        print(f"[R3] pull of a diverged history {walls['R3 pull']:.4f} s (one K3 re-filtering "
+              f"the fetch, one K4, the working copy equal to the merge's truth); diff "
+              f"HEAD^...HEAD -o json-lines {walls['R3 diff card']:.4f} s on the card, "
+              f"{walls['R3 diff cpu']:.4f} s with --device cpu (sha256 {digests['card'][:16]} on "
+              f"both), {backfilled} promised blobs backfilled; tag -m and fetch into the full "
+              f"clone {walls['R3 fetch']:.4f} s, the tag peeled to the source's tip, on {card}")
+    for k in ("GIT_AUTHOR_DATE", "GIT_COMMITTER_DATE"):
+        os.environ.pop(k, None)
+    return walls
+
+
 # --- kart query on the point layer: scans, the time-travel join, K5 and K6 ----
 
 #: [Q1]'s rectangle, the bounding box of [12]'s filter, and a rectangle
@@ -4599,6 +4961,13 @@ def main():
     ap.add_argument("--wc-only", action="store_true",
                     help="run phases 0, 1 and E1-E3 alone and print the launches (no result "
                          "line)")
+    # 50,000, cut from [11i]'s 200,000: a filtered working copy's write
+    # matches each in-filter feature against the filter on the host, and R
+    # writes one five times (PERF.md §4)
+    ap.add_argument("--remote-rows", type=int, default=50_000)
+    ap.add_argument("--remote-only", action="store_true",
+                    help="run phases 0, 1 and R1-R3 alone and print the launches (no result "
+                         "line)")
     ap.add_argument("--stream-only", action="store_true",
                     help="run phases 0, 1 and S1-S4 alone (S3 on repositories of its own) and "
                          "print the streamed routes' timings and the launches (no result line)")
@@ -4634,6 +5003,14 @@ def main():
         t = time.perf_counter()
         walls = wc_phases(args, card, launches, dev)
         print(f"[E] all {time.perf_counter() - t:.2f} s on {card}")
+        print(json.dumps({"walls": walls, "launches": launches}))
+        return 0
+    if args.remote_only:
+        _build.build_all()
+        launches = {}
+        t = time.perf_counter()
+        walls = remote_phases(args, card, launches, dev)
+        print(f"[R] all {time.perf_counter() - t:.2f} s on {card}")
         print(json.dumps({"walls": walls, "launches": launches}))
         return 0
     if args.stream_only:
@@ -4904,6 +5281,10 @@ def main():
     wc_phases(args, card, cli_launches, dev)
     walls["E1-E3"] = time.perf_counter() - t
     progress("E1-E3", t_start)
+    t = time.perf_counter()
+    remote_phases(args, card, cli_launches, dev)
+    walls["R1-R3"] = time.perf_counter() - t
+    progress("R1-R3", t_start)
     print("[22] phase walls s: " + ", ".join(f"[{k}] {v:.2f}" for k, v in
                                              {**s_walls, **walls}.items())
           + f"; all since the build {time.perf_counter() - t_start:.2f} on {card}")

@@ -4,6 +4,8 @@
 
 with the commands ``init``, ``import``, ``status``, ``commit``, ``checkout``,
 ``switch``, ``restore``, ``reset``, ``create-workingcopy``, ``branch``,
+``tag``, ``config``, ``reflog``, ``clone``, ``fetch``, ``push``, ``pull``,
+``remote add|list|remove``,
 ``diff``, ``show``, ``create-patch``, ``log``, ``apply``, ``merge``,
 ``conflicts``, ``resolve``, ``query``, ``export tiles``, ``spatial-filter
 index|resolve``, ``data ls|version``, ``meta get|set``, ``commit-files`` and
@@ -45,6 +47,7 @@ def build_cli():
         merge_cmds,
         query_cmds,
         ref_cmds,
+        remote_cmds,
         repo_cmds,
         spatial_cmds,
         tile_cmds,
@@ -53,7 +56,8 @@ def build_cli():
     commands = {cmd.name: cmd for cmd in (*diff_cmds.commands(), *merge_cmds.commands(),
                                           *query_cmds.commands(), *tile_cmds.commands(),
                                           *spatial_cmds.commands(), *data_cmds.commands(),
-                                          *repo_cmds.commands(), *ref_cmds.commands())}
+                                          *repo_cmds.commands(), *ref_cmds.commands(),
+                                          *remote_cmds.commands())}
     return Group(
         "kart",
         [

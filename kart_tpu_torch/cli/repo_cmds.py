@@ -10,7 +10,8 @@ copy's tracked rows (host work); ``checkout -b``, ``switch -c`` and
 ``reset``/``checkout`` without a revision move the working copy without
 ``--force`` by diffing its tree against the target's (kernel K1 on the
 CLI's device, one launch a changed dataset with sidecars); moving to
-another revision rewrites it. ``checkout --spatial-filter`` is not ported.
+another revision rewrites it, and so does ``checkout --spatial-filter``,
+which sets or clears the repository's spatial filter first.
 """
 
 import os
@@ -84,6 +85,10 @@ def commands():
         Command("checkout", [
             Option("-b", dest="new_branch", help="Create a new branch and switch to it"),
             Option("--force", "-f", dest="force", kind="flag", help="Discard local changes"),
+            Option("--spatial-filter", dest="spatial_filter_text",
+                   help="Change the repo's spatial filter: '<crs>;<geometry>', @file, or "
+                        "'none' to clear — the working copy is rebuilt to match (reference: "
+                        "kart checkout --spatial-filter)"),
             Argument("refish", required=False),
         ], _refusable(run_checkout), help="Switch branches or restore working copy files."),
         Command("switch", [
@@ -401,9 +406,40 @@ _DIRTY = ("You have uncommitted changes in your working copy. "
           "Commit or discard first (use --force to discard).")
 
 
+def _switch_spatial_filter(repo, text, refish, force):
+    """Set (or with 'none' clear) the spatial filter and rebuild the working
+    copy with the features of ``refish`` (default HEAD) inside it."""
+    from kart_tpu_torch.spatial_filter import ResolvedSpatialFilterSpec
+
+    spec = ResolvedSpatialFilterSpec.from_spec_string(text)
+    old_spec = ResolvedSpatialFilterSpec.from_repo_config(repo)
+    if spec.match_all:
+        for key in (KartConfigKeys.KART_SPATIALFILTER_GEOMETRY,
+                    KartConfigKeys.KART_SPATIALFILTER_CRS):
+            repo.del_config(key)
+    else:
+        repo.config.set_many(spec.config_items())
+    if spec.match_all and old_spec.match_all:
+        return
+    wc = get_working_copy(repo, allow_uncreated=True)
+    if wc is None or repo.head_commit_oid is None:
+        return
+    if wc.is_dirty() and not force:
+        raise InvalidOperation(_DIRTY)
+    target = repo.structure(refish or "HEAD")
+    if os.path.exists(wc.full_path):
+        os.remove(wc.full_path)
+    wc.create_and_initialise()
+    wc.write_full(target, *target.datasets)
+
+
 def run_checkout(args, repo, device):
     _require_state(repo, KartRepoState.NORMAL)
     get_working_copy(repo, allow_uncreated=True)  # raises before any write where not ported
+    if args.spatial_filter_text is not None:
+        _switch_spatial_filter(repo, args.spatial_filter_text, args.refish, args.force)
+        if args.refish is None and args.new_branch is None:
+            return 0
     if args.new_branch:
         start = args.refish or "HEAD"
         oid, _ = repo.resolve_refish(start)
@@ -458,7 +494,7 @@ def run_switch(args, repo, device):
     if not args.create_branch and not args.branch:
         raise _CliError("Specify a branch to switch to")
     checkout_args = type(args)(new_branch=args.create_branch, force=args.force,
-                               refish=args.branch)
+                               refish=args.branch, spatial_filter_text=None)
     return run_checkout(checkout_args, repo, device)
 
 

@@ -160,11 +160,28 @@ class Commit:
         return self.message.split("\n", 1)[0]
 
 
-def tag_target(data: bytes) -> str:
-    """Annotated tag object content -> the oid it points at (the only part
-    of a tag that ref resolution reads)."""
-    for line in data.decode("utf8").partition("\n\n")[0].split("\n"):
-        key, _, value = line.partition(" ")
-        if key == "object":
-            return value
-    raise ObjectFormatError("Malformed tag object")
+@dataclass(frozen=True)
+class Tag:
+    """An annotated tag object (``kart tag -m``): the object it points at,
+    that object's type, the tag's name, its tagger and its message."""
+
+    target: str
+    target_type: str
+    name: str
+    tagger: Signature
+    message: str
+
+    def serialise(self) -> bytes:
+        lines = [f"object {self.target}", f"type {self.target_type}", f"tag {self.name}"]
+        if self.tagger is not None:
+            lines.append(f"tagger {self.tagger.format()}")
+        return ("\n".join(lines) + "\n\n" + self.message).encode("utf8")
+
+    @classmethod
+    def parse(cls, data: bytes):
+        header, _, message = data.decode("utf8").partition("\n\n")
+        fields = dict(line.partition(" ")[::2] for line in header.split("\n"))
+        if "object" not in fields or "type" not in fields:
+            raise ObjectFormatError("Malformed tag object")
+        tagger = Signature.parse(fields["tagger"]) if "tagger" in fields else None
+        return cls(fields["object"], fields["type"], fields.get("tag", ""), tagger, message)

@@ -8,7 +8,10 @@ A read never yields an empty value for an object that is not there.
 Counterpart of kart_tpu's ``core/odb.py`` (``ObjectDb`` loose and packed
 reads, ``write_raw``, ``write_blob``, ``write_blobs_raw``,
 ``bulk_pack``, ``read_blobs_data_ordered``; ``TreeView``). Alternates and
-the native batch reads are not ported.
+the native batch reads are not ported. A miss costs a stat of the loose
+path and of the pack directory (a rescan only when that changed), so the
+transfer's walk and a partial clone's working-copy write ask in batches
+(``contains_snapshot``, ``absent``).
 """
 
 import os
@@ -21,10 +24,10 @@ import numpy as np
 from kart_tpu_torch.core.objects import (
     Commit,
     ObjectFormatError,
+    Tag,
     TreeEntry,
     hash_object,
     parse_tree,
-    tag_target,
 )
 from kart_tpu_torch.core.packs import PackCollection, PackWriter
 
@@ -82,8 +85,37 @@ class ObjectDb:
         sha = bytes.fromhex(oid)
         if sha in self.packs:
             return True
-        self.packs.refresh()  # a pack written since the scan
-        return sha in self.packs
+        return self.packs.maybe_refresh() and sha in self.packs  # a pack written since the scan
+
+    def loose_oids(self):
+        """The oids of the loose objects, from one listing of the store."""
+        out = set()
+        for fan in os.listdir(self.objects_dir):
+            d = os.path.join(self.objects_dir, fan)
+            if len(fan) == 2 and os.path.isdir(d):
+                out.update(fan + name for name in os.listdir(d) if len(name) == 38)
+        return out
+
+    def contains_snapshot(self):
+        """-> ``contains`` of the store as it is now, with no file system
+        call a query: the packs as scanned and the loose objects listed
+        once. For a reader that nothing writes under (a transfer's walk),
+        where a stat a query would cost more than the walk."""
+        self.packs.maybe_refresh()
+        loose, packs = self.loose_oids(), self.packs
+        return lambda oid: oid in loose or bytes.fromhex(oid) in packs
+
+    def absent(self, oids):
+        """The oids among ``oids`` that the store lacks (packed ones are
+        looked up in memory, the loose ones listed once): a batch's misses
+        without a stat each."""
+        missing = [o for o in oids if bytes.fromhex(o) not in self.packs]
+        if missing and self.packs.maybe_refresh():
+            missing = [o for o in missing if bytes.fromhex(o) not in self.packs]
+        if not missing:
+            return set()
+        loose = self.loose_oids()
+        return {o for o in missing if o not in loose}
 
     def read_raw(self, oid):
         """-> (type_str, content bytes). Raises ObjectMissing/ObjectPromised.
@@ -96,8 +128,8 @@ class ObjectDb:
             return packed
         path = self._path(oid)
         if not os.path.exists(path):
-            self.packs.refresh()  # a pack written since the scan
-            packed = self.packs.read(sha)
+            # a pack written since the scan
+            packed = self.packs.read(sha) if self.packs.maybe_refresh() else None
             if packed is None:
                 raise self._missing(oid)
             return packed
@@ -180,7 +212,7 @@ class ObjectDb:
     def read_commit(self, oid) -> Commit:
         obj_type, content = self.read_raw(oid)
         if obj_type == "tag":  # peel annotated tags
-            return self.read_commit(tag_target(content))
+            return self.read_commit(Tag.parse(content).target)
         if obj_type != "commit":
             raise ObjectFormatError(f"{oid} is a {obj_type}, expected commit")
         return Commit.parse(content)

@@ -343,12 +343,23 @@ class PackCollection:
         self.pack_dirs = list(pack_dirs)
         self._packs = None
         self._blob_pack_pref = None
+        self._scanned_mtimes = None
+
+    def _dir_mtimes(self):
+        out = []
+        for d in self.pack_dirs:
+            try:
+                out.append(os.stat(d).st_mtime_ns)
+            except OSError:
+                out.append(None)
+        return out
 
     @property
     def packs(self):
         packs = self._packs
         if packs is None:
             packs = []
+            self._scanned_mtimes = self._dir_mtimes()
             for d in self.pack_dirs:
                 if not os.path.isdir(d):
                     continue
@@ -363,6 +374,15 @@ class PackCollection:
     def refresh(self):
         self._packs = None
         self._blob_pack_pref = None
+
+    def maybe_refresh(self):
+        """Rescan when a pack directory changed since the last scan (a pack
+        another writer added): one stat a directory, so that a loop of
+        misses does not reopen every pack. -> True when it rescanned."""
+        if self._packs is not None and self._dir_mtimes() == self._scanned_mtimes:
+            return False
+        self.refresh()
+        return True
 
     def close(self):
         for pack in self._packs or ():

@@ -3,9 +3,10 @@ them (``refs/heads/<name>`` files of 40-hex + newline, ``packed-refs``,
 a ``HEAD`` symref, an INI-with-subsections ``config``).
 
 Counterpart of kart_tpu's ``core/refs.py``: ``RefStore`` (loose and packed
-refs, their listing and existence, HEAD, symbolic refs, writes with their reflog line) and ``Config``
-(read, ``set_many``). Reflog reading and the directory/file conflict
-check are not ported.
+refs, their listing, existence and deletion, HEAD, symbolic refs, writes
+with their reflog line, reflog reads) and ``Config`` (read, ``set_many``,
+key deletion). The directory/file conflict check, which
+serves the network lanes' receive-pack, is not ported.
 """
 
 import os
@@ -21,9 +22,13 @@ _BAD_REF_CHARS = re.compile(r"[\x00-\x20\x7f~^:?*\[\\]")
 _DEBRIS_SHAPED = re.compile(r"\.(tmp|lock)\d*$")
 
 
-def check_ref_format(ref):
+def check_ref_format(ref, *, require_refs_prefix=False):
     """git's check_refname_format rules (the subset that matters for
-    filesystem safety). Raises RefError."""
+    filesystem safety). With ``require_refs_prefix`` only ``refs/...``
+    names pass (a fetch's names come from another repository). Raises
+    RefError."""
+    if require_refs_prefix and not ref.startswith("refs/"):
+        raise RefError(f"ref name must be under refs/: {ref!r}")
     if not ref or ref.startswith("/") or ref.endswith("/") or "//" in ref:
         raise RefError(f"bad ref name: {ref!r}")
     if "@{" in ref or ".." in ref or _BAD_REF_CHARS.search(ref):
@@ -186,6 +191,19 @@ class RefStore:
                 f"kart_tpu <kart_tpu@localhost> {int(time.time())} +0000\t{message}\n"
             )
 
+    def read_reflog(self, ref):
+        """-> [{"old", "new", "message"}] of ``ref``'s reflog, oldest first."""
+        log_path = os.path.join(self.gitdir, "logs", *ref.split("/"))
+        if not os.path.exists(log_path):
+            return []
+        entries = []
+        with open(log_path) as f:
+            for line in f:
+                head, _, message = line.rstrip("\n").partition("\t")
+                parts = head.split(" ")
+                entries.append({"old": parts[0], "new": parts[1], "message": message})
+        return entries
+
 
 class Config:
     """Flat key-value view of a git-style config file (``core.bare``,
@@ -257,6 +275,11 @@ class Config:
             if isinstance(value, bool):
                 value = "true" if value else "false"
             self._values[key.lower()] = [str(value)]
+        self._save()
+
+    def __delitem__(self, key):
+        """Remove every value of ``key`` (absent: nothing to do)."""
+        self._values.pop(key.lower(), None)
         self._save()
 
     def keys(self, prefix=""):

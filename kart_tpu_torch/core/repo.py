@@ -4,11 +4,12 @@ gitdirs are recognised too) holding objects, refs and config.
 Counterpart of kart_tpu's ``core/repo.py``: ``KartRepo`` with ``_locate``,
 ``init_repository``, ``resolve_refish``, ``resolve_commit``,
 ``walk_commits``, ``merge_base``, ``structure``, ``create_commit``, the
-``head_*`` properties, ``has_promisor_remote``, the spatial filter's config keys
+``head_*`` properties, ``remotes``, ``remote_url``, ``has_promisor_remote``,
+``create_tag``, ``del_config``, the spatial filter's config keys
 (``KartConfigKeys``) and the merge state machine (``KartRepoState``, the
 ``MERGE_*`` state files in the gitdir), ``is_bare``, ``is_ancestor`` and
-the ``working_copy`` property (:mod:`kart_tpu_torch.workingcopy`); tags'
-creation, remotes and gc are not ported.
+the ``working_copy`` property (:mod:`kart_tpu_torch.workingcopy`); gc and
+its sweep of crash leftovers are not ported.
 """
 
 import hashlib
@@ -17,7 +18,7 @@ import os
 import re
 import struct
 
-from kart_tpu_torch.core.objects import Commit, Signature, tag_target
+from kart_tpu_torch.core.objects import Commit, Signature, Tag
 from kart_tpu_torch.core.odb import ObjectDb, ObjectMissing
 from kart_tpu_torch.core.refs import Config, RefStore
 
@@ -196,10 +197,20 @@ class KartRepo:
 
         return get_working_copy(self)
 
+    def remotes(self):
+        """The names of the configured remotes, sorted."""
+        return sorted({".".join(k.split(".")[1:-1]) for k in self.config.keys("remote.")
+                       if len(k.split(".")) >= 3})
+
+    def remote_url(self, name):
+        return self.config.get(f"remote.{name}.url")
+
     def has_promisor_remote(self):
-        names = {".".join(k.split(".")[1:-1]) for k in self.config.keys("remote.")
-                 if len(k.split(".")) >= 3}
-        return any(self.config.get_bool(f"remote.{n}.promisor") for n in names)
+        return any(self.config.get_bool(k) for k in self.config.keys("remote.")
+                   if k.endswith(".promisor") and k.count(".") >= 2)
+
+    def del_config(self, key):
+        del self.config[key]
 
     def spatial_filter_spec(self):
         """The repo's spatial filter (set by a filtered clone) as a
@@ -278,7 +289,7 @@ class KartRepo:
     def _peel_to_commit_oid(self, oid):
         obj_type, content = self.odb.read_raw(oid)
         while obj_type == "tag":
-            oid = tag_target(content)
+            oid = Tag.parse(content).target
             obj_type, content = self.odb.read_raw(oid)
         return oid
 
@@ -407,6 +418,22 @@ class KartRepo:
                 self.refs.set_head(oid, log_message=log)
         elif ref is not None:
             self.refs.set(ref, oid, log_message=log)
+        return oid
+
+    def create_tag(self, name, target_oid, message=None, tagger=None):
+        """``refs/tags/<name>`` at ``target_oid``; with ``message``, through
+        a new annotated tag object. -> the oid the ref holds."""
+        ref = f"refs/tags/{name}"
+        if self.refs.exists(ref):
+            raise InvalidOperation(f"Tag already exists: {name}")
+        if not message:
+            self.refs.set(ref, target_oid)
+            return target_oid
+        tag = Tag(target=target_oid, target_type=self.odb.object_type(target_oid), name=name,
+                  tagger=tagger or self.signature(),
+                  message=message if message.endswith("\n") else message + "\n")
+        oid = self.odb.write_raw("tag", tag.serialise())
+        self.refs.set(ref, oid)
         return oid
 
     def structure(self, refish="HEAD"):

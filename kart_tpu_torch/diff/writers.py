@@ -24,10 +24,12 @@ and ``iter_deltas`` streams only the deltas one of whose sides matches the
 filter (the exact per-value residue); the exit code follows what is
 written, not the unfiltered diff. A working-copy diff takes the delta route
 (no fused rows, no counts-only K1). kart_tpu colours text on a terminal
-only; these writers print its plain form. Not ported: the forked
-materialisers and the promised-blob backfill of partial clones (a
-filtered repo with a promisor remote raises ``NotYetImplemented``). Every
-refusal comes before any output.
+only; these writers print its plain form. On a partial clone (a
+repository with a promisor remote) the deltas whose values are promised
+blobs are held back while the rest stream, their blobs are fetched from the
+promisor in one batch, and then they are filtered and written; such a
+repository keeps the delta route. Not ported: the forked materialisers.
+Every refusal comes before any output.
 """
 
 import itertools
@@ -37,8 +39,8 @@ import re
 import sys
 from datetime import datetime, timedelta, timezone
 
-from kart_tpu_torch.core.odb import ObjectMissing
-from kart_tpu_torch.core.repo import InvalidOperation, NotFound, NotYetImplemented
+from kart_tpu_torch.core.odb import ObjectMissing, ObjectPromised
+from kart_tpu_torch.core.repo import InvalidOperation, NotFound
 from kart_tpu_torch.diff.engine import (
     get_dataset_diff,
     get_dataset_feature_count_fast,
@@ -83,6 +85,20 @@ def _chunked(items, size):
         yield chunk
 
 
+def _promised_value_oids(delta):
+    """Force both sides of a delta (every writer prints them anyway); ->
+    the oids of the promised blobs among them."""
+    oids = []
+    for kv in (delta.old, delta.new):
+        if kv is None:
+            continue
+        try:
+            kv.get_lazy_value()
+        except ObjectPromised as e:
+            oids.append(e.oid)
+    return oids
+
+
 class BaseDiffWriter:
     #: rows per blob prefetch / materialisation chunk
     PREFETCH_CHUNK = 8192
@@ -124,11 +140,6 @@ class BaseDiffWriter:
         self.spatial_filter_spec = repo.spatial_filter_spec()
         self._ds_sf_cache = {}
         if self.spatial_filter_spec is not None:
-            if repo.has_promisor_remote():
-                raise NotYetImplemented(
-                    "diffs of a spatially filtered partial clone (promised blobs) are not "
-                    "ported yet"
-                )
             # resolve every dataset's filter before any output: a CRS that
             # the port cannot transform yet raises here
             for ds_path in self.all_ds_paths:
@@ -250,12 +261,40 @@ class BaseDiffWriter:
     def iter_deltas(self, ds_diff, ds_path=None):
         """Stream (key, delta) in key order, the blob data of each chunk's
         lazy values read in one batch; under a spatial filter (pass
-        ``ds_path``), only the deltas that match it."""
+        ``ds_path``), only the deltas that match it. On a partial clone the
+        deltas with a promised value are held back, their blobs fetched
+        from the promisor remote in one batch after the rest, and then
+        yielded (kart_tpu's order)."""
         feature_diff = ds_diff.get("feature")
         if not feature_diff:
             return
         sf = self._ds_spatial_filter(ds_path)
-        for chunk in _chunked(feature_diff.sorted_items(), self.PREFETCH_CHUNK):
+        promisor = self.repo.has_promisor_remote()
+        buffered, missing = [], []
+        for key, delta in self._iter_prefetched(feature_diff.sorted_items()):
+            if promisor:
+                oids = _promised_value_oids(delta)
+                if oids:
+                    buffered.append((key, delta))
+                    missing.extend(oids)
+                    continue
+            if sf is None or self._delta_matches_filter(delta, sf):
+                self.has_changes = True
+                yield key, delta
+        if buffered:
+            from kart_tpu_torch.transport.remote import fetch_promised_blobs
+
+            fetch_promised_blobs(self.repo, missing)
+            for key, delta in buffered:
+                if sf is None or self._delta_matches_filter(delta, sf):
+                    self.has_changes = True
+                    yield key, delta
+
+    def _iter_prefetched(self, items):
+        """(key, delta) pairs, the blob data of each chunk's unforced lazy
+        values read in one batch (what the batch cannot serve is read one
+        by one when forced)."""
+        for chunk in _chunked(items, self.PREFETCH_CHUNK):
             promises = [
                 kv[1] for _, delta in chunk for kv in (delta.old, delta.new)
                 if kv is not None and kv.value_is_lazy and isinstance(kv[1], FeatureOidPromise)
@@ -266,10 +305,7 @@ class BaseDiffWriter:
                     [p.oid_hex for p in promises])
                 for p in promises:
                     p.data = got.get(p.oid_hex)
-            for key, delta in chunk:
-                if sf is None or self._delta_matches_filter(delta, sf):
-                    self.has_changes = True
-                    yield key, delta
+            yield from chunk
 
     @staticmethod
     def _feature_json_fast(kv, tx=None):
@@ -558,10 +594,12 @@ class JsonLinesDiffWriter(BaseDiffWriter):
 
     def _write_ds_fast(self, ds_path):
         """The fused row route for one dataset; True when it handled it. It
-        has no per-value residue and no reprojection, so a spatial filter
-        or ``--crs`` takes the delta route."""
+        has no per-value residue, no reprojection and no backfill, so a
+        spatial filter, ``--crs`` or a promisor remote takes the delta
+        route."""
         if (self.working_copy is not None or self.spatial_filter_spec is not None
-                or not self.repo_key_filter.match_all or self.target_crs is not None):
+                or not self.repo_key_filter.match_all or self.target_crs is not None
+                or self.repo.has_promisor_remote()):
             return False
         rows = get_feature_diff_rows(self.base_rs, self.target_rs, ds_path, self.device)
         if rows is None:

@@ -405,7 +405,13 @@ class Dataset3:
             stop = min(start + self.FEATURE_READ_CHUNK, len(paths))
             oids = [hexes[40 * i : 40 * i + 40] for i in range(start, stop)]
             batch = odb.read_blobs_batch(oids)
+            absent = odb.absent([o for o in oids if o not in batch]) if skip_promised else ()
+            promised = bool(absent) and odb._promisor_check()
             for i, oid in zip(range(start, stop), oids):
+                if oid in absent:
+                    if promised:
+                        continue
+                    raise odb._missing(oid)
                 pk_values = (pks[i],) if pks is not None else self.decode_path_to_pks(paths[i])
                 data = batch.get(oid)
                 try:

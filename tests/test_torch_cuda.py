@@ -1472,3 +1472,43 @@ def test_working_copy_switch_and_merge_on_card_match_cpu(cuda, tmp_path, monkeyp
         outs[path].append((run(*pre, "-C", path, "merge", "b"), digest(path)))
         assert runtime.stats_snapshot()["merge_classify_launches"] == k4
     assert outs[card] == outs[cpu]
+
+
+def test_filtered_clone_on_card_matches_cpu(cuda, tmp_path):
+    """``kart clone --spatial-filter`` of a small indexed layer on the card:
+    one K3 launch over the source's envelope index, and the same objects
+    (so the same promised blobs) and working copy as ``--device cpu``."""
+    import contextlib
+    import io
+    import os
+    import sqlite3
+
+    from kart_tpu_torch.cli import main as port_main
+    from kart_tpu_torch.synth import synth_repo
+
+    repo, info = synth_repo(str(tmp_path / "src"), 20_000, seed=5, blobs="real", spatial=True)
+    spec = "EPSG:4326;POLYGON((-60 -30,60 -30,60 30,-60 30,-60 -30))"
+
+    def run(*argv):
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert port_main(list(argv)) == 0
+
+    run("-C", repo.workdir, "spatial-filter", "index")
+    got = {}
+    for device in ("cuda", "cpu"):
+        runtime.reset_stats()
+        dest = str(tmp_path / device)
+        run("--device", device, "clone", "--spatial-filter", spec, repo.workdir, dest)
+        stats = runtime.stats_snapshot()
+        assert stats["bbox_launches"] == (1 if device == "cuda" else 0)
+        from kart_tpu_torch.core.repo import KartRepo
+
+        clone = KartRepo(dest)
+        present = {o for i in range(256) for o in clone.odb.find_oids_with_prefix(f"{i:02x}")}
+        con = sqlite3.connect(os.path.join(dest, f"{device}.gpkg"))
+        rows = con.execute("SELECT * FROM synth ORDER BY 1").fetchall()
+        con.close()
+        got[device] = (present, rows)
+    assert got["cuda"] == got["cpu"]
+    n_all = info["n"] + info["n_edits"]
+    assert 0 < len(got["cuda"][1]) < info["n"] and len(got["cuda"][0]) < n_all

@@ -67,7 +67,7 @@ def test_no_jax_or_kart_tpu_imports(path):
 def test_walk_reaches_every_package():
     dirs = {os.path.relpath(os.path.dirname(f), PKG) for f in _port_files()[1:]}
     assert {".", "core", "models", "cli", "diff", "ops", "spatial_filter", "tiles",
-            "events", "parallel", "adapters", "workingcopy", "importer"} <= dirs
+            "events", "parallel", "adapters", "workingcopy", "importer", "transport"} <= dirs
     assert {"kart_tpu_torch.cli.diff_cmds", "kart_tpu_torch.core.msgpack",
             "kart_tpu_torch.__main__", "kart_tpu_torch.crs", "kart_tpu_torch.epsg",
             "kart_tpu_torch.geom", "kart_tpu_torch.tiles.streams", "kart_tpu_torch.gridshift",
@@ -77,7 +77,9 @@ def test_walk_reaches_every_package():
             "kart_tpu_torch.parallel.sharded_merge", "kart_tpu_torch.adapters.gpkg",
             "kart_tpu_torch.workingcopy.gpkg", "kart_tpu_torch.importer.importer",
             "kart_tpu_torch.importer.pk_generation", "kart_tpu_torch.cli.repo_cmds",
-            "kart_tpu_torch.cli.ref_cmds"} <= set(_modules())
+            "kart_tpu_torch.cli.ref_cmds", "kart_tpu_torch.cli.remote_cmds",
+            "kart_tpu_torch.transport.pack", "kart_tpu_torch.transport.protocol",
+            "kart_tpu_torch.transport.remote"} <= set(_modules())
 
 
 def test_imports_with_jax_and_kart_tpu_blocked():

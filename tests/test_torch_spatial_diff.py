@@ -25,7 +25,6 @@ from kart_tpu.geometry import Geometry
 from kart_tpu.spatial_filter import ResolvedSpatialFilterSpec
 from kart_tpu.synth import synth_repo as jsynth_repo
 from kart_tpu_torch import synth as tsynth
-from kart_tpu_torch.cli import NOT_YET_IMPLEMENTED
 from kart_tpu_torch.cli import main as port_main
 from kart_tpu_torch.core.repo import KartRepo as TRepo
 from kart_tpu_torch.diff import engine, sidecar
@@ -448,15 +447,30 @@ def test_projected_filter_crs_is_not_yet_implemented(point_repos, prefilter_call
     assert '"fid":3' in outs[2]
 
 
-def test_promised_blobs_under_a_filter_are_not_yet_implemented(tmp_path, capsys):
-    """A filtered repo with a promisor remote would need the promised-blob
-    backfill, which is not ported: a named error, no output."""
+def test_promised_blobs_under_a_filter_are_not_yet_implemented(tmp_path):
+    """A filtered repository with a promisor remote (the name is kept from
+    when the port refused it): every format's stdout and exit code equal
+    kart_tpu's, on the repository with every blob present (nothing to
+    fetch) and on a filtered clone of it made by each package, whose
+    promised blobs the diff backfills from the promisor."""
     repo, ds_path = make_imported_repo(tmp_path, n=12)
     _edits_mixed(repo, ds_path)
     path = str(repo.workdir)
     spec = ResolvedSpatialFilterSpec.from_spec_string(POINT_FILTERS["rect"])
+    for name in ("k", "p"):
+        clone = ["clone", "--spatial-filter", POINT_FILTERS["rect"], "--no-checkout", path,
+                 str(tmp_path / name)]
+        if name == "k":
+            assert CliRunner().invoke(kart_cli, clone).exit_code == 0
+        else:
+            assert port_main(["--device", "cpu", *clone]) == 0
     JRepo(path).config.set_many({**spec.config_items(), "remote.origin.url": "file:///nowhere",
                                  "remote.origin.promisor": "true"})
-    rc, out = _run_port(path, ["-o", "json-lines", "HEAD^...HEAD"])
-    assert rc == NOT_YET_IMPLEMENTED and out == ""
-    assert "not ported" in capsys.readouterr().err
+    for fmt in FORMATS:
+        opts = [*fmt, "HEAD^...HEAD"]
+        assert _run_port(path, opts) == _run_ref(path, opts), fmt
+        want = _run_ref(str(tmp_path / "k"), opts)
+        assert _run_port(str(tmp_path / "p"), opts) == want and want[0] in (0, 1), fmt
+    # the clones now hold the blobs the diffs needed, and the same ones
+    oids = [set(JRepo(str(tmp_path / name)).odb.iter_oids()) for name in ("k", "p")]
+    assert oids[0] == oids[1] and oids[0] < set(JRepo(path).odb.iter_oids())
