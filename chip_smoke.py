@@ -3,16 +3,17 @@
 kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--rows 10000000] [--index-rows 1000000]
-                          [--repo-rows 5000000] [--spatial-rows 1000000]
-                          [--index-repo-rows 200000]
-                          [--merge-rows 1000000]
-                          [--text-rows 1000000] [--text-merge-rows 200000] [--seed 0]
+                          [--repo-rows 1500000] [--spatial-rows 1000000]
+                          [--index-repo-rows 50000]
+                          [--merge-rows 250000]
+                          [--text-rows 250000] [--text-merge-rows 50000] [--seed 0]
                           [--stream-rows 100000000] [--crossover-rows 1000000,...]
                           [--crossover-reps 3] [--chunk-sweep 2000000,...]
-                          [--history-commits 6] [--wc-rows 100000] [--remote-rows 50000]
+                          [--history-commits 6] [--wc-rows 25000] [--remote-rows 25000]
+                          [--import-rows 12000]
                           [--k4-only | --hash-only | --query-only | --kernels-only |
                            --tiles-only | --history-only | --stream-only | --wc-only |
-                           --remote-only]
+                           --remote-only | --import-only]
 
 Run from the repository root on a machine with an sm_90 (Hopper) card and
 the CUDA toolkit; the kernels are built from ``kart_tpu_torch/csrc`` on
@@ -346,6 +347,40 @@ R3. a local commit in the clone and one on the source (other in-filter rows
    sha256; the out-of-filter rows' promised blobs backfilled), ``tag -m``
    on the source and ``fetch`` into the full clone (the tag peeled to the
    source's tip)
+I1. (after R3) imports: a ``--import-rows`` point Shapefile (``.shp``,
+   ``.shx``, ``.dbf``, ``.prj``; C, N integer and decimal, F, L and D fields
+   with nulls, 0.2% of the records marked deleted) from ``--seed``
+   (``synth_sources``), a ``.zip`` of it (in a folder, beside a
+   ``__MACOSX/`` entry), a polygon Shapefile of a tenth as many shapes (holes,
+   second shells, null shapes) and the points as a FlatGeobuf with its packed
+   R-tree (the same features as without it): ``init --import`` of the
+   ``.shp`` and ``import`` of the others on the card and with ``--device
+   cpu`` (the same stdout and commits), the .zip's features equal to the
+   .shp's; then an edited rewrite of the points (1% moved, 0.1% deleted,
+   0.1% inserted) imported with ``--replace-existing``, and ``diff
+   HEAD^...HEAD -o json-lines`` on the two captured sidecars (one K1; equal
+   sha256 with ``--device cpu``)
+I2. for each of PostGIS, MySQL and SQL Server, a working copy of [I1]'s
+   repository on a recording server (the script's own fake DBAPI driver under
+   ``sys.modules``: it records and acts on the statements, and answers
+   ``information_schema`` from the CREATE TABLE statements):
+   ``create-workingcopy`` (its rows equal to the layers' through the
+   dialect's adapter), ``status`` (the server's CRS text read back
+   normalised: committed once where it differs), an editing client's
+   updates, deletes and inserts, ``status -o json``, ``diff -o json``,
+   ``commit``, ``switch -c side HEAD^`` (a reset without ``--force``: one
+   K1, then as many upserts and deletes as it classified), a side commit,
+   ``switch main``, ``merge side`` (one K4 a dataset, then the copy
+   rewritten), a client's deletes and ``restore points``, and ``status``
+   clean; ``switch -c`` and ``merge`` again with ``--device cpu`` on copies
+   of the repository and the server made before them: the same stdout,
+   commits, tables and statements
+I3. ``init --bare --import`` of each server's ``points`` table (read in
+   ``fetchmany`` batches) on the card and with ``--device cpu`` (the same
+   commits), an editing client's changes to the table imported with
+   ``--replace-existing``, then ``diff -o feature-count HEAD^...HEAD`` (one
+   counts-only K1; equal with ``--device cpu``); without the driver the
+   import exits 40 with kart_tpu's text and writes nothing
 22. each group of phases' host wall (S1-S4 first, [1-6] the build, the data
    and phases 3-6; [12b], [11i], H0-H3 and W1-W3 on their own), the ``kernels`` JSON line
    (K1-K7, K3's figures on [11i]'s index in ``index_envelopes``, each
@@ -368,7 +403,7 @@ phases 0, 1, 11, H0-H3 and W1-W2, ``--stream-only``
 phases 0, 1 and S1-S4 (S3 on repositories it builds at ``--repo-rows`` and
 ``--merge-rows``, with the monolithic card and ``--device cpu`` runs of its
 commands made there), ``--wc-only`` phases 0, 1 and E1-E3, ``--remote-only``
-phases 0, 1 and R1-R3.
+phases 0, 1 and R1-R3, ``--import-only`` phases 0, 1 and I1-I3.
 
 To time another checkout's K5 and K6 on the same inputs (a parent commit,
 say), run this script with that checkout's package in its place:
@@ -378,6 +413,7 @@ say), run this script with that checkout's package in its place:
 
 import argparse
 import contextlib
+import copy
 import cProfile
 import hashlib
 import io
@@ -500,6 +536,13 @@ from kart_tpu_torch.tiles.pyramid import batched, export_batch_tiles, tile_cover
 from kart_tpu_torch.tiles.source import drop_sources, source_for
 from kart_tpu_torch.events import cdc
 from kart_tpu_torch.workingcopy.gpkg import _register_gpkg_functions
+from kart_tpu_torch.adapters.mysql import MySqlAdapter
+from kart_tpu_torch.adapters.postgis import PostgisAdapter
+from kart_tpu_torch.adapters.sqlserver import SqlServerAdapter
+from kart_tpu_torch.crs import get_identifier_int
+from kart_tpu_torch.geometry import Geometry
+from kart_tpu_torch.importer.flatgeobuf import FlatGeobufImportSource
+from kart_tpu_torch import synth_sources
 
 #: H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
 #: non-tensor-core f32 rate, used for every bound below
@@ -2514,6 +2557,881 @@ def wc_phases(args, card, launches, dev):
               f"the card's and to the seed's truths, on {card}")
     for k in ("GIT_AUTHOR_DATE", "GIT_COMMITTER_DATE"):
         os.environ.pop(k, None)
+    return walls
+
+
+# --- imports and server working copies on recording fakes (I1-I3) ------------
+
+#: the DBAPI modules each dialect's code imports
+DRIVER_MODULES = {"postgis": ("psycopg2",), "mysql": ("pymysql", "pymysql.cursors"),
+                  "sqlserver": ("pyodbc",)}
+
+_QUOTED = r'(?:"(?:[^"]|"")*"|`(?:[^`]|``)*`|\[[^\]]*\])'
+
+
+def _unquote(ident):
+    ident = ident.strip()
+    if ident[:1] in '"`':
+        q = ident[0]
+        return ident[1:-1].replace(q + q, q)
+    return ident[1:-1] if ident[:1] == "[" else ident
+
+
+def _table_ref(text):
+    """``"s"."t"`` / ```d`.`t``` / ``"t"`` at the start of ``text`` ->
+    ((schema or None, table), the rest)."""
+    m = re.match(rf"\s*({_QUOTED})(?:\.({_QUOTED}))?", text)
+    if m.group(2) is None:
+        return (None, _unquote(m.group(1))), text[m.end():]
+    return (_unquote(m.group(1)), _unquote(m.group(2))), text[m.end():]
+
+
+def _split_top(text):
+    """Split at the commas outside parentheses and quotes."""
+    parts, depth, quote, cur = [], 0, None, []
+    for ch in text:
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "\"'`":
+            quote = ch
+        elif ch == "(":
+            depth += 1
+        elif ch == ")":
+            depth -= 1
+        elif ch == "," and depth == 0:
+            parts.append("".join(cur).strip())
+            cur = []
+            continue
+        cur.append(ch)
+    if "".join(cur).strip():
+        parts.append("".join(cur).strip())
+    return parts
+
+
+def _parens(text, start):
+    """The text inside the balanced parentheses opening at ``start``."""
+    depth = 0
+    for i in range(start, len(text)):
+        depth += {"(": 1, ")": -1}.get(text[i], 0)
+        if depth == 0:
+            return text[start + 1:i]
+    raise ValueError(text)
+
+
+def _names(text):
+    return [_unquote(n) for n in _split_top(text)]
+
+
+class _FakeTable:
+    def __init__(self, columns, pk):
+        self.columns = columns  # [(name, the CREATE TABLE type text)]
+        self.pk = pk
+        self.rows = {}  # (pk values) -> [values in column order]
+        self.srids = {}  # geometry column -> the SRID its writes gave
+        self.triggers = False
+
+    def key(self, row):
+        names = [c for c, _ in self.columns]
+        return tuple(row[names.index(p)] for p in self.pk)
+
+
+class RecordingServer:
+    """A database server and its DBAPI driver in one recording object, for
+    one dialect ("postgis", "mysql", "sqlserver"): the statements a
+    working copy or an import source sends are recorded (``statements``,
+    ``many_rows``) and acted on, so a checkout's tables hold their rows,
+    ``_kart_state`` its tree, ``_kart_track`` the pks of the rows edited
+    while the tracking triggers are on, ``information_schema`` answers
+    from the CREATE TABLE statements, and the tables serve an import's
+    SELECT in ``fetchmany`` batches (``fetches`` counts them).
+    :meth:`client_upsert` and :meth:`client_delete` are an editing
+    client's statements. Installed as the driver module by
+    :func:`drivers`."""
+
+    def __init__(self, dialect):
+        self.dialect = dialect
+        self.statements, self.many_rows = [], {}
+        self.schemas, self.tables, self.state, self.track, self.srs = set(), {}, {}, {}, {}
+        self.fetches = 0
+        self.cursors = self  # pymysql.cursors.SSCursor
+
+    class SSCursor:
+        pass
+
+    def connect(self, *args, **kwargs):
+        return _FakeCon(self)
+
+    # -- what a client of the server does -------------------------------------
+
+    def table(self, name):
+        return next(t for (s, n), t in self.tables.items() if n == name)
+
+    def client_upsert(self, name, values):
+        t = self.table(name)
+        row = [values.get(c) for c, _ in t.columns]
+        t.rows[t.key(row)] = row
+        if t.triggers:
+            self.track.setdefault(name, set()).add(str(row[[c for c, _ in t.columns]
+                                                         .index(t.pk[0])]))
+
+    def client_delete(self, name, pk):
+        t = self.table(name)
+        t.rows.pop((pk,), None)
+        if t.triggers:
+            self.track.setdefault(name, set()).add(str(pk))
+
+    def digest(self):
+        """sha256 of every table's rows in key order and the tracked pks."""
+        h = hashlib.sha256()
+        for key in sorted(self.tables, key=repr):
+            t = self.tables[key]
+            h.update(repr((key, t.columns, t.pk)).encode())
+            for k in sorted(t.rows, key=repr):
+                h.update(repr(t.rows[k]).encode())
+        h.update(repr(sorted((k, sorted(v)) for k, v in self.track.items())).encode())
+        h.update(repr(sorted(self.state.items())).encode())
+        return h.hexdigest()
+
+    def statements_digest(self, start=0):
+        """sha256 of the statements from ``start`` on, whitespace folded."""
+        h = hashlib.sha256()
+        for sql, params in self.statements[start:]:
+            h.update(repr((" ".join(sql.split()), params)).encode())
+        return h.hexdigest()
+
+    # -- the server side ------------------------------------------------------
+
+    def respond(self, sql, params, many=False):
+        text = " ".join(sql.split())
+        low = text.lower()
+        if low.startswith(("set ", "create index", "create spatial index", "select setval",
+                           "create or replace function")):
+            return []
+        if low.startswith(("create trigger", "drop trigger", "disable trigger",
+                           "enable trigger")) or (low.startswith("alter table")
+                                                  and "trigger" in low):
+            return self._trigger(text, low)
+        m = re.match(r"create (?:schema|database) if not exists (.+)$", text, re.I)
+        if m:
+            self.schemas.add(_unquote(m.group(1)))
+            return []
+        m = re.match(r"if schema_id\('((?:[^']|'')*)'\)", text, re.I)
+        if m:
+            self.schemas.add(m.group(1).replace("''", "'"))
+            return []
+        if low.startswith(("drop schema", "drop database", "declare @sql")):
+            name = self._container(text)
+            self.schemas.discard(name)
+            self.tables = {k: v for k, v in self.tables.items() if k[0] != name}
+            return []
+        if "_kart_state" in low:
+            return self._state(low, params)
+        if "_kart_track" in low:
+            return self._tracking(low, params)
+        if low.startswith("insert into public.spatial_ref_sys"):  # ON CONFLICT DO NOTHING
+            self.srs.setdefault(params[0], (params[1], params[2], params[3]))
+            return []
+        m = re.match(r"create spatial reference system if not exists (\d+)", low)
+        if m:
+            auth, _, code = params[0].partition(":")
+            self.srs.setdefault(int(m.group(1)), (auth, int(code) if code.isdigit() else 0,
+                                                  params[1]))
+            return []
+        if low.startswith("create table "):
+            (schema, name), rest = _table_ref(text[len("CREATE TABLE "):])
+            cols, pk = [], []
+            for part in _split_top(rest.strip()[1:-1]):
+                if part.upper().startswith("PRIMARY KEY"):
+                    pk = _names(part[part.index("(") + 1: part.rindex(")")])
+                    continue
+                ident = re.match(_QUOTED, part).group(0)
+                typ = re.split(r" (?:CHECK|AUTO_INCREMENT)\b", part[len(ident):].strip())[0]
+                cols.append((_unquote(ident), typ))
+            self.tables[(schema, name)] = _FakeTable(cols, pk)
+            return []
+        if low.startswith("drop table if exists "):
+            self.tables.pop(_table_ref(text[len("DROP TABLE IF EXISTS "):])[0], None)
+            return []
+        if low.startswith(("insert into ", "replace into ")):
+            ref, rest = _table_ref(text[len("INSERT INTO "):] if low.startswith("insert")
+                                   else text[len("REPLACE INTO "):])
+            names = _names(_parens(rest, rest.index("(")))
+            values = _split_top(_parens(rest, rest.index("(", rest.index(" VALUES "))))
+            for row in (params if many else [params]):
+                self._write(ref, names, row, values)
+            return []
+        if low.startswith("merge "):
+            ref, rest = _table_ref(text[len("MERGE "):])
+            using = rest.index("(SELECT ")
+            values = _split_top(_parens(rest, using)[len("SELECT "):])
+            names = _names(_parens(rest, rest.index("(", rest.index(" AS SRC "))))
+            self._write(ref, names, params, values)
+            return []
+        if low.startswith("delete from "):
+            ref, rest = _table_ref(text[len("DELETE FROM "):])
+            t = self.tables[ref]
+            t.rows = {k: v for k, v in t.rows.items() if str(k[0]) != str(params[0])}
+            if t.triggers:
+                self.track.setdefault(ref[1], set()).add(str(params[0]))
+            return []
+        if low.startswith("select"):
+            return self._select(text, low, params)
+        raise ValueError(f"the recording server does not know: {text[:120]}")
+
+    def _write(self, ref, names, row_values, placeholders):
+        """One row written (an insert or an upsert), with the SRID a
+        ``...GeomFromWKB(?, srid)`` placeholder gives its column."""
+        t = self.tables[ref]
+        cols = [c for c, _ in t.columns]
+        row = [None] * len(cols)
+        for name, v, ph in zip(names, row_values, placeholders):
+            row[cols.index(name)] = v
+            m = re.search(r"GeomFromWKB\((?:\?|%s), (\d+)", ph)
+            if m:
+                t.srids[name] = int(m.group(1))
+        t.rows[t.key(row)] = row
+        if t.triggers:
+            self.track.setdefault(ref[1], set()).add(str(row[cols.index(t.pk[0])]))
+
+    def _trigger(self, text, low):
+        """Tracking on or off for the trigger's table: named after ``ON``,
+        or in the trigger's name (``_kart_track_<table>_<suffix>``)."""
+        on = low.startswith(("create", "enable")) or (low.startswith("alter")
+                                                       and " enable " in low)
+        if low.startswith("alter table"):
+            ref = _table_ref(text[len("ALTER TABLE "):])[0]
+        else:
+            m = re.search(r" ON (?=[\"`\[])", text)
+            if m is not None:
+                ref = _table_ref(text[m.end():])[0]
+            else:
+                name = _unquote(re.findall(_QUOTED, text)[-1])
+                table = re.match(r"_kart_track_(.+)_(?:ins|upd|del|trigger)$", name).group(1)
+                ref = next(k for k in self.tables if k[1] == table)
+        if ref in self.tables:
+            self.tables[ref].triggers = on
+        return []
+
+    def _container(self, text):
+        m = re.search(r"table_schema = '((?:[^']|'')*)'", text)
+        return m.group(1).replace("''", "'") if m else _unquote(text.split()[4].rstrip(";"))
+
+    def _state(self, low, params):
+        if low.startswith("create table") or low.startswith("if object_id"):
+            return []
+        if low.startswith("delete"):
+            self.state.pop("tree", None)
+        elif low.startswith("insert"):
+            self.state["tree"] = params[0]
+        elif low.startswith("select value"):
+            return [(self.state["tree"],)] if "tree" in self.state else []
+        return []
+
+    def _tracking(self, low, params):
+        if low.startswith("create table") or low.startswith("if object_id"):
+            return []
+        if low.startswith("select pk"):
+            return [(pk,) for pk in sorted(self.track.get(params[0], ()))]
+        if low.startswith("delete"):
+            if "and pk =" in low:
+                self.track.get(params[0], set()).discard(params[1])
+            elif "where table_name" in low:
+                self.track.pop(params[0], None)
+            else:
+                self.track.clear()
+        return []
+
+    # -- SELECT ---------------------------------------------------------------
+
+    def _select(self, text, low, params):
+        if "information_schema.schemata" in low or "sys.schemas" in low:
+            return [(1,)] if params[0] in self.schemas else []
+        if "information_schema.tables" in low and "count(*)" in low:
+            return [(sum(1 for (s, n) in self.tables if s == params[0]
+                         and not n.startswith("_kart_")),)]
+        if low.startswith("select table_name from information_schema.tables"):
+            return [(n,) for (s, n) in sorted(self.tables, key=repr) if s == params[0]]
+        if low.startswith("select 1 from information_schema.tables"):
+            return [(1,)] if (params[0], params[1]) in self.tables else []
+        if low.startswith("select distinct tc.table_name") or \
+                low.startswith("select distinct table_name"):
+            return [(n,) for (s, n), t in sorted(self.tables.items(), key=lambda kv: repr(kv[0]))
+                    if s == params[0] and t.pk]
+        if "from information_schema.key_column_usage" in low and "ordinal_position" in low \
+                and low.startswith("select column_name"):
+            t = self.tables.get((params[0], params[1]))
+            return [(c, i + 1) for i, c in enumerate(t.pk)] if t else []
+        if low.startswith("select c.column_name"):
+            return self._columns(low, params)
+        if low.startswith("select gc.f_geometry_column"):
+            return self._pg_geometry_columns(params)
+        if low.startswith("select srs.srtext"):
+            return [(r[3],) for r in self._pg_geometry_columns(params) if r[3]]
+        if low.startswith("select organization, organization_coordsys_id"):
+            auth, code, _ = self._srs(params[0])
+            return [(auth, code)]
+        if low.startswith("select name, definition"):
+            auth, code, wkt = self._srs(params[0])
+            return [(f"{auth}:{code}", wkt)]
+        if low.startswith("select srs.definition"):
+            t = self.tables.get((params[0], params[1]))
+            return [(self._srs(srid)[2],) for srid in self._srids(t).values() if srid]
+        if low.startswith("select top 1 "):
+            ref = _table_ref(text[text.lower().index(" from ") + 6:])[0]
+            t = self.tables[ref]
+            col = _unquote(text[len("SELECT TOP 1 "): text.index(".STSrid")])
+            return [(self._srids(t).get(col, 0),)] if t.rows else []
+        if "count(*)" in low:
+            ref = _table_ref(text[low.index(" from ") + 6:])[0]
+            return [(len(self.tables[ref].rows),)]
+        return self._rows(text, low, params)
+
+    def _srids(self, t):
+        """{geometry column: SRID}: from the column's type, or on SQL Server
+        (no SRID in the type) from the values written."""
+        if t is None:
+            return {}
+        if self.dialect == "sqlserver":
+            return dict(t.srids)
+        return {c: g[1] for c, typ in t.columns if (g := self._info(typ)[5]) is not None}
+
+    def _srs(self, srid):
+        if srid in self.srs:
+            return self.srs[srid]
+        return "EPSG", srid, make_crs(f"EPSG:{srid}").wkt
+
+    def _info(self, typ):
+        """A CREATE TABLE type -> (data_type, udt_name, char_len, precision,
+        scale, geometry (type, srid) or None), as the dialect's
+        information_schema reports it."""
+        up = typ.upper()
+        m = re.match(r"([A-Z0-9 ]+?)\s*(?:\((.*)\))?(?: SRID (\d+))?$", up)
+        base, args, srid = m.group(1).strip(), m.group(2), m.group(3)
+        nums = [int(a) for a in (args or "").split(",") if a.strip().isdigit()]
+        if self.dialect == "postgis":
+            if base == "GEOMETRY":
+                parts = (args or "").split(",")
+                return ("USER-DEFINED", "geometry", None, None, None,
+                        (parts[0] if args else "GEOMETRY", int(parts[1]) if len(parts) > 1 else 0))
+            base = {"SMALLSERIAL": "SMALLINT", "SERIAL": "INTEGER",
+                    "BIGSERIAL": "BIGINT"}.get(base, base)
+            name, udt = {
+                "BOOLEAN": ("boolean", "bool"), "BYTEA": ("bytea", "bytea"),
+                "DATE": ("date", "date"), "REAL": ("real", "float4"),
+                "DOUBLE PRECISION": ("double precision", "float8"),
+                "SMALLINT": ("smallint", "int2"), "INTEGER": ("integer", "int4"),
+                "BIGINT": ("bigint", "int8"), "INTERVAL": ("interval", "interval"),
+                "NUMERIC": ("numeric", "numeric"), "TEXT": ("text", "text"),
+                "VARCHAR": ("character varying", "varchar"),
+                "TIME": ("time without time zone", "time"),
+                "TIMESTAMPTZ": ("timestamp with time zone", "timestamptz"),
+                "TIMESTAMP": ("timestamp without time zone", "timestamp")}[base]
+        elif self.dialect == "mysql":
+            if base in ("GEOMETRY", "POINT", "LINESTRING", "POLYGON", "MULTIPOINT",
+                        "MULTILINESTRING", "MULTIPOLYGON", "GEOMETRYCOLLECTION"):
+                return base.lower(), None, None, None, None, (base, int(srid or 0))
+            base = {"NUMERIC": "DECIMAL", "DOUBLE PRECISION": "DOUBLE"}.get(base, base)
+            name = udt = base.lower()
+        else:
+            if base == "GEOMETRY":
+                return "geometry", None, None, None, None, ("GEOMETRY", 0)
+            name = udt = base.lower()
+            if args and args.upper() == "MAX":
+                nums = [-1]
+        if base in ("NUMERIC", "DECIMAL"):
+            return name, udt, None, nums[0] if nums else None, nums[1] if len(nums) > 1 else 0, None
+        return name, udt, nums[0] if nums else None, None, None, None
+
+    def _columns(self, low, params):
+        t = self.tables.get((params[0], params[1]))
+        if t is None:
+            return []
+        out = []
+        for name, typ in t.columns:
+            data_type, udt, char_len, prec, scale, geom = self._info(typ)
+            pk_pos = t.pk.index(name) + 1 if name in t.pk else None
+            if "c.udt_name" in low:
+                out.append((name, data_type, udt, char_len, prec, scale, pk_pos))
+            elif "c.column_type" in low:
+                out.append((name, data_type, typ.lower(), char_len, prec, scale,
+                            "PRI" if pk_pos else "", geom[1] if geom else None))
+            elif "c.srs_id" in low:
+                out.append((name, data_type, char_len, prec, scale,
+                            "PRI" if pk_pos else "", geom[1] if geom else None))
+            else:
+                out.append((name, data_type, char_len, prec, scale, pk_pos))
+        return out
+
+    def _pg_geometry_columns(self, params):
+        t = self.tables.get((params[0], params[1]))
+        out = []
+        for name, typ in (t.columns if t else ()):
+            geom = self._info(typ)[5]
+            if geom is not None:
+                srid = geom[1]
+                out.append((name, geom[0], srid, self._srs(srid)[2] if srid else None))
+        return out
+
+    def _rows(self, text, low, params):
+        i = low.index(" from ")
+        exprs = _split_top(text[len("SELECT "):i])
+        ref, rest = _table_ref(text[i + 6:])
+        t = self.tables[ref]
+        cols = [c for c, _ in t.columns]
+        picks = [cols.index(_unquote(re.findall(_QUOTED, e)[-1])) for e in exprs]
+        geometry = ["ST_AsEWKB" in e for e in exprs]
+        rows = list(t.rows.values())
+        if " IN (" in rest:
+            wanted = {str(p) for p in params}
+            rows = [r for r in rows if str(r[cols.index(t.pk[0])]) in wanted]
+        return [tuple(bytes.fromhex(r[j]) if g and isinstance(r[j], str) else r[j]
+                      for j, g in zip(picks, geometry)) for r in rows]
+
+
+class _FakeCursor:
+    def __init__(self, server):
+        self.server, self._rows, self.itersize, self.arraysize = server, [], 2000, 1
+
+    def execute(self, sql, params=()):
+        self.server.statements.append((sql, tuple(params) if params else ()))
+        self._rows = self.server.respond(sql, params)
+        return self
+
+    def executemany(self, sql, rows):
+        rows = list(rows)
+        self.server.statements.append((sql, None))
+        self.server.many_rows.setdefault(" ".join(sql.split()), []).extend(rows)
+        self.server.respond(sql, rows, many=True)
+        self._rows = []
+        return self
+
+    def fetchone(self):
+        return self._rows.pop(0) if self._rows else None
+
+    def fetchall(self):
+        out, self._rows = self._rows, []
+        return out
+
+    def fetchmany(self, size=None):
+        size = size or self.arraysize
+        out, self._rows = self._rows[:size], self._rows[size:]
+        if out:
+            self.server.fetches += 1
+        return out
+
+    def __iter__(self):
+        while True:
+            batch = self.fetchmany(self.itersize)
+            if not batch:
+                return
+            yield from batch
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def close(self):
+        pass
+
+
+class _FakeCon:
+    def __init__(self, server):
+        self.server = server
+
+    def cursor(self, *args, **kwargs):
+        return _FakeCursor(self.server)
+
+    def commit(self):
+        pass
+
+    def rollback(self):
+        pass
+
+    def close(self):
+        pass
+
+
+@contextlib.contextmanager
+def drivers(server=None, dialect=None):
+    """``server`` installed as its dialect's driver modules under
+    ``sys.modules`` (``server`` None: the modules of ``dialect`` made
+    unimportable, a machine without the driver), and the earlier entries
+    put back after."""
+    names = DRIVER_MODULES[server.dialect if server is not None else dialect]
+    saved = {n: sys.modules.get(n, SOME) for n in names + ("MySQLdb",)}
+    try:
+        for n in names:
+            sys.modules[n] = server
+        if server is None:
+            sys.modules["MySQLdb"] = None
+        yield server
+    finally:
+        for n, m in saved.items():
+            if m is SOME:
+                sys.modules.pop(n, None)
+            else:
+                sys.modules[n] = m
+
+
+#: [I2]'s working copies and [I3]'s source tables, one server a dialect
+SERVER_WC = {"postgis": "postgresql://db.example.com/gis/kart_wc",
+             "mysql": "mysql://db.example.com/kart_wc",
+             "sqlserver": "mssql://db.example.com/gis/kart_wc"}
+#: each dialect's adapter, for the rows a checkout must write
+SERVER_ADAPTERS = {"postgis": PostgisAdapter, "mysql": MySqlAdapter,
+                   "sqlserver": SqlServerAdapter}
+#: the driver each dialect's import names when it is missing (kart_tpu's text)
+MISSING_DRIVER = {"postgis": "PostgreSQL imports require the psycopg2 driver",
+                  "mysql": "MySQL imports require the pymysql driver",
+                  "sqlserver": "SQL Server imports require the pyodbc driver"}
+I_LAYERS = ("points", "points_zip", "polygons", "points_fgb")
+
+
+def _cli_run(label, launches, argv, rc_want=0, k1=0, k4=0, counts_only=0):
+    """One counted CLI call -> (stdout, stderr, host wall s): K1 ``k1``
+    times (``counts_only`` of them counts-only), K4 ``k4`` times."""
+    out, err = io.StringIO(), io.StringIO()
+
+    def go():
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            return kart_cli(*argv, rc_want=rc_want)
+
+    wall, stats = counted(label, go, launches, want=k1, want_k4=k4)
+    check(stats["classify_counts_only_launches"] == counts_only,
+          f"[{label}] K1 ran counts-only {stats['classify_counts_only_launches']} times")
+    return out.getvalue(), err.getvalue(), wall
+
+
+def _sha(text):
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def _features_equal(a, b, pks):
+    return all(a.get_feature([pk]) == b.get_feature([pk]) for pk in pks)
+
+
+def _tree_state(path):
+    """{file: (size, mtime)} under ``path``."""
+    out = {}
+    for d, _, names in os.walk(path):
+        for name in names:
+            st = os.stat(os.path.join(d, name))
+            out[os.path.join(d, name)] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
+def _copy_repo(src, dst):
+    """A copy of a repository whose packs and sidecars are hard links."""
+    def link_immutable(a, b):
+        parent = os.path.basename(os.path.dirname(a))
+        return os.link(a, b) if parent in ("pack", "columnar") else shutil.copy2(a, b)
+
+    shutil.copytree(src, dst, copy_function=link_immutable)
+    return dst
+
+
+def import_phases(args, card, launches, tmp):
+    """[I1]: a Shapefile, its .zip, a polygon Shapefile and a FlatGeobuf
+    imported on each route, then an edited rewrite with --replace-existing
+    and the two captured sidecars' diff (K1). -> (walls, {route: repo})."""
+    walls, n = {}, args.import_rows
+    src = os.path.join(tmp, "src")
+    os.makedirs(src)
+    t = time.perf_counter()
+    layer = synth_sources.point_layer(n, args.seed + 21)
+    shp = synth_sources.write_point_shapefile(os.path.join(src, "points"), layer)
+    zipped = synth_sources.zip_shapefile(shp, os.path.join(src, "points_zip.zip"))
+    n_poly = max(1, n // 10)
+    polygons = synth_sources.write_polygon_shapefile(os.path.join(src, "polygons"), n_poly, args.seed + 22)
+    fgb = synth_sources.write_point_flatgeobuf(os.path.join(src, "points_fgb.fgb"), layer, name="points_fgb",
+                                 index_node_size=16)
+    fgb_plain = synth_sources.write_point_flatgeobuf(os.path.join(src, "plain.fgb"), layer, name="points_fgb")
+    edited, edits = synth_sources.edited_point_layer(layer, args.seed + 23)
+    walls["I1 sources"] = time.perf_counter() - t
+    live = n - sum(layer["deleted"])
+    check(list(FlatGeobufImportSource(fgb).features())
+          == list(FlatGeobufImportSource(fgb_plain).features()),
+          "[I1] the FlatGeobuf with its packed index reads other features than without")
+    repos = {r: os.path.join(tmp, r, "repo") for r in ("card", "cpu")}
+    outs = {r: [] for r in repos}
+
+    def step(name, argv_for, **want):
+        for route, path in repos.items():
+            pre = [] if route == "card" else ["--device", "cpu"]
+            out, err, walls[f"I1 {name} {route}"] = _cli_run(
+                "I1" if route == "card" else "I1 cpu", launches, [*pre, *argv_for(path)],
+                **(want if route == "card" else {}))
+            head = KartRepo(path).head_commit_oid
+            outs[route].append((_sha(out.replace(path, "<repo>")), head))
+            check(err.strip().splitlines()[-1].startswith("Imported "),
+                  f"[I1] {name} on the {route} said {err!r}")
+
+    step("init --import .shp", lambda p: ["init", "--import", shp, p])
+    step("import .zip", lambda p: ["-C", p, "import", "--no-checkout", zipped])
+    step("import polygons", lambda p: ["-C", p, "import", "--no-checkout", polygons])
+    step("import .fgb", lambda p: ["-C", p, "import", "--no-checkout", fgb])
+    synth_sources.write_point_shapefile(os.path.join(src, "points"), edited)
+    step("import --replace-existing", lambda p: ["-C", p, "import", "--no-checkout",
+                                                 "--replace-existing", shp])
+    check(outs["card"] == outs["cpu"],
+          f"[I1] the card's and --device cpu's stdout or commits differ: {outs}")
+    repo = KartRepo(repos["card"])
+    base = repo.structure("HEAD^")
+    counts = {p: len(base.datasets[p].feature_index()[1]) for p in I_LAYERS}
+    check(counts == {"points": live, "points_zip": live, "polygons": n_poly,
+                     "points_fgb": live}, f"[I1] imported feature counts {counts}")
+    pts, zpts = base.datasets["points"], base.datasets["points_zip"]
+    check(np.array_equal(pts.feature_index()[1], zpts.feature_index()[1])
+          and _features_equal(pts, zpts, pts.feature_index()[1][:: max(1, live // 500)].tolist()),
+          "[I1] the .zip's features differ from the .shp's")
+    jl = os.path.join(tmp, "i1.jsonl")
+    card_s, cpu_s, digest, _ = card_and_cpu(
+        "I1", ["-C", repos["card"], "diff", "HEAD^...HEAD", "-o", "json-lines"], jl, launches,
+        k2=0)
+    with open(f"{jl}.card") as f:
+        n_lines = sum(json.loads(line)["type"] == "feature" for line in f)
+    want = sum(len(v) for v in edits.values())
+    check(n_lines == want, f"[I1] diff HEAD^...HEAD has {n_lines} features, edits {want}")
+    walls["I1 diff card"], walls["I1 diff cpu"] = card_s, cpu_s
+    print(f"[I1] {live} of {n} points from .shp ({walls['I1 init --import .shp card']:.4f} s "
+          f"with the GPKG working copy), .zip ({walls['I1 import .zip card']:.4f} s), "
+          f"{n_poly} polygons ({walls['I1 import polygons card']:.4f} s) and .fgb "
+          f"({walls['I1 import .fgb card']:.4f} s; the same features without its index), "
+          f"--replace-existing of the edit ({walls['I1 import --replace-existing card']:.4f} s): "
+          f"the same stdout and commits with --device cpu; diff HEAD^...HEAD -o json-lines "
+          f"{card_s:.4f} s on the card (one K1), {cpu_s:.4f} s with --device cpu, {n_lines} "
+          f"features, sha256 {digest[:16]} on both, on {card}")
+    return walls, repos
+
+
+def _layer_rows(features, dialect):
+    """{table: sorted rows} a checkout must write: ``features`` {table:
+    (columns, CRS id, [feature])} through the dialect's adapter."""
+    adapter = SERVER_ADAPTERS[dialect]
+    return {t: sorted((tuple(adapter.value_from_v2(f[c.name], c, crs_id=crs_id) for c in cols)
+                       for f in feats), key=repr)
+            for t, (cols, crs_id, feats) in features.items()}
+
+
+def _server_edits(server, dialect, repo, rng, n_move, n_del, n_ins, first_new, exclude=()):
+    """An editing client's updates (moved, renamed), deletes and inserts
+    on ``points`` -> the pks they touched."""
+    adapter = SERVER_ADAPTERS[dialect]
+    ds = repo.structure("HEAD").datasets["points"]
+    cols = ds.schema.columns
+    pks = sorted(set(ds.feature_index()[1].tolist()) - set(exclude))
+    pick = rng.choice(len(pks), n_move + n_del, replace=False)
+    touched = []
+    for i, j in enumerate(pick.tolist()):
+        pk = pks[j]
+        touched.append(pk)
+        if i >= n_move:
+            server.client_delete("points", pk)
+            continue
+        f = dict(ds.get_feature([pk]))
+        x, y = rng.uniform(-60, 60), rng.uniform(-60, 60)
+        f["geom"], f["name"] = Geometry.from_wkt(f"POINT ({x} {y})"), f"server {pk}"
+        server.client_upsert("points", {c.name: adapter.value_from_v2(f[c.name], c,
+                                                                      crs_id=4326)
+                                        for c in cols})
+    for i in range(n_ins):
+        f = {c.name: None for c in cols}
+        f.update(FID=first_new + i, geom=Geometry.from_wkt(f"POINT ({i % 90} {-i % 45})"),
+                 name=f"inserted {i}")
+        server.client_upsert("points", {c.name: adapter.value_from_v2(f[c.name], c,
+                                                                      crs_id=4326)
+                                        for c in cols})
+        touched.append(first_new + i)
+    return touched
+
+
+def _applied(server, dialect, head, n0):
+    """The statements from ``n0`` on that begin ``<head> <points table>``."""
+    prefix = f"{head} {SERVER_ADAPTERS[dialect].quote_table('points', 'kart_wc')}"
+    return sum(" ".join(s.split()).startswith(prefix) for s, _ in server.statements[n0:])
+
+
+#: each dialect's upsert statement
+UPSERTS = {"postgis": "INSERT INTO", "mysql": "REPLACE INTO", "sqlserver": "MERGE"}
+
+
+def server_wc_phases(args, card, launches, repos, tmp):
+    """[I2]: each dialect's working copy on a recording server, on a copy of
+    [I1]'s repository; the commands that reach the card (``switch -c``,
+    ``merge``) again with ``--device cpu`` on copies of the repository and
+    the server made before them. -> (walls, {dialect: the server})."""
+    walls, servers = {}, {}
+    n_move = max(1, args.import_rows // 1000)
+    n_small = max(1, args.import_rows // 10000)
+    features = {}
+    for ds in KartRepo(repos["card"]).structure("HEAD").datasets:
+        crs = ds.crs_identifiers()
+        features[ds.path] = (ds.schema.columns,
+                             get_identifier_int(ds.get_crs_definition(crs[0])) if crs else 0,
+                             list(ds.features()))
+    for dialect, url in SERVER_WC.items():
+        path = _copy_repo(repos["card"], os.path.join(tmp, f"wc-{dialect}", "repo"))
+        rng = np.random.default_rng(args.seed + 24)
+        server = servers[dialect] = RecordingServer(dialect)
+        w = {}
+
+        def run(name, argv, k1=0, k4=0, where=path, srv=server, route="card"):
+            """``argv`` on ``where`` with ``srv`` as the driver -> (stdout, the
+            index of its first statement in ``srv.statements``)."""
+            n0 = len(srv.statements)
+            pre, lab = ([], f"I2 {dialect}") if route == "card" else (["--device", "cpu"],
+                                                                      f"I2 {dialect} cpu")
+            with drivers(srv):
+                out, _, w[f"{name} {route}"] = _cli_run(
+                    lab, launches, [*pre, "-C", where, *argv], k1=k1, k4=k4)
+            return out, n0
+
+        def on_both(name, argv, k1=0, k4=0):
+            """``argv`` on the card, then with --device cpu on copies of the
+            repository and the server made before: the same stdout, head
+            commit, statements and tables. -> the card's (stdout, n0)."""
+            cpu_path = _copy_repo(path, os.path.join(tmp, f"wc-{dialect}-{name}", "repo"))
+            cpu_server = copy.deepcopy(server)
+            got = {}
+            for route, where, srv in (("card", path, server), ("cpu", cpu_path, cpu_server)):
+                out, n0 = run(name, argv, k1=k1 if route == "card" else 0,
+                              k4=k4 if route == "card" else 0, where=where, srv=srv, route=route)
+                got[route] = (_sha(out), KartRepo(where).head_commit_oid, srv.digest(),
+                              RecordingServer.statements_digest(srv, n0), (out, n0))
+            check(got["card"][:4] == got["cpu"][:4],
+                  f"[I2] {dialect}: {name} differs with --device cpu: {got['card'][:4]} / "
+                  f"{got['cpu'][:4]}")
+            return got["card"][4]
+
+        run("create-workingcopy", ["create-workingcopy", url])
+        got = {t: sorted((tuple(r) for r in server.table(t).rows.values()), key=repr)
+               for t in features}
+        want = _layer_rows(features, dialect)
+        check(got == want, f"[I2] {dialect}: the checkout's rows differ from the layers'")
+        check(sum(len(v) for k, v in server.many_rows.items() if k.startswith("INSERT INTO"))
+              == sum(len(v) for v in want.values()),
+              f"[I2] {dialect}: the checkout's executemany rows miscounted")
+        if "Changes in working copy" in run("status", ["status"])[0]:
+            # the server's CRS text, normalised on reading back: committed once
+            run("commit CRS", ["commit", "-m", "server CRS definitions"])
+        repo = KartRepo(path)
+        first_new = int(repo.structure("HEAD").datasets["points"].feature_index()[1].max()) + 1
+        touched = _server_edits(server, dialect, repo, rng, n_move, n_small, n_small, first_new)
+        got = json.loads(run("status -o json", ["status", "-o", "json"])[0])
+        got = got["kart.status/v1"]["workingCopy"]["changes"]
+        check(got == {"points": {"feature": {"updates": n_move, "deletes": n_small,
+                                             "inserts": n_small}}},
+              f"[I2] {dialect}: status -o json said {got}")
+        feats = json.loads(run("diff -o json", ["diff", "-o", "json"])[0])
+        feats = feats["kart.diff/v1+hexwkb"]["points"]["feature"]
+        check(len(feats) == n_move + 2 * n_small,
+              f"[I2] {dialect}: diff -o json has {len(feats)} deltas")
+        run("commit", ["commit", "-m", "server edits"])
+        n0 = on_both("switch -c side HEAD^", ["switch", "-c", "side", "HEAD^"], k1=1)[1]
+        upserts = _applied(server, dialect, UPSERTS[dialect], n0)
+        deletes = _applied(server, dialect, "DELETE FROM", n0)
+        check((upserts, deletes) == (n_move + n_small, n_small),
+              f"[I2] {dialect}: switch -c wrote {upserts} upserts and {deletes} deletes for "
+              f"{n_move} updates, {n_small} deletes, {n_small} inserts")
+        _server_edits(server, dialect, KartRepo(path), rng, n_move, 0, 0, first_new,
+                      exclude=touched)
+        run("commit side", ["commit", "-m", "side edits"])
+        run("switch main", ["switch", "main"])
+        # the merge classifies every dataset of the three commits: one K4 each
+        on_both("merge side", ["merge", "side"], k4=len(I_LAYERS))
+        gone = touched[:n_small]
+        for pk in gone:
+            server.client_delete("points", pk)
+        run("restore points", ["restore", "points"])
+        check(all((pk,) in server.table("points").rows for pk in gone),
+              f"[I2] {dialect}: restore left {gone} deleted")
+        out = run("status after", ["status"])[0]
+        check("Nothing to commit, working copy clean" in out,
+              f"[I2] {dialect}: status after restore said {out!r}")
+        walls.update((f"I2 {dialect} {k}", v) for k, v in w.items())
+        print(f"[I2] {dialect} working copy on a recording server: create-workingcopy "
+              f"{w['create-workingcopy card']:.4f} s ({len(want)} tables, "
+              f"{sum(len(v) for v in want.values())} rows equal to the layers'), client edits "
+              f"committed {w['commit card']:.4f} s, switch -c side HEAD^ (one K1, {upserts} "
+              f"upserts, {deletes} deletes) {w['switch -c side HEAD^ card']:.4f} s, switch main "
+              f"{w['switch main card']:.4f} s, merge side (one K4 a dataset) "
+              f"{w['merge side card']:.4f} s, restore points {w['restore points card']:.4f} s; "
+              f"switch -c {w['switch -c side HEAD^ cpu']:.4f} s and merge "
+              f"{w['merge side cpu']:.4f} s with --device cpu: equal stdout, commits, tables "
+              f"and statements, on {card}")
+    return walls, servers
+
+
+def db_source_phases(args, card, launches, servers, tmp):
+    """[I3]: ``points`` imported from each dialect's server, an edit of the
+    table imported with --replace-existing and counted (K1 counts-only),
+    and a machine without the driver. -> walls."""
+    walls = {}
+    n_move = max(1, args.import_rows // 1000)
+    n_small = max(1, args.import_rows // 10000)
+    for dialect, server in servers.items():
+        spec = f"{SERVER_WC[dialect]}/points"
+        repos = {r: os.path.join(tmp, f"db-{dialect}-{r}", "repo") for r in ("card", "cpu")}
+        heads = {}
+        for step in ("init", "replace"):
+            if step == "replace":
+                _server_edits(server, dialect, KartRepo(repos["card"]),
+                              np.random.default_rng(args.seed + 25), n_move, n_small, n_small,
+                              max(k[0] for k in server.table("points").rows) + 1)
+            for route, path in repos.items():
+                pre = [] if route == "card" else ["--device", "cpu"]
+                argv = (["init", "--bare", "--import", spec, path] if step == "init" else
+                        ["-C", path, "import", "--replace-existing", spec])
+                server.fetches = 0
+                with drivers(server):
+                    out, err, walls[f"I3 {dialect} {step} {route}"] = _cli_run(
+                        f"I3 {dialect}" if route == "card" else f"I3 {dialect} cpu", launches,
+                        [*pre, *argv])
+                check(server.fetches >= len(server.table("points").rows) // 10_000,
+                      f"[I3] {dialect}: {server.fetches} fetches for the table")
+                heads.setdefault(step, set()).add(KartRepo(path).head_commit_oid)
+        check(all(len(v) == 1 for v in heads.values()),
+              f"[I3] {dialect}: the card's and --device cpu's commits differ: {heads}")
+        count = os.path.join(tmp, f"db-{dialect}.count")
+        card_s, cpu_s, digest, _ = card_and_cpu(
+            f"I3 {dialect}", ["-C", repos["card"], "diff", "-o", "feature-count", "HEAD^...HEAD"],
+            count, launches, counts_only=True, k2=0, stdout=True)
+        with open(f"{count}.card") as f:
+            said = f.read()
+        check(said.strip().startswith("points:") and
+              int(re.search(r"(\d+)", said).group(1)) == n_move + 2 * n_small,
+              f"[I3] {dialect}: feature-count said {said!r}")
+        before = _tree_state(repos["card"])
+        with drivers(None, dialect):
+            _, err, _ = _cli_run(f"I3 {dialect}", launches,
+                                 ["-C", repos["card"], "import", "--replace-existing", spec],
+                                 rc_want=40)
+        check(err.startswith(f"Error: {MISSING_DRIVER[dialect]}")
+              and _tree_state(repos["card"]) == before,
+              f"[I3] {dialect}: without the driver the import said {err!r} or wrote")
+        print(f"[I3] {dialect}: init --import of {spec} "
+              f"{walls[f'I3 {dialect} init card']:.4f} s, import --replace-existing of the "
+              f"edited table {walls[f'I3 {dialect} replace card']:.4f} s (fetchmany batches), "
+              f"diff -o feature-count {card_s:.4f} s on the card (one counts-only K1), "
+              f"{cpu_s:.4f} s with --device cpu, equal commits and counts; without the driver "
+              f"exit 40, nothing written, on {card}")
+    return walls
+
+
+def import_and_server_phases(args, card, launches):
+    """[I1]-[I3] -> {step: host wall s}."""
+    os.environ.update(GIT_AUTHOR_DATE=MERGE_DATE, GIT_COMMITTER_DATE=MERGE_DATE)
+    try:
+        with tempfile.TemporaryDirectory(prefix="kart_smoke_import_") as tmp:
+            walls, repos = import_phases(args, card, launches, tmp)
+            w2, servers = server_wc_phases(args, card, launches, repos, tmp)
+            walls.update(w2)
+            walls.update(db_source_phases(args, card, launches, servers, tmp))
+    finally:
+        for k in ("GIT_AUTHOR_DATE", "GIT_COMMITTER_DATE"):
+            os.environ.pop(k, None)
     return walls
 
 
@@ -4914,18 +5832,21 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=10_000_000)
     ap.add_argument("--index-rows", type=int, default=1_000_000)
-    # the int CLI repo below 10M rows: the hash-keyed phases need the time
-    # within the script's limit
-    ap.add_argument("--repo-rows", type=int, default=5_000_000)
-    # [11]-[13], Q, T and H on 1M points, [14]-[17] on 1M merge rows, [11i]'s
-    # real-blob layer at 200,000 and the hash-keyed repos at 1M and 200,000:
-    # cut by half or more from 2M, 2M, 400,000, 5M and 500,000, where the
-    # script took 947 s on one H100 host and over its 1,200 s limit on another
+    # [7]-[10b]'s repo at 1.5M rows, [14]-[17] on 250,000 merge rows, [11i]'s
+    # real-blob layer at 50,000 and the hash-keyed repos at 250,000 and 50,000:
+    # cut from 5M, 1M, 200,000, 1M and 200,000 (PERF.md §4) when the script had
+    # grown to 749 s of its 1,200 s limit on one H100 host, where host walls
+    # differ by up to 57% between machines; [11]-[13], Q, T, H and W stay on 1M
+    # points, the fewest at which M4's strip join takes the mesh form of K2
+    # (DEVICE_MIN_ENVELOPES). Before that, cut by half or more from 10M, 2M, 2M,
+    # 400,000, 5M and 500,000 after 947 s on one H100 host and over the limit on
+    # another
+    ap.add_argument("--repo-rows", type=int, default=1_500_000)
     ap.add_argument("--spatial-rows", type=int, default=1_000_000)
-    ap.add_argument("--index-repo-rows", type=int, default=200_000)
-    ap.add_argument("--merge-rows", type=int, default=1_000_000)
-    ap.add_argument("--text-rows", type=int, default=1_000_000)
-    ap.add_argument("--text-merge-rows", type=int, default=200_000)
+    ap.add_argument("--index-repo-rows", type=int, default=50_000)
+    ap.add_argument("--merge-rows", type=int, default=250_000)
+    ap.add_argument("--text-rows", type=int, default=250_000)
+    ap.add_argument("--text-merge-rows", type=int, default=50_000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stream-rows", type=int, default=100_000_000)
     ap.add_argument("--crossover-rows", type=int_list,
@@ -4954,19 +5875,28 @@ def main():
     ap.add_argument("--history-only", action="store_true",
                     help="run phases 0, 1, 11, H0-H3 and W1-W2 alone and print the launches "
                          "(no result line)")
-    # 100,000, cut from 1,000,000: the edit loop's import and working-copy
-    # writes are per-feature Python on the host (PERF.md §4), and E1-E3 write
-    # the whole layer into the working copy eight times
-    ap.add_argument("--wc-rows", type=int, default=100_000)
+    # 25,000, cut from 100,000 (and from 1,000,000 before its first run): the
+    # edit loop's import and working-copy writes are per-feature Python on the
+    # host (PERF.md §4), and E1-E3 write the whole layer into the working copy
+    # eight times
+    ap.add_argument("--wc-rows", type=int, default=25_000)
     ap.add_argument("--wc-only", action="store_true",
                     help="run phases 0, 1 and E1-E3 alone and print the launches (no result "
                          "line)")
-    # 50,000, cut from [11i]'s 200,000: a filtered working copy's write
-    # matches each in-filter feature against the filter on the host, and R
-    # writes one five times (PERF.md §4)
-    ap.add_argument("--remote-rows", type=int, default=50_000)
+    # 25,000, cut from 50,000 (and from [11i]'s 200,000 before its first run): a
+    # filtered working copy's write matches each in-filter feature against the
+    # filter on the host, and R writes one five times (PERF.md §4)
+    ap.add_argument("--remote-rows", type=int, default=25_000)
     ap.add_argument("--remote-only", action="store_true",
                     help="run phases 0, 1 and R1-R3 alone and print the launches (no result "
+                         "line)")
+    # 12,000, cut from 50,000 before its first run: an import's sidecar (and
+    # so K1) needs 10,000 features (SIDECAR_MIN_FEATURES), and I2 writes [I1]'s
+    # four layers (3.1 rows a point) into a working copy twelve times
+    # in per-feature host Python (PERF.md §4)
+    ap.add_argument("--import-rows", type=int, default=12_000)
+    ap.add_argument("--import-only", action="store_true",
+                    help="run phases 0, 1 and I1-I3 alone and print the launches (no result "
                          "line)")
     ap.add_argument("--stream-only", action="store_true",
                     help="run phases 0, 1 and S1-S4 alone (S3 on repositories of its own) and "
@@ -5011,6 +5941,14 @@ def main():
         t = time.perf_counter()
         walls = remote_phases(args, card, launches, dev)
         print(f"[R] all {time.perf_counter() - t:.2f} s on {card}")
+        print(json.dumps({"walls": walls, "launches": launches}))
+        return 0
+    if args.import_only:
+        _build.build_all()
+        launches = {}
+        t = time.perf_counter()
+        walls = import_and_server_phases(args, card, launches)
+        print(f"[I] all {time.perf_counter() - t:.2f} s on {card}")
         print(json.dumps({"walls": walls, "launches": launches}))
         return 0
     if args.stream_only:
@@ -5285,6 +6223,10 @@ def main():
     remote_phases(args, card, cli_launches, dev)
     walls["R1-R3"] = time.perf_counter() - t
     progress("R1-R3", t_start)
+    t = time.perf_counter()
+    import_and_server_phases(args, card, cli_launches)
+    walls["I1-I3"] = time.perf_counter() - t
+    progress("I1-I3", t_start)
     print("[22] phase walls s: " + ", ".join(f"[{k}] {v:.2f}" for k, v in
                                              {**s_walls, **walls}.items())
           + f"; all since the build {time.perf_counter() - t_start:.2f} on {card}")

@@ -162,8 +162,8 @@ def run_meta_set(args, repo, device):
     ds_diff["meta"] = meta_diff
     repo_diff = RepoDiff()
     repo_diff[args.dataset] = ds_diff
-    wc = get_working_copy(repo, device=device)
     oid = structure.commit_diff(repo_diff, args.message or f"Update metadata for {args.dataset}")
+    wc = get_working_copy(repo, device=device)
     if wc is not None:
         # non-force: only the dataset whose meta changed is written again,
         # edits elsewhere stay
@@ -185,7 +185,6 @@ def run_commit_files(args, repo, device):
     if commit_to is None or (commit_to != "HEAD" and not commit_to.startswith("refs/heads/")):
         raise _CliError(f"{args.ref!r} is not a branch that can be committed to")
     moves_head = commit_to == "HEAD" or repo.head_branch == commit_to
-    wc = get_working_copy(repo, device=device) if moves_head else None
     parent = repo.odb.read_commit(parent_oid)
     tb = TreeBuilder(repo.odb, parent.tree)
     for item in args.items:
@@ -210,6 +209,7 @@ def run_commit_files(args, repo, device):
     if new_tree == parent.tree and not args.allow_empty:
         raise _CliError("No changes to commit")
     new_commit = repo.create_commit(commit_to, new_tree, args.message, [parent_oid])
+    wc = get_working_copy(repo, device=device) if moves_head else None
     if wc is not None:
         wc.reset(repo.structure(new_commit))  # non-force: the copy's edits stay
     print(f"Committed {new_commit[:7]}")

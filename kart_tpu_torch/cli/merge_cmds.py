@@ -91,13 +91,11 @@ def run_merge(args, repo, device):
         do_merge,
         reset_working_copy,
     )
-    from kart_tpu_torch.workingcopy import get_working_copy
 
     try:
         if args.abort_:
             if repo.state != KartRepoState.MERGING:
                 raise _CliError("Repository is not in 'merging' state")
-            get_working_copy(repo)  # raises before any write where it is not ported
             abort_merging_state(repo)
             reset_working_copy(repo, device)
             print("Merge aborted")

@@ -161,10 +161,6 @@ def _do_checkout(repo, refish=None, *, force=False, device=None):
 # --- init / import -----------------------------------------------------------
 
 def run_init(args, repo, device):
-    from kart_tpu_torch.importer import check_source_ported
-
-    if args.import_from:
-        check_source_ported(args.import_from)  # before the repository is made
     repo = KartRepo.init_repository(args.directory, bare=args.bare,
                                     initial_branch=args.initial_branch)
     print(f"Initialized empty Kart repository in {repo.gitdir}")
@@ -225,6 +221,8 @@ def run_import(args, repo, device):
             for src in opened:
                 if hasattr(src, "crs"):
                     src.crs = args.crs_override
+                elif getattr(src, "crs_wkt", "n/a") is None:  # a Shapefile without .prj
+                    src.crs_wkt = make_crs(args.crs_override).wkt
                 else:
                     raise _CliError(f"--crs does not apply to {spec!r}: the source carries "
                                     f"its own CRS definition")
@@ -236,8 +234,6 @@ def run_import(args, repo, device):
             raise _CliError("--dest-path requires a single table import")
         all_sources[0].dest_path = args.dest_path
     checkout = not args.no_checkout and not repo.is_bare
-    if checkout:
-        get_working_copy(repo, allow_uncreated=True)  # raises where it is not ported
     import_sources(repo, all_sources, message=args.message,
                    replace_existing=args.replace_existing, replace_ids=ids,
                    log=lambda m: print(m, file=sys.stderr))
@@ -290,7 +286,7 @@ def run_commit(args, repo, device):
     wc.assert_db_tree_match(target_rs.tree_oid)
     key_filter = RepoKeyFilter.build_from_user_patterns(args.filters)
     repo_diff = get_repo_diff(target_rs, target_rs, repo_key_filter=key_filter, device=device,
-                              include_wc_diff=True, working_copy=wc)
+                              include_wc_diff=True)
     if not repo_diff and not args.allow_empty:
         raise _CliError("No changes to commit")
     msg = "\n\n".join(args.message) if args.message else None
@@ -334,8 +330,7 @@ def run_status(args, repo, device):
     wc = get_working_copy(repo, device=device)
     if wc is not None and head is not None:
         target_rs = repo.structure("HEAD")
-        diff = get_repo_diff(target_rs, target_rs, device=device, include_wc_diff=True,
-                             working_copy=wc)
+        diff = get_repo_diff(target_rs, target_rs, device=device, include_wc_diff=True)
         for ds_path, ds_diff in diff.items():
             changes[ds_path] = ds_diff.type_counts()
     short_branch = branch.rsplit("/", 1)[-1] if branch else None
@@ -427,15 +422,15 @@ def _switch_spatial_filter(repo, text, refish, force):
     if wc.is_dirty() and not force:
         raise InvalidOperation(_DIRTY)
     target = repo.structure(refish or "HEAD")
-    if os.path.exists(wc.full_path):
-        os.remove(wc.full_path)
+    full_path = getattr(wc, "full_path", None)  # a GPKG's file; a server's tables stay
+    if full_path and os.path.exists(full_path):
+        os.remove(full_path)
     wc.create_and_initialise()
     wc.write_full(target, *target.datasets)
 
 
 def run_checkout(args, repo, device):
     _require_state(repo, KartRepoState.NORMAL)
-    get_working_copy(repo, allow_uncreated=True)  # raises before any write where not ported
     if args.spatial_filter_text is not None:
         _switch_spatial_filter(repo, args.spatial_filter_text, args.refish, args.force)
         if args.refish is None and args.new_branch is None:
@@ -511,7 +506,7 @@ def run_restore(args, repo, device):
     else:
         # only the filtered features: the inverse of their working-copy diff
         diff = get_repo_diff(structure, repo.structure("HEAD"), repo_key_filter=key_filter,
-                             device=device, include_wc_diff=True, working_copy=wc)
+                             device=device, include_wc_diff=True)
         with wc.session() as con:
             for ds_path, ds_diff in diff.items():
                 ds = structure.datasets.get(ds_path)

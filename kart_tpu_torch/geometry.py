@@ -10,7 +10,9 @@ spatial filter need: :class:`Geometry` with its header readers, ``of``,
 :func:`geojson_to_geometry`) and ``to_coords``/``_build_gpkg`` for
 reprojection; :func:`gpkg_hex_wkb` (the fused blob->JSON path); and
 ``with_crs_id`` and ``normalised``, which a working copy and an import
-need. EWKB is not ported.
+need; and EWKB (``from_ewkb``, ``from_hex_ewkb``, ``to_ewkb``,
+``to_hex_ewkb``: the SRID embedded), which the PostGIS working copy and
+import source exchange with the server.
 
 Canonical storage form: little-endian header and WKB, srs_id 0, an XY
 envelope for everything but points and empties (XYZ with Z).
@@ -191,6 +193,20 @@ class Geometry(bytes):
         return cls.from_wkb(binascii.unhexlify(hex_wkb), crs_id=crs_id)
 
     @classmethod
+    def from_hex_ewkb(cls, hex_ewkb):
+        if not hex_ewkb:
+            return None
+        return cls.from_ewkb(binascii.unhexlify(hex_ewkb))
+
+    @classmethod
+    def from_ewkb(cls, ewkb):
+        """EWKB bytes (an SRID embedded or not) -> Geometry with that srs_id."""
+        if not ewkb:
+            return None
+        coords, srid = _parse_any_wkb(ewkb)
+        return _build_gpkg(coords, crs_id=srid or 0)
+
+    @classmethod
     def from_wkt(cls, wkt, crs_id=0):
         if not wkt:
             return None
@@ -227,6 +243,13 @@ class Geometry(bytes):
 
     def to_hex_wkb(self):
         return binascii.hexlify(self.to_wkb()).decode("ascii").upper()
+
+    def to_ewkb(self):
+        """Little-endian EWKB with the srs_id embedded (none when it is 0)."""
+        return write_wkb(parse_wkb(self.to_wkb()), ewkb_srid=self.crs_id or None)
+
+    def to_hex_ewkb(self):
+        return binascii.hexlify(self.to_ewkb()).decode("ascii").upper()
 
     def to_wkt(self):
         return write_wkt(parse_wkb(self.to_wkb()))
@@ -327,6 +350,15 @@ def parse_wkb(buf, offset=0):
     return value
 
 
+def _parse_any_wkb(buf):
+    """EWKB or ISO WKB -> (GeomValue, the embedded SRID or None)."""
+    mv = memoryview(buf)
+    bo = "<" if mv[0] == 1 else ">"
+    (raw_type,) = struct.unpack_from(bo + "I", mv, 1)
+    srid = struct.unpack_from(bo + "i", mv, 5)[0] if raw_type & 0x20000000 else None
+    return _parse_wkb_inner(mv, 0)[0], srid
+
+
 def _parse_wkb_inner(mv, off):
     bo = "<" if mv[off] == 1 else ">"
     (raw_type,) = struct.unpack_from(bo + "I", mv, off + 1)
@@ -366,19 +398,24 @@ def _parse_wkb_inner(mv, off):
     return _geom_value(name, has_z, has_m, children), off
 
 
-def write_wkb(value):
-    """GeomValue -> little-endian ISO WKB."""
+def write_wkb(value, ewkb_srid=None):
+    """GeomValue -> little-endian ISO WKB, or EWKB with ``ewkb_srid``
+    embedded in the outer geometry."""
     out = bytearray()
-    _write_wkb_inner(value, out)
+    _write_wkb_inner(value, out, ewkb_srid)
     return bytes(out)
 
 
-def _write_wkb_inner(value, out):
+def _write_wkb_inner(value, out, ewkb_srid=None):
     name, has_z, has_m, payload = value
     base = _NAME_TO_TYPE[name.upper()]
     dim = _coord_dim(has_z, has_m)
     pt = struct.Struct("<" + "d" * dim)
-    out += struct.pack("<BI", 1, base + (1000 if has_z else 0) + (2000 if has_m else 0))
+    if ewkb_srid is None:
+        out += struct.pack("<BI", 1, base + (1000 if has_z else 0) + (2000 if has_m else 0))
+    else:
+        raw = base | (0x80000000 if has_z else 0) | (0x40000000 if has_m else 0) | 0x20000000
+        out += struct.pack("<BIi", 1, raw, ewkb_srid)
     if base == POINT:
         out += pt.pack(*(payload if payload is not None else (math.nan,) * dim))
         return

@@ -2,11 +2,11 @@
 definitions and a stream of features.
 
 GeoPackages are read with stdlib ``sqlite3``, GeoJSON (a FeatureCollection
-or a GeoJSONSeq file) and CSV with the stdlib parsers. Shapefile (``.shp``
-and zipped), FlatGeobuf and the PostgreSQL, MySQL and SQL Server sources are
-not ported: :meth:`ImportSource.open` raises
-:class:`~kart_tpu_torch.core.repo.NotYetImplemented` for them before
-anything is written.
+or a GeoJSONSeq file) and CSV with the stdlib parsers; Shapefiles (``.shp``,
+or a ``.zip`` holding one) by :mod:`.shapefile`, FlatGeobuf by
+:mod:`.flatgeobuf`, and PostgreSQL, MySQL and SQL Server tables by
+:mod:`.postgres`, :mod:`.mysql` and :mod:`.sqlserver` over their DBAPI
+drivers, imported only when they connect.
 
 Counterpart of kart_tpu's ``importer/__init__.py``: ``ImportSourceError``,
 ``ImportSource`` (``open``, ``with_primary_key``, ``get_features``),
@@ -32,30 +32,6 @@ FETCH_ROWS = 10000
 
 class ImportSourceError(ValueError):
     pass
-
-
-#: source kinds kart_tpu imports that the port does not: suffix or scheme
-_NOT_PORTED = {
-    ".shp": "Shapefile",
-    ".zip": "Shapefile",
-    ".fgb": "FlatGeobuf",
-    "postgresql://": "PostgreSQL",
-    "postgres://": "PostgreSQL",
-    "mysql://": "MySQL",
-    "mssql://": "SQL Server",
-    "sqlserver://": "SQL Server",
-}
-
-
-def check_source_ported(spec):
-    """Raise NotYetImplemented when ``spec`` names a kind of source the port
-    cannot read yet (a cheap test of its name, before any work)."""
-    from kart_tpu_torch.core.repo import NotYetImplemented
-
-    lowered = spec.lower()
-    for key, kind in _NOT_PORTED.items():
-        if (lowered.startswith(key) if key.endswith("//") else lowered.endswith(key)):
-            raise NotYetImplemented(f"{kind} import sources are not ported yet: {spec!r}")
 
 
 class ImportSource:
@@ -125,7 +101,6 @@ class ImportSource:
     @classmethod
     def open(cls, spec, table=None):
         """A path or URL -> [ImportSource], one a table."""
-        check_source_ported(spec)
         lowered = spec.lower()
         if lowered.endswith(".gpkg"):
             return GPKGImportSource.open_all(spec, table=table)
@@ -135,6 +110,28 @@ class ImportSource:
             return [GeoJSONImportSource(spec)]
         if lowered.endswith(".csv"):
             return [CSVImportSource(spec)]
+        if lowered.endswith(".shp"):
+            from kart_tpu_torch.importer.shapefile import ShapefileImportSource
+
+            return [ShapefileImportSource(spec)]
+        if lowered.endswith(".fgb"):
+            from kart_tpu_torch.importer.flatgeobuf import FlatGeobufImportSource
+
+            return [FlatGeobufImportSource(spec)]
+        if lowered.endswith(".zip"):
+            return [_open_zipped_shapefile(spec)]
+        if spec.startswith(("postgresql://", "postgres://")):
+            from kart_tpu_torch.importer.postgres import PostgresImportSource
+
+            return PostgresImportSource.open_all(spec, table=table)
+        if spec.startswith("mysql://"):
+            from kart_tpu_torch.importer.mysql import MySqlImportSource
+
+            return MySqlImportSource.open_all(spec, table=table)
+        if spec.startswith(("mssql://", "sqlserver://")):
+            from kart_tpu_torch.importer.sqlserver import SqlServerImportSource
+
+            return SqlServerImportSource.open_all(spec, table=table)
         raise ImportSourceError(
             f"Don't know how to import {spec!r} — supported: .gpkg, .shp, "
             f".zip (shapefile), .fgb, .geojson, .geojsonl/.ndjson, .csv, "
@@ -165,6 +162,45 @@ class _PrimaryKeyOverrideSource(ImportSource):
 
     def crs_definitions(self):
         return self.inner.crs_definitions()
+
+
+def _open_zipped_shapefile(spec):
+    """A ``.zip`` holding exactly one Shapefile (``__MACOSX/`` entries aside,
+    in any folder): its files are extracted to a temporary directory that
+    lives, and is removed, with the source. Column ids come from the
+    archive's path and the member's name, not the temporary path."""
+    import tempfile
+    import zipfile
+
+    from kart_tpu_torch.importer.shapefile import ShapefileImportSource
+
+    try:
+        zf = zipfile.ZipFile(spec)
+    except (OSError, zipfile.BadZipFile) as e:
+        raise ImportSourceError(f"Cannot read {spec!r}: {e}")
+    with zf:
+        shp_names = [n for n in zf.namelist()
+                     if n.lower().endswith(".shp") and not n.startswith("__MACOSX")]
+        if len(shp_names) != 1:
+            raise ImportSourceError(
+                f"{spec!r} must contain exactly one .shp (found {len(shp_names)})")
+        stem = os.path.splitext(shp_names[0])[0]
+        tmp = tempfile.TemporaryDirectory(prefix="kart-zip-import-")
+        extracted_shp = None
+        for name in zf.namelist():
+            base, ext = os.path.splitext(name)
+            if base != stem or name.endswith("/"):
+                continue
+            # flattened into the temporary root: no member path escapes it
+            target = os.path.join(tmp.name, os.path.basename(name))
+            with zf.open(name) as src, open(target, "wb") as dst:
+                dst.write(src.read())
+            if ext.lower() == ".shp":
+                extracted_shp = target
+    source = ShapefileImportSource(extracted_shp, schema_id_seed=f"{spec}!{shp_names[0]}")
+    source.dest_path = os.path.splitext(os.path.basename(spec))[0]
+    source._tmpdir = tmp  # the extraction lives as long as the source
+    return source
 
 
 class GPKGImportSource(ImportSource):

@@ -391,8 +391,6 @@ def do_merge(repo, theirs_refish, *, message=None, dry_run=False, ff=True, ff_on
 
     if ancestor_oid == theirs_oid:
         return MergeResult(already_merged=True, commit_oid=ours_oid, dry_run=dry_run)
-    if not dry_run:
-        get_working_copy(repo)  # a location the port cannot update raises before any write
     if ancestor_oid == ours_oid and ff:
         if not dry_run:
             _update_head_to(repo, theirs_oid, device)
@@ -434,7 +432,6 @@ def complete_merging_state(repo, *, message=None, device=None):
         raise InvalidOperation(
             f"Merge is not yet complete - {len(unresolved)} conflicts "
             'still need resolving. See "kart conflicts" / "kart resolve"')
-    get_working_copy(repo)  # a location the port cannot update raises before any write
     theirs_oid = repo.read_gitdir_file(MERGE_HEAD).strip()
     message = message or repo.read_gitdir_file(MERGE_MSG) or "Merge"
     final_tree = merge_index.write_resolved_tree(repo.odb)

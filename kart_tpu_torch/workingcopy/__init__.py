@@ -1,17 +1,20 @@
 """Working copies: a mutable database mirror of one commit's datasets.
 
 The GeoPackage working copy (:mod:`.gpkg`, stdlib ``sqlite3``) is the one
-every non-bare repository gets. A ``postgresql:``, ``mssql:`` or ``mysql:``
-location raises :class:`~kart_tpu_torch.core.repo.NotYetImplemented`: the
-server-database working copies are not ported.
+every non-bare repository gets by default. A ``postgresql:``, ``mssql:`` or
+``mysql:`` location is a server-database working copy (:mod:`.postgis`,
+:mod:`.sqlserver`, :mod:`.mysql` on :mod:`.db_server`), reached through
+the server's DBAPI driver.
 
 Counterpart of kart_tpu's ``workingcopy/__init__.py``: ``WorkingCopyType``,
-``WorkingCopyStatus``, ``can_find_renames``, ``find_renames``,
+``WorkingCopyStatus``, ``Mismatch``, ``can_find_renames``, ``find_renames``,
 ``checkout_features``, ``get_working_copy`` and ``default_location``.
 """
 
 import os
 from enum import Enum, IntFlag
+
+from kart_tpu_torch.core.repo import InvalidOperation
 
 
 class WorkingCopyType(Enum):
@@ -22,8 +25,6 @@ class WorkingCopyType(Enum):
 
     @classmethod
     def from_location(cls, location):
-        from kart_tpu_torch.core.repo import InvalidOperation
-
         location = str(location)
         if location.startswith("postgresql:"):
             return cls.POSTGIS
@@ -39,11 +40,24 @@ class WorkingCopyType(Enum):
         )
 
 
+class Mismatch(InvalidOperation):
+    """The working copy holds another tree than the repository expects."""
+
+    def __init__(self, wc_tree, expected_tree):
+        super().__init__(
+            f"Working copy is out of sync with repository: working copy has tree "
+            f"{wc_tree}, repository expects {expected_tree}. "
+            f'Use "kart checkout --force HEAD" to reset the working copy.'
+        )
+
+
 class WorkingCopyStatus(IntFlag):
     UNCONNECTABLE = 0x1
     NON_EXISTENT = 0x2
     CREATED = 0x4
     INITIALISED = 0x8
+    HAS_DATA = 0x10
+    DIRTY = 0x20
 
 
 #: the most insert and delete deltas rename detection hashes
@@ -110,7 +124,7 @@ def get_working_copy(repo, allow_uncreated=False, device=None):
     (a bare repository) or, unless ``allow_uncreated``, nothing is
     initialised there. ``device`` is where its non-force resets classify
     (None: the card)."""
-    from kart_tpu_torch.core.repo import KartConfigKeys, NotYetImplemented
+    from kart_tpu_torch.core.repo import KartConfigKeys
 
     location = repo.config.get(KartConfigKeys.KART_WORKINGCOPY_LOCATION)
     if location is None and not repo.is_bare:
@@ -118,12 +132,15 @@ def get_working_copy(repo, allow_uncreated=False, device=None):
     if location is None:
         return None
     wc_type = WorkingCopyType.from_location(location)
-    if wc_type is not WorkingCopyType.GPKG:
-        raise NotYetImplemented(
-            f"{wc_type.value} working copies ({location}) are not ported yet")
-    from kart_tpu_torch.workingcopy.gpkg import GpkgWorkingCopy
-
-    wc = GpkgWorkingCopy(repo, location, device=device)
+    if wc_type is WorkingCopyType.GPKG:
+        from kart_tpu_torch.workingcopy.gpkg import GpkgWorkingCopy as wc_class
+    elif wc_type is WorkingCopyType.POSTGIS:
+        from kart_tpu_torch.workingcopy.postgis import PostgisWorkingCopy as wc_class
+    elif wc_type is WorkingCopyType.SQL_SERVER:
+        from kart_tpu_torch.workingcopy.sqlserver import SqlServerWorkingCopy as wc_class
+    else:
+        from kart_tpu_torch.workingcopy.mysql import MySqlWorkingCopy as wc_class
+    wc = wc_class(repo, location, device=device)
     if not allow_uncreated and not (wc.status() & WorkingCopyStatus.INITIALISED):
         return None
     return wc

@@ -30,6 +30,7 @@ from kart_tpu_torch.diff.structs import WORKING_COPY_EDIT, DatasetDiff, Delta, D
 from kart_tpu_torch.geometry import Geometry
 from kart_tpu_torch.models.schema import ColumnSchema, Schema
 from kart_tpu_torch.workingcopy import (
+    Mismatch,
     WorkingCopyStatus,
     can_find_renames,
     checkout_features,
@@ -71,15 +72,6 @@ _DEFAULT_SRS = [
 INSERT_BATCH = 10000
 #: tracked pks read a query
 TRACKED_CHUNK = 500
-
-
-class Mismatch(InvalidOperation):
-    def __init__(self, wc_tree, expected_tree):
-        super().__init__(
-            f"Working copy is out of sync with repository: working copy has tree "
-            f"{wc_tree}, repository expects {expected_tree}. "
-            f'Use "kart checkout --force HEAD" to reset the working copy.'
-        )
 
 
 def _geom_envelope(value, _memo=None):

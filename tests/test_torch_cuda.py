@@ -1512,3 +1512,59 @@ def test_filtered_clone_on_card_matches_cpu(cuda, tmp_path):
     assert got["cuda"] == got["cpu"]
     n_all = info["n"] + info["n_edits"]
     assert 0 < len(got["cuda"][1]) < info["n"] and len(got["cuda"][0]) < n_all
+
+
+def test_server_working_copy_reset_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """A PostGIS working copy (on ``chip_smoke.py``'s recording server as
+    the driver) takes a reset without ``--force`` (``switch -c side
+    HEAD^``): exactly one K1 launch on the card, and the same statements and
+    tables as the same reset with ``--device cpu`` on copies."""
+    import contextlib
+    import copy
+    import io
+    import os
+    import shutil
+
+    from chip_smoke import RecordingServer, drivers
+    from kart_tpu_torch import synth_sources
+    from kart_tpu_torch.cli import main as port_main
+
+    monkeypatch.setenv("GIT_AUTHOR_DATE", "1700000000 +0000")
+    monkeypatch.setenv("GIT_COMMITTER_DATE", "1700000000 +0000")
+    url = "postgresql://db.example.com/gis/wc"
+    layer = synth_sources.point_layer(12_000, 5)
+    os.makedirs(tmp_path / "src")
+    shp = synth_sources.write_point_shapefile(str(tmp_path / "src" / "points"), layer)
+    server = RecordingServer("postgis")
+    card = str(tmp_path / "card" / "repo")
+
+    def run(srv, *argv):
+        out = io.StringIO()
+        with drivers(srv), contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(io.StringIO()):
+            assert port_main(list(argv)) == 0, argv
+        return out.getvalue()
+
+    run(server, "init", "--import", shp, "--workingcopy-location", url, card)
+    if "Changes" in run(server, "-C", card, "status"):  # the CRS text read back
+        run(server, "-C", card, "commit", "-m", "server CRS")
+    table = server.table("points")
+    names = [c for c, _ in table.columns]
+    for key in list(table.rows)[:30]:
+        row = dict(zip(names, table.rows[key]))
+        row["name"] = "edited"
+        server.client_upsert("points", row)
+    server.client_delete("points", list(table.rows)[40][0])
+    run(server, "-C", card, "commit", "-m", "edits")
+    cpu = str(tmp_path / "cpu" / "repo")
+    shutil.copytree(card, cpu)
+    cpu_server = copy.deepcopy(server)
+    got = {}
+    for where, srv, pre in ((card, server, []), (cpu, cpu_server, ["--device", "cpu"])):
+        n0 = len(srv.statements)
+        runtime.reset_stats()
+        out = run(srv, *pre, "-C", where, "switch", "-c", "side", "HEAD^")
+        got[where] = (out, runtime.stats_snapshot()["classify_launches"],
+                      srv.statements_digest(n0), srv.digest())
+    assert got[card][1] == 1 and got[cpu][1] == 0
+    assert got[card][0] == got[cpu][0] and got[card][2:] == got[cpu][2:]
