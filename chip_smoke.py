@@ -10,10 +10,10 @@ kernel against its plain PyTorch version.
                           [--stream-rows 100000000] [--crossover-rows 1000000,...]
                           [--crossover-reps 3] [--chunk-sweep 2000000,...]
                           [--history-commits 6] [--wc-rows 25000] [--remote-rows 25000]
-                          [--import-rows 12000]
+                          [--import-rows 12000] [--bulk-rows 1000000]
                           [--k4-only | --hash-only | --query-only | --kernels-only |
                            --tiles-only | --history-only | --stream-only | --wc-only |
-                           --remote-only | --import-only]
+                           --remote-only | --import-only | --bulk-only]
 
 Run from the repository root on a machine with an sm_90 (Hopper) card and
 the CUDA toolkit; the kernels are built from ``kart_tpu_torch/csrc`` on
@@ -381,6 +381,28 @@ I3. ``init --bare --import`` of each server's ``points`` table (read in
    ``--replace-existing``, then ``diff -o feature-count HEAD^...HEAD`` (one
    counts-only K1; equal with ``--device cpu``); without the driver the
    import exits 40 with kart_tpu's text and writes nothing
+L1. (after I3) the bulk import lane: ``kart import`` of a ``--bulk-rows``
+   int-pk GPKG (``write_points_gpkg``) into a bare repository on the card,
+   which must take the native-read pipeline (the port's IO core from
+   ``hostsrc/kart_io.cpp``, built with g++): its route, rate line and
+   stages' busy seconds printed; then the file rewritten with 1% of its
+   rows edited and imported with ``--replace-existing``; ``diff -o
+   feature-count`` (one counts-only K1) and ``-o json-lines`` (one K1) on
+   the two captured sidecars, sha256-equal with ``--device cpu``
+L2. a 100,000-row GPKG and the same rows as a CSV, each imported on the
+   native pipeline, the Python-producer pipeline
+   (``KART_IMPORT_NATIVE_READ=0``), the process fan-out
+   (``KART_IMPORT_WORKERS=4``, spawned workers; the GPKG's import run in a
+   process of its own, whose workers then import no script) and serially
+   (``KART_IMPORT_PIPELINE=0``): equal commits, root trees and sidecar
+   bytes on every route (a CSV has no native reader nor fan-out: the
+   pipeline takes it)
+L3. on L2's native-route repository: an import whose hash stage raises
+   (HEAD and the packs as they were, no stage thread left) and one whose
+   process dies mid-stream (HEAD as it was, its ``.tmp-pack-*`` left);
+   ``fsck`` reports it once it is two hours old; ``gc --prune-now`` sweeps it and packs the loose
+   objects; ``fsck`` then prints "No errors found."; ``git rev-parse
+   HEAD`` through the passthrough; ``--version``
 22. each group of phases' host wall (S1-S4 first, [1-6] the build, the data
    and phases 3-6; [12b], [11i], H0-H3 and W1-W3 on their own), the ``kernels`` JSON line
    (K1-K7, K3's figures on [11i]'s index in ``index_envelopes``, each
@@ -403,7 +425,8 @@ phases 0, 1, 11, H0-H3 and W1-W2, ``--stream-only``
 phases 0, 1 and S1-S4 (S3 on repositories it builds at ``--repo-rows`` and
 ``--merge-rows``, with the monolithic card and ``--device cpu`` runs of its
 commands made there), ``--wc-only`` phases 0, 1 and E1-E3, ``--remote-only``
-phases 0, 1 and R1-R3, ``--import-only`` phases 0, 1 and I1-I3.
+phases 0, 1 and R1-R3, ``--import-only`` phases 0, 1 and I1-I3, ``--bulk-only``
+phases 0, 1 and L1-L3.
 
 To time another checkout's K5 and K6 on the same inputs (a parent commit,
 say), run this script with that checkout's package in its place:
@@ -428,6 +451,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -542,6 +566,8 @@ from kart_tpu_torch.adapters.sqlserver import SqlServerAdapter
 from kart_tpu_torch.crs import get_identifier_int
 from kart_tpu_torch.geometry import Geometry
 from kart_tpu_torch.importer.flatgeobuf import FlatGeobufImportSource
+from kart_tpu_torch.importer import importer
+from kart_tpu_torch import native
 from kart_tpu_torch import synth_sources
 
 #: H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
@@ -3435,6 +3461,326 @@ def import_and_server_phases(args, card, launches):
     return walls
 
 
+# --- the bulk import lane and the store's upkeep (L1-L3) -----------------------
+
+#: L2's layer: the rows each route imports, as a GPKG and as a CSV
+BULK_ROUTE_ROWS = 100_000
+#: the environment knobs of the importer's router
+IMPORT_KNOBS = ("KART_IMPORT_PIPELINE", "KART_IMPORT_WORKERS", "KART_IMPORT_NATIVE_READ",
+                "KART_IMPORT_FAST", "KART_IMPORT_BATCH_ROWS")
+#: L2's routes and the knobs each is asked for with (the rest unset)
+BULK_ROUTES = {
+    "pipeline-native": {},
+    "pipeline": {"KART_IMPORT_NATIVE_READ": "0", "KART_IMPORT_WORKERS": "1"},
+    "fan-out": {"KART_IMPORT_NATIVE_READ": "0", "KART_IMPORT_WORKERS": "4"},
+    "serial": {"KART_IMPORT_PIPELINE": "0", "KART_IMPORT_WORKERS": "1"},
+}
+
+
+@contextlib.contextmanager
+def import_knobs(values):
+    """The importer's knobs as ``values`` for the block (the others unset),
+    then as they were."""
+    old = {k: os.environ.pop(k, None) for k in IMPORT_KNOBS}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def bulk_layer(n, seed):
+    """{pk: (x, y, name, rating)} of ``n`` seeded points, pks 1..n."""
+    rng = np.random.default_rng(seed)
+    xs, ys, rs = rng.uniform(-180, 180, n), rng.uniform(-90, 90, n), rng.random(n)
+    return {pk: (x, y, f"p{pk}", r)
+            for pk, x, y, r in zip(range(1, n + 1), xs.tolist(), ys.tolist(), rs.tolist())}
+
+
+def write_points_csv(path, rows):
+    """The rows of :func:`write_points_gpkg` as a CSV (``fid``, ``geom`` as
+    WKT, ``name``, ``rating``)."""
+    with open(path, "w") as f:
+        f.write("fid,geom,name,rating\n")
+        for pk, (x, y, name, r) in sorted(rows.items()):
+            f.write(f"{pk},POINT({x!r} {y!r}),{name},{r!r}\n")
+    return path
+
+
+def _import_cli(label, launches, argv):
+    """One counted import through the CLI (no kernel launch) -> (host
+    wall s, its rate line, the route it took, the stages' busy s)."""
+    _, err, wall = _cli_out(label, launches, argv)
+    rate = [line for line in err.splitlines() if line.startswith("Imported ")]
+    check(len(rate) == 1, f"[{label}] no rate line in {err!r}")
+    return wall, rate[0], importer.LAST_IMPORT_ROUTE, importer.LAST_IMPORT_PIPELINE
+
+
+#: an import in a process of its own that names the route it took on its
+#: last line of stderr (its spawned workers import no script)
+IMPORT_PROCESS = ("import sys\n"
+                  "from kart_tpu_torch.cli import main\n"
+                  "from kart_tpu_torch.importer import importer\n"
+                  "rc = main(sys.argv[1:])\n"
+                  "print(importer.LAST_IMPORT_ROUTE, file=sys.stderr)\n"
+                  "sys.exit(rc)\n")
+
+
+def _import_process(path, source, env):
+    """``kart -C path import source`` in a process of its own under the
+    knobs ``env`` -> (host wall s, its rate line, the route it took)."""
+    run_env = {k: v for k, v in os.environ.items() if k not in IMPORT_KNOBS}
+    run_env.update(env, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t = time.perf_counter()
+    # the import runs no kernel: the process leaves the card alone
+    r = subprocess.run([sys.executable, "-c", IMPORT_PROCESS, "--device", "cpu", "-C", path,
+                        "import", source],
+                       env=run_env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t
+    lines = r.stderr.splitlines()
+    check(r.returncode == 0 and lines, f"[L2] the import process exited {r.returncode}: "
+                                       f"{r.stderr[-400:]}")
+    rate = [line for line in lines if line.startswith("Imported ")]
+    check(len(rate) == 1, f"[L2] no rate line in {r.stderr!r}")
+    return wall, rate[0], lines[-1]
+
+
+def _sidecar_sha(path):
+    repo = KartRepo(path)
+    (ds,) = list(repo.datasets())
+    return sha256_of(sidecar_file(repo, ds.feature_tree.oid))
+
+
+def bulk_import_phase(args, card, launches, tmp):
+    """[L1]: ``kart import`` of a ``--bulk-rows`` int-pk GPKG on the card,
+    through the native-read pipeline; a re-import of the file with 1% of
+    its rows edited; the two captured sidecars' diff (one K1 a command,
+    sha256 equal to ``--device cpu``'s). -> {step: host wall s}."""
+    walls, n = {}, args.bulk_rows
+    src = os.path.join(tmp, "l1", f"{WC_TABLE}.gpkg")
+    os.makedirs(os.path.dirname(src))
+    t = time.perf_counter()
+    rows = bulk_layer(n, args.seed + 31)
+    write_points_gpkg(src, rows)
+    walls["L1 source"] = time.perf_counter() - t
+    path = os.path.join(tmp, "l1", "repo")
+    kart_cli("init", "--bare", path)
+    with import_knobs({}):
+        wall, rate, route, stages = _import_cli("L1", launches, ["-C", path, "import", src])
+    check(route == "pipeline-native",
+          f"[L1] the import took the {route} route, not the native-read pipeline")
+    walls["L1 import"] = wall
+    print(f"[L1] route {route}; {rate}; {wall:.4f} s host wall on {card}")
+    print("[L1] stage busy s: " + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
+    # 1% of the rows edited in the file itself, as a client edits it: the
+    # column ids follow the source's path
+    t = time.perf_counter()
+    edits = [(wc_point(rows[pk][0] + 1e-3, rows[pk][1]), f"e{pk}", pk)
+             for pk in range(1, n + 1, 100)]
+    n_edit = len(edits)
+    con = sqlite3.connect(src)
+    try:
+        con.executemany(f"UPDATE {WC_TABLE} SET geom = ?, name = ? WHERE fid = ?", edits)
+        con.commit()
+    finally:
+        con.close()
+    walls["L1 edited source"] = time.perf_counter() - t
+    with import_knobs({}):
+        wall, rate, route, stages = _import_cli(
+            "L1", launches, ["-C", path, "import", "--replace-existing", src])
+    check(route == "pipeline-native", f"[L1] the re-import took the {route} route")
+    walls["L1 re-import"] = wall
+    print(f"[L1] re-import of {n_edit} edited rows: route {route}; {rate}; {wall:.4f} s")
+    print("[L1] stage busy s: " + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
+    out = os.path.join(tmp, "l1", "count")
+    card_s, cpu_s, digest, _ = card_and_cpu(
+        "L1", ["-C", path, "diff", "HEAD^...HEAD", "-o", "feature-count"], out, launches,
+        counts_only=True, k2=0, stdout=True)
+    with open(f"{out}.card") as f:
+        count = f.read()
+    check(count == f"{WC_TABLE}:\n\t{n_edit} features changed\n",
+          f"[L1] feature-count says {count!r}, the edit {n_edit}")
+    print(f"[L1] diff -o feature-count: {n_edit}, {card_s:.4f} s on the card (one counts-only "
+          f"K1), {cpu_s:.4f} s with --device cpu, sha256 {digest[:16]} on both")
+    walls["L1 count card"], walls["L1 count cpu"] = card_s, cpu_s
+    jl = os.path.join(tmp, "l1", "diff.jsonl")
+    card_s, cpu_s, digest, _ = card_and_cpu(
+        "L1", ["-C", path, "diff", "HEAD^...HEAD", "-o", "json-lines"], jl, launches, k2=0)
+    with open(f"{jl}.card") as f:
+        n_lines = sum(json.loads(line)["type"] == "feature" for line in f)
+    check(n_lines == n_edit, f"[L1] the json-lines diff has {n_lines} features, the edit {n_edit}")
+    print(f"[L1] diff -o json-lines: {n_lines} features, {card_s:.4f} s on the card (one K1), "
+          f"{cpu_s:.4f} s with --device cpu, sha256 {digest[:16]} on both, on {card}")
+    walls["L1 json-lines card"], walls["L1 json-lines cpu"] = card_s, cpu_s
+    return walls
+
+
+def bulk_routes_phase(args, card, launches, tmp):
+    """[L2]: a ``BULK_ROUTE_ROWS`` GPKG and the same rows as a CSV, each
+    imported on the four routes; their commits, root trees and sidecar
+    bytes equal. -> ({step: host wall s}, the native route's GPKG repo)."""
+    walls = {}
+    rows = bulk_layer(BULK_ROUTE_ROWS, args.seed + 32)
+    src = os.path.join(tmp, "l2")
+    os.makedirs(src)
+    gpkg = os.path.join(src, f"{WC_TABLE}.gpkg")
+    write_points_gpkg(gpkg, rows)
+    csv_path = write_points_csv(os.path.join(src, f"{WC_TABLE}.csv"), rows)
+    repos = {}
+    for kind, source in (("gpkg", gpkg), ("csv", csv_path)):
+        got = {}
+        for route, env in BULK_ROUTES.items():
+            path = os.path.join(tmp, "l2", f"{kind}-{route}")
+            kart_cli("init", "--bare", path)
+            if route == "fan-out" and kind == "gpkg":  # a CSV does not fan out
+                wall, _, took = _import_process(path, source, env)
+            else:
+                with import_knobs(env):
+                    wall, _, took, _ = _import_cli("L2", launches,
+                                                   ["-C", path, "import", source])
+            want = route if kind == "gpkg" else ("serial" if route == "serial" else "pipeline")
+            check(took == want, f"[L2] {kind} asked for {route} took {took}, expected {want}")
+            walls[f"L2 {kind} {route}"] = wall
+            repo = KartRepo(path)
+            got[route] = (repo.head_commit_oid, repo.head_tree_oid, _sidecar_sha(path))
+            repos[kind, route] = path
+        check(len(set(got.values())) == 1, f"[L2] the {kind} routes differ: {got}")
+        print(f"[L2] {BULK_ROUTE_ROWS} rows from {kind}: commit {got['serial'][0][:12]}, root "
+              f"tree {got['serial'][1][:12]}, sidecar sha256 {got['serial'][2][:16]} on every "
+              f"route; host walls " + ", ".join(f"{r} {walls[f'L2 {kind} {r}']:.4f} s"
+                                                 for r in BULK_ROUTES) + f" on {card}")
+    return walls, repos["gpkg", "pipeline-native"]
+
+
+def _port_stdout_fd(*argv):
+    """One CLI call with file descriptor 1 caught (the ``git`` passthrough
+    writes there, from its own process) -> (exit code, stdout text)."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with tempfile.TemporaryFile("w+") as f:
+        os.dup2(f.fileno(), 1)
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = kart_main(list(argv))
+            sys.stdout.flush()
+        finally:
+            os.dup2(saved, 1)
+            os.close(saved)
+        f.seek(0)
+        return rc, buf.getvalue() + f.read()
+
+
+def store_upkeep_phase(card, launches, path, src):
+    """[L3] on L2's native-route repository: an import that dies
+    mid-stream leaves HEAD as it was and a ``.tmp-pack-*`` that ``fsck``
+    reports once it is past the grace period; ``gc --prune-now`` sweeps it
+    and packs the loose objects, and ``fsck`` then finds no error; the
+    ``git`` passthrough and ``--version``. -> {step: host wall s}."""
+    walls = {}
+    repo = KartRepo(path)
+    head = repo.head_commit_oid
+    pack_dir = os.path.join(repo.gitdir, "objects", "pack")
+    before = set(os.listdir(pack_dir))
+    # a stage error in this process: the bulk pack aborts, HEAD stays
+    real, calls = native.pack_records_base, []
+
+    def failing(*a, **kw):
+        calls.append(1)
+        if len(calls) == 2:
+            raise RuntimeError("stage error injected by chip_smoke")
+        return real(*a, **kw)
+
+    native.pack_records_base = failing
+    t = time.perf_counter()
+    try:
+        with import_knobs({"KART_IMPORT_BATCH_ROWS": "8192"}), \
+                contextlib.redirect_stderr(io.StringIO()):
+            kart_main(["-C", path, "import", "--replace-existing", src])
+        check(False, "[L3] the import with a failing stage succeeded")
+    except RuntimeError as e:
+        check("stage error injected" in str(e), f"[L3] the import failed otherwise: {e!r}")
+    finally:
+        native.pack_records_base = real
+    walls["L3 aborted import"] = time.perf_counter() - t
+    check(KartRepo(path).head_commit_oid == head, "[L3] the aborted import moved HEAD")
+    check(set(os.listdir(pack_dir)) == before, "[L3] the aborted import left pack files")
+    check(not [th for th in threading.enumerate() if th.name.startswith("kart-import-")],
+          "[L3] the aborted import left stage threads running")
+    # a process killed mid-stream: its .tmp-pack-* stays
+    code = ("import os, sys\n"
+            "from kart_tpu_torch import native\n"
+            "real, calls = native.pack_records_base, []\n"
+            "def dies(*a, **kw):\n"
+            "    calls.append(1)\n"
+            "    if len(calls) == 3:\n"
+            "        os._exit(9)\n"
+            "    return real(*a, **kw)\n"
+            "native.pack_records_base = dies\n"
+            "from kart_tpu_torch.cli import main\n"
+            f"main(['--device', 'cpu', '-C', {path!r}, 'import', '--replace-existing', {src!r}])\n")
+    env = {k: v for k, v in os.environ.items() if k not in IMPORT_KNOBS}
+    env.update(KART_IMPORT_BATCH_ROWS="8192", PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                       timeout=300)
+    walls["L3 killed import"] = time.perf_counter() - t
+    check(r.returncode == 9, f"[L3] the killed import exited {r.returncode}: {r.stderr[-400:]}")
+    check(KartRepo(path).head_commit_oid == head, "[L3] the killed import moved HEAD")
+    debris = sorted(set(os.listdir(pack_dir)) - before)
+    check(len(debris) == 1 and debris[0].startswith(".tmp-pack-"),
+          f"[L3] the killed import left {debris}")
+    old = time.time() - 2 * 3600
+    os.utime(os.path.join(pack_dir, debris[0]), (old, old))
+    out, _, walls["L3 fsck stale"] = _cli_out("L3", launches, ["-C", path, "fsck"])
+    check("1 stale lock/temp leftover(s)" in out and f"objects/pack/{debris[0]}" in out
+          and out.endswith("No errors found.\n"), f"[L3] fsck said {out!r}")
+    loose = sum(len(os.listdir(os.path.join(repo.gitdir, "objects", d)))
+                for d in os.listdir(os.path.join(repo.gitdir, "objects")) if len(d) == 2)
+    out, _, walls["L3 gc"] = _cli_out("L3", launches, ["-C", path, "gc", "--prune-now"])
+    check(out == f"Packed {loose} loose objects; pruned 1 temp files.\n", f"[L3] gc said {out!r}")
+    check(not [d for d in os.listdir(os.path.join(repo.gitdir, "objects")) if len(d) == 2],
+          "[L3] gc left loose objects")
+    out, _, walls["L3 fsck after gc"] = _cli_out("L3", launches, ["-C", path, "fsck"])
+    check("stale lock/temp leftover" not in out and out.endswith("No errors found.\n"),
+          f"[L3] fsck said {out!r}")
+    rc, out = _port_stdout_fd("-C", path, "git", "rev-parse", "HEAD")
+    if shutil.which("git") is None:
+        check(rc == 2, "[L3] git passthrough without git exited {rc}")
+        git_said = "no git on this machine: exit 2 as kart_tpu"
+    else:
+        check((rc, out) == (0, head + "\n"), f"[L3] git rev-parse HEAD gave {rc} {out!r}")
+        git_said = f"git rev-parse HEAD {out.strip()[:12]}"
+    rc, version = _port_stdout_fd("--version")
+    check(rc == 0 and version.startswith("kart (kart_tpu_torch), version "),
+          f"[L3] --version said {version!r}")
+    print(f"[L3] a stage error and a process killed mid-stream left HEAD at {head[:12]}; fsck "
+          f"reported the killed import's {debris[0]} once past the grace period; gc "
+          f"--prune-now packed {loose} loose objects and swept it; fsck: no errors; "
+          f"{git_said}; {version.strip()}; walls " + ", ".join(
+              f"{k[3:]} {v:.4f} s" for k, v in walls.items()) + f" on {card}")
+    return walls
+
+
+def bulk_phases(args, card, launches):
+    """[L1]-[L3] -> {step: host wall s}."""
+    os.environ.update(GIT_AUTHOR_DATE=MERGE_DATE, GIT_COMMITTER_DATE=MERGE_DATE)
+    try:
+        with tempfile.TemporaryDirectory(prefix="kart_smoke_bulk_") as tmp:
+            walls = bulk_import_phase(args, card, launches, tmp)
+            w2, native_repo = bulk_routes_phase(args, card, launches, tmp)
+            walls.update(w2)
+            src = os.path.join(tmp, "l2", f"{WC_TABLE}.gpkg")
+            walls.update(store_upkeep_phase(card, launches, native_repo, src))
+    finally:
+        for k in ("GIT_AUTHOR_DATE", "GIT_COMMITTER_DATE"):
+            os.environ.pop(k, None)
+    return walls
+
+
 # --- the envelope index and the blob filter on a layer of real blobs (K3) -----
 
 #: [11i]'s blob filters: [12]'s rectangle as w,s,e,n, then the NZTM polygon's
@@ -5898,6 +6244,11 @@ def main():
     ap.add_argument("--import-only", action="store_true",
                     help="run phases 0, 1 and I1-I3 alone and print the launches (no result "
                          "line)")
+    # 1,000,000: a national address or building layer is 2-3M features
+    ap.add_argument("--bulk-rows", type=int, default=1_000_000)
+    ap.add_argument("--bulk-only", action="store_true",
+                    help="run phases 0, 1 and L1-L3 alone and print the launches (no result "
+                         "line)")
     ap.add_argument("--stream-only", action="store_true",
                     help="run phases 0, 1 and S1-S4 alone (S3 on repositories of its own) and "
                          "print the streamed routes' timings and the launches (no result line)")
@@ -5949,6 +6300,14 @@ def main():
         t = time.perf_counter()
         walls = import_and_server_phases(args, card, launches)
         print(f"[I] all {time.perf_counter() - t:.2f} s on {card}")
+        print(json.dumps({"walls": walls, "launches": launches}))
+        return 0
+    if args.bulk_only:
+        _build.build_all()
+        launches = {}
+        t = time.perf_counter()
+        walls = bulk_phases(args, card, launches)
+        print(f"[L] all {time.perf_counter() - t:.2f} s on {card}")
         print(json.dumps({"walls": walls, "launches": launches}))
         return 0
     if args.stream_only:
@@ -6227,6 +6586,10 @@ def main():
     import_and_server_phases(args, card, cli_launches)
     walls["I1-I3"] = time.perf_counter() - t
     progress("I1-I3", t_start)
+    t = time.perf_counter()
+    bulk_phases(args, card, cli_launches)
+    walls["L1-L3"] = time.perf_counter() - t
+    progress("L1-L3", t_start)
     print("[22] phase walls s: " + ", ".join(f"[{k}] {v:.2f}" for k, v in
                                              {**s_walls, **walls}.items())
           + f"; all since the build {time.perf_counter() - t_start:.2f} on {card}")

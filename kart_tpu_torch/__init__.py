@@ -12,3 +12,5 @@ Every entry point takes ``device``: ``None`` means ``cuda:0`` and raises
 :class:`~kart_tpu_torch.runtime.DeviceUnavailable` without a card;
 ``device="cpu"`` runs the plain versions.
 """
+
+__version__ = "0.1.0"

@@ -2,7 +2,9 @@
 
 import sys
 
-from kart_tpu_torch.cli import main
-
 if __name__ == "__main__":
+    # imported under the guard: a worker the import's fan-out spawns imports
+    # this module again and needs none of the CLI (nor torch)
+    from kart_tpu_torch.cli import main
+
     sys.exit(main())

@@ -4,8 +4,8 @@
 
 with the commands ``init``, ``import``, ``status``, ``commit``, ``checkout``,
 ``switch``, ``restore``, ``reset``, ``create-workingcopy``, ``branch``,
-``tag``, ``config``, ``reflog``, ``clone``, ``fetch``, ``push``, ``pull``,
-``remote add|list|remove``,
+``tag``, ``config``, ``reflog``, ``gc``, ``fsck``, ``git``, ``clone``,
+``fetch``, ``push``, ``pull``, ``remote add|list|remove``,
 ``diff``, ``show``, ``create-patch``, ``log``, ``apply``, ``merge``,
 ``conflicts``, ``resolve``, ``query``, ``export tiles``, ``spatial-filter
 index|resolve``, ``data ls|version``, ``meta get|set``, ``commit-files`` and
@@ -18,8 +18,10 @@ plain PyTorch versions). Without a card and without ``--device cpu`` the
 command raises :class:`~kart_tpu_torch.runtime.DeviceUnavailable`;
 nothing falls back.
 
-Counterpart of kart_tpu's ``cli/__init__.py`` (``-C`` and the entry point's
-exception-to-exit-code translation) for the commands ported. Arguments are
+Counterpart of kart_tpu's ``cli/__init__.py`` (``-C``, ``--version`` and
+the entry point's exception-to-exit-code translation) for the commands
+ported. ``--version`` prints the port's version in click's
+``version_option`` form and exits 0, before any command runs. Arguments are
 parsed with click's rules and usage messages (:mod:`.parser`). Errors print
 ``Error: <message>`` on stderr and exit with kart_tpu's codes: 2 for a bad
 argument, an unknown command or a path that is not a repository, 20 for
@@ -30,13 +32,16 @@ unresolvable revision, 48 for an import source that cannot be read.
 import sys
 
 from kart_tpu_torch import runtime
-from kart_tpu_torch.cli.parser import Group, HelpRequested, Option, UsageError
+from kart_tpu_torch.cli.parser import Group, HelpRequested, Option, UsageError, VersionRequested
 
 INVALID_ARGUMENT = 2
 INVALID_OPERATION = 20
 NOT_YET_IMPLEMENTED = 30
 NOT_FOUND = 40
 NO_IMPORT_SOURCE = 48
+
+#: the program name ``--version`` prints
+PROG_NAME = "kart (kart_tpu_torch)"
 
 
 def build_cli():
@@ -65,6 +70,7 @@ def build_cli():
                    help="Run as if started in PATH instead of the current directory"),
             Option("--device", dest="device",
                    help="Device of the kernels: cuda[:N] (default cuda:0) or cpu"),
+            Option("--version", dest="version", kind="flag", help="Show the version and exit."),
         ],
         commands, help="kart on PyTorch/CUDA",
     )
@@ -82,6 +88,11 @@ def main(argv=None):
         glob, cmd, args = cli.resolve(sys.argv[1:] if argv is None else list(argv))
     except HelpRequested as e:
         print(e.command.help_text())
+        return 0
+    except VersionRequested:
+        import kart_tpu_torch
+
+        print(f"{PROG_NAME}, version {kart_tpu_torch.__version__}")
         return 0
     except UsageError as e:
         e.show()

@@ -64,6 +64,11 @@ class HelpRequested(Exception):
         self.command = command
 
 
+class VersionRequested(Exception):
+    """A group's ``--version`` flag: an eager option, handled before any
+    command is looked for, as click's ``version_option``."""
+
+
 class NoArgsIsHelp(UsageError):
     """A sub-group given no arguments at all: click prints its help on
     stderr and exits 2."""
@@ -402,6 +407,8 @@ class Group(Command):
         if not argv and self.parent is not None:
             raise NoArgsIsHelp(self)
         values, rest = self.parse(argv, interspersed=False)
+        if getattr(values, "version", False):
+            raise VersionRequested()
         if not rest:
             raise UsageError("Missing command.", self)
         name, rest = rest[0], rest[1:]

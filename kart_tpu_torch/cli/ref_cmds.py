@@ -1,12 +1,19 @@
 """``kart branch`` (list, create at a start point, delete), ``tag`` (list,
-create, ``-m`` annotated, ``-d``), ``config`` (get, set, ``--unset``) and
-``reflog``.
+create, ``-m`` annotated, ``-d``), ``config`` (get, set, ``--unset``),
+``reflog``, and the store's upkeep: ``gc`` (sweep crash leftovers, pack
+the loose objects), ``fsck`` (re-hash every object, check refs, leftovers,
+datasets, each sidecar against its feature tree and the working copy;
+exit 1 on errors) and the ``git`` passthrough.
 
-Counterpart of kart_tpu's ``cli/ref_cmds.py`` commands of those names, with
-their options, outputs, messages and exit codes (``config KEY`` of an unset
-key prints nothing and exits 1); its ``gc``, ``fsck`` and ``git``
-passthrough are not ported.
+Counterpart of kart_tpu's ``cli/ref_cmds.py``, with its options, outputs,
+messages and exit codes (``config KEY`` of an unset key prints nothing and
+exits 1).
 """
+
+import os
+import shutil
+import subprocess
+import sys
 
 from kart_tpu_torch.cli.parser import Argument, Command, Option
 from kart_tpu_torch.cli.repo_cmds import _CliError, _refusable
@@ -35,7 +42,127 @@ def commands():
                default="text"),
         Argument("name", required=False),
         Argument("start_point", required=False, default="HEAD"),
-    ], _refusable(run_branch), help="List, create or delete branches.")]
+    ], _refusable(run_branch), help="List, create or delete branches."), Command("gc", [
+        Argument("args", nargs=-1),
+    ], run_gc, ignore_unknown_options=True,
+        help="Clean up the object store: pack loose objects, sweep crash leftovers (stale "
+             "``*.tmp``/``*.lock`` files, abandoned push quarantines). ``--auto`` only repacks "
+             "above the loose-object threshold; ``--grace=N`` sets the leftover age threshold "
+             "in seconds (default 3600, env KART_GC_GRACE); ``--prune-now`` sweeps leftovers "
+             "regardless of age."), Command("fsck", [
+        Option("--reset-datasets", dest="reset_datasets", kind="flag"),
+    ], run_fsck, help="Verify repository integrity: object store, refs, dataset structure, "
+                      "working copy sync (reference: kart/fsck.py)."), Command("git", [
+        Argument("args", nargs=-1),
+    ], _refusable(run_git), ignore_unknown_options=True,
+        help="Run a git command against this repository (reference: the raw-git passthrough, "
+             "kart/cli.py:211-305). The object store, refs, and packs are git-compatible; the "
+             "locked index deliberately stops stock git from touching the working copy.")]
+
+
+def run_gc(args, repo, device):
+    stats = repo.gc(*args.args)
+    if stats and (stats.get("packed") or stats.get("pruned")):
+        print(f"Packed {stats.get('packed', 0)} loose objects; "
+              f"pruned {stats.get('pruned', 0)} temp files.")
+    else:
+        print("Nothing to do.")
+    return 0
+
+
+def run_fsck(args, repo, device):
+    """kart_tpu's checks, in its order and words."""
+    import numpy as np
+
+    from kart_tpu_torch.core.objects import hash_object
+    from kart_tpu_torch.diff import sidecar
+    from kart_tpu_torch.ops.blocks import FeatureBlock
+
+    errors = []
+    print("Checking object store...")
+    count = 0
+    for oid in repo.odb.iter_oids():
+        try:
+            obj_type, content = repo.odb.read_raw(oid)
+            if hash_object(obj_type, content) != oid:
+                errors.append(f"Object {oid} content does not match its id")
+        except Exception as e:  # every object is checked; each failure is an error line
+            errors.append(f"Object {oid} is corrupt: {e}")
+        count += 1
+    print(f"  {count} objects")
+
+    print("Checking refs...")
+    for ref, oid in repo.refs.iter_refs():
+        if not repo.odb.contains(oid):
+            errors.append(f"Ref {ref} points at missing object {oid}")
+
+    # leftovers are debris, not corruption: reported, and gc sweeps them
+    print("Checking for stale crash leftovers...")
+    stale = list(repo.find_stale_leftovers())
+    if stale:
+        print(f"  {len(stale)} stale lock/temp leftover(s) from a crashed process — run "
+              f"`kart gc` to sweep:")
+        for path in stale[:5]:
+            print(f"    {os.path.relpath(path, repo.gitdir)}")
+        if len(stale) > 5:
+            print(f"    ... and {len(stale) - 5} more")
+
+    if not repo.head_is_unborn:
+        print("Checking datasets...")
+        for ds in repo.datasets():
+            try:
+                ds.schema
+                print(f"  {ds.path}: {ds.feature_count} features")
+            except Exception as e:
+                errors.append(f"Dataset {ds.path} is corrupt: {e}")
+
+    # a sidecar must hold its feature tree's (key, oid) columns exactly: a
+    # wrong one would silently wrong every columnar diff
+    if not repo.head_is_unborn:
+        print("Checking columnar sidecars...")
+        for ds in repo.datasets():
+            try:
+                if ds.feature_tree is None or not sidecar.has_sidecar(repo, ds):
+                    continue
+                block = sidecar.load_block(repo, ds)
+                tree_block = FeatureBlock.from_dataset(ds, pad=False)
+                ok = (block is not None and block.count == tree_block.count
+                      and np.array_equal(block.keys[: block.count],
+                                         tree_block.keys[: tree_block.count])
+                      and np.array_equal(block.oids[: block.count],
+                                         tree_block.oids[: tree_block.count]))
+                if ok:
+                    print(f"  {ds.path}: sidecar OK ({block.count} rows)")
+                else:
+                    errors.append(f"Dataset {ds.path}: columnar sidecar does not match the "
+                                  f"feature tree")
+            except Exception as e:
+                errors.append(f"Dataset {ds.path}: sidecar check failed: {e}")
+
+    wc = repo.working_copy
+    if wc is not None:
+        print("Checking working copy...")
+        tree, head_tree = wc.get_db_tree(), repo.head_tree_oid
+        if tree != head_tree:
+            errors.append(f"Working copy tree {tree} does not match HEAD tree {head_tree}")
+
+    if errors:
+        for e in errors:
+            print(f"error: {e}", file=sys.stderr)
+        return 1
+    print("No errors found.")
+    return 0
+
+
+def run_git(args, repo, device):
+    git_bin = shutil.which("git")
+    if git_bin is None:
+        raise _CliError("git is not installed on this system")
+    env = dict(os.environ, GIT_DIR=repo.gitdir)
+    if repo.workdir is not None:
+        env["GIT_WORK_TREE"] = repo.workdir
+    sys.stdout.flush()
+    return subprocess.run([git_bin, *args.args], env=env).returncode
 
 
 def run_tag(args, repo, device):

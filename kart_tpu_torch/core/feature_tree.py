@@ -6,9 +6,12 @@ one's from its filenames and their hashed tree indices
 (:func:`plan_feature_tree`).
 
 Counterpart of kart_tpu's ``core/feature_tree.py`` (``TreePlan``,
-``plan_int_feature_tree``, ``emit_feature_tree``, ``build_upper_levels``);
-tree objects are written one by one through the object database (or its
-bulk pack writer) where kart_tpu batches them through its C++ library.
+``plan_int_feature_tree``, ``emit_feature_tree``, ``emit_leaf_trees``,
+``build_upper_levels`` and the import
+pipeline's ``StreamingLeafEmitter``, whose leaf payloads come from the
+native IO core's ``io_leaf_payloads`` for the pks inside its contract and
+from the plan otherwise); tree objects are written in batches through the
+object database or its bulk pack writer.
 """
 
 import numpy as np
@@ -171,3 +174,122 @@ def build_upper_levels(odb, child_ids, child_oids, encoder):
     if len(child_oids) != 1:
         raise ValueError("feature tree spine did not reduce to one root")
     return bytes(child_oids[0]).hex()
+
+
+def emit_leaf_trees(writer, plan, oids_u8, pks):
+    """Stamp the blob oids into ``plan`` and write only its leaf trees into
+    ``writer`` (a PackWriter); -> [(leaf tree path relative to the feature
+    root, hex oid)]. An import worker's half of the tree build: the parent
+    stitches the leaves into the spine."""
+    if plan.n == 0:
+        return []
+    _stamp_oids(plan, oids_u8)
+    touched = np.arange(len(plan.uniq_leaves))
+    oids = writer.add_batch("tree", _leaf_payloads(plan, touched))
+    pks_sorted = np.asarray(pks, dtype=np.int64)[plan.order]
+    enc = plan.encoder
+    paths = [enc.encode_pks_to_path((int(pks_sorted[fi]),)).rpartition("/")[0]
+             for fi in plan.first_idx.tolist()]
+    return list(zip(paths, oids))
+
+
+class StreamingLeafEmitter:
+    """The leaf trees of the import pipeline's sorted (pk, blob oid)
+    stream, built while it runs: :meth:`feed` keeps the trailing partial
+    leaf and returns the payloads of the leaves a batch completed, so their
+    hashing and packing overlap the stream. A leaf's payload depends on its
+    own rows only, so the result is the end-of-stream build's, byte for
+    byte.
+
+    Valid for strictly increasing non-negative pks below ``branches **
+    (levels + 1)``; the first batch outside that flips :attr:`ok` to False
+    and the caller builds the tree at the end of the stream (leaves already
+    written stay in the pack unreferenced)."""
+
+    def __init__(self, encoder=None):
+        self.encoder = encoder or PathEncoder.INT_PK_ENCODER
+        self.ok = self.encoder.scheme == "int"
+        self._pk_limit = self.encoder.branches ** (self.encoder.levels + 1)
+        self._last_pk = None
+        self._carry_pks = np.empty(0, dtype=np.int64)
+        self._carry_oids = np.empty((0, 20), dtype=np.uint8)
+        #: the ascending leaf slots emitted so far, an int64 array a batch
+        self.leaf_id_chunks = []
+
+    def _check(self, pks):
+        if pks[0] < 0 or pks[-1] >= self._pk_limit:
+            return False
+        if self._last_pk is not None and pks[0] <= self._last_pk:
+            return False
+        return bool((pks[1:] > pks[:-1]).all())
+
+    def _payloads(self, pks, oids_u8):
+        """Complete-leaf payloads of sorted ``pks`` -> (buf uint8, offsets
+        int64 (n_leaves+1,), leaf_ids int64), from the native core where
+        the pks fit its contract (what :meth:`_check` guarantees), else
+        from the plan: the leaves' payloads concatenated are the plan's
+        hole-compacted entry matrix."""
+        from kart_tpu_torch import native
+
+        out = native.leaf_payloads(pks, oids_u8, self.encoder.branches, self._pk_limit)
+        if out is not None:
+            self.leaf_id_chunks.append(out[2])
+            return out
+        plan = plan_int_feature_tree(pks, self.encoder)
+        _stamp_oids(plan, oids_u8)
+        n_leaves = len(plan.uniq_leaves)
+        offsets = np.empty(n_leaves + 1, dtype=np.int64)
+        if plan.fixed_width:
+            buf = plan.entry_matrix.reshape(-1)
+            offsets[0] = 0
+            np.cumsum(plan.counts * plan.entry_matrix.shape[1], out=offsets[1:])
+        else:
+            buf = plan.entry_matrix[~plan.hole_mask]
+            offsets[:-1] = plan.byte_offsets[plan.first_idx]
+            offsets[-1] = plan.byte_offsets[plan.n]
+        self.leaf_id_chunks.append(plan.uniq_leaves)
+        return buf, offsets, plan.uniq_leaves
+
+    def feed(self, pks, oids_u8):
+        """One sorted stream batch; -> (payload buf, offsets, leaf_ids) of
+        the leaves it completed, or None (none completed yet, or the stream
+        is not streamable: see :attr:`ok`)."""
+        if not self.ok:
+            return None
+        pks = np.asarray(pks, dtype=np.int64)
+        if pks.size == 0:
+            return None
+        if not self._check(pks):
+            self.ok = False
+            return None
+        self._last_pk = int(pks[-1])
+        oids_u8 = np.asarray(oids_u8, dtype=np.uint8).reshape(-1, 20)
+        if self._carry_pks.size:
+            pks = np.concatenate([self._carry_pks, pks])
+            oids_u8 = np.concatenate([self._carry_oids, oids_u8])
+        leaf = pks // self.encoder.branches
+        cut = int(np.searchsorted(leaf, leaf[-1]))  # the last leaf may still grow
+        self._carry_pks = pks[cut:]
+        self._carry_oids = oids_u8[cut:]
+        if cut == 0:
+            return None
+        return self._payloads(pks[:cut], oids_u8[:cut])
+
+    def finish(self):
+        """The final partial leaf's payload, as :meth:`feed`, or None."""
+        if not self.ok or not self._carry_pks.size:
+            return None
+        out = self._payloads(self._carry_pks, self._carry_oids)
+        self._carry_pks = np.empty(0, dtype=np.int64)
+        self._carry_oids = np.empty((0, 20), dtype=np.uint8)
+        return out
+
+    def build_root(self, odb, leaf_oids_u8_chunks):
+        """The upper spine over the streamed leaves, given their (n, 20)
+        uint8 oids a batch in emission order; -> the feature root's hex
+        oid."""
+        child_ids = np.concatenate(self.leaf_id_chunks)
+        child_oids = np.concatenate(leaf_oids_u8_chunks)
+        if len(child_oids) != len(child_ids):
+            raise ValueError("streamed leaves and their oids differ in number")
+        return build_upper_levels(odb, child_ids, child_oids, self.encoder)

@@ -6,9 +6,11 @@ or promised by a partial clone's promisor remote (:class:`ObjectPromised`).
 A read never yields an empty value for an object that is not there.
 
 Counterpart of kart_tpu's ``core/odb.py`` (``ObjectDb`` loose and packed
-reads, ``write_raw``, ``write_blob``, ``write_blobs_raw``,
-``bulk_pack``, ``read_blobs_data_ordered``; ``TreeView``). Alternates and
-the native batch reads are not ported. A miss costs a stat of the loose
+reads, alternates, ``write_raw``, ``write_blob``, ``write_many``,
+``write_blobs_raw`` (one native call a batch under ``bulk_pack``),
+``bulk_pack``, the batch reads
+``read_blobs_batch`` and ``read_blobs_data_ordered`` on the native batch
+inflate, ``iter_oids``; ``TreeView``). A miss costs a stat of the loose
 path and of the pack directory (a rescan only when that changed), so the
 transfer's walk and a partial clone's working-copy write ask in batches
 (``contains_snapshot``, ``absent``).
@@ -51,7 +53,8 @@ class ObjectDb:
     def __init__(self, objects_dir, promisor_check=None):
         self.objects_dir = objects_dir
         self._promisor_check = promisor_check or (lambda: False)
-        self.packs = PackCollection([os.path.join(objects_dir, "pack")])
+        self._alternates = None
+        self._packs = None
         self._bulk_writer = None
         self._bulk_lock = threading.Lock()
         self._tree_cache = {}
@@ -73,14 +76,55 @@ class ObjectDb:
             if w.finish() is not None:
                 self.packs.refresh()
 
+    @property
+    def packs(self):
+        """The packs of this store and of its alternates."""
+        if self._packs is None:
+            self._packs = PackCollection([os.path.join(d, "pack")
+                                          for d in (self.objects_dir, *self.alternates)])
+        return self._packs
+
+    @property
+    def alternates(self):
+        """The object directories listed in ``objects/info/alternates``,
+        whose objects this store reads as its own."""
+        alternates = self._alternates
+        if alternates is None:
+            alternates = []
+            info = os.path.join(self.objects_dir, "info", "alternates")
+            if os.path.exists(info):
+                with open(info) as f:
+                    for line in f:
+                        line = line.strip()
+                        if line and not line.startswith("#"):
+                            alternates.append(line)
+            self._alternates = alternates
+        return alternates
+
+    def add_alternate(self, objects_dir):
+        info_dir = os.path.join(self.objects_dir, "info")
+        os.makedirs(info_dir, exist_ok=True)
+        with open(os.path.join(info_dir, "alternates"), "a") as f:
+            f.write(objects_dir + "\n")
+        self._alternates = None
+        self._packs = None
+
     def _path(self, oid):
         return os.path.join(self.objects_dir, oid[:2], oid[2:])
+
+    def _find(self, oid):
+        """-> the loose object's file, here or in an alternate, or None."""
+        for root in (self.objects_dir, *self.alternates):
+            p = os.path.join(root, oid[:2], oid[2:])
+            if os.path.exists(p):
+                return p
+        return None
 
     def _missing(self, oid):
         return ObjectPromised(oid) if self._promisor_check() else ObjectMissing(oid)
 
     def contains(self, oid):
-        if os.path.exists(self._path(oid)):
+        if self._find(oid) is not None:
             return True
         sha = bytes.fromhex(oid)
         if sha in self.packs:
@@ -88,12 +132,16 @@ class ObjectDb:
         return self.packs.maybe_refresh() and sha in self.packs  # a pack written since the scan
 
     def loose_oids(self):
-        """The oids of the loose objects, from one listing of the store."""
+        """The oids of the loose objects, here and in the alternates, from
+        one listing of each store."""
         out = set()
-        for fan in os.listdir(self.objects_dir):
-            d = os.path.join(self.objects_dir, fan)
-            if len(fan) == 2 and os.path.isdir(d):
-                out.update(fan + name for name in os.listdir(d) if len(name) == 38)
+        for root in (self.objects_dir, *self.alternates):
+            if not os.path.isdir(root):
+                continue
+            for fan in os.listdir(root):
+                d = os.path.join(root, fan)
+                if len(fan) == 2 and os.path.isdir(d):
+                    out.update(fan + name for name in os.listdir(d) if len(name) == 38)
         return out
 
     def contains_snapshot(self):
@@ -126,8 +174,8 @@ class ObjectDb:
         packed = self.packs.read(sha)
         if packed is not None:
             return packed
-        path = self._path(oid)
-        if not os.path.exists(path):
+        path = self._find(oid)
+        if path is None:
             # a pack written since the scan
             packed = self.packs.read(sha) if self.packs.maybe_refresh() else None
             if packed is None:
@@ -166,11 +214,18 @@ class ObjectDb:
         return out
 
     def read_blobs_batch(self, oids):
-        """[hex oid] -> {oid: blob bytes} for the packed blobs among them
-        (the diff's chunk prefetch); anything else is left to the caller's
-        per-object read, which raises the right error."""
-        datas = self.packs.read_blob_data_ordered([bytes.fromhex(o) for o in oids])
-        return {o: d for o, d in zip(oids, datas) if d is not None}
+        """[hex oid] -> {oid: blob bytes} for the packed non-delta blobs
+        among them, batch-inflated in pack order (the diff's chunk
+        prefetch, the transfer's enumerator); anything else is left to the
+        caller's one-at-a-time read, which raises the right error."""
+        shas = {}
+        for o in oids:
+            try:
+                shas[bytes.fromhex(o)] = o
+            except ValueError:
+                continue
+        got = self.packs.read_batch(list(shas))
+        return {shas[s]: content for s, (obj_type, content) in got.items() if obj_type == "blob"}
 
     def write_raw(self, obj_type, content) -> str:
         if self._bulk_writer is not None:
@@ -188,6 +243,10 @@ class ObjectDb:
 
     def write_blob(self, content) -> str:
         return self.write_raw("blob", content)
+
+    def write_many(self, items):
+        """[(type, content)] -> [oid]; objects already here are skipped."""
+        return [self.write_raw(t, c) for t, c in items]
 
     def write_raw_many(self, obj_type, contents):
         """list[bytes] of one object type -> (n, 20) uint8 oid array."""
@@ -235,6 +294,28 @@ class ObjectDb:
 
     def tree(self, oid) -> "TreeView":
         return TreeView(self, oid)
+
+    def iter_oids(self):
+        """Every oid stored here (not in the alternates), loose and
+        packed."""
+        seen = set()
+        for prefix in sorted(os.listdir(self.objects_dir)):
+            if len(prefix) != 2:
+                continue
+            d = os.path.join(self.objects_dir, prefix)
+            for name in sorted(os.listdir(d)):
+                if len(name) == 38 and not name.endswith(".tmp"):
+                    oid = prefix + name
+                    seen.add(oid)
+                    yield oid
+        own_packs = PackCollection([os.path.join(self.objects_dir, "pack")])
+        try:
+            for sha in own_packs.iter_shas():
+                oid = sha.hex()
+                if oid not in seen:
+                    yield oid
+        finally:
+            own_packs.close()
 
     def find_oids_with_prefix(self, hex_prefix):
         """Oids starting with ``hex_prefix`` (>= 2 chars), loose and packed."""

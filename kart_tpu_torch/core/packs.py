@@ -9,11 +9,12 @@ and REF_DELTA resolution), and a pack writer.
             | offset32[n] (MSB -> index into offset64) | offset64[...]
             | sha1(pack) | sha1(idx)
 
-Counterpart of kart_tpu's ``core/packs.py`` (``PackIndex``, ``Packfile``,
-``apply_delta``, ``PackCollection``, ``PackWriter``, the idx writer).
-Where kart_tpu batch-inflates through its optional C++ library, this
-module runs a zlib loop; the writer emits non-delta records only, as
-kart_tpu's does.
+Counterpart of kart_tpu's ``core/packs.py`` (``PackIndex``, ``Packfile``
+with its batch reads, ``apply_delta``, ``PackCollection``, ``PackWriter``
+with its framed batches and background flush, the idx writer). Batches
+are inflated and framed by the port's native IO core
+(:mod:`kart_tpu_torch.native`); the writer emits non-delta records only,
+as kart_tpu's does.
 """
 
 import hashlib
@@ -21,6 +22,7 @@ import mmap
 import os
 import struct
 import tempfile
+import threading
 import zlib
 from binascii import crc32
 
@@ -128,6 +130,10 @@ class PackIndex:
                 offs[i] = self._offset_at(int(i))
             self._sorted_offsets = np.sort(offs)
         return self._sorted_offsets
+
+    def iter_shas(self):
+        for i in range(self.count):
+            yield self._sha_at(i)
 
     def shas_with_prefix(self, prefix_bytes, odd_nibble=None):
         """Binary sha prefix [+ one extra high nibble] -> matching shas."""
@@ -239,23 +245,19 @@ class Packfile:
         self._mm.close()
         self.index._mm.close()
 
-    def _inflate_at(self, pos, expected_size, end=None):
-        """zlib stream starting at pos (ending by ``end`` when known) ->
-        bytes of length ``expected_size``."""
+    def _inflate_at(self, pos, expected_size):
+        """zlib stream starting at pos -> bytes of length ``expected_size``."""
         d = zlib.decompressobj()
         mm = self._mm
-        if end is not None:
-            out = d.decompress(mm[pos:end])
-        else:
-            out = bytearray()
-            n = len(mm)
-            step = max(expected_size + 64, 4096)
-            while not d.eof and pos < n:
-                chunk = mm[pos : pos + step]
-                out += d.decompress(chunk)
-                pos += len(chunk) - len(d.unused_data)
-                if d.unused_data:
-                    break
+        out = bytearray()
+        n = len(mm)
+        step = max(expected_size + 64, 4096)
+        while not d.eof and pos < n:
+            chunk = mm[pos : pos + step]
+            out += d.decompress(chunk)
+            pos += len(chunk) - len(d.unused_data)
+            if d.unused_data:
+                break
         if not d.eof or len(out) != expected_size:
             raise PackFormatError(
                 f"Inflated size mismatch at {pos}: {len(out)} != {expected_size}"
@@ -300,11 +302,36 @@ class Packfile:
         type_code, content = self._record_at(off)
         return TYPE_NAMES[type_code], content
 
+    #: the payload bytes one native inflate call may hold
+    BATCH_BYTE_BUDGET = 256 * 1024 * 1024
+
+    def _inflate_sorted(self, offsets):
+        """Batch-inflate the records at ascending ``offsets``: yields (i,
+        type code, payload) for each record i the native core inflates
+        (type 0 for a delta record, with no payload); a record it finds
+        malformed ends the batch and the rest are yielded as (i, None,
+        None) for a read one at a time."""
+        from kart_tpu_torch import native
+
+        pos = 0
+        while pos < len(offsets):
+            res = native.inflate_pack_batch(self._mm, offsets[pos:],
+                                            max_total=self.BATCH_BYTE_BUDGET)
+            if res is None:
+                for i in range(pos, len(offsets)):
+                    yield i, None, None
+                return
+            take, types, payload, po = res
+            po = po.tolist()
+            for i, t in enumerate(types.tolist()):
+                yield pos + i, t, (payload[po[i] : po[i + 1]].tobytes() if t else None)
+            pos += take
+
     def read_blob_data_into(self, shas, out, slots, type_code=OBJ_BLOB):
         """For each ``shas[i]`` this pack holds as an object of ``type_code``
-        (a blob by default), set ``out[slots[i]]`` to its payload (records
-        read in pack order, each inflated in one call over its exact
-        extent). -> bool array of the filled positions."""
+        (a blob by default), set ``out[slots[i]]`` to its payload: records
+        batch-inflated in pack order, delta chains resolved one at a time.
+        -> bool array of the filled positions."""
         offs = self.index.offsets_of_batch(shas)
         filled = np.zeros(len(shas), dtype=bool)
         f_idx = np.flatnonzero(offs >= 0)
@@ -312,24 +339,32 @@ class Packfile:
             return filled
         f_idx = f_idx[np.argsort(offs[f_idx], kind="stable")]
         starts = offs[f_idx]
-        all_offs = self.index.all_offsets_sorted()
-        nxt = np.searchsorted(all_offs, starts, side="right")
-        ends = np.where(nxt < len(all_offs), all_offs[np.minimum(nxt, len(all_offs) - 1)],
-                        len(self._mm) - 20)
-        mm = self._mm
-        for j, start, end in zip(f_idx.tolist(), starts.tolist(), ends.tolist()):
-            obj_type, size, pos = _decode_varint_header(mm, start)
-            if obj_type == type_code:
-                out[slots[j]] = self._inflate_at(pos, size, end)
-            elif obj_type in (OBJ_OFS_DELTA, OBJ_REF_DELTA):
-                base_type, content = self._record_at(start)
+        f_idx = f_idx.tolist()
+        for i, t, content in self._inflate_sorted(starts):
+            if t == type_code:
+                out[slots[f_idx[i]]] = content
+            elif t in (0, None):  # a delta record, or one to read alone
+                base_type, content = self._record_at(int(starts[i]))
                 if base_type != type_code:
                     continue
-                out[slots[j]] = content
+                out[slots[f_idx[i]]] = content
             else:
                 continue
-            filled[j] = True
+            filled[f_idx[i]] = True
         return filled
+
+    def read_batch(self, shas):
+        """[20-byte sha] -> {sha: (type_str, content)} of the non-delta
+        records this pack holds, batch-inflated in pack order; shas it
+        lacks and delta records are left to the caller's one-at-a-time
+        read."""
+        offs = self.index.offsets_of_batch(shas)
+        found = sorted((int(off), sha) for off, sha in zip(offs.tolist(), shas) if off >= 0)
+        if not found:
+            return {}
+        starts = np.fromiter((o for o, _ in found), dtype=np.int64, count=len(found))
+        return {found[i][1]: (TYPE_NAMES[t], content)
+                for i, t, content in self._inflate_sorted(starts) if t in TYPE_NAMES}
 
     def __contains__(self, sha):
         return sha in self.index
@@ -421,8 +456,30 @@ class PackCollection:
                 slots = [slots[i] for i in keep]
         return out
 
+    def read_batch(self, shas):
+        """[20-byte sha] -> {sha: (type_str, content)} across all packs,
+        batch-inflated; absent shas and delta records are left out."""
+        out = {}
+        remaining = list(shas)
+        for pack in self.packs:
+            if not remaining:
+                break
+            got = pack.read_batch(remaining)
+            if got:
+                out.update(got)
+                remaining = [s for s in remaining if s not in got]
+        return out
+
     def __contains__(self, sha):
         return any(sha in p for p in self.packs)
+
+    def iter_shas(self):
+        seen = set()
+        for pack in self.packs:
+            for sha in pack.index.iter_shas():
+                if sha not in seen:
+                    seen.add(sha)
+                    yield sha
 
     def shas_with_prefix(self, hex_prefix):
         """Hex prefix (>= 2 chars) -> sorted hex shas across all packs."""
@@ -454,8 +511,19 @@ class PackWriter:
             oid = w.add("blob", data)
         # w.pack_path / w.idx_path now exist
 
-    Records are non-delta, deflated at ``level`` (0 = stored blocks),
-    deduplicated within the pack."""
+    Records are non-delta, deflated at ``level`` (0 = stored blocks) and
+    deduplicated within the pack. A batch of one type (:meth:`add_batch`,
+    :meth:`add_batch_raw`) is hashed, deflated and framed in one call of
+    the native IO core and written with one file write; the import
+    pipeline frames on one thread and appends on another
+    (:meth:`append_framed`). Object ids never depend on the route; the
+    compressed bytes may (the native core writes payloads of up to 256
+    bytes as stored streams), as across zlib versions in git."""
+
+    #: fdatasync the stream every this many bytes, on a helper thread, so
+    #: that the disk's writeback of a large import overlaps the stream and
+    #: :meth:`finish`'s fsync has little left to flush
+    _SYNC_EVERY = 32 << 20
 
     def __init__(self, pack_dir, level=1):
         self.pack_dir = pack_dir
@@ -464,64 +532,152 @@ class PackWriter:
         fd, self._tmp_path = tempfile.mkstemp(dir=pack_dir, prefix=".tmp-pack-")
         self._f = os.fdopen(fd, "w+b")
         self._f.write(b"PACK" + struct.pack(">II", 2, 0))
-        self._pos = 12
-        self._entries = {}  # 20-byte sha -> (crc32, offset)
+        self._entries = []  # (20-byte sha, crc32, offset) of the one-at-a-time path
+        self._entry_chunks = []  # (oids (n, 20), crcs, offsets) of whole batches
+        self._seen = set()  # exact shas, the ground truth of the dedupe
+        # first 8 bytes of every sha as ints: a batch whose prefixes miss
+        # them holds no duplicate; only a hit makes the batches' shas exact
+        self._seen_pref = set()
+        # the batches' sorted prefixes, a stack of runs of decreasing size
+        # merged as a binary counter, probed with searchsorted
+        self._seen_pref_chunks = []
+        self._pending_shas = []  # batch oid arrays not yet in _seen
+        self._count = 0
+        self._unsynced = 0
+        self._flush_thread = None
         self.pack_path = None
         self.idx_path = None
 
     @property
     def object_count(self):
-        return len(self._entries)
+        return self._count
+
+    def _materialise_pending(self):
+        for arr in self._pending_shas:
+            b = arr.tobytes()
+            self._seen.update(b[i : i + 20] for i in range(0, len(b), 20))
+        self._pending_shas = []
+
+    def _have(self, sha):
+        if sha in self._seen:
+            return True
+        if self._pending_shas:
+            p = int.from_bytes(sha[:8], "big")
+            hit = p in self._seen_pref
+            if not hit:
+                for arr in self._seen_pref_chunks:
+                    i = int(np.searchsorted(arr, p))
+                    if i < arr.size and int(arr[i]) == p:
+                        hit = True
+                        break
+            if hit:
+                self._materialise_pending()
+                return sha in self._seen
+        return False
 
     def add_sha(self, obj_type, content):
         """-> 20-byte sha of the object (written unless already here)."""
         sha = hashlib.sha1(b"%s %d\x00" % (obj_type.encode(), len(content)))
         sha.update(content)
         sha = sha.digest()
-        if sha not in self._entries:
-            record = _record_head(obj_type, len(content)) + zlib.compress(content, self.level)
-            self._f.write(record)
-            self._entries[sha] = (crc32(record) & 0xFFFFFFFF, self._pos)
-            self._pos += len(record)
+        if self._have(sha):
+            return sha
+        record = _record_head(obj_type, len(content)) + zlib.compress(content, self.level)
+        offset = self._f.tell()
+        self._f.write(record)
+        self._entries.append((sha, crc32(record) & 0xFFFFFFFF, offset))
+        self._seen.add(sha)
+        self._seen_pref.add(int.from_bytes(sha[:8], "big"))
+        self._count += 1
         return sha
 
     def add(self, obj_type, content):
         """-> hex oid."""
         return self.add_sha(obj_type, content).hex()
 
+    def add_batch(self, obj_type, contents):
+        """-> list of hex oids of ``contents``, objects of one type."""
+        hexes = self.add_batch_raw(obj_type, contents).tobytes().hex()
+        return [hexes[i : i + 40] for i in range(0, len(hexes), 40)]
+
     def add_batch_raw(self, obj_type, contents):
-        """:meth:`add_sha` of many objects of one type: the same records, a
-        loop with its lookups hoisted, and at level 0 each small record's
-        stored block written as the bytes ``zlib.compress(content, 0)``
-        gives, without a deflate stream's setup for each (a feature tree
-        writes millions). -> (n, 20) uint8 oid array."""
-        head = b"%s %%d\x00" % obj_type.encode()
-        entries, write, sha1 = self._entries, self._f.write, hashlib.sha1
-        pack, adler, stored = struct.pack, zlib.adler32, self.level == 0
-        record_heads = {}
-        pos = self._pos
-        shas = []
-        for content in contents:
-            n = len(content)
-            h = sha1(head % n)
-            h.update(content)
-            sha = h.digest()
-            shas.append(sha)
-            if sha in entries:
+        """Many objects of one type, hashed, deflated and framed in one
+        native call and written with one write. -> (n, 20) uint8 oids."""
+        if not contents:
+            return np.zeros((0, 20), dtype=np.uint8)
+        from kart_tpu_torch import native
+
+        return self.append_framed(
+            native.pack_records_batch(obj_type, TYPE_CODES[obj_type], contents, self.level))
+
+    def append_framed(self, framed):
+        """Append a framed batch (``native.pack_records_batch``'s result) and
+        book its idx entries; -> (n, 20) uint8 oids. Only one thread may
+        call it at a time (the import pipeline's pack stage)."""
+        oids, crcs, buf, offs = framed
+        n = len(oids)
+        base = self._f.tell()
+        prefs = oids[:, :8].copy().view(">u8").ravel().astype(np.uint64)
+        bs = np.sort(prefs)
+        clean = n == 1 or not bool((bs[1:] == bs[:-1]).any())
+        if clean:
+            for arr in self._seen_pref_chunks:
+                pos = np.minimum(np.searchsorted(arr, bs), arr.size - 1)
+                if bool((arr[pos] == bs).any()):
+                    clean = False
+                    break
+        if clean and self._seen_pref:
+            sp = np.fromiter(self._seen_pref, dtype=np.uint64, count=len(self._seen_pref))
+            pos = np.minimum(np.searchsorted(bs, sp), bs.size - 1)
+            clean = not bool((bs[pos] == sp).any())
+        if clean:
+            self._f.write(buf)
+            self._entry_chunks.append((oids, crcs, base + offs[:n].astype(np.int64)))
+            chunks = self._seen_pref_chunks
+            chunks.append(bs)
+            while len(chunks) >= 2 and chunks[-1].size >= chunks[-2].size:
+                b, a = chunks.pop(), chunks.pop()
+                at = np.searchsorted(a, b) + np.arange(b.size)
+                merged = np.empty(a.size + b.size, dtype=np.uint64)
+                keep = np.ones(merged.size, dtype=bool)
+                keep[at] = False
+                merged[at] = b
+                merged[keep] = a
+                chunks.append(merged)
+            self._pending_shas.append(oids)
+            self._count += n
+            self._unsynced += len(buf)
+            if self._unsynced >= self._SYNC_EVERY:
+                self._f.flush()
+                t = self._flush_thread
+                if t is None or not t.is_alive():
+                    t = threading.Thread(target=_advisory_datasync, args=(self._f.fileno(),),
+                                         name="kart-pack-sync", daemon=True)
+                    t.start()
+                    self._flush_thread = t
+                self._unsynced = 0
+            return oids
+        # a duplicate somewhere: skip the records of objects already here,
+        # writing the rest in contiguous runs with their offsets shifted
+        self._materialise_pending()
+        seg_start = shift = 0
+        mv = memoryview(buf)
+        for i in range(n):
+            sha = oids[i].tobytes()
+            if sha in self._seen:
+                lo, hi = int(offs[i]), int(offs[i + 1])
+                if lo > seg_start:
+                    self._f.write(mv[seg_start:lo])
+                shift += hi - lo
+                seg_start = hi
                 continue
-            rh = record_heads.get(n)
-            if rh is None:
-                rh = record_heads[n] = _record_head(obj_type, n)
-            if stored and n < 32768:
-                record = b"".join((rh, b"\x78\x01\x01", pack("<HH", n, n ^ 0xFFFF), content,
-                                   pack(">I", adler(content))))
-            else:
-                record = rh + zlib.compress(content, self.level)
-            write(record)
-            entries[sha] = (crc32(record) & 0xFFFFFFFF, pos)
-            pos += len(record)
-        self._pos = pos
-        return np.frombuffer(b"".join(shas), dtype=np.uint8).reshape(-1, 20).copy()
+            self._seen.add(sha)
+            self._seen_pref.add(int(prefs[i]))
+            self._entries.append((sha, int(crcs[i]), base + int(offs[i]) - shift))
+            self._count += 1
+        if len(buf) > seg_start:
+            self._f.write(mv[seg_start:])
+        return oids
 
     def __enter__(self):
         return self
@@ -532,21 +688,41 @@ class PackWriter:
         else:
             self.finish()
 
+    def _join_flusher(self):
+        t = self._flush_thread
+        if t is not None:
+            t.join(timeout=60.0)
+            self._flush_thread = None
+
     def abort(self):
+        self._join_flusher()
         self._f.close()
         if os.path.exists(self._tmp_path):
             os.remove(self._tmp_path)
 
     def finish(self):
         """Patch the object count, append the pack trailer, write the idx.
-        An empty writer aborts instead. -> pack path, or None when empty."""
-        if not self._entries:
+        An empty writer aborts instead. -> pack path, or None when empty.
+        The idx tables are sorted on a helper thread while this one
+        re-hashes and fsyncs the pack."""
+        if not self._count:
             self.abort()
             return None
+        self._join_flusher()
         f = self._f
         f.flush()
+        prep = {}
+
+        def _prep():
+            try:
+                prep["tables"] = prepare_pack_index(self._entries, self._entry_chunks)
+            except BaseException as exc:  # re-raised below, on this thread
+                prep["error"] = exc
+
+        prep_t = threading.Thread(name="kart-idx-prep", target=_prep, daemon=True)
+        prep_t.start()
         f.seek(8)
-        f.write(struct.pack(">I", len(self._entries)))
+        f.write(struct.pack(">I", self._count))
         f.seek(0)
         sha = hashlib.sha1()
         while True:
@@ -559,33 +735,63 @@ class PackWriter:
         f.flush()
         os.fsync(f.fileno())
         f.close()
+        prep_t.join()
+        if "error" in prep:
+            raise prep["error"]
         name = pack_sha.hex()
         self.pack_path = os.path.join(self.pack_dir, f"pack-{name}.pack")
         self.idx_path = os.path.join(self.pack_dir, f"pack-{name}.idx")
         os.replace(self._tmp_path, self.pack_path)
-        write_pack_index(self.idx_path, self._entries, pack_sha)
+        write_prepared_index(self.idx_path, prep["tables"], pack_sha)
         return self.pack_path
 
 
-def write_pack_index(idx_path, entries, pack_sha):
-    """Write a v2 .idx for ``entries`` = {20-byte sha: (crc32, offset)};
-    tmp file + rename, so a crash never leaves half an idx."""
-    n = len(entries)
-    keys = np.frombuffer(b"".join(entries), dtype="S20")
-    order = np.argsort(keys, kind="stable")
-    values = np.fromiter((v for pair in entries.values() for v in pair), dtype=np.uint64,
-                         count=2 * n).reshape(n, 2)[order]
-    crcs, offs = values[:, 0], values[:, 1]
-    sha_arr = keys[order].view(np.uint8).reshape(n, 20)
-    fanout = np.cumsum(np.bincount(sha_arr[:, 0], minlength=256)).astype(">u4")
+def _advisory_datasync(fd):
+    """Writeback of a pack stream mid-write; :meth:`PackWriter.finish`'s
+    fsync is the durability bar, so a failure here changes nothing."""
+    try:
+        os.fdatasync(fd)
+    except OSError:
+        pass
+
+
+def prepare_pack_index(entries, chunks=None):
+    """The sorted v2 .idx tables (fanout, shas, crcs, offsets) of
+    ``entries`` = [(20-byte sha, crc32, offset)] and the columnar
+    ``chunks`` = [(oids (n, 20) uint8, crcs, offsets)], as bytes."""
+    n_scalar = len(entries)
+    shas = (np.frombuffer(b"".join(e[0] for e in entries), dtype=np.uint8).reshape(n_scalar, 20)
+            if n_scalar else np.zeros((0, 20), np.uint8))
+    crcs = np.fromiter((e[1] for e in entries), dtype=np.uint64, count=n_scalar)
+    offs = np.fromiter((e[2] for e in entries), dtype=np.uint64, count=n_scalar)
+    if chunks:
+        shas = np.concatenate([shas] + [c[0] for c in chunks])
+        crcs = np.concatenate([crcs] + [c[1].astype(np.uint64) for c in chunks])
+        offs = np.concatenate([offs] + [c[2].astype(np.uint64) for c in chunks])
+    # sort on the first 8 bytes, then order the (rare) tied runs on the rest
+    w0 = shas[:, 0:8].copy().view(">u8")[:, 0]
+    order = np.argsort(w0, kind="stable")
+    w0s = w0[order]
+    dup = w0s[1:] == w0s[:-1]
+    if dup.any():
+        tied = np.flatnonzero(np.concatenate(([False], dup)) | np.concatenate((dup, [False])))
+        rows = order[tied]
+        w1 = shas[rows, 8:16].copy().view(">u8")[:, 0]
+        w2 = np.pad(shas[rows, 16:20], ((0, 0), (0, 4))).copy().view(">u8")[:, 0]
+        order[tied] = rows[np.lexsort((w2, w1, w0[rows]))]
+    shas, crcs, offs = shas[order], crcs[order], offs[order]
+    fanout = np.cumsum(np.bincount(shas[:, 0], minlength=256)).astype(">u4")
     big = offs >= 0x80000000
     off_table = offs.astype(np.uint32)
     off_table[big] = 0x80000000 | np.arange(int(big.sum()), dtype=np.uint32)
-    body = (
-        IDX_MAGIC + struct.pack(">I", 2) + fanout.tobytes() + sha_arr.tobytes()
-        + crcs.astype(">u4").tobytes() + off_table.astype(">u4").tobytes()
-        + offs[big].astype(">u8").tobytes() + pack_sha
-    )
+    return (fanout.tobytes() + shas.tobytes() + crcs.astype(">u4").tobytes()
+            + off_table.astype(">u4").tobytes() + offs[big].astype(">u8").tobytes())
+
+
+def write_prepared_index(idx_path, tables, pack_sha):
+    """Write a v2 .idx from :func:`prepare_pack_index`'s tables and the
+    pack's sha; tmp file + rename, so a crash never leaves half an idx."""
+    body = IDX_MAGIC + struct.pack(">I", 2) + tables + pack_sha
     tmp = idx_path + f".tmp{os.getpid()}"
     with open(tmp, "wb") as f:
         f.write(body)
@@ -593,3 +799,8 @@ def write_pack_index(idx_path, entries, pack_sha):
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, idx_path)
+
+
+def write_pack_index(idx_path, entries, pack_sha, chunks=None):
+    """Sort, serialise and write a v2 .idx in one call."""
+    write_prepared_index(idx_path, prepare_pack_index(entries, chunks), pack_sha)

@@ -4,9 +4,8 @@ a ``HEAD`` symref, an INI-with-subsections ``config``).
 
 Counterpart of kart_tpu's ``core/refs.py``: ``RefStore`` (loose and packed
 refs, their listing, existence and deletion, HEAD, symbolic refs, writes
-with their reflog line, reflog reads) and ``Config`` (read, ``set_many``,
-key deletion). The directory/file conflict check, which
-serves the network lanes' receive-pack, is not ported.
+with their reflog line, reflog reads, the directory/file conflict check
+``df_conflict``) and ``Config`` (read, ``set_many``, key deletion).
 """
 
 import os
@@ -85,6 +84,20 @@ class RefStore:
 
     def exists(self, ref):
         return os.path.exists(self._ref_path(ref)) or ref in self._packed_refs()
+
+    def df_conflict(self, ref):
+        """The existing ref that ``ref`` collides with at a directory/file
+        boundary (``refs/heads/a`` against ``refs/heads/a/b``), or None:
+        the loose store cannot hold a file and a directory of one name."""
+        parts = ref.split("/")
+        packed = self._packed_refs()
+        for i in range(2, len(parts)):
+            prefix = "/".join(parts[:i])
+            if os.path.isfile(self._ref_path(prefix)) or prefix in packed:
+                return prefix
+        for nested, _ in self.iter_refs(ref + "/"):
+            return nested
+        return None
 
     def delete(self, ref):
         """Remove a ref, loose and packed ('^' peel lines stay with the tag

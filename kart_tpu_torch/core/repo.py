@@ -8,15 +8,20 @@ Counterpart of kart_tpu's ``core/repo.py``: ``KartRepo`` with ``_locate``,
 ``create_tag``, ``del_config``, the spatial filter's config keys
 (``KartConfigKeys``) and the merge state machine (``KartRepoState``, the
 ``MERGE_*`` state files in the gitdir), ``is_bare``, ``is_ancestor`` and
-the ``working_copy`` property (:mod:`kart_tpu_torch.workingcopy`); gc and
-its sweep of crash leftovers are not ported.
+the ``working_copy`` property (:mod:`kart_tpu_torch.workingcopy`), and
+the store's upkeep: ``gc`` (loose objects packed through the pack writer,
+``--auto``, ``--grace=N``, ``KART_GC_GRACE``, ``--prune-now``) and
+``find_stale_leftovers`` (the debris a crashed writer leaves, which ``gc``
+sweeps and ``fsck`` reports).
 """
 
 import hashlib
 import heapq
 import os
 import re
+import shutil
 import struct
+import time
 
 from kart_tpu_torch.core.objects import Commit, Signature, Tag
 from kart_tpu_torch.core.odb import ObjectDb, ObjectMissing
@@ -443,6 +448,142 @@ class KartRepo:
 
     def datasets(self, refish="HEAD"):
         return self.structure(refish).datasets
+
+    #: git's default gc.auto threshold: ``gc --auto`` packs nothing below
+    #: this many loose objects
+    GC_AUTO_LOOSE_THRESHOLD = 6700
+
+    #: leftovers younger than this survive a sweep: a ``.tmp-pack-*`` that
+    #: an import is writing now looks like a dead one except by its age
+    STALE_GRACE_SECONDS = 3600.0
+
+    #: the temporary names of this store's atomic writes: loose objects'
+    #: and idx files' ``<name>.tmp<pid>``, refs' and config's
+    #: ``<name>.lock<pid>``, the pack writer's ``.tmp-pack-*``
+    _STALE_FILE_RE = re.compile(r"(\.(tmp|lock)\d*$)|(^\.tmp-)")
+
+    def find_stale_leftovers(self, grace_seconds=None):
+        """The debris a dead process left, older than the grace period:
+        ``*.tmp<pid>`` and ``.tmp-pack-*`` files under ``objects/``,
+        ``*.lock<pid>`` under ``refs/`` and in the gitdir, and abandoned
+        push quarantines (``objects/quarantine/*``). Yields absolute
+        paths."""
+        if grace_seconds is None:
+            grace_seconds = self.STALE_GRACE_SECONDS
+        cutoff = time.time() - grace_seconds
+
+        def old_enough(path):
+            try:
+                return os.lstat(path).st_mtime <= cutoff
+            except OSError:
+                return False
+
+        def newest_mtime(root):
+            """A quarantine lives while anything streaming into it does."""
+            newest = 0.0
+            for dirpath, _, filenames in os.walk(root):
+                for name in [os.curdir, *filenames]:
+                    try:
+                        newest = max(newest, os.lstat(os.path.join(dirpath, name)).st_mtime)
+                    except OSError:
+                        pass
+            return newest
+
+        objects_dir = os.path.join(self.gitdir, "objects")
+        quarantine_dir = os.path.join(objects_dir, "quarantine")
+        if os.path.isdir(quarantine_dir):
+            for name in sorted(os.listdir(quarantine_dir)):
+                p = os.path.join(quarantine_dir, name)
+                if os.path.isdir(p) and newest_mtime(p) <= cutoff:
+                    yield p
+        for root in (objects_dir, os.path.join(self.gitdir, "refs")):
+            for dirpath, _, filenames in os.walk(root):
+                if dirpath.startswith(quarantine_dir):
+                    continue
+                for fn in sorted(filenames):
+                    if self._STALE_FILE_RE.search(fn):
+                        p = os.path.join(dirpath, fn)
+                        if old_enough(p):
+                            yield p
+        for fn in sorted(os.listdir(self.gitdir)):
+            p = os.path.join(self.gitdir, fn)
+            if os.path.isfile(p) and self._STALE_FILE_RE.search(fn) and old_enough(p):
+                yield p
+
+    def gc(self, *args, grace_seconds=None):
+        """Sweep crash leftovers, then pack the loose objects into one pack
+        and remove them. ``--auto`` packs only above
+        :data:`GC_AUTO_LOOSE_THRESHOLD` loose objects; ``--grace=N`` (or
+        ``KART_GC_GRACE``, seconds) is the age a leftover must reach to be
+        swept, ``--prune-now`` sweeps whatever its age.
+        -> {"packed": n, "pruned": n}."""
+        objects_dir = os.path.join(self.gitdir, "objects")
+        auto = "--auto" in args
+        if grace_seconds is None:
+            for a in args:
+                if isinstance(a, str) and a.startswith("--grace="):
+                    try:
+                        grace_seconds = float(a[len("--grace="):])
+                    except ValueError:
+                        pass
+            if "--prune-now" in args:
+                grace_seconds = 0.0
+        if grace_seconds is None:
+            env = os.environ.get("KART_GC_GRACE")
+            if env is not None:
+                try:
+                    grace_seconds = float(env)
+                except ValueError:
+                    pass
+        pruned = 0
+        for path in list(self.find_stale_leftovers(grace_seconds)):
+            try:
+                if os.path.isdir(path):
+                    shutil.rmtree(path, ignore_errors=True)
+                else:
+                    os.remove(path)
+                pruned += 1
+            except OSError:
+                pass
+
+        loose = []
+        for prefix in sorted(os.listdir(objects_dir)):
+            if len(prefix) != 2:
+                continue
+            d = os.path.join(objects_dir, prefix)
+            for name in sorted(os.listdir(d)):
+                if len(name) == 38 and not name.endswith(".tmp"):
+                    loose.append((prefix + name, os.path.join(d, name)))
+        if not loose or (auto and len(loose) < self.GC_AUTO_LOOSE_THRESHOLD):
+            return {"packed": 0, "pruned": pruned}
+
+        from kart_tpu_torch.core.packs import Packfile, PackWriter
+
+        with PackWriter(os.path.join(objects_dir, "pack")) as w:
+            for oid, _ in loose:
+                w.add(*self.odb.read_raw(oid))
+        # the new pack is visible, and serves every object, before a loose
+        # copy goes
+        self.odb.packs.refresh()
+        pack = Packfile(w.pack_path, w.idx_path)
+        try:
+            for oid, _ in loose:
+                if pack.read(bytes.fromhex(oid)) is None:
+                    raise RuntimeError(f"gc: object {oid} missing from the new pack")
+            for _, path in loose:
+                try:
+                    os.remove(path)
+                except OSError:
+                    pass
+        finally:
+            pack.close()
+        for prefix in os.listdir(objects_dir):
+            if len(prefix) == 2:
+                try:
+                    os.rmdir(os.path.join(objects_dir, prefix))  # the emptied fan-out dirs
+                except OSError:
+                    pass
+        return {"packed": len(loose), "pruned": pruned}
 
 
 def _split_rev_operators(refish):

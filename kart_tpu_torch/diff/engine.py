@@ -2,9 +2,10 @@
 with its changed rows, the envelope prefilter, and the dataset/repo diffs
 the writers consume.
 
-Counterpart of kart_tpu's ``diff/engine.py``: ``tree_diff_entries`` (its
-pure-Python route), ``get_feature_diff``, ``get_feature_diff_columnar``,
-``_feature_diff_routed``, ``get_dataset_feature_count_fast``,
+Counterpart of kart_tpu's ``diff/engine.py``: ``tree_diff_entries`` (the
+native merge-walk of two tree objects, ``native.tree_diff_raw``, with the
+parse of both trees for a malformed one), ``get_feature_diff``,
+``get_feature_diff_columnar``, ``_feature_diff_routed``, ``get_dataset_feature_count_fast``,
 ``get_feature_diff_rows``, ``get_meta_diff``, ``get_dataset_diff``,
 ``get_repo_diff``, ``_envelope_hits``, ``spatial_prefilter_blocks`` and
 ``_prefilter_rect``. The repo-level entry points take ``device`` (``None``
@@ -162,12 +163,40 @@ def feature_count(old_block, new_block, rect=None, device=None):
 
 # --- the repository diff -----------------------------------------------------
 
+def _native_tree_diff_rows(odb, tree_oid_a, tree_oid_b):
+    """The differing entries of two tree objects from the native
+    merge-walk, or None when either is not a well-formed tree (the caller
+    parses both, and raises what the parse raises)."""
+    from kart_tpu_torch import native
+
+    type_a, content_a = odb.read_raw(tree_oid_a)
+    type_b, content_b = odb.read_raw(tree_oid_b)
+    if type_a != "tree" or type_b != "tree":
+        return None
+    return native.tree_diff_raw(content_a, content_b)
+
+
 def tree_diff_entries(odb, tree_oid_a, tree_oid_b, prefix=""):
     """Yield (path, old_oid, new_oid) for each blob that differs between two
     trees (either side may be None); subtrees with equal oids are skipped
     wholesale."""
     if tree_oid_a == tree_oid_b:
         return
+    if tree_oid_a is not None and tree_oid_b is not None:
+        rows = _native_tree_diff_rows(odb, tree_oid_a, tree_oid_b)
+        if rows is not None:
+            for name, oid_a, oid_b, a_is_tree, b_is_tree in sorted(rows, key=lambda r: r[0]):
+                path = f"{prefix}{name}"
+                if a_is_tree or b_is_tree:
+                    yield from tree_diff_entries(odb, oid_a if a_is_tree else None,
+                                                 oid_b if b_is_tree else None, path + "/")
+                    if oid_a is not None and not a_is_tree:
+                        yield path, oid_a, None
+                    if oid_b is not None and not b_is_tree:
+                        yield path, None, oid_b
+                else:
+                    yield path, oid_a, oid_b
+            return
     entries_a = {e.name: e for e in odb.read_tree_entries(tree_oid_a)} if tree_oid_a else {}
     entries_b = {e.name: e for e in odb.read_tree_entries(tree_oid_b)} if tree_oid_b else {}
     for name in sorted(entries_a.keys() | entries_b.keys()):

@@ -291,6 +291,19 @@ class SidecarCapture:
         return (np.concatenate(self._pk_chunks),
                 np.frombuffer(b"".join(self._oid_chunks), dtype=np.uint8).reshape(-1, 20))
 
+    def mark(self):
+        """A checkpoint of what was captured, for :meth:`rewind` (the
+        pipelined import's restart after a native-reader fallback)."""
+        return len(self._pk_chunks), len(self._path_chunks), len(self._oid_chunks), self.count
+
+    def rewind(self, mark):
+        """Drop everything captured since ``mark``."""
+        n_pk, n_path, n_oid, count = mark
+        del self._pk_chunks[n_pk:]
+        del self._path_chunks[n_path:]
+        del self._oid_chunks[n_oid:]
+        self.count = count
+
     def replace_int_columns(self, pks_arr, oids_u8):
         """Replace the captured int-pk columns (the importer's last-wins
         dedup: the sidecar holds what the tree holds)."""

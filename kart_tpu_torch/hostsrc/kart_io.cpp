@@ -1,0 +1,1150 @@
+// The port's host IO core: batch SHA-1, deflate and pack-record framing,
+// the batch pack inflate, the two-tree raw diff, the fused GPKG read and
+// feature-blob encode, and the leaf-tree payload build.
+//
+// A copy of the IO half of kart_tpu's native/kart_io.cpp (its merge-join
+// classify lives in classify_sorted.cpp), built with g++ at first use by
+// kart_tpu_torch/ops/host_build.py and bound through ctypes in
+// kart_tpu_torch/native/__init__.py. Links -lz; libsqlite3 and libcrypto
+// are dlopen'd (no development headers needed).
+
+#include <algorithm>
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+#include <vector>
+
+#include <dlfcn.h>
+#include <zlib.h>
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// Fast SHA-1 via the system libcrypto when present (SHA-NI / SSSE3 paths:
+// ~6x the portable loop below — 1.5us -> 0.25us per small git object, and a
+// 1M-row import hashes a million of them). No OpenSSL headers in this image,
+// so the one-shot SHA1() is dlopen'd; identical output, portable fallback.
+// ---------------------------------------------------------------------------
+
+typedef unsigned char* (*Sha1OneShot)(const unsigned char*, size_t,
+                                      unsigned char*);
+
+bool sha1_known_answer(Sha1OneShot fn) {
+    // FIPS 180-1 test vector: SHA1("abc"). An OpenSSL 3 provider config
+    // that doesn't expose SHA-1 makes SHA1() fail (returning NULL / not
+    // writing the digest) — trusting it blindly would write garbage object
+    // ids into the pack. Verify once at load.
+    static const uint8_t want[20] = {
+        0xa9, 0x99, 0x3e, 0x36, 0x47, 0x06, 0x81, 0x6a, 0xba, 0x3e,
+        0x25, 0x71, 0x78, 0x50, 0xc2, 0x6c, 0x9c, 0xd0, 0xd8, 0x9d};
+    uint8_t got[20] = {0};
+    const unsigned char* in = reinterpret_cast<const unsigned char*>("abc");
+    if (fn(in, 3, got) == nullptr) return false;
+    return std::memcmp(got, want, 20) == 0;
+}
+
+Sha1OneShot load_libcrypto_sha1() {
+    for (const char* name :
+         {"libcrypto.so.3", "libcrypto.so.1.1", "libcrypto.so"}) {
+        if (void* h = dlopen(name, RTLD_NOW | RTLD_LOCAL)) {
+            if (void* sym = dlsym(h, "SHA1")) {
+                Sha1OneShot fn = reinterpret_cast<Sha1OneShot>(sym);
+                if (sha1_known_answer(fn)) return fn;
+            }
+            dlclose(h);
+        }
+    }
+    return nullptr;
+}
+
+Sha1OneShot fast_sha1() {
+    static Sha1OneShot fn = load_libcrypto_sha1();
+    return fn;
+}
+
+// ---------------------------------------------------------------------------
+// SHA-1 (FIPS 180-1). Plain portable implementation — this is the content
+// addressing function of the on-disk format, so it must match git exactly.
+// ---------------------------------------------------------------------------
+
+struct Sha1Ctx {
+    uint32_t h[5];
+    uint64_t len;     // total bytes hashed
+    uint8_t buf[64];  // partial block
+    size_t buf_used;
+};
+
+inline uint32_t rol(uint32_t v, int s) { return (v << s) | (v >> (32 - s)); }
+
+void sha1_init(Sha1Ctx* c) {
+    c->h[0] = 0x67452301u;
+    c->h[1] = 0xEFCDAB89u;
+    c->h[2] = 0x98BADCFEu;
+    c->h[3] = 0x10325476u;
+    c->h[4] = 0xC3D2E1F0u;
+    c->len = 0;
+    c->buf_used = 0;
+}
+
+void sha1_block(Sha1Ctx* c, const uint8_t* p) {
+    uint32_t w[80];
+    for (int i = 0; i < 16; i++) {
+        w[i] = (uint32_t(p[i * 4]) << 24) | (uint32_t(p[i * 4 + 1]) << 16) |
+               (uint32_t(p[i * 4 + 2]) << 8) | uint32_t(p[i * 4 + 3]);
+    }
+    for (int i = 16; i < 80; i++) {
+        w[i] = rol(w[i - 3] ^ w[i - 8] ^ w[i - 14] ^ w[i - 16], 1);
+    }
+    uint32_t a = c->h[0], b = c->h[1], d = c->h[2], e = c->h[3], f = c->h[4];
+    for (int i = 0; i < 80; i++) {
+        uint32_t k, g;
+        if (i < 20) {
+            g = (b & d) | (~b & e);
+            k = 0x5A827999u;
+        } else if (i < 40) {
+            g = b ^ d ^ e;
+            k = 0x6ED9EBA1u;
+        } else if (i < 60) {
+            g = (b & d) | (b & e) | (d & e);
+            k = 0x8F1BBCDCu;
+        } else {
+            g = b ^ d ^ e;
+            k = 0xCA62C1D6u;
+        }
+        uint32_t t = rol(a, 5) + g + f + k + w[i];
+        f = e;
+        e = d;
+        d = rol(b, 30);
+        b = a;
+        a = t;
+    }
+    c->h[0] += a;
+    c->h[1] += b;
+    c->h[2] += d;
+    c->h[3] += e;
+    c->h[4] += f;
+}
+
+void sha1_update(Sha1Ctx* c, const uint8_t* data, size_t n) {
+    c->len += n;
+    if (c->buf_used) {
+        size_t take = 64 - c->buf_used;
+        if (take > n) take = n;
+        std::memcpy(c->buf + c->buf_used, data, take);
+        c->buf_used += take;
+        data += take;
+        n -= take;
+        if (c->buf_used == 64) {
+            sha1_block(c, c->buf);
+            c->buf_used = 0;
+        }
+    }
+    while (n >= 64) {
+        sha1_block(c, data);
+        data += 64;
+        n -= 64;
+    }
+    if (n) {
+        std::memcpy(c->buf, data, n);
+        c->buf_used = n;
+    }
+}
+
+void sha1_final(Sha1Ctx* c, uint8_t out[20]) {
+    uint64_t bit_len = c->len * 8;
+    uint8_t pad = 0x80;
+    sha1_update(c, &pad, 1);
+    uint8_t zero = 0;
+    while (c->buf_used != 56) sha1_update(c, &zero, 1);
+    uint8_t len_be[8];
+    for (int i = 0; i < 8; i++) len_be[i] = uint8_t(bit_len >> (56 - 8 * i));
+    sha1_update(c, len_be, 8);
+    for (int i = 0; i < 5; i++) {
+        out[i * 4] = uint8_t(c->h[i] >> 24);
+        out[i * 4 + 1] = uint8_t(c->h[i] >> 16);
+        out[i * 4 + 2] = uint8_t(c->h[i] >> 8);
+        out[i * 4 + 3] = uint8_t(c->h[i]);
+    }
+}
+
+
+int64_t pack_impl(const uint8_t* const* ptrs, const int64_t* lens,
+                  int64_t n, const char* type_name, int level,
+                  int64_t store_max, int frame_type_code, uint8_t* oids_out,
+                  uint32_t* crcs_out, uint8_t* out, int64_t out_cap,
+                  int64_t* out_offsets) {
+    char header[64];
+    size_t type_len = std::strlen(type_name);
+    if (type_len > 32) return -4;
+    int64_t pos = 0;
+    out_offsets[0] = 0;
+    const int64_t kSha1ScratchMax = 1 << 20;
+    Sha1OneShot sha1_oneshot = fast_sha1();
+    std::vector<uint8_t> sha1_scratch;
+    if (sha1_oneshot != nullptr) {
+        sha1_scratch.resize(size_t(kSha1ScratchMax) + sizeof(header));
+    }
+    // one z_stream reused with deflateReset: deflateInit allocates ~256KB of
+    // window/hash state, and paying that per 30-byte feature blob dominated
+    // the batch (bytes produced are identical to per-object compress2 —
+    // same level, default windowBits/memLevel). A second stream with a tiny
+    // window (2^9) and memLevel 1 serves payloads under 256B: deflateReset
+    // clears the window+hash state, and resetting ~2KB instead of ~300KB
+    // more than halves the per-blob cost of feature-blob batches (the
+    // zlib header self-describes the window, so readers are unaffected).
+    z_stream zs;
+    std::memset(&zs, 0, sizeof(zs));
+    if (deflateInit(&zs, level) != Z_OK) return -3;
+    z_stream zs_small;
+    std::memset(&zs_small, 0, sizeof(zs_small));
+    bool small_ready =
+        deflateInit2(&zs_small, level, Z_DEFLATED, 9, 1,
+                     Z_DEFAULT_STRATEGY) == Z_OK;
+    int64_t result = -5;
+    for (int64_t i = 0; i < n; i++) {
+        int hdr = std::snprintf(header, sizeof(header), "%s %lld",
+                                type_name, (long long)lens[i]);
+        if (hdr < 0 || size_t(hdr) >= sizeof(header) - 1) {
+            result = -4;
+            goto done;
+        }
+        header[hdr] = '\0';  // the NUL is part of the hashed header
+        {
+        bool hashed = false;
+        if (sha1_oneshot != nullptr && lens[i] <= kSha1ScratchMax) {
+            // libcrypto's one-shot wants contiguous input: header+payload
+            // into the scratch (a 150-byte memcpy is noise next to the
+            // hardware-SHA win); big payloads stream through the portable
+            // path below. A NULL return (EVP failure) falls through to the
+            // portable implementation.
+            std::memcpy(sha1_scratch.data(), header, size_t(hdr) + 1);
+            std::memcpy(sha1_scratch.data() + hdr + 1, ptrs[i],
+                        size_t(lens[i]));
+            hashed = sha1_oneshot(sha1_scratch.data(),
+                                  size_t(hdr) + 1 + size_t(lens[i]),
+                                  oids_out + i * 20) != nullptr;
+        }
+        if (!hashed) {
+            Sha1Ctx ctx;
+            sha1_init(&ctx);
+            sha1_update(&ctx, reinterpret_cast<const uint8_t*>(header),
+                        size_t(hdr) + 1);
+            sha1_update(&ctx, ptrs[i], size_t(lens[i]));
+            sha1_final(&ctx, oids_out + i * 20);
+        }
+
+        int64_t rec_begin = pos;
+        if (frame_type_code >= 0) {
+            // git pack varint head: type + UNCOMPRESSED size (known now)
+            if (out_cap - pos < 10) {
+                result = -1;
+                goto done;
+            }
+            uint64_t size = uint64_t(lens[i]);
+            uint8_t byte0 = uint8_t((frame_type_code << 4) | (size & 0x0F));
+            size >>= 4;
+            while (size) {
+                out[pos++] = byte0 | 0x80;
+                byte0 = uint8_t(size & 0x7F);
+                size >>= 7;
+            }
+            out[pos++] = byte0;
+        }
+
+        if (store_max > 0 && lens[i] <= store_max) {
+            // handcrafted STORED zlib stream: 0x78 0x01 header, one or more
+            // BTYPE=00 blocks (LEN/NLEN little-endian, 64KB-1 max each),
+            // big-endian adler32 trailer
+            int64_t L = lens[i];
+            int64_t blocks = L ? (L + 65534) / 65535 : 1;
+            int64_t need = 2 + blocks * 5 + L + 4;
+            if (out_cap - pos < need) {
+                result = -1;
+                goto done;
+            }
+            uint8_t* p = out + pos;
+            *p++ = 0x78;
+            *p++ = 0x01;
+            const uint8_t* src = ptrs[i];
+            int64_t remaining = L;
+            do {
+                uint16_t take = uint16_t(remaining > 65535 ? 65535 : remaining);
+                *p++ = (remaining - take == 0) ? 1 : 0;  // BFINAL on last
+                *p++ = uint8_t(take & 0xFF);
+                *p++ = uint8_t(take >> 8);
+                *p++ = uint8_t(~take & 0xFF);
+                *p++ = uint8_t((~take >> 8) & 0xFF);
+                std::memcpy(p, src, take);
+                p += take;
+                src += take;
+                remaining -= take;
+            } while (remaining > 0);
+            uLong ad = adler32(0L, Z_NULL, 0);
+            {
+                // chunked: adler32 takes 32-bit lengths and store_max is
+                // env-settable, so L is not bounded by 4GiB here
+                const uint8_t* ap = ptrs[i];
+                int64_t aleft = L;
+                while (aleft > 0) {
+                    uInt take = aleft > int64_t(0x40000000)
+                                    ? uInt(0x40000000)
+                                    : uInt(aleft);
+                    ad = adler32(ad, ap, take);
+                    ap += take;
+                    aleft -= take;
+                }
+            }
+            *p++ = uint8_t(ad >> 24);
+            *p++ = uint8_t(ad >> 16);
+            *p++ = uint8_t(ad >> 8);
+            *p++ = uint8_t(ad);
+            pos = p - out;
+        } else {
+            // stream in bounded chunks: avail_in/avail_out are 32-bit,
+            // payloads and the output buffer can exceed 4 GiB
+            z_stream& z = (small_ready && lens[i] < 256) ? zs_small : zs;
+            const uint8_t* src = ptrs[i];
+            int64_t remaining = lens[i];
+            const int64_t kChunk = int64_t(0x40000000);  // 1 GiB
+            int rc = Z_OK;
+            Bytef* stream_start = out + pos;
+            z.next_in = const_cast<Bytef*>(src);
+            z.avail_in = 0;
+            z.next_out = stream_start;
+            do {
+                if (z.avail_in == 0 && remaining > 0) {
+                    int64_t take = remaining > kChunk ? kChunk : remaining;
+                    z.next_in = const_cast<Bytef*>(src);
+                    z.avail_in = uInt(take);
+                    src += take;
+                    remaining -= take;
+                }
+                int64_t room =
+                    out_cap - pos - int64_t(z.next_out - stream_start);
+                if (room <= 0) {
+                    result = -1;
+                    goto done;
+                }
+                z.avail_out = uInt(room > kChunk ? kChunk : room);
+                uInt out_before = z.avail_out;
+                rc = deflate(&z, remaining ? Z_NO_FLUSH : Z_FINISH);
+                if (rc != Z_OK && rc != Z_STREAM_END && rc != Z_BUF_ERROR) {
+                    result = -3;
+                    goto done;
+                }
+                if (rc == Z_BUF_ERROR && z.avail_in == 0 && remaining == 0 &&
+                    z.avail_out == out_before) {
+                    // no forward progress possible: corrupt state, don't spin
+                    result = -3;
+                    goto done;
+                }
+            } while (rc != Z_STREAM_END);
+            pos += int64_t(z.next_out - stream_start);
+            deflateReset(&z);
+        }
+
+        if (frame_type_code >= 0) {
+            uLong c = crc32(0L, Z_NULL, 0);
+            int64_t left = pos - rec_begin;
+            const uint8_t* p = out + rec_begin;
+            while (left > 0) {  // chunked: crc32 takes 32-bit lengths
+                uInt take = left > int64_t(0x40000000)
+                                ? uInt(0x40000000)
+                                : uInt(left);
+                c = crc32(c, p, take);
+                p += take;
+                left -= take;
+            }
+            crcs_out[i] = uint32_t(c);
+        }
+        out_offsets[i + 1] = pos;
+        }
+    }
+    result = pos;
+done:
+    deflateEnd(&zs);
+    if (small_ready) deflateEnd(&zs_small);
+    return result;
+}
+
+// ---------------------------------------------------------------------------
+// Native GPKG source reader + feature-blob encoder (the import pipeline's
+// fused read+encode stage). sqlite3 is dlopen'd (no dev headers in the
+// image; the runtime library ships with Python's sqlite3 module), the
+// SELECT is stepped here, and each row is serialised straight into the
+// caller's buffer as a Datasets-V3 msgpack feature blob — bit-identical to
+// msgpack-python's Packer over the same values (the equivalence property
+// tests compare root tree oids against the pure-Python path). The whole
+// call runs without the GIL, so on the pipeline's producer thread it
+// genuinely overlaps the hash/pack stages even on CPython.
+//
+// Unsupported shapes (geometry needing the full re-encode path, unexpected
+// storage classes) return IO_GPKG_FALLBACK: the Python caller abandons the
+// native reader and re-streams through the interpreter encoder — writer
+// dedupe keeps any already-written blobs correct.
+// ---------------------------------------------------------------------------
+
+// subset of the sqlite3 C API, resolved at runtime
+struct SqliteApi {
+    int (*open_v2)(const char*, void**, int, const char*);
+    int (*prepare_v2)(void*, const char*, int, void**, const char**);
+    int (*step)(void*);
+    int (*finalize)(void*);
+    int (*close)(void*);
+    int (*column_type)(void*, int);
+    int64_t (*column_int64)(void*, int);
+    double (*column_double)(void*, int);
+    const void* (*column_blob)(void*, int);
+    const unsigned char* (*column_text)(void*, int);
+    int (*column_bytes)(void*, int);
+    bool ok;
+};
+
+SqliteApi* sqlite_api() {
+    static SqliteApi api = [] {
+        SqliteApi a;
+        std::memset(&a, 0, sizeof(a));
+        void* h = nullptr;
+        for (const char* name : {"libsqlite3.so.0", "libsqlite3.so"}) {
+            if ((h = dlopen(name, RTLD_NOW | RTLD_LOCAL)) != nullptr) break;
+        }
+        if (h == nullptr) return a;
+        a.open_v2 = reinterpret_cast<decltype(a.open_v2)>(
+            dlsym(h, "sqlite3_open_v2"));
+        a.prepare_v2 = reinterpret_cast<decltype(a.prepare_v2)>(
+            dlsym(h, "sqlite3_prepare_v2"));
+        a.step = reinterpret_cast<decltype(a.step)>(dlsym(h, "sqlite3_step"));
+        a.finalize = reinterpret_cast<decltype(a.finalize)>(
+            dlsym(h, "sqlite3_finalize"));
+        a.close = reinterpret_cast<decltype(a.close)>(
+            dlsym(h, "sqlite3_close"));
+        a.column_type = reinterpret_cast<decltype(a.column_type)>(
+            dlsym(h, "sqlite3_column_type"));
+        a.column_int64 = reinterpret_cast<decltype(a.column_int64)>(
+            dlsym(h, "sqlite3_column_int64"));
+        a.column_double = reinterpret_cast<decltype(a.column_double)>(
+            dlsym(h, "sqlite3_column_double"));
+        a.column_blob = reinterpret_cast<decltype(a.column_blob)>(
+            dlsym(h, "sqlite3_column_blob"));
+        a.column_text = reinterpret_cast<decltype(a.column_text)>(
+            dlsym(h, "sqlite3_column_text"));
+        a.column_bytes = reinterpret_cast<decltype(a.column_bytes)>(
+            dlsym(h, "sqlite3_column_bytes"));
+        a.ok = a.open_v2 && a.prepare_v2 && a.step && a.finalize &&
+               a.close && a.column_type && a.column_int64 &&
+               a.column_double && a.column_blob && a.column_text &&
+               a.column_bytes;
+        return a;
+    }();
+    return api.ok ? &api : nullptr;
+}
+
+// sqlite storage classes / result codes (stable public ABI values)
+constexpr int kSqliteInteger = 1, kSqliteFloat = 2, kSqliteText = 3,
+              kSqliteBlob = 4, kSqliteNull = 5;
+constexpr int kSqliteOk = 0, kSqliteRow = 100, kSqliteDone = 101;
+constexpr int kSqliteOpenReadonly = 0x1;
+
+// column handling kinds — must match GPKGImportSource's encode kinds
+constexpr uint8_t kKindPlain = 0, kKindGeom = 1, kKindBool = 2,
+                  kKindFloat = 3, kKindTs = 4;
+
+// msgpack encodes, bit-identical to msgpack-python's Packer
+// (use_bin_type=True): minimal-width ints, fixstr/str8/16/32,
+// bin8/16/32, float64, fixext/ext8/16/32
+inline void mp_append(std::vector<uint8_t>& o, const uint8_t* p, size_t n) {
+    o.insert(o.end(), p, p + n);
+}
+
+inline void mp_be(std::vector<uint8_t>& o, uint64_t v, int bytes) {
+    for (int i = bytes - 1; i >= 0; i--) o.push_back(uint8_t(v >> (8 * i)));
+}
+
+void mp_int(std::vector<uint8_t>& o, int64_t d) {
+    if (d < -(int64_t(1) << 5)) {
+        if (d < -(int64_t(1) << 15)) {
+            if (d < -(int64_t(1) << 31)) {
+                o.push_back(0xd3);
+                mp_be(o, uint64_t(d), 8);
+            } else {
+                o.push_back(0xd2);
+                mp_be(o, uint64_t(d) & 0xFFFFFFFFu, 4);
+            }
+        } else if (d < -(int64_t(1) << 7)) {
+            o.push_back(0xd1);
+            mp_be(o, uint64_t(d) & 0xFFFFu, 2);
+        } else {
+            o.push_back(0xd0);
+            o.push_back(uint8_t(d));
+        }
+    } else if (d < (int64_t(1) << 7)) {
+        o.push_back(uint8_t(d));  // positive fixint / negative fixint
+    } else if (d < (int64_t(1) << 16)) {
+        if (d < (int64_t(1) << 8)) {
+            o.push_back(0xcc);
+            o.push_back(uint8_t(d));
+        } else {
+            o.push_back(0xcd);
+            mp_be(o, uint64_t(d), 2);
+        }
+    } else if (d < (int64_t(1) << 32)) {
+        o.push_back(0xce);
+        mp_be(o, uint64_t(d), 4);
+    } else {
+        o.push_back(0xcf);
+        mp_be(o, uint64_t(d), 8);
+    }
+}
+
+void mp_f64(std::vector<uint8_t>& o, double v) {
+    uint64_t bits;
+    std::memcpy(&bits, &v, 8);
+    o.push_back(0xcb);
+    mp_be(o, bits, 8);
+}
+
+bool mp_str(std::vector<uint8_t>& o, const uint8_t* p, int64_t n) {
+    if (n < 32) {
+        o.push_back(uint8_t(0xa0 | n));
+    } else if (n <= 0xff) {
+        o.push_back(0xd9);
+        o.push_back(uint8_t(n));
+    } else if (n <= 0xffff) {
+        o.push_back(0xda);
+        mp_be(o, uint64_t(n), 2);
+    } else if (n <= int64_t(0xffffffff)) {
+        o.push_back(0xdb);
+        mp_be(o, uint64_t(n), 4);
+    } else {
+        return false;
+    }
+    mp_append(o, p, size_t(n));
+    return true;
+}
+
+bool mp_bin(std::vector<uint8_t>& o, const uint8_t* p, int64_t n) {
+    if (n <= 0xff) {
+        o.push_back(0xc4);
+        o.push_back(uint8_t(n));
+    } else if (n <= 0xffff) {
+        o.push_back(0xc5);
+        mp_be(o, uint64_t(n), 2);
+    } else if (n <= int64_t(0xffffffff)) {
+        o.push_back(0xc6);
+        mp_be(o, uint64_t(n), 4);
+    } else {
+        return false;
+    }
+    mp_append(o, p, size_t(n));
+    return true;
+}
+
+bool mp_ext_header(std::vector<uint8_t>& o, int8_t code, int64_t n) {
+    switch (n) {
+        case 1: o.push_back(0xd4); break;
+        case 2: o.push_back(0xd5); break;
+        case 4: o.push_back(0xd6); break;
+        case 8: o.push_back(0xd7); break;
+        case 16: o.push_back(0xd8); break;
+        default:
+            if (n <= 0xff) {
+                o.push_back(0xc7);
+                o.push_back(uint8_t(n));
+            } else if (n <= 0xffff) {
+                o.push_back(0xc8);
+                mp_be(o, uint64_t(n), 2);
+            } else if (n <= int64_t(0xffffffff)) {
+                o.push_back(0xc9);
+                mp_be(o, uint64_t(n), 4);
+            } else {
+                return false;
+            }
+    }
+    o.push_back(uint8_t(code));
+    return true;
+}
+
+// GPKG geometry canonicalisation, the kart_tpu.geometry fast path: LE
+// header, non-extended, expected envelope kind for the shape -> the only
+// change is zeroing srs_id (bytes 4..8). Anything else needs the Python
+// re-encode path -> false.
+bool geom_canonical_ext(std::vector<uint8_t>& o, int8_t ext_code,
+                        const uint8_t* g, int64_t n) {
+    static const int64_t kEnvSizes[5] = {0, 32, 48, 48, 64};
+    if (n < 9 || g[0] != 'G' || g[1] != 'P' || g[2] != 0) return false;
+    uint8_t flags = g[3];
+    if (!(flags & 0x01) || (flags & 0x20)) return false;  // LE, !extended
+    int env_kind = (flags & 0x0E) >> 1;
+    if (env_kind > 4) return false;
+    int64_t off = 8 + kEnvSizes[env_kind];
+    if (n <= off + 4 || g[off] != 1) return false;  // LE WKB only
+    uint32_t wkb_type = uint32_t(g[off + 1]) | (uint32_t(g[off + 2]) << 8) |
+                        (uint32_t(g[off + 3]) << 16) |
+                        (uint32_t(g[off + 4]) << 24);
+    uint32_t base = (wkb_type & 0x0FFFFFFF) % 1000;
+    uint32_t zflag = ((wkb_type & 0x0FFFFFFF) % 10000) / 1000;
+    bool has_z = (wkb_type & 0x80000000u) || zflag == 1 || zflag == 3;
+    bool empty = (flags & 0x10) != 0;
+    int want = (empty || base == 1) ? 0 : (has_z ? 2 : 1);
+    if (env_kind != want) return false;
+    if (!mp_ext_header(o, ext_code, n)) return false;
+    size_t at = o.size();
+    mp_append(o, g, size_t(n));
+    std::memset(o.data() + at + 4, 0, 4);  // srs_id -> 0
+    return true;
+}
+
+struct GpkgReader {
+    void* db = nullptr;
+    void* stmt = nullptr;
+    int n_vals = 0;
+    int pk_col = 0;
+    int8_t ext_code = 0;
+    std::vector<int32_t> val_cols;
+    std::vector<uint8_t> kinds;
+    std::vector<uint8_t> prefix;  // constant blob head (array hdrs + legend)
+    std::vector<uint8_t> scratch;  // one encoded row (reused)
+    int64_t stash_pk = 0;
+    bool has_stash = false;  // scratch holds a row the last buffer couldn't fit
+    bool done = false;
+};
+
+// encode the current statement row into r->scratch; 0 ok, IO_GPKG_FALLBACK
+// when the row needs the Python path
+int encode_row(GpkgReader* r, SqliteApi* sq) {
+    std::vector<uint8_t>& o = r->scratch;
+    o.clear();
+    mp_append(o, r->prefix.data(), r->prefix.size());
+    for (int i = 0; i < r->n_vals; i++) {
+        int col = r->val_cols[size_t(i)];
+        int st = sq->column_type(r->stmt, col);
+        if (st == kSqliteNull) {
+            o.push_back(0xc0);
+            continue;
+        }
+        switch (r->kinds[size_t(i)]) {
+            case kKindGeom: {
+                if (st != kSqliteBlob) return -6;
+                const uint8_t* g = static_cast<const uint8_t*>(
+                    sq->column_blob(r->stmt, col));
+                int64_t n = sq->column_bytes(r->stmt, col);
+                if (!geom_canonical_ext(o, r->ext_code, g, n)) return -6;
+                break;
+            }
+            case kKindBool:
+                if (st != kSqliteInteger) return -6;
+                o.push_back(sq->column_int64(r->stmt, col) ? 0xc3 : 0xc2);
+                break;
+            case kKindFloat:
+                if (st != kSqliteInteger && st != kSqliteFloat) return -6;
+                mp_f64(o, sq->column_double(r->stmt, col));
+                break;
+            case kKindTs: {
+                if (st == kSqliteText) {
+                    const unsigned char* t = sq->column_text(r->stmt, col);
+                    int64_t n = sq->column_bytes(r->stmt, col);
+                    if (!mp_str(o, t, n)) return -6;
+                    for (size_t j = o.size() - size_t(n); j < o.size(); j++) {
+                        if (o[j] == ' ') o[j] = 'T';
+                    }
+                } else if (st == kSqliteInteger) {
+                    mp_int(o, sq->column_int64(r->stmt, col));
+                } else if (st == kSqliteFloat) {
+                    mp_f64(o, sq->column_double(r->stmt, col));
+                } else {
+                    return -6;
+                }
+                break;
+            }
+            default:  // kKindPlain: encode by storage class, as Python does
+                if (st == kSqliteInteger) {
+                    mp_int(o, sq->column_int64(r->stmt, col));
+                } else if (st == kSqliteFloat) {
+                    mp_f64(o, sq->column_double(r->stmt, col));
+                } else if (st == kSqliteText) {
+                    if (!mp_str(o, sq->column_text(r->stmt, col),
+                                sq->column_bytes(r->stmt, col)))
+                        return -6;
+                } else if (st == kSqliteBlob) {
+                    if (!mp_bin(o,
+                                static_cast<const uint8_t*>(
+                                    sq->column_blob(r->stmt, col)),
+                                sq->column_bytes(r->stmt, col)))
+                        return -6;
+                } else {
+                    return -6;
+                }
+        }
+    }
+    return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+int io_abi_version() { return 7; }  // v7: io_leaf_payloads leaf-tree kernel
+
+// Zero-copy variant: payloads stay in the caller's buffers (an array of
+// pointers — CPython bytes objects expose theirs directly), and the git
+// object header "<type> <len>\0" is composed here, so the Python side does
+// no per-object string work at all.
+// Payloads up to store_max bytes are emitted as handcrafted STORED zlib
+// streams (2-byte header + stored deflate blocks + adler32 trailer)
+// instead of going through deflate: this machine's zlib costs ~9us per
+// deflate() call even for a 142-byte payload at memLevel 1, while a stored
+// stream is a memcpy (~0.3us). Feature blobs are ~100-150 bytes of msgpack
+// whose level-1 deflate barely shrinks them, so the pack grows a few
+// percent in exchange for an order of magnitude off the import hot loop.
+// A stored stream is a fully valid zlib stream — every reader
+// (io_inflate_batch, Python zlib, git itself) inflates it unchanged.
+// store_max <= 0 disables (always deflate).
+//
+// With frame_type_code >= 0 each stream is preceded by the git pack varint
+// record head (type + uncompressed size — known before compression) and
+// crcs_out[i] gets the crc32 of the whole record, as .idx v2 wants.
+int64_t io_pack_ptrs(const uint8_t* const* ptrs, const int64_t* lens,
+                     int64_t n, const char* type_name, int level,
+                     int64_t store_max, uint8_t* oids_out, uint8_t* out,
+                     int64_t out_cap, int64_t* out_offsets) {
+    return pack_impl(ptrs, lens, n, type_name, level, store_max, -1,
+                     oids_out, nullptr, out, out_cap, out_offsets);
+}
+
+// Full pack-record framing: the Python writer's remaining per-object work
+// (record head, crc32, stream slicing) measured ~2us/object at import
+// scale — paid a million times per 1M-row import — so the whole record is
+// built here and Python does one file write per batch.
+// Payloads arrive as ONE contiguous buffer + n+1 offsets (the Python side
+// joins the blob list — a single memcpy pass — instead of building a
+// ctypes pointer array, which costs ~1us per element in conversions).
+int64_t io_pack_records(const uint8_t* base, const int64_t* offsets,
+                        int64_t n, const char* type_name, int type_code,
+                        int level, int64_t store_max, uint8_t* oids_out,
+                        uint32_t* crcs_out, uint8_t* out, int64_t out_cap,
+                        int64_t* out_offsets) {
+    if (type_code < 1 || type_code > 7 || crcs_out == nullptr) return -4;
+    std::vector<const uint8_t*> ptrs(static_cast<size_t>(n));
+    std::vector<int64_t> lens(static_cast<size_t>(n));
+    for (int64_t i = 0; i < n; i++) {
+        ptrs[size_t(i)] = base + offsets[i];
+        lens[size_t(i)] = offsets[i + 1] - offsets[i];
+        if (lens[size_t(i)] < 0) return -4;
+    }
+    return pack_impl(ptrs.data(), lens.data(), n, type_name, level,
+                     store_max, type_code, oids_out, crcs_out, out, out_cap,
+                     out_offsets);
+}
+
+// Two-tree structural diff over raw git tree payloads: emits only the
+// entries that DIFFER between the two trees. The Python tree-diff engine
+// previously parsed every touched tree into per-entry objects (hex oids,
+// decoded names) only to find that at 1%-edit scale ~99% of entries are
+// equal — measured ~6s of a 1M-row tree-engine diff. Entries within a git
+// tree are sorted by git's canonical order (names compare as if trees end
+// in '/'), so a single merge-walk suffices.
+//
+// Output records, packed into out: u8 flags (1 = present in A, 2 = present
+// in B, 4 = A is tree, 8 = B is tree), u16 LE name length, name bytes,
+// 20B oid A (zero when absent), 20B oid B (zero when absent).
+// Returns bytes written, -1 if out_cap too small, -2 on malformed input.
+namespace treediff {
+
+struct Entry {
+    const uint8_t* name;
+    size_t name_len;
+    const uint8_t* oid;
+    bool is_tree;
+};
+
+// parse the next entry starting at *i; false at end; throws -2 via ok flag
+inline bool next_entry(const uint8_t* buf, int64_t len, int64_t* i,
+                       Entry* e, bool* ok) {
+    if (*i >= len) return false;
+    int64_t j = *i;
+    // mode (octal digits) up to space
+    int64_t sp = j;
+    while (sp < len && buf[sp] != ' ') sp++;
+    if (sp >= len || sp == j || sp - j > 7) { *ok = false; return false; }
+    bool is_tree = (sp - j == 5) && buf[j] == '4';  // "40000"
+    int64_t nul = sp + 1;
+    while (nul < len && buf[nul] != 0) nul++;
+    if (nul >= len || len - nul < 21) { *ok = false; return false; }
+    e->name = buf + sp + 1;
+    e->name_len = size_t(nul - sp - 1);
+    e->oid = buf + nul + 1;
+    e->is_tree = is_tree;
+    *i = nul + 21;
+    return true;
+}
+
+// git canonical order: names compare as if trees end in '/'
+inline int cmp(const Entry& a, const Entry& b) {
+    size_t n = a.name_len < b.name_len ? a.name_len : b.name_len;
+    int c = std::memcmp(a.name, b.name, n);
+    if (c != 0) return c;
+    // equal prefix: virtual '/' suffix for trees
+    uint8_t ca = a.name_len > n ? a.name[n] : (a.is_tree ? '/' : 0);
+    uint8_t cb = b.name_len > n ? b.name[n] : (b.is_tree ? '/' : 0);
+    if (a.name_len == n && b.name_len == n) {
+        // both exhausted: compare the virtual suffix only
+        ca = a.is_tree ? '/' : 0;
+        cb = b.is_tree ? '/' : 0;
+        return int(ca) - int(cb);
+    }
+    if (a.name_len == n) return int(a.is_tree ? '/' : 0) - int(b.name[n]);
+    if (b.name_len == n) return int(a.name[n]) - int(b.is_tree ? '/' : 0);
+    return 0;
+}
+
+inline int64_t emit(uint8_t* out, int64_t out_cap, int64_t pos,
+                    const Entry* a, const Entry* b) {
+    const Entry* named = a ? a : b;
+    int64_t need = 1 + 2 + int64_t(named->name_len) + 20 + 20;
+    if (out_cap - pos < need) return -1;
+    uint8_t flags = 0;
+    if (a) flags |= 1;
+    if (b) flags |= 2;
+    if (a && a->is_tree) flags |= 4;
+    if (b && b->is_tree) flags |= 8;
+    uint8_t* p = out + pos;
+    *p++ = flags;
+    *p++ = uint8_t(named->name_len & 0xFF);
+    *p++ = uint8_t((named->name_len >> 8) & 0xFF);
+    std::memcpy(p, named->name, named->name_len);
+    p += named->name_len;
+    if (a) std::memcpy(p, a->oid, 20); else std::memset(p, 0, 20);
+    p += 20;
+    if (b) std::memcpy(p, b->oid, 20); else std::memset(p, 0, 20);
+    p += 20;
+    return p - out;
+}
+
+}  // namespace treediff
+
+
+// Batch inflate of non-delta pack records: the bulk READ twin of
+// io_pack_ptrs. Callers hand the mmapped pack plus record offsets (from the
+// .idx); each record's varint header is decoded and its payload inflated
+// with one reused z_stream. Delta records (types 6/7) are skipped with
+// type 0 — the Python side resolves those chains (rare in our own packs,
+// which are written non-delta).
+//
+// Two-phase: pass out=NULL to get the required total payload size (header
+// scan only), then call again with the buffer. types_out[i]: 1..4 commit/
+// tree/blob/tag, 0 = delta/unsupported (skipped, zero length).
+int64_t io_inflate_batch(const uint8_t* pack, int64_t pack_len,
+                         const int64_t* offsets, int64_t n, uint8_t* out,
+                         int64_t out_cap, int64_t* out_offsets,
+                         uint8_t* types_out) {
+    int64_t total = 0;
+    z_stream zs;
+    bool zs_ready = false;
+    if (out != nullptr) {
+        std::memset(&zs, 0, sizeof(zs));
+        if (inflateInit(&zs) != Z_OK) return -3;
+        zs_ready = true;
+    }
+    if (out_offsets != nullptr) out_offsets[0] = 0;
+    for (int64_t i = 0; i < n; i++) {
+        int64_t pos = offsets[i];
+        if (pos < 0 || pos >= pack_len) {
+            if (zs_ready) inflateEnd(&zs);
+            return -2;
+        }
+        uint8_t byte = pack[pos++];
+        int type = (byte >> 4) & 7;
+        uint64_t size = byte & 0x0F;
+        int shift = 4;
+        while (byte & 0x80) {
+            if (pos >= pack_len || shift > 60) {
+                if (zs_ready) inflateEnd(&zs);
+                return -2;
+            }
+            byte = pack[pos++];
+            size |= uint64_t(byte & 0x7F) << shift;
+            shift += 7;
+        }
+        bool plain = type >= 1 && type <= 4 &&
+                     size <= uint64_t(0x7FFFFFFF);  // huge: Python fallback
+        if (out == nullptr) {
+            types_out[i] = plain ? uint8_t(type) : 0;
+            if (plain) total += int64_t(size);
+            if (out_offsets != nullptr) out_offsets[i + 1] = total;
+            continue;
+        }
+        types_out[i] = plain ? uint8_t(type) : 0;
+        if (!plain) {
+            out_offsets[i + 1] = total;
+            continue;
+        }
+        if (total + int64_t(size) > out_cap) {
+            inflateEnd(&zs);
+            return -1;
+        }
+        zs.next_in = const_cast<Bytef*>(pack + pos);
+        // the deflate stream ends within the pack; give inflate the rest
+        int64_t avail = pack_len - pos;
+        zs.avail_in = uInt(avail > int64_t(0x7FFFFFFF) ? 0x7FFFFFFF : avail);
+        zs.next_out = out + total;
+        zs.avail_out = uInt(size);
+        int rc = inflate(&zs, Z_FINISH);
+        // Z_FINISH with an exact-size buffer ends in Z_STREAM_END (or
+        // Z_BUF_ERROR when size 0 and stream already ended)
+        if (rc != Z_STREAM_END && !(rc == Z_BUF_ERROR && size == 0)) {
+            inflateEnd(&zs);
+            return -3;
+        }
+        if (zs.total_out != size) {
+            inflateEnd(&zs);
+            return -3;
+        }
+        total += int64_t(size);
+        out_offsets[i + 1] = total;
+        inflateReset(&zs);
+    }
+    if (zs_ready) inflateEnd(&zs);
+    return total;
+}
+
+
+int64_t io_tree_diff(const uint8_t* a_buf, int64_t a_len,
+                     const uint8_t* b_buf, int64_t b_len,
+                     uint8_t* out, int64_t out_cap) {
+    using treediff::Entry;
+    Entry ea{}, eb{};
+    bool ok = true;
+    int64_t ia = 0, ib = 0, pos = 0;
+    bool has_a = treediff::next_entry(a_buf, a_len, &ia, &ea, &ok);
+    bool has_b = treediff::next_entry(b_buf, b_len, &ib, &eb, &ok);
+    if (!ok) return -2;
+    while (has_a || has_b) {
+        int c;
+        if (!has_a) c = 1;
+        else if (!has_b) c = -1;
+        else c = treediff::cmp(ea, eb);
+        if (c < 0) {
+            pos = treediff::emit(out, out_cap, pos, &ea, nullptr);
+            if (pos < 0) return -1;
+            has_a = treediff::next_entry(a_buf, a_len, &ia, &ea, &ok);
+        } else if (c > 0) {
+            pos = treediff::emit(out, out_cap, pos, nullptr, &eb);
+            if (pos < 0) return -1;
+            has_b = treediff::next_entry(b_buf, b_len, &ib, &eb, &ok);
+        } else {
+            if (std::memcmp(ea.oid, eb.oid, 20) != 0 ||
+                ea.is_tree != eb.is_tree) {
+                pos = treediff::emit(out, out_cap, pos, &ea, &eb);
+                if (pos < 0) return -1;
+            }
+            has_a = treediff::next_entry(a_buf, a_len, &ia, &ea, &ok);
+            has_b = treediff::next_entry(b_buf, b_len, &ib, &eb, &ok);
+        }
+        if (!ok) return -2;
+    }
+    return pos;
+}
+
+// ---------------------------------------------------------------------------
+// GPKG reader/encoder entry points (see the GpkgReader section above).
+//
+// io_gpkg_open: prepare the schema-ordered SELECT against db_path.
+//   kinds[n_vals] / val_cols[n_vals]: per *blob value* (legend non-pk
+//   order) the encode kind and its SELECT column index; pk_col is the pk's
+//   SELECT column index; prefix is the constant msgpack head every blob
+//   starts with (outer array header + legend hash + value array header).
+//   Returns an opaque handle, or NULL (no sqlite3 / bad database / bad sql).
+//
+// io_gpkg_next: encode up to max_rows rows into buf (concatenated blobs,
+//   offsets_out[0..rows]) and pks_out. Returns rows written; 0 = EOF;
+//   IO_GPKG_AGAIN (-5) = the buffer couldn't fit even one row (grow and
+//   retry — no rows are lost, the pending row is stashed in the handle);
+//   IO_GPKG_FALLBACK (-6) = a row this encoder can't produce bit-identically
+//   (geometry needing full re-encode, unexpected storage class) — the
+//   caller must abandon the native reader and re-stream via Python;
+//   -2 = sqlite error.
+// ---------------------------------------------------------------------------
+
+void* io_gpkg_open(const char* db_path, const char* sql, int n_vals,
+                   const int32_t* val_cols, const uint8_t* kinds, int pk_col,
+                   const uint8_t* prefix, int64_t prefix_len,
+                   int geom_ext_code) {
+    SqliteApi* sq = sqlite_api();
+    if (sq == nullptr || n_vals < 0 || prefix_len < 0) return nullptr;
+    GpkgReader* r = new GpkgReader();
+    r->n_vals = n_vals;
+    r->pk_col = pk_col;
+    r->ext_code = int8_t(geom_ext_code);
+    r->val_cols.assign(val_cols, val_cols + n_vals);
+    r->kinds.assign(kinds, kinds + n_vals);
+    r->prefix.assign(prefix, prefix + prefix_len);
+    if (sq->open_v2(db_path, &r->db, kSqliteOpenReadonly, nullptr) !=
+        kSqliteOk) {
+        if (r->db != nullptr) sq->close(r->db);
+        delete r;
+        return nullptr;
+    }
+    if (sq->prepare_v2(r->db, sql, -1, &r->stmt, nullptr) != kSqliteOk ||
+        r->stmt == nullptr) {
+        sq->close(r->db);
+        delete r;
+        return nullptr;
+    }
+    return r;
+}
+
+int64_t io_gpkg_next(void* handle, int64_t max_rows, int64_t* pks_out,
+                     uint8_t* buf, int64_t cap, int64_t* offsets_out) {
+    GpkgReader* r = static_cast<GpkgReader*>(handle);
+    SqliteApi* sq = sqlite_api();
+    if (r == nullptr || sq == nullptr) return -2;
+    int64_t rows = 0, pos = 0;
+    offsets_out[0] = 0;
+    if (r->has_stash) {
+        if (int64_t(r->scratch.size()) > cap) return -5;  // grow + retry
+        std::memcpy(buf, r->scratch.data(), r->scratch.size());
+        pos = int64_t(r->scratch.size());
+        pks_out[0] = r->stash_pk;
+        offsets_out[1] = pos;
+        rows = 1;
+        r->has_stash = false;
+    }
+    while (rows < max_rows && !r->done) {
+        int rc = sq->step(r->stmt);
+        if (rc == kSqliteDone) {
+            r->done = true;
+            break;
+        }
+        if (rc != kSqliteRow) return -2;
+        int erc = encode_row(r, sq);
+        if (erc != 0) return erc;
+        int64_t pk = sq->column_int64(r->stmt, r->pk_col);
+        if (pos + int64_t(r->scratch.size()) > cap) {
+            r->stash_pk = pk;
+            r->has_stash = true;
+            if (rows == 0) return -5;  // buffer can't fit one row
+            break;
+        }
+        std::memcpy(buf + pos, r->scratch.data(), r->scratch.size());
+        pos += int64_t(r->scratch.size());
+        pks_out[rows] = pk;
+        offsets_out[rows + 1] = pos;
+        rows++;
+    }
+    return rows;
+}
+
+void io_gpkg_close(void* handle) {
+    GpkgReader* r = static_cast<GpkgReader*>(handle);
+    if (r == nullptr) return;
+    SqliteApi* sq = sqlite_api();
+    if (sq != nullptr) {
+        if (r->stmt != nullptr) sq->finalize(r->stmt);
+        if (r->db != nullptr) sq->close(r->db);
+    }
+    delete r;
+}
+
+// ---------------------------------------------------------------------------
+// Leaf-tree payload kernel (import pipeline): concatenated git tree-entry
+// payloads "100644 <urlsafe-b64(msgpack([pk]))>\0<oid20>" for strictly
+// ascending non-negative int pks grouped into leaves of `branches` rows,
+// entries within a leaf in git name order (byte-lexicographic, shorter
+// prefix first). Bit-identical to the numpy plan path
+// (feature_tree.plan_int_feature_tree + _leaf_payloads) — property-tested.
+// The Python leaf-feed was the import stream's largest GIL-bound cost
+// (~1s/1M rows of numpy intermediates on the consuming thread); this runs
+// it GIL-free in one call per batch.
+//
+// out: payload buffer (cap bytes; 48*n always suffices: name <= 16 chars).
+// leaf_offsets: int64[n+1] — leaf k's payload is out[o[k]:o[k+1]].
+// leaf_ids: int64[n] — ascending leaf slots (pk / branches).
+// pk_limit: branches ** (levels+1); pks at or above it would need the
+// encoder's max_trees wrap (the numpy path applies it, this kernel does
+// not) so they are rejected instead.
+// n_leaves_out: number of leaves written.
+// -> total payload bytes, -2 on unordered/negative/out-of-range pks
+// (caller falls back to the Python plan path), -5 when cap is too small.
+int64_t io_leaf_payloads(const int64_t* pks, const uint8_t* oids, int64_t n,
+                         int64_t branches, int64_t pk_limit, uint8_t* out,
+                         int64_t cap, int64_t* leaf_offsets,
+                         int64_t* leaf_ids, int64_t* n_leaves_out) {
+    static const char* kB64 =
+        "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz0123456789-_";
+    if (n <= 0 || branches <= 0) return -2;
+    if (pks[n - 1] >= pk_limit) return -2;  // ascending: max is the last
+    struct Ent {
+        char name[17];
+        int len;
+        int64_t row;
+    };
+    std::vector<Ent> ents;
+    ents.reserve(size_t(branches));
+    std::vector<uint8_t> mp;
+    int64_t pos = 0, n_leaves = 0, i = 0;
+    leaf_offsets[0] = 0;
+    while (i < n) {
+        if (pks[i] < 0) return -2;
+        const int64_t leaf = pks[i] / branches;
+        ents.clear();
+        int64_t j = i;
+        for (; j < n && pks[j] / branches == leaf; j++) {
+            if (j > 0 && pks[j] <= pks[j - 1]) return -2;  // must ascend
+            mp.clear();
+            mp.push_back(0x91);  // fixarray(1): the pk tuple
+            mp_int(mp, pks[j]);
+            Ent e;
+            e.row = j;
+            e.len = 0;
+            size_t k = 0;
+            for (; k + 3 <= mp.size(); k += 3) {
+                const uint32_t t = (uint32_t(mp[k]) << 16) |
+                                   (uint32_t(mp[k + 1]) << 8) | mp[k + 2];
+                e.name[e.len++] = kB64[(t >> 18) & 63];
+                e.name[e.len++] = kB64[(t >> 12) & 63];
+                e.name[e.len++] = kB64[(t >> 6) & 63];
+                e.name[e.len++] = kB64[t & 63];
+            }
+            const size_t rem = mp.size() - k;
+            if (rem == 1) {
+                const uint32_t t = uint32_t(mp[k]) << 16;
+                e.name[e.len++] = kB64[(t >> 18) & 63];
+                e.name[e.len++] = kB64[(t >> 12) & 63];
+                e.name[e.len++] = '=';
+                e.name[e.len++] = '=';
+            } else if (rem == 2) {
+                const uint32_t t =
+                    (uint32_t(mp[k]) << 16) | (uint32_t(mp[k + 1]) << 8);
+                e.name[e.len++] = kB64[(t >> 18) & 63];
+                e.name[e.len++] = kB64[(t >> 12) & 63];
+                e.name[e.len++] = kB64[(t >> 6) & 63];
+                e.name[e.len++] = '=';
+            }
+            ents.push_back(e);
+        }
+        std::sort(ents.begin(), ents.end(), [](const Ent& a, const Ent& b) {
+            const int c = std::memcmp(
+                a.name, b.name, size_t(a.len < b.len ? a.len : b.len));
+            if (c != 0) return c < 0;
+            return a.len < b.len;
+        });
+        for (const Ent& e : ents) {
+            const int64_t need = 7 + e.len + 1 + 20;
+            if (pos + need > cap) return -5;
+            std::memcpy(out + pos, "100644 ", 7);
+            pos += 7;
+            std::memcpy(out + pos, e.name, size_t(e.len));
+            pos += e.len;
+            out[pos++] = 0;
+            std::memcpy(out + pos, oids + e.row * 20, 20);
+            pos += 20;
+        }
+        leaf_ids[n_leaves++] = leaf;
+        leaf_offsets[n_leaves] = pos;
+        i = j;
+    }
+    *n_leaves_out = n_leaves;
+    return pos;
+}
+
+}  // extern "C"

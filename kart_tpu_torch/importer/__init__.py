@@ -12,16 +12,21 @@ Counterpart of kart_tpu's ``importer/__init__.py``: ``ImportSourceError``,
 ``ImportSource`` (``open``, ``with_primary_key``, ``get_features``),
 ``GPKGImportSource``, ``GeoJSONImportSource``, ``GeoJSONSeqImportSource``
 and ``CSVImportSource``, each the same schema, column ids and features as
-kart_tpu's. A GPKG is streamed by its generic per-feature route: kart_tpu's
-native batch readers are not ported.
+kart_tpu's, with ``feature_count`` for the importer's router. An int-pk
+GPKG also streams encoded batches: ``encoded_feature_batches`` and
+``batch_row_encoder`` in Python, ``native_encoded_batches`` through the
+port's native IO core (the fused read and encode of the import pipeline),
+all with the blobs of the per-feature route.
 """
 
 import csv
 import json
 import os
 import sqlite3
+import time
 
 from kart_tpu_torch.adapters import gpkg as gpkg_adapter
+from kart_tpu_torch.core.serialise import msg_pack
 from kart_tpu_torch.crs import get_identifier_str, make_crs
 from kart_tpu_torch.geometry import Geometry, geojson_to_geometry
 from kart_tpu_torch.models.schema import ColumnSchema, Schema
@@ -44,6 +49,11 @@ class ImportSource:
 
     def features(self):
         raise NotImplementedError
+
+    @property
+    def feature_count(self):
+        """The number of features, which the importer's router reads."""
+        return sum(1 for _ in self.features())
 
     def get_features(self, pks, ignore_missing=False):
         """The features with the given (single-column) pks, in no set order:
@@ -153,6 +163,10 @@ class _PrimaryKeyOverrideSource(ImportSource):
 
     def features(self):
         return self.inner.features()
+
+    @property
+    def feature_count(self):
+        return self.inner.feature_count
 
     def meta_items(self):
         return self.inner.meta_items()
@@ -324,6 +338,141 @@ class GPKGImportSource(ImportSource):
         finally:
             con.close()
 
+    @property
+    def feature_count(self):
+        con = self._connect()
+        try:
+            return con.execute(
+                f"SELECT COUNT(*) FROM {gpkg_adapter.quote(self.table_name)}").fetchone()[0]
+        finally:
+            con.close()
+
+    def encoded_feature_batches(self, schema):
+        """The serial route's batches of an int-pk table: ``(pk_list,
+        blob_list)`` with the blobs :meth:`batch_row_encoder` makes, which
+        are ``schema.encode_feature_blob``'s over :meth:`features`; None
+        for any other pk, or with ``KART_IMPORT_FAST=0``."""
+        if os.environ.get("KART_IMPORT_FAST") == "0":
+            return None
+        pk_cols = schema.pk_columns
+        if len(pk_cols) != 1 or pk_cols[0].data_type != "integer":
+            return None
+        return self._encoded_batch_gen(schema)
+
+    def _select_sql(self, schema, where=""):
+        """The raw-row SELECT of the batch routes: schema column order, in
+        pk order (the int pk is the rowid, so the order costs nothing)."""
+        sel = ", ".join(gpkg_adapter.quote(c.name) for c in schema.columns)
+        pk = gpkg_adapter.quote(schema.pk_columns[0].name)
+        return f"SELECT {sel} FROM {gpkg_adapter.quote(self.table_name)}{where} ORDER BY {pk}"
+
+    def raw_row_batches(self, schema, batch_rows=FETCH_ROWS):
+        """Batches of raw row tuples (schema column order, pk order) from
+        a connection of their own, so that they can be read on another
+        thread; ``check_same_thread=False`` only lets an abandoned
+        generator be closed from the thread that collects it."""
+        con = sqlite3.connect(self.gpkg_path, check_same_thread=False)
+        try:
+            cursor = con.execute(self._select_sql(schema))
+            cursor.arraysize = batch_rows
+            while True:
+                rows = cursor.fetchmany()
+                if not rows:
+                    break
+                yield rows
+        finally:
+            con.close()
+
+    def batch_row_encoder(self, schema):
+        """-> ``encode(rows) -> (pk_list, blob_list)`` over raw row tuples
+        in schema column order: each blob is ``schema.encode_feature_blob``
+        of the row's feature, byte for byte (a cell becomes the value
+        :meth:`features` gives, then the legend's non-pk values are
+        packed)."""
+        cols = list(schema.columns)
+        by_id = {c.id: j for j, c in enumerate(cols)}
+        non_pk = [(by_id[cid], cols[by_id[cid]]) for cid in schema.legend.non_pk_columns]
+        pk_j = by_id[schema.legend.pk_columns[0]]
+        legend_hash = schema.legend_hash
+        value_to_v2 = gpkg_adapter.value_to_v2
+
+        def encode(rows):
+            pks, blobs = [], []
+            for row in rows:
+                values = tuple(value_to_v2(row[j], col) for j, col in non_pk)
+                pks.append(row[pk_j])
+                blobs.append(msg_pack([legend_hash, values]))
+            return pks, blobs
+
+        return encode
+
+    def _encoded_batch_gen(self, schema):
+        # the read and encode seconds, which the import's phase split reads
+        encode = self.batch_row_encoder(schema)
+        phases = self.phase_seconds = {"source_read": 0.0, "encode": 0.0}
+        batches = self.raw_row_batches(schema)
+        while True:
+            t0 = time.perf_counter()
+            rows = next(batches, None)
+            phases["source_read"] += time.perf_counter() - t0
+            if rows is None:
+                break
+            t0 = time.perf_counter()
+            out = encode(rows)
+            phases["encode"] += time.perf_counter() - t0
+            yield out
+
+    def native_encoded_batches(self, schema, batch_rows=FETCH_ROWS):
+        """The pipeline's fused read + encode producer: a generator of
+        ``("enc", pks int64, buf uint8, offsets int64)`` batches, blob i
+        ``buf[offsets[i]:offsets[i+1]]``, each batch one native call that
+        steps the SELECT and encodes its rows without the GIL
+        (``native.open_gpkg_reader``), byte for byte
+        :meth:`batch_row_encoder`'s blobs. None for a table that is not
+        single-int-pk, or with ``KART_IMPORT_NATIVE_READ=0`` or
+        ``KART_IMPORT_FAST=0``. A row the native encoder cannot take raises
+        :class:`~kart_tpu_torch.native.GpkgReaderFallback` out of the
+        generator, and the pipeline restarts through Python."""
+        from kart_tpu_torch import native
+        from kart_tpu_torch.core.serialise import GEOMETRY_EXT_CODE
+
+        if os.environ.get("KART_IMPORT_NATIVE_READ") == "0":
+            return None
+        if os.environ.get("KART_IMPORT_FAST") == "0":
+            return None
+        pk_cols = schema.pk_columns
+        if len(pk_cols) != 1 or pk_cols[0].data_type != "integer":
+            return None
+        kind_of = {"geometry": 1, "boolean": 2, "float": 3, "timestamp": 4}
+        cols = list(schema.columns)
+        by_id = {c.id: j for j, c in enumerate(cols)}
+        legend = schema.legend
+        val_cols = [by_id[cid] for cid in legend.non_pk_columns]
+        kinds = [kind_of.get(cols[j].data_type, 0) for j in val_cols]
+        # the blob's head: [legend hash, [n values...]] without the values
+        # (each None packs as one byte)
+        n = len(val_cols)
+        prefix = msg_pack([schema.legend_hash, [None] * n])
+        prefix = prefix[: len(prefix) - n]
+        reader = native.open_gpkg_reader(self.gpkg_path, self._select_sql(schema), val_cols,
+                                         kinds, by_id[legend.pk_columns[0]], prefix,
+                                         GEOMETRY_EXT_CODE)
+
+        def gen():
+            phases = self.phase_seconds = {"source_read": 0.0, "encode": 0.0}
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    out = reader.next_batch(batch_rows)
+                    phases["source_read"] += time.perf_counter() - t0
+                    if out is None:
+                        return
+                    yield ("enc",) + out
+            finally:
+                reader.close()
+
+        return gen()
+
     def get_features(self, pks, ignore_missing=False):
         """Point reads by pk (an indexed lookup, not a table scan)."""
         cols = self.schema.columns
@@ -423,6 +572,10 @@ class GeoJSONImportSource(ImportSource):
 
     def crs_definitions(self):
         return _crs_definitions(self.schema, self.crs)
+
+    @property
+    def feature_count(self):
+        return len(self._features_json)
 
     def features(self):
         for feat in self._features_json:
@@ -554,6 +707,10 @@ class CSVImportSource(ImportSource):
         if self._schema_cache is None:
             self._schema_cache = self._sniff_schema()
         return self._schema_cache
+
+    @property
+    def feature_count(self):
+        return len(self.rows)
 
     def features(self):
         # values in the header's order, not the pk-first schema order

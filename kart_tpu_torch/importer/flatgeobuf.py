@@ -395,6 +395,13 @@ class FlatGeobufImportSource(ImportSource):
     def schema(self) -> Schema:
         return self._schema
 
+    @property
+    def feature_count(self):
+        n = self.reader.features_count
+        if n:
+            return int(n)
+        return sum(1 for _ in self.reader.iter_feature_tables())
+
     def features(self):
         r = self.reader
         names = self._col_names

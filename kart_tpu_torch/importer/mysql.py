@@ -206,6 +206,19 @@ class MySqlImportSource(ImportSource):
 
     # -- features -------------------------------------------------------------
 
+    @property
+    def feature_count(self):
+        con = _connect(*self.url_parts)
+        try:
+            cur = con.cursor()
+            cur.execute(
+                f"SELECT count(*) FROM "
+                f"{MySqlAdapter.quote_table(self.table_name, self.dbname)}"
+            )
+            return cur.fetchone()[0]
+        finally:
+            con.close()
+
     def features(self):
         schema = self.schema
         con = _connect(*self.url_parts)

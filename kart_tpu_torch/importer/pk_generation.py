@@ -70,6 +70,10 @@ class PkGeneratingImportSource(ImportSource):
     def crs_definitions(self):
         return self.delegate.crs_definitions()
 
+    @property
+    def feature_count(self):
+        return self.delegate.feature_count
+
     def features(self):
         """The delegate's features with their pks: all read first, for the
         matching."""

@@ -426,6 +426,12 @@ class ShapefileImportSource(ImportSource):
     def meta_items(self):
         return {}
 
+    @property
+    def feature_count(self):
+        if self.dbf is not None:
+            return sum(1 for rec in self.dbf.records() if rec is not None)
+        return sum(1 for _ in self.shp)
+
     def features(self):
         shp_iter = iter(self.shp)
         if self.dbf is None:

@@ -216,6 +216,19 @@ class SqlServerImportSource(ImportSource):
 
     # -- features -------------------------------------------------------------
 
+    @property
+    def feature_count(self):
+        con = _connect(*self.url_parts)
+        try:
+            cur = con.cursor()
+            cur.execute(
+                f"SELECT count(*) FROM "
+                f"{SqlServerAdapter.quote_table(self.table_name, self.db_schema)}"
+            )
+            return cur.fetchone()[0]
+        finally:
+            con.close()
+
     def features(self):
         schema = self.schema
         con = _connect(*self.url_parts)

@@ -4,9 +4,10 @@ kart_tpu never runs its device code on a CPU: it classifies with its
 native C++ merge-join (``classify_blocks_host`` over ``native/kart_io.cpp``
 ``io_classify_sorted``), sequential scans of the two key-sorted sides. The
 port keeps its own copy of that source (``hostsrc/classify_sorted.cpp``),
-builds it with ``g++`` into ``_build/host-<hash>/`` (a hash of the source
-and the flags, under a file lock, written to a temporary name and renamed)
-and calls it through ctypes on the blocks' own arrays, mmap views
+builds it with ``g++`` into ``_build/host-<hash>/``
+(:mod:`~kart_tpu_torch.ops.host_build`: a hash of the source and the
+flags, under a file lock, written to a temporary name and renamed) and
+calls it through ctypes on the blocks' own arrays, mmap views
 included, with no copy. A missing compiler or a failed build raises
 :class:`HostBuildError`; nothing falls back to a slower route. K1's plain
 version (``diff_kernel.classify_plain``) stays what the card's kernel is
@@ -14,63 +15,30 @@ held against.
 """
 
 import ctypes
-import fcntl
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 
 import numpy as np
 import torch
 
-from kart_tpu_torch.ops import _build
+from kart_tpu_torch.ops import _build, host_build
+from kart_tpu_torch.ops.host_build import HostBuildError  # noqa: F401 (raised by the build)
 
-HOSTSRC_DIR = os.path.join(_build.PKG_DIR, "hostsrc")
+HOSTSRC_DIR = host_build.HOSTSRC_DIR
 SOURCE = "classify_sorted.cpp"
-CXX_FLAGS = ("-O3", "-shared", "-fPIC")
 LIB_NAME = "libclassify_sorted.so"
 
 
-class HostBuildError(RuntimeError):
-    """The host floor's source could not be compiled (no g++, or g++
-    failed)."""
-
-
 def find_cxx():
-    cxx = shutil.which("g++")
-    if cxx is None:
-        raise HostBuildError("g++ not found on PATH; it builds the diff's host classify "
-                             f"({os.path.join('hostsrc', SOURCE)})")
-    return cxx
+    return host_build.find_cxx(SOURCE)
 
 
 def build_dir():
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    with open(os.path.join(HOSTSRC_DIR, SOURCE), "rb") as fh:
-        h.update(fh.read())
-    return os.path.join(_build.BUILD_ROOT, "host-" + h.hexdigest()[:16])
+    return host_build.build_dir(HOSTSRC_DIR, SOURCE, build_root=_build.BUILD_ROOT)
 
 
 def build_library():
     """Compile the floor unless the cache holds it. -> the library's path."""
-    d = build_dir()
-    path = os.path.join(d, LIB_NAME)
-    if os.path.exists(path):
-        return path
-    os.makedirs(d, exist_ok=True)
-    with open(os.path.join(_build.BUILD_ROOT, ".host-lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if os.path.exists(path):
-            return path
-        tmp = f"{path}.tmp{os.getpid()}"
-        cmd = [find_cxx(), *CXX_FLAGS, "-o", tmp, os.path.join(HOSTSRC_DIR, SOURCE)]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise HostBuildError(f"g++ failed for {SOURCE} (exit {r.returncode}):\n"
-                                 f"{r.stdout}{r.stderr}")
-        os.replace(tmp, path)
-    return path
+    return host_build.build_library(HOSTSRC_DIR, SOURCE, LIB_NAME, build_root=_build.BUILD_ROOT)
 
 
 _lib = None

@@ -1568,3 +1568,57 @@ def test_server_working_copy_reset_on_card_matches_cpu(cuda, tmp_path, monkeypat
                       srv.statements_digest(n0), srv.digest())
     assert got[card][1] == 1 and got[cpu][1] == 0
     assert got[card][0] == got[cpu][0] and got[card][2:] == got[cpu][2:]
+
+
+def test_pipelined_import_diff_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """``kart init --import`` of a 20,000-row GPKG takes the native-read
+    pipeline on the card and with ``--device cpu`` alike (the same commits),
+    and the re-import of a copy with 1% of its rows edited diffs on one K1
+    launch from the two captured sidecars, giving ``--device cpu``'s
+    bytes."""
+    import contextlib
+    import io
+    import os
+
+    import chip_smoke
+    from kart_tpu_torch.cli import main as port_main
+    from kart_tpu_torch.core.repo import KartRepo
+    from kart_tpu_torch.importer import importer
+
+    monkeypatch.setenv("GIT_AUTHOR_DATE", "1700000000 +0000")
+    monkeypatch.setenv("GIT_COMMITTER_DATE", "1700000000 +0000")
+    monkeypatch.delenv("KART_IMPORT_PIPELINE", raising=False)
+    monkeypatch.delenv("KART_IMPORT_NATIVE_READ", raising=False)
+    rng = np.random.default_rng(4)
+    rows = {pk: (float(x), float(y), f"n{pk}", float(r)) for pk, x, y, r in zip(
+        range(1, 20_001), rng.uniform(-180, 180, 20_000), rng.uniform(-90, 90, 20_000),
+        rng.random(20_000))}
+    edited = dict(rows)
+    for pk in range(1, 20_001, 100):
+        edited[pk] = (rows[pk][0] + 0.5, rows[pk][1], "edited", rows[pk][3])
+    # the edited copy replaces the source file: column ids follow its path
+    source = str(tmp_path / "points.gpkg")
+
+    def run(*argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+            assert port_main(list(argv)) == 0
+        return buf.getvalue()
+
+    outs = []
+    for pre in ([], ["--device", "cpu"]):
+        path = str(tmp_path / ("cpu" if pre else "card"))
+        for layer in (rows, edited):
+            if os.path.exists(source):
+                os.remove(source)
+            chip_smoke.write_points_gpkg(source, layer)
+            if layer is rows:
+                run(*pre, "init", "--import", source, "--bare", path)
+            else:
+                run(*pre, "-C", path, "import", source, "--no-checkout", "--replace-existing")
+            assert set(importer.LAST_IMPORT_PIPELINE) >= {"read", "hash", "pack", "wall"}
+        runtime.reset_stats()
+        outs.append((run(*pre, "-C", path, "diff", "-o", "json-lines", "HEAD^...HEAD"),
+                     KartRepo(path).head_commit_oid))
+        assert runtime.stats_snapshot()["classify_launches"] == (0 if pre else 1)
+    assert outs[0] == outs[1] and outs[0][0].count('"edited"') == 200

@@ -67,7 +67,8 @@ def test_no_jax_or_kart_tpu_imports(path):
 def test_walk_reaches_every_package():
     dirs = {os.path.relpath(os.path.dirname(f), PKG) for f in _port_files()[1:]}
     assert {".", "core", "models", "cli", "diff", "ops", "spatial_filter", "tiles",
-            "events", "parallel", "adapters", "workingcopy", "importer", "transport"} <= dirs
+            "events", "parallel", "adapters", "workingcopy", "importer", "transport",
+            "native"} <= dirs
     assert {"kart_tpu_torch.cli.diff_cmds", "kart_tpu_torch.core.msgpack",
             "kart_tpu_torch.__main__", "kart_tpu_torch.crs", "kart_tpu_torch.epsg",
             "kart_tpu_torch.geom", "kart_tpu_torch.tiles.streams", "kart_tpu_torch.gridshift",
@@ -79,7 +80,9 @@ def test_walk_reaches_every_package():
             "kart_tpu_torch.importer.pk_generation", "kart_tpu_torch.cli.repo_cmds",
             "kart_tpu_torch.cli.ref_cmds", "kart_tpu_torch.cli.remote_cmds",
             "kart_tpu_torch.transport.pack", "kart_tpu_torch.transport.protocol",
-            "kart_tpu_torch.transport.remote"} <= set(_modules())
+            "kart_tpu_torch.transport.remote", "kart_tpu_torch.native",
+            "kart_tpu_torch.importer.pipeline", "kart_tpu_torch.importer.parallel",
+            "kart_tpu_torch.ops.host_build"} <= set(_modules())
 
 
 def test_imports_with_jax_and_kart_tpu_blocked():
@@ -168,3 +171,36 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path):
     r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0 and '"ok"' not in r.stdout
+
+
+def test_port_loads_its_own_io_core_and_nothing_of_native():
+    """The port's host libraries come from ``kart_tpu_torch/hostsrc/`` only:
+    after a pipelined import and a diff through the port, no file under
+    the repo's ``native/`` directory and no ``libkart_io`` is mapped into
+    the process, and no port source names one."""
+    for path in _port_files():
+        with open(path) as fh:
+            assert "libkart_io" not in fh.read(), path
+    code = (
+        "import os, tempfile\n"
+        "import chip_smoke\n"
+        "from kart_tpu_torch.cli import main\n"
+        "d = tempfile.mkdtemp()\n"
+        "g = os.path.join(d, 'p.gpkg')\n"
+        "chip_smoke.write_points_gpkg(g, {i: (i / 100, -i / 100, f'n{i}', i / 3)"
+        " for i in range(1, 301)})\n"
+        "os.environ['KART_IMPORT_PIPELINE'] = '1'\n"
+        "assert main(['--device', 'cpu', 'init', '--import', g, os.path.join(d, 'r')]) == 0\n"
+        "assert main(['--device', 'cpu', '-C', os.path.join(d, 'r'), 'fsck']) == 0\n"
+        "maps = open('/proc/self/maps').read()\n"
+        f"native_dir = {os.path.join(ROOT, 'native')!r}\n"
+        "bad = [l for l in maps.splitlines() if native_dir in l or 'libkart_io' in l]\n"
+        "assert not bad, bad\n"
+        "assert 'libhost_io.so' in maps\n"
+        "import shutil\n"
+        "shutil.rmtree(d)\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0 and r.stdout.strip().endswith("ok"), r.stderr
