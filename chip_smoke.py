@@ -13,7 +13,7 @@ kernel against its plain PyTorch version.
                           [--import-rows 12000] [--bulk-rows 1000000]
                           [--k4-only | --hash-only | --query-only | --kernels-only |
                            --tiles-only | --history-only | --stream-only | --wc-only |
-                           --remote-only | --import-only | --bulk-only]
+                           --remote-only | --serve-only | --import-only | --bulk-only]
 
 Run from the repository root on a machine with an sm_90 (Hopper) card and
 the CUDA toolkit; the kernels are built from ``kart_tpu_torch/csrc`` on
@@ -135,6 +135,17 @@ T2. the default layers (bin,geojson) on the same layer, whose blobs only
    the edited rows hold: the same ``Feature blob ... not present locally``
    error and exit code 2 on the card (K7 once) and the CPU, nothing
    written; then ``--layers bin --zoom 5`` on both, equal digests
+N2. (after T2, on [11]'s layer) the query endpoint of a port server on the
+   card against one with ``--device cpu`` on a copy: a ``bbox`` scan and an
+   ``intersects`` join (under Q2's strip), each with the launches ``kart
+   query`` makes for it and its document; the answers sha256-equal between
+   the servers; the repeat a cache hit with no launch; ``If-None-Match``
+   answered 304; 4 distinct scans from 4 threads at once (one K2 each)
+   equal to the same scans one at a time
+N3. the tile endpoint: 8 distinct z4 tiles from 8 threads (one K7 each),
+   byte-equal to T1's exported files and to the cpu server's; 8 identical
+   requests filled once (one K7); ``/api/v1/stats``, ``kart stats`` and
+   ``kart top --once`` against the card's server
 12. write a rectangular spatial filter into its config, then run ``-o
    feature-count`` and ``-o json-lines`` on the card and with ``--device
    cpu``: equal counts and sha256, and on the card exactly two K2 launches
@@ -347,7 +358,20 @@ R3. a local commit in the clone and one on the source (other in-filter rows
    sha256; the out-of-filter rows' promised blobs backfilled), ``tag -m``
    on the source and ``fetch`` into the full clone (the tag peeled to the
    source's tip)
-I1. (after R3) imports: a ``--import-rows`` point Shapefile (``.shp``,
+N1. (after R3) the network lanes against two port servers in threads of
+   this script, one on the card and one with ``--device cpu`` on a copy,
+   on an indexed real-blob layer of R1's kind at ``--remote-rows``:
+   ``clone --no-checkout`` and ``clone --spatial-filter`` over ``http://``
+   (one K3 on the card's server), each clone's objects, refs and working
+   copy equal to the same clone of the local path; a diverged push the
+   server auto-rebases (one K4; the merge commit equal on both servers, its
+   tree a local three-way merge's); a conflicting push refused (one K4 on
+   the server) with the text of ``kart merge --dry-run -o json``'s report
+   (one K4 in the client); a clone killed mid-stream by ``KART_FAULTS``,
+   kept, and resumed by ``fetch``; a filtered clone over ssh through a stub
+   ``KART_SSH`` running ``python -m kart_tpu_torch serve-stdio`` (its K3 in
+   the spawned process)
+I1. (after N1) imports: a ``--import-rows`` point Shapefile (``.shp``,
    ``.shx``, ``.dbf``, ``.prj``; C, N integer and decimal, F, L and D fields
    with nulls, 0.2% of the records marked deleted) from ``--seed``
    (``synth_sources``), a ``.zip`` of it (in a folder, beside a
@@ -425,8 +449,9 @@ phases 0, 1, 11, H0-H3 and W1-W2, ``--stream-only``
 phases 0, 1 and S1-S4 (S3 on repositories it builds at ``--repo-rows`` and
 ``--merge-rows``, with the monolithic card and ``--device cpu`` runs of its
 commands made there), ``--wc-only`` phases 0, 1 and E1-E3, ``--remote-only``
-phases 0, 1 and R1-R3, ``--import-only`` phases 0, 1 and I1-I3, ``--bulk-only``
-phases 0, 1 and L1-L3.
+phases 0, 1 and R1-R3, ``--serve-only`` phases 0, 1, N1, 11 and N2-N3 (its
+z4 tiles exported there), ``--import-only`` phases 0, 1 and I1-I3,
+``--bulk-only`` phases 0, 1 and L1-L3.
 
 To time another checkout's K5 and K6 on the same inputs (a parent commit,
 say), run this script with that checkout's package in its place:
@@ -1207,7 +1232,7 @@ def card_and_cpu(label, argv, out_path, launches, rc_want=0, counts_only=False, 
 
 
 def spatial_phases(args, card, launches, dev, filters=True, query=True, tiles=True,
-                   history=True):
+                   history=True, serve=True):
     """Phases 11-13, Q1-Q3 and T1-T3: build the spatial repository, drive
     ``kart query`` on it (unless not ``query``; Q3 alone where ``query`` is
     ``"kernels"``) and ``kart export tiles``
@@ -1215,9 +1240,10 @@ def spatial_phases(args, card, launches, dev, filters=True, query=True, tiles=Tr
     spatially filtered ``kart diff`` commands (unless not ``filters``),
     through the CLI on the card and with ``--device cpu``, adding every card
     command's launches to ``launches``; then [H0]-[H3] on the same layer
-    (unless not ``history``). -> {"k5", "k6", "k7": entries of the kernels
-    line (without launches)} for the phases run, and {"walls": {phase: host
-    wall s}} for [12b] and [H0]-[H3]."""
+    (unless not ``history``); [N2]-[N3] after [T] (unless not ``serve``).
+    -> {"k5", "k6", "k7": entries of the kernels line (without launches)}
+    for the phases run, and {"walls": {phase: host wall s}} for [12b],
+    [H0]-[H3] and [N2]-[N3]."""
     kernels = {}
     with tempfile.TemporaryDirectory(prefix="kart_smoke_spatial_") as tmp:
         t = time.perf_counter()
@@ -1244,6 +1270,14 @@ def spatial_phases(args, card, launches, dev, filters=True, query=True, tiles=Tr
             kernels["k7"] = tile_phases(repo, tmp, card, launches, dev)
             print(f"[T] phases T1-T3 host wall {time.perf_counter() - t:.2f} s on {card}")
         kernels["walls"] = {}
+        if serve:
+            t = time.perf_counter()
+            kernels["walls"].update(serve_query_tile_phases(
+                repo, tmp, card, launches, dev,
+                exported=os.path.join(tmp, "tiles-card") if tiles else None))
+            kernels["walls"]["N2-N3"] = time.perf_counter() - t
+            print(f"[N2-N3] host wall {kernels['walls']['N2-N3']:.2f} s on {card}")
+            progress("N2-N3", args.t_start)
 
         def history_and_writes():
             walls, tips = history_phases(repo, tmp, card, launches, args.history_commits,
@@ -4257,6 +4291,376 @@ def remote_phases(args, card, launches, dev):
     return walls
 
 
+# --- serving: kart serve and serve-stdio, on the card and with --device cpu ----
+
+@contextlib.contextmanager
+def served(path, device):
+    """A port server for the repository at ``path`` in a thread of this
+    process (``device`` None: the card; ``"cpu"``: the plain versions).
+    -> its URL; the server is shut down and its thread joined on exit.
+    ``make_server`` turns the process's metrics on; telemetry is put back
+    off when it was off before, so the phases after the servers run with
+    telemetry as the phases before them did."""
+    from kart_tpu_torch import telemetry as tm
+    from kart_tpu_torch.transport.http import make_server
+
+    was_on = tm.metrics_enabled() or tm.tracing_enabled()
+    server = make_server(KartRepo(path), port=0, device=device)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}/"
+    finally:
+        server.shutdown()
+        server.server_close()
+        if not was_on:
+            tm.reset()
+        thread.join(timeout=30)
+        check(not thread.is_alive(), "a server thread did not stop")
+
+
+def http_get(url, path, headers=None):
+    """-> (status, {header: value}, body) of one GET."""
+    from urllib.error import HTTPError
+    from urllib.request import Request, urlopen
+
+    try:
+        with urlopen(Request(url.rstrip("/") + path, headers=headers or {}), timeout=600) as r:
+            return r.status, dict(r.headers), r.read()
+    except HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def threaded(fn, items):
+    """``fn(item)`` for every item, each on its own thread, all started
+    together. -> the results in order (a thread's exception raised here)."""
+    out, errors = [None] * len(items), []
+
+    def run(i):
+        try:
+            out[i] = fn(items[i])
+        except BaseException as e:  # raised below, on this thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(items))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def reset_faults():
+    """Disarm ``KART_FAULTS`` and reset the port's one-shot fault state."""
+    from kart_tpu_torch import faults
+
+    os.environ.pop("KART_FAULTS", None)
+    faults._spec_src = None
+
+
+def serve_lane_phases(args, card, launches, dev):
+    """[N1]: the network lanes against port servers, one on the card and one
+    with ``--device cpu`` on a copy, both in threads of this process, on an
+    indexed real-blob layer of [R1]'s kind at ``--remote-rows``: full and
+    filtered clones over ``http://`` (K3 on the card's server), a fetch, a
+    diverged push the server auto-rebases (K4), a conflicting push refused
+    with kart_tpu's report (K4), a clone killed mid-stream and resumed by
+    fetch, and a filtered clone over ssh through a stub ``KART_SSH`` running
+    ``python -m kart_tpu_torch serve-stdio``. -> {step: host wall s}."""
+    from kart_tpu_torch.cli.merge_cmds import conflict_report_as_text
+    from kart_tpu_torch.core.structure import RepoStructure
+    from kart_tpu_torch.merge import merge_trees_vectorized
+
+    os.environ.update(GIT_AUTHOR_DATE=MERGE_DATE, GIT_COMMITTER_DATE=MERGE_DATE,
+                      KART_TRANSPORT_RETRY_BASE="0")
+    walls = {}
+    rng = np.random.default_rng(args.seed + 30)
+    with tempfile.TemporaryDirectory(prefix="kart_smoke_serve_") as tmp:
+        t = time.perf_counter()
+        src_path = os.path.join(tmp, "src")
+        src, _ = synth_repo(src_path, args.remote_rows, seed=args.seed, blobs="real",
+                            spatial=True)
+        r_cli("N1", launches, "-C", src_path, "spatial-filter", "index")
+        src.config.set_many({"receive.denyCurrentBranch": "ignore"})
+        cpu_path = os.path.join(tmp, "cpu-src")
+        shutil.copytree(src_path, cpu_path, symlinks=True)
+        local_full, local_filtered = os.path.join(tmp, "local-full"), os.path.join(tmp, "lf")
+        r_cli("N1", launches, "clone", "--no-checkout", src_path, local_full)
+        r_cli("N1", launches, "clone", "--spatial-filter", R_FILTER, src_path, local_filtered,
+              want_k3=1)
+        want_full, want_filtered = all_oids(KartRepo(local_full)), all_oids(
+            KartRepo(local_filtered))
+        want_wc = r_wc_digest(os.path.join(local_filtered, "lf.gpkg"))
+        head = src.head_commit_oid
+        walls["N1 layer and local clones"] = time.perf_counter() - t
+        pks = np.asarray(src.structure("HEAD").datasets[R_TABLE].feature_index()[1])
+        picks = rng.choice(pks, 3, replace=False)  # the same edits through both servers
+        results = {}
+        with served(src_path, None) as card_url, served(cpu_path, "cpu") as cpu_url:
+            for route, url, pre in (("card", card_url, []),
+                                    ("cpu", cpu_url, ["--device", "cpu"])):
+                label = "N1" if route == "card" else "N1 cpu"
+                k3 = 1 if route == "card" else 0
+                k4 = 1 if route == "card" else 0
+                root = os.path.join(tmp, route)
+                full, filt = os.path.join(root, "full"), os.path.join(root, "lf")
+                _, _, walls[f"N1 clone {route}"] = r_cli(label, launches, *pre, "clone",
+                                                         "--no-checkout", url, full)
+                check(all_oids(KartRepo(full)) == want_full
+                      and KartRepo(full).refs.get("refs/remotes/origin/main") == head,
+                      f"[N1] {route}: the http clone's objects or refs differ from the local "
+                      "clone's")
+                _, _, walls[f"N1 clone --spatial-filter {route}"] = r_cli(
+                    label, launches, *pre, "clone", "--spatial-filter", R_FILTER, url, filt,
+                    want_k3=k3)
+                check(all_oids(KartRepo(filt)) == want_filtered
+                      and r_wc_digest(os.path.join(filt, "lf.gpkg")) == want_wc,
+                      f"[N1] {route}: the filtered http clone's objects or working copy "
+                      "differ from the local filtered clone's")
+                # a diverged push: a and b both edit disjoint rows of HEAD
+                a, b = full, os.path.join(root, "b")
+                r_cli(label, launches, *pre, "clone", "--no-checkout", url, b)
+                a_tip = commit_point_edits(KartRepo(a), moves=(picks[:1], np.array([1.5]),
+                                                               np.array([2.5])),
+                                           message="n1 a", ds_path=R_TABLE)
+                b_tip = commit_point_edits(KartRepo(b), moves=(picks[1:2], np.array([3.5]),
+                                                               np.array([4.5])),
+                                           message="n1 b", ds_path=R_TABLE)
+                r_cli(label, launches, *pre, "-C", a, "push")
+                _, _, walls[f"N1 rebased push {route}"] = r_cli(label, launches, *pre, "-C",
+                                                                b, "push", want_k4=k4)
+                served_repo = KartRepo(src_path if route == "card" else cpu_path)
+                merged = served_repo.head_commit_oid
+                check(served_repo.odb.read_commit(merged).parents == (a_tip, b_tip),
+                      f"[N1] {route}: the rebased push landed {merged}, not a merge of "
+                      "both pushes")
+                view = KartRepo(b)
+                r_cli(label, launches, *pre, "-C", b, "fetch")
+                truth_tree, conflicts, _ = merge_trees_vectorized(
+                    view, RepoStructure(view, head), RepoStructure(view, b_tip),
+                    RepoStructure(view, a_tip), device="cpu")
+                check(not conflicts and served_repo.odb.read_commit(merged).tree == truth_tree,
+                      f"[N1] {route}: the server's merged tree differs from a local merge's")
+                results[route] = [merged]
+                # a conflicting push: c and d move one row to two places
+                c, d = os.path.join(root, "c"), os.path.join(root, "d")
+                for where in (c, d):
+                    r_cli(label, launches, *pre, "clone", "--no-checkout", url, where)
+                for where, xy in ((c, 5.5), (d, 6.5)):
+                    commit_point_edits(KartRepo(where), moves=(picks[2:3], np.array([xy]),
+                                                               np.array([xy])),
+                                       message=f"n1 {xy}", ds_path=R_TABLE)
+                r_cli(label, launches, *pre, "-C", c, "push")
+                before = sorted(os.listdir(os.path.join(served_repo.gitdir, "objects", "pack")))
+                _, err, _ = r_cli(label, launches, *pre, "-C", d, "push", rc_want=2,
+                                  want_k4=k4)
+                check(sorted(os.listdir(os.path.join(served_repo.gitdir, "objects", "pack")))
+                      == before, f"[N1] {route}: a refused push changed the served store")
+                r_cli(label, launches, *pre, "-C", d, "fetch")
+                dry, _, _ = r_cli(label, launches, *pre, "-C", d, "merge", "origin/main",
+                                  "--dry-run", "-o", "json", want_k4=k4)
+                summary = json.loads(dry)["kart.merge/v1"]["conflicts"]
+                check(conflict_report_as_text(summary).rstrip("\n") in err
+                      and "results in 1 conflicts" in err,
+                      f"[N1] {route}: the refused push's report differs from kart merge "
+                      f"--dry-run's: {err!r}")
+                results[route].append(err.replace(url.rstrip("/"), "<url>"))
+                # a clone killed mid-stream, kept, then resumed by fetch
+                killed = os.path.join(root, "killed")
+                reset_faults()
+                os.environ.update(KART_FAULTS="transport.read.frame:200",
+                                  KART_TRANSPORT_RETRIES="1")
+                try:
+                    _, err_k, _ = r_cli(label, launches, *pre, "clone", "--no-checkout", url,
+                                        killed, rc_want=2)
+                finally:
+                    reset_faults()
+                    os.environ.pop("KART_TRANSPORT_RETRIES", None)
+                check("resume" in err_k, f"[N1] {route}: the killed clone said {err_k!r}")
+                salvaged = len(all_oids(KartRepo(killed)))
+                _, _, walls[f"N1 resumed fetch {route}"] = r_cli(label, launches, *pre, "-C",
+                                                                 killed, "fetch")
+                reachable = reachable_oids(served_repo, [served_repo.head_commit_oid])
+                check(all_oids(KartRepo(killed)) == reachable and 0 < salvaged < len(reachable),
+                      f"[N1] {route}: the resumed fetch holds other objects than the server")
+                results[route].append(salvaged)
+            check(results["card"] == results["cpu"], f"[N1] the card's and the cpu's servers "
+                                                     f"answered differently: {results}")
+        # the ssh lane: one filtered clone through a stub ssh on the card
+        stub = os.path.join(tmp, "ssh")
+        with open(stub, "w") as f:
+            f.write('#!/bin/sh\nshift\nexec sh -c "$*"\n')
+        os.chmod(stub, 0o755)
+        root = os.path.dirname(os.path.abspath(__file__))
+        os.environ.update(KART_SSH=stub,
+                          KART_SSH_KART=f"env PYTHONPATH={root} {sys.executable} -m "
+                                        "kart_tpu_torch")
+        ssh_dst = os.path.join(tmp, "ssh-lf")
+        try:
+            _, _, walls["N1 ssh clone --spatial-filter"] = r_cli(
+                "N1", launches, "clone", "--spatial-filter", R_FILTER, "--no-checkout",
+                f"smokehost:{cpu_path}", ssh_dst)
+        finally:
+            for k in ("KART_SSH", "KART_SSH_KART"):
+                os.environ.pop(k, None)
+        check(all_oids(KartRepo(ssh_dst)) == reachable_oids(
+            KartRepo(cpu_path), [KartRepo(cpu_path).head_commit_oid]) - (
+            want_full - want_filtered), "[N1] the ssh clone's objects differ from the "
+                                        "filtered truth")
+        print(f"[N1] http lanes on the card's server and --device cpu's: clone "
+              f"{walls['N1 clone card']:.4f} / {walls['N1 clone cpu']:.4f} s, filtered clone "
+              f"{walls['N1 clone --spatial-filter card']:.4f} / "
+              f"{walls['N1 clone --spatial-filter cpu']:.4f} s (one K3 on the card's server), "
+              f"rebased push {walls['N1 rebased push card']:.4f} / "
+              f"{walls['N1 rebased push cpu']:.4f} s (one K4, the merge commit equal on both and "
+              f"its tree a local merge's), a conflicting push refused with kart merge "
+              f"--dry-run's report, a clone killed after {results['card'][2]} objects resumed "
+              f"by fetch in {walls['N1 resumed fetch card']:.4f} s; ssh filtered clone "
+              f"through serve-stdio {walls['N1 ssh clone --spatial-filter']:.4f} s (its K3 in "
+              f"the spawned server, not counted here); objects, refs and working copies "
+              f"equal to the local clones', on {card}")
+    for k in ("GIT_AUTHOR_DATE", "GIT_COMMITTER_DATE", "KART_TRANSPORT_RETRY_BASE"):
+        os.environ.pop(k, None)
+    return walls
+
+
+#: [N2]'s four concurrent rectangles
+SERVE_RECTS = ("-60,-30,0,30", "0,-30,60,30", "-120,0,-60,45", "60,-45,120,0")
+#: [N3]'s tiles: eight distinct ones at this zoom, and one asked for eight times
+SERVE_ZOOM = 4
+
+
+def serve_query_tile_phases(repo, tmp, card, launches, dev, exported=None):
+    """[N2] and [N3] on [11]'s point layer: the query and tile endpoints of a
+    port server on the card against one with ``--device cpu`` on a copy,
+    each served answer sha256-equal between them and equal to the local
+    command's (``kart query``, and ``kart export tiles``'s file in
+    ``exported``, made here at zoom 4 when None); the caches (a repeated
+    request launches nothing, ``If-None-Match`` is answered 304, eight
+    identical tile requests fill once); 4 queries and 8 tiles from as many
+    threads at once; ``/api/v1/stats``, ``kart stats`` and ``kart top
+    --once``. -> {step: host wall s}."""
+    walls = {}
+    path = repo.workdir
+    head = repo.resolve_refish("HEAD")[0]
+    base = repo.resolve_refish("HEAD^")[0]
+
+    def link_immutable(a, b):
+        parent = os.path.basename(os.path.dirname(a))
+        return os.link(a, b) if parent in ("pack", "columnar") else shutil.copy2(a, b)
+
+    t = time.perf_counter()
+    cpu_path = os.path.join(tmp, "serve-cpu")
+    shutil.copytree(path, cpu_path, copy_function=link_immutable)
+    if exported is None:
+        exported = os.path.join(tmp, "serve-tiles")
+        res, _ = counted("N3", lambda: export_cli(
+            ["-C", path, "export", "tiles", "HEAD", "--dataset", "synth", "--zoom",
+             str(SERVE_ZOOM), "--layers", TILE_LAYERS], exported), launches, want=0,
+            want_k7=SOME)
+        check(res[1] == 0, f"[N3] the export exited {res[1]}: {res[3]}")
+    walls["N2-N3 set-up"] = time.perf_counter() - t
+    with served(path, None) as cu, served(cpu_path, "cpu") as pu:
+        # ---- N2: the query endpoint ----
+        cases = {
+            "scan": (f"&bbox={QUERY_RECT}", ["--bbox", QUERY_RECT]),
+            "join": (f"&intersects={base}:synth&bbox={JOIN_STRIP}",
+                     ["--intersects", f"{base}:synth", "--bbox", JOIN_STRIP]),
+        }
+        for name, (q, argv) in cases.items():
+            out_path = os.path.join(tmp, f"n2-{name}")
+
+            def local(argv=argv, out_path=out_path):
+                with open(out_path, "w") as f, contextlib.redirect_stdout(f):
+                    return kart_cli("-C", path, "query", head, "synth", *argv)
+
+            _, st = counted("N2 cli", local, launches, want=0, want_k2=SOME,
+                            want_k5=SOME if name == "join" else 0, want_k6=SOME)
+            want = {k: st[v] for k, v in (("want_k2", "envelope_scan_launches"),
+                                          ("want_k5", "envelope_join_launches"),
+                                          ("want_k6", "geom_refine_launches"))}
+            req = f"/api/v1/query?ref={head}&dataset=synth{q}"
+            t = time.perf_counter()
+            (status, hdrs, body), _ = counted("N2", lambda: http_get(cu, req), launches,
+                                              want=0, **want)
+            walls[f"N2 {name}"] = time.perf_counter() - t
+            check(status == 200 and json.loads(body) == query_doc(out_path),
+                  f"[N2] {name}: the served document differs from kart query's")
+            cpu = http_get(pu, req)
+            check(cpu[0] == 200 and cpu[1]["ETag"] == hdrs["ETag"]
+                  and hashlib.sha256(cpu[2]).hexdigest() == hashlib.sha256(body).hexdigest(),
+                  f"[N2] {name}: the card's and the cpu's servers answered differently")
+            again, _ = counted("N2", lambda: http_get(cu, req), launches, want=0)
+            check(again[2] == body, f"[N2] {name}: the cached answer differs")
+            (s304, _, b304), _ = counted("N2", lambda: http_get(
+                cu, req, {"If-None-Match": hdrs["ETag"]}), launches, want=0)
+            check(s304 == 304 and b304 == b"", f"[N2] {name}: If-None-Match answered {s304}")
+            print(f"[N2] {name}: {walls[f'N2 {name}']:.4f} s host wall, launches "
+                  f"{ {k: v for k, v in want.items() if v} } as kart query's; the repeat a cache "
+                  f"hit with no launch, If-None-Match 304, sha256 "
+                  f"{hashlib.sha256(body).hexdigest()[:16]} on the card and the cpu, on {card}")
+        reqs = [f"/api/v1/query?ref={head}&dataset=synth&bbox={r}" for r in SERVE_RECTS]
+        t = time.perf_counter()
+        together, _ = counted("N2", lambda: threaded(lambda r: http_get(cu, r), reqs),
+                              launches, want=0, want_k2=len(reqs), want_k6=SOME)
+        walls["N2 4 threads"] = time.perf_counter() - t
+        alone = [http_get(pu, r) for r in reqs]
+        check([x[2] for x in together] == [x[2] for x in alone]
+              and all(x[0] == 200 for x in together),
+              "[N2] the concurrent queries differ from the same queries one at a time")
+        print(f"[N2] {len(reqs)} distinct scans from {len(reqs)} threads at once in "
+              f"{walls['N2 4 threads']:.4f} s, one K2 each, equal to --device cpu's one at a "
+              f"time, on {card}")
+
+        # ---- N3: the tile endpoint ----
+        layers = f"?layers={TILE_LAYERS}"
+        found = sorted(a for a in written_tiles(exported) if a[0] == SERVE_ZOOM)
+        check(len(found) >= 9, f"[N3] the export wrote {len(found)} z{SERVE_ZOOM} tiles")
+        picks = [found[i] for i in np.linspace(0, len(found) - 1, 9).astype(int)]
+        eight, single = picks[:8], picks[8]
+        tile_req = lambda a: f"/api/v1/tiles/{head}/synth/{a[0]}/{a[1]}/{a[2]}{layers}"  # noqa: E731
+        t = time.perf_counter()
+        got, _ = counted("N3", lambda: threaded(lambda a: http_get(cu, tile_req(a)), eight),
+                         launches, want=0, want_k7=len(eight))
+        walls["N3 8 tiles"] = time.perf_counter() - t
+        for a, (status, _, body) in zip(eight, got):
+            with open(os.path.join(exported, *map(str, a[:2]), f"{a[2]}.ktile"), "rb") as f:
+                want_bytes = f.read()
+            cpu = http_get(pu, tile_req(a))
+            check(status == 200 and body == want_bytes and cpu[2] == body,
+                  f"[N3] tile {a}: the served bytes differ from the export's file or the cpu's")
+        t = time.perf_counter()
+        same, _ = counted("N3", lambda: threaded(lambda _: http_get(cu, tile_req(single)),
+                                                  list(range(8))), launches, want=0, want_k7=1)
+        walls["N3 8 identical"] = time.perf_counter() - t
+        check(len({x[2] for x in same}) == 1 and same[0][0] == 200,
+              "[N3] the identical requests got different answers")
+        print(f"[N3] {len(eight)} distinct z{SERVE_ZOOM} tiles from 8 threads in "
+              f"{walls['N3 8 tiles']:.4f} s (one K7 each), byte-equal to kart export tiles' "
+              f"files and to --device cpu's server; 8 identical requests "
+              f"{walls['N3 8 identical']:.4f} s, one fill (one K7), on {card}")
+        # ---- N3: the stats endpoint, kart stats and kart top ----
+        status, _, text = http_get(cu, "/api/v1/stats")
+        text = text.decode()
+        check(status == 200 and 'kart_transport_server_requests_total{verb="tiles"}' in text
+              and "kart_tiles_cache_misses_total" in text,
+              "[N3] /api/v1/stats lacks the tile counters")
+        doc = json.loads(http_get(cu, "/api/v1/stats?format=json")[2])
+        check(doc.get("query", {}).get("scans", 0) >= len(reqs) + 1,
+              f"[N3] the stats document's query block says {doc.get('query')}")
+        out, _, _ = r_cli("N3", launches, "stats", cu)
+        check("kart_transport_server_requests_total" in out, "[N3] kart stats printed no "
+                                                             "request counter")
+        out, _, _ = r_cli("N3", launches, "top", "--once", cu)
+        check("tiles" in out and "query" in out, f"[N3] kart top --once printed {out!r}")
+        print(f"[N3] /api/v1/stats, kart stats and kart top --once read the card's server: "
+              f"{sum(1 for line in text.splitlines() if not line.startswith('#'))} samples, "
+              f"query block {doc['query']}, on {card}")
+    return walls
+
+
 # --- kart query on the point layer: scans, the time-travel join, K5 and K6 ----
 
 #: [Q1]'s rectangle, the bounding box of [12]'s filter, and a rectangle
@@ -6233,6 +6637,9 @@ def main():
     # filtered working copy's write matches each in-filter feature against the
     # filter on the host, and R writes one five times (PERF.md §4)
     ap.add_argument("--remote-rows", type=int, default=25_000)
+    ap.add_argument("--serve-only", action="store_true",
+                    help="run phases 0, 1, N1 and, on [11]'s layer, N2-N3 alone and print the "
+                         "launches (no result line)")
     ap.add_argument("--remote-only", action="store_true",
                     help="run phases 0, 1 and R1-R3 alone and print the launches (no result "
                          "line)")
@@ -6275,7 +6682,8 @@ def main():
         launches = {}
         kernels = spatial_phases(args, card, launches, dev, filters=False,
                                  query="kernels" if args.kernels_only else args.query_only,
-                                 tiles=args.tiles_only, history=args.history_only)
+                                 tiles=args.tiles_only, history=args.history_only,
+                                 serve=False)
         print(json.dumps({**kernels, "launches": launches}))
         return 0
     if args.wc_only:
@@ -6284,6 +6692,16 @@ def main():
         t = time.perf_counter()
         walls = wc_phases(args, card, launches, dev)
         print(f"[E] all {time.perf_counter() - t:.2f} s on {card}")
+        print(json.dumps({"walls": walls, "launches": launches}))
+        return 0
+    if args.serve_only:
+        _build.build_all()
+        launches = {}
+        t = time.perf_counter()
+        walls = serve_lane_phases(args, card, launches, dev)
+        walls.update(spatial_phases(args, card, launches, dev, filters=False, query=False,
+                                    tiles=False, history=False)["walls"])
+        print(f"[N] all {time.perf_counter() - t:.2f} s on {card}")
         print(json.dumps({"walls": walls, "launches": launches}))
         return 0
     if args.remote_only:
@@ -6582,6 +7000,10 @@ def main():
     remote_phases(args, card, cli_launches, dev)
     walls["R1-R3"] = time.perf_counter() - t
     progress("R1-R3", t_start)
+    t = time.perf_counter()
+    walls.update(serve_lane_phases(args, card, cli_launches, dev))
+    walls["N1"] = time.perf_counter() - t
+    progress("N1", t_start)
     t = time.perf_counter()
     import_and_server_phases(args, card, cli_launches)
     walls["I1-I3"] = time.perf_counter() - t

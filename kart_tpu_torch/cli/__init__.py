@@ -8,9 +8,14 @@ with the commands ``init``, ``import``, ``status``, ``commit``, ``checkout``,
 ``fetch``, ``push``, ``pull``, ``remote add|list|remove``,
 ``diff``, ``show``, ``create-patch``, ``log``, ``apply``, ``merge``,
 ``conflicts``, ``resolve``, ``query``, ``export tiles``, ``spatial-filter
-index|resolve``, ``data ls|version``, ``meta get|set``, ``commit-files`` and
-``build-annotations``. Global options come before the command, as
-in kart_tpu's CLI: ``-C PATH`` runs as if started in PATH, and ``--device``
+index|resolve``, ``data ls|version``, ``meta get|set``, ``commit-files``,
+``build-annotations``, ``serve``, ``serve-stdio``, ``stats`` and ``top``.
+Global options come before the command, as in kart_tpu's CLI: ``-C PATH``
+runs as if started in PATH, ``-v``/``--verbose`` (``-vv``) raises the log
+level and prints the command's phase summary on stderr, ``--trace`` writes
+a Chrome trace of the command (``KART_TRACE=<path>`` picks the file),
+``--reprobe`` is accepted and does nothing (kart_tpu's drops a JAX probe's
+verdict, and the port has no such probe), and ``--device``
 picks where the kernels run (default: the card, ``cuda:0``, or with 2 or
 more cards the mesh of all of them for work that ``parallel.should_shard``
 sends there; ``cuda:N`` pins card N; ``cpu`` runs the host floor and the
@@ -55,14 +60,17 @@ def build_cli():
         remote_cmds,
         repo_cmds,
         spatial_cmds,
+        stats_cmds,
         tile_cmds,
+        top_cmds,
     )
 
     commands = {cmd.name: cmd for cmd in (*diff_cmds.commands(), *merge_cmds.commands(),
                                           *query_cmds.commands(), *tile_cmds.commands(),
                                           *spatial_cmds.commands(), *data_cmds.commands(),
                                           *repo_cmds.commands(), *ref_cmds.commands(),
-                                          *remote_cmds.commands())}
+                                          *remote_cmds.commands(), *stats_cmds.commands(),
+                                          *top_cmds.commands())}
     return Group(
         "kart",
         [
@@ -71,6 +79,14 @@ def build_cli():
             Option("--device", dest="device",
                    help="Device of the kernels: cuda[:N] (default cuda:0) or cpu"),
             Option("--version", dest="version", kind="flag", help="Show the version and exit."),
+            Option("-v", "--verbose", dest="verbose", kind="count",
+                   help="Increase verbosity (-v, -vv)"),
+            Option("--trace", dest="trace", kind="flag",
+                   help="Record a Chrome trace of this command (written on exit; "
+                        "KART_TRACE=<path> picks the file)"),
+            Option("--reprobe", dest="reprobe", kind="flag",
+                   help="Accepted for kart_tpu's command lines; the port has no probe "
+                        "verdict to drop"),
         ],
         commands, help="kart on PyTorch/CUDA",
     )
@@ -100,15 +116,31 @@ def main(argv=None):
     runtime.resolve_device(glob.device)  # no card: raise before any work
     # the commands take the request itself: unnamed, the card may be the mesh
     device = glob.device
+    _start_telemetry(glob, cmd)
     try:
         repo = None
-        if getattr(cmd, "needs_repo", True):  # ``init`` makes its own
+        needs_repo = getattr(cmd, "needs_repo", True)  # ``init`` makes its own
+        if needs_repo == "lazy":  # opened only when the command asks
+            def repo():
+                try:
+                    return KartRepo(glob.repo_dir or ".")
+                except NotFound as e:
+                    raise UsageError(str(e), cmd) from None
+        elif needs_repo:
             try:
                 repo = KartRepo(glob.repo_dir or ".")
             except NotFound as e:
                 UsageError(str(e), cmd).show()
                 return INVALID_ARGUMENT
-        return cmd.run(args, repo, device)
+        from kart_tpu_torch import telemetry
+
+        with telemetry.span("cli.command", cmd=cmd.name):
+            return cmd.run(args, repo, device)
+    except UsageError as e:
+        if e.command is None:
+            e.command = cmd
+        e.show()
+        return INVALID_ARGUMENT
     except DiffUsageError as e:
         UsageError(str(e), cmd).show()
         return INVALID_ARGUMENT
@@ -120,3 +152,40 @@ def main(argv=None):
                 else NOT_FOUND if isinstance(e, NotFound) else INVALID_OPERATION)
         print(f"Error: {e}", file=sys.stderr)
         return code
+    finally:
+        _flush_telemetry(glob)
+
+
+def _start_telemetry(glob, cmd):
+    """kart_tpu's CLI group callback: one log configuration, ``KART_METRICS``
+    and ``KART_TRACE`` honoured, ``--trace`` and ``-v`` enabling spans, and
+    one root request a command (every transport verb it issues inherits the
+    trace id)."""
+    from kart_tpu_torch import telemetry
+
+    telemetry.configure_logging(glob.verbose)
+    telemetry.enable_from_env()
+    if glob.trace and not telemetry.tracing_enabled():
+        telemetry.enable(trace=True, trace_path=telemetry.default_trace_path())
+    if glob.verbose:
+        telemetry.enable(spans=True)  # feeds the end-of-command summary
+    telemetry.set_root_request(verb=cmd.name)
+    telemetry.incr("cli.commands", cmd=cmd.name)
+
+
+def _flush_telemetry(glob):
+    """The trace file (``--trace``/``KART_TRACE``) and, with ``-v``, the
+    phase summary, on stderr."""
+    from kart_tpu_torch import telemetry
+    from kart_tpu_torch.telemetry import sinks
+
+    if telemetry.tracing_enabled():
+        dropped = telemetry.events_dropped_count()
+        path = sinks.write_chrome_trace()
+        if path:
+            note = f" ({dropped} span events dropped at the buffer cap)" if dropped else ""
+            print(f"Trace written to {path}{note}", file=sys.stderr)
+    if glob.verbose:
+        summary = sinks.phase_summary_text()
+        if summary:
+            print(summary, file=sys.stderr)

@@ -376,6 +376,12 @@ def _build_conflicts_output(repo, conflicts, unresolved, output_format, *, summa
     return out
 
 
+def conflict_report_as_text(summary):
+    """A conflict summary tree as the text ``kart conflicts -ss`` prints:
+    the renderer of a push's conflict report."""
+    return _conflicts_json_as_text(summary)
+
+
 def _conflicts_json_as_text(json_obj):
     """Hierarchical text of a conflicts summary: each level indents 4, keys
     join with ':' (kart_tpu colours the version headers on a terminal

@@ -1,15 +1,20 @@
 """``kart clone``, ``fetch``, ``push``, ``pull`` and ``remote add|remove|
-list`` over local remotes (:mod:`kart_tpu_torch.transport`).
+list`` over local, ``http(s)://`` and ssh remotes
+(:mod:`kart_tpu_torch.transport`), and the servers ``kart serve`` (HTTP)
+and ``kart serve-stdio`` (the far end of an ssh remote).
 
 ``clone --spatial-filter`` and every later ``fetch`` or ``pull`` from that
 promisor run the blob filter on the source's envelope index: one launch of
-kernel K3 on the CLI's device. ``pull`` fetches, then runs this CLI's own
-``merge`` on the remote branch (kernel K4 when the histories diverged).
+kernel K3 on the CLI's device for a local remote, on the server's device
+for a network one. ``pull`` fetches, then runs this CLI's own ``merge`` on
+the remote branch (kernel K4 when the histories diverged). A server runs
+its kernels on the CLI's ``--device`` (the card unless ``--device cpu``).
 
 Counterpart of kart_tpu's ``cli/remote_cmds.py``, with its options, outputs,
 messages and exit codes (a refused command prints ``Error: <message>`` and
-exits 2; a network remote exits 30, as nothing of its lane is ported).
-``serve`` and ``serve-stdio`` wait for the network lanes.
+exits 2). ``serve``'s fleet options (``--replica-of``, ``--replica-poll``,
+``--replica-max-lag``, ``--peer-cache``) exit 30 before the server binds:
+the fleet lane is not ported.
 """
 
 import os
@@ -74,7 +79,42 @@ def commands():
         ], _refusable(run_pull), help="Fetch from a remote and merge into the current branch "
                                       "(reference: kart/pull.py)."),
         remote,
+        Command("serve", [
+            Option("--host", dest="host", default="127.0.0.1", help="[default: 127.0.0.1]"),
+            Option("--port", dest="port", integer=True, default=8470, help="[default: 8470]"),
+            Option("--max-inflight", dest="max_inflight", integer=True,
+                   help="Load-shed ceiling on concurrent requests (429 + Retry-After beyond "
+                        "it); 0 = unlimited. Overrides KART_SERVE_MAX_INFLIGHT."),
+            Option("--enum-cache-bytes", dest="enum_cache_bytes", integer=True,
+                   help="Pack-enumeration cache byte budget; 0 disables. Overrides "
+                        "KART_SERVE_ENUM_CACHE (docs/SERVING.md)."),
+            Option("--tiles", dest="tiles_enabled", kind="flag", secondary=["--no-tiles"],
+                   default="",
+                   help="Enable/disable the vector-tile endpoint GET "
+                        "/api/v1/tiles/<ref>/<dataset>/<z>/<x>/<y> (docs/TILES.md). "
+                        "Overrides KART_SERVE_TILES; enabled by default."),
+            Option("--tile-cache-bytes", dest="tile_cache_bytes", integer=True,
+                   help="Tile cache byte budget; 0 disables. Overrides KART_TILE_CACHE "
+                        "(docs/TILES.md)."),
+            Option("--replica-of", dest="replica_of", metavar="URL",
+                   help="Run as a read replica of the primary at URL (not ported)."),
+            Option("--replica-poll", dest="replica_poll",
+                   help="Seconds between replica sync cycles (not ported)."),
+            Option("--replica-max-lag", dest="replica_max_lag",
+                   help="Seconds a pinned read may stall for replication (not ported)."),
+            Option("--peer-cache", dest="peer_cache", metavar="URLS",
+                   help="Comma-separated fleet peer URLs (not ported)."),
+        ], run_serve, help="Serve this repository over HTTP for clone/fetch/push/pull — and "
+                           "vector tiles of any commit, straight off the columnar store."),
+        _serve_stdio_command(),
     ]
+
+
+def _serve_stdio_command():
+    cmd = Command("serve-stdio", [Argument("path")], run_serve_stdio,
+                  help="Serve the repository at PATH over stdin/stdout (one connection).")
+    cmd.needs_repo = False
+    return cmd
 
 
 def _refusable(fn):
@@ -166,4 +206,73 @@ def run_remote_remove(args, repo, device):
 def run_remote_list(args, repo, device):
     for name in repo.remotes():
         print(f"{name}\t{repo.remote_url(name)}" if args.verbose else name)
+    return 0
+
+
+#: serve's fleet options, each with the variable kart_tpu reads it into
+FLEET_OPTIONS = (("replica_of", "--replica-of"), ("replica_poll", "--replica-poll"),
+                 ("replica_max_lag", "--replica-max-lag"), ("peer_cache", "--peer-cache"))
+
+
+def run_serve(args, repo, device):
+    from kart_tpu_torch.core.repo import NotYetImplemented
+    from kart_tpu_torch.transport.http import refuse_fleet, serve
+
+    for dest, flag in FLEET_OPTIONS:
+        if getattr(args, dest) is not None:
+            raise NotYetImplemented(
+                f"serve {flag}: the fleet and events lane (replicas, the peer cache, "
+                f"the events feed) is not ported yet")
+    refuse_fleet()
+    # the variables are the serving layer's one configuration surface; the
+    # options set them for this process, as kart_tpu's do
+    for value, name in ((args.max_inflight, "KART_SERVE_MAX_INFLIGHT"),
+                        (args.enum_cache_bytes, "KART_SERVE_ENUM_CACHE"),
+                        (args.tile_cache_bytes, "KART_TILE_CACHE")):
+        if value is not None:
+            os.environ[name] = str(value)
+    if args.tiles_enabled in (True, False):  # given: the default is ""
+        os.environ["KART_SERVE_TILES"] = "1" if args.tiles_enabled else "0"
+    print(f"Serving {repo.gitdir} at http://{args.host}:{args.port}/ (Ctrl-C to stop)",
+          flush=True)
+    try:
+        serve(repo, args.host, args.port, device=device)
+    except KeyboardInterrupt:
+        print("Stopped.")
+    return 0
+
+
+def run_serve_stdio(args, repo, device):
+    """The server half of an ssh remote. Standard output carries the frames
+    alone: file descriptor 1 is moved aside for them and pointed at
+    standard error, so that a build at first use (g++, nvcc) or any print
+    cannot write a byte into the stream."""
+    import sys
+
+    from kart_tpu_torch.core.repo import KartRepo, NotFound
+    from kart_tpu_torch.transport.stdio import serve_stdio
+
+    path = args.path
+    if not os.path.exists(path):
+        from kart_tpu_torch.cli.parser import UsageError
+
+        raise UsageError(f"Invalid value for 'PATH': Path {path!r} does not exist.")
+    try:
+        repo = KartRepo(path)
+    except NotFound as e:
+        from kart_tpu_torch.cli.parser import UsageError
+
+        raise UsageError(str(e)) from None
+    # PATH must be the repository, not a directory inside one
+    if os.path.realpath(repo.workdir or repo.gitdir) != os.path.realpath(path):
+        print(f"Error: Not a repository: {path!r}", file=sys.stderr)
+        return 2
+    sys.stdout.flush()
+    wire = os.fdopen(os.dup(1), "wb")
+    os.dup2(2, 1)
+    sys.stdout = sys.stderr
+    try:
+        serve_stdio(repo, sys.stdin.buffer, wire, device=device)
+    finally:
+        wire.close()
     return 0

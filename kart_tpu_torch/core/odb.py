@@ -23,6 +23,7 @@ from contextlib import contextmanager
 
 import numpy as np
 
+from kart_tpu_torch import faults
 from kart_tpu_torch.core.objects import (
     Commit,
     ObjectFormatError,
@@ -73,8 +74,14 @@ class ObjectDb:
                 w.abort()
                 raise
             self._bulk_writer = None
+            faults.fire("odb.bulk_pack")
             if w.finish() is not None:
                 self.packs.refresh()
+
+    def pack_writer(self, level=1):
+        """A PackWriter into this store's pack directory; after its
+        ``finish()`` the caller refreshes ``packs``."""
+        return PackWriter(os.path.join(self.objects_dir, "pack"), level=level)
 
     @property
     def packs(self):
@@ -228,6 +235,7 @@ class ObjectDb:
         return {shas[s]: content for s, (obj_type, content) in got.items() if obj_type == "blob"}
 
     def write_raw(self, obj_type, content) -> str:
+        faults.fire("odb.write_raw")
         if self._bulk_writer is not None:
             return self._bulk_writer.add(obj_type, content)
         oid = hash_object(obj_type, content)

@@ -705,6 +705,9 @@ class PackWriter:
         An empty writer aborts instead. -> pack path, or None when empty.
         The idx tables are sorted on a helper thread while this one
         re-hashes and fsyncs the pack."""
+        from kart_tpu_torch import faults
+
+        faults.fire("pack.finalise")
         if not self._count:
             self.abort()
             return None
@@ -791,6 +794,9 @@ def prepare_pack_index(entries, chunks=None):
 def write_prepared_index(idx_path, tables, pack_sha):
     """Write a v2 .idx from :func:`prepare_pack_index`'s tables and the
     pack's sha; tmp file + rename, so a crash never leaves half an idx."""
+    from kart_tpu_torch import faults
+
+    faults.fire("idx.write")
     body = IDX_MAGIC + struct.pack(">I", 2) + tables + pack_sha
     tmp = idx_path + f".tmp{os.getpid()}"
     with open(tmp, "wb") as f:

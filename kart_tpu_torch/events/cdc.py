@@ -42,7 +42,7 @@ import re
 
 import numpy as np
 
-from kart_tpu_torch import runtime
+from kart_tpu_torch import faults, runtime
 from kart_tpu_torch.tiles.grid import merc_xy_cols
 
 #: the zooms an event's dirty-tile set lists (a z+1 tile is dirty only if
@@ -362,6 +362,7 @@ def dirty_tiles(repo, old_oid, new_oid, *, zooms=DEFAULT_EVENT_ZOOMS, max_tiles=
     ``device``: where the classify runs (one K1 launch a changed dataset
     on the card)."""
     runtime.resolve_device(device)  # no card: raise before any work
+    faults.fire("events.emit")  # frame 1: the CDC computation
     summary = {}
     old_sets = _datasets_at(repo, old_oid)
     new_sets = _datasets_at(repo, new_oid)

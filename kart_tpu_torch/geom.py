@@ -29,6 +29,7 @@ import os
 
 import numpy as np
 
+from kart_tpu_torch import faults
 from kart_tpu_torch.geometry import (
     LINESTRING,
     MULTILINESTRING,
@@ -263,7 +264,11 @@ def _quantize_rings(rings):
 
 def vertex_column_from_blobs(blobs):
     """Iterable of GPKG geometry blobs (or None) -> VertexColumn, a row per
-    blob in order; a blob that does not parse becomes kind 0."""
+    blob in order; a blob that does not parse becomes kind 0. The
+    ``geom.extract`` fault fires before any row is built."""
+    hook = faults.hook("geom.extract")
+    if hook is not None:
+        hook()
     kinds, ring_counts, vert_counts = [], [], []
     x_chunks, y_chunks = [], []
     for blob in blobs:

@@ -39,6 +39,8 @@ import queue
 import threading
 import time
 
+from kart_tpu_torch import faults
+
 #: below this many features, starting threads and queue hops cost more
 #: than the overlap gains
 PIPELINE_MIN_FEATURES = 16384
@@ -154,6 +156,7 @@ class _Stage(threading.Thread):
         self.side_q = side_q
         self.end = end
         self.busy_s = 0.0
+        self.fault_hook = None  # a faults.hook, counted once an item
 
     def _timed(self, thunk):
         t0 = time.perf_counter()
@@ -164,12 +167,15 @@ class _Stage(threading.Thread):
     def _run_read(self):
         state = self.state
         it = iter(self.source)
+        fault = self.fault_hook
         try:
             while not state.stop.is_set():
                 try:
                     item = self._timed(lambda: next(it))
                 except StopIteration:
                     break
+                if fault is not None:
+                    fault()
                 if not _put(self.out_q, item, state):
                     return
             _put(self.out_q, self.end, state)
@@ -182,6 +188,7 @@ class _Stage(threading.Thread):
 
     def _run_apply(self):
         state = self.state
+        fault = self.fault_hook
         feat_done = False
         while True:
             item = None
@@ -203,6 +210,8 @@ class _Stage(threading.Thread):
                 if self.side_q is not None:
                     feat_done = True
                 continue
+            if fault is not None:
+                fault()
             out = self._timed(lambda: self.fn(item))
             if not _put(self.out_q, out, state):
                 return
@@ -238,12 +247,17 @@ def run_pipeline(read_iter, stages, consume, *, side_stage=None, on_feat_done=No
     cap = queue_batches()
     side_q = queue.Queue() if side_stage is not None else None
     prev_q = queue.Queue(maxsize=cap)
-    threads = [_Stage("produce", state, source=read_iter, out_q=prev_q,
-                      end=_FEAT_DONE if side_q is not None else _DONE)]
+    read = _Stage("produce", state, source=read_iter, out_q=prev_q,
+                  end=_FEAT_DONE if side_q is not None else _DONE)
+    read.fault_hook = faults.hook("import.encode")
+    threads = [read]
     for name, fn in stages:
         out_q = queue.Queue(maxsize=cap)
-        threads.append(_Stage(name, state, fn=fn, in_q=prev_q, out_q=out_q,
-                              side_q=side_q if name == side_stage else None))
+        stage = _Stage(name, state, fn=fn, in_q=prev_q, out_q=out_q,
+                       side_q=side_q if name == side_stage else None)
+        if name == "pack":
+            stage.fault_hook = faults.hook("import.pack_stream")
+        threads.append(stage)
         prev_q = out_q
     for t in threads:
         t.start()

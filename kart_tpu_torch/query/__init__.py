@@ -10,12 +10,13 @@ changed".
   (the time-travel join): the build side in 4096-row tiles, the probe side
   pruned by block against each tile and streamed in batches through K5,
   each batch's pairs refined exactly by K6.
+* :mod:`.cache` -- the commit-addressed single-flight result cache behind
+  ``GET /api/v1/query`` (its strong ETag is the cache key).
 
-Counterpart of kart_tpu's ``query/__init__.py``, ``scan.py`` and
-``join.py``, with the same result documents byte for byte. A query runs on
-one device: the card unless ``device="cpu"``, which runs the plain
-versions. The result cache and the HTTP lane are not ported (transport is
-out of scope).
+Counterpart of kart_tpu's ``query/__init__.py``, ``scan.py``, ``join.py``
+and ``cache.py``, with the same result documents byte for byte. A query
+runs on one device: the card unless ``device="cpu"``, which runs the plain
+versions.
 """
 
 import threading
@@ -26,7 +27,8 @@ class QueryError(Exception):
     grammar error, no envelope or sidecar support. Exit 2 in the CLI."""
 
 
-#: process-wide query counters
+#: process-wide query counters: the ``query`` block of
+#: ``/api/v1/stats?format=json`` and ``kart top``
 STATS = {
     "scans": 0,
     "joins": 0,
@@ -35,6 +37,10 @@ STATS = {
     "pairs_emitted": 0,
     "pairs_refined": 0,
     "refine_dropped": 0,
+    "scatter_requests": 0,
+    "scatter_parts": 0,
+    "cache_hits": 0,
+    "cache_misses": 0,
 }
 _STATS_LOCK = threading.Lock()
 
@@ -42,6 +48,13 @@ _STATS_LOCK = threading.Lock()
 def _bump(name, n=1):
     with _STATS_LOCK:
         STATS[name] += int(n)
+
+
+def status_dict():
+    """The ``query`` block of the stats document (transport/http.py,
+    transport/stdio.py); what ``kart top`` renders."""
+    with _STATS_LOCK:
+        return dict(STATS)
 
 
 def resolve_query_commit(repo, refish):
@@ -68,15 +81,16 @@ def load_query_dataset(repo, commit_oid, ds_path):
 
 
 def run_query(repo, refish, ds_path, *, where=None, bbox=None, intersects=None,
-              output="count", count_by=None, page=None, page_size=None, approx=False,
-              device=None):
+              output="count", count_by=None, page=None, page_size=None, part=None,
+              approx=False, device=None):
     """Route to the scan or the spatial join -> the JSON-ready result
     document. ``intersects`` is ``(refish2, ds_path2)``: the join, which
     takes no ``where`` or ``count_by``. ``approx=True`` stops spatial
     verdicts at the envelopes. The kernels run on ``device`` (None: the
     card; ``"cpu"``: the plain versions); on several cards each stage goes
     to the mesh by its own rows (a scan's block, a refine's candidates, a
-    join's probe side), as kart_tpu routes them."""
+    join's probe side), as kart_tpu routes them. ``part`` ``(lo, hi)``:
+    a join over the probe rows ``[lo, hi)`` alone."""
     from kart_tpu_torch.diff.backend import select_backend
 
     backend = select_backend(device)
@@ -86,8 +100,10 @@ def run_query(repo, refish, ds_path, *, where=None, bbox=None, intersects=None,
         from kart_tpu_torch.query.join import run_join
 
         return run_join(repo, refish, ds_path, intersects[0], intersects[1], bbox=bbox,
-                        output=output, page=page, page_size=page_size, approx=approx,
-                        backend=backend)
+                        output=output, page=page, page_size=page_size, part=part,
+                        approx=approx, backend=backend)
+    if part is not None:
+        raise QueryError("block-range partials apply to join queries only")
     from kart_tpu_torch.query.scan import run_scan
 
     return run_scan(repo, refish, ds_path, where=where, bbox=bbox, output=output,
@@ -95,4 +111,4 @@ def run_query(repo, refish, ds_path, *, where=None, bbox=None, intersects=None,
                     backend=backend)
 
 
-__all__ = ["QueryError", "STATS", "run_query"]
+__all__ = ["QueryError", "STATS", "run_query", "status_dict"]

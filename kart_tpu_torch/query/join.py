@@ -24,6 +24,8 @@ pairs from K5.
 import numpy as np
 import torch
 
+from kart_tpu_torch import faults
+from kart_tpu_torch import telemetry as tm
 from kart_tpu_torch.query import QueryError, _bump, load_query_dataset, resolve_query_commit
 from kart_tpu_torch.query.scan import (
     _load_block,
@@ -78,7 +80,7 @@ def _alive_ranges(cls, block_rows, lo, hi):
     return [(max(rb0 * block_rows, lo), min(rb1 * block_rows, hi)) for rb0, rb1 in ranges]
 
 
-def _make_refine_ctx(col_build, build_feat, build_env, col_probe, probe_env, device):
+def _make_refine_ctx(col_build, build_feat, build_env, col_probe, probe_env, device, hook=None):
     """The exact refine's state, on ``device``. ``build_feat`` maps a build
     envelope row to its vertex-column feature (they differ when ``--bbox``
     gathers the build side). Only pairs whose both sides have usable,
@@ -94,6 +96,7 @@ def _make_refine_ctx(col_build, build_feat, build_env, col_probe, probe_env, dev
         "build_feat": as_tensor(build_feat),
         "build_ok": as_tensor(col_build.usable()[build_feat] & ~(build_env[:, 2] < build_env[:, 0])),
         "probe_ok": as_tensor(col_probe.usable() & ~(probe_env[:, 2] < probe_env[:, 0])),
+        "hook": hook,
     }
 
 
@@ -108,6 +111,8 @@ def _refine_chunk(refine, pairs, t, c_lo, counts, lo, total, *, backend, stats):
     u = refine["probe_ok"][probe_row] & refine["build_ok"][env_row]
     if not bool(u.any()):
         return total
+    if refine["hook"] is not None:
+        refine["hook"]()
     bi = refine["build_feat"][env_row[u]]
     pj = probe_row[u]
     verdict = backend.refine_pairs(refine["col_build"], bi, refine["col_probe"], pj)
@@ -121,7 +126,8 @@ def _refine_chunk(refine, pairs, t, c_lo, counts, lo, total, *, backend, stats):
     return total
 
 
-def join_counts_for_range(build_env, probe_block, lo, hi, *, backend, stats=None, refine=None):
+def join_counts_for_range(build_env, probe_block, lo, hi, *, backend, stats=None, refine=None,
+                          join_hook=None):
     """Per-probe match counts of probe rows ``[lo:hi)`` against the whole
     build side -> (counts int64 (hi-lo,), pair total): tile, prune, stream
     batches through K5 on the backend's device; with a ``refine`` context
@@ -155,6 +161,8 @@ def join_counts_for_range(build_env, probe_block, lo, hi, *, backend, stats=None
     b0 = lo // block_rows
     b1 = -(-hi // block_rows)
     for t in range(n_tiles):
+        if join_hook is not None:
+            join_hook()
         tile_t = build_t[t * TILE_ROWS : (t + 1) * TILE_ROWS]
         cls = classify_env_blocks_np(probe_agg, probe_flags, tile_agg[t].astype(np.float64))
         stats["block_tests"] += b1 - b0
@@ -174,14 +182,16 @@ def join_counts_for_range(build_env, probe_block, lo, hi, *, backend, stats=None
 
 
 def run_join(repo, refish, ds_path, refish2, ds_path2, *, bbox=None, output="count", page=None,
-             page_size=None, approx=False, backend):
+             page_size=None, part=None, approx=False, backend):
     """The spatial join behind ``kart query --intersects`` -> the JSON-ready
     result document. The probe side is ``(refish, ds_path)``, whose rows the
     join reports; the build side is the ``--intersects`` operand.
     ``approx=True`` (or ``KART_GEOM_REFINE=0``) stops at envelope verdicts;
     otherwise pairs are refined wherever both sides carry vertex columns.
     ``backend`` (:mod:`kart_tpu_torch.diff.backend`) picks the device, or
-    the plain versions on the card to check the kernels against."""
+    the plain versions on the card to check the kernels against. ``part``
+    ``(lo, hi)`` joins the probe rows ``[lo, hi)`` alone: a block-range
+    partial of a served join."""
     from kart_tpu_torch.geom import geom_refine_enabled
     from kart_tpu_torch.query.scan import vertices_for_block
 
@@ -205,7 +215,14 @@ def run_join(repo, refish, ds_path, refish2, ds_path2, *, bbox=None, output="cou
     exact = col_probe is not None and col_build is not None
 
     n_probe = probe_block.count
+    lo, hi = 0, n_probe
+    if part is not None:
+        lo, hi = int(part[0]), int(part[1])
+        if not (0 <= lo <= hi <= n_probe):
+            raise QueryError(f"part {lo}:{hi} outside probe rows 0:{n_probe}")
 
+    join_hook = faults.hook("query.join")
+    refine_hook = faults.hook("query.refine")
     stats = {
         "build_rows": int(build_block.count),
         "probe_rows": int(n_probe),
@@ -216,6 +233,8 @@ def run_join(repo, refish, ds_path, refish2, ds_path2, *, bbox=None, output="cou
         "pairs_refined": 0,
         "refine_dropped": 0,
     }
+    if join_hook is not None:
+        join_hook()
     probe_mask = None
     if query is not None:
         # --bbox restricts both sides: the build side by gather, the probe
@@ -223,16 +242,16 @@ def run_join(repo, refish, ds_path, refish2, ds_path2, *, bbox=None, output="cou
         b_hits = _hits(backend, build_block, query)
         build_feat = np.flatnonzero(b_hits).astype(np.int64)
         build_env = np.ascontiguousarray(build_env[build_feat])
-        probe_mask = _hits(backend, probe_block, query)
+        probe_mask = _hits(backend, probe_block, query)[lo:hi]
     # the join's batches and refines route on the whole probe side, as
     # kart_tpu's route_rows does
     backend = backend.for_rows(n_probe)
     refine = None
     if exact:
         refine = _make_refine_ctx(col_build, build_feat, build_env, col_probe,
-                                  probe_block.envelopes, backend.device)
-    counts, total = join_counts_for_range(build_env, probe_block, 0, n_probe, backend=backend,
-                                          stats=stats, refine=refine)
+                                  probe_block.envelopes, backend.device, hook=refine_hook)
+    counts, total = join_counts_for_range(build_env, probe_block, lo, hi, backend=backend,
+                                          stats=stats, refine=refine, join_hook=join_hook)
     if probe_mask is not None:
         counts[~probe_mask] = 0
         total = int(counts.sum())
@@ -246,7 +265,7 @@ def run_join(repo, refish, ds_path, refish2, ds_path2, *, bbox=None, output="cou
         "commit2": commit2,
         "dataset2": ds_path2,
         "bbox": [float(v) for v in query] if query is not None else None,
-        "part": None,  # kart_tpu's block-range partials serve its HTTP lane
+        "part": [lo, hi] if part is not None else None,
         "exact": exact,
         "pairs": int(total),
         "count": int(np.count_nonzero(counts)),
@@ -257,7 +276,7 @@ def run_join(repo, refish, ds_path, refish2, ds_path2, *, bbox=None, output="cou
         nz = np.flatnonzero(counts)
         matches = []
         for i in nz[pg * ps : (pg + 1) * ps].tolist():
-            pks = _pks_for_index(probe_block, probe_ds, i)
+            pks = _pks_for_index(probe_block, probe_ds, lo + i)
             matches.append({"pk": pks[0] if len(pks) == 1 else list(pks),
                             "matches": int(counts[i])})
         result["matches"] = matches
@@ -265,6 +284,10 @@ def run_join(repo, refish, ds_path, refish2, ds_path2, *, bbox=None, output="cou
         result["page_size"] = ps
         result["next_page"] = pg + 1 if (pg + 1) * ps < len(nz) else None
 
+    tm.incr("query.joins")
+    tm.incr("query.pairs_emitted", int(total))
+    tm.incr("query.blocks_pruned", stats["blocks_pruned"])
+    tm.incr("query.pairs_refined", stats["pairs_refined"])
     _bump("joins")
     _bump("pairs_emitted", int(total))
     _bump("blocks_pruned", stats["blocks_pruned"])

@@ -26,6 +26,8 @@ import re
 
 import numpy as np
 
+from kart_tpu_torch import faults
+from kart_tpu_torch import telemetry as tm
 from kart_tpu_torch.query import QueryError, _bump, load_query_dataset, resolve_query_commit
 
 #: candidate feature blobs per ordered decode batch (stage 3); also the
@@ -369,7 +371,7 @@ def _bbox_indices(block, query, stats, backend):
     return np.flatnonzero(hits).astype(np.int64)
 
 
-def _refine_bbox_indices(ds, block, idx, query, stats, backend):
+def _refine_bbox_indices(ds, block, idx, query, stats, backend, refine_hook=None):
     """Exact-refine the envelope candidates against the rectangle's polygon
     (K6). Kind-0 rows, anti-meridian features and a wrapping rectangle keep
     their envelope verdicts, so the survivors are a subset of the hits."""
@@ -386,6 +388,8 @@ def _refine_bbox_indices(ds, block, idx, query, stats, backend):
     cand = np.flatnonzero(usable)
     if not len(cand):
         return idx
+    if refine_hook is not None:
+        refine_hook()
     verdict = backend.refine_pairs(col, idx[cand], qcol,
                                    np.zeros(len(cand), dtype=np.int64)).cpu().numpy()
     keep = np.ones(len(idx), dtype=bool)
@@ -395,12 +399,14 @@ def _refine_bbox_indices(ds, block, idx, query, stats, backend):
     return idx[keep]
 
 
-def _feature_values(ds, block, idx, stats):
+def _feature_values(ds, block, idx, stats, scan_hook=None):
     """Ordered batches of (row, JSON-ready feature dict) for the rows
     ``idx``. Raises QueryError on a blob no pack holds (a partial clone
     cannot answer value predicates)."""
     rows = batch_rows()
     for lo in range(0, len(idx), rows):
+        if scan_hook is not None:
+            scan_hook()
         sel = idx[lo : lo + rows]
         out = []
         for j, data in zip(sel.tolist(), _read_blobs(ds, block, sel)):
@@ -413,7 +419,7 @@ def _feature_values(ds, block, idx, stats):
         yield out
 
 
-def _filter_rows(ds, block, idx, preds, stats):
+def _filter_rows(ds, block, idx, preds, stats, scan_hook=None):
     """Stages 2 and 3: the pk predicates over the keys, then the rest over
     the blobs."""
     pk_preds = [p for p in preds if p.on_pk]
@@ -426,7 +432,7 @@ def _filter_rows(ds, block, idx, preds, stats):
         idx = idx[mask]
     if blob_preds and len(idx):
         keep = []
-        for batch in _feature_values(ds, block, idx, stats):
+        for batch in _feature_values(ds, block, idx, stats, scan_hook):
             for j, feature in batch:
                 if all(p.matches(feature.get(p.col)) for p in blob_preds):
                     keep.append(j)
@@ -452,7 +458,7 @@ def _bbox_union(block, idx):
     return [w, s, e, n]
 
 
-def _count_by(ds, block, idx, col_name, stats):
+def _count_by(ds, block, idx, col_name, stats, scan_hook=None):
     """``count by <col>`` -> {rendered value: count}, sorted by the rendered
     value; a single int pk groups over the keys, anything else over the
     blobs."""
@@ -468,7 +474,7 @@ def _count_by(ds, block, idx, col_name, stats):
         groups = {str(int(v)): int(c) for v, c in zip(values, counts)}
     else:
         groups = {}
-        for batch in _feature_values(ds, block, idx, stats):
+        for batch in _feature_values(ds, block, idx, stats, scan_hook):
             for _j, feature in batch:
                 v = feature.get(col_name)
                 key = "null" if v is None else str(v)
@@ -499,6 +505,8 @@ def run_scan(repo, refish, ds_path, *, where=None, bbox=None, output="count", co
     block = _load_block(repo, ds, ds_path)
     n = block.count
     exact = query is not None and not approx and geom_refine_enabled()
+    scan_hook = faults.hook("query.scan")
+    refine_hook = faults.hook("query.refine")
     stats = {
         "rows": int(n),
         "blocks": 0,
@@ -509,15 +517,17 @@ def run_scan(repo, refish, ds_path, *, where=None, bbox=None, output="count", co
         "pairs_refined": 0,
         "refine_dropped": 0,
     }
+    if scan_hook is not None:
+        scan_hook()
     if query is not None:
         idx = _bbox_indices(block, query, stats, backend)
         if exact:
-            idx = _refine_bbox_indices(ds, block, idx, query, stats, backend)
+            idx = _refine_bbox_indices(ds, block, idx, query, stats, backend, refine_hook)
     else:
         idx = np.arange(n, dtype=np.int64)
     stats["rows_scanned"] = int(len(idx))
     if preds:
-        idx = _filter_rows(ds, block, idx, preds, stats)
+        idx = _filter_rows(ds, block, idx, preds, stats, scan_hook)
 
     result = {
         "kind": "scan",
@@ -530,19 +540,24 @@ def run_scan(repo, refish, ds_path, *, where=None, bbox=None, output="count", co
         "stats": stats,
     }
     if count_by is not None:
-        result["groups"] = _count_by(ds, block, idx, count_by, stats)
+        result["groups"] = _count_by(ds, block, idx, count_by, stats, scan_hook)
     elif output == "bbox":
         result["bbox_union"] = _bbox_union(block, idx)
     elif output == "json":
         pg, ps = _page(page, page_size)
         features = []
-        for batch in _feature_values(ds, block, idx[pg * ps : (pg + 1) * ps], stats):
+        for batch in _feature_values(ds, block, idx[pg * ps : (pg + 1) * ps], stats,
+                                     scan_hook):
             features.extend(f for _j, f in batch)
         result["features"] = features
         result["page"] = pg
         result["page_size"] = ps
         result["next_page"] = pg + 1 if (pg + 1) * ps < len(idx) else None
 
+    tm.incr("query.scans")
+    tm.incr("query.blocks_pruned", stats["blocks_pruned"])
+    tm.incr("query.rows_scanned", stats["rows_scanned"])
+    tm.incr("query.pairs_refined", stats["pairs_refined"])
     _bump("scans")
     _bump("blocks_pruned", stats["blocks_pruned"])
     _bump("rows_scanned", stats["rows_scanned"])

@@ -1,0 +1,70 @@
+"""Telemetry subsystem: tracing spans, counters/gauges/histograms, Chrome
+trace export, Prometheus-style stats, and unified logging.
+
+Instrumented code imports this package and calls through its attributes::
+
+    from kart_tpu_torch import telemetry as tm
+
+    with tm.span("diff.classify", rows=n):
+        ...
+    tm.incr("transport.retries", verb="fetch-pack")
+
+The attributes are late-bound on purpose: the overhead bench and the
+naming-grammar test swap ``telemetry.span``/``telemetry.incr`` for counting
+stubs without touching any call site. Everything is a near-zero no-op until
+enabled — see :mod:`kart_tpu_torch.telemetry.core` for the enablement ladder
+(``KART_METRICS``, ``KART_TRACE``, ``kart --trace``, ``-v``) and
+docs/OBSERVABILITY.md for the naming scheme and sink formats.
+
+Counterpart of kart_tpu's ``telemetry`` package (``__init__``, ``context``,
+``core``, ``access``, ``logs``, ``sinks``): the same metric names, span
+names, exposition and trace formats, environment variables and
+``traceparent`` wire field; the port's logger is ``kart_tpu_torch``.
+"""
+
+from kart_tpu_torch.telemetry.core import (  # noqa: F401
+    BUCKET_BOUNDS,
+    NAME_RE,
+    SUBSYSTEMS,
+    Phases,
+    all_metric_names,
+    begin_fork_child,
+    counters_snapshot,
+    default_trace_path,
+    drain_events,
+    dump_fork_child,
+    enable,
+    enable_from_env,
+    events_dropped_count,
+    gauge_set,
+    incr,
+    metrics_enabled,
+    observe,
+    snapshot,
+    span,
+    trace_path,
+    tracing_enabled,
+)
+from kart_tpu_torch.telemetry.core import reset as _core_reset
+from kart_tpu_torch.telemetry import access as _access
+from kart_tpu_torch.telemetry.context import (  # noqa: F401
+    TRACEPARENT_HEADER,
+    annotate,
+    current_traceparent,
+    parse_traceparent,
+    request_scope,
+    set_root_request,
+)
+from kart_tpu_torch.telemetry.context import current as current_request  # noqa: F401
+from kart_tpu_torch.telemetry.logs import configure_logging  # noqa: F401
+
+
+def reset(*, disable=True):
+    """Clear all recorded telemetry state — metric registry, trace buffer,
+    slow-request exemplars, rate samples, and any lingering root request
+    context (tests; fork children)."""
+    from kart_tpu_torch.telemetry import context as _context
+
+    _core_reset(disable=disable)
+    _access.reset()
+    _context.clear_context()

@@ -1,0 +1,233 @@
+"""Request-scoped trace context: one identity per logical request,
+propagated across processes (docs/OBSERVABILITY.md §8).
+
+Every transport verb call — and every request a server handles — runs
+inside a :class:`RequestContext` carried by a :mod:`contextvars` variable:
+
+* ``trace_id`` (32 hex chars) groups everything one user action touches:
+  the CLI sets a root context per command, verb calls inherit its trace id,
+  and the wire carries it to the server — so a ``kart clone``'s retry
+  ladder, the server's enum-cache fill and its shed 429s all join one
+  trace.
+* ``request_id`` (16 hex chars) names one *logical* request: all retry
+  attempts of one verb call share it (client side), and the server adopts
+  the id from the wire — its spans, access-log lines and slow-request
+  exemplars carry the **originating** id.
+
+The wire format is W3C-traceparent-shaped: ``00-<trace_id>-<request_id>-01``,
+carried as the ``traceparent`` HTTP header and as a ``"traceparent"`` frame
+field on the stdio transport, echoed back in both directions.
+
+Cost discipline: a context is created once per network request (never per
+row), and :func:`current` is one contextvar read — the disabled-telemetry
+hot paths never touch this module.
+"""
+
+import contextvars
+import os
+import re
+
+#: HTTP request/response header (and stdio frame field) carrying the
+#: context across processes
+TRACEPARENT_HEADER = "traceparent"
+
+#: ``00-<trace_id 32 hex>-<request_id 16 hex>-<flags 2 hex>``
+_TRACEPARENT_RE = re.compile(
+    r"^[0-9a-f]{2}-([0-9a-f]{32})-([0-9a-f]{16})-[0-9a-f]{2}$"
+)
+
+#: per-request span-tree recording cap: a runaway request keeps its first
+#: N spans (enough to name the slow frame) instead of growing without bound
+REQUEST_EVENT_CAP = 512
+
+_var = contextvars.ContextVar("kart_request_context", default=None)
+
+
+def _new_trace_id():
+    return os.urandom(16).hex()
+
+
+def _new_request_id():
+    return os.urandom(8).hex()
+
+
+class RequestContext:
+    """One logical request's identity + per-request recording state.
+
+    ``baggage`` carries small request attributes (verb, ref, dataset);
+    ``annotations`` collects server-side decisions (shed, cache hit,
+    rebase) for the access-log record; ``events`` is the bounded
+    per-request span tree feeding slow-request exemplars (recorded only
+    when ``recording`` — the span machinery appends via
+    :meth:`record_span`). Span recording happens on the request's own
+    handler thread (worker threads start with a fresh contextvar context),
+    so the lists need no lock.
+    """
+
+    __slots__ = (
+        "trace_id",
+        "request_id",
+        "parent_id",
+        "baggage",
+        "annotations",
+        "events",
+        "events_dropped",
+        "recording",
+        "t0",
+    )
+
+    def __init__(self, trace_id, request_id, *, parent_id=None, recording=False,
+                 t0=0.0, **baggage):
+        self.trace_id = trace_id
+        self.request_id = request_id
+        self.parent_id = parent_id
+        self.baggage = {k: v for k, v in baggage.items() if v is not None}
+        self.annotations = {}
+        self.events = []
+        self.events_dropped = 0
+        self.recording = recording
+        self.t0 = t0
+
+    def traceparent(self):
+        return f"00-{self.trace_id}-{self.request_id}-01"
+
+    def record_span(self, name, start, dur, attrs):
+        """Append one finished span to the per-request tree (bounded). Attr
+        values are coerced to JSON-safe scalars — the tree is served
+        verbatim through the stats endpoint and the access log."""
+        if len(self.events) >= REQUEST_EVENT_CAP:
+            self.events_dropped += 1
+            return
+        args = {}
+        if attrs:
+            for k, v in attrs.items():
+                args[k] = (
+                    v
+                    if isinstance(v, (str, int, float, bool, type(None)))
+                    else str(v)
+                )
+        self.events.append(
+            {
+                "name": name,
+                "start": round(start - self.t0, 6),
+                "dur": round(dur, 6),
+                "args": args,
+            }
+        )
+
+    def span_tree(self):
+        """The recorded spans, oldest first (the exemplar payload)."""
+        return list(self.events)
+
+
+def current():
+    """The active RequestContext, or None."""
+    return _var.get()
+
+
+def current_traceparent():
+    """The wire field for the active context, or None."""
+    ctx = _var.get()
+    return ctx.traceparent() if ctx is not None else None
+
+
+def parse_traceparent(value):
+    """-> (trace_id, request_id) from a wire field, or None when absent or
+    malformed (a bad peer header must never break request handling)."""
+    if not value or not isinstance(value, str):
+        return None
+    m = _TRACEPARENT_RE.match(value.strip().lower())
+    if m is None:
+        return None
+    return m.group(1), m.group(2)
+
+
+class _Scope:
+    """Context manager activating a RequestContext on this thread."""
+
+    __slots__ = ("ctx", "_token")
+
+    def __init__(self, ctx):
+        self.ctx = ctx
+        self._token = None
+
+    def __enter__(self):
+        import time
+
+        self.ctx.t0 = time.perf_counter()
+        self._token = _var.set(self.ctx)
+        return self.ctx
+
+    def __exit__(self, *exc):
+        _var.reset(self._token)
+        return False
+
+
+def request_scope(verb=None, *, traceparent=None, request_id=None,
+                  record=False, inherit=True, **baggage):
+    """Enter a request scope.
+
+    Client side (``traceparent=None``): a fresh ``request_id`` is minted
+    and the ``trace_id`` is inherited from any enclosing context (the CLI
+    root) so every verb of one command shares a trace; retry attempts run
+    inside the one scope and therefore share the id.
+
+    Server side (``traceparent`` from the wire): both ids are adopted —
+    the server's telemetry is labelled with the *originating* request id.
+    Servers pass ``inherit=False``: a request arriving WITHOUT a
+    traceparent (a legacy/non-kart client) must mint a fresh trace, never
+    fold unrelated clients into the serving process's own root context.
+    ``record=True`` arms per-request span-tree capture (slow-request
+    exemplars)."""
+    parsed = parse_traceparent(traceparent)
+    parent = _var.get() if inherit else None
+    if parsed is not None:
+        trace_id, rid = parsed
+        return _Scope(
+            RequestContext(
+                trace_id, rid, parent_id=rid, recording=record,
+                verb=verb, **baggage,
+            )
+        )
+    trace_id = parent.trace_id if parent is not None else _new_trace_id()
+    parent_id = parent.request_id if parent is not None else None
+    return _Scope(
+        RequestContext(
+            trace_id,
+            request_id or _new_request_id(),
+            parent_id=parent_id,
+            recording=record,
+            verb=verb,
+            **baggage,
+        )
+    )
+
+
+def set_root_request(verb=None, **baggage):
+    """Install a process-lifetime root context (the CLI calls this once per
+    command): verb calls made anywhere below inherit its trace id. -> the
+    root context. No reset — the root lives as long as the command."""
+    ctx = RequestContext(
+        _new_trace_id(), _new_request_id(), verb=verb, **baggage
+    )
+    _var.set(ctx)
+    return ctx
+
+
+def clear_context():
+    """Drop any lingering context on this thread (tests; fork children) —
+    a root context installed by :func:`set_root_request` has no scope to
+    exit, so reset must clear it explicitly."""
+    _var.set(None)
+
+
+def annotate(**kv):
+    """Attach decision annotations (shed=True, enum_cache="hit",
+    rebase_mode="merge", ...) to the active request for its access-log
+    record and exemplar. No-op without an active context — call sites in
+    shared service code never need to check."""
+    ctx = _var.get()
+    if ctx is not None:
+        for k, v in kv.items():
+            if v is not None:
+                ctx.annotations[k] = v

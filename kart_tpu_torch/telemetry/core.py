@@ -1,0 +1,563 @@
+"""Telemetry core: spans, counters, gauges, histograms.
+
+Everything here compiles down to a near-zero-cost no-op unless explicitly
+enabled — the hot paths this module instruments (the 100M-row diff loops,
+the pack inflate batches, the transport drains) must not pay for
+observability they aren't using. The enablement ladder:
+
+* ``KART_METRICS=1`` (or :func:`enable`, which the transport servers call)
+  turns on **counters/gauges/histograms** and **span aggregation**
+  (cumulative + self seconds per span name) — what ``kart stats`` and the
+  Prometheus exposition read.
+* ``KART_TRACE=<path|1>`` or ``kart --trace <cmd>`` additionally records
+  **span events** (begin/end timestamps, thread + process ids) for the
+  Chrome trace-event export (:mod:`kart_tpu_torch.telemetry.sinks`), loadable in
+  Perfetto / ``chrome://tracing``. Thread ids are real, so a
+  prefetch thread shows up as its own lane; fork fan-out workers dump
+  side-files the exporter merges.
+* ``-v`` on the CLI enables span aggregation only, feeding the
+  end-of-command phase summary.
+
+Disabled, ``incr()``/``span()`` are one module-global bool test (measured
+by bench.py's ``telemetry_overhead_pct`` and bounded < 2% by a tier-1
+test). Instrumented code calls through the package attributes
+(``telemetry.span`` / ``telemetry.incr``), so tests and the overhead bench
+can swap in counting stubs without touching call sites.
+
+Naming grammar (guarded by a tier-1 test, documented in
+docs/OBSERVABILITY.md): dotted lowercase ``<subsystem>.<metric>[.<part>]``
+matching :data:`NAME_RE`, with the first segment drawn from
+:data:`SUBSYSTEMS`. The Prometheus exposition renders ``a.b`` as
+``kart_a_b`` (``_total`` suffix for counters).
+"""
+
+import json
+import logging
+import os
+import threading
+import time
+from bisect import bisect_left
+
+import re
+
+from kart_tpu_torch.telemetry import context as _rctx
+
+L = logging.getLogger("kart_tpu_torch.telemetry.core")
+
+#: allowed metric/span name shape: dotted lowercase snake segments
+NAME_RE = re.compile(r"^[a-z][a-z0-9_]*(\.[a-z][a-z0-9_]*)+$")
+
+#: the first name segment must be one of these (one source of truth for the
+#: naming-grammar test and docs/OBSERVABILITY.md)
+SUBSYSTEMS = frozenset(
+    {
+        "cli",       # command lifecycle
+        "diff",      # diff engine (classify / prefilter / tree walk)
+        "sidecar",   # columnar sidecar load/save/build
+        "odb",       # object db reads/writes
+        "packs",     # packfile machinery
+        "serialise", # output materialisation/serialisation
+        "transport", # wire transports, retry/resume, servers
+        "server",    # concurrent-serving machinery (enum cache, shedding)
+        "tiles",     # tile read-serving (pruning, cache, encode, export)
+        "fleet",     # replication sync, write proxying, peer cache tier
+        "events",    # live-update CDC, event log, warm-then-announce
+        "query",     # predicate-pushdown scans and spatial joins
+        "geom",      # vertex extraction / exact-refine geometry
+        "importer",  # bulk import phases
+        "runtime",   # backend probe, watchdogs
+        "wc",        # working copies
+        "bench",     # benchmark-internal probes
+        "telemetry", # the instrumentation's own health (dropped events)
+    }
+)
+
+#: fixed log-spaced histogram bucket boundaries (seconds; every histogram
+#: in the tree observes seconds): a 1-2.5-5 ladder from 1ms to 100s, 16
+#: buckets + overflow. Quantile estimates interpolate inside the bucket
+#: containing the target rank, so the worst-case error is one bucket
+#: (≤2.5x at the ladder's widest step) — documented with the error bound
+#: in docs/OBSERVABILITY.md §9 and asserted by the accuracy test.
+BUCKET_BOUNDS = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0,
+)
+_NBUCKETS = len(BUCKET_BOUNDS) + 1  # + the +Inf overflow bucket
+
+# fast-path flags: one module-global bool test on the disabled path.
+# _METRICS_ON gates counters/gauges/histograms; _SPANS_ON gates span
+# aggregation; _TRACE_ON additionally records span events.
+_METRICS_ON = False
+_SPANS_ON = False
+_TRACE_ON = False
+
+_lock = threading.Lock()
+_counters = {}  # (name, labels_tuple) -> number
+_gauges = {}    # (name, labels_tuple) -> number
+_hists = {}     # (name, labels_tuple) -> [count, total, min, max, buckets]
+_events = []    # finished span event dicts (trace mode)
+_EVENT_CAP = 500_000  # runaway guard: a capped trace is still loadable
+_events_dropped = 0   # spans past the cap (surfaced in the export summary)
+_drop_warned = False  # one warning log per process, not one per drop
+_trace_path = None
+_trace_epoch = None       # perf_counter origin for event timestamps
+_trace_epoch_unix = None  # wall-clock taken at the same instant — the
+                          # cross-process anchor trace merges re-base on
+
+_tls = threading.local()  # .stack: [child-duration accumulators]
+
+
+def metrics_enabled():
+    return _METRICS_ON
+
+
+def tracing_enabled():
+    return _TRACE_ON
+
+
+def trace_path():
+    return _trace_path
+
+
+def default_trace_path():
+    return os.path.join(os.getcwd(), f"kart-trace-{os.getpid()}.json")
+
+
+def enable(*, metrics=None, spans=None, trace=None, trace_path=None):
+    """Flip telemetry layers on (None leaves a layer unchanged). Tracing
+    implies span aggregation; metrics implies span aggregation too (span
+    histograms feed the stats exposition)."""
+    global _METRICS_ON, _SPANS_ON, _TRACE_ON, _trace_path, _trace_epoch
+    global _trace_epoch_unix
+    with _lock:
+        if metrics is not None:
+            _METRICS_ON = bool(metrics)
+        if trace is not None:
+            _TRACE_ON = bool(trace)
+            if _TRACE_ON and _trace_epoch is None:
+                _trace_epoch = time.perf_counter()
+                _trace_epoch_unix = time.time()
+        if trace_path is not None:
+            _trace_path = trace_path
+        if spans is not None:
+            _SPANS_ON = bool(spans)
+        if _METRICS_ON or _TRACE_ON:
+            _SPANS_ON = True
+
+
+def enable_from_env(environ=os.environ):
+    """Arm telemetry from ``KART_METRICS`` / ``KART_TRACE``. KART_TRACE may
+    be a file path (trace written there) or a truthy flag (default path).
+    -> True when anything got enabled."""
+    changed = False
+    if environ.get("KART_METRICS", "") not in ("", "0"):
+        enable(metrics=True)
+        changed = True
+    raw = environ.get("KART_TRACE", "")
+    if raw not in ("", "0"):
+        path = raw if raw not in ("1", "true", "yes") else default_trace_path()
+        enable(trace=True, trace_path=path)
+        changed = True
+    return changed
+
+
+def reset(*, disable=True):
+    """Clear all recorded state (tests; fork children clear inherited
+    buffers). ``disable=False`` keeps the enablement flags."""
+    global _METRICS_ON, _SPANS_ON, _TRACE_ON, _trace_path, _trace_epoch
+    global _trace_epoch_unix, _events_dropped, _drop_warned
+    with _lock:
+        _counters.clear()
+        _gauges.clear()
+        _hists.clear()
+        _events.clear()
+        _events_dropped = 0
+        _drop_warned = False
+        if disable:
+            _METRICS_ON = _SPANS_ON = _TRACE_ON = False
+            _trace_path = None
+            _trace_epoch = None
+            _trace_epoch_unix = None
+
+
+def _key(name, labels):
+    return (name, tuple(sorted(labels.items())) if labels else ())
+
+
+def incr(name, n=1, **labels):
+    """Add ``n`` to counter ``name`` (optionally labelled). No-op unless
+    metrics are enabled."""
+    if not _METRICS_ON:
+        return
+    k = _key(name, labels)
+    with _lock:
+        _counters[k] = _counters.get(k, 0) + n
+
+
+def gauge_set(name, value, **labels):
+    """Set gauge ``name`` to ``value``. No-op unless metrics are enabled."""
+    if not _METRICS_ON:
+        return
+    with _lock:
+        _gauges[_key(name, labels)] = value
+
+
+def observe(name, value, **labels):
+    """Record one histogram observation (count/sum/min/max + the fixed
+    log-spaced :data:`BUCKET_BOUNDS` buckets feeding the p50/p90/p99
+    estimates). No-op unless metrics are enabled."""
+    if not _METRICS_ON:
+        return
+    k = _key(name, labels)
+    with _lock:
+        _hist_observe_locked(k, value)
+
+
+def _hist_observe_locked(k, value):
+    """One histogram observation; the caller holds ``_lock``."""
+    h = _hists.get(k)
+    if h is None:
+        buckets = [0] * _NBUCKETS
+        buckets[bisect_left(BUCKET_BOUNDS, value)] = 1
+        _hists[k] = [1, value, value, value, buckets]
+        return
+    h[0] += 1
+    h[1] += value
+    if value < h[2]:
+        h[2] = value
+    if value > h[3]:
+        h[3] = value
+    h[4][bisect_left(BUCKET_BOUNDS, value)] += 1
+
+
+def _quantile_locked(h, q):
+    """Estimate quantile ``q`` from a histogram's buckets: find the bucket
+    holding the target rank, interpolate linearly inside it, clamp to the
+    observed [min, max]. Error ≤ one bucket of the log ladder."""
+    count = h[0]
+    if count == 0:
+        return 0.0
+    target = q * count
+    cum = 0
+    for i, n in enumerate(h[4]):
+        if n == 0:
+            continue
+        cum += n
+        if cum >= target:
+            lo = BUCKET_BOUNDS[i - 1] if i > 0 else 0.0
+            hi = BUCKET_BOUNDS[i] if i < len(BUCKET_BOUNDS) else h[3]
+            if hi < lo:  # overflow bucket with max below the last bound
+                hi = lo
+            frac = (target - (cum - n)) / n
+            est = lo + (hi - lo) * frac
+            return min(max(est, h[2]), h[3])
+    return h[3]
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "_t0", "_child")
+
+    def __init__(self, name, attrs):
+        self.name = name
+        self.attrs = attrs
+        self._t0 = None
+        self._child = 0.0
+
+    def set(self, **attrs):
+        self.attrs.update(attrs)
+        return self
+
+    def __enter__(self):
+        # enablement is re-checked here, not at construction: a span handle
+        # (e.g. a decorator applied at import time, before --trace armed
+        # anything) starts recording the moment telemetry is enabled
+        if not _SPANS_ON:
+            self._t0 = None
+            return self
+        stack = getattr(_tls, "stack", None)
+        if stack is None:
+            stack = _tls.stack = []
+        stack.append(self)
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        global _events_dropped, _drop_warned
+        if self._t0 is None:  # entered while disabled
+            return False
+        t0, self._t0 = self._t0, None  # handle reusable after exit
+        dur = time.perf_counter() - t0
+        stack = _tls.stack
+        stack.pop()
+        if stack:
+            stack[-1]._child += dur
+        self_s = dur - self._child
+        self._child = 0.0
+        # request-context stamping: one contextvar read per span exit —
+        # trace events and per-request exemplar trees carry the originating
+        # request/trace ids (docs/OBSERVABILITY.md §8)
+        ctx = _rctx.current()
+        if ctx is not None and ctx.recording:
+            ctx.record_span(self.name, t0, dur, self.attrs)
+        warn_drop = False
+        with _lock:
+            # span aggregation: cumulative seconds histogram under the span
+            # name, self-time under <name>.self (nested phases never
+            # double-book wall-clock in the self view)
+            _hist_observe_locked((self.name, ()), dur)
+            _hist_observe_locked((self.name + ".self", ()), self_s)
+            if _TRACE_ON:
+                if len(_events) < _EVENT_CAP:
+                    t = threading.current_thread()
+                    args = dict(self.attrs) if self.attrs else {}
+                    if ctx is not None:
+                        args["request_id"] = ctx.request_id
+                        args["trace_id"] = ctx.trace_id
+                    _events.append(
+                        {
+                            "name": self.name,
+                            "cat": self.name.split(".", 1)[0],
+                            "ph": "X",
+                            "ts": (t0 - _trace_epoch) * 1e6,
+                            "dur": dur * 1e6,
+                            "pid": os.getpid(),
+                            "tid": t.ident or 0,
+                            "tname": t.name,
+                            "args": args,
+                        }
+                    )
+                else:
+                    # saturation must not be silent: count the drop, log
+                    # once, and let the export summary surface the total
+                    _events_dropped += 1
+                    if _METRICS_ON:
+                        dk = ("telemetry.events_dropped", ())
+                        _counters[dk] = _counters.get(dk, 0) + 1
+                    if not _drop_warned:
+                        _drop_warned = warn_drop = True
+        if warn_drop:
+            L.warning(
+                "trace event buffer full (%d events): further spans are "
+                "dropped from the trace (aggregation continues)",
+                _EVENT_CAP,
+            )
+        return False
+
+    def __call__(self, fn):
+        import functools
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with span(self.name, **self.attrs):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+
+def span(name, **attrs):
+    """Trace span: context manager or decorator. Aggregates cumulative and
+    self seconds per name when spans are enabled; records a Chrome trace
+    event when tracing. Enablement is checked at ``__enter__``/call time,
+    not here — a handle (or decorator) created while telemetry is disabled
+    starts recording the moment it is enabled. Disabled, entering is an
+    early-out flag test (bounded by the tier-1 overhead test)."""
+    return _Span(name, attrs)
+
+
+# -- snapshots / export hooks ----------------------------------------------
+
+
+def _hist_snapshot_locked(h):
+    cum = []
+    running = 0
+    for bound, n in zip(BUCKET_BOUNDS, h[4]):
+        running += n
+        cum.append([bound, running])
+    cum.append(["+Inf", h[0]])
+    return {
+        "count": h[0],
+        "sum": h[1],
+        "min": h[2],
+        "max": h[3],
+        "p50": _quantile_locked(h, 0.50),
+        "p90": _quantile_locked(h, 0.90),
+        "p99": _quantile_locked(h, 0.99),
+        "buckets": cum,
+    }
+
+
+def snapshot():
+    """-> {"counters": [...], "gauges": [...], "histograms": [...]} with
+    entries (name, labels_dict, value | {count,sum,min,max,p50,p90,p99,
+    buckets}). Histogram ``buckets`` are cumulative ``[le, count]`` pairs
+    over :data:`BUCKET_BOUNDS` (last ``le`` is ``"+Inf"``); the quantiles
+    are bucket-interpolated estimates (error ≤ one log bucket)."""
+    with _lock:
+        counters = [(n, dict(l), v) for (n, l), v in sorted(_counters.items())]
+        gauges = [(n, dict(l), v) for (n, l), v in sorted(_gauges.items())]
+        hists = [
+            (n, dict(l), _hist_snapshot_locked(h))
+            for (n, l), h in sorted(_hists.items())
+        ]
+    return {"counters": counters, "gauges": gauges, "histograms": hists}
+
+
+def counters_snapshot():
+    """Shallow copy of the raw counter registry
+    ``{(name, labels_tuple): value}`` — the rate-window sampler's input
+    (cheap: tens of entries, no formatting)."""
+    with _lock:
+        return dict(_counters)
+
+
+def events_dropped_count():
+    """Span events dropped at the :data:`_EVENT_CAP` buffer bound since the
+    last reset — surfaced by the trace export summary."""
+    with _lock:
+        return _events_dropped
+
+
+def trace_epoch_unix():
+    """Wall-clock (``time.time()``) taken at the instant tracing was
+    enabled — the ``ts=0`` anchor of this process's trace, exported so
+    :func:`~kart_tpu_torch.telemetry.sinks.merge_chrome_traces` can re-base
+    traces from processes that enabled tracing at different times."""
+    with _lock:
+        return _trace_epoch_unix
+
+
+def all_metric_names():
+    """Every counter/gauge/histogram/span name recorded so far (the
+    naming-grammar guard's input). ``<name>.self`` aggregates report their
+    base name."""
+    with _lock:
+        names = {n for n, _ in _counters}
+        names |= {n for n, _ in _gauges}
+        names |= {
+            n[: -len(".self")] if n.endswith(".self") else n for n, _ in _hists
+        }
+        names |= {e["name"] for e in _events}
+    return sorted(names)
+
+
+def drain_events():
+    """Take (and clear) the recorded span events — the trace exporter's
+    input."""
+    with _lock:
+        out = list(_events)
+        _events.clear()
+    return out
+
+
+def child_trace_sidecar_path(path=None):
+    """Where a fork worker dumps its events for the parent exporter to
+    merge."""
+    base = path or _trace_path or default_trace_path()
+    return f"{base}.child-{os.getpid()}"
+
+
+def begin_fork_child():
+    """Call at the top of a forked worker: drop the inherited event buffer
+    (the parent keeps the originals) so the child records only its own
+    spans."""
+    with _lock:
+        _events.clear()
+
+
+def dump_fork_child():
+    """Write a forked worker's events to the trace side-file (merged by
+    ``sinks.write_chrome_trace``). Safe no-op when not tracing."""
+    if not _TRACE_ON:
+        return
+    events = drain_events()
+    if not events:
+        return
+    path = child_trace_sidecar_path()
+    try:
+        with open(path, "w") as f:
+            json.dump(events, f)
+    except OSError as e:
+        # best-effort stays best-effort (a worker must never die for its
+        # trace), but the loss is no longer silent
+        L.warning("trace side-file %s not written: %s", path, e)
+
+
+# -- explicit phase accounting ---------------------------------------------
+
+
+class Phases:
+    """Explicit span-stack phase timing for code that needs per-phase
+    numbers regardless of global telemetry state (the importer's bench
+    breakdown). Tracks **cumulative** and **self** seconds per phase; when
+    phases nest, a parent's self time excludes its children, so self times
+    can never sum past wall-clock (the double-booking the old
+    ``phases[key] +=`` dict pattern allowed).
+
+    Phase spans mirror into the global telemetry stream (as
+    ``<prefix>.<phase>`` spans) when that is enabled, so ``kart --trace
+    import`` shows the same phases as the bench numbers."""
+
+    __slots__ = ("prefix", "self_s", "cum_s", "_stack")
+
+    def __init__(self, prefix="importer"):
+        self.prefix = prefix
+        self.self_s = {}
+        self.cum_s = {}
+        self._stack = []  # [name, t0, child_accum]
+
+    def start(self, name):
+        self._stack.append([name, time.perf_counter(), 0.0])
+
+    def stop(self):
+        name, t0, child = self._stack.pop()
+        dur = time.perf_counter() - t0
+        self.cum_s[name] = self.cum_s.get(name, 0.0) + dur
+        self.self_s[name] = self.self_s.get(name, 0.0) + (dur - child)
+        if self._stack:
+            self._stack[-1][2] += dur
+        return dur
+
+    class _PhaseSpan:
+        __slots__ = ("_p", "_name", "_tm")
+
+        def __init__(self, phases, name):
+            self._p = phases
+            self._name = name
+            self._tm = None
+
+        def __enter__(self):
+            self._p.start(self._name)
+            if _SPANS_ON:
+                self._tm = span(f"{self._p.prefix}.{self._name}").__enter__()
+            return self
+
+        def __exit__(self, *exc):
+            if self._tm is not None:
+                self._tm.__exit__(*exc)
+            self._p.stop()
+            return False
+
+    def span(self, name):
+        """Context manager timing one phase (nesting-safe)."""
+        return self._PhaseSpan(self, name)
+
+    def add(self, name, seconds):
+        """Leaf accumulation without a context manager (per-item hot loops:
+        two clock reads, no allocation). Books into the *innermost open*
+        phase's child accumulator, so an enclosing span never double-counts
+        it."""
+        self.cum_s[name] = self.cum_s.get(name, 0.0) + seconds
+        self.self_s[name] = self.self_s.get(name, 0.0) + seconds
+        if self._stack:
+            self._stack[-1][2] += seconds
+
+    def move(self, src, dst, seconds):
+        """Re-attribute ``seconds`` from phase ``src`` to ``dst`` (the
+        importer's fused-generator rebalance, where a source reports its own
+        internal split after the fact)."""
+        for d in (self.self_s, self.cum_s):
+            d[src] = d.get(src, 0.0) - seconds
+            d[dst] = d.get(dst, 0.0) + seconds
+
+    def self_seconds(self):
+        return dict(self.self_s)

@@ -1,0 +1,212 @@
+"""Telemetry sinks: Chrome trace-event JSON, Prometheus-style text
+exposition, and the human-readable end-of-command phase summary.
+
+Formats (documented in docs/OBSERVABILITY.md):
+
+* **Chrome trace** — the ``{"traceEvents": [...]}`` JSON object format,
+  loadable in Perfetto / ``chrome://tracing``. Every span is a complete
+  ``"ph": "X"`` event carrying real pid/tid, plus ``thread_name`` metadata
+  events so the prefetch thread and fork workers render as named lanes.
+  Fork workers dump their events to ``<path>.child-<pid>`` side-files
+  (:func:`kart_tpu_torch.telemetry.core.dump_fork_child`); the exporter merges
+  and removes them.
+* **Prometheus exposition** — ``kart_<name with dots as underscores>``;
+  counters get a ``_total`` suffix, histograms emit ``_count`` and
+  ``_sum``. Served by the transport servers at ``GET /api/v1/stats`` (and
+  the stdio ``stats`` op), dumped by ``kart stats``.
+* **Phase summary** — per-span-name cumulative/self seconds and call
+  counts, printed to stderr on ``-v``.
+"""
+
+import glob
+import json
+import logging
+import os
+
+from kart_tpu_torch.telemetry import core
+
+L = logging.getLogger("kart_tpu_torch.telemetry.sinks")
+
+
+def write_chrome_trace(path=None):
+    """Write every recorded span event (plus any fork-worker side-files) as
+    Chrome trace-event JSON. Events dropped at the buffer cap are surfaced
+    as a ``kart_events_dropped`` metadata event so a truncated trace says
+    so. -> the path written, or None when there was nothing to write."""
+    path = path or core.trace_path() or core.default_trace_path()
+    dropped = core.events_dropped_count()
+    events = core.drain_events()
+    for side in sorted(glob.glob(f"{path}.child-*")):
+        try:
+            with open(side) as f:
+                events.extend(json.load(f))
+        except (OSError, ValueError) as e:
+            # the merge stays best-effort (a bad side-file must not kill
+            # the parent's trace) but the skip is no longer silent
+            L.warning("trace side-file %s unreadable; skipped: %s", side, e)
+        try:
+            os.unlink(side)
+        except OSError as e:
+            L.warning("merged trace side-file %s not removed: %s", side, e)
+    if not events:
+        return None
+    # name the lanes: one metadata event per (pid, tid) observed
+    seen = {}
+    for e in events:
+        seen.setdefault((e["pid"], e["tid"]), e.pop("tname", None))
+    trace_events = [
+        {
+            "name": "thread_name",
+            "ph": "M",
+            "pid": pid,
+            "tid": tid,
+            "args": {"name": tname or f"thread-{tid}"},
+        }
+        for (pid, tid), tname in sorted(seen.items())
+    ]
+    for e in events:
+        e.pop("tname", None)
+        trace_events.append(e)
+    if dropped:
+        trace_events.append(
+            {
+                "name": "kart_events_dropped",
+                "ph": "M",
+                "pid": os.getpid(),
+                "tid": 0,
+                "args": {"dropped": dropped},
+            }
+        )
+    epoch_unix = core.trace_epoch_unix()
+    if epoch_unix is not None:
+        # the wall-clock instant this process's ts=0 corresponds to: the
+        # cross-process anchor merge_chrome_traces re-bases on (two
+        # processes enable tracing at different times; without this their
+        # lanes land nowhere near each other in the merged timeline)
+        trace_events.append(
+            {
+                "name": "kart_trace_epoch",
+                "ph": "M",
+                "pid": os.getpid(),
+                "tid": 0,
+                "args": {"unix": epoch_unix},
+            }
+        )
+    with open(path, "w") as f:
+        json.dump({"traceEvents": trace_events, "displayTimeUnit": "ms"}, f)
+    return path
+
+
+def merge_chrome_traces(out_path, paths):
+    """Merge several Chrome trace files (e.g. a client's ``kart --trace``
+    output and the server's ``KART_TRACE`` file) into one timeline: pids
+    keep the processes in separate lanes and the ``request_id``/
+    ``trace_id`` span args (docs/OBSERVABILITY.md §8) correlate them.
+    Timestamps are re-based onto one clock via each file's
+    ``kart_trace_epoch`` anchor (every file's ts is an offset from its own
+    process's enable instant); files without an anchor merge verbatim.
+    -> the number of events written."""
+    docs = []
+    for p in paths:
+        with open(p) as f:
+            events = json.load(f).get("traceEvents", [])
+        epoch = None
+        for e in events:
+            if e.get("name") == "kart_trace_epoch":
+                epoch = e.get("args", {}).get("unix")
+                break
+        docs.append((epoch, events))
+    anchored = [epoch for epoch, _ in docs if epoch is not None]
+    base = min(anchored) if anchored else None
+    merged = []
+    for epoch, events in docs:
+        shift_us = (epoch - base) * 1e6 if epoch is not None else 0.0
+        for e in events:
+            if shift_us and "ts" in e:
+                e = {**e, "ts": e["ts"] + shift_us}
+            merged.append(e)
+    with open(out_path, "w") as f:
+        json.dump({"traceEvents": merged, "displayTimeUnit": "ms"}, f)
+    return len(merged)
+
+
+def _prom_name(name):
+    return "kart_" + name.replace(".", "_")
+
+
+def _prom_labels(labels):
+    if not labels:
+        return ""
+    parts = []
+    for k, v in sorted(labels.items()):
+        escaped = str(v).replace("\\", "\\\\").replace('"', '\\"')
+        parts.append(f'{k}="{escaped}"')
+    return "{" + ",".join(parts) + "}"
+
+
+def _fmt(v):
+    if isinstance(v, float):
+        return repr(round(v, 9))
+    return str(v)
+
+
+def prometheus_text(snapshot=None):
+    """Prometheus/OpenMetrics-style text exposition of the metric
+    registry."""
+    snap = snapshot if snapshot is not None else core.snapshot()
+    lines = []
+    typed = set()
+
+    def head(pname, mtype):
+        if pname not in typed:
+            typed.add(pname)
+            lines.append(f"# TYPE {pname} {mtype}")
+
+    for name, labels, value in snap["counters"]:
+        pname = _prom_name(name) + "_total"
+        head(pname, "counter")
+        lines.append(f"{pname}{_prom_labels(labels)} {_fmt(value)}")
+    for name, labels, value in snap["gauges"]:
+        pname = _prom_name(name)
+        head(pname, "gauge")
+        lines.append(f"{pname}{_prom_labels(labels)} {_fmt(value)}")
+    for name, labels, h in snap["histograms"]:
+        pname = _prom_name(name)
+        head(pname, "histogram")
+        for le, cum in h.get("buckets", ()):
+            ble = dict(labels)
+            ble["le"] = le if isinstance(le, str) else f"{le:g}"
+            lines.append(f"{pname}_bucket{_prom_labels(ble)} {_fmt(cum)}")
+        lines.append(f"{pname}_count{_prom_labels(labels)} {_fmt(h['count'])}")
+        lines.append(f"{pname}_sum{_prom_labels(labels)} {_fmt(h['sum'])}")
+    return "\n".join(lines) + ("\n" if lines else "")
+
+
+def phase_summary_text(snapshot=None):
+    """The ``-v`` end-of-command summary: per-span-name calls, cumulative
+    and self seconds, widest first. '' when nothing was recorded."""
+    snap = snapshot if snapshot is not None else core.snapshot()
+    cum = {}
+    self_s = {}
+    for name, labels, h in snap["histograms"]:
+        if labels:
+            continue
+        if name.endswith(".self"):
+            self_s[name[: -len(".self")]] = h["sum"]
+        else:
+            cum[name] = (h["count"], h["sum"])
+    # only span aggregates (they carry a .self twin) are phases; plain
+    # histogram observations are not wall-clock and would garble the table
+    cum = {n: v for n, v in cum.items() if n in self_s}
+    if not cum:
+        return ""
+    width = max(len(n) for n in cum)
+    lines = [f"{'phase'.ljust(width)}  calls      cum_s     self_s"]
+    for name, (count, total) in sorted(
+        cum.items(), key=lambda kv: -kv[1][1]
+    ):
+        lines.append(
+            f"{name.ljust(width)}  {count:>5d}  {total:>9.3f}  "
+            f"{self_s.get(name, total):>9.3f}"
+        )
+    return "\n".join(lines)

@@ -183,14 +183,3 @@ def quantize_from_merc(env, merc, z, x, y, *, extent=DEFAULT_EXTENT, buffer=DEFA
     if not len(env):
         return np.zeros((0, 4), dtype=np.int32)
     return quantize_boxes(env, merc, z, x, y, extent, buffer)[0]
-
-
-def clip_quantize(envelopes, rows, z, x, y, *, extent=DEFAULT_EXTENT, buffer=DEFAULT_BUFFER):
-    """Candidate rows of the source's (count, 4) f32 envelope column ->
-    (kept rows int64 (M,), int32 (M, 4) tile-local boxes), projected on the
-    host."""
-    z, x, y = validate_tile(z, x, y)
-    rows, env = refine_rows(envelopes, rows, z, x, y)
-    if not len(rows):
-        return rows, np.zeros((0, 4), dtype=np.int32)
-    return rows, quantize_from_merc(env, _host_merc(env), z, x, y, extent=extent, buffer=buffer)

@@ -40,8 +40,10 @@ import struct
 
 import numpy as np
 
+from kart_tpu_torch import faults
+from kart_tpu_torch import telemetry as tm
 from kart_tpu_torch.geom import _gather_ranges
-from kart_tpu_torch.tiles.clip import clip_quantize, quantize_from_merc, refine_rows
+from kart_tpu_torch.tiles.clip import quantize_from_merc, refine_rows
 from kart_tpu_torch.tiles.grid import (
     DEFAULT_BUFFER,
     DEFAULT_EXTENT,
@@ -173,7 +175,8 @@ def decode_bin_layer(data):
 
 def encode_ktb2_layer(keys, boxes):
     """KTB2: magic, flags, row count, then one int stream for the keys and
-    one for each box column."""
+    one for each box column. The ``tiles.streams`` fault fires first."""
+    faults.fire("tiles.streams")
     count = len(keys)
     boxes = np.ascontiguousarray(boxes, dtype=np.int64).reshape(count, 4)
     parts = [KTB2_MAGIC, struct.pack("<BI", 0, count),
@@ -186,6 +189,7 @@ def encode_ktb2_layer(keys, boxes):
 def decode_ktb2_layer(data, max_count=MAX_DECODE_ROWS):
     """``ktb2`` layer bytes -> (int64 keys (M,), int32 boxes (M, 4)),
     bounds-checked; ``max_count`` caps the rows a layer may claim."""
+    faults.fire("tiles.streams")
     if len(data) < 9 or data[:4] != KTB2_MAGIC:
         raise TileEncodeError("Bad KTB2 tile layer magic")
     flags, count = struct.unpack_from("<BI", data, 4)
@@ -207,11 +211,13 @@ def decode_ktb2_layer(data, max_count=MAX_DECODE_ROWS):
 
 def encode_props_layer(lines):
     """``props``: the feature JSON byte strings, dictionary-coded."""
+    faults.fire("tiles.streams")
     return b"".join((PROPS_MAGIC, struct.pack("<I", len(lines)), encode_bytes_stream(lines)))
 
 
 def decode_props_layer(data, max_count=MAX_DECODE_ROWS):
     """``props`` layer bytes -> feature JSON byte strings in row order."""
+    faults.fire("tiles.streams")
     if len(data) < 8 or data[:4] != PROPS_MAGIC:
         raise TileEncodeError("Bad props tile layer magic")
     (count,) = struct.unpack_from("<I", data, 4)
@@ -722,22 +728,38 @@ def assemble_payload(source, z, x, y, layers, built, count, *, extent=DEFAULT_EX
 
 
 def encode_tile(source, z, x, y, *, layers=None, extent=DEFAULT_EXTENT, buffer=DEFAULT_BUFFER,
-                max_features=None):
+                max_features=None, device=None):
     """One tile's payload from a :class:`~kart_tpu_torch.tiles.source
-    .TileSource`, projected on the host (the serving encoder). -> (payload,
-    stats): the row selection's pruning counters and ``count``."""
+    .TileSource` (the serving encoder). -> (payload, stats): the row
+    selection's pruning counters and ``count``. The refined rows are
+    projected by one :func:`~kart_tpu_torch.diff.backend
+    .project_envelopes` call on ``device`` (None: the card, K7; ``"cpu"``:
+    numpy), to the same bytes; an empty or too large tile projects
+    nothing. The ``tiles.encode`` fault fires after the row selection
+    (frame 1) and after the layers are built (frame 2)."""
+    from kart_tpu_torch.diff.backend import project_envelopes
+
     z, x, y = validate_tile(z, x, y)
     layers = normalise_layers(layers)
     if max_features is None:
         max_features = max_features_limit()
-    rows, stats = source.rows_for_bbox(tile_query_wsen(z, x, y))
-    rows, boxes = clip_quantize(source.envelopes(), rows, z, x, y, extent=extent, buffer=buffer)
-    count = len(rows)
-    if max_features and count > max_features:
-        raise TileTooLarge(count, max_features, (z, x, y))
-    built = build_layers(source, layers, rows, boxes, extent, tile=(z, x, y), buffer=buffer)
-    payload = assemble_payload(source, z, x, y, layers, built, count, extent=extent,
-                               buffer=buffer)
+    with tm.span("tiles.encode", tile=f"{z}/{x}/{y}"):
+        rows, stats = source.rows_for_bbox(tile_query_wsen(z, x, y))
+        faults.fire("tiles.encode")  # frame 1: selection done
+        rows, env = refine_rows(source.envelopes(), rows, z, x, y)
+        count = len(rows)
+        if max_features and count > max_features:
+            raise TileTooLarge(count, max_features, (z, x, y))
+        if count:
+            merc = project_envelopes(env, device=device)
+            boxes = quantize_from_merc(env, merc, z, x, y, extent=extent, buffer=buffer)
+        else:
+            boxes = np.zeros((0, 4), dtype=np.int32)
+        built = build_layers(source, layers, rows, boxes, extent, tile=(z, x, y), buffer=buffer)
+        faults.fire("tiles.encode")  # frame 2: layers built, not assembled
+        payload = assemble_payload(source, z, x, y, layers, built, count, extent=extent,
+                                   buffer=buffer)
+    tm.incr("tiles.features_out", count)
     return payload, dict(stats, count=count)
 
 

@@ -42,7 +42,7 @@ from collections import deque
 
 import numpy as np
 
-from kart_tpu_torch import runtime
+from kart_tpu_torch import faults, runtime
 from kart_tpu_torch.tiles.encode import _env_int, encode_tile_batch
 from kart_tpu_torch.tiles.grid import DEFAULT_BUFFER, DEFAULT_EXTENT, tile_range_for_bbox
 
@@ -228,6 +228,7 @@ def export_pyramid(source, zooms, out_dir, *, layers=None, extent=DEFAULT_EXTENT
     }
 
     def consume(batch_addresses, results):
+        faults.fire("tiles.export")  # batch boundary
         for (z, x, y), (status, payload, count) in zip(batch_addresses, results):
             if status == "empty":
                 stats["tiles_empty"] += 1

@@ -1,13 +1,14 @@
 """Object exchange between repositories: clone, fetch, push and pull over
-local remotes (paths and ``file://`` URLs), the shallow clone, the
-spatially filtered partial clone with its promisor remote, and the fetch of
-promised blobs on demand. Objects travel in the kartpack stream
-(:mod:`.pack`); what a transfer ships is decided by a want/have walk
-(:mod:`.protocol`).
+local remotes (paths and ``file://`` URLs), ``http(s)://`` servers and ssh
+remotes; the shallow clone, the spatially filtered partial clone with its
+promisor remote, and the fetch of promised blobs on demand. Objects travel
+in the kartpack stream (:mod:`.pack`); what a transfer ships is decided by
+a want/have walk (:mod:`.protocol`). The servers: :mod:`.http` (``kart
+serve``) and :mod:`.stdio` (``kart serve-stdio``, the far end of an ssh
+remote), both on the verbs of :mod:`.service`; :mod:`.retry` is the
+clients' retry policy and the salvaging drain of the resumable fetch.
 
-Counterpart of kart_tpu's ``transport`` package, with its ``__all__`` less
-the network lanes (HTTP, ssh/stdio, the server and the retry policy), which
-are not ported.
+Counterpart of kart_tpu's ``transport`` package, with its ``__all__``.
 """
 
 from kart_tpu_torch.transport.pack import read_pack, write_pack

@@ -212,7 +212,7 @@ def test_not_a_repository_like_kart_tpu(tmp_path):
     assert (rc, out, err) == (ref.exit_code, ref.stdout, ref.stderr)
 
 
-@pytest.mark.parametrize("command", ["stats", "top", "serve", "upgrade-to-kart"])
+@pytest.mark.parametrize("command", ["watch", "fleet", "lint", "upgrade-to-kart"])
 def test_unported_kart_commands_are_unknown_commands(repo, command):
     """A kart command the port lacks is a usage error, as any unknown one."""
     rc, out, err = _port(["--device", "cpu", "-C", repo, command])

@@ -1622,3 +1622,138 @@ def test_pipelined_import_diff_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
                      KartRepo(path).head_commit_oid))
         assert runtime.stats_snapshot()["classify_launches"] == (0 if pre else 1)
     assert outs[0] == outs[1] and outs[0][0].count('"edited"') == 200
+
+
+# --- the served kernels from a server's handler threads -----------------------------------
+
+def _threaded(fn, items):
+    """``fn(item)`` for every item, each on its own thread, all started
+    together; -> the results in order."""
+    import threading
+
+    out, errors = [None] * len(items), []
+
+    def run(i):
+        try:
+            out[i] = fn(items[i])
+            torch.cuda.synchronize()
+        except BaseException as e:  # raised below, on the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(items))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _served_kernel_calls(name, cuda):
+    """Eight distinct inputs of one served kernel and its call -> (call,
+    inputs, a function that makes a result comparable on the host)."""
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            return x.cpu()
+        if isinstance(x, (tuple, list)):
+            return tuple(host(v) for v in x)
+        return x
+
+    if name == "K2":
+        inputs = [(torch.from_numpy(_envelopes(50 + i, 40_000 + i)).to(cuda), q)
+                  for i, q in enumerate(QUERIES * 8)][:8]
+        return lambda a: envelope_scan(*a), inputs, host
+    if name == "K3":
+        inputs = []
+        for i in range(8):
+            w, s, e, nn, count = pad_envelopes(_envelopes(60 + i, 30_000 + 7 * i))
+            inputs.append(([torch.from_numpy(c).to(cuda) for c in (w, s, e, nn)],
+                           QUERIES[i % len(QUERIES)], count))
+        return lambda a: bbox_cyclic(*a[0], a[1], a[2]), inputs, host
+    if name == "K4":
+        inputs = [_merge_tensors(cuda, _merge_case("random", 20_000 + 101 * i, i)) for i in range(8)]
+        return lambda a: merge_classify_sides(*a), inputs, host
+    if name == "K5":
+        from kart_tpu_torch.ops.envelope_join import envelope_join
+
+        inputs = [(torch.from_numpy(_join_envelopes(70 + i, 4096)).to(cuda),
+                   torch.from_numpy(_join_envelopes(80 + i, 12_288 + i)).to(cuda))
+                  for i in range(8)]
+        return lambda a: envelope_join(*a, pairs=True), inputs, host
+    if name == "K6":
+        from kart_tpu_torch.ops.geom_refine import geom_refine, resident_segments
+
+        inputs = []
+        for i in range(8):
+            col_a, ia, col_b, ib = _refine_case("stars", 3000, 90 + i)
+            inputs.append((resident_segments(col_a, cuda), torch.from_numpy(ia).to(cuda),
+                           resident_segments(col_b, cuda), torch.from_numpy(ib).to(cuda)))
+        return lambda a: geom_refine(*a), inputs, host
+    from kart_tpu_torch.ops.merc import merc
+
+    inputs = [torch.from_numpy(_merc_rows(np.random.default_rng(100 + i), 50_000 + i)).to(cuda)
+              for i in range(8)]
+    return lambda a: merc(a).view(torch.int64), inputs, host
+
+
+@pytest.mark.parametrize("name", ["K2", "K3", "K4", "K5", "K6", "K7"])
+def test_served_kernel_concurrent_launches_match_sequential(cuda, name):
+    """A server answers each request on its own thread, all of them on the
+    default stream: eight launches of a served kernel from eight threads at
+    once, three rounds, equal the same launches one at a time."""
+    call, inputs, host = _served_kernel_calls(name, cuda)
+    alone = [host(call(a)) for a in inputs]
+    torch.cuda.synchronize()
+
+    def same(x, y):
+        if isinstance(x, torch.Tensor):
+            return torch.equal(x, y)
+        if isinstance(x, tuple):
+            return len(x) == len(y) and all(same(a, b) for a, b in zip(x, y))
+        return x == y
+
+    for _ in range(3):
+        together = [host(r) for r in _threaded(call, inputs)]
+        assert all(same(t, a) for t, a in zip(together, alone))
+
+
+def test_served_endpoints_on_card_match_cpu(cuda, tmp_path):
+    """A port server on the card and one with device="cpu", each on a copy
+    of one spatial layer: a filtered fetch-pack (K3), a bbox query (K2, K6)
+    and a tile (K7) answer the same bytes, the card's launching each."""
+    import json
+    import shutil
+    import threading
+    from urllib.request import Request, urlopen
+
+    from kart_tpu_torch.core.repo import KartRepo
+    from kart_tpu_torch.synth import synth_repo
+    from kart_tpu_torch.transport.http import make_server
+
+    repo, _ = synth_repo(str(tmp_path / "card"), 20_000, spatial=True, blobs="real")
+    from kart_tpu_torch.cli import main
+
+    assert main(["-C", repo.workdir, "spatial-filter", "index"]) == 0
+    shutil.copytree(repo.workdir, tmp_path / "cpu", symlinks=True)
+    head = repo.head_commit_oid
+    got = {}
+    for side, device in (("card", None), ("cpu", "cpu")):
+        server = make_server(KartRepo(str(tmp_path / side)), device=device)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        runtime.reset_stats()
+        answers = []
+        for path, body in ((f"/api/v1/fetch-pack", {"wants": [head], "filter": "-60,-30,60,30"}),
+                           (f"/api/v1/query?ref={head}&dataset=synth&bbox=-60,-30,60,30", None),
+                           (f"/api/v1/tiles/{head}/synth/2/1/1?layers=bin,ktb2,mvt,geom", None)):
+            data = json.dumps(body).encode() if body is not None else None
+            with urlopen(Request(base + path, data=data), timeout=300) as r:
+                answers.append((r.status, r.headers.get("ETag"), r.read()))
+        stats = runtime.stats_snapshot()
+        got[side] = (answers, [stats[k] for k in ("bbox_launches", "envelope_scan_launches",
+                                                   "geom_refine_launches", "merc_launches")])
+        server.shutdown()
+        server.server_close()
+    assert got["card"][0] == got["cpu"][0]
+    assert all(n >= 1 for n in got["card"][1]) and not any(got["cpu"][1])

@@ -68,7 +68,7 @@ def test_walk_reaches_every_package():
     dirs = {os.path.relpath(os.path.dirname(f), PKG) for f in _port_files()[1:]}
     assert {".", "core", "models", "cli", "diff", "ops", "spatial_filter", "tiles",
             "events", "parallel", "adapters", "workingcopy", "importer", "transport",
-            "native"} <= dirs
+            "native", "telemetry", "query"} <= dirs
     assert {"kart_tpu_torch.cli.diff_cmds", "kart_tpu_torch.core.msgpack",
             "kart_tpu_torch.__main__", "kart_tpu_torch.crs", "kart_tpu_torch.epsg",
             "kart_tpu_torch.geom", "kart_tpu_torch.tiles.streams", "kart_tpu_torch.gridshift",
@@ -82,7 +82,15 @@ def test_walk_reaches_every_package():
             "kart_tpu_torch.transport.pack", "kart_tpu_torch.transport.protocol",
             "kart_tpu_torch.transport.remote", "kart_tpu_torch.native",
             "kart_tpu_torch.importer.pipeline", "kart_tpu_torch.importer.parallel",
-            "kart_tpu_torch.ops.host_build"} <= set(_modules())
+            "kart_tpu_torch.ops.host_build", "kart_tpu_torch.telemetry",
+            "kart_tpu_torch.telemetry.context", "kart_tpu_torch.telemetry.core",
+            "kart_tpu_torch.telemetry.access", "kart_tpu_torch.telemetry.logs",
+            "kart_tpu_torch.telemetry.sinks", "kart_tpu_torch.faults",
+            "kart_tpu_torch.core.singleflight", "kart_tpu_torch.transport.http",
+            "kart_tpu_torch.transport.service", "kart_tpu_torch.transport.stdio",
+            "kart_tpu_torch.transport.retry", "kart_tpu_torch.query.cache",
+            "kart_tpu_torch.tiles.cache", "kart_tpu_torch.cli.stats_cmds",
+            "kart_tpu_torch.cli.top_cmds"} <= set(_modules())
 
 
 def test_imports_with_jax_and_kart_tpu_blocked():

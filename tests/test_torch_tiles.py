@@ -396,7 +396,8 @@ def test_layers_match_kart_tpu_on_shapes(shapes, layer):
     tsrc, jsrc = _sources(*shapes, "shapes")
     nonempty = 0
     for z, x, y in SHAPE_TILES:
-        got = _outcome(tencode.encode_tile, tsrc, z, x, y, layers=(layer,), max_features=0)
+        got = _outcome(tencode.encode_tile, tsrc, z, x, y, layers=(layer,), max_features=0,
+                       device="cpu")
         want = _outcome(jencode.encode_tile, jsrc, z, x, y, layers=(layer,), max_features=0)
         assert got == want, (z, x, y)
         header, layers = ttiles.parse_payload(got[1][0])
@@ -417,7 +418,8 @@ def test_geom_layer_knob_matches_kart_tpu(shapes, monkeypatch, tol):
     monkeypatch.setenv("KART_GEOM_SIMPLIFY", tol)
     tsrc, jsrc = _sources(*shapes, "shapes")
     for z, x, y in SHAPE_TILES:
-        assert (tencode.encode_tile(tsrc, z, x, y, layers="geom,mvt", max_features=0)
+        assert (tencode.encode_tile(tsrc, z, x, y, layers="geom,mvt", max_features=0,
+                                    device="cpu")
                 == jencode.encode_tile(jsrc, z, x, y, layers="geom,mvt", max_features=0))
 
 
@@ -501,7 +503,7 @@ def test_batch_encoder_matches_serving_encoder(synth):
     tsrc, jsrc = _sources(synth, synth, "synth")
     addresses = [(z, x, y) for z in (0, 2, 3) for x in range(1 << z) for y in range(1 << z)][:40]
     layers = "bin,ktb2,mvt,geom"
-    serial = [tencode.encode_tile(tsrc, *a, layers=layers)[0] for a in addresses]
+    serial = [tencode.encode_tile(tsrc, *a, layers=layers, device="cpu")[0] for a in addresses]
     assert serial == [jencode.encode_tile(jsrc, *a, layers=layers)[0] for a in addresses]
     for kwargs in ({"device": "cpu"}, {"allow_device": False}):
         batch = tencode.encode_tile_batch(tsrc, addresses, layers=layers, **kwargs)
@@ -516,7 +518,7 @@ def test_batch_encoder_matches_serving_encoder(synth):
 
 def test_decoders_raise_alike(synth):
     tsrc, _ = _sources(synth, synth, "synth")
-    payload, _ = tencode.encode_tile(tsrc, 2, 1, 1, layers="bin,ktb2,mvt,geom")
+    payload, _ = tencode.encode_tile(tsrc, 2, 1, 1, layers="bin,ktb2,mvt,geom", device="cpu")
     for cut in list(range(0, 40)) + list(range(len(payload) - 60, len(payload) + 1)):
         case = payload[:cut] + (b"\x00" if cut == len(payload) else b"")
         assert _outcome(ttiles.parse_payload, case) == _outcome(jtiles.parse_payload, case)

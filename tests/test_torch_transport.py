@@ -35,7 +35,6 @@ from kart_tpu.transport.pack import read_pack as jread_pack
 from kart_tpu.transport.pack import write_pack as jwrite_pack
 from kart_tpu.transport.protocol import ObjectEnumerator as JEnumerator
 from kart_tpu_torch import transport as ttransport
-from kart_tpu_torch.cli import NOT_YET_IMPLEMENTED
 from kart_tpu_torch.cli import main as port_main
 from kart_tpu_torch.core.odb import ObjectPromised
 from kart_tpu_torch.core.repo import KartRepo as TRepo
@@ -637,21 +636,37 @@ def test_reflog(twin, ref):
     twin.run(at(twin, "clone", "reflog", ref))
 
 
-# --- network remotes: not ported, nothing written --------------------------------------
+# --- network remotes: unreachable, nothing written --------------------------------------
 
-@pytest.mark.parametrize("url", ["http://localhost:1/repo", "https://example.invalid/r",
+@pytest.mark.parametrize("url", ["http://localhost:1/repo", "https://127.0.0.1:1/r",
                                  "ssh://host/path/repo", "user@host:repo"])
-def test_network_remotes_exit_30_writing_nothing(twin, url):
-    target = twin.path("p", "net")
-    rc, out, err = port(["clone", url, target])
-    assert (rc, out) == (NOT_YET_IMPLEMENTED, "") and "not ported" in err
-    assert not os.path.exists(target)
-    port(["-C", twin.path("p"), "remote", "add", "net", url])
-    before = state(twin.path("p"), twin.root["p"])
-    for argv in (["fetch", "net"], ["push", "net"], ["pull", "net"]):
-        rc, out, err = port(["-C", twin.path("p"), *argv])
-        assert (rc, out) == (NOT_YET_IMPLEMENTED, "") and "not ported" in err, argv
-    assert state(twin.path("p"), twin.root["p"]) == before
+def test_network_remotes_exit_30_writing_nothing(twin, url, tmp_path, monkeypatch):
+    """An unreachable network remote fails as kart_tpu's does, writing
+    nothing: a closed port for http(s), an ssh that exits 255 (a stub
+    ``KART_SSH``). clone, and fetch, push and pull of a remote added with
+    that URL, give kart_tpu's exit codes and stdout and leave the
+    repositories as kart_tpu leaves its own. (Until the network lanes were
+    ported these exited 30.)"""
+    stub = tmp_path / "ssh-unreachable"
+    stub.write_text("#!/bin/sh\nexit 255\n")
+    stub.chmod(0o755)
+    monkeypatch.setenv("KART_SSH", str(stub))
+    monkeypatch.setenv("KART_TRANSPORT_RETRIES", "1")
+    got = {}
+    for side, runner in (("k", kart), ("p", port)):
+        target = twin.path(side, "net")
+        rc, out, _err = runner(["clone", url, target])
+        left = sorted(os.listdir(target)) if os.path.exists(target) else None
+        results = [(rc, out, left)]
+        runner(["-C", twin.path(side), "remote", "add", "net", url])
+        before = state(twin.path(side), twin.root[side])
+        for argv in (["fetch", "net"], ["push", "net"], ["pull", "net"]):
+            rc, out, _err = runner(["-C", twin.path(side), *argv])
+            results.append((rc, out))
+        results.append(state(twin.path(side), twin.root[side]) == before)
+        got[side] = results
+    assert got["p"] == got["k"]
+    assert all(r[0] != 0 for r in got["p"][:4]) and got["p"][-1]
 
 
 # --- repositories across the packages ---------------------------------------------------
